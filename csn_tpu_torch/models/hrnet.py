@@ -1,0 +1,300 @@
+"""Sparse HRNet backbone with the SSA/CSA cross-shape head (eval forward).
+
+Counterpart of `csn_tpu/models/hrnet.py`: multi-resolution branches on the
+voxel-pyramid levels, exchange chains of strided / transposed sparse convs,
+final transitions up to level 0, then self-shape attention (SSA) within each
+shape and, with K retrieved key shapes, cross-shape attention (CSA) mixed by
+the compatibility softmax over [self]+K. The query and key batches run one
+combined (K+1)*B backbone + SSA pass, as in the JAX package.
+
+Module attributes follow the flax names (`stages[i][j][b]` for
+`stages_i_j_b`, `exchange[i][j][k][s].conv` / `.norm` for
+`exchange_i_j_k_s_0` / `_1`, ...) so `models/convert.py` maps a flax
+checkpoint one to one.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from csn_tpu_torch.core.pyramid import concat_batches
+from csn_tpu_torch.host import pyramid as _host_pyramid
+from csn_tpu_torch.models.blocks import BasicBlock
+from csn_tpu_torch.models.layers import (
+    Conv1x1, MaskedBatchNorm, SparseConv, global_avg_pool, relu_masked,
+)
+from csn_tpu_torch.ops.attention import (
+    MultiHeadAttention, compatibility_softmax,
+)
+
+MapSpec = _host_pyramid.MapSpec
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _ConvNorm(nn.Module):
+    """One (conv, norm) step of an exchange chain or final transition."""
+
+    def __init__(self, cin: int, cout: int, map_name: str):
+        super().__init__()
+        self.conv = SparseConv(cin, cout, map_name)
+        self.norm = MaskedBatchNorm(cout)
+
+    def forward(self, batch, x, level: int):
+        mask = batch.masks[level]
+        return self.norm(self.conv(batch, x, mask.shape), mask)
+
+
+class HRNetBase(nn.Module):
+    """Backbone (`models/hrnet.py:16-163` of the reference), with masked
+    BatchNorm (the JAX package's default `norm_type`)."""
+
+    NUM_STAGES = 1
+    NUM_BLOCKS = 3
+    INIT_DIM = 32
+    FEAT_FACTOR = 1
+
+    def __init__(self, out_channels: int, conv1_kernel_size: int = 5,
+                 d_model: int = 256, n_head: int = 4, k_neighbors: int = 0,
+                 compute_dtype: str = "float32", in_channels: int = 3):
+        super().__init__()
+        self.out_channels = out_channels
+        self.d_model, self.n_head = d_model, n_head
+        self.k_neighbors = k_neighbors
+        self.compute_dtype = _DTYPES[compute_dtype]
+        S, isd = self.NUM_STAGES, self._init_stage_dims()
+
+        self.conv0 = SparseConv(in_channels, self.INIT_DIM,
+                                f"same0k{conv1_kernel_size}")
+        self.norm0 = MaskedBatchNorm(self.INIT_DIM)
+        self.conv1 = SparseConv(self.INIT_DIM, isd, "same0k3")
+        self.norm1 = MaskedBatchNorm(isd)
+
+        self.stages = nn.ModuleList(
+            nn.ModuleList(
+                nn.ModuleList(BasicBlock(isd * 2 ** j, j)
+                              for _ in range(self.NUM_BLOCKS))
+                for j in range(i + 1))
+            for i in range(S))
+
+        # exchange[i][j][k]: chain moving branch j (level j) to level k
+        # after stage i
+        def chain(j, k):
+            ch = isd * 2 ** j
+            if j < k:
+                return nn.ModuleList(
+                    _ConvNorm(ch * 2 ** s, ch * 2 ** (s + 1),
+                              f"down{j + s}k3")
+                    for s in range(k - j))
+            return nn.ModuleList(
+                _ConvNorm(ch // 2 ** s, ch // 2 ** (s + 1), f"up{j - s - 1}k3")
+                for s in range(j - k))
+
+        self.exchange = nn.ModuleList(
+            nn.ModuleList(
+                nn.ModuleList(chain(j, k) for k in range(i + 2))
+                for j in range(i + 1))
+            for i in range(S - 1))
+
+    @classmethod
+    def num_levels(cls) -> int:
+        return cls.NUM_STAGES
+
+    @classmethod
+    def pyramid_requirements(cls, conv1_kernel_size: int = 5
+                             ) -> Tuple[MapSpec, ...]:
+        S = cls.NUM_STAGES
+        maps = [MapSpec("same", 0, conv1_kernel_size)]
+        maps += [MapSpec("same", l, 3) for l in range(S)]
+        maps += [MapSpec("down", l, 3) for l in range(S - 1)]
+        maps += [MapSpec("up", l, 3) for l in range(S - 1)]
+        return tuple(dict.fromkeys(maps))  # a k3 stem repeats same0k3
+
+    @classmethod
+    def _init_stage_dims(cls) -> int:
+        return cls.INIT_DIM * cls.FEAT_FACTOR
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded init of every parameter and running statistic."""
+        for m in self.modules():
+            if isinstance(m, (SparseConv, Conv1x1, MaskedBatchNorm,
+                              MultiHeadAttention)):
+                m.reset_parameters(generator)
+
+    def _apply_chain(self, batch, chain, x, src_level: int, direction: int):
+        """(conv, norm) steps with a ReLU before every conv but the first."""
+        lvl = src_level
+        for idx, step in enumerate(chain):
+            if idx > 0:
+                x = relu_masked(x, batch.masks[lvl])
+            lvl += direction
+            x = step(batch, x, lvl)
+        return x
+
+    def forward_backbone(self, batch):
+        """Returns (out_init [B, L0, INIT_DIM], per-level stage outputs)."""
+        S = self.NUM_STAGES
+        m0 = batch.masks[0]
+        x = batch.vox_feats.to(self.compute_dtype)
+        out_init = relu_masked(self.norm0(self.conv0(batch, x, m0.shape), m0),
+                               m0)
+        out = relu_masked(
+            self.norm1(self.conv1(batch, out_init, m0.shape), m0), m0)
+
+        stage_input = [out]
+        stage_output = []
+        for i in range(S):
+            stage_output = []
+            for j in range(i + 1):
+                y = stage_input[j]
+                for blk in self.stages[i][j]:
+                    y = blk(batch, y)
+                stage_output.append(y)
+            if i == S - 1:
+                break
+            stage_input = []
+            for k in range(i + 2):
+                acc = None
+                for j in range(i + 1):
+                    y = stage_output[j] if j == k else self._apply_chain(
+                        batch, self.exchange[i][j][k], stage_output[j], j,
+                        1 if j < k else -1)
+                    acc = y if acc is None else acc + y
+                stage_input.append(relu_masked(acc, batch.masks[k]))
+        return out_init, tuple(stage_output)
+
+
+class _FinalTransitions(nn.Module):
+    """Upsample every lower-resolution branch to level 0 and concatenate."""
+
+    def __init__(self, num_stages: int, init_stage_dims: int):
+        super().__init__()
+        self.num_stages = num_stages
+        self.trans = nn.ModuleList(
+            nn.ModuleList(
+                _ConvNorm(init_stage_dims * 2 ** i, init_stage_dims * 2 ** i,
+                          f"up{i - s - 1}k3")
+                for s in range(i))
+            for i in range(1, num_stages))
+
+    def forward(self, batch, stage_outputs, out_init):
+        outs = [out_init, stage_outputs[0]]
+        for i in range(1, self.num_stages):
+            x, lvl = stage_outputs[i], i
+            for step in self.trans[i - 1]:
+                lvl -= 1
+                x = relu_masked(step(batch, x, lvl), batch.masks[lvl])
+            outs.append(x)
+        return torch.cat(outs, dim=-1)
+
+
+class HRNetSimCSN(HRNetBase):
+    """SSA/CSA cross-shape head (`models/hrnet.py:296-490` of the reference).
+
+    forward(query_batch, key_batches, return_ssa):
+      * return_ssa=True -> [B, L0, d_model] f32 SSA features;
+      * no keys         -> SSA-only logits [B, L0, out_channels] f32;
+      * K keys          -> logits from the compatibility-weighted mix of SSA
+                           and the K cross attentions.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        S, isd, d = self.NUM_STAGES, self._init_stage_dims(), self.d_model
+        self.final_transitions = _FinalTransitions(S, isd)
+        cat_ch = self.INIT_DIM + sum(isd * 2 ** i for i in range(S))
+        self.fc1 = Conv1x1(cat_ch, d)
+        self.fc1_norm = MaskedBatchNorm(d)
+        self.mha = MultiHeadAttention(self.n_head, d, d // self.n_head,
+                                      d // self.n_head)
+        self.out_head = Conv1x1(2 * d, self.out_channels, f32=True)
+        if self.k_neighbors > 0:
+            self.linear_q = nn.Linear(d, d, bias=False)
+            self.linear_k = nn.Linear(d, d, bias=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """HRNetBase's init, plus linear_q/k at uniform(+-sqrt(3/fan_in))
+        (the variance of flax's lecun_normal)."""
+        super().reset_parameters(generator)
+        if self.k_neighbors > 0:
+            s = (3.0 / self.d_model) ** 0.5
+            with torch.no_grad():
+                self.linear_q.weight.uniform_(-s, s, generator=generator)
+                self.linear_k.weight.uniform_(-s, s, generator=generator)
+
+    def _features(self, batch) -> torch.Tensor:
+        """backbone + final transitions + FC to d_model."""
+        out_init, stage_outputs = self.forward_backbone(batch)
+        out = self.final_transitions(batch, stage_outputs, out_init)
+        m0 = batch.masks[0]
+        return relu_masked(self.fc1_norm(self.fc1(out), m0), m0)
+
+    def _ssa(self, feats, mask) -> torch.Tensor:
+        y = self.mha(feats, feats, feats, mask, mask)
+        return torch.where(mask[..., None], y,
+                           torch.zeros((), dtype=y.dtype, device=y.device))
+
+    def _unit_linear(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, lin.weight)
+        return y / torch.linalg.vector_norm(y, dim=-1,
+                                            keepdim=True).clamp(min=1e-12)
+
+    def forward(self, batch, keys: Sequence = (), return_ssa: bool = False):
+        K = len(keys)
+        if K == 0:
+            qmask = batch.masks[0]
+            q_out = self._features(batch)
+            q_ssa = self._ssa(q_out, qmask)
+            if return_ssa:
+                return q_ssa.float()
+            return self.out_head(torch.cat([q_out, q_ssa], dim=-1)).float()
+
+        # ONE combined (K+1)*B backbone + SSA pass over query and keys
+        B = batch.masks[0].shape[0]
+        big = concat_batches([batch, *keys])
+        bmask = big.masks[0]                       # [(K+1)B, L0]
+        feats = self._features(big)                # [(K+1)B, L0, d]
+        ssa = self._ssa(feats, bmask)
+        L0, d = bmask.shape[1], self.d_model
+        q_out, qmask, q_ssa = feats[:B], bmask[:B], ssa[:B]
+        if return_ssa:
+            return q_ssa.float()
+
+        # compatibility softmax over [self]+K
+        pools = global_avg_pool(ssa, bmask).reshape(K + 1, B, d)
+        q_glob = self._unit_linear(self.linear_q, pools[0])
+        k_glob = self._unit_linear(self.linear_k, pools.transpose(0, 1))
+        comp = compatibility_softmax(q_glob, k_glob, float(d) ** 0.5)
+
+        # all K cross attentions in one batched MHA call (query replicated)
+        k_out = feats[B:].reshape(K * B, L0, d)
+        k_mask = bmask[B:]
+        q_rep = q_out[None].expand(K, *q_out.shape).reshape(K * B, L0, d)
+        q_rep_mask = qmask[None].expand(K, *qmask.shape).reshape(K * B, L0)
+        cross = self.mha(q_rep, k_out, k_out, k_mask, q_rep_mask)
+        cross = cross.reshape(K, B, L0, d).float()
+        cross = torch.where(qmask[None, ..., None], cross,
+                            torch.zeros((), device=cross.device))
+        csa = comp[:, 0, None, None] * q_ssa.float() + torch.einsum(
+            "bk,kbld->bld", comp[:, 1:], cross)
+        out = torch.cat([q_out, csa.to(q_out.dtype)], dim=-1)
+        return self.out_head(out).float()
+
+
+class HRNetSimCSN2S(HRNetSimCSN):
+    FEAT_FACTOR = 4
+    NUM_STAGES = 2
+
+
+class HRNetSimCSN3S(HRNetSimCSN):
+    FEAT_FACTOR = 2
+    NUM_STAGES = 3
+
+
+class HRNetSimCSN4S(HRNetSimCSN):
+    FEAT_FACTOR = 2
+    NUM_STAGES = 4

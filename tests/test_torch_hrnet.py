@@ -1,0 +1,136 @@
+"""Port: the whole eval slice (HRNetSimCSN3S and 2S, K=0 and K=1) against
+the JAX package at a small size, with flax-initialized weights converted by
+`flax_to_torch`.
+
+Small size: d_model 32, 2 heads, k3 stem, 400 points per shape at voxel
+0.15, level caps shrinking by 1.5, B = 2 query + 2 key shapes; the backbone
+keeps its full widths (3S: 32, 64, 128, 256; 2S: 32, 128, 256). The JAX side runs its dense
+attention core in f32 on the CPU. Norm scales, biases and running
+statistics are drawn at random so that the folded eval BatchNorm and the
+converter's mapping of every norm are exercised.
+
+Tolerances (f32 both sides, different summation orders): logits and SSA
+features max abs <= 1e-4; eval loss rel <= 1e-5; point logits <= 1e-4;
+predictions equal on >= 99.9 % of valid points (argmax ties).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import bench
+from csn_tpu.core.interp import interp_batch as j_interp_batch
+from csn_tpu.models import load_model as j_load_model
+from csn_tpu.train.losses import cross_entropy_ignore as j_ce
+from csn_tpu.train.losses import predict_nonzero as j_pred
+from csn_tpu_torch import kernels
+from csn_tpu_torch.core.pyramid import to_torch
+from csn_tpu_torch.host import pipeline
+from csn_tpu_torch.models import load_model
+from csn_tpu_torch.models.convert import flax_to_torch
+from csn_tpu_torch.train.steps import eval_step
+
+torch.set_num_threads(1)
+
+CFG = dict(out_channels=5, conv1_kernel_size=3, d_model=32, n_head=2,
+           k_neighbors=1)
+
+
+def _randomize_norms(tree, rng):
+    """Random BN scale/bias (params) or mean/var (batch_stats)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _randomize_norms(v, rng)
+        elif k in ("mean", "scale", "bias", "var") and v.ndim == 1:
+            n = v.shape[0]
+            if k == "var":
+                out[k] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+            elif k == "scale":
+                out[k] = rng.uniform(0.7, 1.3, n).astype(np.float32)
+            else:
+                out[k] = (0.1 * rng.normal(size=n)).astype(np.float32)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
+@pytest.fixture(scope="module", params=["HRNetSimCSN3S", "HRNetSimCSN2S"])
+def slice_pair(request):
+    name = request.param
+    spec = pipeline.pyramid_spec_for_model(
+        load_model(name), num_points=400, voxel_size=0.15,
+        conv1_kernel_size=3, shrink=1.5)
+    rng = np.random.default_rng(0)
+    qh, kh = (pipeline.collate_shapes(
+        [bench.make_surface_shape(rng, 400) for _ in range(2)], spec,
+        rng=rng) for _ in range(2))
+    jq, jk = qh.to_jax(compact=False), kh.to_jax(compact=False)
+
+    jm = j_load_model(name)(use_flash=False, compute_dtype="float32", **CFG)
+    variables = jax.jit(lambda r, b, ks: jm.init(r, b, ks, train=False))(
+        jax.random.PRNGKey(0), jq, (jk,))
+    params = _randomize_norms(jax.tree_util.tree_map(
+        np.asarray, variables["params"]), rng)
+    stats = _randomize_norms(jax.tree_util.tree_map(
+        np.asarray, variables["batch_stats"]), rng)
+    v = {"params": params, "batch_stats": stats}
+
+    @jax.jit
+    def j_eval(v, qb, keys):
+        out = jm.apply(v, qb, keys, train=False)
+        pl = j_interp_batch(out, qb)
+        return out, j_ce(pl, qb.labels, 255, qb.point_mask), pl, j_pred(pl)
+
+    ref = dict(zip(("logits", "loss", "point_logits", "pred"),
+                   map(np.asarray, j_eval(v, jq, (jk,)))))
+    ref["logits_k0"] = np.asarray(
+        jax.jit(lambda v, qb: jm.apply(v, qb, (), train=False))(v, jq))
+    ref["ssa"] = np.asarray(jax.jit(
+        lambda v, qb, keys: jm.apply(v, qb, keys, train=False,
+                                     return_ssa=True))(v, jq, (jk,)))
+
+    tm = load_model(name)(**CFG)
+    tm.load_state_dict(flax_to_torch(params, stats), strict=True)
+    tm.eval()
+    return tm, to_torch(qh, "cpu"), to_torch(kh, "cpu"), ref, qh.point_mask
+
+
+def _max_abs(got, ref):
+    assert got.shape == ref.shape
+    return float(np.abs(got - ref).max())
+
+
+def test_logits_k1_match_jax(slice_pair):
+    tm, qb, kb, ref, _ = slice_pair
+    with torch.no_grad():
+        got = tm(qb, (kb,)).numpy()
+    assert np.abs(ref["logits"]).max() > 1e-2   # not a vanished signal
+    assert _max_abs(got, ref["logits"]) <= 1e-4
+
+
+def test_logits_k0_match_jax(slice_pair):
+    tm, qb, _, ref, _ = slice_pair
+    with torch.no_grad():
+        got = tm(qb, ()).numpy()
+    assert _max_abs(got, ref["logits_k0"]) <= 1e-4
+
+
+def test_ssa_features_match_jax(slice_pair):
+    tm, qb, kb, ref, _ = slice_pair
+    with torch.no_grad():
+        got = tm(qb, (kb,), return_ssa=True).numpy()
+    assert _max_abs(got, ref["ssa"]) <= 1e-4
+
+
+def test_eval_step_matches_jax(slice_pair):
+    tm, qb, kb, ref, point_mask = slice_pair
+    kernels.reset_launches()
+    loss, point_logits, pred = eval_step(tm, qb, (kb,))
+    assert abs(float(loss) - float(ref["loss"])) <= 1e-5 * abs(
+        float(ref["loss"]))
+    assert _max_abs(point_logits.numpy(), ref["point_logits"]) <= 1e-4
+    agree = (pred.numpy() == ref["pred"])[point_mask].mean()
+    assert agree >= 0.999, agree
+    assert all(n == 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
