@@ -7,7 +7,8 @@ device and concatenates batches for the combined (K+1)*B backbone pass.
 Layouts are the JAX package's: per-level features `[B, L_l, C]` with
 `[B, L_l]` bool masks; kernel maps `[K_off, B*L_dst]` int32 addressing the
 flattened source level, with sentinel `B*L_src`; trilinear tables
-`[B, P, 8]` into the flattened `B*L_0` voxels, sentinel `B*L_0`.
+`[B, P, 8]` into the flattened `B*L_0` voxels, sentinel `B*L_0`, and
+their voxel-major transpose in CSR form for the readout's backward.
 
 The port ships the absolute int32 tables (`VoxelBatch.to_jax(compact=False)`
 form): no int16 wire, no window worklists (`win!*` entries) and no dense
@@ -43,6 +44,10 @@ class TorchVoxelBatch:
     interp_idx: torch.Tensor                # [B, P, 8] int32
     interp_w: torch.Tensor                  # [B, P, 8] f32
     point_to_voxel: torch.Tensor            # [B, P] int32
+    # voxel-major transpose of interp_idx in CSR form, for the readout's
+    # backward kernel (`interp_csr`); None after concat_batches
+    interp_ptr: Optional[torch.Tensor] = None   # [B*L0 + 1] int32
+    interp_ent: Optional[torch.Tensor] = None   # [nnz] int32: p * 8 + corner
 
     @property
     def batch_size(self) -> int:
@@ -64,11 +69,31 @@ class TorchVoxelBatch:
             for f in dataclasses.fields(self)})
 
 
+def interp_csr(interp_idx: np.ndarray, n_vox: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Voxel-major transpose of the corner table interp_idx [B, P, 8]
+    (sentinel n_vox) in CSR form: voxel v's entries are
+    ent[ptr[v]:ptr[v + 1]], each the flat (point, corner) index p * 8 + j,
+    ascending (a stable argsort). The port's counterpart of the JAX host's
+    `win!interp_b` worklist."""
+    flat = interp_idx.reshape(-1)
+    valid = (flat >= 0) & (flat < n_vox)
+    ptr = np.zeros(n_vox + 1, dtype=np.int64)
+    np.cumsum(np.bincount(flat[valid], minlength=n_vox), out=ptr[1:])
+    order = np.flatnonzero(valid)
+    order = order[np.argsort(flat[order], kind="stable")]
+    return ptr.astype(np.int32), order.astype(np.int32)
+
+
 def to_torch(vb, device) -> TorchVoxelBatch:
     """`VoxelBatch` (host numpy) -> `TorchVoxelBatch` on `device`: int32
-    tables and f32 floats, as `VoxelBatch.to_jax(compact=False)`."""
+    tables and f32 floats, as `VoxelBatch.to_jax(compact=False)`, plus the
+    readout's CSR table (`interp_csr`)."""
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    interp_idx = vb.interp_idx.astype(np.int32)
+    ptr, ent = interp_csr(interp_idx, vb.masks[0].size)
 
     return TorchVoxelBatch(
         points=t(vb.points.astype(np.float32)),
@@ -80,9 +105,11 @@ def to_torch(vb, device) -> TorchVoxelBatch:
         vox_feats=t(vb.vox_feats.astype(np.float32)),
         kmaps={k: t(v.astype(np.int32)) for k, v in vb.kmaps.items()
                if not k.startswith("win!")},
-        interp_idx=t(vb.interp_idx.astype(np.int32)),
+        interp_idx=t(interp_idx),
         interp_w=t(vb.interp_w.astype(np.float32)),
         point_to_voxel=t(vb.point_to_voxel.astype(np.int32)),
+        interp_ptr=t(ptr),
+        interp_ent=t(ent),
     )
 
 
@@ -91,7 +118,8 @@ def concat_batches(batches: Sequence[TorchVoxelBatch]) -> TorchVoxelBatch:
     (`concat_jax_batches`). Each batch's kernel-map, interp and
     point->voxel indices are offset into the combined flattened index space,
     and each sentinel `B_g * L_src` becomes the combined sentinel
-    `total * L_src`."""
+    `total * L_src`. The readout's CSR table is dropped: the readout runs
+    on the query batch alone."""
     if len(batches) == 1:
         return batches[0]
     b0 = batches[0]

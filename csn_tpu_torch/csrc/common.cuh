@@ -1,5 +1,6 @@
 // Shared helpers for the port's CUDA kernels: activation-type conversion
-// through the bf16 intrinsics and the dtype codes the ctypes launchers take.
+// through the bf16 intrinsics, the dtype codes the ctypes launchers take, and
+// the counter-based generator of the attention dropout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +21,40 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
+}
+
+// Philox4x32-10 (Salmon et al., SC'11; the Random123 constants). The torch
+// twin is csn_tpu_torch/ops/flash.py `philox4x32`: the two are bit-identical,
+// so a kernel and its plain version drop exactly the same entries.
+struct U4 {
+  uint32_t x, y, z, w;
+};
+
+__device__ __forceinline__ U4 philox4x32(U4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = U4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
+  }
+  return c;
+}
+
+// The attention-dropout bits of keys col4*4 .. col4*4+3 for one query row of
+// one (batch*head): counter (col4, row, bh, 0), key (seed lo, seed hi), word
+// j for key col4*4+j. A function of absolute positions only, so any tiling
+// of the forward or the backward regenerates the same mask. Key j is kept
+// when its word is < thresh = floor(keep * 2^32).
+__device__ __forceinline__ U4 dropout_bits(uint64_t seed, uint32_t bh,
+                                           uint32_t row, uint32_t col4) {
+  return philox4x32(U4{col4, row, bh, 0u}, (uint32_t)seed,
+                    (uint32_t)(seed >> 32));
 }
 
 }  // namespace csn

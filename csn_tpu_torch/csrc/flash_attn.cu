@@ -14,6 +14,13 @@
 // key (it would add nothing). Only rows whose q_mask is true are part of the
 // contract, as in the TPU kernel.
 //
+// Attention-weight dropout (rate 1 - keep, torch's dropout(softmax(s)) @ v)
+// follows the TPU kernel's flash identity (flash.py:144-150): the numerator
+// takes m_ij * p_ij / keep, the denominator and lse stay undropped. The mask
+// m_ij comes from csn::dropout_bits, keyed by (seed, batch*head, query row,
+// key column), so the backward kernels (flash_attn_bwd.cu) and the plain
+// version regenerate exactly the same entries.
+//
 // What bounds it on the H100: 4*Lq*Lk*D flops against (Lq + 2*Lk)*D reads
 // per (batch, head): at Lq = Lk = 5632 and D = 64 it is compute-bound. This
 // first version runs both products on the CUDA cores in f32 (FMA); the
@@ -54,7 +61,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
                  const uint8_t* __restrict__ q_mask, T* __restrict__ out,
                  float* __restrict__ lse, int H, int Lq, int Lk,
-                 float inv_temp) {
+                 float inv_temp, uint64_t seed, uint32_t thresh,
+                 float inv_keep, int use_drop) {
   constexpr int CPT = D / 16;  // output dims per thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;             // [D][SQ]  scaled queries, transposed
@@ -171,6 +179,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < CPT; ++c) o[i][c] *= scale;
     }
 
+    if (use_drop) {  // numerator only: l and m above are undropped
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const csn::U4 bits = csn::dropout_bits(
+            seed, (uint32_t)bh, (uint32_t)(q0 + ty * 4 + i),
+            (uint32_t)((kv0 + tx * 4) >> 2));
+        const uint32_t bw[4] = {bits.x, bits.y, bits.z, bits.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[i][j] = bw[j] < thresh ? s[i][j] * inv_keep : 0.f;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -208,6 +228,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, const void* q_mask, void* out,
                    void* lse, int B, int H, int Lq, int Lk, float inv_temp,
+                   uint64_t seed, uint32_t thresh, float inv_keep, int use_drop,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -219,7 +240,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(kv_mask),
       static_cast<const uint8_t*>(q_mask), static_cast<T*>(out),
-      static_cast<float*>(lse), H, Lq, Lk, inv_temp);
+      static_cast<float*>(lse), H, Lq, Lk, inv_temp, seed, thresh, inv_keep,
+      use_drop);
   return cudaGetLastError();
 }
 
@@ -227,19 +249,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q, k, v, out: [B, H, L, D] contiguous; kv_mask [B, Lk], q_mask [B, Lq]
 // bool bytes; lse [B, H, Lq] f32. D must be 64 (dk == dv, the HRNet heads).
+// use_drop != 0 applies dropout with keep threshold `thresh` (of 2^32) and
+// scale inv_keep = 1/keep, keyed by `seed`.
 extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* kv_mask,
                                   const void* q_mask, void* out, void* lse,
                                   int B, int H, int Lq, int Lk, int D,
-                                  float inv_temp, void* stream) {
+                                  float inv_temp, uint64_t seed,
+                                  uint32_t thresh, float inv_keep,
+                                  int use_drop, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   if (D != 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == csn::kF32)
     return launch<float, 64>(q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk,
-                             inv_temp, s);
+                             inv_temp, seed, thresh, inv_keep, use_drop, s);
   if (dtype == csn::kBF16)
     return launch<__nv_bfloat16, 64>(q, k, v, kv_mask, q_mask, out, lse, B, H,
-                                     Lq, Lk, inv_temp, s);
+                                     Lq, Lk, inv_temp, seed, thresh, inv_keep,
+                                     use_drop, s);
   return cudaErrorInvalidValue;
 }

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-All `.cu` sources under `csn_tpu_torch/csrc/` compile with ONE `nvcc` call
-into a shared library with a plain C interface, loaded with `ctypes`:
+Each `.cu` source under `csn_tpu_torch/csrc/` compiles with its own `nvcc`,
+all started together, and one more `nvcc` links the objects into a shared
+library with a plain C interface, loaded with `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <build>/libcsn_tpu_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <build>/<name>.o   (each)
+    nvcc -shared -o <build>/libcsn_tpu_torch_kernels.so <build>/*.o
 
 The build runs at the first kernel call (never at import: the CPU tests
 import every module), lands in `csn_tpu_torch/_build/` (git-ignored), and
@@ -35,25 +37,41 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 LIB_PATH = BUILD_DIR / "libcsn_tpu_torch_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # dtype codes of the C launchers (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = {"sparse_conv_fwd": 0, "flash_attn_fwd": 0, "interp_fwd": 0}
+# sparse_conv_fwd counts the forward convs and the backward d_feats convs
+# (the same kernel over the transpose map)
+LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0, "flash_attn_fwd": 0,
+            "flash_attn_bwd": 0, "interp_fwd": 0, "interp_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
+_U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
 _SIGNATURES = {
     # dtype, feats, kmap, w, out, n_in, n_out, n_off, cin, cout, stream
     "csn_sparse_conv_fwd": [_I, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P],
+    # dtype, feats, g, kmap_t, part, out, n_in, n_g, n_off, cin, cout,
+    # n_split, stream
+    "csn_sparse_conv_dw": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
+                           _I, _P],
     # dtype, q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk, D, inv_temp,
-    # stream
+    # seed, thresh, inv_keep, use_drop, stream
     "csn_flash_attn_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, ctypes.c_float, _P],
+                           _I, _F, _U64, _U32, _F, _I, _P],
+    # dtype, q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, dv, B, H,
+    # Lq, Lk, D, inv_temp, seed, thresh, inv_keep, use_drop, stream
+    "csn_flash_attn_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _F, _U64, _U32, _F, _I, _P],
     # dtype, flat, idx, w, out, n_vox, n_pts, c, stream
     "csn_interp_fwd": [_I, _P, _P, _P, _P, _I64, _I64, _I, _P],
+    # dtype, g, ptr, ent, w, dflat, n_vox, c, stream
+    "csn_interp_bwd": [_I, _P, _P, _P, _P, _P, _I64, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -86,16 +104,34 @@ def build(force: bool = False) -> float:
             >= max(s.stat().st_mtime for s in srcs)):
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, LIB_PATH)  # atomic: a reader never sees half a library
+    objs, procs = [], []
+    for src in (s for s in srcs if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, proc in procs:  # wait for every compiler before raising
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+    tmp = LIB_PATH.with_suffix(f".{tag}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, LIB_PATH)  # atomic: a reader never sees half a library
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return time.perf_counter() - t0
 
 

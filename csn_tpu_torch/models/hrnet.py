@@ -1,11 +1,16 @@
-"""Sparse HRNet backbone with the SSA/CSA cross-shape head (eval forward).
+"""Sparse HRNet backbone with the SSA/CSA cross-shape head.
 
 Counterpart of `csn_tpu/models/hrnet.py`: multi-resolution branches on the
 voxel-pyramid levels, exchange chains of strided / transposed sparse convs,
 final transitions up to level 0, then self-shape attention (SSA) within each
 shape and, with K retrieved key shapes, cross-shape attention (CSA) mixed by
 the compatibility softmax over [self]+K. The query and key batches run one
-combined (K+1)*B backbone + SSA pass, as in the JAX package.
+combined (K+1)*B backbone + SSA pass, as in the JAX package, so train-mode
+BatchNorm statistics cover query and key shapes together.
+
+Train mode is `self.training` (the JAX `train` flag): BatchNorm on batch
+statistics and attention dropout `attn_dropout`, whose draws come from the
+CPU `generator` passed to `forward`.
 
 Module attributes follow the flax names (`stages[i][j][b]` for
 `stages_i_j_b`, `exchange[i][j][k][s].conv` / `.norm` for
@@ -15,7 +20,7 @@ checkpoint one to one.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,10 +65,12 @@ class HRNetBase(nn.Module):
 
     def __init__(self, out_channels: int, conv1_kernel_size: int = 5,
                  d_model: int = 256, n_head: int = 4, k_neighbors: int = 0,
-                 compute_dtype: str = "float32", in_channels: int = 3):
+                 compute_dtype: str = "float32", in_channels: int = 3,
+                 attn_dropout: float = 0.1):
         super().__init__()
         self.out_channels = out_channels
         self.d_model, self.n_head = d_model, n_head
+        self.attn_dropout = attn_dropout
         self.k_neighbors = k_neighbors
         self.compute_dtype = _DTYPES[compute_dtype]
         S, isd = self.NUM_STAGES, self._init_stage_dims()
@@ -156,15 +163,17 @@ class HRNetBase(nn.Module):
                 stage_output.append(y)
             if i == S - 1:
                 break
-            stage_input = []
-            for k in range(i + 2):
-                acc = None
-                for j in range(i + 1):
-                    y = stage_output[j] if j == k else self._apply_chain(
-                        batch, self.exchange[i][j][k], stage_output[j], j,
-                        1 if j < k else -1)
-                    acc = y if acc is None else acc + y
-                stage_input.append(relu_masked(acc, batch.masks[k]))
+            # branch j's chains in the JAX package's order (j outer), so the
+            # two run their masked ReLUs in one order
+            nxt = [[] for _ in range(i + 2)]
+            for j in range(i + 1):
+                for k in range(i + 2):
+                    nxt[k].append(stage_output[j] if j == k else
+                                  self._apply_chain(
+                                      batch, self.exchange[i][j][k],
+                                      stage_output[j], j, 1 if j < k else -1))
+            stage_input = [relu_masked(sum(ys[1:], ys[0]), batch.masks[k])
+                           for k, ys in enumerate(nxt)]
         return out_init, tuple(stage_output)
 
 
@@ -195,7 +204,7 @@ class _FinalTransitions(nn.Module):
 class HRNetSimCSN(HRNetBase):
     """SSA/CSA cross-shape head (`models/hrnet.py:296-490` of the reference).
 
-    forward(query_batch, key_batches, return_ssa):
+    forward(query_batch, key_batches, return_ssa, generator):
       * return_ssa=True -> [B, L0, d_model] f32 SSA features;
       * no keys         -> SSA-only logits [B, L0, out_channels] f32;
       * K keys          -> logits from the compatibility-weighted mix of SSA
@@ -210,7 +219,7 @@ class HRNetSimCSN(HRNetBase):
         self.fc1 = Conv1x1(cat_ch, d)
         self.fc1_norm = MaskedBatchNorm(d)
         self.mha = MultiHeadAttention(self.n_head, d, d // self.n_head,
-                                      d // self.n_head)
+                                      d // self.n_head, self.attn_dropout)
         self.out_head = Conv1x1(2 * d, self.out_channels, f32=True)
         if self.k_neighbors > 0:
             self.linear_q = nn.Linear(d, d, bias=False)
@@ -233,8 +242,8 @@ class HRNetSimCSN(HRNetBase):
         m0 = batch.masks[0]
         return relu_masked(self.fc1_norm(self.fc1(out), m0), m0)
 
-    def _ssa(self, feats, mask) -> torch.Tensor:
-        y = self.mha(feats, feats, feats, mask, mask)
+    def _ssa(self, feats, mask, generator) -> torch.Tensor:
+        y = self.mha(feats, feats, feats, mask, mask, generator)
         return torch.where(mask[..., None], y,
                            torch.zeros((), dtype=y.dtype, device=y.device))
 
@@ -243,12 +252,16 @@ class HRNetSimCSN(HRNetBase):
         return y / torch.linalg.vector_norm(y, dim=-1,
                                             keepdim=True).clamp(min=1e-12)
 
-    def forward(self, batch, keys: Sequence = (), return_ssa: bool = False):
+    def forward(self, batch, keys: Sequence = (), return_ssa: bool = False,
+                generator: Optional[torch.Generator] = None):
+        if self.training and self.attn_dropout > 0.0 and generator is None:
+            raise ValueError("training with attention dropout needs a CPU "
+                             "torch.Generator (forward(..., generator=))")
         K = len(keys)
         if K == 0:
             qmask = batch.masks[0]
             q_out = self._features(batch)
-            q_ssa = self._ssa(q_out, qmask)
+            q_ssa = self._ssa(q_out, qmask, generator)
             if return_ssa:
                 return q_ssa.float()
             return self.out_head(torch.cat([q_out, q_ssa], dim=-1)).float()
@@ -258,7 +271,7 @@ class HRNetSimCSN(HRNetBase):
         big = concat_batches([batch, *keys])
         bmask = big.masks[0]                       # [(K+1)B, L0]
         feats = self._features(big)                # [(K+1)B, L0, d]
-        ssa = self._ssa(feats, bmask)
+        ssa = self._ssa(feats, bmask, generator)
         L0, d = bmask.shape[1], self.d_model
         q_out, qmask, q_ssa = feats[:B], bmask[:B], ssa[:B]
         if return_ssa:
@@ -275,7 +288,7 @@ class HRNetSimCSN(HRNetBase):
         k_mask = bmask[B:]
         q_rep = q_out[None].expand(K, *q_out.shape).reshape(K * B, L0, d)
         q_rep_mask = qmask[None].expand(K, *qmask.shape).reshape(K * B, L0)
-        cross = self.mha(q_rep, k_out, k_out, k_mask, q_rep_mask)
+        cross = self.mha(q_rep, k_out, k_out, k_mask, q_rep_mask, generator)
         cross = cross.reshape(K, B, L0, d).float()
         cross = torch.where(qmask[None, ..., None], cross,
                             torch.zeros((), device=cross.device))

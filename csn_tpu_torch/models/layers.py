@@ -1,4 +1,4 @@
-"""Building blocks over the sparse voxel batches (eval forward).
+"""Building blocks over the sparse voxel batches.
 
 Counterpart of `csn_tpu/models/layers.py`. Features flow as `[B, L, C]` per
 stride level with a `[B, L]` bool mask; convolutions take their kernel maps
@@ -15,14 +15,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from csn_tpu_torch.core.conv import sparse_conv
+from csn_tpu_torch.core.conv import sparse_conv, transpose_map_name
 
 
 class SparseConv(nn.Module):
     """Sparse (possibly strided or transposed) convolution over the kernel
     map `map_name` ('sameNkK', 'downNkK': level N -> N+1, 'upNkK': N+1 ->
     N). The caller passes features of the map's source level and the
-    destination level's [B, L] shape."""
+    destination level's [B, L] shape. The backward gathers over the
+    transpose map the batch carries (`transpose_map_name`)."""
 
     def __init__(self, in_channels: int, features: int, map_name: str):
         super().__init__()
@@ -41,8 +42,10 @@ class SparseConv(nn.Module):
     def forward(self, batch, x: torch.Tensor,
                 out_shape: Tuple[int, int]) -> torch.Tensor:
         b, l_in, cin = x.shape
+        t_name, mirror = transpose_map_name(self.map_name)
         out = sparse_conv(x.reshape(b * l_in, cin),
-                          batch.kmaps[self.map_name], self.kernel)
+                          batch.kmaps[self.map_name], self.kernel,
+                          batch.kmaps.get(t_name), mirror)
         return out.reshape(out_shape[0], out_shape[1], -1)
 
 
@@ -72,15 +75,24 @@ class Conv1x1(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid voxels (ME.MinkowskiBatchNorm), eval form: the
-    running statistics fold into f32 per-channel coefficients that apply in
-    the activation dtype, y = x * inv + beta, and padded rows are zeroed.
-    It is the port's `Norm` (BATCH_NORM, the norm of the HRNet models);
-    train-mode statistics and the other norm types come with training."""
+    """BatchNorm over the valid voxels of the whole batch
+    (ME.MinkowskiBatchNorm). It is the port's `Norm` (BATCH_NORM, the norm
+    of the HRNet models).
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    Train mode (`self.training`): one-pass f32 statistics over the valid
+    rows, s1 = sum(x), s2 = sum(x * x), n = max(#valid, 1), mean = s1 / n,
+    var = max(s2 / n - mean^2, 0); the running buffers are updated IN PLACE
+    (under no_grad) with torch momentum semantics, running <- (1 - m) *
+    running + m * batch, m = 0.02, tracking the unbiased variance
+    var * n / max(n - 1, 1). Eval mode uses the running statistics. Either
+    way the statistics fold into f32 per-channel coefficients applied in the
+    activation dtype, y = x * inv + beta, and padded rows are zeroed."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.02):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -95,10 +107,23 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm runs in eval mode only (call model.eval())")
-        inv = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
-        beta = self.bias.float() - self.mean.float() * inv
+            xf = x.float()
+            m = mask.float()
+            n = m.sum().clamp(min=1.0)
+            xm = xf * m[..., None]
+            s1 = xm.sum(dim=(0, 1))
+            s2 = (xf * xm).sum(dim=(0, 1))
+            mean = s1 / n
+            var = (s2 / n - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                mom = self.momentum
+                self.mean.copy_((1.0 - mom) * self.mean + mom * mean)
+                unbiased = var * n / (n - 1.0).clamp(min=1.0)
+                self.var.copy_((1.0 - mom) * self.var + mom * unbiased)
+        else:
+            mean, var = self.mean.float(), self.var.float()
+        inv = torch.rsqrt(var + self.eps) * self.scale.float()
+        beta = self.bias.float() - mean * inv
         y = x * inv.to(x.dtype) + beta.to(x.dtype)
         return torch.where(mask[..., None], y, torch.zeros((), dtype=y.dtype,
                                                            device=y.device))

@@ -7,7 +7,16 @@
   because the TPU kernel rounds q, k, v and the probabilities to bf16;
 * `MultiHeadAttention` in eval against the flax module, with weights
   converted by `flax_to_torch`: max abs <= 1e-5;
-* `compatibility_softmax`: max abs <= 1e-6.
+* `compatibility_softmax`: max abs <= 1e-6;
+* the plain attention's backward (autograd) at dropout 0 against `jax.vjp`
+  of JAX `scaled_dot_product_attention`: max abs <= 1e-5, and against the
+  Pallas `_flash_backward` in interpret mode with masks: max abs <= 3e-2
+  (bf16 rounding inside the TPU kernel);
+* dropout, which cannot be compared with the TPU's own random bits (its
+  PRNG has no CPU lowering): the torch Philox4x32-10 against an independent
+  pure-Python-int version and the Random123 known-answer vectors (exact),
+  the keep fraction over 10^6 draws (0.9 +- 0.005), a plain version that
+  does not depend on its chunking (exact), and seeds that decide the output.
 """
 
 import jax
@@ -89,6 +98,7 @@ def test_mha_eval_matches_flax_with_converted_weights():
                               train=False))
     tm = attention.MultiHeadAttention(nh, dm, dm // nh, dm // nh)
     tm.load_state_dict(flax_to_torch(params, {}), strict=True)
+    tm.eval()
     with torch.no_grad():
         got = tm(*map(torch.from_numpy, (x, y, y, kv, qm))).numpy()
     assert np.abs(got - ref).max() <= 1e-5
@@ -107,8 +117,157 @@ def test_compatibility_softmax_matches_jax():
 
 
 def test_k2_launcher_refuses_cpu_tensors_and_dropout():
+    """K2 takes dropout now; it still refuses CPU tensors, with dropout or
+    without, and a dropout without a seed."""
     q = torch.zeros(1, 1, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention(q, q, q, dropout=0.1, seed=7)
+    with pytest.raises(ValueError, match="seed"):
         flash.flash_attention(q, q, q, dropout=0.1)
+
+
+def _py_philox(ctr, key):
+    """Philox4x32-10 on Python ints (Salmon et al., SC'11)."""
+    c, (k0, k1) = list(ctr), key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) % 2 ** 32, (k1 + 0xBB67AE85) % 2 ** 32
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [((p1 >> 32) ^ c[1] ^ k0) % 2 ** 32, p1 % 2 ** 32,
+             ((p0 >> 32) ^ c[3] ^ k1) % 2 ** 32, p0 % 2 ** 32]
+    return c
+
+
+def test_philox_matches_python_ints_and_known_answers():
+    kat = [((0, 0, 0, 0), (0, 0),
+            (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+           ((2 ** 32 - 1,) * 4, (2 ** 32 - 1,) * 2,
+            (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+           ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+            (0xA4093822, 0x299F31D0),
+            (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
+    for ctr, key, want in kat:
+        got = flash.philox4x32([torch.tensor(c) for c in ctr], key)
+        assert tuple(int(x) for x in got) == want
+        assert tuple(_py_philox(ctr, key)) == want
+    rng = np.random.default_rng(4)
+    ctrs = rng.integers(0, 2 ** 32, size=(300, 4), dtype=np.int64)
+    key = (int(rng.integers(0, 2 ** 32)), int(rng.integers(0, 2 ** 32)))
+    got = torch.stack(flash.philox4x32(
+        [torch.from_numpy(ctrs[:, i]) for i in range(4)], key), 1).numpy()
+    for row, out in zip(ctrs, got):
+        assert _py_philox([int(x) for x in row], key) == out.tolist()
+
+
+def test_dropout_mask_is_the_documented_function():
+    seed, p = 0x123456789AB, 0.1
+    mask = flash.dropout_keep_mask(seed, p, (2, 3, 5, 9), batch_offset=4)
+    thresh = flash.keep_threshold(p)
+    assert thresh == int(0.9 * 2 ** 32)
+    for b, h, r, c in [(0, 0, 0, 0), (1, 2, 4, 8), (0, 1, 3, 5), (1, 0, 2, 7)]:
+        words = _py_philox((c // 4, r, (4 + b) * 3 + h, 0),
+                           (seed % 2 ** 32, seed >> 32))
+        assert bool(mask[b, h, r, c]) == (words[c % 4] < thresh)
+
+
+def test_dropout_keep_fraction():
+    mask = flash.dropout_keep_mask(2024, 0.1, (4, 4, 250, 250))
+    assert mask.numel() == 10 ** 6
+    assert abs(mask.float().mean().item() - 0.9) <= 0.005
+
+
+def test_plain_dropout_mask_independent_of_chunking(monkeypatch):
+    rng = np.random.default_rng(6)
+    q, k, v = map(torch.from_numpy, _qkv(rng, 3, 2, 40, 48, 16))
+    kv = torch.from_numpy(_masks(rng, 3, 40, 48)[0])
+    whole = attention.scaled_dot_product_attention(q, k, v, kv, 4.0,
+                                                   dropout=0.1, seed=99)
+    monkeypatch.setattr(attention, "_SCORE_BLOCK", 2 * 40 * 48)
+    chunked = attention.scaled_dot_product_attention(q, k, v, kv, 4.0,
+                                                     dropout=0.1, seed=99)
+    torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
+    undropped = attention.scaled_dot_product_attention(q, k, v, kv, 4.0)
+    assert (whole - undropped).abs().max() > 1e-2
+
+
+def test_dropout_seed_decides_the_output():
+    rng = np.random.default_rng(7)
+    q, k, v = map(torch.from_numpy, _qkv(rng, 2, 2, 30, 30, 16))
+    a = attention.scaled_dot_product_attention(q, k, v, None, 4.0,
+                                               dropout=0.1, seed=1)
+    b = attention.scaled_dot_product_attention(q, k, v, None, 4.0,
+                                               dropout=0.1, seed=1)
+    c = attention.scaled_dot_product_attention(q, k, v, None, 4.0,
+                                               dropout=0.1, seed=2)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+
+
+def test_plain_attention_backward_matches_jax_vjp():
+    rng = np.random.default_rng(8)
+    q, k, v = _qkv(rng, 2, 3, 50, 70, 16)
+    kv, _ = _masks(rng, 2, 50, 70)
+    g = rng.normal(size=(2, 3, 50, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jattn.scaled_dot_product_attention(
+        a, b, c, jnp.asarray(kv), temperature=4.0), *map(jnp.asarray,
+                                                         (q, k, v)))
+    refs = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    attention.scaled_dot_product_attention(
+        tq, tk, tv, torch.from_numpy(kv), 4.0).backward(torch.from_numpy(g))
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), refs):
+        assert np.abs(got.numpy() - ref).max() <= 1e-5
+
+
+def test_plain_attention_backward_matches_pallas_flash_interpret():
+    rng = np.random.default_rng(9)
+    b, h, lq, lk, d = 2, 2, 300, 260, 32
+    q, k, v = _qkv(rng, b, h, lq, lk, d)
+    kv, qm = _masks(rng, b, lq, lk)
+    # padded query rows carry no gradient (the model masks them)
+    g = (rng.normal(size=(b, h, lq, d)) * qm[:, None, :, None]
+         ).astype(np.float32)
+    temp = float(d) ** 0.5
+    jq, jk, jv, jkv, jqm = map(jnp.asarray, (q, k, v, kv, qm))
+    with jflash.interpret_mode():
+        out, lse = jflash._flash_forward(jq, jk, jv, jkv, jqm, temp,
+                                         block_q=64, block_k=128)
+        refs = jflash._flash_backward(jq, jk, jv, jkv, jqm, out, lse,
+                                      jnp.asarray(g), temp, block_q=64,
+                                      block_k=128)
+    refs = [np.asarray(x) for x in refs]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    attention.scaled_dot_product_attention(
+        tq, tk, tv, torch.from_numpy(kv), temp).backward(torch.from_numpy(g))
+    dq_err = np.abs(np.where(qm[:, None, :, None],
+                             tq.grad.numpy() - refs[0], 0.0)).max()
+    assert dq_err <= 3e-2, dq_err
+    for got, ref in zip((tk.grad, tv.grad), refs[1:]):
+        err = np.abs(got.numpy() - ref).max()
+        assert err <= 3e-2, err
+
+
+def test_mha_train_mode_dropout_needs_generator_and_is_deterministic():
+    rng = np.random.default_rng(10)
+    b, lq, dm, nh = 2, 24, 32, 2
+    x = torch.from_numpy(rng.normal(size=(b, lq, dm)).astype(np.float32))
+    mask = torch.from_numpy(_masks(rng, b, lq, lq)[0])
+    tm = attention.MultiHeadAttention(nh, dm, dm // nh, dm // nh, 0.1)
+    tm.reset_parameters(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="generator"):
+        tm(x, x, x, mask, mask)
+    y1 = tm(x, x, x, mask, mask, torch.Generator().manual_seed(5))
+    y2 = tm(x, x, x, mask, mask, torch.Generator().manual_seed(5))
+    y3 = tm(x, x, x, mask, mask, torch.Generator().manual_seed(6))
+    assert torch.equal(y1, y2) and not torch.equal(y1, y3)
+    tm.eval()
+    assert torch.equal(tm(x, x, x, mask, mask), tm(x, x, x, mask, mask))
+
+
+def test_k2_bwd_launcher_refuses_cpu_tensors():
+    q = torch.zeros(1, 1, 8, 64)
+    lse = torch.zeros(1, 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention_bwd(q, q, q, q, lse, lse)

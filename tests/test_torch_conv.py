@@ -1,8 +1,13 @@
-"""Port: the plain sparse conv (`csn_tpu_torch.core.conv`) against the JAX
-package's `_conv_impl` on a real built and concatenated batch, and the K1
-launcher's refusal of CPU tensors. Tolerance: max abs <= 1e-5 * max|ref|
-(f32 on both sides; the two sum the offsets in different orders)."""
+"""Port: the sparse conv (`csn_tpu_torch.core.conv`) against the JAX
+package on a real built and concatenated batch: the plain forward against
+`_conv_impl`, and `SparseConvFn`'s backward (its plain version on the CPU)
+against `jax.vjp` of the JAX `sparse_conv` with the transpose map, with
+random asymmetric weights so that a missed mirror shows. Also the dtypes of
+the gradients, the dW kernel's split choice and the launchers' refusal of
+CPU tensors. Tolerance: max abs <= 1e-5 * max|ref| (f32 on both sides; the
+two sum in different orders)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +15,8 @@ import torch
 
 import bench
 from csn_tpu.core.conv import _conv_impl
+from csn_tpu.core.conv import sparse_conv as j_sparse_conv
+from csn_tpu.models.layers import transpose_map_name as j_transpose_map_name
 from csn_tpu_torch import kernels
 from csn_tpu_torch.core import conv, window_conv
 from csn_tpu_torch.core.pyramid import concat_batches, map_levels, to_torch
@@ -67,3 +74,96 @@ def test_k1_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         window_conv.sparse_conv_fwd(feats, torch.zeros(27, 4, dtype=torch.int32),
                                     torch.zeros(27, 3, 8))
+
+
+def _close(got, ref):
+    assert got.shape == ref.shape
+    err = np.abs(got - ref).max()
+    assert err <= 1e-5 * np.abs(ref).max(), err
+
+
+@pytest.mark.parametrize("map_name,cin,cout,input_grad", [
+    ("same0k5", 3, 32, False), ("same0k3", 32, 64, True),
+    ("same1k3", 64, 64, True), ("down0k3", 32, 64, True),
+    ("up0k3", 64, 32, True)])
+def test_sparse_conv_backward_matches_jax_vjp(big, map_name, cin, cout,
+                                              input_grad):
+    kmap = big.kmaps[map_name]
+    t_name, mirror = conv.transpose_map_name(map_name)
+    kmap_t = big.kmaps[t_name]
+    src_l, _ = map_levels(map_name)
+    n_in = big.masks[src_l].numel()
+    rng = np.random.default_rng(7 + sum(map_name.encode()))
+    feats = rng.normal(size=(n_in, cin)).astype(np.float32)
+    w = rng.uniform(-1, 1, size=(kmap.shape[0], cin, cout)).astype(np.float32)
+    g = rng.normal(size=(kmap.shape[1], cout)).astype(np.float32)
+
+    _, vjp = jax.vjp(
+        lambda f, ww: j_sparse_conv(f, jnp.asarray(kmap.numpy()), ww,
+                                    kmap_t=jnp.asarray(kmap_t.numpy()),
+                                    mirror=mirror, input_grad=input_grad),
+        jnp.asarray(feats), jnp.asarray(w))
+    ref_df, ref_dw = map(np.asarray, vjp(jnp.asarray(g)))
+
+    tf = torch.from_numpy(feats).requires_grad_(input_grad)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    out = conv.sparse_conv(tf, kmap, tw, kmap_t, mirror)
+    out.backward(torch.from_numpy(g))
+    _close(tw.grad.numpy(), ref_dw)
+    if input_grad:
+        _close(tf.grad.numpy(), ref_df)
+    else:
+        assert tf.grad is None
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+
+def test_conv_bwd_plain_mirror_matters(big):
+    """With asymmetric weights, pairing the transpose edges with W instead of
+    W reversed gives another d_feats: the mirror is exercised."""
+    kmap = big.kmaps["same0k3"]
+    rng = np.random.default_rng(3)
+    n = kmap.shape[1]
+    feats = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(-1, 1, (27, 8, 8)).astype(np.float32))
+    right, _ = conv.conv_bwd_plain(feats, g, kmap, w, True, True)
+    wrong, _ = conv.conv_bwd_plain(feats, g, kmap, w, False, True)
+    assert (right - wrong).abs().max() > 0.1 * right.abs().max()
+
+
+def test_sparse_conv_grad_dtypes_bf16_activations(big):
+    """f32 weights, bf16 activations: dW in f32 (the weights' dtype),
+    d_feats in bf16 (the activations'), as the JAX backward returns them."""
+    kmap = big.kmaps["same1k3"]
+    n = kmap.shape[1]
+    feats = torch.randn(n, 16, generator=torch.Generator().manual_seed(0))
+    feats = feats.to(torch.bfloat16).requires_grad_(True)
+    w = torch.nn.Parameter(torch.rand(27, 16, 8) - 0.5)
+    out = conv.sparse_conv(feats, kmap, w, kmap, True)
+    assert out.dtype == torch.bfloat16
+    out.float().sum().backward()
+    assert w.grad.dtype == torch.float32
+    assert feats.grad.dtype == torch.bfloat16
+
+
+def test_transpose_map_name_matches_jax():
+    for name in ("same0k5", "same2k3", "down0k3", "down1k3", "up0k3",
+                 "up1k3"):
+        assert conv.transpose_map_name(name) == j_transpose_map_name(name)
+
+
+@pytest.mark.parametrize("n_in,k,cin,cout,want", [
+    (90112, 27, 64, 64, 10), (90112, 125, 3, 32, 3), (10240, 27, 256, 256, 1),
+    (30208, 27, 128, 128, 3), (500, 27, 64, 64, 1)])
+def test_dw_splits_fill_the_card(n_in, k, cin, cout, want):
+    s = window_conv.dw_splits(n_in, k, cin, cout)
+    assert s == want
+    tm = 16 if cin <= 16 else 64
+    blocks = -(-cin // tm) * -(-cout // 64) * k * s
+    assert blocks >= 2 * window_conv.SMS or s == n_in // 1024 or s == 1
+
+
+def test_dw_launcher_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        window_conv.sparse_conv_dw(torch.zeros(4, 3), torch.zeros(5, 8),
+                                   torch.zeros(27, 4, dtype=torch.int32))

@@ -1,8 +1,11 @@
 """Port: the voxel -> point readout (`csn_tpu_torch.core.interp`) against the
 JAX package's `interpolate_to_points` / `nearest_voxel_to_points` on a real
-batch, and the K3 launcher's refusal of CPU tensors. Tolerance: max abs <=
-1e-5 * max|ref| (f32 on both sides)."""
+batch, `InterpFn`'s backward (its plain version on the CPU) against
+`jax.vjp` of `interpolate_to_points`, the CSR table of the backward kernel
+against a brute-force scan of the corner table, and the launchers' refusal
+of CPU tensors. Tolerance: max abs <= 1e-5 * max|ref| (f32 on both sides)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +15,7 @@ import bench
 from csn_tpu.core import interp as jinterp
 from csn_tpu_torch import kernels
 from csn_tpu_torch.core import interp, interp_window
-from csn_tpu_torch.core.pyramid import concat_batches, to_torch
+from csn_tpu_torch.core.pyramid import concat_batches, interp_csr, to_torch
 from csn_tpu_torch.host import pipeline
 from csn_tpu_torch.models import load_model
 
@@ -73,4 +76,54 @@ def test_k3_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         interp_window.interp_fwd(torch.zeros(4, 3),
                                  torch.zeros(5, 8, dtype=torch.int32),
+                                 torch.zeros(5, 8))
+
+
+def test_interp_backward_matches_jax_vjp(case):
+    batch, feats = case
+    rng = np.random.default_rng(5)
+    g = rng.normal(size=batch.interp_w.shape[:2] + (feats.shape[-1],)
+                   ).astype(np.float32)
+    _, vjp = jax.vjp(lambda f: jinterp.interpolate_to_points(
+        f, jnp.asarray(batch.interp_idx.numpy()),
+        jnp.asarray(batch.interp_w.numpy())), jnp.asarray(feats))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    vox = torch.from_numpy(feats).requires_grad_(True)
+    interp.interp_batch(vox, batch).backward(torch.from_numpy(g))
+    _close(vox.grad.numpy(), ref)
+    assert kernels.LAUNCHES["interp_bwd"] == 0
+
+
+def test_interp_csr_matches_brute_force_scan(case):
+    batch, _ = case
+    idx = batch.interp_idx.numpy()
+    n_vox = batch.masks[0].numel()
+    ptr, ent = interp_csr(idx, n_vox)
+    if batch.interp_ptr is not None:      # to_torch built the same table
+        np.testing.assert_array_equal(batch.interp_ptr.numpy(), ptr)
+        np.testing.assert_array_equal(batch.interp_ent.numpy(), ent)
+    else:                                 # concat_batches drops it
+        assert batch.interp_ent is None
+    flat = idx.reshape(-1)
+    assert ptr[0] == 0 and ptr[-1] == ent.size == (flat < n_vox).sum()
+    for v in range(0, n_vox, 7):
+        want = [e for e in range(flat.size) if flat[e] == v]
+        assert ent[ptr[v]:ptr[v + 1]].tolist() == want
+
+
+def test_interp_bwd_plain_sums_duplicates():
+    g = torch.tensor([[1.0, 2.0], [3.0, 4.0]])
+    idx = torch.tensor([[0, 0, 1, 3, 3, 3, 3, 3],
+                        [1, 3, 3, 3, 3, 3, 3, 3]], dtype=torch.int32)
+    w = torch.full((2, 8), 0.5)
+    d = interp.interp_bwd_plain(g, idx, w, 3)
+    np.testing.assert_allclose(d.numpy(), [[1.0, 2.0], [2.0, 3.0],
+                                           [0.0, 0.0]])
+
+
+def test_k3_bwd_launcher_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        interp_window.interp_bwd(torch.zeros(5, 3),
+                                 torch.zeros(5, dtype=torch.int32),
+                                 torch.zeros(0, dtype=torch.int32),
                                  torch.zeros(5, 8))
