@@ -1,9 +1,14 @@
 """Smoke run of the PyTorch port on one CUDA GPU: build the kernels, check
-each against its plain version at the main path's shapes, then serve a few
-eval requests and take a few train steps of HRNetSimCSN3S (K=1) at full
-width.
+each against its plain version at the main paths' shapes, then serve a few
+eval requests and take a few train steps of HRNetSimCSN3S (K=1) and of the
+MID-FC CrossShapeAt heads (CSA on 500-point chunks; SSA with full attention
+through a ring of one) at full width.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
+
+With --profile, phases 6 and 7 also run their train step under
+`torch.profiler` and print the device's busy share and the device time by
+kernel (the breakdown PERF.md quotes).
 
 Phases (each prints its lines; any failure exits nonzero):
   1. device: the card's name and power limit (nvidia-smi), the C++ host
@@ -18,7 +23,12 @@ Phases (each prints its lines; any failure exits nonzero):
      shapes with masks, at dropout 0 and 0.1 (same seed as the plain
      version); `flash_attn_bwd` at dropout 0 and 0.1 against autograd of
      the plain version; K3 (voxel -> point interpolation) and `interp_bwd`
-     against `index_add_`;
+     against `index_add_`; K2 and `flash_attn_bwd` at the MID-FC chunk
+     shape [80, 8, 500, 256]; `flash_attn_carry` chained over 4 key blocks
+     of 2500 at [2, 8, 10000, 256] against `online_block_update` chained the
+     same way and against one K2 pass over all 10000 keys, and
+     `flash_attn_block_bwd` summed over the 4 blocks against one
+     `flash_attn_bwd` call;
   4. eval slice: 3 eval requests (query batch + 1 key batch each) through
      `eval_step`, launch counts per kernel, ms/step, shapes/s, peak memory,
      and the f32 forward with kernels against the plain forward on the CPU;
@@ -27,22 +37,45 @@ Phases (each prints its lines; any failure exits nonzero):
      over 10 steps, shapes/s, peak memory; then one f32 train step at
      dropout 0 on B=2 shapes with the kernels on the GPU against the same
      step with the plain versions on the CPU (loss and every gradient),
-     the CPU step taking the GPU step's ReLU decisions (`ReluDecisions`).
+     the CPU step taking the GPU step's ReLU decisions (`ReluDecisions`);
+  6. MID-FC chunked, the JAX package's `bench.py` midfc protocol:
+     `MidfcRunner(cfg, "csa")` with 8 heads of 256, K=4, B=4, P=10000,
+     d_model 256, chunks of 500, 39 classes, f32, Adam(0.5, 0.999), seeded
+     numpy features: 3 eval requests and 3 train steps through the runner's
+     own `_eval` / `_grad` / `_apply`, launch counts per step, ms/step,
+     shapes/s, peak memory; then one f32 B=1 step at dropout 0 with the
+     kernels on the GPU against the plain step on the CPU;
+  7. MID-FC full attention through the ring (a ring of one: what one card
+     can run): `CrossShapeAt("ssa", chunk_size=None)` sharded over a
+     `torch.distributed` group of one rank, through the `parallel/midfc.py`
+     steps at B=2: one eval request and one train step on
+     `flash_attn_carry` and `flash_attn_block_bwd`, the logits held against
+     the same model without the group (K2).
 The line before the last is the kernel table as JSON: per kernel, its
-launches in phase 5, its worst error over phase 3's checks, and kernel and
-plain median ms summed over one train step's launches in bf16; the last
-line is {"ok": true, "device": {...}}.
+launches in the train requests of phases 5, 6 and 7 (each phase sets the
+counts to 0 before and reads them after), its worst error over phase 3's
+checks, and four times summed over one train step's launches of every path
+the kernel is on (bf16 at the HRNet shapes, f32 at the MID-FC shapes):
+the kernel's and the plain version's median ms, `bound_ms`, the least time
+the card could take (the larger of bytes / 3.35 TB/s and operations / the
+peak of the input type: 989 TFLOP/s bf16, 67 TFLOP/s f32, counting valid
+rows and keys only), and `library_ms`, the time of the one PyTorch call
+that computes the same function (`F.scaled_dot_product_attention` for the
+attention kernels, timed here and used nowhere in the port; null where
+there is no such call). The last line is {"ok": true, "device": {...}}.
 
 Protocol (the JAX package's bench.py): B=8 query shapes of 10000 points,
 voxel 0.05, level-0 cap 5632, level caps shrinking 3x, k5 stem, d_model 256,
 4 heads, 39 classes, activations in bf16; weights are random, drawn from a
-seeded generator.
+seeded generator. Float32 products run without TF32 everywhere, in the
+kernel-vs-plain checks as in the models.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import socket
 import statistics
 import subprocess
 import sys
@@ -50,15 +83,21 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
-import bench
 from csn_tpu_torch import kernels
-from csn_tpu_torch.core import conv, interp, interp_window, window_conv
+from csn_tpu_torch.core import (
+    conv, interp, interp_window, native, window_conv,
+)
 from csn_tpu_torch.core.pyramid import concat_batches, map_levels, to_torch
-from csn_tpu_torch.host import native, pipeline
+from csn_tpu_torch.data import pipeline
+from csn_tpu_torch.data.synthetic import make_surface_shape
+from csn_tpu_torch.midfc.training import MidfcConfig, MidfcRunner
 from csn_tpu_torch.models import blocks, hrnet, load_model
 from csn_tpu_torch.models.layers import SparseConv
 from csn_tpu_torch.ops import attention, flash
+from csn_tpu_torch.parallel.midfc import make_midfc_steps
 from csn_tpu_torch.train import optim
 from csn_tpu_torch.train.steps import eval_step, train_step
 
@@ -75,6 +114,13 @@ GRAD_TOL = 1e-3
 # BatchNorm): held to GRAD_TOL x the largest gradient of the step
 VANISHING = {"fc1.linear.bias"}
 
+# the MID-FC protocol (the JAX package's bench.py, mode midfc)
+MF_HEADS, MF_K, MF_B, MF_P, MF_D, MF_CHUNK = 8, 4, 4, 10000, 256, 500
+MF_RING_B, MF_BLOCKS = 2, 4   # phase 7's batch; key blocks of phase 3's chain
+
+HBM_BYTES_S = 3.35e12                       # H100 SXM, NVIDIA's data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
 KERNELS = {
     "sparse_conv_fwd": ("csn_tpu_torch/csrc/sparse_conv.cu",
                         "csn_tpu/core/window_conv.py:973"),
@@ -84,6 +130,10 @@ KERNELS = {
                        "csn_tpu/ops/flash.py:262"),
     "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_attn_bwd.cu",
                        "csn_tpu/ops/flash.py:600"),
+    "flash_attn_carry": ("csn_tpu_torch/csrc/flash_attn_carry.cu",
+                         "csn_tpu/ops/flash.py:412"),
+    "flash_attn_block_bwd": ("csn_tpu_torch/csrc/flash_attn_block_bwd.cu",
+                             "csn_tpu/ops/flash.py:488"),
     "interp_fwd": ("csn_tpu_torch/csrc/interp.cu",
                    "csn_tpu/core/interp_window.py:288"),
     "interp_bwd": ("csn_tpu_torch/csrc/interp_bwd.cu",
@@ -123,7 +173,7 @@ def build_requests(spec, dev, n_shapes=B, n_requests=N_REQUESTS, seed=SEED):
     for r in range(n_requests):
         rng = np.random.default_rng(seed + 1000 * r)
         qb, kb = (pipeline.collate_shapes(
-            [bench.make_surface_shape(rng, P) for _ in range(n_shapes)],
+            [make_surface_shape(rng, P) for _ in range(n_shapes)],
             spec, rng=rng) for _ in range(K_NEIGHBORS + 1))
         reqs.append((qb, kb))
     if reqs[0][0].dropped[1] or reqs[0][0].dropped[2]:
@@ -192,6 +242,10 @@ class Table:
         self.err = {k: 0.0 for k in KERNELS}
         self.ms = {k: 0.0 for k in KERNELS}
         self.plain_ms = {k: 0.0 for k in KERNELS}
+        self.bound_ms = {k: 0.0 for k in KERNELS}
+        self.bound_bytes_ms = {k: 0.0 for k in KERNELS}
+        self.bound_ops_ms = {k: 0.0 for k in KERNELS}
+        self.library_ms = {k: None for k in KERNELS}
 
     def check(self, name, what, got, ref, dtype, valid=None):
         got, ref = got.float(), ref.float()
@@ -208,15 +262,51 @@ class Table:
         require(ok, f"{name} {what} {dtype} disagrees with its plain version")
         self.err[name] = max(self.err[name], err)
 
-    def time(self, name, what, fn_kernel, fn_plain, count=1, reps=7):
-        """Median ms of the kernel and its plain version (bf16 inputs),
-        added `count` times to the train step's totals."""
+    def time(self, name, what, fn_kernel, fn_plain, count=1, reps=7, *,
+             nbytes, flops, dtype=torch.bfloat16, fn_library=None):
+        """Median ms of the kernel and its plain version, the call's bound
+        (`nbytes` moved once over the memory rate, `flops` over the peak of
+        `dtype`) and, with `fn_library`, the median ms of the one PyTorch
+        call that computes the same function; all added `count` times to
+        the train step's totals."""
         ms = median_ms(fn_kernel)
         pms = median_ms(fn_plain, warmup=1, reps=reps)
-        print(f"[time] {name} {what} bf16: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms (x{count} per train step)")
+        b_ms = nbytes / HBM_BYTES_S * 1e3
+        o_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        line = (f"[time] {name} {what} {str(dtype)[6:]}: kernel {ms:.4f} ms, "
+                f"plain {pms:.4f} ms, bound {max(b_ms, o_ms):.4f} ms "
+                f"({'bytes' if b_ms >= o_ms else 'operations'}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        if fn_library is not None:
+            lms = median_ms(fn_library, warmup=1, reps=reps)
+            line += f", library {lms:.4f} ms"
+            self.library_ms[name] = (self.library_ms[name] or 0.0) \
+                + count * lms
+        print(f"{line} (x{count} per train step)")
         self.ms[name] += count * ms
         self.plain_ms[name] += count * pms
+        self.bound_ms[name] += count * max(b_ms, o_ms)
+        self.bound_bytes_ms[name] += count * b_ms
+        self.bound_ops_ms[name] += count * o_ms
+
+    def bound(self, name):
+        """(bound_ms, bound_by) of the kernel's launches of one train step:
+        each call's bound is the larger of its two times; `bound_by` names
+        the larger share of the total."""
+        by = "bytes" if self.bound_bytes_ms[name] >= self.bound_ops_ms[name] \
+            else "operations"
+        return self.bound_ms[name], by
+
+
+def conv_work(kmap, n_in, cin, cout, es, out_es):
+    """(bytes, flops) of one sparse conv over `kmap` [K, N_out] from n_in
+    source rows: features, map, weights and output moved once; two
+    operations per (valid map entry, cin, cout). The same count holds for
+    the dW reduction over the transpose map (out_es 4: dW is f32)."""
+    k, n_out = kmap.shape
+    nnz = int((kmap < n_in).sum())
+    return (n_in * cin * es + k * n_out * 4 + k * cin * cout * out_es
+            + n_out * cout * es, 2 * nnz * cin * cout)
 
 
 def check_convs(model, big, dev, table, g):
@@ -257,83 +347,350 @@ def check_convs(model, big, dev, table, g):
             del ref_df, ref_dw, got_df, got_dw
             if dt != torch.bfloat16:
                 continue
+            nb, fl = conv_work(kmap, n_in, cin, cout, 2, 2)
             table.time("sparse_conv_fwd", what,
                        lambda: window_conv.sparse_conv_fwd(f, kmap, wt),
-                       lambda: conv.conv_plain(f, kmap, wt), count)
+                       lambda: conv.conv_plain(f, kmap, wt), count,
+                       nbytes=nb, flops=fl)
             if n_dfeats:
+                nb, fl = conv_work(kmap_t, kmap.shape[1], cout, cin, 2, 2)
                 table.time("sparse_conv_fwd", f"d_feats over {t_name}",
                            lambda: window_conv.sparse_conv_fwd(gd, kmap_t,
                                                                w_t),
-                           lambda: conv.conv_plain(gd, kmap_t, w_t), n_dfeats)
+                           lambda: conv.conv_plain(gd, kmap_t, w_t), n_dfeats,
+                           nbytes=nb, flops=fl)
+            # dW reads the features and the output gradient, writes f32
+            nb, fl = conv_work(kmap_t, kmap.shape[1], cout, cin, 2, 4)
             table.time("sparse_conv_dw", what,
                        lambda: window_conv.sparse_conv_dw(f, gd, kmap_t),
                        lambda: conv.conv_bwd_plain(f, gd, kmap_t, wt.float(),
                                                    mirror, False), count,
-                       reps=3)
+                       reps=3, nbytes=nb, flops=fl)
         torch.cuda.empty_cache()
     return sum(convs.values())
 
 
-def check_attention(qb, kb, big, dev, table, g):
-    """K2 at dropout 0 and ATTN_DROPOUT and its backward kernel, at the SSA
-    (combined pass) and CSA (query against key) shapes."""
-    dk = D_MODEL // N_HEAD
+def attention_work(qm, km, n_head, dk, es):
+    """(bytes forward, bytes backward, flops forward, flops backward) of
+    masked attention at q [b, H, Lq, dk], k / v [b, H, Lk, dk]: every
+    tensor moved once (q, k, v, out and the f32 lse forward; q, k, v, dout,
+    lse, delta, dq, dk, dv backward); two products of 2 * dk operations per
+    (valid query, valid key, head) pair forward, five backward."""
+    b, lq = qm.shape
+    lk = km.shape[1]
+    pairs = int((qm.sum(dim=1) * km.sum(dim=1)).sum()) * n_head
+    rows_q, rows_k = b * n_head * lq, b * n_head * lk
+    fwd_b = (2 * rows_q + 2 * rows_k) * dk * es + rows_q * 4 + b * (lq + lk)
+    bwd_b = (3 * rows_q + 4 * rows_k) * dk * es + rows_q * 8 + b * (lq + lk)
+    return fwd_b, bwd_b, 4 * pairs * dk, 10 * pairs * dk
+
+
+def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count):
+    """K2 at dropout 0 and ATTN_DROPOUT and its backward kernel at q
+    [b, n_head, Lq, dk] against k, v [b, n_head, Lk, dk] under the masks qm,
+    km, in f32 and bf16; timed in `time_dt` at dropout ATTN_DROPOUT (the
+    train path's call, `count` per train step), beside the library call
+    `F.scaled_dot_product_attention` with the key mask at dropout 0."""
     temp = float(dk) ** 0.5
     seed = 0x5EED_0F_C5A
+    b, L = qm.shape
+    q, dout = (torch.randn(b, n_head, L, dk, generator=g).to(dev)
+               for _ in range(2))
+    k, v = (torch.randn(b, n_head, km.shape[1], dk, generator=g).to(dev)
+            for _ in range(2))
+    valid = qm[:, None, :, None]
+    dout = dout * valid   # padded query rows carry no gradient
+    shape = f"{what} [{b},{n_head},{L},{dk}]"
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd, dod = (x.to(dt) for x in (q, k, v, dout))
+        for drop in (0.0, ATTN_DROPOUT):
+            sd = seed if drop else None
+            tag = f"{shape} dropout {drop}"
+            out, lse = flash.flash_attention(qd, kd, vd, km, qm, temp,
+                                             drop, sd)
+            ref, ref_lse = attention.scaled_dot_product_attention(
+                qd, kd, vd, km, temp, dropout=drop, seed=sd,
+                return_lse=True)
+            table.check("flash_attn_fwd", tag, out, ref, dt, valid)
+            table.check("flash_attn_fwd", tag + " lse", lse, ref_lse, dt,
+                        valid[..., 0])
+            del ref, ref_lse
+            delta = (dod.float() * out.float()).sum(dim=-1)
+            got = flash.flash_attention_bwd(qd, kd, vd, dod, lse, delta,
+                                            km, qm, temp, drop, sd)
+            leaves = [x.detach().clone().requires_grad_(True)
+                      for x in (qd, kd, vd)]
+            plain = attention.scaled_dot_product_attention(
+                *leaves, km, temp, dropout=drop, seed=sd)
+            refs = torch.autograd.grad(plain, leaves, dod,
+                                       retain_graph=True)
+            for nm, gk, gr, vm in zip(("dq", "dk", "dv"), got, refs,
+                                      (valid, None, None)):
+                table.check("flash_attn_bwd", f"{tag} {nm}", gk, gr, dt,
+                            vm)
+            del got, refs
+            if dt == time_dt and drop:   # the train path's call
+                fb, bb, ff, bf = attention_work(qm, km, n_head, dk,
+                                                qd.element_size())
+                # the library call: one fused attention with the key mask
+                lib = F.scaled_dot_product_attention(
+                    *leaves, attn_mask=km[:, None, None, :],
+                    scale=1.0 / temp)
+                table.time(
+                    "flash_attn_fwd", tag,
+                    lambda: flash.flash_attention(qd, kd, vd, km, qm,
+                                                  temp, drop, sd),
+                    lambda: attention.scaled_dot_product_attention(
+                        qd, kd, vd, km, temp, dropout=drop, seed=sd),
+                    count, reps=3, nbytes=fb, flops=ff, dtype=dt,
+                    fn_library=lambda: F.scaled_dot_product_attention(
+                        qd, kd, vd, attn_mask=km[:, None, None, :],
+                        scale=1.0 / temp))
+                table.time(
+                    "flash_attn_bwd", tag,
+                    lambda: flash.flash_attention_bwd(
+                        qd, kd, vd, dod, lse, delta, km, qm, temp, drop,
+                        sd),
+                    lambda: torch.autograd.grad(plain, leaves, dod,
+                                                retain_graph=True),
+                    count, reps=3, nbytes=bb, flops=bf, dtype=dt,
+                    fn_library=lambda: torch.autograd.grad(
+                        lib, leaves, dod, retain_graph=True))
+                del lib
+            del out, lse, delta, plain, leaves
+            torch.cuda.empty_cache()
+
+
+def check_attention(qb, kb, big, dev, table, g):
+    """K2 and its backward at the HRNet SSA (combined pass) and CSA (query
+    against key) shapes, and at the MID-FC chunk shape (80 chunks of 500
+    points, 8 heads of 256, 9 calls per CSA train step)."""
+    dk = D_MODEL // N_HEAD
     bmask, qmask, kmask = big.masks[0], qb.masks[0], kb.masks[0]
-    for what, qm, km in (("SSA", bmask, bmask), ("CSA", qmask, kmask)):
-        b, L = qm.shape
-        q, k, v, dout = (torch.randn(b, N_HEAD, L, dk, generator=g).to(dev)
-                         for _ in range(4))
-        valid = qm[:, None, :, None]
-        dout = dout * valid   # padded query rows carry no gradient
-        shape = f"{what} [{b},{N_HEAD},{L},{dk}]"
-        for dt in (torch.float32, torch.bfloat16):
-            qd, kd, vd, dod = (x.to(dt) for x in (q, k, v, dout))
-            for drop in (0.0, ATTN_DROPOUT):
-                sd = seed if drop else None
-                tag = f"{shape} dropout {drop}"
-                out, lse = flash.flash_attention(qd, kd, vd, km, qm, temp,
-                                                 drop, sd)
-                ref, ref_lse = attention.scaled_dot_product_attention(
-                    qd, kd, vd, km, temp, dropout=drop, seed=sd,
-                    return_lse=True)
-                table.check("flash_attn_fwd", tag, out, ref, dt, valid)
-                table.check("flash_attn_fwd", tag + " lse", lse, ref_lse, dt,
-                            valid[..., 0])
-                del ref, ref_lse
-                delta = (dod.float() * out.float()).sum(dim=-1)
-                got = flash.flash_attention_bwd(qd, kd, vd, dod, lse, delta,
-                                                km, qm, temp, drop, sd)
-                leaves = [x.detach().clone().requires_grad_(True)
-                          for x in (qd, kd, vd)]
-                plain = attention.scaled_dot_product_attention(
-                    *leaves, km, temp, dropout=drop, seed=sd)
-                refs = torch.autograd.grad(plain, leaves, dod,
-                                           retain_graph=True)
-                for nm, gk, gr, vm in zip(("dq", "dk", "dv"), got, refs,
-                                          (valid, None, None)):
-                    table.check("flash_attn_bwd", f"{tag} {nm}", gk, gr, dt,
-                                vm)
-                del got, refs
-                if dt == torch.bfloat16 and drop:   # the train path's call
-                    table.time(
-                        "flash_attn_fwd", tag,
-                        lambda: flash.flash_attention(qd, kd, vd, km, qm,
-                                                      temp, drop, sd),
-                        lambda: attention.scaled_dot_product_attention(
-                            qd, kd, vd, km, temp, dropout=drop, seed=sd),
-                        reps=3)
-                    table.time(
-                        "flash_attn_bwd", tag,
-                        lambda: flash.flash_attention_bwd(
-                            qd, kd, vd, dod, lse, delta, km, qm, temp, drop,
-                            sd),
-                        lambda: torch.autograd.grad(plain, leaves, dod,
-                                                    retain_graph=True),
-                        reps=3)
-                del out, lse, delta, plain, leaves
-                torch.cuda.empty_cache()
+    check_flash(table, dev, g, "SSA", bmask, bmask, N_HEAD, dk,
+                torch.bfloat16, 1)
+    check_flash(table, dev, g, "CSA", qmask, kmask, N_HEAD, dk,
+                torch.bfloat16, 1)
+    ones = torch.ones(MF_B * MF_P // MF_CHUNK, MF_CHUNK, dtype=torch.bool,
+                      device=dev)
+    check_flash(table, dev, g, "MID-FC chunks", ones, ones, MF_HEADS, MF_D,
+                torch.float32, 2 * MF_K + 1)
+
+
+def check_ring_kernels(dev, table, g):
+    """`flash_attn_carry` chained over MF_BLOCKS key blocks at phase 7's
+    shape against `online_block_update` chained the same way and against
+    one K2 pass over all keys; `flash_attn_block_bwd` on every block
+    against `block_backward_plain` on that block, and summed over the
+    blocks against one `flash_attn_bwd` call. The backward's inputs (out,
+    lse) are the plain chain's, so no kernel's output feeds a check of
+    another. One chain cuts the keys unevenly, at columns that are no
+    multiple of 4 (a block then starts inside a 4-column Philox group), and
+    checks a slice of the query rows at its row offset. The one call over
+    all keys that phase 7 makes (a ring of one) is held against the plain
+    chains too, and timed in f32 at dropout ATTN_DROPOUT."""
+    b, h, L, dk = MF_RING_B, MF_HEADS, MF_P, MF_D
+    temp = float(dk) ** 0.5
+    seed = 0x5EED_0F_C5A + 1
+    lb = L // MF_BLOCKS
+    even = tuple(range(0, L + 1, lb))
+    uneven = (0, lb + 1, 2 * lb - 1, 3 * lb + 2, L)   # starts at 1, 3, 2 mod 4
+    q, k, v, dout = (torch.randn(b, h, L, dk, generator=g).to(dev)
+                     for _ in range(4))
+    full = torch.ones(b, L, dtype=torch.bool, device=dev)
+    ragged = full.clone()   # a masked tail, and one fully masked key block
+    ragged[0, L - 777:] = False
+    ragged[1, lb:2 * lb] = False
+    for dt, drop, km, mtag, cuts in (
+            (torch.float32, 0.0, full, "unmasked", even),
+            (torch.float32, ATTN_DROPOUT, ragged, "masked", even),
+            (torch.bfloat16, ATTN_DROPOUT, ragged, "masked", even),
+            (torch.float32, ATTN_DROPOUT, ragged, "masked", uneven)):
+        qd, kd, vd, dod = (x.to(dt) for x in (q, k, v, dout))
+        sd = seed if drop else None
+        sizes = f"{lb}" if cuts is even else f"cuts {cuts[1:-1]}"
+        tag = (f"[{b},{h},{L},{dk}] x {MF_BLOCKS} blocks of {sizes} {mtag} "
+               f"dropout {drop}")
+        blocks_ = [(c0, kd[:, :, c0:c1].contiguous(),
+                    vd[:, :, c0:c1].contiguous(), km[:, c0:c1].contiguous())
+                   for c0, c1 in zip(cuts, cuts[1:])]
+        carry = flash.flash_carry_init(b, h, L, dk, dev)
+        plain = flash.flash_carry_init(b, h, L, dk, dev)
+        qt = (qd / temp).float()
+        for c0, kb_, vb_, mb_ in blocks_:
+            carry = flash.flash_forward_carry(qd, kb_, vb_, mb_, None, carry,
+                                              temp, drop, sd, col_offset=c0)
+            plain = attention.online_block_update(plain, qt, kb_, vb_, mb_,
+                                                  drop, sd, col_offset=c0)
+        for nm, a, r in zip(("m", "l", "acc"), carry, plain):
+            table.check("flash_attn_carry", f"{tag} carry {nm} vs plain "
+                        f"chain", a, r, dt)
+        out_c, lse_c = flash.flash_carry_finalize(carry)
+        out_p, lse = flash.flash_carry_finalize(plain)
+        out = out_p.to(dt)
+        del carry, out_p
+        out_k2, lse_k2 = flash.flash_attention(qd, kd, vd, km, full, temp,
+                                               drop, sd)
+        table.check("flash_attn_carry", f"{tag} out vs one K2 pass",
+                    out_c.to(dt), out_k2, dt)
+        table.check("flash_attn_carry", f"{tag} lse vs one K2 pass", lse_c,
+                    lse_k2, dt)
+        del out_c, lse_c, out_k2, lse_k2
+        delta = (dod.float() * out.float()).sum(dim=-1)
+        ref = flash.flash_attention_bwd(qd, kd, vd, dod, lse, delta, km,
+                                        full, temp, drop, sd)
+        dq = torch.zeros(qd.shape, dtype=torch.float32, device=dev)
+        dq_p = torch.zeros_like(dq)
+        dks, dvs, dks_p, dvs_p = [], [], [], []
+        for i, (c0, kb_, vb_, mb_) in enumerate(blocks_):
+            got = flash.flash_block_backward(
+                qd, kb_, vb_, mb_, out, lse, dod, temp, drop, sd,
+                col_offset=c0, delta=delta)
+            want = flash.block_backward_plain(
+                qd, kb_, vb_, mb_, lse, delta, dod, temp, drop, sd,
+                col_offset=c0)
+            for nm, a, r in zip(("dq", "dk", "dv"), got, want):
+                table.check("flash_attn_block_bwd", f"{tag} block {i} at "
+                            f"column {c0} {nm} vs plain", a, r, dt)
+            dq += got[0]
+            dq_p += want[0]
+            dks.append(got[1])
+            dvs.append(got[2])
+            dks_p.append(want[1])
+            dvs_p.append(want[2])
+            del got, want
+        sums = (dq, torch.cat(dks, 2), torch.cat(dvs, 2))
+        sums_p = (dq_p, torch.cat(dks_p, 2), torch.cat(dvs_p, 2))
+        for nm, a, r in zip(("dq", "dk", "dv"), sums, ref):
+            table.check("flash_attn_block_bwd", f"{tag} {nm} vs one "
+                        f"flash_attn_bwd call", a, r, dt)
+        del dq, dks, dvs, dq_p, dks_p, dvs_p, ref, sums
+        if cuts is uneven:
+            # a slice of the query rows against one key block, both at
+            # their offsets in the global score matrix
+            r0, r1 = cuts[1], cuts[2]
+            c0, kb_, vb_, mb_ = blocks_[2]
+            otag = (f"[{b},{h},{r1 - r0},{dk}] rows at {r0} x keys at {c0} "
+                    f"{mtag} dropout {drop}")
+            qs, dos = (x[:, :, r0:r1].contiguous() for x in (qd, dod))
+            init = flash.flash_carry_init(b, h, r1 - r0, dk, dev)
+            got = flash.flash_forward_carry(
+                qs, kb_, vb_, mb_, None, init, temp, drop, sd,
+                row_offset=r0, col_offset=c0)
+            want = attention.online_block_update(
+                init, (qs / temp).float(), kb_, vb_, mb_, drop, sd,
+                row_offset=r0, col_offset=c0)
+            for nm, a, r in zip(("m", "l", "acc"), got, want):
+                table.check("flash_attn_carry", f"{otag} carry {nm} vs "
+                            f"plain", a, r, dt)
+            lse_s = lse[:, :, r0:r1].contiguous()
+            delta_s = delta[:, :, r0:r1].contiguous()
+            got = flash.flash_block_backward(
+                qs, kb_, vb_, mb_, out[:, :, r0:r1].contiguous(), lse_s, dos,
+                temp, drop, sd, row_offset=r0, col_offset=c0, delta=delta_s)
+            want = flash.block_backward_plain(
+                qs, kb_, vb_, mb_, lse_s, delta_s, dos, temp, drop, sd,
+                row_offset=r0, col_offset=c0)
+            for nm, a, r in zip(("dq", "dk", "dv"), got, want):
+                table.check("flash_attn_block_bwd", f"{otag} {nm} vs plain",
+                            a, r, dt)
+            del got, want, init, qs, dos
+            # The f32 plain version and the kernel do the same operations
+            # in the same order (sequential f32 FMAs over the reduced axis,
+            # the same exp), so they can agree bit for bit. A float64
+            # reference on batch row 0, heads 0-1 bounds both, and the
+            # kernel given a wrong column offset must disagree.
+            hs = (slice(0, 1), slice(0, 2))
+            got = flash.flash_block_backward(
+                qd, kb_, vb_, mb_, out, lse, dod, temp, drop, sd,
+                col_offset=c0, delta=delta)
+            want = flash.block_backward_plain(
+                qd, kb_, vb_, mb_, lse, delta, dod, temp, drop, sd,
+                col_offset=c0)
+            ref64 = flash.block_backward_plain(
+                qd[hs].double(), kb_[hs].double(), vb_[hs].double(), mb_[:1],
+                lse[hs], delta[hs], dod[hs].double(), temp, drop, sd,
+                col_offset=c0, compute_dtype=torch.float64)
+            off = flash.flash_block_backward(
+                qd, kb_, vb_, mb_, out, lse, dod, temp, drop, sd,
+                col_offset=c0 + 1, delta=delta)
+            for nm, a, r, r64, o in zip(("dq", "dk", "dv"), got, want, ref64,
+                                        off):
+                err = (a[hs].double() - r64).abs().max().item()
+                perr = (r[hs].double() - r64).abs().max().item()
+                oerr = (o - r).abs().max().item()
+                scale = r64.abs().max().item()
+                ok = err <= TOL[dt] * scale and oerr > 100 * TOL[dt] * scale
+                print(f"[check] flash_attn_block_bwd block at column {c0} "
+                      f"{nm} vs float64 (batch row 0, heads 0-1): kernel "
+                      f"{err:.3e}, plain {perr:.3e}, tol "
+                      f"{TOL[dt] * scale:.3e} (max|ref| {scale:.3e}); kernel "
+                      f"at column offset {c0 + 1} vs plain at {c0}: "
+                      f"{oerr:.3e}, must exceed {100 * TOL[dt] * scale:.3e} "
+                      f"{'ok' if ok else 'FAIL'}")
+                require(ok, f"flash_attn_block_bwd {nm}: float64 reference "
+                        f"or wrong-offset check failed")
+                table.err["flash_attn_block_bwd"] = max(
+                    table.err["flash_attn_block_bwd"], err)
+            del got, want, ref64, off
+        if dt == torch.float32 and drop and cuts is even:   # phase 7's calls
+            fb, bb, ff, bf = attention_work(full, km, h, dk, 4)
+            cin = flash.flash_carry_init(b, h, L, dk, dev)
+            c_bytes = 2 * sum(c.numel() * 4 for c in cin)  # carry in, out
+            atag = f"[{b},{h},{L},{dk}] all keys {mtag} dropout {drop}"
+            got = flash.flash_forward_carry(qd, kd, vd, km, None, cin, temp,
+                                            drop, sd)
+            for nm, a, r in zip(("m", "l", "acc"), got, plain):
+                table.check("flash_attn_carry", f"{atag} one call, carry "
+                            f"{nm} vs plain chain", a, r, dt)
+            got = flash.flash_block_backward(qd, kd, vd, km, out, lse, dod,
+                                             temp, drop, sd, delta=delta)
+            for nm, a, r in zip(("dq", "dk", "dv"), got, sums_p):
+                table.check("flash_attn_block_bwd", f"{atag} one call, {nm} "
+                            f"vs plain chain", a, r, dt)
+            del got
+
+            def plain_chain():
+                c = flash.flash_carry_init(b, h, L, dk, dev)
+                for c0, kb_, vb_, mb_ in blocks_:
+                    c = attention.online_block_update(c, qt, kb_, vb_, mb_,
+                                                      drop, sd, col_offset=c0)
+                return c
+
+            def plain_bwd_chain():
+                return [flash.block_backward_plain(
+                    qd, kb_, vb_, mb_, lse, delta, dod, temp, drop, sd,
+                    col_offset=c0) for c0, kb_, vb_, mb_ in blocks_]
+
+            table.time(
+                "flash_attn_carry", atag,
+                lambda: flash.flash_forward_carry(qd, kd, vd, km, None, cin,
+                                                  temp, drop, sd),
+                plain_chain, reps=3,
+                # q, k, v and the masks in; the carry in and out; no out, lse
+                nbytes=fb - b * h * L * 4 * (dk + 1) + c_bytes,
+                flops=ff, dtype=dt,
+                fn_library=lambda: F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=km[:, None, None, :],
+                    scale=1.0 / temp))
+            print(f"[time] flash_attn_carry, flash_attn_block_bwd: the plain "
+                  f"versions walk the keys in {MF_BLOCKS} blocks (all keys "
+                  f"at once would hold a [{b},{h},{L},{L}] f32 score matrix)")
+            leaves = [x.detach().clone().requires_grad_(True)
+                      for x in (qd, kd, vd)]
+            lib = F.scaled_dot_product_attention(
+                *leaves, attn_mask=km[:, None, None, :], scale=1.0 / temp)
+            table.time(
+                "flash_attn_block_bwd", atag,
+                lambda: flash.flash_block_backward(
+                    qd, kd, vd, km, out, lse, dod, temp, drop, sd,
+                    delta=delta),
+                plain_bwd_chain, reps=3, nbytes=bb, flops=bf, dtype=dt,
+                fn_library=lambda: torch.autograd.grad(
+                    lib, leaves, dod, retain_graph=True))
+            del lib, leaves, cin
+        del out, lse, delta, blocks_, plain, sums_p
+        torch.cuda.empty_cache()
 
 
 def check_interp(qb, dev, table, g):
@@ -355,14 +712,20 @@ def check_interp(qb, dev, table, g):
                                              w8),
                     interp.interp_bwd_plain(gd, idx, w8, n0), dt)
         if dt == torch.bfloat16:
+            # both move the voxel and point features once and the 8-corner
+            # tables (int32 index or CSR entry + f32 weight per corner)
+            nb = (n0 + idx.shape[0]) * NUM_CLASSES * 2 + idx.numel() * 8
+            nnz = int((idx < n0).sum())
             table.time("interp_fwd", what,
                        lambda: interp_window.interp_fwd(fl, idx, w8),
                        lambda: interp.interpolate_to_points(fl, idx[None],
-                                                            w8[None]))
+                                                            w8[None]),
+                       nbytes=nb, flops=2 * nnz * NUM_CLASSES)
             table.time("interp_bwd", bwd,
                        lambda: interp_window.interp_bwd(
                            gd, qb.interp_ptr, qb.interp_ent, w8),
-                       lambda: interp.interp_bwd_plain(gd, idx, w8, n0))
+                       lambda: interp.interp_bwd_plain(gd, idx, w8, n0),
+                       nbytes=nb + (n0 + 1) * 4, flops=2 * nnz * NUM_CLASSES)
 
 
 def check_point_outputs(tag, loss, point_logits, pred, qb):
@@ -380,31 +743,61 @@ def check_point_outputs(tag, loss, point_logits, pred, qb):
             f"[{int(p.min())}, {int(p.max())}]")
 
 
-def require_launches(tag, launches, expect):
-    print(f"[{tag}] launches over {N_REQUESTS} requests: {launches} "
+def require_launches(tag, launches, expect, n_requests=N_REQUESTS):
+    """Every kernel launched exactly as often as `expect` says per request
+    (a kernel that `expect` does not name: never)."""
+    print(f"[{tag}] launches over {n_requests} requests: {launches} "
           f"(expected per request: {expect})")
-    for name, n in expect.items():
-        require(launches[name] == N_REQUESTS * n,
-                f"{tag}: {name} {launches[name]} launches, expected "
-                f"{N_REQUESTS * n}")
+    for name, got in launches.items():
+        want = n_requests * expect.get(name, 0)
+        require(got == want,
+                f"{tag}: {name} {got} launches, expected {want}")
 
 
-def time_steps(tag, step):
-    """ms/step of `step()` over TIMED_STEPS after 2 warm-up steps, and the
+def time_steps(tag, step, what=f"B={B}, K={K_NEIGHBORS}, bf16", n_shapes=B,
+               timed_steps=TIMED_STEPS):
+    """ms/step of `step()` over `timed_steps` after 2 warm-up steps, and the
     peak device memory of the timed steps."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed_steps):
         step()
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms = (time.perf_counter() - t0) * 1e3 / timed_steps
     peak = torch.cuda.max_memory_allocated()
-    print(f"[{tag}] {ms:.3f} ms/step over {TIMED_STEPS} steps (B={B}, "
-          f"K={K_NEIGHBORS}, bf16), {B / ms * 1e3:.3f} query shapes/s, peak "
-          f"memory {peak / 2 ** 30:.3f} GiB")
+    print(f"[{tag}] {ms:.3f} ms/step over {timed_steps} steps ({what}), "
+          f"{n_shapes / ms * 1e3:.3f} query shapes/s, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB")
+
+
+def profile_steps(tag, step, n_steps=3):
+    """Device busy share and device time by kernel over `n_steps` of
+    `step()`, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    rows = [(e.device_time_total / 1e3 / n_steps, e.count // n_steps, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"[profile] {tag}: {wall_ms:.1f} ms/step wall under the profiler, "
+          f"{busy:.1f} ms/step device time ({100 * busy / wall_ms:.1f} % "
+          f"busy)")
+    for ms, n, key in rows[:12]:
+        print(f"[profile] {tag}: {ms:9.3f} ms/step {100 * ms / busy:5.1f} % "
+              f"x{n:<4d} {key[:90]}")
 
 
 def eval_slice(cls, reqs, dev, n_convs):
@@ -497,7 +890,235 @@ def train_slice(cls, spec, reqs, dev, n_convs, n_stems):
     return launches
 
 
+def midfc_data(n_shapes, seed):
+    """Seeded numpy MID-FC inputs at the protocol's sizes: features
+    [B, P, 256], neighbor features [B, K+1, P, 256], labels [B, P] in
+    [0, C). Every shape's points are drawn around a mean of its own, as a
+    backbone's features of different shapes are: the mean-pooled
+    descriptors then differ between shapes and the compatibility softmax
+    is not uniform."""
+    rng = np.random.default_rng(seed)
+    feats = (rng.normal(size=(n_shapes, MF_P, MF_D))
+             + rng.normal(size=(n_shapes, 1, MF_D))).astype(np.float32)
+    neighbors = (rng.normal(size=(n_shapes, MF_K + 1, MF_P, MF_D))
+                 + rng.normal(size=(n_shapes, MF_K + 1, 1, MF_D))
+                 ).astype(np.float32)
+    labels = rng.integers(0, NUM_CLASSES,
+                          size=(n_shapes, MF_P)).astype(np.int32)
+    return feats, labels, neighbors
+
+
+def check_midfc_outputs(tag, logits, n_shapes):
+    require(logits.shape == (n_shapes, MF_P, NUM_CLASSES)
+            and bool(torch.isfinite(logits).all()), f"{tag}: bad logits")
+    pred = logits.argmax(dim=-1)
+    require(int(pred.min()) >= 0 and int(pred.max()) <= NUM_CLASSES - 1,
+            f"{tag}: predictions outside [0, {NUM_CLASSES - 1}]")
+    return (f"logits {tuple(logits.shape)} finite, pred in "
+            f"[{int(pred.min())}, {int(pred.max())}]")
+
+
+def compare_grads(tag, got, ref, loss_got, loss_ref):
+    """Loss and every gradient of `got` (kernels, GPU) within GRAD_TOL x
+    max|ref| of the same tensor of `ref` (plain, CPU)."""
+    require(abs(loss_got - loss_ref) <= GRAD_TOL * abs(loss_ref),
+            f"{tag}: loss {loss_got} on the GPU, {loss_ref} on the CPU")
+    top = max(float(r.abs().max()) for r in ref.values())
+    worst = (0.0, "")
+    for name, r in ref.items():
+        scale = float(r.abs().max())
+        err = float((got[name].cpu() - r).abs().max())
+        print(f"[{tag}] gradient of {name}: max|ref| {scale:.3e} "
+              f"({scale / top:.1e} of the step's largest), max_abs_err "
+              f"{err:.3e} = {err / max(scale, 1e-30):.3e} x max|ref|")
+        require(scale > 0.0 and err <= GRAD_TOL * scale,
+                f"{tag}: gradient of {name} off by {err:.3e} (tol "
+                f"{GRAD_TOL * scale:.3e})")
+        worst = max(worst, (err / scale, name))
+    print(f"[{tag}] f32 gradients, kernels on the GPU vs plain on the CPU: "
+          f"{len(ref)} tensors, worst max_abs_err / max|ref| {worst[0]:.3e} "
+          f"({worst[1]}), tol {GRAD_TOL:.0e}; loss {loss_got:.6f} vs "
+          f"{loss_ref:.6f}")
+
+
+def midfc_config(batch_size, chunk_size):
+    return MidfcConfig(num_classes=NUM_CLASSES, n_heads=MF_HEADS, K=MF_K,
+                       batch_size=batch_size, d_model=MF_D,
+                       chunk_size=chunk_size, num_points=MF_P,
+                       weight_decay=5e-4, compute_dtype="float32",
+                       seed=SEED)
+
+
+def midfc_chunked_slice(dev, profile=False):
+    """Phase 6. Returns the launch counts of the 3 train steps."""
+    n_mha = 2 * MF_K + 1   # SSA of the query and of K neighbors, K cross
+    runner = MidfcRunner(midfc_config(MF_B, MF_CHUNK), "csa", device=dev)
+    runner.initialize()
+    data = [midfc_data(MF_B, SEED + 100 * r) for r in range(N_REQUESTS)]
+    kernels.reset_launches()
+    for r, (feats, _labels, neighbors) in enumerate(data):
+        logits = runner._eval(feats, neighbors)
+        print(f"[midfc] eval request {r}: "
+              f"{check_midfc_outputs(f'midfc eval {r}', logits, MF_B)}")
+    torch.cuda.synchronize()
+    require_launches("midfc eval", dict(kernels.LAUNCHES),
+                     {"flash_attn_fwd": n_mha})
+    kernels.reset_launches()
+    for r, (feats, labels, neighbors) in enumerate(data):
+        loss, grads = runner._grad(feats, labels, neighbors,
+                                   runner.draw_step_seed())
+        runner._apply(grads)
+        require(bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads.values()),
+            f"midfc train {r}: loss {loss} or a gradient not finite")
+        print(f"[midfc] train step {r}: loss {float(loss):.6f}, "
+              f"{len(grads)} finite gradients")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require_launches("midfc train", launches,
+                     {"flash_attn_fwd": n_mha, "flash_attn_bwd": n_mha})
+    feats, labels, neighbors = data[0]
+    what = (f"CSA, B={MF_B}, K={MF_K}, P={MF_P}, chunks of {MF_CHUNK}, "
+            f"{MF_HEADS} heads of {MF_D}, f32")
+    time_steps("midfc eval", lambda: runner._eval(feats, neighbors), what,
+               MF_B)
+
+    def step():
+        _, grads = runner._grad(feats, labels, neighbors,
+                                runner.draw_step_seed())
+        runner._apply(grads)
+
+    time_steps("midfc train", step, what + ", dropout 0.1, Adam", MF_B)
+    if profile:
+        profile_steps("midfc train", step)
+    del runner
+    torch.cuda.empty_cache()
+
+    # one f32 B=1 step at dropout 0: kernels (GPU) vs plain (CPU)
+    feats, labels, neighbors = midfc_data(1, SEED + 7)
+    res = []
+    init = None
+    for where in (dev, "cpu"):
+        r1 = MidfcRunner(midfc_config(1, MF_CHUNK), "csa", device=where)
+        r1.initialize()
+        r1.model.attention.mha.dropout = 0.0
+        if init is None:
+            init = {k: v.cpu().clone() for k, v in r1.params.items()}
+        r1.load_state(init)
+        t0 = time.perf_counter()
+        loss, grads = r1._grad(feats, labels, neighbors, 0)
+        res.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+        print(f"[midfc] f32 B=1 step on {where}: loss {float(loss):.6f} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    (lg, gg), (lc, gc) = res
+    compare_grads("midfc", gg, gc, lg, lc)
+    return launches
+
+
+def midfc_ring_slice(dev, profile=False):
+    """Phase 7. Returns the launch counts of the train step."""
+    port = socket.socket()
+    port.bind(("localhost", 0))
+    addr = f"tcp://localhost:{port.getsockname()[1]}"
+    port.close()
+    dist.init_process_group("gloo", init_method=addr, world_size=1, rank=0)
+    try:
+        feats, labels, _ = midfc_data(MF_RING_B, SEED + 11)
+        ring = MidfcRunner(midfc_config(MF_RING_B, None), "ssa", device=dev)
+        ring.initialize()
+        # full attention through the sharded steps is a ring over the seq
+        # group, here of one rank
+        steps = make_midfc_steps(ring, 1, 1)
+        kernels.reset_launches()
+        logits = steps.eval(feats, None)
+        print(f"[ring] eval request: "
+              f"{check_midfc_outputs('ring eval', logits, MF_RING_B)}")
+        torch.cuda.synchronize()
+        require_launches("ring eval", dict(kernels.LAUNCHES),
+                         {"flash_attn_carry": 1}, n_requests=1)
+
+        plain = MidfcRunner(midfc_config(MF_RING_B, None), "ssa", device=dev)
+        plain.initialize()
+        plain.load_state(ring.params)
+        kernels.reset_launches()
+        ref = plain._eval(feats, None)
+        require_launches("ring eval, same model without the group",
+                         dict(kernels.LAUNCHES), {"flash_attn_fwd": 1},
+                         n_requests=1)
+        err = (logits - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        print(f"[ring] f32 logits, ring of one (carry kernel) vs the same "
+              f"model without the group (K2): max_abs_err {err:.3e} tol "
+              f"{TOL[torch.float32] * scale:.3e} (max|ref| {scale:.3e})")
+        require(err <= TOL[torch.float32] * scale,
+                "ring logits disagree with the unsharded model")
+        del plain, ref
+
+        kernels.reset_launches()
+        loss, grads = steps.grad(feats, labels, None, ring.draw_step_seed())
+        ring._apply(grads)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        require(bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads.values()),
+            f"ring train: loss {loss} or a gradient not finite")
+        print(f"[ring] train step: loss {float(loss):.6f}, {len(grads)} "
+              f"finite gradients")
+        require_launches("ring train", launches,
+                         {"flash_attn_carry": 1, "flash_attn_block_bwd": 1},
+                         n_requests=1)
+        what = (f"SSA, full attention, ring of one, B={MF_RING_B}, "
+                f"P={MF_P}, {MF_HEADS} heads of {MF_D}, f32")
+        time_steps("ring eval", lambda: steps.eval(feats, None), what,
+                   MF_RING_B, timed_steps=3)
+
+        def step():
+            _, grads = steps.grad(feats, labels, None, ring.draw_step_seed())
+            ring._apply(grads)
+
+        time_steps("ring train", step, what + ", dropout 0.1, Adam",
+                   MF_RING_B, timed_steps=3)
+        if profile:
+            profile_steps("ring train", step)
+        del ring, steps
+        torch.cuda.empty_cache()
+
+        # one f32 B=1 step at dropout 0: the ring's kernels (GPU) vs the
+        # plain blocked attention without a group (CPU)
+        feats, labels, _ = midfc_data(1, SEED + 13)
+        res = []
+        init = None
+        for where in (dev, "cpu"):
+            r1 = MidfcRunner(midfc_config(1, None), "ssa", device=where)
+            r1.initialize()
+            r1.model.attention.mha.dropout = 0.0
+            if init is None:
+                init = {k: v.cpu().clone() for k, v in r1.params.items()}
+            r1.load_state(init)
+            grad = make_midfc_steps(r1, 1, 1).grad if where == dev \
+                else r1._grad
+            t0 = time.perf_counter()
+            kernels.reset_launches()
+            loss, grads = grad(feats, labels, None, 0)
+            res.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+            print(f"[ring] f32 B=1 step on {where}: loss {float(loss):.6f} "
+                  f"({time.perf_counter() - t0:.1f} s), launches "
+                  f"{ {k: n for k, n in kernels.LAUNCHES.items() if n} }")
+            if where == dev:
+                require_launches(
+                    "ring B=1 step", dict(kernels.LAUNCHES),
+                    {"flash_attn_carry": 1, "flash_attn_block_bwd": 1},
+                    n_requests=1)
+            del r1
+        (lg, gg), (lc, gc) = res
+        compare_grads("ring", gg, gc, lg, lc)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
+    do_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this run needs a GPU",
               file=sys.stderr)
@@ -532,8 +1153,7 @@ def main() -> int:
     cls = load_model("HRNetSimCSN3S")
     spec = pipeline.pyramid_spec_for_model(
         cls, num_points=P, voxel_size=VOXEL, conv1_kernel_size=STEM_K,
-        level0_cap=LEVEL0_CAP, shrink=SHRINK, use_windows=False,
-        dense_stem_grid=0)
+        level0_cap=LEVEL0_CAP, shrink=SHRINK)
     print(f"[batch] level caps {spec.level_caps}, maps {spec.map_names()}")
     t0 = time.perf_counter()
     reqs = build_requests(spec, dev)
@@ -552,6 +1172,7 @@ def main() -> int:
     check_attention(qb, kb, big, dev, table, g)
     check_interp(qb, dev, table, g)
     del big
+    check_ring_kernels(dev, table, g)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -562,13 +1183,31 @@ def main() -> int:
     # 5. the train slice
     phase("5 train slice")
     launches = train_slice(cls, spec, reqs, dev, n_convs, n_stems)
+    del reqs
+    torch.cuda.empty_cache()
+
+    # 6. MID-FC, chunked attention
+    phase("6 MID-FC chunked")
+    launches_6 = midfc_chunked_slice(dev, do_profile)
+
+    # 7. MID-FC, full attention through the ring
+    phase("7 MID-FC ring")
+    launches_7 = midfc_ring_slice(dev, do_profile)
     phase("done")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": table.err[name],
-         "ms": table.ms[name], "plain_ms": table.plain_ms[name]}
-        for name, (src, rep) in KERNELS.items()]}))
+    total = {k: launches[k] + launches_6[k] + launches_7[k] for k in KERNELS}
+    for name, n in total.items():
+        require(n > 0, f"{name} was launched on no main path")
+    rows = []
+    for name, (src, rep) in KERNELS.items():
+        bound_ms, bound_by = table.bound(name)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": total[name],
+                     "max_abs_err": table.err[name], "ms": table.ms[name],
+                     "plain_ms": table.plain_ms[name], "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "library_ms": table.library_ms[name]})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,14 +3,22 @@
 The JAX package `csn_tpu` is the reference; this package mirrors its layout
 so each module's counterpart sits under the same relative path:
 
-  core/      voxel batches on the device, sparse conv, voxel -> point readout
-  ops/       attention (flash kernel and its plain version)
+  core/      host batch construction (numpy + the C++ engine, the port's own
+             copy), voxel batches on the device, sparse conv, voxel -> point
+             readout
+  data/      batch assembly for a model, seeded synthetic shapes
+  ops/       attention: the flash kernels, their per-key-block forms for
+             ring attention, and the plain versions
   models/    HRNet CSN models and the flax -> torch weight converter
-  train/     losses and the eval step
-  csrc/      the hand-written CUDA kernels (sm_90a)
+  midfc/     the MID-FC branch: CrossShapeAt heads, runner, datasets,
+             converters, launcher
+  retrieval/ the retrieval measure and the kNN graphs
+  parallel/  data-parallel x point-sharded MID-FC steps (torch.distributed)
+  train/     losses, metrics, optimizers, the HRNet eval and train steps
+  csrc/      the hand-written CUDA kernels (sm_90a) and the C++ host engine
   kernels.py the one build-and-load of those kernels
-  host.py    the way into csn_tpu's framework-neutral host code
 
+The package imports torch and numpy, never jax, and nothing of `csn_tpu`.
 Every kernel has a plain PyTorch version beside it; a wrapper takes the plain
 version only for tensors on the CPU and launches its kernel for CUDA
 tensors.

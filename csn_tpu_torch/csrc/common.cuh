@@ -57,4 +57,26 @@ __device__ __forceinline__ U4 dropout_bits(uint64_t seed, uint32_t bh,
                     (uint32_t)(seed >> 32));
 }
 
+// The dropout words of the N <= 4 consecutive key columns c0 .. c0 + N - 1 of
+// one query row, for any alignment of c0 (a ring hop's key block may start at
+// a column that is no multiple of 4): column c takes word c % 4 of group
+// c / 4, so the run touches one group, or two when it crosses a boundary.
+template <int N>
+__device__ __forceinline__ void dropout_words(uint64_t seed, uint32_t bh,
+                                              uint32_t row, uint32_t c0,
+                                              uint32_t (&w)[N]) {
+  static_assert(N >= 1 && N <= 4, "at most one group boundary");
+  const uint32_t a = c0 & 3u;
+  const U4 g0 = dropout_bits(seed, bh, row, c0 >> 2);
+  U4 g1 = g0;
+  if (a + N > 4) g1 = dropout_bits(seed, bh, row, (c0 >> 2) + 1u);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint32_t pos = a + j;
+    const U4& g = pos < 4 ? g0 : g1;
+    const uint32_t k = pos & 3u;
+    w[j] = k == 0 ? g.x : k == 1 ? g.y : k == 2 ? g.z : g.w;
+  }
+}
+
 }  // namespace csn

@@ -35,8 +35,13 @@
 // 4 x D/16 tile of the output in registers, rescaled as the max moves. No
 // [Lq, Lk] matrix reaches device memory. The TPU kernel's sequential kv grid
 // axis with VMEM scratch becomes this loop inside the block.
+//
+// Wide heads (D = 128, 256: the MID-FC heads use 256 per head) take the
+// kernel of flash_wide.cuh, which keeps only the query tile whole in shared
+// memory and walks D in chunks of 64; the D = 64 kernel below is unchanged.
 
 #include "common.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -248,7 +253,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, out: [B, H, L, D] contiguous; kv_mask [B, Lk], q_mask [B, Lq]
-// bool bytes; lse [B, H, Lq] f32. D must be 64 (dk == dv, the HRNet heads).
+// bool bytes; lse [B, H, Lq] f32. D (dk == dv) is 64 (the HRNet heads), 128
+// or 256 (the MID-FC heads).
 // use_drop != 0 applies dropout with keep threshold `thresh` (of 2^32) and
 // scale inv_keep = 1/keep, keyed by `seed`.
 extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
@@ -259,8 +265,25 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
                                   uint32_t thresh, float inv_keep,
                                   int use_drop, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
-  if (D != 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128 || D == 256) {
+#define CSN_WIDE(T, DD)                                                       \
+  return csn_wide::launch_fwd_wide<T, DD, false>(                             \
+      q, k, v, kv_mask, q_mask, out, lse, nullptr, nullptr, nullptr, nullptr, \
+      nullptr, nullptr, B, H, Lq, Lk, inv_temp, seed, thresh, inv_keep,       \
+      use_drop, 0, 0, s)
+    if (dtype == csn::kF32) {
+      if (D == 128) CSN_WIDE(float, 128);
+      CSN_WIDE(float, 256);
+    }
+    if (dtype == csn::kBF16) {
+      if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
+      CSN_WIDE(__nv_bfloat16, 256);
+    }
+#undef CSN_WIDE
+    return cudaErrorInvalidValue;
+  }
+  if (D != 64) return cudaErrorInvalidValue;
   if (dtype == csn::kF32)
     return launch<float, 64>(q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk,
                              inv_temp, seed, thresh, inv_keep, use_drop, s);

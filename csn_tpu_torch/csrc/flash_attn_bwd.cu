@@ -33,8 +33,14 @@
 //    tile and 4 queries x 4 dims of dQ.
 // dq recomputes s, p and dP that dkdv computed too: two of the seven tile
 // products are spent on not sharing dQ across blocks.
+//
+// Wide heads (D = 128, 256: the MID-FC heads use 256 per head) take the
+// kernels of flash_bwd_wide.cuh, re-tiled so that shared memory and the
+// accumulator registers stay within a block's limits; the D = 64 kernels
+// below are unchanged.
 
 #include "common.cuh"
+#include "flash_bwd_wide.cuh"
 
 namespace {
 
@@ -464,7 +470,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q, dout, dq: [B, H, Lq, D]; k, v, dk, dv: [B, H, Lk, D], all contiguous in
 // one type; lse and delta [B, H, Lq] f32; kv_mask [B, Lk] and q_mask [B, Lq]
-// bool bytes. D must be 64. Dropout arguments as csn_flash_attn_fwd's.
+// bool bytes. D is 64, 128 or 256. Dropout arguments as csn_flash_attn_fwd's.
 extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
@@ -475,8 +481,26 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                   float inv_keep, int use_drop,
                                   void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
-  if (D != 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128 || D == 256) {
+    const csn_wide_bwd::Drop wd{seed, thresh, inv_keep, use_drop, 0, 0};
+#define CSN_WIDE(T, DD)                                                    \
+  return csn_wide_bwd::launch_bwd_wide<T, T, DD>(q, k, v, dout, lse, delta, \
+                                                 kv_mask, q_mask, dq, dk,  \
+                                                 dv, B, H, Lq, Lk,         \
+                                                 inv_temp, wd, s)
+    if (dtype == csn::kF32) {
+      if (D == 128) CSN_WIDE(float, 128);
+      CSN_WIDE(float, 256);
+    }
+    if (dtype == csn::kBF16) {
+      if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
+      CSN_WIDE(__nv_bfloat16, 256);
+    }
+#undef CSN_WIDE
+    return cudaErrorInvalidValue;
+  }
+  if (D != 64) return cudaErrorInvalidValue;
   const Drop drop{seed, thresh, inv_keep, use_drop};
   if (dtype == csn::kF32)
     return launch<float, 64>(q, k, v, dout, lse, delta, kv_mask, q_mask, dq,

@@ -1,0 +1,63 @@
+// Flash attention forward over one key block with the online-softmax state
+// carried in and out: the per-hop kernel of ring attention.
+//
+// Replaces: csn_tpu/ops/flash.py flash_forward_carry (Pallas body
+// _fwd_carry_kernel), which the JAX package reaches through
+// ops/attention.py ring_flash_attention from MultiHeadAttention when the
+// point axis is sharded over a ring (the MID-FC full-attention branch).
+//
+// Computes K2's loop (flash_attn.cu) over the keys of this block, with the
+// running max m [B, H, Lq], the denominator l [B, H, Lq] and the f32
+// accumulator acc [B, H, Lq, D] read from the carry at the start and written
+// back raw at the end: no division and no lse. The caller divides once after
+// the last block (ops/flash.py flash_carry_finalize). A chain of calls over
+// disjoint key blocks equals one K2 pass over their union; a block with no
+// valid key leaves the carry untouched; the first carry is (-1e30, 0, 0).
+// The dropout mask is keyed by absolute (query row, key column): row_off and
+// col_off give this block's place in the global score matrix.
+//
+// What bounds it on the H100: as K2, 4*Lq*Lk*D flops per (batch, head)
+// against (Lq + 2*Lk)*D reads plus the carry (2*Lq*(D + 2) f32 words in and
+// out): compute-bound at the ring's shapes (Lq = Lk = 10000 / ranks,
+// D = 256), run on the CUDA cores in f32; the tensor-core form is later work.
+//
+// Design: the kernel of flash_wide.cuh with CARRY set. The TPU kernel keeps
+// the carry in VMEM scratch across its sequential kv grid axis; here the
+// accumulator lives in the registers of the block that owns the query tile
+// for the whole key loop, and touches device memory once on the way in and
+// once on the way out.
+
+#include "common.cuh"
+#include "flash_wide.cuh"
+
+// q [B, H, Lq, D], k and v [B, H, Lk, D] contiguous in one type; kv_mask
+// [B, Lk], q_mask [B, Lq] bool bytes; m, l [B, H, Lq] and acc [B, H, Lq, D]
+// f32, in and out (distinct buffers). D is 64, 128 or 256. Dropout arguments
+// as csn_flash_attn_fwd's.
+extern "C" int csn_flash_attn_carry(
+    int dtype, const void* q, const void* k, const void* v,
+    const void* kv_mask, const void* q_mask, const void* m_in,
+    const void* l_in, const void* acc_in, void* m_out, void* l_out,
+    void* acc_out, int B, int H, int Lq, int Lk, int D, float inv_temp,
+    uint64_t seed, uint32_t thresh, float inv_keep, int use_drop, int row_off,
+    int col_off, void* stream) {
+  if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CSN_CARRY(T, DD)                                                     \
+  return csn_wide::launch_fwd_wide<T, DD, true>(                             \
+      q, k, v, kv_mask, q_mask, nullptr, nullptr, m_in, l_in, acc_in, m_out, \
+      l_out, acc_out, B, H, Lq, Lk, inv_temp, seed, thresh, inv_keep,        \
+      use_drop, row_off, col_off, s)
+  if (dtype == csn::kF32) {
+    if (D == 64) CSN_CARRY(float, 64);
+    if (D == 128) CSN_CARRY(float, 128);
+    if (D == 256) CSN_CARRY(float, 256);
+  }
+  if (dtype == csn::kBF16) {
+    if (D == 64) CSN_CARRY(__nv_bfloat16, 64);
+    if (D == 128) CSN_CARRY(__nv_bfloat16, 128);
+    if (D == 256) CSN_CARRY(__nv_bfloat16, 256);
+  }
+#undef CSN_CARRY
+  return cudaErrorInvalidValue;
+}

@@ -45,7 +45,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # sparse_conv_fwd counts the forward convs and the backward d_feats convs
 # (the same kernel over the transpose map)
 LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0, "flash_attn_fwd": 0,
-            "flash_attn_bwd": 0, "interp_fwd": 0, "interp_bwd": 0}
+            "flash_attn_bwd": 0, "flash_attn_carry": 0,
+            "flash_attn_block_bwd": 0, "interp_fwd": 0, "interp_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +69,16 @@ _SIGNATURES = {
     # Lq, Lk, D, inv_temp, seed, thresh, inv_keep, use_drop, stream
     "csn_flash_attn_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _F, _U64, _U32, _F, _I, _P],
+    # dtype, q, k, v, kv_mask, q_mask, m_in, l_in, acc_in, m_out, l_out,
+    # acc_out, B, H, Lq, Lk, D, inv_temp, seed, thresh, inv_keep, use_drop,
+    # row_off, col_off, stream
+    "csn_flash_attn_carry": [_I] + [_P] * 11 + [_I] * 5 + [
+        _F, _U64, _U32, _F, _I, _I, _I, _P],
+    # dtype, q, k, v, dout, lse, delta, kv_mask, q_mask, dq (f32), dk, dv,
+    # B, H, Lq, Lk, D, inv_temp, seed, thresh, inv_keep, use_drop, row_off,
+    # col_off, stream
+    "csn_flash_attn_block_bwd": [_I] + [_P] * 11 + [_I] * 5 + [
+        _F, _U64, _U32, _F, _I, _I, _I, _P],
     # dtype, flat, idx, w, out, n_vox, n_pts, c, stream
     "csn_interp_fwd": [_I, _P, _P, _P, _P, _I64, _I64, _I, _P],
     # dtype, g, ptr, ent, w, dflat, n_vox, c, stream

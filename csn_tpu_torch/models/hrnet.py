@@ -26,8 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from csn_tpu_torch.core.pyramid import concat_batches
-from csn_tpu_torch.host import pyramid as _host_pyramid
+from csn_tpu_torch.core.pyramid import MapSpec, concat_batches
 from csn_tpu_torch.models.blocks import BasicBlock
 from csn_tpu_torch.models.layers import (
     Conv1x1, MaskedBatchNorm, SparseConv, global_avg_pool, relu_masked,
@@ -35,8 +34,6 @@ from csn_tpu_torch.models.layers import (
 from csn_tpu_torch.ops.attention import (
     MultiHeadAttention, compatibility_softmax,
 )
-
-MapSpec = _host_pyramid.MapSpec
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

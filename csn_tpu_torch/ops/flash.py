@@ -1,9 +1,11 @@
-"""Kernel K2 and its backward: masked flash attention on the H100, with
-in-kernel attention dropout.
+"""Kernel K2, its backward, and their per-key-block forms for ring
+attention: masked flash attention on the H100, with in-kernel attention
+dropout.
 
-Counterpart of `csn_tpu/ops/flash.py`, whose `_flash_forward` and
-`_flash_backward` ran the online-softmax attention and its gradient as
-Pallas TPU kernels over sequential grid axes with VMEM scratch.
+Counterpart of `csn_tpu/ops/flash.py`, whose `_flash_forward`,
+`flash_forward_carry` and `_flash_backward` ran the online-softmax attention
+and its gradient as Pallas TPU kernels over sequential grid axes with VMEM
+scratch.
 
 * Forward (`csn_tpu_torch/csrc/flash_attn.cu`): one block per (batch*head,
   64-query tile) loops over 64-key tiles, skipping query tiles with no valid
@@ -13,6 +15,19 @@ Pallas TPU kernels over sequential grid axes with VMEM scratch.
   v, dO, `lse` and `delta = rowsum(dO * O)` (plain torch, as the JAX package
   computes it in XLA), in two deterministic passes (dK/dV per key tile, dQ
   per query tile) that skip the forward's tiles.
+* Head dims 64 (the HRNet heads), 128 and 256 (the MID-FC heads, d_k = d_v =
+  256 per head). The D = 64 kernels keep whole tiles in shared memory; wide
+  heads take re-tiled kernels that walk D in chunks of 64
+  (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
+* Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
+  loop over ONE key block with the running max, denominator and f32
+  accumulator carried in and written back raw; `flash_carry_finalize`
+  divides once. A chain over disjoint key blocks equals one K2 pass over
+  their union. Its plain version is `ops.attention.online_block_update`.
+* Block backward (`csrc/flash_attn_block_bwd.cu`, `flash_block_backward`):
+  the two backward passes on one key block given the GLOBAL `lse`, `delta`
+  and `dout`; returns that block's dK, dV and its f32 term of dQ. Its plain
+  version is `block_backward_plain`.
 * Dropout: the mask is a function of (seed, batch*head, query row, key
   column) only, through the counter-based generator Philox4x32-10, written
   twice bit for bit: `philox4x32` here (torch int64 ops, the plain
@@ -21,11 +36,15 @@ Pallas TPU kernels over sequential grid axes with VMEM scratch.
   below floor(keep * 2^32). Forward, backward and the plain version drop
   the same entries whatever their tiling: the TPU kernel's `_drop_mask`
   records that a block-shaped mask with different forward and backward
-  blocks gave a biased gradient that sent training to NaN.
+  blocks gave a biased gradient that sent training to NaN. The per-block
+  forms take the block's row and column offsets in the global score matrix,
+  so a ring at any world size drops exactly the single-device mask's entries.
 
 The plain version is `csn_tpu_torch.ops.attention.scaled_dot_product_attention`
 (its backward is autograd's). `FlashAttentionFn` is the autograd Function
-over the two kernels; it takes CUDA tensors only.
+over the two kernels; it takes CUDA tensors only. The per-block wrappers
+take their plain versions for CPU tensors and launch their kernels for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -37,7 +56,8 @@ import torch
 from csn_tpu_torch import kernels
 
 NEG_INF = -1e30
-HEAD_DIM = 64  # d_model 256 / 4 heads, the HRNet CSN heads
+# 64: d_model 256 / 4 heads, the HRNet CSN heads; 256: the MID-FC heads
+HEAD_DIMS = (64, 128, 256)
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -75,21 +95,27 @@ def keep_threshold(dropout: float) -> int:
 
 
 def dropout_keep_mask(seed: int, dropout: float, shape: Tuple[int, ...],
-                      device=None, batch_offset: int = 0) -> torch.Tensor:
+                      device=None, batch_offset: int = 0,
+                      row_offset: int = 0, col_offset: int = 0
+                      ) -> torch.Tensor:
     """The attention-dropout keep mask [b, H, Lq, Lk] (bool) of batch rows
-    batch_offset .. batch_offset + b - 1: entry (b, h, r, c) is kept when
-    word c % 4 of Philox((c // 4, r, b * H + h, 0), (seed lo, seed hi)) is
-    below `keep_threshold(dropout)`."""
+    batch_offset .. batch_offset + b - 1, query rows row_offset .. and key
+    columns col_offset .. of the global score matrix: entry (b, h, r, c)
+    (absolute r, c) is kept when word c % 4 of Philox((c // 4, r, b * H + h,
+    0), (seed lo, seed hi)) is below `keep_threshold(dropout)`."""
     b, h, lq, lk = shape
-    n4 = -(-lk // 4)
+    g0 = col_offset // 4                      # first Philox group touched
+    n4 = -(-(col_offset + lk) // 4) - g0
     i64 = dict(dtype=torch.int64, device=device)
     bh = ((torch.arange(b, **i64) + batch_offset)[:, None] * h
           + torch.arange(h, **i64))[:, :, None, None]
-    rows = torch.arange(lq, **i64)[:, None]
-    col4 = torch.arange(n4, **i64)
+    rows = (torch.arange(lq, **i64) + row_offset)[:, None]
+    col4 = torch.arange(n4, **i64) + g0
     words = philox4x32((col4, rows, bh, torch.zeros((), **i64)),
                        (seed & _MASK32, (seed >> 32) & _MASK32))
-    bits = torch.stack(words, dim=-1).reshape(b, h, lq, 4 * n4)[..., :lk]
+    lo = col_offset - 4 * g0
+    bits = torch.stack(words, dim=-1).reshape(b, h, lq, 4 * n4)[
+        ..., lo:lo + lk]
     return bits < keep_threshold(dropout)
 
 
@@ -105,14 +131,16 @@ def _drop_args(dropout: float, seed: Optional[int]):
         1.0 / (1.0 - dropout), 1
 
 
-def _check_qkv(what, q, k, v):
+def _check_qkv(what, q, k, v, kernel: bool = True):
+    """Shapes and dtypes of q, k, v; with `kernel`, also that the head dim
+    is one the kernels are built for (the plain versions take any)."""
     if q.dim() != 4 or k.shape[:2] != q.shape[:2] or v.shape != k.shape \
             or k.shape[3] != q.shape[3]:
         raise ValueError(f"{what}: want q [B, H, Lq, D], k and v [B, H, Lk, "
                          f"D]; got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if q.shape[3] != HEAD_DIM:
-        raise ValueError(f"{what}: head dim {q.shape[3]} != {HEAD_DIM}")
+    if kernel and q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {q.shape[3]} not in {HEAD_DIMS}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{what}: q, k, v dtypes differ")
 
@@ -215,3 +243,151 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask,
                                          q_mask, temperature, dropout, seed)
         return dq, dk, dv, None, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# per-key-block forms (ring attention)
+# ---------------------------------------------------------------------------
+
+def flash_carry_init(b: int, h: int, lq: int, dv: int, device=None):
+    """Fresh (m, l, acc) carry of `flash_forward_carry`: the (NEG_INF, 0, 0)
+    state K2 starts from."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.full((b, h, lq), NEG_INF, **f32),
+            torch.zeros((b, h, lq), **f32),
+            torch.zeros((b, h, lq, dv), **f32))
+
+
+def flash_carry_finalize(carry):
+    """(m, l, acc) -> (out [B, H, Lq, Dv] f32, lse [B, H, Lq]), with K2's
+    finalize (denominator floored at 1e-30). Plain torch."""
+    m, l, acc = carry
+    den = l.clamp(min=1e-30)
+    return acc / den[..., None], m + torch.log(den)
+
+
+def _check_carry(what, q, carry):
+    B, H, Lq, D = q.shape
+    m, l, acc = carry
+    if m.shape != (B, H, Lq) or l.shape != (B, H, Lq) \
+            or acc.shape != (B, H, Lq, D) \
+            or not (m.dtype == l.dtype == acc.dtype == torch.float32):
+        raise ValueError(f"{what}: want an f32 carry (m, l [B, H, Lq], acc "
+                         f"[B, H, Lq, D]); got {tuple(m.shape)}, "
+                         f"{tuple(l.shape)}, {tuple(acc.shape)}")
+
+
+def flash_forward_carry(q, k, v, kv_mask, q_mask, carry, temperature: float,
+                        dropout: float = 0.0, seed: Optional[int] = None,
+                        row_offset: int = 0, col_offset: int = 0):
+    """One flash pass over THIS key block, continuing the online-softmax
+    state `carry` = (m [B, H, Lq], l [B, H, Lq], acc [B, H, Lq, D]), all f32.
+    Returns the updated carry, un-normalised (`flash_carry_finalize`).
+    `row_offset` / `col_offset` place q's rows and this block's columns in
+    the global score matrix for the dropout mask. CUDA tensors launch the
+    carry kernel; CPU tensors take `ops.attention.online_block_update`. Not
+    differentiable on its own: `RingFlashAttentionFn` wraps the whole ring."""
+    what = "flash_attn_carry"
+    _check_qkv(what, q, k, v, kernel=q.is_cuda)
+    _check_carry(what, q, carry)
+    drop = _drop_args(dropout, seed)
+    kv_mask, q_mask = _masks(what, q, k, kv_mask, q_mask)
+    if q.device.type == "cpu":
+        from csn_tpu_torch.ops.attention import online_block_update
+
+        new = online_block_update(
+            carry, (q / temperature).float(), k, v, kv_mask, dropout=dropout,
+            seed=seed, row_offset=row_offset, col_offset=col_offset)
+        # padding rows pass the carry through, as in the kernel
+        live = q_mask[:, None, :]
+        return (torch.where(live, new[0], carry[0]),
+                torch.where(live, new[1], carry[1]),
+                torch.where(live[..., None], new[2], carry[2]))
+    carry = tuple(c.contiguous() for c in carry)
+    kernels.require_cuda(what, q, k, v, kv_mask, q_mask, *carry)
+    B, H, Lq, D = q.shape
+    out = tuple(torch.empty_like(c) for c in carry)
+    code = kernels.library().csn_flash_attn_carry(
+        kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_mask.data_ptr(), q_mask.data_ptr(), *(c.data_ptr() for c in carry),
+        *(c.data_ptr() for c in out), B, H, Lq, k.shape[2], D,
+        1.0 / float(temperature), *drop, int(row_offset), int(col_offset),
+        kernels.stream())
+    kernels.check(code, what)
+    kernels.LAUNCHES[what] += 1
+    return out
+
+
+def block_backward_plain(q, k, v, kv_mask, lse, delta, g, temperature: float,
+                         dropout: float = 0.0, seed: Optional[int] = None,
+                         row_offset: int = 0, col_offset: int = 0,
+                         compute_dtype: torch.dtype = torch.float32):
+    """Plain version of the block backward: with s = (q / T) . k masked to
+    NEG_INF, p = exp(s - lse) against the GLOBAL lse, the dropout mask m:
+    dPd = m * (g . v^T) / keep, dS = p * (dPd - delta), dV = (m * p / keep)^T
+    . g, dK = dS^T . (q / T), dQ = dS . k / T, all in `compute_dtype` (f32;
+    float64 gives a reference for both f32 versions). Returns (dq in
+    `compute_dtype`, dk, dv in k's dtype)."""
+    ct = compute_dtype
+    qt = (q / temperature).to(ct)
+    kf, vf, gf = k.to(ct), v.to(ct), g.to(ct)
+    s = torch.matmul(qt, kf.transpose(-1, -2))
+    s = s.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
+    p = torch.exp(s - lse.to(ct)[..., None])
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    pn = p
+    if dropout > 0.0:
+        keep = dropout_keep_mask(seed, dropout, tuple(p.shape), p.device,
+                                 row_offset=row_offset, col_offset=col_offset)
+        scale = 1.0 / (1.0 - dropout)
+        zero = torch.zeros((), dtype=ct, device=p.device)
+        dp = torch.where(keep, dp * scale, zero)
+        pn = torch.where(keep, p * scale, zero)
+    ds = p * (dp - delta.to(ct)[..., None])
+    dv = torch.matmul(pn.transpose(-1, -2), gf)
+    dk = torch.matmul(ds.transpose(-1, -2), qt)
+    dq = torch.matmul(ds, kf) / temperature
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_block_backward(q, k, v, kv_mask, out, lse, g, temperature: float,
+                         dropout: float = 0.0, seed: Optional[int] = None,
+                         row_offset: int = 0, col_offset: int = 0,
+                         delta: Optional[torch.Tensor] = None):
+    """Backward for one key block of a ring: given the GLOBAL (out, lse, g)
+    and one key block, returns (dq term in f32, dk, dv of the block in k's
+    dtype). Summing dq over the blocks and keeping dk, dv per block is the
+    full flash backward split across the ring. `delta` = rowsum(g * out), if
+    the caller already has it (it is the same for every block). CUDA tensors
+    launch the block-backward kernel; CPU tensors take
+    `block_backward_plain`."""
+    what = "flash_attn_block_bwd"
+    _check_qkv(what, q, k, v, kernel=q.is_cuda)
+    drop = _drop_args(dropout, seed)
+    kv_mask, q_mask = _masks(what, q, k, kv_mask, None)  # every row valid
+    B, H, Lq, D = q.shape
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"{what}: g {tuple(g.shape)} {g.dtype} does not "
+                         f"match q")
+    if delta is None:
+        delta = (g.float() * out.float()).sum(dim=-1)
+    if lse.shape != (B, H, Lq) or delta.shape != (B, H, Lq) \
+            or lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError(f"{what}: want f32 lse and delta [B, H, Lq]")
+    if q.device.type == "cpu":
+        return block_backward_plain(
+            q, k, v, kv_mask, lse, delta, g, temperature, dropout, seed,
+            row_offset, col_offset)
+    g = g.contiguous()
+    kernels.require_cuda(what, q, k, v, g, lse, delta, kv_mask, q_mask)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    code = kernels.library().csn_flash_attn_block_bwd(
+        kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), kv_mask.data_ptr(),
+        q_mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
+        Lq, k.shape[2], D, 1.0 / float(temperature), *drop, int(row_offset),
+        int(col_offset), kernels.stream())
+    kernels.check(code, what)
+    kernels.LAUNCHES[what] += 1
+    return dq, dk, dv

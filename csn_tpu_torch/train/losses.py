@@ -2,7 +2,8 @@
 
 Mink branch: cross entropy ignoring label 255 at the interpolated point
 outputs; prediction = argmax over logits[..., 1:] + 1, so label 0 is never
-predicted.
+predicted. MID-FC branch: cross entropy masked to labels > 0
+(`MID-FC/ssa_training.py:82-96`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,33 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / valid.sum().clamp(min=1)
+
+
+def cross_entropy_positive_sum(logits: torch.Tensor, labels: torch.Tensor,
+                               extra_mask: Optional[torch.Tensor] = None):
+    """(sum of the per-element NLL over labels > 0 in f32, their count).
+
+    The separable form of `cross_entropy_positive_labels`: a sharded step
+    all-reduces both parts and divides once, which reproduces the
+    single-device mean however the valid labels distribute over the shards
+    (a mean of per-shard means would not)."""
+    valid = labels > 0
+    if extra_mask is not None:
+        valid = valid & extra_mask
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum(), valid.sum()
+
+
+def cross_entropy_positive_labels(logits: torch.Tensor, labels: torch.Tensor,
+                                  extra_mask: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """MID-FC masked cross entropy: only labels > 0 contribute
+    (`ssa_training.py:87-92`)."""
+    s, n = cross_entropy_positive_sum(logits, labels, extra_mask)
+    return s / n.clamp(min=1)
 
 
 def predict_nonzero(logits: torch.Tensor) -> torch.Tensor:

@@ -271,3 +271,76 @@ def test_k2_bwd_launcher_refuses_cpu_tensors():
     lse = torch.zeros(1, 1, 8)
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention_bwd(q, q, q, q, lse, lse)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_k2_wrappers_take_wide_heads_and_refuse_cpu_tensors(d):
+    """Head dims 64, 128 and 256 pass the wrappers' shape checks (forward and
+    backward) and then meet the CUDA-only refusal: a CPU tensor never
+    reaches a kernel, and nothing falls back."""
+    q = torch.zeros(2, 2, 9, d)
+    k = torch.zeros(2, 2, 11, d)
+    lse = torch.zeros(2, 2, 9)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention_bwd(q, k, k, q, lse, lse)
+    with pytest.raises(ValueError, match="masks"):
+        flash.flash_attention(q, k, k, torch.ones(2, 9, dtype=torch.bool))
+    with pytest.raises(ValueError, match="dout"):
+        flash.flash_attention_bwd(q, k, k, k, lse, lse)
+    with pytest.raises(ValueError, match="lse"):
+        flash.flash_attention_bwd(q, k, k, q, lse[..., :4], lse)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("d", [32, 96, 512])
+def test_k2_wrappers_refuse_other_head_dims(d):
+    q = torch.zeros(1, 1, 8, d)
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_attention_bwd(q, q, q, q, torch.zeros(1, 1, 8),
+                                  torch.zeros(1, 1, 8))
+    with pytest.raises(ValueError, match="q \\[B, H, Lq, D\\]"):
+        flash.flash_attention(q, q, q[..., :16])
+
+
+@pytest.mark.parametrize("impl", ["dense", "online", "auto"])
+def test_mha_any_dk_matches_flax_dense_and_online(impl):
+    """d_k = d_v = d_model per head (the MID-FC geometry, here 32 with 2
+    heads) with the plain cores `attn_impl` dense and online (blocks of 16
+    keys; 'auto' switches at dense_max_kv = 24 < 56 keys) against the flax
+    module with the same options: max abs <= 1e-5."""
+    rng = np.random.default_rng(7)
+    b, lq, lk, dm, nh = 2, 40, 56, 32, 2
+    x = rng.normal(size=(b, lq, dm)).astype(np.float32)
+    y = rng.normal(size=(b, lk, dm)).astype(np.float32)
+    kv, qm = _masks(rng, b, lq, lk)
+    kw = dict(attn_impl=impl, dense_max_kv=24, kv_block=16)
+    fm = jattn.MultiHeadAttention(n_head=nh, d_model=dm, d_k=dm, d_v=dm,
+                                  dropout=0.1, **kw)
+    variables = fm.init(jax.random.PRNGKey(0), x, y, y, kv, qm)
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    ref = np.asarray(fm.apply({"params": params}, x, y, y, kv, qm,
+                              train=False))
+    tm = attention.MultiHeadAttention(nh, dm, dm, dm, **kw)
+    tm.load_state_dict(flax_to_torch(params, {}), strict=True)
+    tm.eval()
+    with torch.no_grad():
+        got = tm(*map(torch.from_numpy, (x, y, y, kv, qm))).numpy()
+    assert np.abs(got - ref).max() <= 1e-5
+    with pytest.raises(ValueError, match="attn_impl"):
+        attention.MultiHeadAttention(nh, dm, dm, dm, attn_impl="sparse")
+
+
+def test_mha_use_flash_asks_for_the_kernels():
+    """use_flash=True goes to the kernels' wrappers whatever the device, so
+    on CPU tensors it meets K2's refusal; the default decides by device."""
+    tm = attention.MultiHeadAttention(2, 16, 64, 64, use_flash=True).eval()
+    x = torch.zeros(1, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm(x, x, x)
+    tm.use_flash = None
+    assert tm(x, x, x).shape == (1, 8, 16)

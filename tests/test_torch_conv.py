@@ -20,7 +20,7 @@ from csn_tpu.models.layers import transpose_map_name as j_transpose_map_name
 from csn_tpu_torch import kernels
 from csn_tpu_torch.core import conv, window_conv
 from csn_tpu_torch.core.pyramid import concat_batches, map_levels, to_torch
-from csn_tpu_torch.host import pipeline
+from csn_tpu_torch.data import pipeline
 from csn_tpu_torch.models import load_model
 
 torch.set_num_threads(1)

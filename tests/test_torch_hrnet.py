@@ -21,12 +21,13 @@ import torch
 
 import bench
 from csn_tpu.core.interp import interp_batch as j_interp_batch
+from csn_tpu.data import pipeline as j_pipeline
 from csn_tpu.models import load_model as j_load_model
 from csn_tpu.train.losses import cross_entropy_ignore as j_ce
 from csn_tpu.train.losses import predict_nonzero as j_pred
 from csn_tpu_torch import kernels
 from csn_tpu_torch.core.pyramid import to_torch
-from csn_tpu_torch.host import pipeline
+from csn_tpu_torch.data import pipeline
 from csn_tpu_torch.models import load_model
 from csn_tpu_torch.models.convert import flax_to_torch
 from csn_tpu_torch.train.steps import eval_step
@@ -59,14 +60,20 @@ def _randomize_norms(tree, rng):
 @pytest.fixture(scope="module", params=["HRNetSimCSN3S", "HRNetSimCSN2S"])
 def slice_pair(request):
     name = request.param
-    spec = pipeline.pyramid_spec_for_model(
-        load_model(name), num_points=400, voxel_size=0.15,
-        conv1_kernel_size=3, shrink=1.5)
-    rng = np.random.default_rng(0)
-    qh, kh = (pipeline.collate_shapes(
-        [bench.make_surface_shape(rng, 400) for _ in range(2)], spec,
-        rng=rng) for _ in range(2))
-    jq, jk = qh.to_jax(compact=False), kh.to_jax(compact=False)
+    # the batch is built twice from one seed, once by each package
+    def build(pipe, cls):
+        spec = pipe.pyramid_spec_for_model(
+            cls, num_points=400, voxel_size=0.15, conv1_kernel_size=3,
+            shrink=1.5)
+        rng = np.random.default_rng(0)
+        return [pipe.collate_shapes(
+            [bench.make_surface_shape(rng, 400) for _ in range(2)], spec,
+            rng=rng) for _ in range(2)]
+
+    qh, kh = build(pipeline, load_model(name))
+    jq, jk = (b.to_jax(compact=False)
+              for b in build(j_pipeline, j_load_model(name)))
+    rng = np.random.default_rng(7)
 
     jm = j_load_model(name)(use_flash=False, compute_dtype="float32", **CFG)
     variables = jax.jit(lambda r, b, ks: jm.init(r, b, ks, train=False))(

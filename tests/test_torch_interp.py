@@ -16,7 +16,7 @@ from csn_tpu.core import interp as jinterp
 from csn_tpu_torch import kernels
 from csn_tpu_torch.core import interp, interp_window
 from csn_tpu_torch.core.pyramid import concat_batches, interp_csr, to_torch
-from csn_tpu_torch.host import pipeline
+from csn_tpu_torch.data import pipeline
 from csn_tpu_torch.models import load_model
 
 torch.set_num_threads(1)

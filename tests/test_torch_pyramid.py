@@ -1,6 +1,8 @@
-"""Port: device batches (`csn_tpu_torch.core.pyramid`) against the JAX
-package's `to_jax(compact=False)` + `concat_jax_batches`, and the port
-running in a process where JAX cannot be imported."""
+"""Port: the batch construction (`csn_tpu_torch.core.pyramid`, its own copy
+of the JAX package's, through the C++ engine and in numpy) bit-equal to the
+JAX package's; device batches against the JAX package's `to_jax(compact=False)`
++ `concat_jax_batches`; and the port running in a process where neither JAX
+nor the JAX package can be imported."""
 
 import subprocess
 import sys
@@ -8,11 +10,17 @@ import textwrap
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 import bench
+from csn_tpu.core import native as j_native
+from csn_tpu.core import pyramid as j_pyramid
+from csn_tpu.data import pipeline as j_pipeline
+from csn_tpu_torch.core import native, pyramid
 from csn_tpu_torch.core.pyramid import concat_batches, map_levels, to_torch
-from csn_tpu_torch.host import pipeline
+from csn_tpu_torch.data import pipeline
+from csn_tpu_torch.data.synthetic import make_surface_shape
 from csn_tpu_torch.models import load_model
 
 torch.set_num_threads(1)
@@ -20,14 +28,90 @@ torch.set_num_threads(1)
 P, VOXEL, SHRINK = 400, 0.15, 1.5
 
 
-def _host_batches(n, B=2, conv1_kernel_size=5, seed=0):
-    spec = pipeline.pyramid_spec_for_model(
+def _host_batches(n, B=2, conv1_kernel_size=5, seed=0, pipe=pipeline):
+    """n batches of B seeded shapes from `pipe`: the port's pipeline, or
+    the JAX package's on the same seed."""
+    spec = pipe.pyramid_spec_for_model(
         load_model("HRNetSimCSN3S"), num_points=P, voxel_size=VOXEL,
         conv1_kernel_size=conv1_kernel_size, shrink=SHRINK)
     rng = np.random.default_rng(seed)
-    return [pipeline.collate_shapes(
+    return [pipe.collate_shapes(
         [bench.make_surface_shape(rng, P) for _ in range(B)], spec, rng=rng)
         for _ in range(n)]
+
+
+def _assert_batches_bit_equal(got, ref):
+    """Every table of the VoxelBatch: same dtype, same bits."""
+    for f in ("points", "point_feats", "labels", "point_mask", "vox_feats",
+              "interp_idx", "interp_w", "point_to_voxel"):
+        a, b = getattr(got, f), getattr(ref, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    for f in ("coords", "masks", "num_voxels"):
+        assert len(getattr(got, f)) == len(getattr(ref, f))
+        for lvl, (a, b) in enumerate(zip(getattr(got, f), getattr(ref, f))):
+            assert a.dtype == b.dtype, (f, lvl)
+            np.testing.assert_array_equal(a, b, err_msg=f"{f}[{lvl}]")
+    assert got.dropped == ref.dropped
+    assert list(got.kmaps) == list(ref.kmaps)
+    for name in ref.kmaps:
+        assert got.kmaps[name].dtype == ref.kmaps[name].dtype
+        np.testing.assert_array_equal(got.kmaps[name], ref.kmaps[name],
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("sort_points", [False, True])
+@pytest.mark.parametrize("qmode", ["RANDOM_SUBSAMPLE", "UNWEIGHTED_AVERAGE"])
+@pytest.mark.parametrize("use_native", [True, False])
+def test_batch_tables_bit_equal_to_jax_package(use_native, qmode, sort_points):
+    """The port's own `build_voxel_batch` against the JAX package's, both
+    through their own C++ engine (use_native) and both in numpy, on the same
+    shapes and the same generator: bit-equal in every table."""
+    if use_native:
+        assert native.available() and j_native.available()
+    cls = load_model("HRNetSimCSN3S")
+    kw = dict(num_points=P, voxel_size=VOXEL, conv1_kernel_size=5,
+              shrink=SHRINK, sort_points=sort_points)
+    spec = pipeline.pyramid_spec_for_model(
+        cls, qmode=pyramid.QMode[qmode], **kw)
+    j_spec = j_pipeline.pyramid_spec_for_model(
+        cls, qmode=j_pyramid.QMode[qmode], **kw)
+    assert spec.level_caps == j_spec.level_caps
+    assert spec.map_names() == j_spec.map_names()
+    rng = np.random.default_rng(5)
+    shapes = [bench.make_surface_shape(rng, n) for n in (P, P - 57, 3)]
+    got = pyramid.build_voxel_batch(shapes, spec,
+                                    rng=np.random.default_rng(1),
+                                    use_native=use_native)
+    ref = j_pyramid.build_voxel_batch(shapes, j_spec,
+                                      rng=np.random.default_rng(1),
+                                      use_native=use_native)
+    _assert_batches_bit_equal(got, ref)
+    assert sum(got.dropped) > 0 or got.masks[0].sum() > 0
+
+
+def test_pipeline_batches_bit_equal_to_jax_package():
+    for got, ref in zip(_host_batches(2, conv1_kernel_size=3),
+                        _host_batches(2, conv1_kernel_size=3,
+                                      pipe=j_pipeline)):
+        _assert_batches_bit_equal(got, ref)
+
+
+def test_port_owns_its_host_engine():
+    """The port builds its own library from its own source into its own
+    build directory, and never loads the JAX package's."""
+    assert native.available()
+    so = Path(native._SO)
+    assert so.exists() and so.parent.name == "_build"
+    assert so.parent.parent.name == "csn_tpu_torch"
+    assert Path(native._SRC).parent.parent.name == "csn_tpu_torch"
+    assert "csn_window_jobs" not in Path(native._SRC).read_text()
+    assert not hasattr(native._load(), "csn_encode_kmap16")
+    assert str(so) != str(Path(j_native._SO))
+    rng = np.random.default_rng(0)
+    for a, b in zip(make_surface_shape(rng, 300),
+                    bench.make_surface_shape(np.random.default_rng(0), 300)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_to_torch_keeps_host_tables():
@@ -48,7 +132,8 @@ def test_concat_matches_concat_jax_batches():
     from csn_tpu.core.pyramid import concat_jax_batches
 
     host = _host_batches(2)
-    ref = concat_jax_batches([b.to_jax(compact=False) for b in host])
+    ref = concat_jax_batches([b.to_jax(compact=False)
+                              for b in _host_batches(2, pipe=j_pipeline)])
     got = concat_batches([to_torch(b, "cpu") for b in host])
     assert set(got.kmaps) == set(ref.kmaps)
     for name in ref.kmaps:
@@ -87,7 +172,7 @@ def test_concat_sentinels_become_combined_sentinels():
 _NO_JAX = textwrap.dedent("""
     import importlib.abc, sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "h5py"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "h5py", "csn_tpu", "bench"}
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -100,21 +185,21 @@ _NO_JAX = textwrap.dedent("""
     import numpy as np
     import torch
 
-    import bench
     from csn_tpu_torch.core.pyramid import to_torch
-    from csn_tpu_torch.host import pipeline, pyramid
+    from csn_tpu_torch.data import pipeline
+    from csn_tpu_torch.data.synthetic import make_surface_shape
+    from csn_tpu_torch.midfc.training import MidfcConfig, MidfcRunner
     from csn_tpu_torch.models import load_model
     from csn_tpu_torch.train.steps import eval_step
 
     torch.set_num_threads(1)
-    assert pyramid.JaxVoxelBatch is None
     cls = load_model("HRNetSimCSN3S")
     spec = pipeline.pyramid_spec_for_model(
         cls, num_points=200, voxel_size=0.15, conv1_kernel_size=3,
         shrink=1.5)
     rng = np.random.default_rng(0)
     qb, kb = (to_torch(pipeline.collate_shapes(
-        [bench.make_surface_shape(rng, 200) for _ in range(2)], spec,
+        [make_surface_shape(rng, 200) for _ in range(2)], spec,
         rng=rng), "cpu") for _ in range(2))
     model = cls(out_channels=5, conv1_kernel_size=3, d_model=32, n_head=2,
                 k_neighbors=1)
@@ -122,9 +207,22 @@ _NO_JAX = textwrap.dedent("""
     model.eval()
     loss, logits, pred = eval_step(model, qb, (kb,))
     assert torch.isfinite(loss) and logits.shape == (2, 200, 5)
+
+    # a MID-FC CSA step: eval, grad, Adam
+    cfg = MidfcConfig(num_classes=5, n_heads=2, K=2, batch_size=2,
+                      d_model=16, chunk_size=20, num_points=40)
+    runner = MidfcRunner(cfg, "csa", device="cpu")
+    runner.initialize()
+    feats = rng.normal(size=(2, 40, 16)).astype(np.float32)
+    nbrs = rng.normal(size=(2, 3, 40, 16)).astype(np.float32)
+    labels = rng.integers(0, 5, size=(2, 40)).astype(np.int32)
+    assert runner._eval(feats, nbrs).shape == (2, 40, 5)
+    mf_loss, grads = runner._grad(feats, labels, nbrs, 0)
+    runner._apply(grads)
+    assert torch.isfinite(mf_loss) and float(mf_loss) > 0
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
-    print("NO_JAX_OK", float(loss))
+    print("NO_JAX_OK", float(loss), float(mf_loss))
 """)
 
 
