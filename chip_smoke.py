@@ -2,13 +2,14 @@
 each against its plain version at the main paths' shapes, then serve a few
 eval requests and take a few train steps of HRNetSimCSN3S (K=1) and of the
 MID-FC CrossShapeAt heads (CSA on 500-point chunks; SSA with full attention
-through a ring of one) at full width.
+through a ring of one) at full width, and run the HRNet trainer and the eval
+CLI's path with the sparse conv in its im2col form (CSN_DYNG=2).
 
     python3 chip_smoke.py [--profile]
 
-With --profile, phases 6 and 7 also run their train step under
-`torch.profiler` and print the device's busy share and the device time by
-kernel (the breakdown PERF.md quotes).
+With --profile, phases 6, 7 and 8 also run their train step (phase 8: also
+whole trainer iterations) under `torch.profiler` and print the device's busy
+share and the device time by kernel (the breakdown PERF.md quotes).
 
 Phases (each prints its lines; any failure exits nonzero):
   1. device: the card's name and power limit (nvidia-smi), the C++ host
@@ -19,7 +20,10 @@ Phases (each prints its lines; any failure exits nonzero):
      K1 (sparse conv) on every map and width of the model, and on every
      transpose map with the weights transposed (the backward's d_feats);
      `sparse_conv_dw` (dW) at the same convs, random asymmetric weights,
-     against `conv_bwd_plain`; K2 (flash attention) at the SSA and CSA
+     against `conv_bwd_plain`; on the same inputs `sparse_conv_im2col_fwd`
+     against `conv_im2col_plain` and K1, and `sparse_conv_im2col_bwd`
+     (d_feats and dW; dW only for the stem) against `conv_im2col_bwd_plain`
+     and K1 / `sparse_conv_dw`; K2 (flash attention) at the SSA and CSA
      shapes with masks, at dropout 0 and 0.1 (same seed as the plain
      version); `flash_attn_bwd` at dropout 0 and 0.1 against autograd of
      the plain version; K3 (voxel -> point interpolation) and `interp_bwd`
@@ -50,9 +54,25 @@ Phases (each prints its lines; any failure exits nonzero):
      `torch.distributed` group of one rank, through the `parallel/midfc.py`
      steps at B=2: one eval request and one train step on
      `flash_attn_carry` and `flash_attn_block_bwd`, the logits held against
-     the same model without the group (K2).
+     the same model without the group (K2);
+  8. the trainer, inside CSN_DYNG=2: `tasks/main_csn.build_trainer` and
+     `CSNTrainer.train()` on HRNetSimCSN3S at the protocol below (SGD, bf16)
+     over an in-memory synthetic collection (16 train, 8 val, 8 test shapes
+     of `make_surface_shape`; no h5 file), 2 epochs, MAX_PATIENCE =
+     MAX_COOLDOWN = 1: every loss finite, the first graph built from random
+     pairs, exact launch counts per train iteration (the im2col pair once
+     per conv, K1 and `sparse_conv_dw` never), ms per iteration inside
+     `train()`, the host batch build alone, the step alone on a fixed
+     batch, peak memory, the checkpoints and `config.json` on disk; then the
+     eval CLI's path on a fresh trainer: `resume()` (iteration, bests,
+     neighbour lists and every model tensor as saved), `construct_test_graph`
+     and a graph rebuild timed, `test_on` recomputed and with `cached_eval`
+     (launch counts per request, ms per shape, predictions in [1, C-1], the
+     two agreeing on >= 99.9 % of points and within 1e-3 in IoU: the cache
+     is f16); then one f32 B=2 train step under CSN_DYNG=2 on the GPU against
+     the plain step on the CPU, as in phase 5.
 The line before the last is the kernel table as JSON: per kernel, its
-launches in the train requests of phases 5, 6 and 7 (each phase sets the
+launches in the train requests of phases 5, 6, 7 and 8 (each phase sets the
 counts to 0 before and reads them after), its worst error over phase 3's
 checks, and four times summed over one train step's launches of every path
 the kernel is on (bf16 at the HRNet shapes, f32 at the MID-FC shapes):
@@ -75,10 +95,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import shutil
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,17 +110,21 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from csn_tpu_torch import kernels
+from csn_tpu_torch.config import Config
 from csn_tpu_torch.core import (
     conv, interp, interp_window, native, window_conv,
 )
 from csn_tpu_torch.core.pyramid import concat_batches, map_levels, to_torch
 from csn_tpu_torch.data import pipeline
-from csn_tpu_torch.data.synthetic import make_surface_shape
+from csn_tpu_torch.data.synthetic import (
+    SurfaceShapeDataset, make_surface_shape,
+)
 from csn_tpu_torch.midfc.training import MidfcConfig, MidfcRunner
 from csn_tpu_torch.models import blocks, hrnet, load_model
 from csn_tpu_torch.models.layers import SparseConv
 from csn_tpu_torch.ops import attention, flash
 from csn_tpu_torch.parallel.midfc import make_midfc_steps
+from csn_tpu_torch.tasks import main_csn
 from csn_tpu_torch.train import optim
 from csn_tpu_torch.train.steps import eval_step, train_step
 
@@ -126,6 +153,10 @@ KERNELS = {
                         "csn_tpu/core/window_conv.py:973"),
     "sparse_conv_dw": ("csn_tpu_torch/csrc/sparse_conv_bwd.cu",
                        "csn_tpu/core/window_conv.py:1067"),
+    "sparse_conv_im2col_fwd": ("csn_tpu_torch/csrc/sparse_conv_im2col.cu",
+                               "csn_tpu/core/window_conv.py:1021"),
+    "sparse_conv_im2col_bwd": ("csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu",
+                               "csn_tpu/core/window_conv.py:1135"),
     "flash_attn_fwd": ("csn_tpu_torch/csrc/flash_attn.cu",
                        "csn_tpu/ops/flash.py:262"),
     "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -309,9 +340,26 @@ def conv_work(kmap, n_in, cin, cout, es, out_es):
             + n_out * cout * es, 2 * nnz * cin * cout)
 
 
+def conv_bwd_work(kmap_t, n_g, cin, cout, es, input_grad):
+    """(bytes, flops) of the fused im2col backward over `kmap_t` [K, N_in]
+    from n_g gradient rows: features, gradient (once), map and f32 dW moved
+    once, and with `input_grad` the stacked weights and d_feats; two
+    operations per (valid map entry, cin, cout) for dW and two for
+    d_feats."""
+    k, n_in = kmap_t.shape
+    nnz = int((kmap_t < n_g).sum())
+    nbytes = (n_in * cin * es + n_g * cout * es + k * n_in * 4
+              + k * cin * cout * 4)
+    if input_grad:
+        nbytes += k * cin * cout * es + n_in * cin * es
+    return nbytes, 2 * nnz * cin * cout * (2 if input_grad else 1)
+
+
 def check_convs(model, big, dev, table, g):
     """K1 forward and on the transpose map, and `sparse_conv_dw`, at every
-    (map, Cin, Cout) the model runs. Returns the number of convs."""
+    (map, Cin, Cout) the model runs; on the same inputs the im2col pair
+    (`CSN_DYNG=2/3`) against its plain versions and against K1 /
+    `sparse_conv_dw`. Returns the number of convs."""
     convs = {}
     for m in model.modules():
         if isinstance(m, SparseConv):
@@ -344,7 +392,31 @@ def check_convs(model, big, dev, table, g):
                             f"{cout}->{cin} N_out={n_in}", got_df, ref_df, dt)
             table.check("sparse_conv_dw", f"{what} ({t_name}, mirror "
                         f"{mirror})", got_dw, ref_dw, dt)
-            del ref_df, ref_dw, got_df, got_dw
+            # the im2col pair on the same inputs: against its plain versions
+            # and against K1 / sparse_conv_dw (another order of the same sum)
+            fwd = "sparse_conv_im2col_fwd"
+            bwd = "sparse_conv_im2col_bwd"
+            got = window_conv.sparse_conv_im2col_fwd(f, kmap, wt)
+            table.check(fwd, what, got, conv.conv_im2col_plain(f, kmap, wt),
+                        dt)
+            table.check(fwd, f"{what} vs K1", got,
+                        window_conv.sparse_conv_fwd(f, kmap, wt), dt)
+            pl_df, pl_dw = conv.conv_im2col_bwd_plain(
+                f, gd, kmap_t, wt.float(), mirror, n_dfeats > 0)
+            im_df, im_dw = conv.conv_im2col_bwd_kernels(
+                f, gd, kmap_t, wt.float(), mirror, n_dfeats > 0)
+            btag = (f"{what} ({t_name}, mirror {mirror}, "
+                    f"dw_only {n_dfeats == 0})")
+            if n_dfeats:
+                table.check(bwd, f"{btag} d_feats", im_df, pl_df, dt)
+                table.check(bwd, f"{btag} d_feats vs K1", im_df, got_df, dt)
+            else:
+                require(im_df is None, f"{bwd} {btag}: d_feats under dw_only")
+            table.check(bwd, f"{btag} dW", im_dw, pl_dw, dt)
+            table.check(bwd, f"{btag} dW vs sparse_conv_dw", im_dw, got_dw,
+                        dt)
+            del ref_df, ref_dw, got_df, got_dw, got, pl_df, pl_dw, im_df, \
+                im_dw
             if dt != torch.bfloat16:
                 continue
             nb, fl = conv_work(kmap, n_in, cin, cout, 2, 2)
@@ -366,6 +438,24 @@ def check_convs(model, big, dev, table, g):
                        lambda: conv.conv_bwd_plain(f, gd, kmap_t, wt.float(),
                                                    mirror, False), count,
                        reps=3, nbytes=nb, flops=fl)
+            nb, fl = conv_work(kmap, n_in, cin, cout, 2, 2)
+            table.time(fwd, what,
+                       lambda: window_conv.sparse_conv_im2col_fwd(f, kmap,
+                                                                  wt),
+                       lambda: conv.conv_im2col_plain(f, kmap, wt), count,
+                       reps=3, nbytes=nb, flops=fl)
+            # stem: dW only; every other conv of the family: both gradients
+            for with_df, n in ((True, n_dfeats), (False, count - n_dfeats)):
+                if not n:
+                    continue
+                nb, fl = conv_bwd_work(kmap_t, kmap.shape[1], cin, cout, 2,
+                                       with_df)
+                table.time(bwd, f"{what} dw_only {not with_df}",
+                           lambda: conv.conv_im2col_bwd_kernels(
+                               f, gd, kmap_t, wt.float(), mirror, with_df),
+                           lambda: conv.conv_im2col_bwd_plain(
+                               f, gd, kmap_t, wt.float(), mirror, with_df),
+                           n, reps=3, nbytes=nb, flops=fl)
         torch.cuda.empty_cache()
     return sum(convs.values())
 
@@ -829,6 +919,53 @@ def eval_slice(cls, reqs, dev, n_convs):
     require(err <= 1e-3 * scale, "f32 forward: kernels disagree with plain")
 
 
+def f32_step_check(cls, spec, dev, tag, mode=None):
+    """One f32 train step at dropout 0 on B=2 shapes with the kernels on
+    the GPU (under `CSN_DYNG=mode`) against the same step with the plain
+    versions on the CPU (`CSN_DYNG` unset): loss and every gradient, the
+    CPU step taking the GPU step's ReLU decisions (`ReluDecisions`)."""
+    (qh, kh), = build_requests(spec, "cpu", n_shapes=2, n_requests=1,
+                               seed=SEED + 7)
+    init = make_model(cls, "float32", 0.0).state_dict()
+    relus = ReluDecisions()
+    res = []
+    for replay, where in enumerate((dev, "cpu")):
+        m32 = make_model(cls, "float32", 0.0)
+        m32.load_state_dict(init)
+        m32.to(where)
+        opt = optim.make_optimizer(m32.parameters(), "SGD", lr=LR)
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        with relus.active(replay=bool(replay)), \
+                window_conv.dyng(None if replay else mode):
+            loss, _ = train_step(m32, opt, qh.to(where),
+                                 tuple(k.to(where) for k in kh),
+                                 torch.Generator())
+        res.append((float(loss), {n: p.grad.detach().cpu() for n, p in
+                                  m32.named_parameters()}))
+        print(f"[{tag}] f32 B=2 step on {where} (CSN_DYNG "
+              f"{None if replay else mode}): loss {float(loss):.6f} "
+              f"({time.perf_counter() - t0:.1f} s), launches "
+              f"{ {k: n for k, n in kernels.LAUNCHES.items() if n} }")
+    (lg, gg), (lc, gc) = res
+    print(f"[{tag}] ReLU decisions of the GPU step replayed on the CPU: "
+          f"{relus.flips} of {relus.inputs} would have differed")
+    require(abs(lg - lc) <= GRAD_TOL * abs(lc),
+            f"{tag} f32 train step: loss {lg} on the GPU, {lc} on the CPU")
+    top = max(float(t.abs().max()) for t in gc.values())
+    worst = (0.0, "")
+    for name, ref in gc.items():
+        scale = top if name in VANISHING else float(ref.abs().max())
+        err = float((gg[name] - ref).abs().max())
+        require(err <= GRAD_TOL * scale,
+                f"{tag} f32 train step: gradient of {name} off by {err:.3e} "
+                f"(tol {GRAD_TOL * scale:.3e})")
+        worst = max(worst, (err / max(scale, 1e-30), name))
+    print(f"[{tag}] f32 gradients, kernels on the GPU vs plain on the CPU: "
+          f"{len(gc)} tensors, worst max_abs_err / max|ref| {worst[0]:.3e} "
+          f"({worst[1]}), tol {GRAD_TOL:.0e}; loss {lg:.6f} vs {lc:.6f}")
+
+
 def train_slice(cls, spec, reqs, dev, n_convs, n_stems):
     """Phase 5. Returns the launch counts of the 3 train requests."""
     model = make_model(cls, "bfloat16", ATTN_DROPOUT).to(dev)
@@ -850,43 +987,7 @@ def train_slice(cls, spec, reqs, dev, n_convs, n_stems):
     del model, opt
     torch.cuda.empty_cache()
 
-    # one f32 step at dropout 0 on B=2 shapes: kernels (GPU) vs plain (CPU)
-    (qh, kh), = build_requests(spec, "cpu", n_shapes=2, n_requests=1,
-                               seed=SEED + 7)
-    init = make_model(cls, "float32", 0.0).state_dict()
-    relus = ReluDecisions()
-    res = []
-    for replay, where in enumerate((dev, "cpu")):
-        m32 = make_model(cls, "float32", 0.0)
-        m32.load_state_dict(init)
-        m32.to(where)
-        opt = optim.make_optimizer(m32.parameters(), "SGD", lr=LR)
-        t0 = time.perf_counter()
-        with relus.active(replay=bool(replay)):
-            loss, _ = train_step(m32, opt, qh.to(where),
-                                 tuple(k.to(where) for k in kh),
-                                 torch.Generator())
-        res.append((float(loss), {n: p.grad.detach().cpu() for n, p in
-                                  m32.named_parameters()}))
-        print(f"[train] f32 B=2 step on {where}: loss {float(loss):.6f} "
-              f"({time.perf_counter() - t0:.1f} s)")
-    (lg, gg), (lc, gc) = res
-    print(f"[train] ReLU decisions of the GPU step replayed on the CPU: "
-          f"{relus.flips} of {relus.inputs} would have differed")
-    require(abs(lg - lc) <= GRAD_TOL * abs(lc),
-            f"f32 train step: loss {lg} on the GPU, {lc} on the CPU")
-    top = max(float(t.abs().max()) for t in gc.values())
-    worst = (0.0, "")
-    for name, ref in gc.items():
-        scale = top if name in VANISHING else float(ref.abs().max())
-        err = float((gg[name] - ref).abs().max())
-        require(err <= GRAD_TOL * scale,
-                f"f32 train step: gradient of {name} off by {err:.3e} "
-                f"(tol {GRAD_TOL * scale:.3e})")
-        worst = max(worst, (err / max(scale, 1e-30), name))
-    print(f"[train] f32 gradients, kernels on the GPU vs plain on the CPU: "
-          f"{len(gc)} tensors, worst max_abs_err / max|ref| {worst[0]:.3e} "
-          f"({worst[1]}), tol {GRAD_TOL:.0e}; loss {lg:.6f} vs {lc:.6f}")
+    f32_step_check(cls, spec, dev, "train")
     return launches
 
 
@@ -1117,6 +1218,234 @@ def midfc_ring_slice(dev, profile=False):
     return launches
 
 
+TR_TRAIN, TR_VAL, TR_TEST, TR_EPOCHS = 16, 8, 8, 2
+# the cached eval keeps its key features in f16
+CACHED_AGREE, CACHED_IOU_TOL = 0.999, 1e-3
+
+
+def trainer_config(log_dir, dev, **kw):
+    return Config(
+        model="HRNetSimCSN3S", partnet_category="Chair",
+        conv1_kernel_size=STEM_K, d_model=D_MODEL, n_head=N_HEAD,
+        k_neighbors=K_NEIGHBORS, batch_size=B, val_batch_size=B,
+        test_batch_size=B, num_points=P, level0_cap=LEVEL0_CAP,
+        level_shrink=SHRINK, compute_dtype="bfloat16", optimizer="SGD",
+        lr=LR, max_epoch=TR_EPOCHS, stat_freq=1, log_dir=log_dir,
+        seed=SEED, device=str(dev), **kw).normalized()
+
+
+def trainer_datasets():
+    """(train, val, test) in-memory collections, each from its own seed."""
+    return tuple(SurfaceShapeDataset(n, P, SEED + 31 * i) for i, n in
+                 enumerate((TR_TRAIN, TR_VAL, TR_TEST)))
+
+
+def spy_launches(obj, method, log):
+    """Wrap `obj.method` so that each call runs from zeroed launch counts
+    and appends (counts, seconds, result) to `log`."""
+    inner = getattr(obj, method)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append((dict(kernels.LAUNCHES), time.perf_counter() - t0, out))
+        return out
+
+    setattr(obj, method, wrapped)
+
+
+def trainer_slice(dev, n_convs, do_profile=False):
+    """Phase 8: `tasks/main_csn.build_trainer` + `CSNTrainer.train()` at
+    full width under CSN_DYNG=2, then the eval CLI's path on a fresh
+    trainer. Returns the launch counts summed over the train iterations."""
+    C = NUM_CLASSES
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        with window_conv.dyng(2):
+            return _trainer_slice(dev, n_convs, log_dir, C, do_profile)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def _trainer_slice(dev, n_convs, log_dir, C, do_profile):
+    train_ds, val_ds, test_ds = trainer_datasets()
+    cfg = trainer_config(log_dir, dev)
+    trainer = main_csn.build_trainer(cfg, datasets=(train_ds, val_ds))
+    trainer.MAX_PATIENCE = trainer.MAX_COOLDOWN = 1
+    trainer.patience = trainer.cooldown = 1
+    graphs, iters = [], []
+    build_graph = trainer.construct_shape_graph
+
+    def graph_spy(recalculate):
+        graphs.append(recalculate)
+        return build_graph(recalculate)
+
+    trainer.construct_shape_graph = graph_spy
+    spy_launches(trainer, "_train_iter", iters)
+    saved = {}
+    save = trainer.save_checkpoint
+
+    def save_spy(postfix=None):
+        if postfix is None:   # the file `weights.pt` links to
+            saved["host"] = trainer._host_state()
+            saved["model"] = {k: v.clone() for k, v in
+                              trainer.model.state_dict().items()}
+        return save(postfix)
+
+    trainer.save_checkpoint = save_spy
+    losses = []
+    update = trainer.losses.update
+    trainer.losses.update = lambda v, n=1: (losses.append(v), update(v, n))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    val = trainer.train()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_iters = TR_EPOCHS * (TR_TRAIN // B)
+    require(len(iters) == n_iters and len(losses) == n_iters,
+            f"trainer: {len(iters)} iterations, expected {n_iters}")
+    require(all(np.isfinite(losses)) and all(np.isfinite(val)),
+            f"trainer: losses {losses}, final validation {val}")
+    require(graphs and graphs[0] is False,
+            f"trainer: graph constructions {graphs}")
+    expect = {"sparse_conv_im2col_fwd": n_convs,
+              "sparse_conv_im2col_bwd": n_convs, "flash_attn_fwd": 2,
+              "flash_attn_bwd": 2, "interp_fwd": 1, "interp_bwd": 1}
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for counts, _, _ in iters:
+        for name, got in counts.items():
+            require(got == expect.get(name, 0),
+                    f"trainer: {name} {got} launches in a train iteration, "
+                    f"expected {expect.get(name, 0)}")
+            total[name] += got
+    print(f"[trainer] train(): {n_iters} iterations of B={B}, K={K_NEIGHBORS} "
+          f"over {TR_EPOCHS} epochs in {train_s:.1f} s with 2 validations "
+          f"and {len(graphs)} graph construction(s) {graphs}; losses "
+          f"{[round(v, 4) for v in losses]}; final validation loss "
+          f"{val[0]:.4f}, part IoU {val[2]:.2f}, shape IoU {val[3]:.2f}; "
+          f"peak memory {peak / 2 ** 30:.3f} GiB")
+    print(f"[trainer] launches per train iteration under CSN_DYNG=2: "
+          f"{ {k: n for k, n in iters[0][0].items() if n} } (K1 and "
+          f"sparse_conv_dw: 0)")
+    it_ms = [1e3 * sec for _, sec, _ in iters]
+    print(f"[trainer] ms per train iteration inside train(), host batch "
+          f"wait included: {[round(t, 1) for t in it_ms]} (the first waits "
+          f"for its batch; median of the rest "
+          f"{statistics.median(it_ms[1:]):.1f})")
+    for name in ("", "best_part_iou"):
+        path = os.path.join(log_dir, f"checkpoint_{cfg.model}{name}.pt")
+        require(os.path.isfile(path) and os.path.isfile(path + ".json"),
+                f"trainer: {path} or its sidecar missing")
+    require(os.path.isfile(os.path.join(log_dir, "config.json")),
+            "trainer: config.json missing")
+
+    # the host batch build alone, and the step alone on a batch held fixed
+    t0 = time.perf_counter()
+    qb, keys = trainer._fetch_data()
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[trainer] host batch build (query + {K_NEIGHBORS} key batch of "
+          f"{B} shapes, built in 2 threads, moved to the card): "
+          f"{build_ms:.1f} ms; the prefetch thread overlaps it with the step")
+    gen = torch.Generator().manual_seed(SEED)
+
+    def step():
+        train_step(trainer.model, trainer.optimizer, qb, keys, gen)
+
+    time_steps("trainer", step, f"B={B}, K={K_NEIGHBORS}, bf16, CSN_DYNG=2, "
+               f"batch held fixed: no host batch build", timed_steps=5)
+    if do_profile:
+        profile_steps("trainer step, CSN_DYNG=2", step)
+        # whole iterations as train() runs them: prefetch thread, batch
+        # wait, step, the predictions' copy back for the score
+        profile_steps("trainer iteration, CSN_DYNG=2", trainer._train_iter)
+        trainer._close_prefetch()
+    del qb, keys
+
+    # the eval CLI's path on a fresh trainer: resume, test graph, test_on
+    want, want_model = saved["host"], saved["model"]
+    del trainer
+    torch.cuda.empty_cache()
+    train2, val2, _ = trainer_datasets()
+    res, preds = {}, {}
+    for cached in (False, True):
+        cfg2 = trainer_config(log_dir, dev, resume=log_dir, is_train=False,
+                              cached_eval=cached)
+        ev = main_csn.build_trainer(cfg2, datasets=(train2, val2))
+        ev.initialize()
+        ev.resume()
+        if not cached:
+            got = ev._host_state()
+            for key in ("best_val_part_iou", "best_val_shape_iou",
+                        "best_val_loss", "best_val_acc",
+                        "best_val_part_iou_iter", "csn_data"):
+                require(got[key] == want[key],
+                        f"resume: {key} {got[key]} != {want[key]}")
+            require(ev.curr_iter == want["iteration"] + 1,
+                    f"resume: iteration {ev.curr_iter}")
+            for k, v in ev.model.state_dict().items():
+                require(torch.equal(v, want_model[k]),
+                        f"resume: {k} differs from the saved model")
+            print(f"[trainer] resume(): iteration {ev.curr_iter}, epoch "
+                  f"{ev.epoch}, bests, patience/cooldown and both neighbour "
+                  f"lists restored exactly; {len(want_model)} model tensors "
+                  f"bit-equal")
+            t0 = time.perf_counter()
+            ev.construct_test_graph(test_ds)
+            torch.cuda.synchronize()
+            print(f"[trainer] construct_test_graph: {TR_TEST} test x "
+                  f"{TR_TRAIN} train shapes (SSA descriptors + retrieval "
+                  f"measure) in {time.perf_counter() - t0:.2f} s")
+            t0 = time.perf_counter()
+            ev.construct_shape_graph(recalculate=True)
+            torch.cuda.synchronize()
+            print(f"[trainer] construct_shape_graph(recalculate=True): "
+                  f"{TR_TRAIN} train + {TR_VAL} val shapes in "
+                  f"{time.perf_counter() - t0:.2f} s")
+        reqs = []
+        spy_launches(ev, "_eval_forward", reqs)
+        t0 = time.perf_counter()
+        res[cached] = ev.test_on(test_ds)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        preds[cached] = torch.cat([out[2].cpu() for _, _, out in reqs])
+        want_req = {"sparse_conv_im2col_fwd": n_convs, "flash_attn_fwd": 2,
+                    "interp_fwd": 1}
+        for counts, _, _ in reqs:
+            for name, n in counts.items():
+                require(n == want_req.get(name, 0),
+                        f"test_on cached={cached}: {name} {n} launches in a "
+                        f"request, expected {want_req.get(name, 0)}")
+        fwd_ms = statistics.median(1e3 * s_ for _, s_, _ in reqs)
+        first = f", cache of {TR_TRAIN} shapes built first" if cached else ""
+        fwd = "query pass + cached keys" if cached \
+            else "combined query + key pass"
+        print(f"[trainer] test_on cached_eval={cached}: loss "
+              f"{res[cached][0]:.4f}, part IoU {res[cached][2]:.3f}, shape "
+              f"IoU {res[cached][3]:.3f}; {1e3 * sec / TR_TEST:.1f} ms per "
+              f"test shape all in ({TR_TEST} shapes, {len(reqs)} request(s)"
+              f"{first}), {fwd_ms / B:.1f} ms per shape in the request's "
+              f"forward ({fwd}); launches per request "
+              f"{ {k: n for k, n in reqs[0][0].items() if n} }")
+        p = preds[cached]
+        require(int(p.min()) >= 1 and int(p.max()) <= C - 1,
+                f"test_on cached={cached}: predictions outside [1, {C - 1}]")
+        require(all(np.isfinite(res[cached])), f"test_on: {res[cached]}")
+        del ev
+        torch.cuda.empty_cache()
+    agree = float((preds[False] == preds[True]).float().mean())
+    d_iou = max(abs(res[False][i] - res[True][i]) / 100 for i in (2, 3))
+    print(f"[trainer] cached vs recomputed test_on: predictions equal on "
+          f"{100 * agree:.3f} % of points (>= {100 * CACHED_AGREE} %), IoUs "
+          f"within {d_iou:.2e} (<= {CACHED_IOU_TOL})")
+    require(agree >= CACHED_AGREE and d_iou <= CACHED_IOU_TOL,
+            "cached and recomputed test_on disagree")
+    return total
+
+
 def main() -> int:
     do_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1125,6 +1454,9 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phases 3-7 run the K1 form whatever the caller's environment says;
+    # phase 8 sets the im2col form for its own block
+    os.environ.pop("CSN_DYNG", None)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -1193,9 +1525,15 @@ def main() -> int:
     # 7. MID-FC, full attention through the ring
     phase("7 MID-FC ring")
     launches_7 = midfc_ring_slice(dev, do_profile)
+
+    # 8. the trainer and the eval CLI's path under CSN_DYNG=2
+    phase("8 trainer")
+    launches_8 = trainer_slice(dev, n_convs, do_profile)
+    f32_step_check(cls, spec, dev, "trainer", mode=2)
     phase("done")
 
-    total = {k: launches[k] + launches_6[k] + launches_7[k] for k in KERNELS}
+    total = {k: launches[k] + launches_6[k] + launches_7[k] + launches_8[k]
+             for k in KERNELS}
     for name, n in total.items():
         require(n > 0, f"{name} was launched on no main path")
     rows = []

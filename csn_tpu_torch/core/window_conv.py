@@ -1,5 +1,6 @@
 """The sparse conv kernels on the H100: K1 (forward, and the backward's
-d_feats over the transpose map) and `sparse_conv_dw` (the weight gradient).
+d_feats over the transpose map), `sparse_conv_dw` (the weight gradient), and
+the im2col pair that `CSN_DYNG=2/3` selects.
 
 Counterpart of `csn_tpu/core/window_conv.py`, whose `window_conv_fwd` and
 `window_conv_bwd` ran the forward and the fused backward as Pallas TPU
@@ -15,13 +16,54 @@ straight from the kernel map:
   (channel tile, offset, row split), f32 partials per split summed by a
   second kernel in a fixed order. Plain version: the dW half of
   `csn_tpu_torch.core.conv.conv_bwd_plain`.
+* `sparse_conv_im2col_fwd` (`csn_tpu_torch/csrc/sparse_conv_im2col.cu`): the
+  forward as one product per output tile over the flattened axis K*Cin,
+  walked in chunks. Plain version: `csn_tpu_torch.core.conv.conv_im2col_plain`.
+* `sparse_conv_im2col_bwd` (`csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu`):
+  the fused backward, one gather of the output gradient per (row tile, chunk
+  of K*Cout) feeding d_feats and the whole dW. Plain version:
+  `csn_tpu_torch.core.conv.conv_im2col_bwd_plain`.
+
+`dyng_mode()` reads `CSN_DYNG` at call time, as the JAX package's function
+does: `0` and `1` take K1 + `sparse_conv_dw` (mode 1's per-offset row gather
+in fast memory is what K1 does on this card), `2` and `3` the im2col pair
+(mode 3 differs from 2 only in how the TPU compiler addresses its scratch).
+There is no fast-memory guard that demotes a wide map to another mode: every
+conv runs the selected kernels, or the wrapper raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
 
 from csn_tpu_torch import kernels
+
+
+def dyng_mode() -> int:
+    """The conv kernels `CSN_DYNG` selects: 0 when unset or not one of
+    "0".."3"."""
+    v = os.environ.get("CSN_DYNG", "0")
+    return int(v) if v in ("0", "1", "2", "3") else 0
+
+
+@contextlib.contextmanager
+def dyng(mode):
+    """Within: `CSN_DYNG` is `mode` (None: unset); restored on exit."""
+    saved = os.environ.get("CSN_DYNG")
+    if mode is None:
+        os.environ.pop("CSN_DYNG", None)
+    else:
+        os.environ["CSN_DYNG"] = str(mode)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("CSN_DYNG", None)
+        else:
+            os.environ["CSN_DYNG"] = saved
 
 
 def sparse_conv_fwd(feats: torch.Tensor, kmap: torch.Tensor,
@@ -100,3 +142,108 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
     kernels.check(code, what)
     kernels.LAUNCHES[what] += 1
     return out
+
+
+# the im2col kernels stage a tile's map columns in shared memory, 65 int32
+# per offset beside at most 48 KB of operand tiles, of 227 KB a block can use
+IM2COL_MAX_OFFSETS = 640
+# device memory the backward's per-split dW partials may take
+IM2COL_PART_BYTES = 512 * 2 ** 20
+IM2COL_TILE = 64
+
+
+def sparse_conv_im2col_fwd(feats: torch.Tensor, kmap: torch.Tensor,
+                           weights: torch.Tensor) -> torch.Tensor:
+    """Launch the im2col forward: feats [N_in, Cin], kmap [K, N_out] int32
+    (sentinel N_in), weights [K, Cin, Cout] of the feats' dtype ->
+    [N_out, Cout] = IC @ weights.reshape(K * Cin, Cout)."""
+    what = "sparse_conv_im2col_fwd"
+    kernels.require_cuda(what, feats, kmap, weights)
+    if feats.dim() != 2 or kmap.dim() != 2 or weights.dim() != 3:
+        raise ValueError(f"{what}: want feats [N, Cin], kmap [K, N_out], "
+                         f"weights [K, Cin, Cout]; got {tuple(feats.shape)}, "
+                         f"{tuple(kmap.shape)}, {tuple(weights.shape)}")
+    n_in, cin = feats.shape
+    n_off, n_out = kmap.shape
+    if weights.shape[:2] != (n_off, cin):
+        raise ValueError(f"{what}: weights {tuple(weights.shape)} do not fit "
+                         f"{n_off} offsets x Cin {cin}")
+    if kmap.dtype != torch.int32:
+        raise TypeError(f"{what}: kmap must be int32, got {kmap.dtype}")
+    if weights.dtype != feats.dtype:
+        raise TypeError(f"{what}: weights {weights.dtype} != feats "
+                        f"{feats.dtype}")
+    if n_off > IM2COL_MAX_OFFSETS:
+        raise ValueError(f"{what}: {n_off} offsets; the kernel stages at "
+                         f"most {IM2COL_MAX_OFFSETS}")
+    cout = weights.shape[2]
+    out = torch.empty((n_out, cout), dtype=feats.dtype, device=feats.device)
+    code = kernels.library().csn_sparse_conv_im2col_fwd(
+        kernels.dtype_code(feats), feats.data_ptr(), kmap.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), n_in, n_out, n_off, cin, cout,
+        kernels.stream())
+    kernels.check(code, what)
+    kernels.LAUNCHES[what] += 1
+    return out
+
+
+def im2col_bwd_splits(n_in: int, n_off: int, cin: int, cout: int) -> int:
+    """Row splits S of the im2col backward: about four blocks of (split x
+    tile of input channels) on each SM (a block waits on its gathers, so
+    the SM needs several to stay busy), at most one split per row tile, and
+    partials [S, Cin, K * Cout] f32 within IM2COL_PART_BYTES."""
+    bc = 16 if cin <= 16 else 64              # the kernel's channel tile
+    want = -(-4 * SMS // -(-cin // bc))
+    n_tiles = max(1, -(-n_in // IM2COL_TILE))
+    fit = IM2COL_PART_BYTES // (4 * cin * n_off * cout)
+    per_split = -(-n_tiles // max(1, min(want, n_tiles, fit)))
+    return -(-n_tiles // per_split)   # no split without a tile
+
+
+def sparse_conv_im2col_bwd(feats: torch.Tensor, g: torch.Tensor,
+                           kmap_t: torch.Tensor, wt_flat,
+                           dw_only: bool = False):
+    """Launch the fused im2col backward: feats [N_in, Cin] and g [N_g, Cout]
+    of one dtype, kmap_t [K, N_in] int32 (sentinel N_g), wt_flat
+    [K * Cout, Cin] of that dtype (the paired weights transposed and
+    stacked; None with `dw_only`) -> (d_feats [N_in, Cin] in that dtype, or
+    None with `dw_only`; dW_flat [Cin, K * Cout] f32 = feats^T @ GG)."""
+    what = "sparse_conv_im2col_bwd"
+    tensors = (feats, g, kmap_t) if dw_only else (feats, g, kmap_t, wt_flat)
+    kernels.require_cuda(what, *tensors)
+    if feats.dim() != 2 or g.dim() != 2 or kmap_t.dim() != 2 \
+            or kmap_t.shape[1] != feats.shape[0]:
+        raise ValueError(f"{what}: want feats [N_in, Cin], g [N_g, Cout], "
+                         f"kmap_t [K, N_in]; got {tuple(feats.shape)}, "
+                         f"{tuple(g.shape)}, {tuple(kmap_t.shape)}")
+    if kmap_t.dtype != torch.int32:
+        raise TypeError(f"{what}: kmap_t must be int32, got {kmap_t.dtype}")
+    if g.dtype != feats.dtype:
+        raise TypeError(f"{what}: g {g.dtype} != feats {feats.dtype}")
+    n_in, cin = feats.shape
+    n_g, cout = g.shape
+    n_off = kmap_t.shape[0]
+    if n_off > IM2COL_MAX_OFFSETS:
+        raise ValueError(f"{what}: {n_off} offsets; the kernel stages at "
+                         f"most {IM2COL_MAX_OFFSETS}")
+    d_feats = None
+    if not dw_only:
+        if wt_flat.shape != (n_off * cout, cin) or wt_flat.dtype != g.dtype:
+            raise ValueError(f"{what}: want wt_flat [{n_off * cout}, {cin}] "
+                             f"{g.dtype}; got {tuple(wt_flat.shape)} "
+                             f"{wt_flat.dtype}")
+        d_feats = torch.empty_like(feats)
+    n_split = im2col_bwd_splits(n_in, n_off, cin, cout)
+    # the blocks add into their partials, so these start at zero
+    part = torch.zeros((n_split, cin, n_off * cout), dtype=torch.float32,
+                       device=feats.device)
+    out = part[0] if n_split == 1 else torch.empty_like(part[0])
+    code = kernels.library().csn_sparse_conv_im2col_bwd(
+        kernels.dtype_code(feats), feats.data_ptr(), g.data_ptr(),
+        kmap_t.data_ptr(), 0 if dw_only else wt_flat.data_ptr(),
+        0 if dw_only else d_feats.data_ptr(), part.data_ptr(),
+        out.data_ptr(), n_in, n_g, n_off, cin, cout, n_split, int(dw_only),
+        kernels.stream())
+    kernels.check(code, what)
+    kernels.LAUNCHES[what] += 1
+    return d_feats, out

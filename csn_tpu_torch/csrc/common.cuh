@@ -1,6 +1,7 @@
 // Shared helpers for the port's CUDA kernels: activation-type conversion
-// through the bf16 intrinsics, the dtype codes the ctypes launchers take, and
-// the counter-based generator of the attention dropout.
+// through the bf16 intrinsics, the dtype codes the ctypes launchers take, the
+// fixed-order sum over split partials, and the counter-based generator of the
+// attention dropout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +22,20 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
+}
+
+// out[e] = sum_{s < n_split} part[s][e], in the order s = 0, 1, ...: the
+// second pass of the reductions that split their rows over blocks and keep
+// one f32 partial per split (no atomics, one fixed order of the sum).
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
+                  int64_t n, int n_split) {
+  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  float acc = 0.f;
+  for (int s = 0; s < n_split; ++s) acc += part[(int64_t)s * n + e];
+  out[e] = acc;
 }
 
 // Philox4x32-10 (Salmon et al., SC'11; the Random123 constants). The torch

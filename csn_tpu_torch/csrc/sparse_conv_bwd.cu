@@ -29,9 +29,9 @@
 // chunk when all are sentinels (padding rows, offsets without neighbours),
 // loads the feats rows and the gathered g rows into shared memory, and each
 // of the 256 threads accumulates a (TM/16) x 4 register tile. The block
-// stores its partial [TM, 64] tile once; a second small kernel sums the S
-// partials [S, K, Cin, Cout] in a fixed order. The caller picks S so that
-// the grid holds at least about two blocks per SM. TM is 16 for the
+// stores its partial [TM, 64] tile once; a second small kernel (common.cuh)
+// sums the S partials [S, K, Cin, Cout] in a fixed order. The caller picks S
+// so that the grid holds at least about two blocks per SM. TM is 16 for the
 // 3-channel stem (so 3 of 16 rows of the tile, not 3 of 64, are padding) and
 // 64 otherwise. The TPU kernel fused d_feats into the same pass over its
 // VMEM windows; here d_feats, an output-stationary conv, and dW, an
@@ -141,17 +141,6 @@ sparse_conv_dw_kernel(const T* __restrict__ feats, const T* __restrict__ g,
   }
 }
 
-// out[e] = sum_{s < n_split} part[s][e], in order s = 0, 1, ...
-__global__ void __launch_bounds__(THREADS)
-sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
-                  int64_t n, int n_split) {
-  const int64_t e = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= n) return;
-  float acc = 0.f;
-  for (int s = 0; s < n_split; ++s) acc += part[(int64_t)s * n + e];
-  out[e] = acc;
-}
-
 template <typename T, int TM>
 cudaError_t launch(const void* feats, const void* g, const void* kmap_t,
                    void* part, void* out, int64_t n_in, int64_t n_g,
@@ -170,9 +159,10 @@ cudaError_t launch(const void* feats, const void* g, const void* kmap_t,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   const int64_t n = (int64_t)n_off * cin * cout;
-  sum_splits_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
-                      stream>>>(static_cast<const float*>(part),
-                                static_cast<float*>(out), n, n_split);
+  csn::sum_splits_kernel<THREADS>
+      <<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+          static_cast<const float*>(part), static_cast<float*>(out), n,
+          n_split);
   return cudaGetLastError();
 }
 

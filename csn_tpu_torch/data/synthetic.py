@@ -37,3 +37,31 @@ def make_surface_shape(rng, n_points=10000):
     labels = ((coords[:, 0] > 0).astype(np.int32)
               + 2 * (coords[:, 1] > 0).astype(np.int32)) + 1
     return coords, coords.copy(), labels
+
+
+class SurfaceShapeDataset:
+    """An in-memory collection of `make_surface_shape` shapes with the
+    interface the trainers use of `PartnetDataset` (`get`, `__len__`,
+    `coords`, `labels`, `neighbors`, `num_points`): a PartNet-like split
+    that needs no h5 file. No augmentation."""
+
+    def __init__(self, n_shapes: int, num_points: int, seed: int):
+        rng = np.random.default_rng(seed)
+        shapes = [make_surface_shape(rng, num_points)
+                  for _ in range(n_shapes)]
+        self.coords = [c for c, _, _ in shapes]
+        self.labels = [l for _, _, l in shapes]
+        self.neighbors = [(i, []) for i in range(n_shapes)]
+
+    def __len__(self) -> int:
+        return len(self.coords)
+
+    @property
+    def num_points(self) -> int:
+        return max(c.shape[0] for c in self.coords)
+
+    def get(self, index: int, rng=None, augment: bool = True):
+        """(coords [P, 3], feats [P, 3], labels [P]): the features are the
+        coordinates, as in `PartnetDataset.get`."""
+        coords = np.copy(self.coords[index])
+        return coords, coords.copy(), np.copy(self.labels[index])

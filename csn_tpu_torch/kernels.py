@@ -46,7 +46,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (the same kernel over the transpose map)
 LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0, "flash_attn_fwd": 0,
             "flash_attn_bwd": 0, "flash_attn_carry": 0,
-            "flash_attn_block_bwd": 0, "interp_fwd": 0, "interp_bwd": 0}
+            "flash_attn_block_bwd": 0, "interp_fwd": 0, "interp_bwd": 0,
+            "sparse_conv_im2col_fwd": 0, "sparse_conv_im2col_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +62,13 @@ _SIGNATURES = {
     # n_split, stream
     "csn_sparse_conv_dw": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
                            _I, _P],
+    # dtype, feats, kmap, w, out, n_in, n_out, n_off, cin, cout, stream
+    "csn_sparse_conv_im2col_fwd": [_I, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
+                                   _P],
+    # dtype, feats, g, kmap_t, wt, dfeats, part, out, n_in, n_g, n_off, cin,
+    # cout, n_split, dw_only, stream
+    "csn_sparse_conv_im2col_bwd": [_I] + [_P] * 7 + [_I64, _I64] + [_I] * 5
+                                  + [_P],
     # dtype, q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk, D, inv_temp,
     # seed, thresh, inv_keep, use_drop, stream
     "csn_flash_attn_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -4,11 +4,13 @@ name -> class, for the model families ported so far."""
 from __future__ import annotations
 
 from csn_tpu_torch.models.hrnet import (
-    HRNetSimCSN2S, HRNetSimCSN3S, HRNetSimCSN4S,
+    HRNetSeg2S, HRNetSeg3S, HRNetSeg4S, HRNetSimCSN2S, HRNetSimCSN3S,
+    HRNetSimCSN4S,
 )
 
 MODELS = {cls.__name__: cls
-          for cls in (HRNetSimCSN2S, HRNetSimCSN3S, HRNetSimCSN4S)}
+          for cls in (HRNetSeg2S, HRNetSeg3S, HRNetSeg4S, HRNetSimCSN2S,
+                      HRNetSimCSN3S, HRNetSimCSN4S)}
 
 
 def load_model(name: str):

@@ -1,4 +1,5 @@
-"""Sparse HRNet backbone with the SSA/CSA cross-shape head.
+"""Sparse HRNet backbone with the plain segmentation head (HRNetSeg) and
+the SSA/CSA cross-shape head (HRNetSimCSN).
 
 Counterpart of `csn_tpu/models/hrnet.py`: multi-resolution branches on the
 voxel-pyramid levels, exchange chains of strided / transposed sparse convs,
@@ -121,6 +122,12 @@ class HRNetBase(nn.Module):
     @classmethod
     def _init_stage_dims(cls) -> int:
         return cls.INIT_DIM * cls.FEAT_FACTOR
+
+    def set_bn_momentum(self, momentum: float) -> None:
+        """The running-statistics momentum of every BatchNorm (`--bn_momentum`)."""
+        for m in self.modules():
+            if isinstance(m, MaskedBatchNorm):
+                m.momentum = momentum
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init of every parameter and running statistic."""
@@ -274,15 +281,25 @@ class HRNetSimCSN(HRNetBase):
         if return_ssa:
             return q_ssa.float()
 
-        # compatibility softmax over [self]+K
         pools = global_avg_pool(ssa, bmask).reshape(K + 1, B, d)
-        q_glob = self._unit_linear(self.linear_q, pools[0])
-        k_glob = self._unit_linear(self.linear_k, pools.transpose(0, 1))
+        return self._csa_head(q_out, qmask, q_ssa, pools.transpose(0, 1),
+                              feats[B:].reshape(K * B, L0, d), bmask[B:],
+                              generator)
+
+    def _csa_head(self, q_out, qmask, q_ssa, pools, k_out, k_mask, generator):
+        """Logits from the query's features and SSA, the pooled SSA
+        descriptors of [self]+K `pools` [B, K+1, d] f32, and the K key
+        feature batches laid out K-major, `k_out` [K*B, L0, d] with
+        `k_mask` [K*B, L0]."""
+        B, L0 = qmask.shape
+        d = self.d_model
+        K = pools.shape[1] - 1
+        # compatibility softmax over [self]+K
+        q_glob = self._unit_linear(self.linear_q, pools[:, 0])
+        k_glob = self._unit_linear(self.linear_k, pools)
         comp = compatibility_softmax(q_glob, k_glob, float(d) ** 0.5)
 
         # all K cross attentions in one batched MHA call (query replicated)
-        k_out = feats[B:].reshape(K * B, L0, d)
-        k_mask = bmask[B:]
         q_rep = q_out[None].expand(K, *q_out.shape).reshape(K * B, L0, d)
         q_rep_mask = qmask[None].expand(K, *qmask.shape).reshape(K * B, L0)
         cross = self.mha(q_rep, k_out, k_out, k_mask, q_rep_mask, generator)
@@ -293,6 +310,78 @@ class HRNetSimCSN(HRNetBase):
             "bk,kbld->bld", comp[:, 1:], cross)
         out = torch.cat([q_out, csa.to(q_out.dtype)], dim=-1)
         return self.out_head(out).float()
+
+    def cache_features(self, batch, generator=None):
+        """Per-shape cache for the cached-collection CSA evaluation: (fc
+        feats [B, L0, d] in the activation dtype, pooled SSA [B, d] f32),
+        the two per-key quantities `forward` derives from a key batch."""
+        mask = batch.masks[0]
+        feats = self._features(batch)
+        ssa = self._ssa(feats, mask, generator)
+        return feats, global_avg_pool(ssa, mask)
+
+    def csa_from_cache(self, batch, key_feats, key_pools, key_masks,
+                       generator=None):
+        """CSA forward on precomputed neighbor features: key_feats
+        [B, K, L0, d], key_pools [B, K, d] f32, key_masks [B, K, L0] bool,
+        per-query rows of a `cache_features` cache. Matches
+        `forward(batch, keys)` in eval mode, without the K key backbone
+        passes."""
+        qmask = batch.masks[0]
+        B, L0 = qmask.shape
+        K = key_feats.shape[1]
+        q_out = self._features(batch)
+        q_ssa = self._ssa(q_out, qmask, generator)
+        q_pool = global_avg_pool(q_ssa, qmask)
+        pools = torch.cat([q_pool[:, None], key_pools.float()], dim=1)
+        k_out = key_feats.to(q_out.dtype).transpose(0, 1).reshape(
+            K * B, L0, self.d_model)
+        k_mask = key_masks.transpose(0, 1).reshape(K * B, L0)
+        return self._csa_head(q_out, qmask, q_ssa, pools, k_out, k_mask,
+                              generator)
+
+
+class HRNetSeg(HRNetBase):
+    """Plain segmentation head: final transitions, then a 2-layer 1x1-conv
+    MLP whose hidden activation `fc1` [B, L0, d_model] is returned with
+    `return_fc1=True`."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        S, isd = self.NUM_STAGES, self._init_stage_dims()
+        self.final_transitions = _FinalTransitions(S, isd)
+        cat_ch = self.INIT_DIM + sum(isd * 2 ** i for i in range(S))
+        self.fc1 = Conv1x1(cat_ch, self.d_model)
+        self.fc1_norm = MaskedBatchNorm(self.d_model)
+        self.fc2 = Conv1x1(self.d_model, self.out_channels, f32=True)
+
+    def forward(self, batch, keys: Sequence = (), return_fc1: bool = False,
+                generator: Optional[torch.Generator] = None):
+        if len(keys):
+            raise ValueError("HRNetSeg takes no key batches")
+        out_init, stage_outputs = self.forward_backbone(batch)
+        out = self.final_transitions(batch, stage_outputs, out_init)
+        m0 = batch.masks[0]
+        fc1 = relu_masked(self.fc1_norm(self.fc1(out), m0), m0)
+        logits = self.fc2(fc1).float()
+        if return_fc1:
+            return logits, fc1.float()
+        return logits
+
+
+class HRNetSeg2S(HRNetSeg):
+    FEAT_FACTOR = 2
+    NUM_STAGES = 2
+
+
+class HRNetSeg3S(HRNetSeg):
+    FEAT_FACTOR = 2
+    NUM_STAGES = 3
+
+
+class HRNetSeg4S(HRNetSeg):
+    FEAT_FACTOR = 2
+    NUM_STAGES = 4
 
 
 class HRNetSimCSN2S(HRNetSimCSN):

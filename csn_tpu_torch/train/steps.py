@@ -1,6 +1,6 @@
 """The train and eval steps (counterparts of `BaseTrainer._make_grad_step`
-followed by `_make_apply_step`, and of `_make_eval_step`, in
-`csn_tpu/train/trainer.py`)."""
+followed by `_make_apply_step`, of `_make_eval_step`, and of
+`CSNTrainer._make_cached_eval_step`, in `csn_tpu/train/trainer.py`)."""
 
 from __future__ import annotations
 
@@ -25,21 +25,43 @@ def eval_step(model, qb, keys: Sequence = (), ignore_label: int = 255
     return loss, point_logits, predict_nonzero(point_logits)
 
 
-def train_step(model, optimizer: torch.optim.Optimizer, qb, keys: Sequence,
-               generator: torch.Generator, ignore_label: int = 255
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One optimisation step on query batch `qb` (+ its K key batches): the
-    forward in train mode (BatchNorm on batch statistics, attention dropout
-    drawn from the CPU `generator`), the point readout, the cross entropy
-    ignoring `ignore_label`, the backward and one `optimizer` step. Returns
-    (loss, pred [B, P]), both detached; the BatchNorm running statistics are
-    updated in place."""
+@torch.no_grad()
+def cached_eval_step(model, qb, key_feats, key_pools, key_masks,
+                     ignore_label: int = 255
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`eval_step` on precomputed neighbor features (`csa_from_cache`):
+    key_feats [B, K, L0, d], key_pools [B, K, d], key_masks [B, K, L0]."""
+    model.eval()
+    out = model.csa_from_cache(qb, key_feats, key_pools, key_masks)
+    point_logits = interp_batch(out, qb)
+    loss = cross_entropy_ignore(point_logits, qb.labels, ignore_label,
+                                qb.point_mask)
+    return loss, point_logits, predict_nonzero(point_logits)
+
+
+def grad_step(model, qb, keys: Sequence, generator: torch.Generator,
+              ignore_label: int = 255) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward in train mode (BatchNorm on batch statistics, updated in
+    place; attention dropout drawn from the CPU `generator`), the point
+    readout, the cross entropy ignoring `ignore_label`, and the backward,
+    which ADDS to the parameters' `.grad`. Returns (loss, pred [B, P]),
+    both detached."""
     model.train()
-    optimizer.zero_grad(set_to_none=True)
     out = model(qb, keys, generator=generator)
     point_logits = interp_batch(out, qb)
     loss = cross_entropy_ignore(point_logits, qb.labels, ignore_label,
                                 qb.point_mask)
     loss.backward()
-    optimizer.step()
     return loss.detach(), predict_nonzero(point_logits.detach())
+
+
+def train_step(model, optimizer: torch.optim.Optimizer, qb, keys: Sequence,
+               generator: torch.Generator, ignore_label: int = 255
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One optimisation step on query batch `qb` (+ its K key batches):
+    `grad_step` from zeroed gradients and one `optimizer` step. Returns
+    (loss, pred [B, P])."""
+    optimizer.zero_grad(set_to_none=True)
+    res = grad_step(model, qb, keys, generator, ignore_label)
+    optimizer.step()
+    return res

@@ -167,3 +167,185 @@ def test_dw_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         window_conv.sparse_conv_dw(torch.zeros(4, 3), torch.zeros(5, 8),
                                    torch.zeros(27, 4, dtype=torch.int32))
+
+
+# -- the im2col form (CSN_DYNG=2/3) -------------------------------------------
+# The JAX im2col Pallas kernels run on a TPU only, so the reference is the
+# JAX plain path (the gather form they are held to in test_window_jobs.py).
+
+IM2COL_CASES = [
+    ("same0k5", 3, 32, False), ("same0k3", 32, 64, True),
+    ("same1k3", 64, 64, True), ("down0k3", 32, 64, True),
+    ("up0k3", 64, 32, True)]
+
+
+def _conv_inputs(big, map_name, cin, cout, seed):
+    kmap = big.kmaps[map_name]
+    t_name, mirror = conv.transpose_map_name(map_name)
+    kmap_t = big.kmaps[t_name]
+    n_in = big.masks[map_levels(map_name)[0]].numel()
+    rng = np.random.default_rng(seed + sum(map_name.encode()))
+    feats = rng.normal(size=(n_in, cin)).astype(np.float32)
+    w = rng.uniform(-1, 1, size=(kmap.shape[0], cin, cout)).astype(np.float32)
+    g = rng.normal(size=(kmap.shape[1], cout)).astype(np.float32)
+    return kmap, kmap_t, mirror, feats, w, g
+
+
+def _port_conv(mode, feats, w, g, kmap, kmap_t, mirror, input_grad,
+               dtype=torch.float32):
+    tf = torch.from_numpy(feats).to(dtype).requires_grad_(input_grad)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    with window_conv.dyng(mode):
+        out = conv.sparse_conv(tf, kmap, tw, kmap_t, mirror)
+        out.backward(torch.from_numpy(g).to(dtype))
+    return (out.detach().float().numpy(), tw.grad.numpy(),
+            tf.grad.float().numpy() if input_grad else None)
+
+
+@pytest.mark.parametrize("mode", [2, 3])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("map_name,cin,cout,input_grad", IM2COL_CASES)
+def test_im2col_conv_matches_jax(big, map_name, cin, cout, input_grad, dtype,
+                                 tol, mode):
+    """Forward, dW and d_feats of the port in modes 2 and 3 against the JAX
+    `sparse_conv` and its `jax.vjp`, f32 operands on the JAX side."""
+    kmap, kmap_t, mirror, feats, w, g = _conv_inputs(big, map_name, cin,
+                                                     cout, 11)
+    if dtype == torch.bfloat16:   # both sides see the rounded operands
+        feats, g = (torch.from_numpy(x).to(dtype).float().numpy()
+                    for x in (feats, g))
+        w_ref = torch.from_numpy(w).to(dtype).float().numpy()
+    else:
+        w_ref = w
+    ref, vjp = jax.vjp(
+        lambda f, ww: j_sparse_conv(f, jnp.asarray(kmap.numpy()), ww,
+                                    kmap_t=jnp.asarray(kmap_t.numpy()),
+                                    mirror=mirror, input_grad=input_grad),
+        jnp.asarray(feats), jnp.asarray(w_ref))
+    ref_df, ref_dw = map(np.asarray, vjp(jnp.asarray(g)))
+    out, dw, df = _port_conv(mode, feats, w, g, kmap, kmap_t, mirror,
+                             input_grad, dtype)
+    for got, want in ((out, np.asarray(ref)), (dw, ref_dw)) + (
+            ((df, ref_df),) if input_grad else ()):
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= tol * np.abs(want).max()
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("map_name,cin,cout,input_grad", IM2COL_CASES)
+def test_im2col_mode_matches_mode_0(big, map_name, cin, cout, input_grad):
+    """The port's two forms of the conv agree on the same inputs."""
+    kmap, kmap_t, mirror, feats, w, g = _conv_inputs(big, map_name, cin,
+                                                     cout, 13)
+    a = _port_conv(0, feats, w, g, kmap, kmap_t, mirror, input_grad)
+    b = _port_conv(2, feats, w, g, kmap, kmap_t, mirror, input_grad)
+    for x, y in zip(a, b):
+        if x is not None:
+            _close(y, x)
+
+
+def test_im2col_unstack_order_is_pinned():
+    """dW_flat [Cin, K*Cout] unstacks as [Cin, K, Cout] -> [K, Cin, Cout];
+    reading it as [K, Cin, Cout] directly gives another tensor."""
+    cin, k, cout = 3, 5, 4
+    flat = torch.arange(cin * k * cout, dtype=torch.float32).reshape(
+        cin, k * cout)
+    got = conv.unstack_dw(flat, k)
+    assert got.shape == (k, cin, cout)
+    for kk in range(k):
+        for c in range(cin):
+            np.testing.assert_array_equal(
+                got[kk, c].numpy(),
+                flat[c, kk * cout:(kk + 1) * cout].numpy())
+    assert not torch.equal(got, flat.reshape(k, cin, cout))
+
+
+def test_im2col_stacked_weights_order_is_pinned():
+    """WT[k*Cout + d, c] = W_pair[k, c, d]."""
+    k, cin, cout = 4, 3, 5
+    w = torch.arange(k * cin * cout, dtype=torch.float32).reshape(k, cin,
+                                                                  cout)
+    wt = conv.stack_pair_transposed(w)
+    assert wt.shape == (k * cout, cin)
+    assert wt[2 * cout + 3, 1] == w[2, 1, 3]
+    assert not torch.equal(wt, w.reshape(k * cout, cin))
+
+
+def test_im2col_bwd_plain_mirror_matters(big):
+    """With asymmetric weights, the mirrored and the unmirrored pairing give
+    another d_feats and another offset order of dW."""
+    kmap = big.kmaps["same0k3"]
+    rng = np.random.default_rng(3)
+    n = kmap.shape[1]
+    feats = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(-1, 1, (27, 8, 8)).astype(np.float32))
+    right_df, right_dw = conv.conv_im2col_bwd_plain(feats, g, kmap, w, True,
+                                                    True)
+    wrong_df, wrong_dw = conv.conv_im2col_bwd_plain(feats, g, kmap, w, False,
+                                                    True)
+    assert (right_df - wrong_df).abs().max() > 0.1 * right_df.abs().max()
+    assert torch.equal(right_dw, wrong_dw.flip(0))
+    assert (right_dw - wrong_dw).abs().max() > 0.1 * right_dw.abs().max()
+    ref_df, ref_dw = conv.conv_bwd_plain(feats, g, kmap, w, True, True)
+    _close(right_df.numpy(), ref_df.numpy())
+    _close(right_dw.numpy(), ref_dw.numpy())
+
+
+def test_im2col_plain_walks_rows_in_chunks(big, monkeypatch):
+    """The plain versions give the same result whatever their row chunk."""
+    kmap, kmap_t, mirror, feats, w, g = _conv_inputs(big, "same1k3", 16, 8,
+                                                     17)
+    f, ww, gg = (torch.from_numpy(x) for x in (feats, w, g))
+    ref = conv.conv_im2col_plain(f, kmap, ww)
+    ref_b = conv.conv_im2col_bwd_plain(f, gg, kmap_t, ww, mirror, True)
+    monkeypatch.setattr(conv, "IM2COL_PLAIN_ROWS", 37)
+    _close(conv.conv_im2col_plain(f, kmap, ww).numpy(), ref.numpy())
+    got_b = conv.conv_im2col_bwd_plain(f, gg, kmap_t, ww, mirror, True)
+    _close(got_b[0].numpy(), ref_b[0].numpy())
+    _close(got_b[1].numpy(), ref_b[1].numpy())
+
+
+def test_im2col_launchers_refuse_cpu_tensors():
+    kmap = torch.zeros(27, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        window_conv.sparse_conv_im2col_fwd(torch.zeros(4, 3), kmap,
+                                           torch.zeros(27, 3, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        window_conv.sparse_conv_im2col_bwd(
+            torch.zeros(4, 3), torch.zeros(5, 8), kmap,
+            torch.zeros(27 * 8, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        window_conv.sparse_conv_im2col_bwd(
+            torch.zeros(4, 3), torch.zeros(5, 8), kmap, None, dw_only=True)
+
+
+@pytest.mark.parametrize("value", ["0", "1", "2", "3", "4", "", "junk", None])
+def test_dyng_mode_matches_jax(value, monkeypatch):
+    from csn_tpu.core.window_conv import dyng_mode as j_dyng_mode
+
+    if value is None:
+        monkeypatch.delenv("CSN_DYNG", raising=False)
+    else:
+        monkeypatch.setenv("CSN_DYNG", value)
+    assert window_conv.dyng_mode() == j_dyng_mode()
+    with window_conv.dyng(2):
+        assert window_conv.dyng_mode() == j_dyng_mode() == 2
+        with window_conv.dyng(None):
+            assert window_conv.dyng_mode() == 0
+        assert window_conv.dyng_mode() == 2
+    assert window_conv.dyng_mode() == j_dyng_mode()
+    import os
+    assert os.environ.get("CSN_DYNG") == value
+
+
+@pytest.mark.parametrize("n_in,k,cin,cout,want", [
+    (90112, 27, 64, 64, 470), (90112, 125, 3, 32, 470),
+    (10240, 27, 256, 256, 54), (30208, 27, 128, 128, 236),
+    (500, 27, 64, 64, 8)])
+def test_im2col_bwd_splits_bounded(n_in, k, cin, cout, want):
+    s = window_conv.im2col_bwd_splits(n_in, k, cin, cout)
+    assert s == want
+    assert s <= -(-n_in // window_conv.IM2COL_TILE)
+    assert s * cin * k * cout * 4 <= window_conv.IM2COL_PART_BYTES or s == 1

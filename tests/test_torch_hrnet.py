@@ -141,3 +141,120 @@ def test_eval_step_matches_jax(slice_pair):
     agree = (pred.numpy() == ref["pred"])[point_mask].mean()
     assert agree >= 0.999, agree
     assert all(n == 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+
+# -- HRNetSeg and the cached-collection methods --------------------------------
+
+def _build_batches(pipe, cls, n_batches, seed=3):
+    spec = pipe.pyramid_spec_for_model(
+        cls, num_points=300, voxel_size=0.15, conv1_kernel_size=3,
+        shrink=1.5)
+    rng = np.random.default_rng(seed)
+    return [pipe.collate_shapes(
+        [bench.make_surface_shape(rng, 300) for _ in range(2)], spec,
+        rng=rng) for _ in range(n_batches)]
+
+
+def test_hrnet_seg_logits_match_jax():
+    """HRNetSeg3S: logits and the fc1 features against the JAX model with
+    converted weights; f32, max abs <= 1e-4 * max|ref|."""
+    name = "HRNetSeg3S"
+    kw = dict(out_channels=5, conv1_kernel_size=3, d_model=32)
+    (qh,) = _build_batches(pipeline, load_model(name), 1)
+    (jq,) = (b.to_jax(compact=False)
+             for b in _build_batches(j_pipeline, j_load_model(name), 1))
+    jm = j_load_model(name)(compute_dtype="float32", **kw)
+    variables = jax.jit(lambda r, b: jm.init(r, b, train=False))(
+        jax.random.PRNGKey(0), jq)
+    rng = np.random.default_rng(5)
+    params = _randomize_norms(jax.tree_util.tree_map(
+        np.asarray, variables["params"]), rng)
+    stats = _randomize_norms(jax.tree_util.tree_map(
+        np.asarray, variables["batch_stats"]), rng)
+    ref, ref_fc1 = map(np.asarray, jax.jit(
+        lambda v, b: jm.apply(v, b, train=False, return_fc1=True))(
+        {"params": params, "batch_stats": stats}, jq))
+    tm = load_model(name)(**kw)
+    tm.load_state_dict(flax_to_torch(params, stats), strict=True)
+    tm.eval()
+    with torch.no_grad():
+        got, fc1 = tm(to_torch(qh, "cpu"), return_fc1=True)
+    assert np.abs(ref).max() > 1e-2
+    assert _max_abs(got.numpy(), ref) <= 1e-4 * np.abs(ref).max()
+    assert _max_abs(fc1.numpy(), ref_fc1) <= 1e-4 * np.abs(ref_fc1).max()
+    with pytest.raises(ValueError, match="key"):
+        tm(to_torch(qh, "cpu"), (to_torch(qh, "cpu"),))
+
+
+@pytest.fixture(scope="module", params=[1, 2], ids=["K1", "K2"])
+def cache_pair(request):
+    """HRNetSimCSN2S with K key batches: the JAX forward, `cache_features`
+    and `csa_from_cache`, and the port's model with the converted weights."""
+    K, name = request.param, "HRNetSimCSN2S"
+    kw = dict(CFG, k_neighbors=K)
+    hosts = _build_batches(pipeline, load_model(name), K + 1)
+    jq, *jks = (b.to_jax(compact=False) for b in
+                _build_batches(j_pipeline, j_load_model(name), K + 1))
+    jks = tuple(jks)
+    jm = j_load_model(name)(use_flash=False, compute_dtype="float32", **kw)
+    variables = jax.jit(lambda r, b, ks: jm.init(r, b, ks, train=False))(
+        jax.random.PRNGKey(0), jq, jks)
+    rng = np.random.default_rng(9)
+    params = _randomize_norms(jax.tree_util.tree_map(
+        np.asarray, variables["params"]), rng)
+    stats = _randomize_norms(jax.tree_util.tree_map(
+        np.asarray, variables["batch_stats"]), rng)
+    v = {"params": params, "batch_stats": stats}
+    ref = {"logits": np.asarray(jax.jit(
+        lambda v, b, ks: jm.apply(v, b, ks, train=False))(v, jq, jks))}
+    cache = [jax.jit(lambda v, b: jm.apply(v, b, method="cache_features"))(
+        v, kb) for kb in jks]
+    ref["feats"] = np.stack([np.asarray(c[0]) for c in cache], axis=1)
+    ref["pools"] = np.stack([np.asarray(c[1]) for c in cache], axis=1)
+    ref["masks"] = np.stack([np.asarray(kb.masks[0]) for kb in jks], axis=1)
+    ref["cached"] = np.asarray(jax.jit(lambda v, b, f, p, m: jm.apply(
+        v, b, f, p, m, method="csa_from_cache"))(
+        v, jq, ref["feats"], ref["pools"], ref["masks"]))
+    tm = load_model(name)(**kw)
+    tm.load_state_dict(flax_to_torch(params, stats), strict=True)
+    tm.eval()
+    qb, *kbs = (to_torch(h, "cpu") for h in hosts)
+    return tm, qb, tuple(kbs), ref
+
+
+def test_cache_features_match_jax(cache_pair):
+    tm, _, kbs, ref = cache_pair
+    with torch.no_grad():
+        cache = [tm.cache_features(kb) for kb in kbs]
+    feats = torch.stack([c[0] for c in cache], dim=1).numpy()
+    pools = torch.stack([c[1] for c in cache], dim=1)
+    assert pools.dtype == torch.float32
+    assert _max_abs(feats, ref["feats"]) <= 1e-4 * np.abs(ref["feats"]).max()
+    assert _max_abs(pools.numpy(), ref["pools"]) <= 1e-4 * np.abs(
+        ref["pools"]).max()
+    # padded voxel rows of the cached features are zero
+    assert np.all(feats[~ref["masks"]] == 0)
+
+
+def test_csa_from_cache_matches_jax_and_forward(cache_pair):
+    tm, qb, kbs, ref = cache_pair
+    with torch.no_grad():
+        full = tm(qb, kbs).numpy()
+        cache = [tm.cache_features(kb) for kb in kbs]
+        got = tm.csa_from_cache(
+            qb, torch.stack([c[0] for c in cache], dim=1),
+            torch.stack([c[1] for c in cache], dim=1),
+            torch.stack([kb.masks[0] for kb in kbs], dim=1)).numpy()
+        # and from the JAX package's cache, as a host cache would hand it over
+        from_jax = tm.csa_from_cache(
+            qb, torch.from_numpy(ref["feats"]), torch.from_numpy(ref["pools"]),
+            torch.from_numpy(ref["masks"])).numpy()
+    scale = np.abs(ref["logits"]).max()
+    assert scale > 1e-2
+    assert _max_abs(ref["cached"], ref["logits"]) <= 1e-4 * scale
+    assert _max_abs(full, ref["logits"]) <= 1e-4 * scale
+    assert _max_abs(got, ref["cached"]) <= 1e-4 * scale
+    # eval-mode BatchNorm: the query's rows do not depend on the key shapes
+    # sharing its pass, so the cached form equals the combined pass
+    assert _max_abs(got, full) <= 1e-5 * scale
+    assert _max_abs(from_jax, ref["cached"]) <= 1e-4 * scale

@@ -220,9 +220,30 @@ _NO_JAX = textwrap.dedent("""
     mf_loss, grads = runner._grad(feats, labels, nbrs, 0)
     runner._apply(grads)
     assert torch.isfinite(mf_loss) and float(mf_loss) > 0
+
+    # one trainer epoch on an in-memory collection (h5py is blocked too),
+    # with the im2col form of the sparse conv
+    import tempfile
+    from csn_tpu_torch.config import Config
+    from csn_tpu_torch.core import window_conv
+    from csn_tpu_torch.data.synthetic import SurfaceShapeDataset
+    from csn_tpu_torch.tasks.main_csn import build_trainer
+
+    with tempfile.TemporaryDirectory() as log_dir, window_conv.dyng(2):
+        # Bottle: 9 classes, above the synthetic shapes' labels 1..4
+        tcfg = Config(model="HRNetSimCSN2S", partnet_category="Bottle",
+                      batch_size=2, val_batch_size=2, test_batch_size=2,
+                      conv1_kernel_size=3, d_model=16, n_head=2,
+                      k_neighbors=1, max_epoch=1, num_points=64,
+                      level_shrink=1.5, dataset="PartnetVoxelization0_2Dataset",
+                      log_dir=log_dir, device="cpu").normalized()
+        trainer = build_trainer(tcfg, datasets=(
+            SurfaceShapeDataset(4, 64, 0), SurfaceShapeDataset(2, 64, 1)))
+        val = trainer.train()
+        assert trainer.curr_iter == 3 and all(np.isfinite(val)), val
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
-    print("NO_JAX_OK", float(loss), float(mf_loss))
+    print("NO_JAX_OK", float(loss), float(mf_loss), val[0])
 """)
 
 

@@ -31,8 +31,13 @@ step's largest gradient; parameters after each step and BatchNorm running
 statistics max abs <= 1e-5 * max(1, max|ref|) per tensor; predictions equal
 on >= 99.9 % of valid points. Also: a dropout-0.1 step is finite and
 fixed by its generator; `MaskedBatchNorm` train statistics, the LR
-schedules and both optimizers against the JAX package.
+schedules and both optimizers against the JAX package. The port's steps run
+twice, with the sparse conv in its K1 form and in its im2col form
+(`CSN_DYNG=2`: `conv_im2col_plain` / `conv_im2col_bwd_plain` on the CPU),
+against the same JAX steps and within the same tolerances.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +59,7 @@ from csn_tpu.train import optim as joptim
 from csn_tpu.train.losses import cross_entropy_ignore as j_ce
 from csn_tpu.train.losses import predict_nonzero as j_pred
 from csn_tpu_torch import kernels
+from csn_tpu_torch.core import window_conv
 from csn_tpu_torch.core.pyramid import to_torch
 from csn_tpu_torch.data import pipeline
 from csn_tpu_torch.models import load_model
@@ -119,8 +125,9 @@ class _JaxRelus:
         return torch.where(keep, x, torch.zeros((), dtype=x.dtype))
 
 
-@pytest.fixture(scope="module")
-def train_pair():
+@functools.lru_cache(maxsize=None)
+def _jax_steps():
+    """The JAX package's STEPS steps: (ref, keeps, relus, init, qh, kh)."""
     # the batch is built twice from one seed, once by each package
     def build(pipe, cls):
         spec = pipe.pyramid_spec_for_model(
@@ -181,7 +188,20 @@ def train_pair():
                             pred=np.asarray(pred)))
             keeps.append([np.array(k) for k in kp])
     relus.traced.clear()
+    return ref, keeps, relus, init, qh, kh
 
+
+@pytest.fixture(scope="module", params=[None, 2], ids=["dyng0", "dyng2"])
+def train_pair(request):
+    """The port's steps beside the JAX package's, with the port's sparse
+    conv in its K1 form (CSN_DYNG unset) and in its im2col form
+    (CSN_DYNG=2)."""
+    ref, keeps, relus, init, qh, kh = _jax_steps()
+    with window_conv.dyng(request.param):
+        return _port_steps(ref, keeps, relus, init, qh, kh)
+
+
+def _port_steps(ref, keeps, relus, init, qh, kh):
     tm = load_model(NAME)(attn_dropout=0.0, **CFG)
     tm.load_state_dict(flax_to_torch(*init), strict=True)
     topt = optim.make_optimizer(tm.parameters(), "SGD", lr=LR)
