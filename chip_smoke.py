@@ -2,8 +2,10 @@
 each against its plain version at the main paths' shapes, then serve a few
 eval requests and take a few train steps of HRNetSimCSN3S (K=1) and of the
 MID-FC CrossShapeAt heads (CSA on 500-point chunks; SSA with full attention
-through a ring of one) at full width, and run the HRNet trainer and the eval
-CLI's path with the sparse conv in its im2col form (CSN_DYNG=2).
+through a ring of one) at full width, run the HRNet trainer and the eval
+CLI's path with the sparse conv in its im2col form (CSN_DYNG=2), then the
+Res16UNet34C trainer, a ResUNet14 and a ResNet14 forward, the feature
+extraction -> SSA -> kNN -> CSA -> `get_csa_pred` chain and the probes.
 
     python3 chip_smoke.py [--profile]
 
@@ -32,7 +34,15 @@ Phases (each prints its lines; any failure exits nonzero):
      of 2500 at [2, 8, 10000, 256] against `online_block_update` chained the
      same way and against one K2 pass over all 10000 keys, and
      `flash_attn_block_bwd` summed over the 4 blocks against one
-     `flash_attn_bwd` call;
+     `flash_attn_bwd` call; the four conv kernels again on every (map, Cin,
+     Cout) of Res16UNet34C (8-offset k2 maps, five levels, widths 96, 192,
+     384; timed, B=8) and of ResUNet14 and ResNet14 (1-offset k1 maps, six
+     levels, widths up to 768; checked only, B=2); the probe kernels:
+     `probe_window_gather` in f32 and bf16, both layouts, W = 384 and 256,
+     matched and unmatched, with a row id outside the window;
+     `probe_gather_accum` in its three modes against the plain version and
+     against each other, bf16 and f32 windows, with row ids outside the
+     window; `probe_slot_load` in every variant;
   4. eval slice: 3 eval requests (query batch + 1 key batch each) through
      `eval_step`, launch counts per kernel, ms/step, shapes/s, peak memory,
      and the f32 forward with kernels against the plain forward on the CPU;
@@ -70,19 +80,41 @@ Phases (each prints its lines; any failure exits nonzero):
      (launch counts per request, ms per shape, predictions in [1, C-1], the
      two agreeing on >= 99.9 % of points and within 1e-3 in IoU: the cache
      is f16); then one f32 B=2 train step under CSN_DYNG=2 on the GPU against
-     the plain step on the CPU, as in phase 5.
+     the plain step on the CPU, as in phase 5;
+  9. the other model families and the MID-FC chain: `tasks/main_seg.
+     build_trainer` with `--model Res16UNet34C` (bf16, B=8, the protocol
+     below with five levels) and `SegTrainer.train()` for 2 epochs on the
+     in-memory collection, exact launch counts per iteration (55 convs: K1
+     109 times, `sparse_conv_dw` 55), one more validation through `test_on`,
+     ms per train step and eval request in both conv forms, one f32 B=2 step
+     against the CPU in both conv forms; a ResUNet14 and a ResNet14 f32
+     forward (B=2) against the plain forward on the CPU; then an HRNetSeg3S
+     trainer (1 epoch), `extract_split` of its train and test collections
+     into a temporary directory, `midfc.run_training` `ssa`, `save_knn` and
+     `csa` on those files (8 heads of 256, K=1, 10000 points in 500-point
+     chunks, `--testing`: one batch per epoch), `get_csa_pred` on the result
+     (f32 through the flash kernels, held to its own `--device cpu` run) and
+     the launcher's `pred` mode; last the probes' own entry points
+     (`probes.dyngather`, `dyngather2`, `iw_bwd` `main()`), which print the
+     `timing onehot|smem|global` lines.
 The line before the last is the kernel table as JSON: per kernel, its
-launches in the train requests of phases 5, 6, 7 and 8 (each phase sets the
-counts to 0 before and reads them after), its worst error over phase 3's
-checks, and four times summed over one train step's launches of every path
-the kernel is on (bf16 at the HRNet shapes, f32 at the MID-FC shapes):
+launches in the train requests of phases 5, 6, 7, 8 and 9 (each phase sets
+the counts to 0 before and reads them after; phase 9 counts the Res16UNet34C
+train iterations, the chain and the probes' entry points), its worst error
+over phase 3's checks, and four times summed over one train step's launches
+of every path the kernel is on (bf16 at the HRNet and Res16UNet34C shapes,
+f32 at the MID-FC shapes; the probe kernels: one call of
+`probe_window_gather` at [384, 128] f32, the three modes of
+`probe_gather_accum` with the bf16 window at 352 tiles x 9 offsets, the seven
+variants of `probe_slot_load`):
 the kernel's and the plain version's median ms, `bound_ms`, the least time
 the card could take (the larger of bytes / 3.35 TB/s and operations / the
 peak of the input type: 989 TFLOP/s bf16, 67 TFLOP/s f32, counting valid
 rows and keys only), and `library_ms`, the time of the one PyTorch call
 that computes the same function (`F.scaled_dot_product_attention` for the
 attention kernels, timed here and used nowhere in the port; null where
-there is no such call). The last line is {"ok": true, "device": {...}}.
+there is no such call; `index_select` and `embedding_bag` for the two gather
+probes). The last line is {"ok": true, "device": {...}}.
 
 Protocol (the JAX package's bench.py): B=8 query shapes of 10000 points,
 voxel 0.05, level-0 cap 5632, level caps shrinking 3x, k5 stem, d_model 256,
@@ -119,12 +151,18 @@ from csn_tpu_torch.data import pipeline
 from csn_tpu_torch.data.synthetic import (
     SurfaceShapeDataset, make_surface_shape,
 )
-from csn_tpu_torch.midfc.training import MidfcConfig, MidfcRunner
-from csn_tpu_torch.models import blocks, hrnet, load_model
+from csn_tpu_torch.midfc import extraction, get_csa_pred, run_training
+from csn_tpu_torch.midfc.training import (
+    CHECKPOINT_NAME, MidfcConfig, MidfcRunner,
+)
+from csn_tpu_torch.models import (
+    blocks, hrnet, load_model, res16unet, resnet, resunet,
+)
 from csn_tpu_torch.models.layers import SparseConv
 from csn_tpu_torch.ops import attention, flash
 from csn_tpu_torch.parallel.midfc import make_midfc_steps
-from csn_tpu_torch.tasks import main_csn
+from csn_tpu_torch.probes import dyngather, dyngather2, iw_bwd
+from csn_tpu_torch.tasks import main_csn, main_seg
 from csn_tpu_torch.train import optim
 from csn_tpu_torch.train.steps import eval_step, train_step
 
@@ -169,6 +207,12 @@ KERNELS = {
                    "csn_tpu/core/interp_window.py:288"),
     "interp_bwd": ("csn_tpu_torch/csrc/interp_bwd.cu",
                    "csn_tpu/core/interp_window.py:322"),
+    "probe_window_gather": ("csn_tpu_torch/csrc/probe_gather.cu",
+                            "scripts/probe_dyngather.py:37"),
+    "probe_gather_accum": ("csn_tpu_torch/csrc/probe_gather.cu",
+                           "scripts/probe_dyngather.py:109"),
+    "probe_slot_load": ("csn_tpu_torch/csrc/probe_slots.cu",
+                        "scripts/probe_iw_bwd.py:52"),
 }
 
 
@@ -207,7 +251,7 @@ def build_requests(spec, dev, n_shapes=B, n_requests=N_REQUESTS, seed=SEED):
             [make_surface_shape(rng, P) for _ in range(n_shapes)],
             spec, rng=rng) for _ in range(K_NEIGHBORS + 1))
         reqs.append((qb, kb))
-    if reqs[0][0].dropped[1] or reqs[0][0].dropped[2]:
+    if any(reqs[0][0].dropped[1:]):
         print(f"[batch] voxels dropped by the level caps in request 0's "
               f"query batch: {reqs[0][0].dropped}")
     return [(to_torch(q, dev), (to_torch(k, dev),)) for q, k in reqs]
@@ -250,18 +294,24 @@ class ReluDecisions:
         replays (replay True) the decisions."""
         self._next = 0
         fn = self._replay if replay else self._record
-        saved = blocks.relu_masked, hrnet.relu_masked
-        blocks.relu_masked = hrnet.relu_masked = fn
+        mods = (blocks, hrnet, res16unet, resunet, resnet)
+        saved = [m.relu_masked for m in mods]
+        for m in mods:
+            m.relu_masked = fn
         try:
             yield
         finally:
-            blocks.relu_masked, hrnet.relu_masked = saved
+            for m, f in zip(mods, saved):
+                m.relu_masked = f
 
 
 def make_model(cls, dtype: str, attn_dropout: float):
+    kw = {}
+    if issubclass(cls, hrnet.HRNetSimCSN):
+        kw = dict(d_model=D_MODEL, n_head=N_HEAD, k_neighbors=K_NEIGHBORS,
+                  attn_dropout=attn_dropout)
     model = cls(out_channels=NUM_CLASSES, conv1_kernel_size=STEM_K,
-                d_model=D_MODEL, n_head=N_HEAD, k_neighbors=K_NEIGHBORS,
-                compute_dtype=dtype, attn_dropout=attn_dropout)
+                compute_dtype=dtype, **kw)
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     return model
 
@@ -355,11 +405,12 @@ def conv_bwd_work(kmap_t, n_g, cin, cout, es, input_grad):
     return nbytes, 2 * nnz * cin * cout * (2 if input_grad else 1)
 
 
-def check_convs(model, big, dev, table, g):
+def check_convs(model, big, dev, table, g, timed=True):
     """K1 forward and on the transpose map, and `sparse_conv_dw`, at every
     (map, Cin, Cout) the model runs; on the same inputs the im2col pair
     (`CSN_DYNG=2/3`) against its plain versions and against K1 /
-    `sparse_conv_dw`. Returns the number of convs."""
+    `sparse_conv_dw`; with `timed`, each family's bf16 times are added to
+    the table. Returns the number of convs."""
     convs = {}
     for m in model.modules():
         if isinstance(m, SparseConv):
@@ -417,7 +468,7 @@ def check_convs(model, big, dev, table, g):
                         dt)
             del ref_df, ref_dw, got_df, got_dw, got, pl_df, pl_dw, im_df, \
                 im_dw
-            if dt != torch.bfloat16:
+            if dt != torch.bfloat16 or not timed:
                 continue
             nb, fl = conv_work(kmap, n_in, cin, cout, 2, 2)
             table.time("sparse_conv_fwd", what,
@@ -926,6 +977,8 @@ def f32_step_check(cls, spec, dev, tag, mode=None):
     CPU step taking the GPU step's ReLU decisions (`ReluDecisions`)."""
     (qh, kh), = build_requests(spec, "cpu", n_shapes=2, n_requests=1,
                                seed=SEED + 7)
+    if not issubclass(cls, hrnet.HRNetSimCSN):
+        kh = ()   # a plain segmentation model takes no key batches
     init = make_model(cls, "float32", 0.0).state_dict()
     relus = ReluDecisions()
     res = []
@@ -1446,6 +1499,421 @@ def _trainer_slice(dev, n_convs, log_dir, C, do_profile):
     return total
 
 
+
+def check_probes(dev, table):
+    """The three probe kernels against their plain versions, and their times
+    at the probe scripts' shapes."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    # probe_window_gather: both layouts, both types, W = 384 and 256, the
+    # matched call, a row id outside the window (a zero row)
+    for w, t in ((384, 256), (256, 256)):
+        win_np, rel_np, want = dyngather.probe_inputs(w, t, dyngather.C)
+        rel = torch.from_numpy(rel_np).to(dev)
+        for dt in (f32, bf16):
+            win = torch.from_numpy(win_np).to(device=dev, dtype=dt)
+            plain = dyngather.window_gather_plain(win, rel)
+            for layout in (0, 1):
+                what = f"W={w} T={t} layout {layout}"
+                table.check("probe_window_gather", what,
+                            dyngather.window_gather(win, rel, layout), plain,
+                            dt)
+                table.check("probe_window_gather", what + " matched",
+                            dyngather2.matched_gather(win, rel, layout),
+                            plain, dt)
+            if dt == f32:
+                require(np.array_equal(plain.cpu().numpy(), want),
+                        "window_gather_plain != numpy's win[rel]")
+        bad = rel.clone()
+        bad[5] = w + 3
+        got = dyngather.window_gather(win, bad, 0)
+        require(float(got[5].float().abs().max()) == 0.0 and torch.equal(
+            got[6], plain[6]), "probe_window_gather: row id outside the "
+            "window must give a zero row")
+    win_np, rel_np, _ = dyngather.probe_inputs()
+    win = torch.from_numpy(win_np).to(dev)
+    rel = torch.from_numpy(rel_np).to(dev)
+    nb = (dyngather.W + dyngather.T) * dyngather.C * 4 + dyngather.T * 4
+    for layout in (0, 1):
+        table.time("probe_window_gather", f"W=384 T=256 C=128 layout "
+                   f"{layout}", lambda: dyngather.window_gather(win, rel,
+                                                                layout),
+                   lambda: dyngather.window_gather_plain(win, rel),
+                   count=1 - layout, nbytes=nb, flops=0, dtype=f32,
+                   fn_library=lambda: torch.index_select(win, 0, rel))
+
+    # probe_gather_accum: the three modes against the plain version and
+    # against each other, at the scripts' timing geometry
+    k, n_tiles = 9, 352
+    for dt, w in ((bf16, 384), (f32, 384), (f32, 256)):
+        rows, win = dyngather.timing_inputs(w, dyngather.T, dyngather.C,
+                                            n_tiles, k, dt, dev)
+        rows[1, :9] = -1          # row ids outside the window add nothing
+        rows[5, 100:140] = w
+        rows[k + 2, ::7] = w + 1000
+        plain = dyngather.gather_accum_plain(rows, win, k)
+        outs = {}
+        for mode in dyngather.MODES:
+            outs[mode] = dyngather.gather_accum(rows, win, k, mode)
+            # the accumulation itself is f32 in every mode and type
+            table.check("probe_gather_accum", f"{mode} W={w} "
+                        f"{str(dt)[6:]} window", outs[mode], plain, f32)
+        for mode in ("onehot", "smem"):
+            table.check("probe_gather_accum", f"{mode} vs global W={w} "
+                        f"{str(dt)[6:]} window", outs[mode], outs["global"],
+                        f32)
+        del outs, plain
+        if w != 384:
+            continue
+        es = win.element_size()
+        gather_b = rows.numel() * 4 + w * dyngather.C * es \
+            + n_tiles * dyngather.T * dyngather.C * 4
+        # the function is K gathered rows added per output row: one
+        # bound for every mode, whatever the mode computes on the way
+        accum_f = n_tiles * k * dyngather.T * dyngather.C
+        bags = rows.reshape(n_tiles, k, -1).transpose(1, 2).reshape(
+            -1, k).clamp(0, w - 1).contiguous().long()
+        win32 = win.float()
+        for mode in dyngather.MODES:
+            # the JSON line sums the three modes with the bf16 window
+            table.time("probe_gather_accum", f"{mode} W={w} "
+                       f"{str(dt)[6:]} window, {n_tiles} tiles x {k} offsets",
+                       lambda: dyngather.gather_accum(rows, win, k, mode),
+                       lambda: dyngather.gather_accum_plain(rows, win, k),
+                       count=int(dt == bf16), reps=3, nbytes=gather_b,
+                       flops=accum_f, dtype=f32,
+                       fn_library=lambda: F.embedding_bag(bags, win32,
+                                                          mode="sum"))
+        del bags, win32
+    torch.cuda.empty_cache()
+
+    # probe_slot_load: every variant
+    for v, (name, shape, _) in iw_bwd.VARIANTS.items():
+        x = torch.from_numpy(iw_bwd.probe_input(v)).to(dev) * 3.0
+        plain = iw_bwd.slot_load_plain(v, x)
+        table.check("probe_slot_load", name, iw_bwd.slot_load(v, x), plain,
+                    f32)
+        require(float(plain.abs().max()) > 1.0, f"slot probe {v}: dead load")
+        table.time("probe_slot_load", name, lambda: iw_bwd.slot_load(v, x),
+                   lambda: iw_bwd.slot_load_plain(v, x),
+                   nbytes=x.numel() * 4 + 8 * 128 * 4, flops=0, dtype=f32)
+
+
+def family_spec(name):
+    """(class, pyramid spec) of a model family at the protocol's sizes."""
+    cls = load_model(name)
+    return cls, pipeline.pyramid_spec_for_model(
+        cls, num_points=P, voxel_size=VOXEL, conv1_kernel_size=STEM_K,
+        level0_cap=LEVEL0_CAP, shrink=SHRINK)
+
+
+def family_batches(name, dev, n_shapes, seed):
+    """(class, spec, one device batch of n_shapes shapes) of a plain
+    segmentation family at the protocol's sizes."""
+    cls, spec = family_spec(name)
+    rng = np.random.default_rng(seed)
+    hb = pipeline.collate_shapes(
+        [make_surface_shape(rng, P) for _ in range(n_shapes)], spec, rng=rng)
+    print(f"[batch] {name}: level caps {spec.level_caps}, occupied voxels "
+          f"per shape and level (max) "
+          f"{[int(n.max()) for n in hb.num_voxels]}, dropped {hb.dropped}, "
+          f"{len(spec.maps)} maps")
+    return cls, spec, to_torch(hb, dev)
+
+
+def check_family_convs(dev, table, g):
+    """Phase 3 on the new families' convs. Returns Res16UNet34C's number of
+    convs."""
+    n_unet = 0
+    for name, n_shapes, timed in (("Res16UNet34C", B, True),
+                                  ("ResUNet14", 2, False),
+                                  ("ResNet14", 2, False)):
+        cls, _, tb = family_batches(name, dev, n_shapes, SEED + 50)
+        n = check_convs(make_model(cls, "bfloat16", 0.0), tb, dev, table, g,
+                        timed=timed)
+        print(f"[check] {name}: {n} sparse convs, every (map, Cin, Cout) "
+              f"family checked in f32 and bf16"
+              f"{', and timed in bf16' if timed else ''}")
+        if timed:
+            n_unet = n
+        del tb
+        torch.cuda.empty_cache()
+    return n_unet
+
+
+def forward_vs_cpu(name, dev):
+    """A full-width f32 forward (B=2, eval mode) through the kernels against
+    the plain forward on the CPU."""
+    cls, _, tb = family_batches(name, dev, 2, SEED + 60)
+    model = make_model(cls, "float32", 0.0).eval().to(dev)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = model(tb).cpu()
+        launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        t0 = time.perf_counter()
+        ref = model.cpu()(tb.to("cpu"))
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"[families] {name} f32 forward B=2, logits {tuple(got.shape)}: "
+          f"kernels on the GPU {launched} vs plain on the CPU "
+          f"({time.perf_counter() - t0:.1f} s): max_abs_err {err:.3e} tol "
+          f"{1e-3 * scale:.3e} (max|ref| {scale:.3e})")
+    require(bool(torch.isfinite(got).all()) and scale > 0
+            and err <= 1e-3 * scale,
+            f"{name} f32 forward: kernels disagree with plain")
+
+
+UNET = "Res16UNet34C"
+
+
+def unet_slice(dev, n_convs, log_dir):
+    """Phase 9, first part: the Res16UNet34C trainer. Returns the launch
+    counts summed over the train iterations."""
+    train_ds, val_ds, test_ds = trainer_datasets()
+    cfg = Config(
+        model=UNET, partnet_category="Chair", conv1_kernel_size=STEM_K,
+        batch_size=B, val_batch_size=B, test_batch_size=B, num_points=P,
+        level0_cap=LEVEL0_CAP, level_shrink=SHRINK, compute_dtype="bfloat16",
+        optimizer="SGD", lr=LR, scheduler="StepLR", max_epoch=TR_EPOCHS,
+        stat_freq=1, log_dir=log_dir, seed=SEED, device=str(dev)).normalized()
+    trainer = main_seg.build_trainer(cfg, datasets=(train_ds, val_ds))
+    require(type(trainer.model).__name__ == UNET
+            and trainer.spec.num_levels == 5, "phase 9: wrong model or spec")
+    iters, losses = [], []
+    spy_launches(trainer, "_train_iter", iters)
+    update = trainer.losses.update
+    trainer.losses.update = lambda v, n=1: (losses.append(v), update(v, n))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    val = trainer.train()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_iters = TR_EPOCHS * (TR_TRAIN // B)
+    require(len(iters) == n_iters and all(np.isfinite(losses))
+            and all(np.isfinite(val)),
+            f"unet trainer: {len(iters)} iterations, losses {losses}, "
+            f"validation {val}")
+    expect = {"sparse_conv_fwd": 2 * n_convs - 1, "sparse_conv_dw": n_convs,
+              "interp_fwd": 1, "interp_bwd": 1}
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for counts, _, _ in iters:
+        for name, got in counts.items():
+            require(got == expect.get(name, 0),
+                    f"unet trainer: {name} {got} launches in a train "
+                    f"iteration, expected {expect.get(name, 0)}")
+            total[name] += got
+    it_ms = [1e3 * sec for _, sec, _ in iters]
+    print(f"[unet] {UNET} train(): {n_iters} iterations of B={B} over "
+          f"{TR_EPOCHS} epochs in {train_s:.1f} s with 2 validations; losses "
+          f"{[round(v, 4) for v in losses]}; final validation loss "
+          f"{val[0]:.4f}, part IoU {val[2]:.2f}, shape IoU {val[3]:.2f}; "
+          f"peak memory {peak / 2 ** 30:.3f} GiB; launches per iteration "
+          f"{ {k: n for k, n in iters[0][0].items() if n} }; ms per "
+          f"iteration inside train() {[round(t, 1) for t in it_ms]}")
+    reqs = []
+    spy_launches(trainer, "_eval_forward", reqs)
+    res = trainer.test_on(test_ds)
+    require(all(np.isfinite(res)), f"unet test_on: {res}")
+    preds = torch.cat([out[2].cpu() for _, _, out in reqs])
+    require(int(preds.min()) >= 1 and int(preds.max()) <= NUM_CLASSES - 1,
+            f"unet test_on: predictions outside [1, {NUM_CLASSES - 1}]")
+    for counts, _, _ in reqs:
+        for name, n in counts.items():
+            want = {"sparse_conv_fwd": n_convs, "interp_fwd": 1}.get(name, 0)
+            require(n == want, f"unet test_on: {name} {n} launches in a "
+                    f"request, expected {want}")
+    print(f"[unet] test_on: loss {res[0]:.4f}, part IoU {res[2]:.3f}, shape "
+          f"IoU {res[3]:.3f}; predictions in [{int(preds.min())}, "
+          f"{int(preds.max())}]; launches per request "
+          f"{ {k: n for k, n in reqs[0][0].items() if n} }")
+
+    # the step and the eval request on a batch held fixed, in both forms
+    qb, keys = trainer._fetch_data()
+    trainer._close_prefetch()
+    gen = torch.Generator().manual_seed(SEED)
+    for mode in (None, 2):
+        with window_conv.dyng(mode):
+            tag = f"B={B}, bf16, CSN_DYNG={mode}, batch held fixed"
+            time_steps("unet train", lambda: train_step(
+                trainer.model, trainer.optimizer, qb, keys, gen), tag,
+                timed_steps=5)
+            time_steps("unet eval", lambda: eval_step(trainer.model, qb,
+                                                      keys), tag,
+                       timed_steps=5)
+    return total
+
+
+MF_CAT, MF_CHAIN_K = "Bed", 1   # a category of the launcher's table: 15 classes
+
+
+def chain_slice(dev, base):
+    """Phase 9, second part: HRNetSeg3S extractor -> fc_1 dumps -> SSA ->
+    kNN graphs -> CSA -> get_csa_pred. Returns the launch counts of the
+    whole chain."""
+    train_ds, val_ds, test_ds = trainer_datasets()
+    cfg = Config(
+        model="HRNetSeg3S", partnet_category="Chair",
+        conv1_kernel_size=STEM_K, d_model=D_MODEL, batch_size=B,
+        val_batch_size=B, test_batch_size=B, num_points=P,
+        level0_cap=LEVEL0_CAP, level_shrink=SHRINK, compute_dtype="bfloat16",
+        optimizer="SGD", lr=LR, scheduler="StepLR", max_epoch=1, stat_freq=1,
+        log_dir=os.path.join(base, "seg_logs"), seed=SEED,
+        device=str(dev)).normalized()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = main_seg.build_trainer(cfg, datasets=(train_ds, val_ds))
+    val = trainer.train()
+    require(all(np.isfinite(val)), f"extractor training: {val}")
+    feats = os.path.join(base, "features")
+    counts = {}
+    for split, ds in (("train", train_ds), ("test", test_ds)):
+        counts[split] = extraction.extract_split(
+            trainer.model, ds, trainer.spec,
+            os.path.join(feats, split, MF_CAT), batch_size=B)
+    torch.cuda.synchronize()
+    require(counts == {"train": TR_TRAIN, "test": TR_TEST},
+            f"extract_split wrote {counts}")
+    f0 = np.load(os.path.join(feats, "train", MF_CAT, "fc_1", "00000.npy"))
+    l0 = np.load(os.path.join(feats, "train", MF_CAT, "point_labels",
+                              "00000.npy"))
+    require(f0.shape == (1, D_MODEL, P, 1) and l0.shape == (P,)
+            and bool(np.isfinite(f0).all()),
+            f"extract_split: fc_1 {f0.shape}, labels {l0.shape}")
+    require(kernels.LAUNCHES["interp_fwd"] >= 2 * (TR_TRAIN + TR_TEST) // B,
+            "extract_split did not run the readout kernel")
+    print(f"[chain] HRNetSeg3S trained 1 epoch (validation loss "
+          f"{val[0]:.4f}) and {counts} shapes extracted (fc_1 "
+          f"{f0.shape}, 4 npy directories per split) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+
+    logs = os.path.join(base, "logs")
+    k = run_training.NAMES.index(MF_CAT)
+    common = ["--data_root", feats, "--logs_root", logs, "--start", str(k),
+              "--end", str(k), "--testing", "--d_model", str(D_MODEL),
+              "--num_points", str(P), "--chunk_size", str(MF_CHUNK),
+              "--n_heads", str(MF_HEADS), "--K", str(MF_CHAIN_K),
+              "--batch_size", "2", "--device", str(dev)]
+    for at in ("ssa", "save_knn", "csa"):
+        t0 = time.perf_counter()
+        ious = run_training.main(common + ["--attention_type", at])
+        torch.cuda.synchronize()
+        print(f"[chain] run_training {at}: {ious} in "
+              f"{time.perf_counter() - t0:.1f} s")
+    graph_dir = os.path.join(logs, "knn_graphs", f"n_heads_{MF_HEADS}",
+                             MF_CAT)
+    tr_graph = np.load(os.path.join(graph_dir, "train.npy"))
+    require(tr_graph.shape == (TR_TRAIN, MF_CHAIN_K + 1)
+            and bool((tr_graph[:, 0] == np.arange(TR_TRAIN)).all()),
+            f"chain: train graph {tr_graph.shape}, {tr_graph[:, 0]}")
+    ckpt = os.path.join(logs, f"sgd_csa_n_heads_{MF_HEADS}_K_{MF_CHAIN_K}",
+                        "run_1", MF_CAT, CHECKPOINT_NAME)
+    require(os.path.isfile(ckpt), f"chain: {ckpt} missing")
+    launches = dict(kernels.LAUNCHES)
+    require(launches["flash_attn_fwd"] > 0 and launches["flash_attn_bwd"] > 0,
+            f"chain: the MID-FC training launched no flash kernel: "
+            f"{launches}")
+
+    # get_csa_pred pins f32 and takes the attention of its device: the f32
+    # flash kernels on the card, held to the plain attention of a CPU run
+    pred_args = [
+        "--data_root", feats, "--partname", MF_CAT, "--num_classes",
+        str(run_training.SEG_NUM[k]), "--n_heads", str(MF_HEADS), "--K",
+        str(MF_CHAIN_K), "--chunk_size", str(MF_CHUNK), "--d_model",
+        str(D_MODEL), "--num_points", str(P), "--batch_size", "2", "--ckpt",
+        ckpt, "--knn_graph_dir", graph_dir]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    iou = get_csa_pred.main(pred_args + [
+        "--logs_dir", os.path.join(base, "csa_pred"), "--save_pred_dir",
+        os.path.join(base, "pred_gpu"), "--device", str(dev)])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    pred_launches = dict(kernels.LAUNCHES)
+    # chunked eval: one flash launch per attention layer of a batch
+    require(0.0 <= iou <= 1.0 and pred_launches["flash_attn_fwd"] > 0
+            and os.path.isfile(os.path.join(base, "csa_pred",
+                                            "part_IoU_summaries.csv")),
+            f"get_csa_pred: IoU {iou}, launches {pred_launches}")
+    t0 = time.perf_counter()
+    iou_cpu = get_csa_pred.main(pred_args + [
+        "--logs_dir", os.path.join(base, "csa_pred_cpu"), "--save_pred_dir",
+        os.path.join(base, "pred_cpu"), "--device", "cpu"])
+    require(kernels.LAUNCHES == pred_launches,
+            "get_csa_pred --device cpu launched a kernel")
+    sub = f"midfc_csa_K_{MF_CHAIN_K}"
+    agree = float(np.mean([
+        (np.load(os.path.join(base, "pred_gpu", sub, f"shape_{i}.npy"))
+         == np.load(os.path.join(base, "pred_cpu", sub, f"shape_{i}.npy"))
+         ).mean() for i in range(TR_TEST)]))
+    print(f"[chain] get_csa_pred on {TR_TEST} test shapes: part IoU "
+          f"{100 * iou:.4f} in {sec:.1f} s (f32 flash kernels, launches "
+          f"{ {n: c for n, c in pred_launches.items() if c} }) vs "
+          f"{100 * iou_cpu:.4f} with --device cpu (plain attention, "
+          f"{time.perf_counter() - t0:.1f} s): IoUs within "
+          f"{abs(iou - iou_cpu):.2e} (<= {CACHED_IOU_TOL}), predictions "
+          f"equal on {100 * agree:.3f} % of points (>= "
+          f"{100 * CACHED_AGREE} %)")
+    require(abs(iou - iou_cpu) <= CACHED_IOU_TOL and agree >= CACHED_AGREE,
+            "get_csa_pred on the card disagrees with its CPU run")
+    cat_dir = os.path.join(logs, "pretrained_models", "run_1", MF_CAT)
+    os.makedirs(cat_dir)
+    shutil.copy(ckpt, cat_dir)
+    shutil.copytree(graph_dir, os.path.join(
+        logs, "pretrained_models", "knn_graphs", f"n_heads_{MF_HEADS}",
+        MF_CAT))
+    kernels.reset_launches()
+    ious = run_training.main(common + ["--attention_type", "pred"])
+    # the call above went over the test set twice (validation, then the
+    # prediction dump); `pred` validates only
+    require(abs(ious[MF_CAT] - 100 * iou) < 1e-9
+            and 2 * kernels.LAUNCHES["flash_attn_fwd"]
+            == pred_launches["flash_attn_fwd"],
+            f"run_training pred: {ious} vs get_csa_pred {100 * iou}, "
+            f"launches {kernels.LAUNCHES}")
+    print(f"[chain] run_training pred: {ious}, "
+          f"{kernels.LAUNCHES['flash_attn_fwd']} flash_attn_fwd launches")
+    for name in launches:
+        launches[name] += pred_launches[name] + kernels.LAUNCHES[name]
+    return launches
+
+
+def probes_slice(dev):
+    """Phase 9, last part: the probes' own entry points. Returns the launch
+    counts."""
+    kernels.reset_launches()
+    times = dyngather.main(["--device", str(dev)])
+    times2 = dyngather2.main(["--device", str(dev)])
+    errs = iw_bwd.main(["--device", str(dev), "--extra"])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require(all(e == 0.0 for e in errs.values()) and len(errs) == 7,
+            f"slot probes differ from their plain versions: {errs}")
+    require(all(np.isfinite(t) and t > 0 for t in (*times.values(),
+                                                   *times2.values())),
+            f"probe timings: {times}, {times2}")
+    print(f"[probes] launches of the three entry points: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    return launches
+
+
+def families_slice(dev, n_convs):
+    """Phase 9. Returns the launch counts of its main paths, summed."""
+    base = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    try:
+        total = unet_slice(dev, n_convs, os.path.join(base, "unet_logs"))
+        cls, spec = family_spec(UNET)
+        for mode in (None, 2):
+            f32_step_check(cls, spec, dev, "unet", mode=mode)
+        for name in ("ResUNet14", "ResNet14"):
+            forward_vs_cpu(name, dev)
+        chain = chain_slice(dev, base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    probes = probes_slice(dev)
+    return {k: total[k] + chain[k] + probes[k] for k in total}
+
+
 def main() -> int:
     do_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1482,10 +1950,7 @@ def main() -> int:
           f"{len(list(kernels.CSRC.glob('*.cu')))} sources: {build_s:.1f} s "
           f"({time.perf_counter() - t0:.1f} s with loading)")
 
-    cls = load_model("HRNetSimCSN3S")
-    spec = pipeline.pyramid_spec_for_model(
-        cls, num_points=P, voxel_size=VOXEL, conv1_kernel_size=STEM_K,
-        level0_cap=LEVEL0_CAP, shrink=SHRINK)
+    cls, spec = family_spec("HRNetSimCSN3S")
     print(f"[batch] level caps {spec.level_caps}, maps {spec.map_names()}")
     t0 = time.perf_counter()
     reqs = build_requests(spec, dev)
@@ -1505,6 +1970,8 @@ def main() -> int:
     check_interp(qb, dev, table, g)
     del big
     check_ring_kernels(dev, table, g)
+    n_unet_convs = check_family_convs(dev, table, g)
+    check_probes(dev, table)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1530,10 +1997,14 @@ def main() -> int:
     phase("8 trainer")
     launches_8 = trainer_slice(dev, n_convs, do_profile)
     f32_step_check(cls, spec, dev, "trainer", mode=2)
+
+    # 9. the other model families, the MID-FC chain, the probes
+    phase("9 families, chain, probes")
+    launches_9 = families_slice(dev, n_unet_convs)
     phase("done")
 
     total = {k: launches[k] + launches_6[k] + launches_7[k] + launches_8[k]
-             for k in KERNELS}
+             + launches_9[k] for k in KERNELS}
     for name, n in total.items():
         require(n > 0, f"{name} was launched on no main path")
     rows = []

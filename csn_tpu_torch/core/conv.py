@@ -240,11 +240,32 @@ class SparseConvFn(torch.autograd.Function):
         return d_feats, d_w, None, None, None
 
 
+def conv_autograd_plain(feats: torch.Tensor, kmap: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """`conv_plain` written for autograd (the JAX package's `_conv_impl`
+    under its own differentiation): the backward scatters through the
+    gather's index, so it needs no transpose map."""
+    w = weights.float()
+    out = sum(gather_rows(feats, kmap[k]).float() @ w[k]
+              for k in range(kmap.shape[0]))
+    return out.to(feats.dtype)
+
+
 def sparse_conv(feats: torch.Tensor, kmap: torch.Tensor,
                 weights: torch.Tensor, kmap_t: Optional[torch.Tensor] = None,
                 mirror: bool = False) -> torch.Tensor:
     """[N_in, Cin] features, [K, N_out] kernel map, [K, Cin, Cout] weights
     -> [N_out, Cout] in the features' dtype (weights are cast to it, as the
-    TPU kernel casts its operands). Differentiable when the transpose map
-    `kmap_t` (and `mirror` for a same-level map) is given."""
+    TPU kernel casts its operands). With the transpose map `kmap_t` (and
+    `mirror` for a same-level map) the backward is the gather backward of
+    `SparseConvFn`. Without it a gradient is served on the CPU only, by the
+    plain autograd path `conv_autograd_plain` (tests and tools); a CUDA
+    tensor that needs a gradient without `kmap_t` raises."""
+    if kmap_t is None and torch.is_grad_enabled() and (
+            feats.requires_grad or weights.requires_grad):
+        if feats.device.type != "cpu":
+            raise ValueError(
+                "sparse_conv: a gradient on a CUDA tensor needs the "
+                "transpose map kmap_t (the backward kernels gather over it)")
+        return conv_autograd_plain(feats, kmap, weights)
     return SparseConvFn.apply(feats, weights, kmap, kmap_t, mirror)

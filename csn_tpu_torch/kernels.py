@@ -47,7 +47,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0, "flash_attn_fwd": 0,
             "flash_attn_bwd": 0, "flash_attn_carry": 0,
             "flash_attn_block_bwd": 0, "interp_fwd": 0, "interp_bwd": 0,
-            "sparse_conv_im2col_fwd": 0, "sparse_conv_im2col_bwd": 0}
+            "sparse_conv_im2col_fwd": 0, "sparse_conv_im2col_bwd": 0,
+            "probe_window_gather": 0, "probe_gather_accum": 0,
+            "probe_slot_load": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,6 +93,12 @@ _SIGNATURES = {
     "csn_interp_fwd": [_I, _P, _P, _P, _P, _I64, _I64, _I, _P],
     # dtype, g, ptr, ent, w, dflat, n_vox, c, stream
     "csn_interp_bwd": [_I, _P, _P, _P, _P, _P, _I64, _I, _P],
+    # dtype, layout, win, rel, out, W, T, C, stream
+    "csn_probe_window_gather": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, mode, rows, win, out, n_tiles, K, W, T, C, stream
+    "csn_probe_gather_accum": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # variant, x, out, stream
+    "csn_probe_slot_load": [_I, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -7,8 +7,11 @@ precomputation; and the summary collection). One process per category, like
 the reference's one-job-per-category scheme. Same arguments and output
 files as the JAX package's launcher, except that checkpoints are
 `trained_layers.pt` (a `state_dict` written by `torch.save`), plus
-`--device`. `--attention_type pred` (the pretrained-eval loop) needs
-`midfc/get_csa_pred.py`, which the port does not have yet.
+`--device`. `--attention_type pred` is the pretrained-eval loop
+(`MID-FC/run_csa_pred.py`): per-category `get_csa_pred` over
+`logs_root/pretrained_models/run_{run}/<Cat>` checkpoints
+(`trained_layers.pt`, else the reference's `trained_layers.pth`) and the
+`pretrained_models/knn_graphs/n_heads_{n}/<Cat>` graphs when present.
 
 Usage:
   python -m csn_tpu_torch.midfc.run_training --attention_type ssa \
@@ -16,6 +19,7 @@ Usage:
       --start 0 --end 16
   python -m csn_tpu_torch.midfc.run_training --attention_type save_knn ...
   python -m csn_tpu_torch.midfc.run_training --attention_type csa --K 4 ...
+  python -m csn_tpu_torch.midfc.run_training --attention_type pred --K 4 ...
 
 With --data_parallel / --seq_parallel, start one process per rank with the
 usual RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT environment (and
@@ -104,9 +108,6 @@ def main(argv=None):
     chunk_size = args.chunk_size if args.chunk_size > 0 else None
 
     at = args.attention_type
-    if at == "pred":
-        ap.error("--attention_type pred needs midfc/get_csa_pred.py, which "
-                 "the port does not have yet")
     device = args.device
     if args.data_parallel * args.seq_parallel > 1:
         device = _init_distributed(args.data_parallel * args.seq_parallel,
@@ -114,6 +115,9 @@ def main(argv=None):
     if at == "ssa":
         logs_base = os.path.join(
             args.logs_root, f"ssa_n_heads_{args.n_heads}", f"run_{args.run}")
+    elif at == "pred":
+        logs_base = os.path.join(args.logs_root, "pretrained_models",
+                                 f"run_{args.run}")
     else:
         logs_base = os.path.join(
             args.logs_root,
@@ -125,6 +129,36 @@ def main(argv=None):
             continue
         train_root = os.path.join(args.data_root, "train", name)
         test_root = os.path.join(args.data_root, "test", name)
+        if at == "pred":
+            from csn_tpu_torch.midfc import get_csa_pred
+
+            cat_dir = os.path.join(logs_base, name)
+            pred_argv = [
+                "--data_root", args.data_root,
+                "--logs_dir", cat_dir,
+                "--partname", name,
+                "--num_classes", str(SEG_NUM[k]),
+                "--n_heads", str(args.n_heads),
+                "--K", str(args.K),
+                "--batch_size", str(args.batch_size),
+                "--chunk_size", str(args.chunk_size),
+                "--d_model", str(args.d_model),
+                "--num_points", str(args.num_points),
+                "--device", device,
+            ]
+            own = os.path.join(cat_dir, CHECKPOINT_NAME)
+            pth = os.path.join(cat_dir, "trained_layers.pth")
+            if os.path.exists(own):
+                pred_argv += ["--ckpt", own]
+            elif os.path.exists(pth):
+                pred_argv += ["--torch_ckpt", pth]
+            graph_dir = os.path.join(args.logs_root, "pretrained_models",
+                                     "knn_graphs", f"n_heads_{args.n_heads}",
+                                     name)
+            if os.path.exists(os.path.join(graph_dir, "test.npy")):
+                pred_argv += ["--knn_graph_dir", graph_dir]
+            ious[name] = get_csa_pred.main(pred_argv) * 100
+            continue
         cfg = MidfcConfig(
             logs_dir=os.path.join(logs_base, name), partname=name,
             num_classes=SEG_NUM[k], n_heads=args.n_heads, K=args.K,
@@ -171,6 +205,14 @@ def main(argv=None):
         for name, iou in ious.items():
             print(f"name: {name}, iou: {iou}")
         print(f"\n mean_IoU: {mean_iou}\n")
+        if at == "pred":
+            os.makedirs(logs_base, exist_ok=True)
+            out_csv = os.path.join(logs_base, "part_IoU_summaries.csv")
+            with open(out_csv, "w") as f:
+                f.write("," + ",".join(ious) + ",mean\n")
+                f.write("0," + ",".join(f"{v}" for v in ious.values())
+                        + f",{mean_iou}\n")
+            print(f"-> {out_csv}")
     return ious
 
 

@@ -1,19 +1,25 @@
 """Model registry of the port (counterpart of `csn_tpu/models/__init__.py`):
-name -> class, for the model families ported so far."""
+name -> class, discovered by introspection over the model modules."""
 
 from __future__ import annotations
 
-from csn_tpu_torch.models.hrnet import (
-    HRNetSeg2S, HRNetSeg3S, HRNetSeg4S, HRNetSimCSN2S, HRNetSimCSN3S,
-    HRNetSimCSN4S,
-)
+import inspect
 
-MODELS = {cls.__name__: cls
-          for cls in (HRNetSeg2S, HRNetSeg3S, HRNetSeg4S, HRNetSimCSN2S,
-                      HRNetSimCSN3S, HRNetSimCSN4S)}
+from csn_tpu_torch.models import hrnet, res16unet, resnet, resunet
+from csn_tpu_torch.models.layers import NormType
+
+_MODULES = [hrnet, res16unet, resunet, resnet]
+
+MODELS = {}
+for _mod in _MODULES:
+    for _name, _obj in vars(_mod).items():
+        if (inspect.isclass(_obj) and _name[0] != "_"
+                and ("Net" in _name or "CSN" in _name)
+                and hasattr(_obj, "pyramid_requirements")):
+            MODELS[_name] = _obj
 
 
 def load_model(name: str):
     if name not in MODELS:
-        raise KeyError(f"unknown model {name!r}; the port has {sorted(MODELS)}")
+        raise KeyError(f"unknown model {name!r}; have {sorted(MODELS)}")
     return MODELS[name]

@@ -28,10 +28,11 @@ def build_model_and_spec(config: Config, num_labels: int, **model_kw):
     """The model `config` names, with its BatchNorm momentum set, and the
     pyramid signature of its batches."""
     model_cls = load_model(config.model)
+    if "HRNet" in config.model:  # fc_1 head width (256 in the reference)
+        model_kw["d_model"] = config.d_model
     model = model_cls(
         out_channels=num_labels,
         conv1_kernel_size=config.conv1_kernel_size,
-        d_model=config.d_model,
         compute_dtype=config.resolved_compute_dtype(), **model_kw)
     model.set_bn_momentum(config.bn_momentum)
     spec = pyramid_spec_for_model(

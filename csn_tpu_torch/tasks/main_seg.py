@@ -3,6 +3,7 @@
 
 Train:  python -m csn_tpu_torch.tasks.main_seg --is_train True \
             --partnet_path ... --partnet_category Chair --model HRNetSeg3S
+        (or any Res16UNet* / ResUNet* model, e.g. --model Res16UNet34C)
 Eval:   python -m csn_tpu_torch.tasks.main_seg --is_train False \
             --resume <log_dir>
 
@@ -16,7 +17,8 @@ import logging
 
 from csn_tpu_torch.config import Config, get_config
 from csn_tpu_torch.data.partnet import NUM_SEG
-from csn_tpu_torch.models.hrnet import HRNetSeg
+from csn_tpu_torch.models import load_model
+from csn_tpu_torch.models.hrnet import HRNetSimCSN
 from csn_tpu_torch.tasks.main_csn import (
     build_model_and_spec, make_datasets, run_eval,
 )
@@ -28,11 +30,21 @@ def build_trainer(config: Config, phases=None, datasets=None) -> SegTrainer:
     if phases is None:
         phases = (config.train_phase, config.val_phase)
     num_labels = NUM_SEG[config.partnet_category.split("-")[0]]
-    model, spec = build_model_and_spec(config, num_labels)
-    if not isinstance(model, HRNetSeg):
+    model_cls = load_model(config.model)
+    out_level = getattr(model_cls, "output_level", None)
+    if out_level is not None and out_level() != 0:
         raise ValueError(
-            f"{config.model} is no plain segmentation model; main_seg takes "
-            f"HRNetSeg2S/3S/4S (the CSN models run under main_csn)")
+            f"{config.model} outputs voxel logits at level "
+            f"{model_cls.output_level()}, but the segmentation readout "
+            f"(trilinear voxel->point interpolation) requires a level-0 "
+            f"output. The reference never registers this family for seg "
+            f"either (`MinkowskiNet/models/__init__.py` omits "
+            f"`add_models(resnet)`); use ResUNet*/Res16UNet*/HRNet*.")
+    if issubclass(model_cls, HRNetSimCSN):
+        raise ValueError(
+            f"{config.model} is no plain segmentation model (the CSN models "
+            f"run under main_csn)")
+    model, spec = build_model_and_spec(config, num_labels)
     train_ds, val_ds = datasets or make_datasets(config, phases)
     return SegTrainer(model, config, spec, train_ds, val_ds, num_labels)
 

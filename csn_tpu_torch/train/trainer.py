@@ -188,14 +188,21 @@ class BaseTrainer:
         weights = getattr(self.config, "weights", "None")
         if weights not in (None, "", "None"):
             if weights.endswith(".pth"):
-                raise NotImplementedError(
-                    f"--weights {weights}: loading a released "
-                    f"MinkowskiEngine .pth checkpoint is not ported yet "
-                    f"(ROADMAP A11); give a .pt file written by this "
-                    f"package")
-            tree, _ = load_checkpoint(weights, self.device,
-                                      require_host=False)
-            self.model.load_state_dict(tree["model"])
+                # a reference MinkowskiEngine checkpoint, through the
+                # converter (models/convert.py)
+                from csn_tpu_torch.models.convert import \
+                    load_mink_torch_checkpoint
+                from csn_tpu_torch.models.hrnet import HRNetSimCSN
+
+                self.model.load_state_dict(load_mink_torch_checkpoint(
+                    weights, num_stages=self.model.NUM_STAGES,
+                    num_blocks=self.model.NUM_BLOCKS,
+                    csn_head=isinstance(self.model, HRNetSimCSN),
+                    k_neighbors=self.config.k_neighbors))
+            else:
+                tree, _ = load_checkpoint(weights, self.device,
+                                          require_host=False)
+                self.model.load_state_dict(tree["model"])
             logging.info("===> Loaded weights from %s", weights)
         n_params = sum(p.numel() for p in self.model.parameters())
         logging.info("===> Number of trainable parameters: %d", n_params)

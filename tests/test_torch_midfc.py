@@ -296,8 +296,15 @@ def test_run_training_cli_smoke(tmp_path):
     assert os.path.exists(os.path.join(csa_dir, CHECKPOINT_NAME))
     sd = torch.load(os.path.join(csa_dir, CHECKPOINT_NAME))
     assert "compatibility_q.bias" in sd and "attention.mha.w_qs.weight" in sd
-    with pytest.raises(SystemExit):
-        run_training.main(common + ["--attention_type", "pred"])
+    # pred: the pretrained-eval loop over pretrained_models/run_1/<Cat>
+    import shutil
+
+    cat_dir = os.path.join(logs, "pretrained_models", "run_1", "Bed")
+    os.makedirs(cat_dir)
+    shutil.copy(os.path.join(csa_dir, CHECKPOINT_NAME), cat_dir)
+    ious = run_training.main(common + ["--attention_type", "pred"])
+    assert list(ious) == ["Bed"] and 0.0 <= ious["Bed"] <= 100.0
+    assert os.path.exists(os.path.join(cat_dir, "part_IoU_summaries.csv"))
 
 
 def test_compute_knn_graphs_big_category_path(tmp_path):

@@ -90,6 +90,46 @@ def test_batch_tables_bit_equal_to_jax_package(use_native, qmode, sort_points):
     assert sum(got.dropped) > 0 or got.masks[0].sum() > 0
 
 
+@pytest.mark.parametrize("use_native", [True, False])
+@pytest.mark.parametrize("name,levels", [
+    ("Res16UNet34C", 5), ("ResUNet14", 4), ("ResNet14", 6)])
+def test_deep_pyramids_bit_equal_to_jax_package(name, levels, use_native):
+    """The 5- and 6-level pyramids of the U-Net and ResNet families, with
+    their k2 (8 offsets) and k1 (1 offset) down / up maps."""
+    from csn_tpu.models import load_model as j_load_model
+
+    kw = dict(num_points=P, voxel_size=0.08, conv1_kernel_size=5,
+              shrink=SHRINK)
+    spec = pipeline.pyramid_spec_for_model(load_model(name), **kw)
+    j_spec = j_pipeline.pyramid_spec_for_model(j_load_model(name), **kw)
+    assert spec.num_levels == levels
+    assert spec.level_caps == j_spec.level_caps
+    assert spec.map_names() == j_spec.map_names()
+    rng = np.random.default_rng(9)
+    shapes = [bench.make_surface_shape(rng, n) for n in (P, P - 31)]
+    got = pyramid.build_voxel_batch(shapes, spec,
+                                    rng=np.random.default_rng(2),
+                                    use_native=use_native)
+    ref = j_pyramid.build_voxel_batch(shapes, j_spec,
+                                      rng=np.random.default_rng(2),
+                                      use_native=use_native)
+    _assert_batches_bit_equal(got, ref)
+    offsets = {8: "k2", 1: "k1"}
+    for n_off, tag in offsets.items():
+        maps = [k for k in got.kmaps if k.endswith(tag)]
+        assert all(got.kmaps[k].shape[0] == n_off for k in maps)
+    assert any(k.endswith("k2") for k in got.kmaps)
+    if name == "ResNet14":
+        assert "down4k1" in got.kmaps and "up4k3" in got.kmaps
+    # every level holds voxels, and every map points at some of them
+    assert all(int(n.min()) > 0 for n in got.num_voxels)
+    for k, t in got.kmaps.items():
+        assert (t < got.masks[map_levels(k)[0]].size).any(), k
+    tb = to_torch(got, "cpu")
+    assert len(tb.masks) == levels
+    assert tb.kmaps["down0k2"].dtype == torch.int32
+
+
 def test_pipeline_batches_bit_equal_to_jax_package():
     for got, ref in zip(_host_batches(2, conv1_kernel_size=3),
                         _host_batches(2, conv1_kernel_size=3,
@@ -220,6 +260,30 @@ _NO_JAX = textwrap.dedent("""
     mf_loss, grads = runner._grad(feats, labels, nbrs, 0)
     runner._apply(grads)
     assert torch.isfinite(mf_loss) and float(mf_loss) > 0
+
+    # a Res16UNet train step and a probe's plain path
+    from csn_tpu_torch.probes import dyngather
+    from csn_tpu_torch.train import optim
+    from csn_tpu_torch.train.steps import train_step
+
+    ucls = load_model("Res16UNet14")
+    uspec = pipeline.pyramid_spec_for_model(
+        ucls, num_points=200, voxel_size=0.15, conv1_kernel_size=3,
+        shrink=1.5)
+    ub = to_torch(pipeline.collate_shapes(
+        [make_surface_shape(rng, 200) for _ in range(2)], uspec, rng=rng),
+        "cpu")
+    unet = ucls(out_channels=5, conv1_kernel_size=3)
+    unet.reset_parameters(torch.Generator().manual_seed(0))
+    uopt = optim.make_optimizer(unet.parameters(), "SGD", lr=0.05)
+    u_loss, u_pred = train_step(unet, uopt, ub, (), torch.Generator())
+    assert torch.isfinite(u_loss) and u_pred.shape == (2, 200)
+    win, rel, want = dyngather.probe_inputs()
+    got = dyngather.window_gather(torch.from_numpy(win),
+                                  torch.from_numpy(rel), 1)
+    assert np.array_equal(got.numpy(), want)
+    assert set(dyngather.time_modes(n_tiles=2, iters=1, device="cpu")) \
+        == set(dyngather.MODES)
 
     # one trainer epoch on an in-memory collection (h5py is blocked too),
     # with the im2col form of the sparse conv
