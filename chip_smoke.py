@@ -26,10 +26,12 @@ Phases (each prints its lines; any failure exits nonzero):
      against `conv_im2col_plain` and K1, and `sparse_conv_im2col_bwd`
      (d_feats and dW; dW only for the stem) against `conv_im2col_bwd_plain`
      and K1 / `sparse_conv_dw`; K2 (flash attention) at the SSA and CSA
-     shapes with masks, at dropout 0 and 0.1 (same seed as the plain
-     version); `flash_attn_bwd` at dropout 0 and 0.1 against autograd of
-     the plain version; K3 (voxel -> point interpolation) and `interp_bwd`
-     against `index_add_`; K2 and `flash_attn_bwd` at the MID-FC chunk
+     shapes with masks, and at a ragged shape (Lq 1000 against Lk 777, a
+     ragged key mask with one fully masked 64-key tile, one query tile all
+     padding), at dropout 0 and 0.1 (same seed as the plain version);
+     `flash_attn_bwd` at the same cases against autograd of the plain
+     version; K3 (voxel -> point interpolation) and `interp_bwd` against
+     their plain versions; K2 and `flash_attn_bwd` at the MID-FC chunk
      shape [80, 8, 500, 256]; `flash_attn_carry` chained over 4 key blocks
      of 2500 at [2, 8, 10000, 256] against `online_block_update` chained the
      same way and against one K2 pass over all 10000 keys, and
@@ -92,7 +94,8 @@ Phases (each prints its lines; any failure exits nonzero):
      trainer (1 epoch), `extract_split` of its train and test collections
      into a temporary directory, `midfc.run_training` `ssa`, `save_knn` and
      `csa` on those files (8 heads of 256, K=1, 10000 points in 500-point
-     chunks, `--testing`: one batch per epoch), `get_csa_pred` on the result
+     chunks, `--testing`: one batch per epoch), `kmeans_candidate_indices`
+     on descriptors with a known answer, `get_csa_pred` on the result
      (f32 through the flash kernels, held to its own `--device cpu` run) and
      the launcher's `pred` mode; last the probes' own entry points
      (`probes.dyngather`, `dyngather2`, `iw_bwd` `main()`), which print the
@@ -113,8 +116,9 @@ peak of the input type: 989 TFLOP/s bf16, 67 TFLOP/s f32, counting valid
 rows and keys only), and `library_ms`, the time of the one PyTorch call
 that computes the same function (`F.scaled_dot_product_attention` for the
 attention kernels, timed here and used nowhere in the port; null where
-there is no such call; `index_select` and `embedding_bag` for the two gather
-probes). The last line is {"ok": true, "device": {...}}.
+there is no such call; `embedding_bag` for the readout and the accumulating
+gather probe, `index_select` for the window gather probe). The last line is
+{"ok": true, "device": {...}}.
 
 Protocol (the JAX package's bench.py): B=8 query shapes of 10000 points,
 voxel 0.05, level-0 cap 5632, level caps shrinking 3x, k5 stem, d_model 256,
@@ -162,6 +166,7 @@ from csn_tpu_torch.models.layers import SparseConv
 from csn_tpu_torch.ops import attention, flash
 from csn_tpu_torch.parallel.midfc import make_midfc_steps
 from csn_tpu_torch.probes import dyngather, dyngather2, iw_bwd
+from csn_tpu_torch.retrieval import graph as retrieval_graph
 from csn_tpu_torch.tasks import main_csn, main_seg
 from csn_tpu_torch.train import optim
 from csn_tpu_torch.train.steps import eval_step, train_step
@@ -182,6 +187,7 @@ VANISHING = {"fc1.linear.bias"}
 # the MID-FC protocol (the JAX package's bench.py, mode midfc)
 MF_HEADS, MF_K, MF_B, MF_P, MF_D, MF_CHUNK = 8, 4, 4, 10000, 256, 500
 MF_RING_B, MF_BLOCKS = 2, 4   # phase 7's batch; key blocks of phase 3's chain
+RAGGED_LQ, RAGGED_LK = 1000, 777   # phase 3's ragged flash case
 
 HBM_BYTES_S = 3.35e12                       # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -529,9 +535,10 @@ def attention_work(qm, km, n_head, dk, es):
 def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count):
     """K2 at dropout 0 and ATTN_DROPOUT and its backward kernel at q
     [b, n_head, Lq, dk] against k, v [b, n_head, Lk, dk] under the masks qm,
-    km, in f32 and bf16; timed in `time_dt` at dropout ATTN_DROPOUT (the
-    train path's call, `count` per train step), beside the library call
-    `F.scaled_dot_product_attention` with the key mask at dropout 0."""
+    km, in f32 and bf16; timed in `time_dt` (None: not timed) at dropout
+    ATTN_DROPOUT (the train path's call, `count` per train step), beside the
+    library call `F.scaled_dot_product_attention` with the key mask at
+    dropout 0."""
     temp = float(dk) ** 0.5
     seed = 0x5EED_0F_C5A
     b, L = qm.shape
@@ -542,6 +549,8 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count):
     valid = qm[:, None, :, None]
     dout = dout * valid   # padded query rows carry no gradient
     shape = f"{what} [{b},{n_head},{L},{dk}]"
+    if km.shape[1] != L:
+        shape += f" Lk={km.shape[1]}"
     for dt in (torch.float32, torch.bfloat16):
         qd, kd, vd, dod = (x.to(dt) for x in (q, k, v, dout))
         for drop in (0.0, ATTN_DROPOUT):
@@ -570,6 +579,15 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count):
                 table.check("flash_attn_bwd", f"{tag} {nm}", gk, gr, dt,
                             vm)
             del got, refs
+            if dt == time_dt and not drop:   # the eval path's forward
+                fwd_ms = median_ms(lambda: flash.flash_attention(
+                    qd, kd, vd, km, qm, temp))
+                bwd_ms = median_ms(lambda: flash.flash_attention_bwd(
+                    qd, kd, vd, dod, lse, delta, km, qm, temp))
+                print(f"[time] flash_attn_fwd {tag} {str(dt)[6:]}: kernel "
+                      f"{fwd_ms:.4f} ms; flash_attn_bwd kernel "
+                      f"{bwd_ms:.4f} ms (dropout 0: the eval path's call; "
+                      f"not in the kernel line)")
             if dt == time_dt and drop:   # the train path's call
                 fb, bb, ff, bf = attention_work(qm, km, n_head, dk,
                                                 qd.element_size())
@@ -612,6 +630,15 @@ def check_attention(qb, kb, big, dev, table, g):
                 torch.bfloat16, 1)
     check_flash(table, dev, g, "CSA", qmask, kmask, N_HEAD, dk,
                 torch.bfloat16, 1)
+    # ragged edges of the D=64 bodies: Lq != Lk, neither a multiple of 64, a
+    # ragged key mask with one fully masked 64-key tile, one query tile all
+    # padding
+    rq = torch.rand(2, RAGGED_LQ, generator=g) < 0.8
+    rk = torch.rand(2, RAGGED_LK, generator=g) < 0.7
+    rk[:, 64:128] = False
+    rq[:, 128:192] = False
+    check_flash(table, dev, g, "ragged", rq.to(dev), rk.to(dev), N_HEAD, dk,
+                None, 0)
     ones = torch.ones(MF_B * MF_P // MF_CHUNK, MF_CHUNK, dtype=torch.bool,
                       device=dev)
     check_flash(table, dev, g, "MID-FC chunks", ones, ones, MF_HEADS, MF_D,
@@ -857,11 +884,18 @@ def check_interp(qb, dev, table, g):
             # tables (int32 index or CSR entry + f32 weight per corner)
             nb = (n0 + idx.shape[0]) * NUM_CLASSES * 2 + idx.numel() * 8
             nnz = int((idx < n0).sum())
+            # the one-call yardstick: a weighted bag sum of 8 rows per point
+            # (the sentinel rows point at an appended zero row)
+            flz = torch.cat([fl, fl.new_zeros(1, NUM_CLASSES)])
+            bags = idx.clamp(max=n0).long()
+            wb = w8.to(dt)
             table.time("interp_fwd", what,
                        lambda: interp_window.interp_fwd(fl, idx, w8),
                        lambda: interp.interpolate_to_points(fl, idx[None],
                                                             w8[None]),
-                       nbytes=nb, flops=2 * nnz * NUM_CLASSES)
+                       nbytes=nb, flops=2 * nnz * NUM_CLASSES,
+                       fn_library=lambda: F.embedding_bag(
+                           bags, flz, per_sample_weights=wb, mode="sum"))
             table.time("interp_bwd", bwd,
                        lambda: interp_window.interp_bwd(
                            gd, qb.interp_ptr, qb.interp_ent, w8),
@@ -1745,6 +1779,30 @@ def unet_slice(dev, n_convs, log_dir):
 MF_CAT, MF_CHAIN_K = "Bed", 1   # a category of the launcher's table: 15 classes
 
 
+def check_kmeans():
+    """`kmeans_candidate_indices` (the big categories' candidate pruning,
+    the port's own k-means) on descriptors with a known answer: 40 clusters
+    of 10 shapes, far apart, each a shape at its center and 9 around it
+    whose offsets sum to zero, so the nearest shape to each center is the
+    central one."""
+    rng = np.random.default_rng(SEED)
+    n_cl, per, d = 40, 10, D_MODEL
+    centers = rng.normal(size=(n_cl, d)) * 10.0
+    off = rng.normal(size=(n_cl, per - 1, d)) * 0.1
+    off -= off.mean(axis=1, keepdims=True)
+    x = np.concatenate([centers[:, None], centers[:, None] + off], axis=1)
+    perm = rng.permutation(n_cl * per)
+    x = x.reshape(-1, d)[perm].astype(np.float32)
+    want = np.sort(np.argsort(perm)[np.arange(n_cl) * per])
+    t0 = time.perf_counter()
+    got = np.sort(retrieval_graph.kmeans_candidate_indices(x))
+    sec = time.perf_counter() - t0
+    require(np.array_equal(got, want),
+            f"kmeans_candidate_indices: {got} vs {want}")
+    print(f"[chain] kmeans_candidate_indices on {n_cl * per} descriptors of "
+          f"{d}: the {n_cl} cluster centres' shapes, in {sec:.2f} s")
+
+
 def chain_slice(dev, base):
     """Phase 9, second part: HRNetSeg3S extractor -> fc_1 dumps -> SSA ->
     kNN graphs -> CSA -> get_csa_pred. Returns the launch counts of the
@@ -1806,6 +1864,7 @@ def chain_slice(dev, base):
     require(tr_graph.shape == (TR_TRAIN, MF_CHAIN_K + 1)
             and bool((tr_graph[:, 0] == np.arange(TR_TRAIN)).all()),
             f"chain: train graph {tr_graph.shape}, {tr_graph[:, 0]}")
+    check_kmeans()
     ckpt = os.path.join(logs, f"sgd_csa_n_heads_{MF_HEADS}_K_{MF_CHAIN_K}",
                         "run_1", MF_CAT, CHECKPOINT_NAME)
     require(os.path.isfile(ckpt), f"chain: {ckpt} missing")

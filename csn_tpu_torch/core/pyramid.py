@@ -572,12 +572,22 @@ def interp_csr(interp_idx: np.ndarray, n_vox: int
     return ptr.astype(np.int32), order.astype(np.int32)
 
 
-def to_torch(vb, device) -> TorchVoxelBatch:
+def to_torch(vb, device, compact: bool = True) -> TorchVoxelBatch:
     """`VoxelBatch` (host numpy) -> `TorchVoxelBatch` on `device`: int32
-    tables and f32 floats, as `VoxelBatch.to_jax(compact=False)`, plus the
-    readout's CSR table (`interp_csr`)."""
+    tables and f32 floats, plus the readout's CSR table (`interp_csr`).
+    With `compact` (the default, as `VoxelBatch.to_jax`'s), the voxel
+    features and the interpolation weights ship as f16 and are widened to
+    f32 on the device: the values the JAX package's trainers compute with.
+    `compact=False` ships them as f32, as `to_jax(compact=False)`. The JAX
+    package's int16 wire coders of the maps are not ported: the tables ship
+    as int32 either way (the same values)."""
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def f32(x):
+        if compact:
+            return t(x.astype(np.float16)).float()
+        return t(x.astype(np.float32))
 
     interp_idx = vb.interp_idx.astype(np.int32)
     ptr, ent = interp_csr(interp_idx, vb.masks[0].size)
@@ -589,10 +599,10 @@ def to_torch(vb, device) -> TorchVoxelBatch:
         point_mask=t(vb.point_mask),
         coords=tuple(t(c.astype(np.int32)) for c in vb.coords),
         masks=tuple(t(m) for m in vb.masks),
-        vox_feats=t(vb.vox_feats.astype(np.float32)),
+        vox_feats=f32(vb.vox_feats),
         kmaps={k: t(v.astype(np.int32)) for k, v in vb.kmaps.items()},
         interp_idx=t(interp_idx),
-        interp_w=t(vb.interp_w.astype(np.float32)),
+        interp_w=f32(vb.interp_w),
         point_to_voxel=t(vb.point_to_voxel.astype(np.int32)),
         interp_ptr=t(ptr),
         interp_ent=t(ent),

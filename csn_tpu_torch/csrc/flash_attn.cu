@@ -8,11 +8,11 @@
 //   s_j = (q / temperature) . k_j,  out = sum_j softmax(s)_j v_j,
 //   lse = max_j s_j + log(sum_j exp(s_j - max)),
 // with masked keys at NEG_INF = -1e30, the denominator floored at 1e-30,
-// f32 arithmetic throughout, out stored in the activation type and lse in
-// f32. A query tile with no valid query is skipped and written as zeros (its
-// rows are padding, which callers mask), and so is a key tile with no valid
-// key (it would add nothing). Only rows whose q_mask is true are part of the
-// contract, as in the TPU kernel.
+// out stored in the activation type and lse in f32. A query tile with no
+// valid query is skipped and written as zeros (its rows are padding, which
+// callers mask), and so is a key tile with no valid key (it would add
+// nothing). Only rows whose q_mask is true are part of the contract, as in
+// the TPU kernel.
 //
 // Attention-weight dropout (rate 1 - keep, torch's dropout(softmax(s)) @ v)
 // follows the TPU kernel's flash identity (flash.py:144-150): the numerator
@@ -22,229 +22,206 @@
 // version regenerate exactly the same entries.
 //
 // What bounds it on the H100: 4*Lq*Lk*D flops against (Lq + 2*Lk)*D reads
-// per (batch, head): at Lq = Lk = 5632 and D = 64 it is compute-bound. This
-// first version runs both products on the CUDA cores in f32 (FMA); the
-// tensor-core (wgmma) form is later work.
+// per (batch, head): at Lq = Lk = 5632 and D = 64 it is compute-bound.
 //
-// Design: one block of 256 threads per (batch*head, tile of 64 queries). The
-// block keeps the scaled query tile in shared memory and walks the keys in
-// tiles of 64: K (transposed) and V go to shared memory, each thread computes
-// a 4 x 4 tile of scores, the running max and denominator of its 4 rows are
-// reduced across the 16 threads that share those rows with warp shuffles,
-// the probabilities go to shared memory, and each thread accumulates a
-// 4 x D/16 tile of the output in registers, rescaled as the max moves. No
-// [Lq, Lk] matrix reaches device memory. The TPU kernel's sequential kv grid
-// axis with VMEM scratch becomes this loop inside the block.
+// bf16, D = 64 (the HRNet heads): both products on the tensor cores, the
+// FlashAttention-2 shape. One block of 4 warps per (batch*head, 64-query
+// tile); each warp owns 16 query rows. Q, K and V tiles go global -> shared
+// by cp.async into [64][72] tiles (padded rows: ldmatrix without bank
+// conflicts), K and V double-buffered, so the next live key tile's copy runs
+// under this tile's products; one barrier per key tile, the key mask read a
+// tile ahead. Q's A fragments are loaded once (ldmatrix) and
+// kept in registers. S = Q K^T runs on mma.sync m16n8k16 (bf16 in, f32
+// accumulate); 1/temperature multiplies the f32 scores (not Q before
+// rounding), folded with log2(e) so the softmax runs on exp2. The running
+// max and denominator of a row live in the four lanes that hold it (quad
+// shuffles), the denominator summed per lane and reduced once at the end.
+// P is rounded to bf16 only as the A operand of O += P V (ldmatrix.trans of
+// the V tile for B), which accumulates in f32 registers. Dropout: a lane
+// holds two adjacent columns of a fragment row, half a Philox group; lanes
+// t and t^1 share one group, so each draws it for one of the two rows it
+// serves and they swap words (flash_tc.cuh drop_words): one Philox call per
+// 4 entries, as the mask has. The next step for this kernel is wgmma with
+// TMA (ROADMAP B2).
 //
-// Wide heads (D = 128, 256: the MID-FC heads use 256 per head) take the
-// kernel of flash_wide.cuh, which keeps only the query tile whole in shared
-// memory and walks D in chunks of 64; the D = 64 kernel below is unchanged.
+// f32 at any head dim, and bf16 at D = 128 / 256 (the MID-FC heads), take
+// the CUDA-core kernel of flash_wide.cuh: it keeps only the query tile whole
+// in shared memory and walks D in chunks of 64, in f32 arithmetic (f32 stays
+// off the tensor cores: TF32 would miss the f32 checks' 1e-4).
 
 #include "common.cuh"
+#include "flash_tc.cuh"
 #include "flash_wide.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // queries per block
-constexpr int BKV = 64;       // keys per tile
-constexpr int THREADS = 256;  // 16 x 16: ty owns 4 rows, tx 4 keys / D/16 dims
-constexpr int PAD = 4;        // row padding of the transposed tiles (banks)
-constexpr int SQ = BQ + PAD;  // stride of Qs and Ps
-constexpr int SK = BKV + PAD; // stride of Ks
-constexpr float NEG_INF = -1e30f;
+using namespace csn_tc;
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)D * SQ + (size_t)D * SK + (size_t)BKV * D +
-                          (size_t)BKV * SQ) +
-         sizeof(int) * BKV;
-}
+constexpr int THREADS = 128;  // 4 warps x 16 query rows
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                 const uint8_t* __restrict__ q_mask, T* __restrict__ out,
-                 float* __restrict__ lse, int H, int Lq, int Lk,
-                 float inv_temp, uint64_t seed, uint32_t thresh,
-                 float inv_keep, int use_drop) {
-  constexpr int CPT = D / 16;  // output dims per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // [D][SQ]  scaled queries, transposed
-  float* Ks = Qs + D * SQ;      // [D][SK]  keys, transposed
-  float* Vs = Ks + D * SK;      // [BKV][D]
-  float* Ps = Vs + BKV * D;     // [BKV][SQ] probabilities, transposed
-  int* kvalid = reinterpret_cast<int*>(Ps + BKV * SQ);  // [BKV]
+struct FwdSmem {
+  bf16 q[TILE * LDS];
+  bf16 k[2][TILE * LDS];
+  bf16 v[2][TILE * LDS];
+  float kval[2][TILE];  // key flags of the tile in each buffer
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * BQ;
-  const T* qp = q + (int64_t)bh * Lq * D;
-  const T* kp = k + (int64_t)bh * Lk * D;
-  const T* vp = v + (int64_t)bh * Lk * D;
-  T* op = out + (int64_t)bh * Lq * D;
+// four blocks per SM (128 registers a thread): faster than three with the
+// registers the compiler would take otherwise
+__global__ void __launch_bounds__(THREADS, 4)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const uint8_t* __restrict__ kv_mask,
+                    const uint8_t* __restrict__ q_mask, bf16* __restrict__ out,
+                    float* __restrict__ lse, int H, int Lq, int Lk,
+                    float inv_temp, uint64_t seed, uint32_t thresh,
+                    float inv_keep, int use_drop) {
+  __shared__ __align__(128) FwdSmem sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H;
+  const int q0 = blockIdx.x * TILE;
+  const bf16* qp = q + (int64_t)bh * Lq * TD;
+  const bf16* kp = k + (int64_t)bh * Lk * TD;
+  const bf16* vp = v + (int64_t)bh * Lk * TD;
+  bf16* op = out + (int64_t)bh * Lq * TD;
   float* lp = lse + (int64_t)bh * Lq;
+  const uint8_t* km = kv_mask + (int64_t)b * Lk;
 
   int qlive = 0;
-  if (tid < BQ) {
+  if (tid < TILE) {
     const int r = q0 + tid;
     qlive = r < Lq && q_mask[(int64_t)b * Lq + r];
   }
-  if (!__syncthreads_or(qlive)) {
-    for (int i = tid; i < BQ * D; i += THREADS) {
-      const int r = q0 + i / D;
-      if (r < Lq) csn::store(0.f, op + (int64_t)r * D + i % D);
+  if (!__syncthreads_or(qlive)) {  // padding tile: zeros
+    for (int i = tid; i < TILE * TD / 2; i += THREADS) {
+      const int r = q0 + i / (TD / 2);
+      if (r < Lq)
+        reinterpret_cast<uint32_t*>(op + (int64_t)r * TD)[i % (TD / 2)] = 0u;
     }
-    if (tid < BQ && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
+    if (tid < TILE && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
     return;
   }
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int gr = q0 + r;
-    Qs[d * SQ + r] =
-        gr < Lq ? csn::to_f32(qp[(int64_t)gr * D + d]) * inv_temp : 0.f;
+  // The key-tile loop: one barrier per tile (find_live's), which both
+  // publishes the tile whose copy this thread waited for and orders every
+  // warp's reads of the other buffer before it is refilled. The mask bytes
+  // of the tile after next are loaded a tile ahead (pre).
+  const int nt = (Lk + TILE - 1) / TILE;
+  load_tile(sm.q, qp, q0, Lq, tid, THREADS);
+  int live = row_live(km, Lk, 0, tid);
+  int kt = find_live(0, nt, live, km, Lk, tid);
+  if (kt < nt) {
+    if (tid < TILE) sm.kval[0][tid] = live ? 1.f : 0.f;
+    load_tile(sm.k[0], kp, kt * TILE, Lk, tid, THREADS);
+    load_tile(sm.v[0], vp, kt * TILE, Lk, tid, THREADS);
   }
+  cp_async_commit();
+  int pre = row_live(km, Lk, kt + 1, tid);
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[4][4];
+  load_a(qf, sm.q, warp * 16, lane);
 
-  float m[4], l[4], o[4][CPT];
+  const float sc = inv_temp * LOG2E;  // scores in log2 units
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) o[i][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  const uint32_t row = (uint32_t)(q0 + warp * 16 + g);
 
-  for (int kv0 = 0; kv0 < Lk; kv0 += BKV) {
-    int live = 0;
-    if (tid < BKV) {
-      const int gr = kv0 + tid;
-      live = gr < Lk && kv_mask[(int64_t)b * Lk + gr];
-      kvalid[tid] = live;
+  for (int buf = 0; kt < nt; buf ^= 1) {
+    cp_async_wait<0>();
+    const int next = find_live(kt + 1, nt, pre, km, Lk, tid);
+    if (next < nt) {  // the next live tile's copy runs under this one
+      if (tid < TILE) sm.kval[buf ^ 1][tid] = pre ? 1.f : 0.f;
+      load_tile(sm.k[buf ^ 1], kp, next * TILE, Lk, tid, THREADS);
+      load_tile(sm.v[buf ^ 1], vp, next * TILE, Lk, tid, THREADS);
+      cp_async_commit();
     }
-    if (!__syncthreads_or(live)) continue;  // no valid key in this tile
+    pre = row_live(km, Lk, next + 1, tid);
 
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const int gr = kv0 + r;
-      const bool ok = gr < Lk;
-      Ks[d * SK + r] = ok ? csn::to_f32(kp[(int64_t)gr * D + d]) : 0.f;
-      Vs[r * D + d] = ok ? csn::to_f32(vp[(int64_t)gr * D + d]) : 0.f;
-    }
-    __syncthreads();
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+    mma_abt(s, qf, sm.k[buf], lane);
 
-    float s[4][4];
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qs[d * SQ + ty * 4]);
-      const float4 kk = *reinterpret_cast<const float4*>(&Ks[d * SK + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (!kvalid[tx * 4 + j]) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = NEG_INF;
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = sm.kval[buf][nb * 8 + 2 * t + (e & 1)] != 0.f;
+        s[nb][e] = ok ? s[nb][e] * sc : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
       }
+    float scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      scale[h] = exp2_approx(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= scale[h];
     }
-
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+    for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float scale = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
+      for (int e = 0; e < 4; ++e) {
+        s[nb][e] = exp2_approx(s[nb][e] - m[e >> 1]);
+        l[e >> 1] += s[nb][e];  // undropped: the denominator
+        o[nb][e] *= scale[e >> 1];
       }
+    if (use_drop) {  // numerator only
+      const uint32_t kb = keep_bits(seed, (uint32_t)bh, row,
+                                    (uint32_t)(kt * TILE), thresh, t);
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * scale + rs;
-      m[i] = m_new;
+      for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) o[i][c] *= scale;
-    }
-
-    if (use_drop) {  // numerator only: l and m above are undropped
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const csn::U4 bits = csn::dropout_bits(
-            seed, (uint32_t)bh, (uint32_t)(q0 + ty * 4 + i),
-            (uint32_t)((kv0 + tx * 4) >> 2));
-        const uint32_t bw[4] = {bits.x, bits.y, bits.z, bits.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] = bw[j] < thresh ? s[i][j] * inv_keep : 0.f;
-      }
+        for (int e = 0; e < 4; ++e)
+          s[nb][e] = (kb >> (4 * nb + e)) & 1u ? s[nb][e] * inv_keep : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(tx * 4 + j) * SQ + ty * 4 + i] = s[i][j];
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BKV; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(&Ps[kk * SQ + ty * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      float vv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = Vs[kk * D + tx * CPT + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) o[i][c] = fmaf(pv[i], vv[c], o[i][c]);
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t a[4];
+      c_to_a(a, s, ks);
+      mma_ab_step(o, a, sm.v[buf], ks, lane);
     }
-    __syncthreads();  // before the next tile overwrites Ks, Vs, Ps, kvalid
+    kt = next;
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = (int)row + 8 * h;
     if (r >= Lq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(l[h], 1e-30f);
+    const float inv = 1.f / den;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      csn::store(o[i][c] / den, op + (int64_t)r * D + tx * CPT + c);
-    if (tx == 0) lp[r] = m[i] + logf(den);
+    for (int nb = 0; nb < 8; ++nb)
+      *reinterpret_cast<uint32_t*>(op + (int64_t)r * TD + nb * 8 + 2 * t) =
+          pack(o[nb][2 * h] * inv, o[nb][2 * h + 1] * inv);
+    if (t == 0)
+      lp[r] = (m[h] <= NEG_INF ? NEG_INF : m[h] * LN2) + logf(den);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_mask, const void* q_mask, void* out,
-                   void* lse, int B, int H, int Lq, int Lk, float inv_temp,
-                   uint64_t seed, uint32_t thresh, float inv_keep, int use_drop,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((Lq + BQ - 1) / BQ), (unsigned)(B * H));
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(kv_mask),
-      static_cast<const uint8_t*>(q_mask), static_cast<T*>(out),
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* kv_mask, const void* q_mask, void* out,
+                      void* lse, int B, int H, int Lq, int Lk, float inv_temp,
+                      uint64_t seed, uint32_t thresh, float inv_keep,
+                      int use_drop, cudaStream_t stream) {
+  const dim3 grid((unsigned)((Lq + TILE - 1) / TILE), (unsigned)(B * H));
+  flash_fwd_tc_kernel<<<grid, THREADS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_mask),
+      static_cast<const uint8_t*>(q_mask), static_cast<bf16*>(out),
       static_cast<float*>(lse), H, Lq, Lk, inv_temp, seed, thresh, inv_keep,
       use_drop);
   return cudaGetLastError();
@@ -252,9 +229,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, out: [B, H, L, D] contiguous; kv_mask [B, Lk], q_mask [B, Lq]
-// bool bytes; lse [B, H, Lq] f32. D (dk == dv) is 64 (the HRNet heads), 128
-// or 256 (the MID-FC heads).
+// q, k, v, out: [B, H, L, D] contiguous, 16-byte aligned; kv_mask [B, Lk],
+// q_mask [B, Lq] bool bytes; lse [B, H, Lq] f32. D (dk == dv) is 64 (the
+// HRNet heads), 128 or 256 (the MID-FC heads).
 // use_drop != 0 applies dropout with keep threshold `thresh` (of 2^32) and
 // scale inv_keep = 1/keep, keyed by `seed`.
 extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
@@ -266,30 +243,23 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
                                   int use_drop, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128 || D == 256) {
+  if (dtype == csn::kBF16 && D == csn_tc::TD)
+    return launch_tc(q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk,
+                     inv_temp, seed, thresh, inv_keep, use_drop, s);
 #define CSN_WIDE(T, DD)                                                       \
   return csn_wide::launch_fwd_wide<T, DD, false>(                             \
       q, k, v, kv_mask, q_mask, out, lse, nullptr, nullptr, nullptr, nullptr, \
       nullptr, nullptr, B, H, Lq, Lk, inv_temp, seed, thresh, inv_keep,       \
       use_drop, 0, 0, s)
-    if (dtype == csn::kF32) {
-      if (D == 128) CSN_WIDE(float, 128);
-      CSN_WIDE(float, 256);
-    }
-    if (dtype == csn::kBF16) {
-      if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
-      CSN_WIDE(__nv_bfloat16, 256);
-    }
-#undef CSN_WIDE
-    return cudaErrorInvalidValue;
+  if (dtype == csn::kF32) {
+    if (D == 64) CSN_WIDE(float, 64);
+    if (D == 128) CSN_WIDE(float, 128);
+    if (D == 256) CSN_WIDE(float, 256);
   }
-  if (D != 64) return cudaErrorInvalidValue;
-  if (dtype == csn::kF32)
-    return launch<float, 64>(q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk,
-                             inv_temp, seed, thresh, inv_keep, use_drop, s);
-  if (dtype == csn::kBF16)
-    return launch<__nv_bfloat16, 64>(q, k, v, kv_mask, q_mask, out, lse, B, H,
-                                     Lq, Lk, inv_temp, seed, thresh, inv_keep,
-                                     use_drop, s);
+  if (dtype == csn::kBF16) {
+    if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
+    if (D == 256) CSN_WIDE(__nv_bfloat16, 256);
+  }
+#undef CSN_WIDE
   return cudaErrorInvalidValue;
 }

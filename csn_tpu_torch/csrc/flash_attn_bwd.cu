@@ -11,46 +11,58 @@
 // O) computed by the caller:
 //   dP = dO . v^T,  dPd = m * dP / keep,  dS = p * (dPd - delta),
 //   dV = (m * p / keep)^T . dO,  dK = dS^T . (q / T),  dQ = dS . k / T,
-// in f32, stored in the type of q, k, v. Query tiles with no valid query and
-// key tiles with no valid key are skipped, as in the forward (flash_attn.cu):
-// a skipped key tile gets dK = dV = 0, a skipped query tile dQ = 0.
+// accumulated in f32, stored in the type of q, k, v. Query tiles with no
+// valid query and key tiles with no valid key are skipped, as in the forward
+// (flash_attn.cu): a skipped key tile gets dK = dV = 0, a skipped query tile
+// dQ = 0.
 //
 // What bounds it on the H100: seven 64x64x64 tile products per (query tile,
 // key tile) pair (four in the dK/dV pass, three in the dQ pass) against the
-// forward's two, all on the CUDA cores in f32 (FMA), so it is compute-bound
-// like the forward; the tensor-core (wgmma) form is later work.
+// forward's two: compute-bound like the forward.
 //
 // Design: the classic two-pass split, deterministic and without atomics. The
 // TPU kernel accumulates dQ in a VMEM-resident [Lq, D] plane across its
 // sequential (key, query) grid; a block's shared memory has no room for that
 // plane and blocks run in no order, so the work is split in two kernels:
-//  * dkdv: one block of 256 threads per (batch*head, 64-key tile) keeps its K
-//    and V tile in shared memory and loops over the query tiles; each thread
-//    owns 4 keys x 4 queries of the transposed score tile and 4 keys x 4 dims
-//    of dK and dV in registers.
+//  * dkdv: one block per (batch*head, 64-key tile) keeps its K and V tile and
+//    loops over the live query tiles;
 //  * dq: one block per (batch*head, 64-query tile) keeps Q and dO and loops
-//    over the key tiles; each thread owns 4 queries x 4 keys of the score
-//    tile and 4 queries x 4 dims of dQ.
+//    over the live key tiles.
 // dq recomputes s, p and dP that dkdv computed too: two of the seven tile
 // products are spent on not sharing dQ across blocks.
 //
-// Wide heads (D = 128, 256: the MID-FC heads use 256 per head) take the
-// kernels of flash_bwd_wide.cuh, re-tiled so that shared memory and the
-// accumulator registers stay within a block's limits; the D = 64 kernels
-// below are unchanged.
+// bf16, D = 64 (the HRNet heads): every product on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 accumulators), in the layout of the
+// forward (flash_attn.cu, flash_tc.cuh). Blocks of 4 warps; the streamed
+// tiles go global -> shared by cp.async, double-buffered, into [64][72]
+// tiles read by ldmatrix.
+//  * dkdv: each warp computes S and dP for 16 queries of the tile against
+//    the block's 64 keys (Q and dO A fragments by ldmatrix, K and V as B).
+//    P, the dropout, and dS follow in f32 registers; m * P / keep and dS are
+//    then rounded to bf16 into two [64][72] shared tiles, which is the only
+//    place they are rounded. After a barrier each warp owns 16 keys: dV +=
+//    (m P / keep)^T . dO and dK += dS^T . Q, the transposed A operands read
+//    off those tiles by ldmatrix.trans (no second copy), dO and Q as B by
+//    ldmatrix.trans. dK takes 1/T once at the end.
+//  * dq: each warp owns 16 queries; Q and dO A fragments stay in registers
+//    for the whole key loop; S, dP and dS as above, then dS, rounded to bf16
+//    in registers (never through shared memory), is the A operand of dQ +=
+//    dS . K (K as B by ldmatrix.trans). dQ takes 1/T at the end.
+// Dropout words as the forward draws them (flash_tc.cuh drop_words).
+//
+// f32 at any head dim, and bf16 at D = 128 / 256 (the MID-FC heads), take
+// the CUDA-core kernels of flash_bwd_wide.cuh, in f32 arithmetic (f32 stays
+// off the tensor cores: TF32 would miss the f32 checks' 1e-4).
 
 #include "common.cuh"
 #include "flash_bwd_wide.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // queries per tile
-constexpr int BKV = 64;       // keys per tile
-constexpr int THREADS = 256;  // 16 x 16
-constexpr int PAD = 4;
-constexpr int SQ = BQ + PAD;
-constexpr int SK = BKV + PAD;
-constexpr float NEG_INF = -1e30f;
+using namespace csn_tc;
+
+constexpr int THREADS = 128;  // 4 warps
 
 struct Drop {
   uint64_t seed;
@@ -59,409 +71,342 @@ struct Drop {
   int on;
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+struct DkdvSmem {
+  bf16 k[TILE * LDS];
+  bf16 v[TILE * LDS];
+  bf16 q[2][TILE * LDS];
+  bf16 dout[2][TILE * LDS];
+  bf16 p[TILE * LDS];   // m * p / keep, [query][key]
+  bf16 ds[TILE * LDS];  // dS, [query][key]
+  float kval[TILE];
+};
+
+struct DqSmem {
+  bf16 q[TILE * LDS];
+  bf16 dout[TILE * LDS];
+  bf16 k[2][TILE * LDS];
+  bf16 v[2][TILE * LDS];
+  float kval[2][TILE];
+};
+
+// p, m * p / keep and dS of one warp's 16 x 64 score tile, in place: s and
+// dp hold S (raw q . k) and dP on entry, m p / keep and dS on exit. kval:
+// the tile's key flags; kb: the lane's keep bits (keep_bits).
+__device__ __forceinline__ void probs_and_ds(
+    float (&s)[8][4], float (&dp)[8][4], const float* kval, float sc,
+    const float (&lse2)[2], const float (&dl)[2], const Drop& drop,
+    uint32_t kb, int t) {
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float p = kval[nb * 8 + 2 * t + (e & 1)] != 0.f
+                          ? exp2_approx(s[nb][e] * sc - lse2[h])
+                          : 0.f;
+      float dpd = dp[nb][e], pd = p;
+      if (drop.on) {
+        const bool keep = (kb >> (4 * nb + e)) & 1u;
+        dpd = keep ? dpd * drop.inv_keep : 0.f;
+        pd = keep ? p * drop.inv_keep : 0.f;
+      }
+      s[nb][e] = pd;
+      dp[nb][e] = p * (dpd - dl[h]);
+    }
+  }
+}
+
+// lse (in log2 units) and delta of the lane's rows row and row + 8; 0 past
+// L (those rows carry q = dO = 0, so they add nothing)
+__device__ __forceinline__ void row_stats(float (&lse2)[2], float (&dl)[2],
+                                          const float* lse, const float* delta,
+                                          int row, int L) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row + 8 * h < L;
+    lse2[h] = in ? lse[row + 8 * h] * LOG2E : 0.f;
+    dl[h] = in ? delta[row + 8 * h] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&x)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
+}
+
+// rows row0 + g (+ 8) of a [L, 64] matrix from a warp's accumulator, times f
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&x)[8][4],
+                                           int row0, int L, float f, int g,
+                                           int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    if (r >= L) continue;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+      *reinterpret_cast<uint32_t*>(dst + (int64_t)r * TD + nb * 8 + 2 * t) =
+          pack(x[nb][2 * h] * f, x[nb][2 * h + 1] * f);
+  }
+}
+
+__device__ __forceinline__ void zero_rows(bf16* dst, int row0, int L,
+                                          int tid) {
+  for (int i = tid; i < TILE * TD / 2; i += THREADS) {
+    const int r = row0 + i / (TD / 2);
+    if (r < L)
+      reinterpret_cast<uint32_t*>(dst + (int64_t)r * TD)[i % (TD / 2)] = 0u;
+  }
 }
 
 // --- dK, dV: one block per (batch*head, key tile) ---------------------------
 
-template <int D>
-constexpr size_t dkdv_smem_floats() {
-  return 4 * (size_t)D * SK        // KsT, VsT, QsT, dOT (QsT, dOT with SQ)
-         + 2 * (size_t)BQ * D      // Qs, dOs row-major
-         + 2 * (size_t)BQ * SK     // Ps, dSs: [query][key]
-         + 2 * (size_t)BQ;         // lse, delta of the query tile
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const uint8_t* __restrict__ kv_mask,
-                      const uint8_t* __restrict__ q_mask, T* __restrict__ dk,
-                      T* __restrict__ dv, int H, int Lq, int Lk,
-                      float inv_temp, Drop drop) {
-  static_assert(SQ == SK, "QsT/dOT share the key-tile stride");
-  extern __shared__ __align__(16) float smem[];
-  float* KsT = smem;             // [D][SK]
-  float* VsT = KsT + D * SK;     // [D][SK]
-  float* QsT = VsT + D * SK;     // [D][SQ] scaled queries
-  float* dOT = QsT + D * SQ;     // [D][SQ]
-  float* Qs = dOT + D * SQ;      // [BQ][D] scaled queries
-  float* dOs = Qs + BQ * D;      // [BQ][D]
-  float* Ps = dOs + BQ * D;      // [BQ][SK] m * p / keep
-  float* dSs = Ps + BQ * SK;     // [BQ][SK]
-  float* lse_s = dSs + BQ * SK;  // [BQ]
-  float* delta_s = lse_s + BQ;   // [BQ]
-  __shared__ int kvalid[BKV];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // queries tx*4.. of the score tile; dims tx*4..
-  const int ty = tid / 16;  // keys ty*4 .. ty*4+3
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int kv0 = blockIdx.x * BKV;
-  const T* qp = q + (int64_t)bh * Lq * D;
-  const T* dop = dout + (int64_t)bh * Lq * D;
-  const T* kp = k + (int64_t)bh * Lk * D;
-  const T* vp = v + (int64_t)bh * Lk * D;
+// Both kernels are held to three blocks per SM (168 registers a thread, no
+// spills): faster than the two the compiler's own choice allows.
+__global__ void __launch_bounds__(THREADS, 3)
+flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const uint8_t* __restrict__ kv_mask,
+                         const uint8_t* __restrict__ q_mask,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                         int Lq, int Lk, float inv_temp, Drop drop) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  DkdvSmem& sm = *reinterpret_cast<DkdvSmem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H;
+  const int kv0 = blockIdx.x * TILE;
+  const bf16* qp = q + (int64_t)bh * Lq * TD;
+  const bf16* dop = dout + (int64_t)bh * Lq * TD;
   const float* lp = lse + (int64_t)bh * Lq;
-  const float* dp_ = delta + (int64_t)bh * Lq;
-  T* dkp = dk + (int64_t)bh * Lk * D;
-  T* dvp = dv + (int64_t)bh * Lk * D;
+  const float* dlp = delta + (int64_t)bh * Lq;
+  const uint8_t* qm = q_mask + (int64_t)b * Lq;
 
   int live = 0;
-  if (tid < BKV) {
+  if (tid < TILE) {
     const int r = kv0 + tid;
     live = r < Lk && kv_mask[(int64_t)b * Lk + r];
-    kvalid[tid] = live;
+    sm.kval[tid] = live ? 1.f : 0.f;
   }
   if (!__syncthreads_or(live)) {  // no valid key: dK = dV = 0
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int r = kv0 + i / D;
-      if (r < Lk) {
-        csn::store(0.f, dkp + (int64_t)r * D + i % D);
-        csn::store(0.f, dvp + (int64_t)r * D + i % D);
-      }
-    }
+    zero_rows(dk + (int64_t)bh * Lk * TD, kv0, Lk, tid);
+    zero_rows(dv + (int64_t)bh * Lk * TD, kv0, Lk, tid);
     return;
   }
-  for (int i = tid; i < BKV * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const bool ok = kv0 + r < Lk;
-    KsT[d * SK + r] = ok ? csn::to_f32(kp[(int64_t)(kv0 + r) * D + d]) : 0.f;
-    VsT[d * SK + r] = ok ? csn::to_f32(vp[(int64_t)(kv0 + r) * D + d]) : 0.f;
+  // The query-tile loop, as the forward's key loop (flash_attn.cu): one
+  // barrier in find_live per tile, which publishes the Q and dO tile this
+  // thread waited for and orders the previous tile's reads of the other
+  // buffers and of the P and dS tiles before they are refilled; a second
+  // barrier publishes P and dS. Mask bytes, lse and delta are loaded a tile
+  // ahead.
+  const int nt = (Lq + TILE - 1) / TILE;
+  load_tile(sm.k, k + (int64_t)bh * Lk * TD, kv0, Lk, tid, THREADS);
+  load_tile(sm.v, v + (int64_t)bh * Lk * TD, kv0, Lk, tid, THREADS);
+  int pre = row_live(qm, Lq, 0, tid);
+  int qt = find_live(0, nt, pre, qm, Lq, tid);
+  if (qt < nt) {
+    load_tile(sm.q[0], qp, qt * TILE, Lq, tid, THREADS);
+    load_tile(sm.dout[0], dop, qt * TILE, Lq, tid, THREADS);
   }
+  cp_async_commit();
+  pre = row_live(qm, Lq, qt + 1, tid);
+  float lse2[2], dl[2];
+  row_stats(lse2, dl, lp, dlp, qt * TILE + warp * 16 + g, Lq);
 
-  float acc_k[4][4], acc_v[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int q0 = 0; q0 < Lq; q0 += BQ) {
-    int qlive = 0;
-    if (tid < BQ) {
-      const int r = q0 + tid;
-      const bool in = r < Lq;
-      qlive = in && q_mask[(int64_t)b * Lq + r];
-      lse_s[tid] = in ? lp[r] : 0.f;
-      delta_s[tid] = in ? dp_[r] : 0.f;
+  const float sc = inv_temp * LOG2E;
+  float acc_k[8][4], acc_v[8][4];
+  zero_acc(acc_k);
+  zero_acc(acc_v);
+  for (int buf = 0; qt < nt; buf ^= 1) {
+    cp_async_wait<0>();
+    const int next = find_live(qt + 1, nt, pre, qm, Lq, tid);
+    if (next < nt) {
+      load_tile(sm.q[buf ^ 1], qp, next * TILE, Lq, tid, THREADS);
+      load_tile(sm.dout[buf ^ 1], dop, next * TILE, Lq, tid, THREADS);
+      cp_async_commit();
     }
-    // also publishes lse_s/delta_s, and orders the previous tile's reads of
-    // Qs/dOs/Ps/dSs before this tile's writes
-    if (!__syncthreads_or(qlive)) continue;
+    pre = row_live(qm, Lq, next + 1, tid);
+    float lse2_n[2], dl_n[2];
+    row_stats(lse2_n, dl_n, lp, dlp, next * TILE + warp * 16 + g, Lq);
 
-    for (int i = tid; i < BQ * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const bool ok = q0 + r < Lq;
-      const float qv =
-          ok ? csn::to_f32(qp[(int64_t)(q0 + r) * D + d]) * inv_temp : 0.f;
-      const float gv = ok ? csn::to_f32(dop[(int64_t)(q0 + r) * D + d]) : 0.f;
-      QsT[d * SQ + r] = qv;
-      Qs[r * D + d] = qv;
-      dOT[d * SQ + r] = gv;
-      dOs[r * D + d] = gv;
+    // S and dP of this warp's 16 queries against the block's 64 keys
+    const int row = qt * TILE + warp * 16 + g;
+    float s[8][4], dp[8][4];
+    zero_acc(s);
+    zero_acc(dp);
+    {
+      uint32_t af[4][4];
+      load_a(af, sm.q[buf], warp * 16, lane);
+      mma_abt(s, af, sm.k, lane);
+      load_a(af, sm.dout[buf], warp * 16, lane);
+      mma_abt(dp, af, sm.v, lane);
     }
+    const uint32_t kb = drop.on ? keep_bits(drop.seed, (uint32_t)bh,
+                                            (uint32_t)row, (uint32_t)kv0,
+                                            drop.thresh, t)
+                                : 0u;
+    probs_and_ds(s, dp, sm.kval, sc, lse2, dl, drop, kb, t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int o = (warp * 16 + g + 8 * h) * LDS + nb * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(sm.p + o) =
+            pack(s[nb][2 * h], s[nb][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(sm.ds + o) =
+            pack(dp[nb][2 * h], dp[nb][2 * h + 1]);
+      }
     __syncthreads();
 
-    // transposed tiles: st[i][j], dpt[i][j] for key ty*4+i, query tx*4+j
-    float st[4][4], dpt[4][4];
+    // this warp's 16 keys: dV += (m P / keep)^T dO, dK += dS^T Q
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 kk = ld4(&KsT[d * SK + ty * 4]);
-      const float4 vv = ld4(&VsT[d * SK + ty * 4]);
-      const float4 qq = ld4(&QsT[d * SQ + tx * 4]);
-      const float4 gg = ld4(&dOT[d * SQ + tx * 4]);
-      const float ka[4] = {kk.x, kk.y, kk.z, kk.w};
-      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-      const float qa[4] = {qq.x, qq.y, qq.z, qq.w};
-      const float ga[4] = {gg.x, gg.y, gg.z, gg.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(ka[i], qa[j], st[i][j]);
-          dpt[i][j] = fmaf(va[i], ga[j], dpt[i][j]);
-        }
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t a[4];
+      load_a_t(a, sm.p, warp * 16, ks, lane);
+      mma_ab_step(acc_v, a, sm.dout[buf], ks, lane);
+      load_a_t(a, sm.ds, warp * 16, ks, lane);
+      mma_ab_step(acc_k, a, sm.q[buf], ks, lane);
     }
-
+    qt = next;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qr = tx * 4 + j;
-      uint32_t bw[4] = {0u, 0u, 0u, 0u};
-      if (drop.on) {
-        const csn::U4 bits = csn::dropout_bits(
-            drop.seed, (uint32_t)bh, (uint32_t)(q0 + qr),
-            (uint32_t)((kv0 + ty * 4) >> 2));
-        bw[0] = bits.x;
-        bw[1] = bits.y;
-        bw[2] = bits.z;
-        bw[3] = bits.w;
-      }
-      float pn[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float s = kvalid[ty * 4 + i] ? st[i][j] : NEG_INF;
-        const float p = expf(s - lse_s[qr]);
-        float dpd = dpt[i][j];
-        pn[i] = p;
-        if (drop.on) {
-          const bool keep = bw[i] < drop.thresh;
-          dpd = keep ? dpd * drop.inv_keep : 0.f;
-          pn[i] = keep ? p * drop.inv_keep : 0.f;
-        }
-        ds[i] = p * (dpd - delta_s[qr]);
-      }
-      *reinterpret_cast<float4*>(&Ps[qr * SK + ty * 4]) =
-          make_float4(pn[0], pn[1], pn[2], pn[3]);
-      *reinterpret_cast<float4*>(&dSs[qr * SK + ty * 4]) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      const float4 pp = ld4(&Ps[r * SK + ty * 4]);
-      const float4 ss = ld4(&dSs[r * SK + ty * 4]);
-      const float4 gg = ld4(&dOs[r * D + tx * 4]);
-      const float4 qq = ld4(&Qs[r * D + tx * 4]);
-      const float pa[4] = {pp.x, pp.y, pp.z, pp.w};
-      const float sa[4] = {ss.x, ss.y, ss.z, ss.w};
-      const float ga[4] = {gg.x, gg.y, gg.z, gg.w};
-      const float qa[4] = {qq.x, qq.y, qq.z, qq.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc_v[i][c] = fmaf(pa[i], ga[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(sa[i], qa[c], acc_k[i][c]);
-        }
-    }
-    // the next tile's first barrier (__syncthreads_or) orders these reads
-    // before its writes
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = kv0 + ty * 4 + i;
-    if (r >= Lk) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      csn::store(acc_k[i][c], dkp + (int64_t)r * D + tx * 4 + c);
-      csn::store(acc_v[i][c], dvp + (int64_t)r * D + tx * 4 + c);
+    for (int h = 0; h < 2; ++h) {
+      lse2[h] = lse2_n[h];
+      dl[h] = dl_n[h];
     }
   }
+  const int r0 = kv0 + warp * 16;
+  store_rows(dk + (int64_t)bh * Lk * TD, acc_k, r0, Lk, inv_temp, g, t);
+  store_rows(dv + (int64_t)bh * Lk * TD, acc_v, r0, Lk, 1.f, g, t);
 }
 
 // --- dQ: one block per (batch*head, query tile) -----------------------------
 
-template <int D>
-constexpr size_t dq_smem_floats() {
-  return 4 * (size_t)D * SK        // QsT, dOT, KsT, VsT
-         + (size_t)BKV * D         // Ks row-major
-         + (size_t)BKV * SQ;       // dSs: [key][query]
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const uint8_t* __restrict__ kv_mask,
-                    const uint8_t* __restrict__ q_mask, T* __restrict__ dq,
-                    int H, int Lq, int Lk, float inv_temp, Drop drop) {
-  extern __shared__ __align__(16) float smem[];
-  float* QsT = smem;            // [D][SQ] scaled queries
-  float* dOT = QsT + D * SQ;    // [D][SQ]
-  float* KsT = dOT + D * SQ;    // [D][SK]
-  float* VsT = KsT + D * SK;    // [D][SK]
-  float* Ks = VsT + D * SK;     // [BKV][D]
-  float* dSs = Ks + BKV * D;    // [BKV][SQ]
-  __shared__ int kvalid[BKV];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // keys tx*4.. of the score tile; dims tx*4..
-  const int ty = tid / 16;  // queries ty*4 .. ty*4+3
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * BQ;
-  const T* qp = q + (int64_t)bh * Lq * D;
-  const T* dop = dout + (int64_t)bh * Lq * D;
-  const T* kp = k + (int64_t)bh * Lk * D;
-  const T* vp = v + (int64_t)bh * Lk * D;
-  T* dqp = dq + (int64_t)bh * Lq * D;
+__global__ void __launch_bounds__(THREADS, 3)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const uint8_t* __restrict__ kv_mask,
+                       const uint8_t* __restrict__ q_mask,
+                       bf16* __restrict__ dq, int H, int Lq, int Lk,
+                       float inv_temp, Drop drop) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H;
+  const int q0 = blockIdx.x * TILE;
+  const bf16* kp = k + (int64_t)bh * Lk * TD;
+  const bf16* vp = v + (int64_t)bh * Lk * TD;
+  bf16* dqp = dq + (int64_t)bh * Lq * TD;
+  const uint8_t* km = kv_mask + (int64_t)b * Lk;
 
   int qlive = 0;
-  if (tid < BQ) {
+  if (tid < TILE) {
     const int r = q0 + tid;
     qlive = r < Lq && q_mask[(int64_t)b * Lq + r];
   }
   if (!__syncthreads_or(qlive)) {  // no valid query: dQ = 0
-    for (int i = tid; i < BQ * D; i += THREADS) {
-      const int r = q0 + i / D;
-      if (r < Lq) csn::store(0.f, dqp + (int64_t)r * D + i % D);
-    }
+    zero_rows(dqp, q0, Lq, tid);
     return;
   }
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const bool ok = q0 + r < Lq;
-    QsT[d * SQ + r] =
-        ok ? csn::to_f32(qp[(int64_t)(q0 + r) * D + d]) * inv_temp : 0.f;
-    dOT[d * SQ + r] = ok ? csn::to_f32(dop[(int64_t)(q0 + r) * D + d]) : 0.f;
+  const int nt = (Lk + TILE - 1) / TILE;
+  load_tile(sm.q, q + (int64_t)bh * Lq * TD, q0, Lq, tid, THREADS);
+  load_tile(sm.dout, dout + (int64_t)bh * Lq * TD, q0, Lq, tid, THREADS);
+  int live = row_live(km, Lk, 0, tid);
+  int kt = find_live(0, nt, live, km, Lk, tid);
+  if (kt < nt) {
+    if (tid < TILE) sm.kval[0][tid] = live ? 1.f : 0.f;
+    load_tile(sm.k[0], kp, kt * TILE, Lk, tid, THREADS);
+    load_tile(sm.v[0], vp, kt * TILE, Lk, tid, THREADS);
   }
-  float lse_r[4], delta_r[4];
+  cp_async_commit();
+  int pre = row_live(km, Lk, kt + 1, tid);
+  const int row = q0 + warp * 16 + g;
+  float lse2[2], dl[2];
+  row_stats(lse2, dl, lse + (int64_t)bh * Lq, delta + (int64_t)bh * Lq, row,
+            Lq);
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[4][4], gf[4][4];
+  load_a(qf, sm.q, warp * 16, lane);
+  load_a(gf, sm.dout, warp * 16, lane);
+
+  const float sc = inv_temp * LOG2E;
+  float acc[8][4];
+  zero_acc(acc);
+  for (int buf = 0; kt < nt; buf ^= 1) {  // the forward's key loop
+    cp_async_wait<0>();
+    const int next = find_live(kt + 1, nt, pre, km, Lk, tid);
+    if (next < nt) {
+      if (tid < TILE) sm.kval[buf ^ 1][tid] = pre ? 1.f : 0.f;
+      load_tile(sm.k[buf ^ 1], kp, next * TILE, Lk, tid, THREADS);
+      load_tile(sm.v[buf ^ 1], vp, next * TILE, Lk, tid, THREADS);
+      cp_async_commit();
+    }
+    pre = row_live(km, Lk, next + 1, tid);
+
+    float s[8][4], dp[8][4];
+    zero_acc(s);
+    zero_acc(dp);
+    mma_abt(s, qf, sm.k[buf], lane);
+    mma_abt(dp, gf, sm.v[buf], lane);
+    const uint32_t kb = drop.on ? keep_bits(drop.seed, (uint32_t)bh,
+                                            (uint32_t)row,
+                                            (uint32_t)(kt * TILE),
+                                            drop.thresh, t)
+                                : 0u;
+    probs_and_ds(s, dp, sm.kval[buf], sc, lse2, dl, drop, kb, t);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    lse_r[i] = r < Lq ? lse[(int64_t)bh * Lq + r] : 0.f;
-    delta_r[i] = r < Lq ? delta[(int64_t)bh * Lq + r] : 0.f;
+    for (int ks = 0; ks < 4; ++ks) {  // dQ += dS . K
+      uint32_t a[4];
+      c_to_a(a, dp, ks);
+      mma_ab_step(acc, a, sm.k[buf], ks, lane);
+    }
+    kt = next;
   }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-
-  for (int kv0 = 0; kv0 < Lk; kv0 += BKV) {
-    int live = 0;
-    if (tid < BKV) {
-      const int r = kv0 + tid;
-      live = r < Lk && kv_mask[(int64_t)b * Lk + r];
-      kvalid[tid] = live;
-    }
-    // also orders the previous tile's reads of Ks/dSs before these writes
-    if (!__syncthreads_or(live)) continue;
-
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const bool ok = kv0 + r < Lk;
-      const float kv = ok ? csn::to_f32(kp[(int64_t)(kv0 + r) * D + d]) : 0.f;
-      KsT[d * SK + r] = kv;
-      Ks[r * D + d] = kv;
-      VsT[d * SK + r] = ok ? csn::to_f32(vp[(int64_t)(kv0 + r) * D + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dpv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dpv[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qq = ld4(&QsT[d * SQ + ty * 4]);
-      const float4 gg = ld4(&dOT[d * SQ + ty * 4]);
-      const float4 kk = ld4(&KsT[d * SK + tx * 4]);
-      const float4 vv = ld4(&VsT[d * SK + tx * 4]);
-      const float qa[4] = {qq.x, qq.y, qq.z, qq.w};
-      const float ga[4] = {gg.x, gg.y, gg.z, gg.w};
-      const float ka[4] = {kk.x, kk.y, kk.z, kk.w};
-      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-          dpv[i][j] = fmaf(ga[i], va[j], dpv[i][j]);
-        }
-    }
-
-    float ds[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t bw[4] = {0u, 0u, 0u, 0u};
-      if (drop.on) {
-        const csn::U4 bits = csn::dropout_bits(
-            drop.seed, (uint32_t)bh, (uint32_t)(q0 + ty * 4 + i),
-            (uint32_t)((kv0 + tx * 4) >> 2));
-        bw[0] = bits.x;
-        bw[1] = bits.y;
-        bw[2] = bits.z;
-        bw[3] = bits.w;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float sv = kvalid[tx * 4 + j] ? s[i][j] : NEG_INF;
-        const float p = expf(sv - lse_r[i]);
-        float dpd = dpv[i][j];
-        if (drop.on) dpd = bw[j] < drop.thresh ? dpd * drop.inv_keep : 0.f;
-        ds[i][j] = p * (dpd - delta_r[i]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&dSs[(tx * 4 + j) * SQ + ty * 4]) =
-          make_float4(ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BKV; ++kk) {
-      const float4 ss = ld4(&dSs[kk * SQ + ty * 4]);
-      const float4 kr = ld4(&Ks[kk * D + tx * 4]);
-      const float sa[4] = {ss.x, ss.y, ss.z, ss.w};
-      const float ka[4] = {kr.x, kr.y, kr.z, kr.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(sa[i], ka[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= Lq) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      csn::store(acc[i][c] * inv_temp, dqp + (int64_t)r * D + tx * 4 + c);
-  }
+  store_rows(dqp, acc, q0 + warp * 16, Lq, inv_temp, g, t);
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   const void* kv_mask, const void* q_mask, void* dq, void* dk,
-                   void* dv, int B, int H, int Lq, int Lk, float inv_temp,
-                   Drop drop, cudaStream_t stream) {
-  constexpr size_t smem_kv = dkdv_smem_floats<D>() * sizeof(float);
-  constexpr size_t smem_q = dq_smem_floats<D>() * sizeof(float);
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* kv_mask, const void* q_mask, void* dq,
+                      void* dk, void* dv, int B, int H, int Lq, int Lk,
+                      float inv_temp, Drop drop, cudaStream_t stream) {
+  constexpr int smem_kv = (int)sizeof(DkdvSmem);
+  constexpr int smem_q = (int)sizeof(DqSmem);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_kv);
+      flash_bwd_dkdv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_kv);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_q);
+                             smem_q);
   if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(dout);
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(dout);
   const float* lt = static_cast<const float*>(lse);
   const float* dt = static_cast<const float*>(delta);
   const uint8_t* km = static_cast<const uint8_t*>(kv_mask);
   const uint8_t* qm = static_cast<const uint8_t*>(q_mask);
   if (Lk > 0) {
-    const dim3 grid_kv((unsigned)((Lk + BKV - 1) / BKV), (unsigned)(B * H));
-    flash_bwd_dkdv_kernel<T, D><<<grid_kv, THREADS, smem_kv, stream>>>(
-        qt, kt, vt, gt, lt, dt, km, qm, static_cast<T*>(dk),
-        static_cast<T*>(dv), H, Lq, Lk, inv_temp, drop);
+    const dim3 grid_kv((unsigned)((Lk + TILE - 1) / TILE), (unsigned)(B * H));
+    flash_bwd_dkdv_tc_kernel<<<grid_kv, THREADS, smem_kv, stream>>>(
+        qt, kt, vt, gt, lt, dt, km, qm, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), H, Lq, Lk, inv_temp, drop);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid_q((unsigned)((Lq + BQ - 1) / BQ), (unsigned)(B * H));
-  flash_bwd_dq_kernel<T, D><<<grid_q, THREADS, smem_q, stream>>>(
-      qt, kt, vt, gt, lt, dt, km, qm, static_cast<T*>(dq), H, Lq, Lk,
+  const dim3 grid_q((unsigned)((Lq + TILE - 1) / TILE), (unsigned)(B * H));
+  flash_bwd_dq_tc_kernel<<<grid_q, THREADS, smem_q, stream>>>(
+      qt, kt, vt, gt, lt, dt, km, qm, static_cast<bf16*>(dq), H, Lq, Lk,
       inv_temp, drop);
   return cudaGetLastError();
 }
@@ -469,8 +414,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, dout, dq: [B, H, Lq, D]; k, v, dk, dv: [B, H, Lk, D], all contiguous in
-// one type; lse and delta [B, H, Lq] f32; kv_mask [B, Lk] and q_mask [B, Lq]
-// bool bytes. D is 64, 128 or 256. Dropout arguments as csn_flash_attn_fwd's.
+// one type and 16-byte aligned; lse and delta [B, H, Lq] f32; kv_mask [B, Lk]
+// and q_mask [B, Lq] bool bytes. D is 64, 128 or 256. Dropout arguments as
+// csn_flash_attn_fwd's.
 extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
@@ -482,32 +428,25 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                   void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128 || D == 256) {
-    const csn_wide_bwd::Drop wd{seed, thresh, inv_keep, use_drop, 0, 0};
+  if (dtype == csn::kBF16 && D == csn_tc::TD)
+    return launch_tc(q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, dv,
+                     B, H, Lq, Lk, inv_temp,
+                     Drop{seed, thresh, inv_keep, use_drop}, s);
+  const csn_wide_bwd::Drop wd{seed, thresh, inv_keep, use_drop, 0, 0};
 #define CSN_WIDE(T, DD)                                                    \
   return csn_wide_bwd::launch_bwd_wide<T, T, DD>(q, k, v, dout, lse, delta, \
                                                  kv_mask, q_mask, dq, dk,  \
                                                  dv, B, H, Lq, Lk,         \
                                                  inv_temp, wd, s)
-    if (dtype == csn::kF32) {
-      if (D == 128) CSN_WIDE(float, 128);
-      CSN_WIDE(float, 256);
-    }
-    if (dtype == csn::kBF16) {
-      if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
-      CSN_WIDE(__nv_bfloat16, 256);
-    }
-#undef CSN_WIDE
-    return cudaErrorInvalidValue;
+  if (dtype == csn::kF32) {
+    if (D == 64) CSN_WIDE(float, 64);
+    if (D == 128) CSN_WIDE(float, 128);
+    if (D == 256) CSN_WIDE(float, 256);
   }
-  if (D != 64) return cudaErrorInvalidValue;
-  const Drop drop{seed, thresh, inv_keep, use_drop};
-  if (dtype == csn::kF32)
-    return launch<float, 64>(q, k, v, dout, lse, delta, kv_mask, q_mask, dq,
-                             dk, dv, B, H, Lq, Lk, inv_temp, drop, s);
-  if (dtype == csn::kBF16)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, kv_mask,
-                                     q_mask, dq, dk, dv, B, H, Lq, Lk,
-                                     inv_temp, drop, s);
+  if (dtype == csn::kBF16) {
+    if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
+    if (D == 256) CSN_WIDE(__nv_bfloat16, 256);
+  }
+#undef CSN_WIDE
   return cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
-// Masked flash attention backward for wide heads (D a multiple of 64, up to
-// 256) and for one key block of a ring, shared by flash_attn_bwd.cu (D = 128,
-// 256) and flash_attn_block_bwd.cu (the ring's per-hop backward).
+// Masked flash attention backward in f32 arithmetic on the CUDA cores for D
+// a multiple of 64 up to 256, and for one key block of a ring, shared by
+// flash_attn_bwd.cu (f32 at every D, bf16 at D = 128 / 256) and
+// flash_attn_block_bwd.cu (the ring's per-hop backward).
 //
-// Same function as flash_attn_bwd.cu's D = 64 kernels, in the same two
+// Same function as flash_attn_bwd.cu's tensor-core kernels, in the same two
 // deterministic passes (dK/dV per key tile, dQ per query tile), from the
 // saved log-sum-exp rows and delta = rowsum(dO o O). Given the GLOBAL lse,
 // delta and dO and ONE key block, the passes return that block's dK and dV
@@ -11,9 +12,8 @@
 // while dK and dV keep the activation type. row_off / col_off place the
 // block in the global score matrix for the dropout mask.
 //
-// Tiling for wide heads. The D = 64 dK/dV pass holds 135 KB of shared memory
-// and 32 accumulator registers a thread; at D = 256 that would be 4x both.
-// Here:
+// Tiling for wide heads: K, V, Q and dO tiles whole in f32 shared memory
+// would not fit at D = 256. Here:
 //  * dkdv: one block of 256 threads per 32 keys (not 64): K and V stay whole
 //    and transposed ([D][36] each, 74 KB at D = 256), Q and dO pass through
 //    two [64][68] chunk buffers, 64 dims at a time: once transposed for the

@@ -1,13 +1,13 @@
-// Masked flash attention forward for wide heads (D a multiple of 64, up to
-// 256), shared by K2 at D = 128 / 256 (flash_attn.cu) and by the carry
-// kernel of the ring (flash_attn_carry.cu).
+// Masked flash attention forward in f32 arithmetic on the CUDA cores for D a
+// multiple of 64 up to 256, shared by K2 in f32 at every D and in bf16 at
+// D = 128 / 256 (flash_attn.cu) and by the carry kernel of the ring
+// (flash_attn_carry.cu).
 //
-// Same function as flash_attn.cu's D = 64 kernel: online softmax over key
-// tiles, masked keys at NEG_INF, the denominator floored at 1e-30, dropout on
-// the numerator only, f32 arithmetic on the CUDA cores. What differs is the
-// tiling. At D = 256 the D = 64 layout (Q, K, V tiles whole in shared memory)
-// would need 222 KB, so here only the scaled query tile stays whole
-// ([D][68] f32, 70 KB at D = 256) and the block walks D in chunks of 64:
+// Same function as flash_attn.cu's tensor-core kernel: online softmax over
+// key tiles, masked keys at NEG_INF, the denominator floored at 1e-30,
+// dropout on the numerator only. At D = 256, f32 Q, K and V tiles whole in
+// shared memory would need 222 KB, so here only the scaled query tile stays
+// whole ([D][68] f32, 70 KB at D = 256) and the block walks D in chunks of 64:
 // once over K chunks for the 64 x 64 score tile, and once over V chunks for
 // the P.V product, each chunk through one [64][68] buffer. A thread's
 // 4 x D/16 output tile holds dims chunk * 64 + tx * 4 .. + 3 of every chunk.

@@ -16,8 +16,10 @@ scratch.
   computes it in XLA), in two deterministic passes (dK/dV per key tile, dQ
   per query tile) that skip the forward's tiles.
 * Head dims 64 (the HRNet heads), 128 and 256 (the MID-FC heads, d_k = d_v =
-  256 per head). The D = 64 kernels keep whole tiles in shared memory; wide
-  heads take re-tiled kernels that walk D in chunks of 64
+  256 per head). bf16 at D = 64 runs both directions on the tensor cores
+  (`mma.sync` with f32 accumulators, `cp.async` and `ldmatrix` tiles:
+  `csrc/flash_tc.cuh`); every other case (f32 at any D, bf16 at 128 and
+  256) takes the f32 CUDA-core kernels that walk D in chunks of 64
   (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
   loop over ONE key block with the running max, denominator and f32
@@ -160,6 +162,13 @@ def _masks(what, q, k, kv_mask, q_mask):
             q_mask.to(torch.bool).contiguous())
 
 
+def _require_aligned(what, *tensors):
+    """The bf16 head-dim-64 kernels copy 16-byte rows with cp.async."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: q, k, v (and dout) must start on a "
+                         f"16-byte boundary")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None,
                     q_mask: Optional[torch.Tensor] = None,
@@ -177,6 +186,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     drop = _drop_args(dropout, seed)
     kv_mask, q_mask = _masks(what, q, k, kv_mask, q_mask)
     kernels.require_cuda(what, q, k, v, kv_mask, q_mask)
+    _require_aligned(what, q, k, v)
     B, H, Lq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
@@ -208,6 +218,7 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask=None, q_mask=None,
             or lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise ValueError(f"{what}: want f32 lse and delta [B, H, Lq]")
     kernels.require_cuda(what, q, k, v, dout, lse, delta, kv_mask, q_mask)
+    _require_aligned(what, q, k, v, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     code = kernels.library().csn_flash_attn_bwd(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -16,7 +16,9 @@ JAX package.
 Also here, as the port's own numpy copies: random-pair initialization
 (`csn_utils.py:31-43`), top-(K+1) self-excluding selection
 (`csn_utils.py:90-96`, `csa_models.py:270-280`), and the KMeans candidate
-pruning used for big categories (`csa_models.py:302-332`).
+pruning used for big categories (`csa_models.py:302-332`) with the port's
+own k-means (numpy; the JAX package calls scikit-learn's, which is not a
+dependency of the port).
 """
 
 from __future__ import annotations
@@ -47,14 +49,18 @@ def _retrieval_block(q_feats: torch.Tensor, q_mask: torch.Tensor,
                      k_feats: torch.Tensor, k_mask: torch.Tensor,
                      key_chunk: int = 8) -> torch.Tensor:
     """Mean-of-max cosine of every query shape in the block [BQ, P, d]
-    against every key shape [NK, P, d]. Returns [BQ, NK] f32."""
-    qn = torch.nn.functional.normalize(q_feats.float(), dim=-1, eps=1e-12)
-    kn = torch.nn.functional.normalize(k_feats.float(), dim=-1, eps=1e-12)
+    against every key shape [NK, P, d]. Returns [BQ, NK] f32. As the JAX
+    package's: rows normalized in the input dtype, products of the
+    input-dtype values accumulated in f32 (the operands are widened one key
+    chunk at a time, exactly, so the key block stays in the input dtype)."""
+    qn = torch.nn.functional.normalize(q_feats, dim=-1, eps=1e-12).float()
+    kn = torch.nn.functional.normalize(k_feats, dim=-1, eps=1e-12)
     denom = q_mask.sum(dim=-1).clamp(min=1)[:, None]
     cols = []
     for c0 in range(0, kn.shape[0], key_chunk):
         k_blk, km_blk = kn[c0:c0 + key_chunk], k_mask[c0:c0 + key_chunk]
-        sim = torch.einsum("qpd,ckd->qcpk", qn, k_blk)  # [BQ, C, Pq, Pk]
+        sim = torch.einsum("qpd,ckd->qcpk", qn,
+                           k_blk.float())            # [BQ, C, Pq, Pk]
         sim = sim.masked_fill(~km_blk[None, :, None, :], float("-inf"))
         mx = sim.amax(dim=-1)                               # [BQ, C, Pq]
         mx = torch.where(q_mask[:, None, :], mx, torch.zeros_like(mx))
@@ -131,18 +137,79 @@ def knn_graph_topk_rows(measure: np.ndarray, K: int) -> np.ndarray:
     return idx
 
 
+def _sq_dists(x: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """[n, k] squared Euclidean distances between the rows of x and c."""
+    d = ((x * x).sum(1)[:, None] - 2.0 * (x @ c.T)
+         + (c * c).sum(1)[None, :])
+    return np.maximum(d, 0.0)
+
+
+def _kmeans_pp(x: np.ndarray, k: int, rng: np.random.Generator
+               ) -> np.ndarray:
+    """Greedy k-means++ seeding (Arthur & Vassilvitskii 2007, with
+    2 + log k candidates per center as scikit-learn draws them): each new
+    center is the candidate, sampled in proportion to the squared distance
+    to the nearest center so far, that lowers the potential most."""
+    n = x.shape[0]
+    trials = 2 + int(np.log(k))
+    centers = np.empty((k, x.shape[1]))
+    centers[0] = x[rng.integers(n)]
+    closest = _sq_dists(x, centers[:1])[:, 0]
+    for c in range(1, k):
+        pot = closest.sum()
+        cand = np.searchsorted(np.cumsum(closest), rng.random(trials) * pot)
+        cand = np.minimum(cand, n - 1)
+        d = np.minimum(closest[None, :], _sq_dists(x, x[cand]).T)
+        best = int(np.argmin(d.sum(1)))
+        centers[c] = x[cand[best]]
+        closest = d[best]
+    return centers
+
+
+# scikit-learn's KMeans defaults, which the JAX package runs with
+KMEANS_INIT, KMEANS_MAX_ITER, KMEANS_TOL = 10, 300, 1e-4
+
+
+def kmeans(x: np.ndarray, k: int, seed: int = 0
+           ) -> Tuple[np.ndarray, float]:
+    """Lloyd's k-means from KMEANS_INIT k-means++ seedings of one seeded
+    generator; returns the (centers [k, d], inertia) of the run with the
+    lowest inertia (the sum of squared distances to the nearest center).
+    A run stops when the centers move by at most KMEANS_TOL x the mean
+    variance of the features (squared, summed over centers), as
+    scikit-learn's `KMeans` does; an emptied cluster keeps its center. In
+    float64."""
+    x = np.asarray(x, dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    stop = KMEANS_TOL * float(np.mean(np.var(x, axis=0)))
+    best = (None, np.inf)
+    for _ in range(KMEANS_INIT):
+        centers = _kmeans_pp(x, k, rng)
+        for _ in range(KMEANS_MAX_ITER):
+            lab = np.argmin(_sq_dists(x, centers), axis=1)
+            sums = np.zeros_like(centers)
+            np.add.at(sums, lab, x)
+            cnt = np.bincount(lab, minlength=k)[:, None]
+            new = np.where(cnt > 0, sums / np.maximum(cnt, 1), centers)
+            shift = float(((new - centers) ** 2).sum())
+            centers = new
+            if shift <= stop:
+                break
+        inertia = float(_sq_dists(x, centers).min(axis=1).sum())
+        if inertia < best[1]:
+            best = (centers, inertia)
+    return best
+
+
 def kmeans_candidate_indices(global_feats: np.ndarray, n_centers: int = 0,
                              seed: int = 0) -> np.ndarray:
     """KMeans pruning for big categories (`csa_models.py:302-332`): cluster
-    max-pooled SSA descriptors into N/10 centers, return the index of the
-    shape nearest to each center."""
+    max-pooled SSA descriptors into N/10 centers (`kmeans`, k-means++ and
+    Lloyd, 10 seedings, where the JAX package calls scikit-learn's
+    `KMeans`), return the index of the shape nearest to each center."""
     n = global_feats.shape[0]
     if n_centers <= 0:
         n_centers = max(n // 10, 1)
-    from sklearn.cluster import KMeans
-
-    km = KMeans(n_clusters=n_centers, random_state=seed, n_init=10)
-    km.fit(global_feats)
-    centers = km.cluster_centers_[:, None, :]
-    d = ((centers - global_feats[None, :, :]) ** 2).sum(-1)
-    return np.argmin(d, axis=-1)
+    centers, _ = kmeans(global_feats, n_centers, seed=seed)
+    d = _sq_dists(np.asarray(global_feats, dtype=np.float64), centers)
+    return np.argmin(d, axis=0)

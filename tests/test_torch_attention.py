@@ -344,3 +344,68 @@ def test_mha_use_flash_asks_for_the_kernels():
         tm(x, x, x)
     tm.use_flash = None
     assert tm(x, x, x).shape == (1, 8, 16)
+
+
+def _tc_rounding(q, k, v, dout, kv_mask, temp, dropout, seed):
+    """The bf16 head-dim-64 kernels' arithmetic in plain torch: bf16
+    operands, f32 scores times 1/temperature, f32 softmax statistics; the
+    forward rounds the (dropped) unnormalized probabilities to bf16 before
+    P V and divides by the f32 denominator at the end; the backward rounds
+    m P / keep and dS to bf16 before dV, dK and dQ, every product
+    accumulated in f32. Returns (out bf16, dq, dk, dv f32)."""
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, dout))
+    s = (qf @ kf.transpose(-1, -2)) / temp
+    s = s.masked_fill(~kv_mask[:, None, None, :], flash.NEG_INF)
+    mx = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - mx)
+    den = e.sum(dim=-1, keepdim=True)
+    lse = mx + torch.log(den)
+    keep = torch.ones_like(s, dtype=torch.bool)
+    inv_keep = 1.0
+    if dropout:
+        keep = flash.dropout_keep_mask(seed, dropout, tuple(s.shape))
+        inv_keep = 1.0 / (1.0 - dropout)
+    bf = torch.bfloat16
+    num = torch.where(keep, e * inv_keep, 0.0).to(bf).float()
+    out = ((num @ vf) / den).to(bf)
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    p = torch.exp(s - lse)
+    dp = torch.where(keep, (gf @ vf.transpose(-1, -2)) * inv_keep, 0.0)
+    ds = (p * (dp - delta)).to(bf).float()
+    pd = torch.where(keep, p * inv_keep, 0.0).to(bf).float()
+    dv = pd.transpose(-1, -2) @ gf
+    dk = ds.transpose(-1, -2) @ qf / temp
+    dq = ds @ kf / temp
+    return out, dq, dk, dv
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_tensor_core_rounding_points_hold_the_bf16_tolerance(dropout):
+    """Before the card: the rounding points of the bf16 D=64 kernels
+    (`csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu`) emulated in plain
+    torch stay within chip_smoke's bf16 tolerance, 2e-2 x max|ref|, of the
+    plain attention and its autograd (which round only the normalized
+    probabilities before P V), at a ragged shape with masks."""
+    rng = np.random.default_rng(11)
+    b, h, lq, lk, d = 2, 2, 100, 77, 64
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(rng, b, h, lq, lk, d))
+    kv, qm = _masks(rng, b, lq, lk)
+    kv, qm = torch.from_numpy(kv), torch.from_numpy(qm)
+    dout = (torch.from_numpy(rng.normal(size=(b, h, lq, d)))
+            * qm[:, None, :, None]).to(torch.bfloat16)
+    temp, seed = 8.0, 0x5EED
+    out, dq, dk, dv = _tc_rounding(q, k, v, dout, kv, temp, dropout, seed)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = attention.scaled_dot_product_attention(
+        *leaves, kv, temp, dropout=dropout, seed=seed if dropout else None)
+    refs = torch.autograd.grad(ref, leaves, dout)
+    valid = qm[:, None, :, None]
+    for got, want, vm in ((out, ref, valid), (dq, refs[0], valid),
+                          (dk, refs[1], None), (dv, refs[2], None)):
+        got, want = got.float(), want.detach().float()
+        if vm is not None:
+            got, want = got * vm, want * vm
+        scale = want.abs().max().item()
+        assert scale > 0
+        assert (got - want).abs().max().item() <= 2e-2 * scale

@@ -135,7 +135,8 @@ def test_config_json_is_shared_with_the_jax_package():
                              ).d_model == 64
 
 
-BANNED = {"jax", "jaxlib", "flax", "optax", "bench", "csn_tpu"}
+# sklearn: not a dependency of the port (it has its own k-means)
+BANNED = {"jax", "jaxlib", "flax", "optax", "bench", "csn_tpu", "sklearn"}
 H5PY_OK = {("csn_tpu_torch/data/partnet.py", "__init__"),
            ("csn_tpu_torch/data/partnet.py", "write_synthetic_partnet")}
 

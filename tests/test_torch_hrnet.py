@@ -101,7 +101,8 @@ def slice_pair(request):
     tm = load_model(name)(**CFG)
     tm.load_state_dict(flax_to_torch(params, stats), strict=True)
     tm.eval()
-    return tm, to_torch(qh, "cpu"), to_torch(kh, "cpu"), ref, qh.point_mask
+    return (tm, to_torch(qh, "cpu", compact=False),
+            to_torch(kh, "cpu", compact=False), ref, qh.point_mask)
 
 
 def _max_abs(got, ref):
@@ -178,7 +179,7 @@ def test_hrnet_seg_logits_match_jax():
     tm.load_state_dict(flax_to_torch(params, stats), strict=True)
     tm.eval()
     with torch.no_grad():
-        got, fc1 = tm(to_torch(qh, "cpu"), return_fc1=True)
+        got, fc1 = tm(to_torch(qh, "cpu", compact=False), return_fc1=True)
     assert np.abs(ref).max() > 1e-2
     assert _max_abs(got.numpy(), ref) <= 1e-4 * np.abs(ref).max()
     assert _max_abs(fc1.numpy(), ref_fc1) <= 1e-4 * np.abs(ref_fc1).max()
@@ -218,7 +219,7 @@ def cache_pair(request):
     tm = load_model(name)(**kw)
     tm.load_state_dict(flax_to_torch(params, stats), strict=True)
     tm.eval()
-    qb, *kbs = (to_torch(h, "cpu") for h in hosts)
+    qb, *kbs = (to_torch(h, "cpu", compact=False) for h in hosts)
     return tm, qb, tuple(kbs), ref
 
 

@@ -116,7 +116,7 @@ class _Relus:
 @functools.lru_cache(maxsize=None)
 def _pair(name):
     th, jb = _batches(name)
-    tb = to_torch(th, "cpu")
+    tb = to_torch(th, "cpu", compact=False)
     rng = np.random.default_rng(7)
     jm = j_load_model(name)(compute_dtype="float32", **KW)
     variables = jax.jit(lambda r, b: jm.init(r, b, train=False))(

@@ -1,8 +1,9 @@
 """Port: the batch construction (`csn_tpu_torch.core.pyramid`, its own copy
 of the JAX package's, through the C++ engine and in numpy) bit-equal to the
 JAX package's; device batches against the JAX package's `to_jax(compact=False)`
-+ `concat_jax_batches`; and the port running in a process where neither JAX
-nor the JAX package can be imported."""
++ `concat_jax_batches`, and `to_torch`'s default against `to_jax()`'s f16
+float tables; and the port running in a process where neither JAX nor the
+JAX package can be imported."""
 
 import subprocess
 import sys
@@ -156,7 +157,7 @@ def test_port_owns_its_host_engine():
 
 def test_to_torch_keeps_host_tables():
     vb, = _host_batches(1)
-    tb = to_torch(vb, "cpu")
+    tb = to_torch(vb, "cpu", compact=False)
     assert set(tb.kmaps) == set(vb.kmaps)
     for name, t in tb.kmaps.items():
         assert t.dtype == torch.int32
@@ -168,13 +169,32 @@ def test_to_torch_keeps_host_tables():
         np.testing.assert_array_equal(m.numpy(), vb.masks[lvl])
 
 
+def test_to_torch_compact_ships_the_float_tables_as_to_jax():
+    """`compact` (the default, as `to_jax`'s): the voxel features and the
+    interpolation weights are the JAX package's f16 wire values widened to
+    f32, bit for bit; the index tables are unchanged."""
+    vb, = _host_batches(1)
+    jb, = _host_batches(1, pipe=j_pipeline)   # the same batch, JAX package
+    ref = jb.to_jax()   # compact=True: f16 floats, int16-coded tables
+    tb = to_torch(vb, "cpu")
+    for f in ("vox_feats", "interp_w"):
+        got, want = getattr(tb, f), np.asarray(getattr(ref, f))
+        assert got.dtype == torch.float32 and want.dtype == np.float16, f
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.float32),
+                                      err_msg=f)
+        assert not np.array_equal(got.numpy(), getattr(vb, f)), f
+    np.testing.assert_array_equal(tb.interp_idx.numpy(), vb.interp_idx)
+    for name, t in tb.kmaps.items():
+        np.testing.assert_array_equal(t.numpy(), vb.kmaps[name])
+
+
 def test_concat_matches_concat_jax_batches():
     from csn_tpu.core.pyramid import concat_jax_batches
 
     host = _host_batches(2)
     ref = concat_jax_batches([b.to_jax(compact=False)
                               for b in _host_batches(2, pipe=j_pipeline)])
-    got = concat_batches([to_torch(b, "cpu") for b in host])
+    got = concat_batches([to_torch(b, "cpu", compact=False) for b in host])
     assert set(got.kmaps) == set(ref.kmaps)
     for name in ref.kmaps:
         np.testing.assert_array_equal(got.kmaps[name].numpy(),

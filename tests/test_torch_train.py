@@ -205,7 +205,7 @@ def _port_steps(ref, keeps, relus, init, qh, kh):
     tm = load_model(NAME)(attn_dropout=0.0, **CFG)
     tm.load_state_dict(flax_to_torch(*init), strict=True)
     topt = optim.make_optimizer(tm.parameters(), "SGD", lr=LR)
-    qb, kb = to_torch(qh, "cpu"), to_torch(kh, "cpu")
+    qb, kb = (to_torch(h, "cpu", compact=False) for h in (qh, kh))
     got = []
     kernels.reset_launches()
     gen = torch.Generator().manual_seed(0)

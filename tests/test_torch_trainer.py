@@ -6,10 +6,10 @@ Small size: HRNetSimCSN2S, d_model 16, 2 heads, k3 stem, K=1, 4 train / 2
 val / 2 test shapes of 48 points, batch 2, level caps shrinking by 1.5, f32,
 attention dropout 0 on both models (the two frameworks cannot share a
 dropout mask), SGD. The port's trainer starts from the JAX trainer's
-initial state, converted by `load_jax_trainer_state`. The JAX trainer ships
-its batches to the device with f16 features (`to_jax(compact=True)`); here
-it is made to ship f32, as the port does, so that both models see the same
-numbers.
+initial state, converted by `load_jax_trainer_state`. Both trainers ship
+their batches as they do by default: voxel features and interpolation
+weights rounded through f16 (`to_jax(compact=True)`, `to_torch(compact=
+True)`), so both models see the same numbers.
 
 Held: the host batches of the first three `_fetch_data` calls bit-equal
 (the two trainers draw from the same numpy generators in the same order);
@@ -34,7 +34,6 @@ import numpy as np
 import pytest
 import torch
 
-import csn_tpu.core.pyramid as j_pyramid
 import csn_tpu.train.trainer as j_trainer_mod
 import csn_tpu_torch.train.trainer as t_trainer_mod
 from csn_tpu.config import Config as JConfig
@@ -93,9 +92,6 @@ def pair(synth_root, tmp_path_factory):
     recorded."""
     tmp = tmp_path_factory.mktemp("logs_torch_trainer")
     with pytest.MonkeyPatch.context() as mp:
-        to_jax = j_pyramid.VoxelBatch.to_jax
-        mp.setattr(j_pyramid.VoxelBatch, "to_jax",
-                   lambda self, compact=True: to_jax(self, compact=False))
         built = {"jax": [], "port": []}
         for mod, key in ((j_trainer_mod, "jax"), (t_trainer_mod, "port")):
             inner = mod.build_batch_from_dataset
