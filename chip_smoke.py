@@ -28,11 +28,13 @@ Phases (each prints its lines; any failure exits nonzero):
      and K1 / `sparse_conv_dw`; K2 (flash attention) at the SSA and CSA
      shapes with masks, and at a ragged shape (Lq 1000 against Lk 777, a
      ragged key mask with one fully masked 64-key tile, one query tile all
-     padding), at dropout 0 and 0.1 (same seed as the plain version);
-     `flash_attn_bwd` at the same cases against autograd of the plain
-     version; K3 (voxel -> point interpolation) and `interp_bwd` against
-     their plain versions; K2 and `flash_attn_bwd` at the MID-FC chunk
-     shape [80, 8, 500, 256]; `flash_attn_carry` chained over 4 key blocks
+     padding), at head dims 64 (4 heads) and 256 (8 heads), at dropout 0
+     and 0.1 (same seed as the plain version); `flash_attn_bwd` at the same
+     cases against autograd of the plain version; K3 (voxel -> point
+     interpolation) and `interp_bwd` against their plain versions; K2 and
+     `flash_attn_bwd` at the MID-FC chunk shape [80, 8, 500, 256], the f32
+     backward at dropout 0.1 also against a float64 reference beside the
+     f32 plain version; `flash_attn_carry` chained over 4 key blocks
      of 2500 at [2, 8, 10000, 256] against `online_block_update` chained the
      same way and against one K2 pass over all 10000 keys, and
      `flash_attn_block_bwd` summed over the 4 blocks against one
@@ -112,7 +114,8 @@ f32 at the MID-FC shapes; the probe kernels: one call of
 variants of `probe_slot_load`):
 the kernel's and the plain version's median ms, `bound_ms`, the least time
 the card could take (the larger of bytes / 3.35 TB/s and operations / the
-peak of the input type: 989 TFLOP/s bf16, 67 TFLOP/s f32, counting valid
+peak of the input type: 989 TFLOP/s bf16, 494.7 / 3 TFLOP/s f32 (split
+TF32: three dense TF32 products per f32 product), counting valid
 rows and keys only), and `library_ms`, the time of the one PyTorch call
 that computes the same function (`F.scaled_dot_product_attention` for the
 attention kernels, timed here and used nowhere in the port; null where
@@ -190,7 +193,11 @@ MF_RING_B, MF_BLOCKS = 2, 4   # phase 7's batch; key blocks of phase 3's chain
 RAGGED_LQ, RAGGED_LK = 1000, 777   # phase 3's ragged flash case
 
 HBM_BYTES_S = 3.35e12                       # H100 SXM, NVIDIA's data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# f32: the f32 products run on the tensor cores in split TF32, three TF32
+# products each at the dense TF32 rate of 494.7 TFLOP/s, so the least time
+# for f32-accurate products is 3 x work / 494.7e12 (the CUDA cores' f32
+# rate, 67 TFLOP/s, is slower)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 
 KERNELS = {
     "sparse_conv_fwd": ("csn_tpu_torch/csrc/sparse_conv.cu",
@@ -203,7 +210,9 @@ KERNELS = {
                                "csn_tpu/core/window_conv.py:1135"),
     "flash_attn_fwd": ("csn_tpu_torch/csrc/flash_attn.cu",
                        "csn_tpu/ops/flash.py:262"),
-    "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_attn_bwd.cu",
+    # the MID-FC body (f32, head dim 256, split TF32); flash_attn_bwd.cu
+    # holds the bf16 head-dim-64 body and the dispatch
+    "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_tf32.cuh",
                        "csn_tpu/ops/flash.py:600"),
     "flash_attn_carry": ("csn_tpu_torch/csrc/flash_attn_carry.cu",
                          "csn_tpu/ops/flash.py:412"),
@@ -532,13 +541,37 @@ def attention_work(qm, km, n_head, dk, es):
     return fwd_b, bwd_b, 4 * pairs * dk, 10 * pairs * dk
 
 
-def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count):
+def attention_bwd_f64(q, k, v, km, dout, temp, dropout, seed):
+    """(dq, dk, dv) of masked attention with dropout in float64, from its
+    own float64 forward (lse, out, delta): a reference that bounds both
+    f32 versions."""
+    qd, kd, vd, gd = (x.double() for x in (q, k, v, dout))
+    s = torch.matmul(qd / temp, kd.transpose(-1, -2))
+    s = s.masked_fill(~km[:, None, None, :], flash.NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    del s
+    if dropout:
+        keep = flash.dropout_keep_mask(seed, dropout, tuple(p.shape),
+                                       p.device)
+        p = torch.where(keep, p / (1.0 - dropout), torch.zeros_like(p))
+        del keep
+    delta = (gd * torch.matmul(p, vd)).sum(dim=-1)
+    del p
+    return flash.block_backward_plain(qd, kd, vd, km, lse, delta, gd, temp,
+                                      dropout, seed,
+                                      compute_dtype=torch.float64)
+
+
+def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
+                ref64=False):
     """K2 at dropout 0 and ATTN_DROPOUT and its backward kernel at q
     [b, n_head, Lq, dk] against k, v [b, n_head, Lk, dk] under the masks qm,
     km, in f32 and bf16; timed in `time_dt` (None: not timed) at dropout
     ATTN_DROPOUT (the train path's call, `count` per train step), beside the
     library call `F.scaled_dot_product_attention` with the key mask at
-    dropout 0."""
+    dropout 0. With `ref64`, the f32 backward at ATTN_DROPOUT is also held,
+    with the f32 plain version beside it, against `attention_bwd_f64`."""
     temp = float(dk) ** 0.5
     seed = 0x5EED_0F_C5A
     b, L = qm.shape
@@ -578,6 +611,27 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count):
                                       (valid, None, None)):
                 table.check("flash_attn_bwd", f"{tag} {nm}", gk, gr, dt,
                             vm)
+            if ref64 and dt == torch.float32 and drop:
+                r64 = attention_bwd_f64(qd, kd, vd, km, dod, temp, drop, sd)
+                for nm, gk, gr, rr, vm in zip(("dq", "dk", "dv"), got, refs,
+                                              r64, (valid, None, None)):
+                    zero = torch.zeros((), dtype=torch.float64, device=dev)
+                    if vm is not None:
+                        gk, gr, rr = (torch.where(vm, x.double(), zero)
+                                      for x in (gk, gr, rr))
+                    err = (gk.double() - rr).abs().max().item()
+                    perr = (gr.double() - rr).abs().max().item()
+                    scale = rr.abs().max().item()
+                    ok = err <= TOL[dt] * scale
+                    print(f"[check] flash_attn_bwd {tag} {nm} vs float64: "
+                          f"kernel {err:.3e}, f32 plain {perr:.3e}, tol "
+                          f"{TOL[dt] * scale:.3e} (max|ref| {scale:.3e}) "
+                          f"{'ok' if ok else 'FAIL'}")
+                    require(ok, f"flash_attn_bwd {tag} {nm}: float64 "
+                            f"reference")
+                    table.err["flash_attn_bwd"] = max(
+                        table.err["flash_attn_bwd"], err)
+                del r64
             del got, refs
             if dt == time_dt and not drop:   # the eval path's forward
                 fwd_ms = median_ms(lambda: flash.flash_attention(
@@ -639,10 +693,18 @@ def check_attention(qb, kb, big, dev, table, g):
     rq[:, 128:192] = False
     check_flash(table, dev, g, "ragged", rq.to(dev), rk.to(dev), N_HEAD, dk,
                 None, 0)
+    # the same edges at the MID-FC heads (8 of 256; the f32 backward's
+    # split-TF32 body walks 32-row tiles, which these masks also cut)
+    rq = torch.rand(2, RAGGED_LQ, generator=g) < 0.8
+    rk = torch.rand(2, RAGGED_LK, generator=g) < 0.7
+    rk[:, 64:128] = False
+    rq[:, 128:192] = False
+    check_flash(table, dev, g, "ragged", rq.to(dev), rk.to(dev), MF_HEADS,
+                MF_D, None, 0)
     ones = torch.ones(MF_B * MF_P // MF_CHUNK, MF_CHUNK, dtype=torch.bool,
                       device=dev)
     check_flash(table, dev, g, "MID-FC chunks", ones, ones, MF_HEADS, MF_D,
-                torch.float32, 2 * MF_K + 1)
+                torch.float32, 2 * MF_K + 1, ref64=True)
 
 
 def check_ring_kernels(dev, table, g):

@@ -50,13 +50,15 @@
 //    dS . K (K as B by ldmatrix.trans). dQ takes 1/T at the end.
 // Dropout words as the forward draws them (flash_tc.cuh drop_words).
 //
-// f32 at any head dim, and bf16 at D = 128 / 256 (the MID-FC heads), take
-// the CUDA-core kernels of flash_bwd_wide.cuh, in f32 arithmetic (f32 stays
-// off the tensor cores: TF32 would miss the f32 checks' 1e-4).
+// f32 at D = 256 (the MID-FC heads) runs on the tensor cores in split TF32
+// (three TF32 products per f32 product, f32-accurate): flash_tf32.cuh.
+// f32 at D = 64 / 128 and bf16 at D = 128 / 256 take the CUDA-core kernels
+// of flash_bwd_wide.cuh, in f32 arithmetic.
 
 #include "common.cuh"
 #include "flash_bwd_wide.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -416,16 +418,17 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // q, dout, dq: [B, H, Lq, D]; k, v, dk, dv: [B, H, Lk, D], all contiguous in
 // one type and 16-byte aligned; lse and delta [B, H, Lq] f32; kv_mask [B, Lk]
 // and q_mask [B, Lq] bool bytes. D is 64, 128 or 256. Dropout arguments as
-// csn_flash_attn_fwd's.
+// csn_flash_attn_fwd's. ds_t: f32 scratch of B * H * ceil32(Lk) * ceil32(Lq)
+// for f32 at D = 256 (flash_tf32.cuh), unused otherwise.
 extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   const void* kv_mask, const void* q_mask,
-                                  void* dq, void* dk, void* dv, int B, int H,
-                                  int Lq, int Lk, int D, float inv_temp,
-                                  uint64_t seed, uint32_t thresh,
-                                  float inv_keep, int use_drop,
-                                  void* stream) {
+                                  void* dq, void* dk, void* dv, void* ds_t,
+                                  int B, int H, int Lq, int Lk, int D,
+                                  float inv_temp, uint64_t seed,
+                                  uint32_t thresh, float inv_keep,
+                                  int use_drop, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == csn::kBF16 && D == csn_tc::TD)
@@ -433,6 +436,11 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                      B, H, Lq, Lk, inv_temp,
                      Drop{seed, thresh, inv_keep, use_drop}, s);
   const csn_wide_bwd::Drop wd{seed, thresh, inv_keep, use_drop, 0, 0};
+  if (dtype == csn::kF32 && D == csn_tf32::D)
+    return csn_tf32::launch_bwd_tf32<float>(q, k, v, dout, lse, delta,
+                                            kv_mask, q_mask, dq, dk, dv,
+                                            ds_t, B, H, Lq, Lk, inv_temp,
+                                            wd, s);
 #define CSN_WIDE(T, DD)                                                    \
   return csn_wide_bwd::launch_bwd_wide<T, T, DD>(q, k, v, dout, lse, delta, \
                                                  kv_mask, q_mask, dq, dk,  \
@@ -441,7 +449,6 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
   if (dtype == csn::kF32) {
     if (D == 64) CSN_WIDE(float, 64);
     if (D == 128) CSN_WIDE(float, 128);
-    if (D == 256) CSN_WIDE(float, 256);
   }
   if (dtype == csn::kBF16) {
     if (D == 128) CSN_WIDE(__nv_bfloat16, 128);

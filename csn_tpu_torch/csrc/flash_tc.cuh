@@ -198,25 +198,27 @@ __device__ __forceinline__ uint32_t keep_bits(uint64_t seed, uint32_t bh,
   return bits;
 }
 
-// Thread tid's flag of row tid of tile t (threads below TILE; 0 for rows at
-// or past L): a load the caller issues a tile ahead of its use.
+// Thread tid's flag of row tid of tile t of ROWS rows (threads below ROWS;
+// 0 for rows at or past L): a load the caller issues a tile ahead of its use.
+template <int ROWS = TILE>
 __device__ __forceinline__ int row_live(const uint8_t* mask, int L, int t,
                                         int tid) {
-  const int r = t * TILE + tid;
-  return tid < TILE && r < L && mask[r];
+  const int r = t * ROWS + tid;
+  return tid < ROWS && r < L && mask[r];
 }
 
 // The first tile at or after t (of nt) with a true mask byte, given `live`
-// = row_live(mask, L, t, tid); on return `live` is the flag of the tile
-// found. One barrier per tile probed and at least one, which also
+// = row_live<ROWS>(mask, L, t, tid); on return `live` is the flag of the
+// tile found. One barrier per tile probed and at least one, which also
 // publishes the shared memory written before the call.
+template <int ROWS = TILE>
 __device__ __forceinline__ int find_live(int t, int nt, int& live,
                                          const uint8_t* mask, int L,
                                          int tid) {
   for (;;) {
     const int any = __syncthreads_or(live);
     if (t >= nt || any) return t;
-    live = row_live(mask, L, ++t, tid);
+    live = row_live<ROWS>(mask, L, ++t, tid);
   }
 }
 

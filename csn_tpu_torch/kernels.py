@@ -75,10 +75,11 @@ _SIGNATURES = {
     # seed, thresh, inv_keep, use_drop, stream
     "csn_flash_attn_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _F, _U64, _U32, _F, _I, _P],
-    # dtype, q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, dv, B, H,
-    # Lq, Lk, D, inv_temp, seed, thresh, inv_keep, use_drop, stream
-    "csn_flash_attn_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _F, _U64, _U32, _F, _I, _P],
+    # dtype, q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, dv, ds_t
+    # (f32 scratch), B, H, Lq, Lk, D, inv_temp, seed, thresh, inv_keep,
+    # use_drop, stream
+    "csn_flash_attn_bwd": [_I] + [_P] * 12 + [_I] * 5 + [
+        _F, _U64, _U32, _F, _I, _P],
     # dtype, q, k, v, kv_mask, q_mask, m_in, l_in, acc_in, m_out, l_out,
     # acc_out, B, H, Lq, Lk, D, inv_temp, seed, thresh, inv_keep, use_drop,
     # row_off, col_off, stream

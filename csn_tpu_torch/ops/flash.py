@@ -18,7 +18,9 @@ scratch.
 * Head dims 64 (the HRNet heads), 128 and 256 (the MID-FC heads, d_k = d_v =
   256 per head). bf16 at D = 64 runs both directions on the tensor cores
   (`mma.sync` with f32 accumulators, `cp.async` and `ldmatrix` tiles:
-  `csrc/flash_tc.cuh`); every other case (f32 at any D, bf16 at 128 and
+  `csrc/flash_tc.cuh`); the f32 backward at D = 256 runs on them in split
+  TF32, three TF32 products per f32 product (`csrc/flash_tf32.cuh`); every
+  other case (the f32 forward, f32 at 64 and 128 backward, bf16 at 128 and
   256) takes the f32 CUDA-core kernels that walk D in chunks of 64
   (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
@@ -60,6 +62,14 @@ from csn_tpu_torch import kernels
 NEG_INF = -1e30
 # 64: d_model 256 / 4 heads, the HRNet CSN heads; 256: the MID-FC heads
 HEAD_DIMS = (64, 128, 256)
+# the f32 backward at this head dim runs the split-TF32 body
+# (csrc/flash_tf32.cuh), which passes dS from its dK/dV pass to its dQ pass
+# through an f32 scratch of B * H * ceil32(Lk) * ceil32(Lq)
+TF32_HEAD_DIM = 256
+
+
+def _ceil32(n: int) -> int:
+    return -(-n // 32) * 32
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -220,12 +230,17 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask=None, q_mask=None,
     kernels.require_cuda(what, q, k, v, dout, lse, delta, kv_mask, q_mask)
     _require_aligned(what, q, k, v, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    Lk = k.shape[2]
+    ds_t = None   # the split-TF32 body hands dS^T from its dK/dV pass to dQ's
+    if q.dtype == torch.float32 and D == TF32_HEAD_DIM:
+        ds_t = torch.empty(B * H * _ceil32(Lk) * _ceil32(Lq),
+                           dtype=torch.float32, device=q.device)
     code = kernels.library().csn_flash_attn_bwd(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         kv_mask.data_ptr(), q_mask.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, Lq, k.shape[2], D, 1.0 / float(temperature),
-        *drop, kernels.stream())
+        dv.data_ptr(), 0 if ds_t is None else ds_t.data_ptr(), B, H, Lq, Lk,
+        D, 1.0 / float(temperature), *drop, kernels.stream())
     kernels.check(code, what)
     kernels.LAUNCHES[what] += 1
     return dq, dk, dv

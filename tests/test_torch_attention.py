@@ -409,3 +409,138 @@ def test_tensor_core_rounding_points_hold_the_bf16_tolerance(dropout):
         scale = want.abs().max().item()
         assert scale > 0
         assert (got - want).abs().max().item() <= 2e-2 * scale
+
+
+def _tf32(x):
+    """x rounded to TF32 as `cvt.rna.tf32.f32` does: to nearest, ties away
+    from zero, 10 stored mantissa bits kept (on the int32 view: add half of
+    the dropped 13 bits to the magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x as a TF32 operand of `mma.sync` reads it: the 13 low mantissa bits
+    dropped (toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the split-TF32 kernels compute it: a = a_hi + a_lo with
+    a_hi = tf32(a) (`cvt.rna`) and a_lo = a - a_hi, of which the product
+    reads the top 10 mantissa bits (b the same), and a_lo b_hi + a_hi b_lo
+    + a_hi b_hi accumulated in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_tf32_rounding_known_answers():
+    one = 1.0
+    x = torch.tensor([one + 2.0 ** -11, one + 2.0 ** -12,
+                      one + 3 * 2.0 ** -12, one + 2.0 ** -10,
+                      one + 2.0 ** -11 + 2.0 ** -23, 3.0],
+                     dtype=torch.float32)
+    want = torch.tensor([one + 2.0 ** -10, one, one + 2.0 ** -10,
+                         one + 2.0 ** -10, one + 2.0 ** -10, 3.0],
+                        dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    assert torch.equal(_tf32(-x), -want)   # ties away from zero, mirrored
+    # the operand read of the remainder drops its low bits toward zero
+    assert torch.equal(_tf32_trunc(x), torch.tensor(
+        [one, one, one, one + 2.0 ** -10, one, 3.0]))
+    # the split keeps ~21 bits: hi + lo is within 2^-21 relative of x
+    y = torch.from_numpy(np.random.default_rng(12).normal(
+        size=1000).astype(np.float32))
+    hi = _tf32(y)
+    lo = _tf32_trunc(y - hi)
+    assert (hi != y).any()
+    assert ((hi + lo - y).abs() <= 2.0 ** -21 * y.abs()).all()
+
+
+def _split_tf32_backward(q, k, v, dout, kv_mask, temp, dropout, seed):
+    """The f32 head-dim-256 backward (`csrc/flash_tf32.cuh`) in plain torch:
+    every product (S = Q K^T, dP = dO V^T, dV, dK, dQ) as three TF32
+    products (`_mm3`), p = exp(S / T - lse) from the f32 forward's lse,
+    dS = p (m dP / keep - delta) in f32, dK and dQ times 1/T at the end."""
+    out, lse = attention.scaled_dot_product_attention(
+        q, k, v, kv_mask, temp, dropout=dropout, seed=seed, return_lse=True)
+    s = _mm3(q, k.transpose(-1, -2))
+    s = s.masked_fill(~kv_mask[:, None, None, :], flash.NEG_INF)
+    p = torch.exp(s / temp - lse[..., None])
+    dp = _mm3(dout, v.transpose(-1, -2))
+    pd = p
+    if dropout:
+        keep = flash.dropout_keep_mask(seed, dropout, tuple(p.shape))
+        dp = torch.where(keep, dp / (1.0 - dropout), 0.0)
+        pd = torch.where(keep, p / (1.0 - dropout), 0.0)
+    delta = (dout * out).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dv = _mm3(pd.transpose(-1, -2), dout)
+    dk = _mm3(ds.transpose(-1, -2), q) / temp
+    dq = _mm3(ds, k) / temp
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_split_tf32_backward_holds_the_f32_tolerance(dropout):
+    """Before the card: the split-TF32 arithmetic of the f32 D=256 backward,
+    emulated, stays within chip_smoke's f32 tolerance, 1e-4 x max|ref|, at a
+    ragged masked shape: at dropout 0 of `jax.vjp` of the JAX package's
+    dense attention (not the Pallas body, which rounds to bf16); at 0.1 of
+    autograd of the port's plain attention (the TPU's random bits have no
+    CPU lowering)."""
+    rng = np.random.default_rng(13)
+    b, h, lq, lk, d = 1, 2, 100, 77, 256
+    q, k, v = _qkv(rng, b, h, lq, lk, d)
+    kv = rng.random((b, lk)) > 0.3
+    kv[0, 32:64] = False                      # a fully masked 32-key tile
+    qm = rng.random((b, lq)) > 0.2
+    qm[0, 64:96] = False                      # a 32-query tile all padding
+    g = (rng.normal(size=(b, h, lq, d)) * qm[:, None, :, None]
+         ).astype(np.float32)
+    temp, seed = float(d) ** 0.5, 0x5EED
+    tq, tk, tv, tg, tkv = map(torch.from_numpy, (q, k, v, g, kv))
+    got = _split_tf32_backward(tq, tk, tv, tg, tkv, temp, dropout,
+                               seed if dropout else None)
+    if dropout == 0.0:
+        _, vjp = jax.vjp(lambda a, b_, c: jattn.scaled_dot_product_attention(
+            a, b_, c, jnp.asarray(kv), temperature=temp),
+            *map(jnp.asarray, (q, k, v)))
+        refs = [torch.from_numpy(np.array(x)) for x in vjp(jnp.asarray(g))]
+    else:
+        leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+        out = attention.scaled_dot_product_attention(
+            *leaves, tkv, temp, dropout=dropout, seed=seed)
+        refs = torch.autograd.grad(out, leaves, tg)
+    for gk, ref in zip(got, refs):
+        scale = ref.abs().max().item()
+        assert scale > 0
+        assert (gk - ref).abs().max().item() <= 1e-4 * scale
+
+
+def test_single_tf32_pass_misses_the_f32_tolerance(monkeypatch):
+    """Why three products: the same backward with one TF32 product per
+    product (both operands rounded once) misses 1e-4 x max|ref| of the
+    float64 gradient on the inputs where the split version holds it."""
+    rng = np.random.default_rng(13)
+    b, h, lq, lk, d = 1, 2, 100, 77, 256
+    q, k, v = map(torch.from_numpy, _qkv(rng, b, h, lq, lk, d))
+    kv = torch.from_numpy(rng.random((b, lk)) > 0.3)
+    g = torch.from_numpy(rng.normal(size=(b, h, lq, d)).astype(np.float32))
+    temp = float(d) ** 0.5
+    leaves = [x.double().requires_grad_(True) for x in (q, k, v)]
+    s = torch.matmul(leaves[0] / temp, leaves[1].transpose(-1, -2))
+    s = s.masked_fill(~kv[:, None, None, :], flash.NEG_INF)
+    refs = torch.autograd.grad(torch.softmax(s, dim=-1) @ leaves[2], leaves,
+                               g.double())
+
+    def worst(got):
+        return max(((a.double() - r).abs().max() / r.abs().max()).item()
+                   for a, r in zip(got, refs))
+
+    split = worst(_split_tf32_backward(q, k, v, g, kv, temp, 0.0, None))
+    monkeypatch.setitem(globals(), "_mm3",
+                        lambda a, b_: _tf32(a) @ _tf32(b_))
+    single = worst(_split_tf32_backward(q, k, v, g, kv, temp, 0.0, None))
+    assert split <= 1e-5 < 1e-4 < single
