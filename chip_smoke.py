@@ -33,8 +33,8 @@ Phases (each prints its lines; any failure exits nonzero):
      cases against autograd of the plain version; K3 (voxel -> point
      interpolation) and `interp_bwd` against their plain versions; K2 and
      `flash_attn_bwd` at the MID-FC chunk shape [80, 8, 500, 256], the f32
-     backward at dropout 0.1 also against a float64 reference beside the
-     f32 plain version; `flash_attn_carry` chained over 4 key blocks
+     forward (out, lse) and backward at dropout 0.1 also against a float64
+     reference beside the f32 plain version; `flash_attn_carry` chained over 4 key blocks
      of 2500 at [2, 8, 10000, 256] against `online_block_update` chained the
      same way and against one K2 pass over all 10000 keys, and
      `flash_attn_block_bwd` summed over the 4 blocks against one
@@ -208,15 +208,16 @@ KERNELS = {
                                "csn_tpu/core/window_conv.py:1021"),
     "sparse_conv_im2col_bwd": ("csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu",
                                "csn_tpu/core/window_conv.py:1135"),
-    "flash_attn_fwd": ("csn_tpu_torch/csrc/flash_attn.cu",
+    # the MID-FC bodies (f32, head dim 256, split TF32 on the tensor cores);
+    # flash_attn.cu, flash_attn_bwd.cu and flash_attn_block_bwd.cu hold the
+    # dispatch (and the bf16 head-dim-64 bodies)
+    "flash_attn_fwd": ("csn_tpu_torch/csrc/flash_tf32_fwd.cuh",
                        "csn_tpu/ops/flash.py:262"),
-    # the MID-FC body (f32, head dim 256, split TF32); flash_attn_bwd.cu
-    # holds the bf16 head-dim-64 body and the dispatch
-    "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_tf32.cuh",
+    "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
                        "csn_tpu/ops/flash.py:600"),
     "flash_attn_carry": ("csn_tpu_torch/csrc/flash_attn_carry.cu",
                          "csn_tpu/ops/flash.py:412"),
-    "flash_attn_block_bwd": ("csn_tpu_torch/csrc/flash_attn_block_bwd.cu",
+    "flash_attn_block_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
                              "csn_tpu/ops/flash.py:488"),
     "interp_fwd": ("csn_tpu_torch/csrc/interp.cu",
                    "csn_tpu/core/interp_window.py:288"),
@@ -541,6 +542,22 @@ def attention_work(qm, km, n_head, dk, es):
     return fwd_b, bwd_b, 4 * pairs * dk, 10 * pairs * dk
 
 
+def attention_fwd_f64(q, k, v, km, temp, dropout, seed):
+    """(out, lse) of masked attention with dropout in float64: a reference
+    that bounds the kernel and the f32 plain version."""
+    s = torch.matmul(q.double() / temp, k.double().transpose(-1, -2))
+    s = s.masked_fill(~km[:, None, None, :], flash.NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    del s
+    if dropout:
+        keep = flash.dropout_keep_mask(seed, dropout, tuple(p.shape),
+                                       p.device)
+        p = torch.where(keep, p / (1.0 - dropout), torch.zeros_like(p))
+        del keep
+    return torch.matmul(p, v.double()), lse
+
+
 def attention_bwd_f64(q, k, v, km, dout, temp, dropout, seed):
     """(dq, dk, dv) of masked attention with dropout in float64, from its
     own float64 forward (lse, out, delta): a reference that bounds both
@@ -570,8 +587,9 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
     km, in f32 and bf16; timed in `time_dt` (None: not timed) at dropout
     ATTN_DROPOUT (the train path's call, `count` per train step), beside the
     library call `F.scaled_dot_product_attention` with the key mask at
-    dropout 0. With `ref64`, the f32 backward at ATTN_DROPOUT is also held,
-    with the f32 plain version beside it, against `attention_bwd_f64`."""
+    dropout 0. With `ref64`, the f32 forward (out, lse) and backward at
+    ATTN_DROPOUT are also held, with the f32 plain version beside them,
+    against `attention_fwd_f64` and `attention_bwd_f64`."""
     temp = float(dk) ** 0.5
     seed = 0x5EED_0F_C5A
     b, L = qm.shape
@@ -597,6 +615,28 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
             table.check("flash_attn_fwd", tag, out, ref, dt, valid)
             table.check("flash_attn_fwd", tag + " lse", lse, ref_lse, dt,
                         valid[..., 0])
+            if ref64 and dt == torch.float32 and drop:
+                r64 = attention_fwd_f64(qd, kd, vd, km, temp, drop, sd)
+                for nm, gk, gr, rr, vm in zip(
+                        ("out", "lse"), (out, lse), (ref, ref_lse), r64,
+                        (valid, valid[..., 0])):
+                    zero = torch.zeros((), dtype=torch.float64, device=dev)
+                    gk, gr, rr = (torch.where(vm, x.double(), zero)
+                                  for x in (gk, gr, rr))
+                    err = (gk - rr).abs().max().item()
+                    perr = (gr - rr).abs().max().item()
+                    scale = rr.abs().max().item()
+                    ok = err <= TOL[dt] * scale
+                    print(f"[check] flash_attn_fwd {tag} {nm} vs float64: "
+                          f"kernel {err:.3e} ({err / scale:.2e} of max|ref|)"
+                          f", f32 plain {perr:.3e} ({perr / scale:.2e}), tol "
+                          f"{TOL[dt] * scale:.3e} (max|ref| {scale:.3e}) "
+                          f"{'ok' if ok else 'FAIL'}")
+                    require(ok, f"flash_attn_fwd {tag} {nm}: float64 "
+                            f"reference")
+                    table.err["flash_attn_fwd"] = max(
+                        table.err["flash_attn_fwd"], err)
+                del r64
             del ref, ref_lse
             delta = (dod.float() * out.float()).sum(dim=-1)
             got = flash.flash_attention_bwd(qd, kd, vd, dod, lse, delta,
@@ -825,11 +865,10 @@ def check_ring_kernels(dev, table, g):
                 table.check("flash_attn_block_bwd", f"{otag} {nm} vs plain",
                             a, r, dt)
             del got, want, init, qs, dos
-            # The f32 plain version and the kernel do the same operations
-            # in the same order (sequential f32 FMAs over the reduced axis,
-            # the same exp), so they can agree bit for bit. A float64
-            # reference on batch row 0, heads 0-1 bounds both, and the
-            # kernel given a wrong column offset must disagree.
+            # The kernel (split TF32 on the tensor cores) and the f32 plain
+            # version round at different places. A float64 reference on
+            # batch row 0, heads 0-1 bounds both, and the kernel given a
+            # wrong column offset must disagree.
             hs = (slice(0, 1), slice(0, 2))
             got = flash.flash_block_backward(
                 qd, kb_, vb_, mb_, out, lse, dod, temp, drop, sd,

@@ -44,13 +44,17 @@
 // 4 entries, as the mask has. The next step for this kernel is wgmma with
 // TMA (ROADMAP B2).
 //
-// f32 at any head dim, and bf16 at D = 128 / 256 (the MID-FC heads), take
-// the CUDA-core kernel of flash_wide.cuh: it keeps only the query tile whole
-// in shared memory and walks D in chunks of 64, in f32 arithmetic (f32 stays
-// off the tensor cores: TF32 would miss the f32 checks' 1e-4).
+// f32 at D = 256 (the MID-FC heads): the tensor cores in split TF32, three
+// TF32 products per f32 product (flash_tf32_fwd.cuh): one TF32 product would
+// miss the f32 checks' 1e-4, three hold it.
+//
+// f32 at D = 64 / 128, and bf16 at D = 128 / 256, take the CUDA-core kernel
+// of flash_wide.cuh: it keeps only the query tile whole in shared memory and
+// walks D in chunks of 64, in f32 arithmetic.
 
 #include "common.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32_fwd.cuh"
 #include "flash_wide.cuh"
 
 namespace {
@@ -246,6 +250,10 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
   if (dtype == csn::kBF16 && D == csn_tc::TD)
     return launch_tc(q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk,
                      inv_temp, seed, thresh, inv_keep, use_drop, s);
+  if (dtype == csn::kF32 && D == csn_tf32::D)
+    return csn_tf32::launch_fwd_tf32(
+        q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk, inv_temp,
+        csn_tf32::Drop{seed, thresh, inv_keep, use_drop, 0, 0}, s);
 #define CSN_WIDE(T, DD)                                                       \
   return csn_wide::launch_fwd_wide<T, DD, false>(                             \
       q, k, v, kv_mask, q_mask, out, lse, nullptr, nullptr, nullptr, nullptr, \
@@ -254,7 +262,6 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
   if (dtype == csn::kF32) {
     if (D == 64) CSN_WIDE(float, 64);
     if (D == 128) CSN_WIDE(float, 128);
-    if (D == 256) CSN_WIDE(float, 256);
   }
   if (dtype == csn::kBF16) {
     if (D == 128) CSN_WIDE(__nv_bfloat16, 128);

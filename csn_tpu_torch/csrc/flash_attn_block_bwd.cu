@@ -15,30 +15,46 @@
 // mask is keyed by absolute (query row, key column): row_off and col_off give
 // this block's place in the global score matrix.
 //
-// What bounds it on the H100: as the full backward, seven tile products per
-// (query tile, key tile) pair on the CUDA cores in f32: compute-bound.
-//
-// Design: the two deterministic passes of flash_bwd_wide.cuh with the dQ
-// type set to float. The TPU kernel accumulates dQ over its whole sequential
-// grid in a VMEM plane; across hops the sum is the caller's (ops/attention.py
-// RingFlashAttentionFn adds the blocks' f32 terms).
+// f32 at D = 256 (the MID-FC heads, the ring's shape): the split-TF32
+// passes of flash_tf32_bwd.cuh on the tensor cores, with the block's offsets
+// and an f32 dQ term; the dK/dV pass hands dS^T to the dQ pass through the
+// caller's f32 scratch of ceil32(Lk) x ceil32(Lq) per (batch*head) (6.4 GB
+// for one hop over all 10000 keys at B = 2, 8 heads; a ring of N ranks has
+// Lk / N keys per hop). What bounds it: products, five 256-long ones per
+// (query, key) pair, three TF32 products each.
+// f32 at D = 64 / 128 and bf16 at every D: the two deterministic passes of
+// flash_bwd_wide.cuh in f32 arithmetic on the CUDA cores, with the dQ type
+// set to float.
+// The TPU kernel accumulates dQ over its whole sequential grid in a VMEM
+// plane; across hops the sum is the caller's (ops/attention.py
+// RingFlashAttentionFn adds the blocks' f32 terms), so the dQ pass stores
+// the block's term and adds nothing itself.
 
 #include "common.cuh"
 #include "flash_bwd_wide.cuh"
+#include "flash_tf32_bwd.cuh"
 
-// q, dout [B, H, Lq, D]; k, v, dk, dv [B, H, Lk, D] contiguous in one type;
-// dq [B, H, Lq, D] f32; lse and delta [B, H, Lq] f32; kv_mask [B, Lk] and
-// q_mask [B, Lq] bool bytes. D is 64, 128 or 256.
+// q, dout [B, H, Lq, D]; k, v, dk, dv [B, H, Lk, D] contiguous in one type
+// and 16-byte aligned; dq [B, H, Lq, D] f32; lse and delta [B, H, Lq] f32;
+// kv_mask [B, Lk] and q_mask [B, Lq] bool bytes. D is 64, 128 or 256. ds_t:
+// f32 scratch of B * H * ceil32(Lk) * ceil32(Lq) for f32 at D = 256, unused
+// otherwise.
 extern "C" int csn_flash_attn_block_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* kv_mask,
-    const void* q_mask, void* dq, void* dk, void* dv, int B, int H, int Lq,
-    int Lk, int D, float inv_temp, uint64_t seed, uint32_t thresh,
-    float inv_keep, int use_drop, int row_off, int col_off, void* stream) {
+    const void* q_mask, void* dq, void* dk, void* dv, void* ds_t, int B,
+    int H, int Lq, int Lk, int D, float inv_temp, uint64_t seed,
+    uint32_t thresh, float inv_keep, int use_drop, int row_off, int col_off,
+    void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const csn_wide_bwd::Drop drop{seed,     thresh,  inv_keep,
                                 use_drop, row_off, col_off};
+  if (dtype == csn::kF32 && D == csn_tf32::D)
+    return csn_tf32::launch_bwd_tf32<float>(q, k, v, dout, lse, delta,
+                                            kv_mask, q_mask, dq, dk, dv,
+                                            ds_t, B, H, Lq, Lk, inv_temp,
+                                            drop, s);
 #define CSN_BLOCK(T, DD)                                                     \
   return csn_wide_bwd::launch_bwd_wide<T, float, DD>(                        \
       q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, dv, B, H, Lq, Lk, \
@@ -46,7 +62,6 @@ extern "C" int csn_flash_attn_block_bwd(
   if (dtype == csn::kF32) {
     if (D == 64) CSN_BLOCK(float, 64);
     if (D == 128) CSN_BLOCK(float, 128);
-    if (D == 256) CSN_BLOCK(float, 256);
   }
   if (dtype == csn::kBF16) {
     if (D == 64) CSN_BLOCK(__nv_bfloat16, 64);

@@ -51,14 +51,14 @@
 // Dropout words as the forward draws them (flash_tc.cuh drop_words).
 //
 // f32 at D = 256 (the MID-FC heads) runs on the tensor cores in split TF32
-// (three TF32 products per f32 product, f32-accurate): flash_tf32.cuh.
+// (three TF32 products per f32 product, f32-accurate): flash_tf32_bwd.cuh.
 // f32 at D = 64 / 128 and bf16 at D = 128 / 256 take the CUDA-core kernels
 // of flash_bwd_wide.cuh, in f32 arithmetic.
 
 #include "common.cuh"
 #include "flash_bwd_wide.cuh"
 #include "flash_tc.cuh"
-#include "flash_tf32.cuh"
+#include "flash_tf32_bwd.cuh"
 
 namespace {
 
@@ -419,7 +419,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // one type and 16-byte aligned; lse and delta [B, H, Lq] f32; kv_mask [B, Lk]
 // and q_mask [B, Lq] bool bytes. D is 64, 128 or 256. Dropout arguments as
 // csn_flash_attn_fwd's. ds_t: f32 scratch of B * H * ceil32(Lk) * ceil32(Lq)
-// for f32 at D = 256 (flash_tf32.cuh), unused otherwise.
+// for f32 at D = 256 (flash_tf32_bwd.cuh), unused otherwise.
 extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,

@@ -86,9 +86,9 @@ _SIGNATURES = {
     "csn_flash_attn_carry": [_I] + [_P] * 11 + [_I] * 5 + [
         _F, _U64, _U32, _F, _I, _I, _I, _P],
     # dtype, q, k, v, dout, lse, delta, kv_mask, q_mask, dq (f32), dk, dv,
-    # B, H, Lq, Lk, D, inv_temp, seed, thresh, inv_keep, use_drop, row_off,
-    # col_off, stream
-    "csn_flash_attn_block_bwd": [_I] + [_P] * 11 + [_I] * 5 + [
+    # ds_t (f32 scratch), B, H, Lq, Lk, D, inv_temp, seed, thresh, inv_keep,
+    # use_drop, row_off, col_off, stream
+    "csn_flash_attn_block_bwd": [_I] + [_P] * 12 + [_I] * 5 + [
         _F, _U64, _U32, _F, _I, _I, _I, _P],
     # dtype, flat, idx, w, out, n_vox, n_pts, c, stream
     "csn_interp_fwd": [_I, _P, _P, _P, _P, _I64, _I64, _I, _P],

@@ -8,8 +8,8 @@ and its gradient as Pallas TPU kernels over sequential grid axes with VMEM
 scratch.
 
 * Forward (`csn_tpu_torch/csrc/flash_attn.cu`): one block per (batch*head,
-  64-query tile) loops over 64-key tiles, skipping query tiles with no valid
-  query and key tiles with no valid key. Returns `out` and the f32
+  64-query tile) loops over the key tiles, skipping query tiles with no
+  valid query and key tiles with no valid key. Returns `out` and the f32
   log-sum-exp rows `lse`.
 * Backward (`csn_tpu_torch/csrc/flash_attn_bwd.cu`): dQ, dK, dV from q, k,
   v, dO, `lse` and `delta = rowsum(dO * O)` (plain torch, as the JAX package
@@ -18,11 +18,13 @@ scratch.
 * Head dims 64 (the HRNet heads), 128 and 256 (the MID-FC heads, d_k = d_v =
   256 per head). bf16 at D = 64 runs both directions on the tensor cores
   (`mma.sync` with f32 accumulators, `cp.async` and `ldmatrix` tiles:
-  `csrc/flash_tc.cuh`); the f32 backward at D = 256 runs on them in split
-  TF32, three TF32 products per f32 product (`csrc/flash_tf32.cuh`); every
-  other case (the f32 forward, f32 at 64 and 128 backward, bf16 at 128 and
-  256) takes the f32 CUDA-core kernels that walk D in chunks of 64
-  (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
+  `csrc/flash_tc.cuh`); f32 at D = 256 runs the forward, the backward and
+  the block backward on them in split TF32, three TF32 products per f32
+  product (`csrc/flash_tf32_fwd.cuh`, `csrc/flash_tf32_bwd.cuh` over the
+  blocks of `csrc/flash_tf32.cuh`); every other case (f32 at 64 and 128,
+  bf16 at 128 and 256, and the carry forward) takes the f32 CUDA-core
+  kernels that walk D in chunks of 64 (`csrc/flash_wide.cuh`,
+  `csrc/flash_bwd_wide.cuh`).
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
   loop over ONE key block with the running max, denominator and f32
   accumulator carried in and written back raw; `flash_carry_finalize`
@@ -62,14 +64,26 @@ from csn_tpu_torch import kernels
 NEG_INF = -1e30
 # 64: d_model 256 / 4 heads, the HRNet CSN heads; 256: the MID-FC heads
 HEAD_DIMS = (64, 128, 256)
-# the f32 backward at this head dim runs the split-TF32 body
-# (csrc/flash_tf32.cuh), which passes dS from its dK/dV pass to its dQ pass
-# through an f32 scratch of B * H * ceil32(Lk) * ceil32(Lq)
+# f32 at this head dim runs on the tensor cores in split TF32: the forward
+# (csrc/flash_tf32_fwd.cuh) and both backward forms (csrc/flash_tf32_bwd.cuh),
+# which pass dS from their dK/dV pass to their dQ pass through an f32
+# scratch of B * H * ceil32(Lk) * ceil32(Lq)
 TF32_HEAD_DIM = 256
 
 
 def _ceil32(n: int) -> int:
     return -(-n // 32) * 32
+
+
+def _ds_scratch(q, B, H, Lq, Lk, D) -> Optional[torch.Tensor]:
+    """The f32 scratch through which the split-TF32 backward hands dS^T
+    from its dK/dV pass to its dQ pass (f32 at TF32_HEAD_DIM only; None
+    for the other bodies)."""
+    if q.dtype != torch.float32 or D != TF32_HEAD_DIM:
+        return None
+    return torch.empty(B * H * _ceil32(Lk) * _ceil32(Lq),
+                       dtype=torch.float32, device=q.device)
+
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -173,7 +187,9 @@ def _masks(what, q, k, kv_mask, q_mask):
 
 
 def _require_aligned(what, *tensors):
-    """The bf16 head-dim-64 kernels copy 16-byte rows with cp.async."""
+    """The tensor-core bodies (bf16 at head dim 64, f32 at 256) copy their
+    tiles 16 bytes at a time with cp.async: a misaligned start would read
+    the wrong bytes rather than fail."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: q, k, v (and dout) must start on a "
                          f"16-byte boundary")
@@ -231,10 +247,7 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask=None, q_mask=None,
     _require_aligned(what, q, k, v, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     Lk = k.shape[2]
-    ds_t = None   # the split-TF32 body hands dS^T from its dK/dV pass to dQ's
-    if q.dtype == torch.float32 and D == TF32_HEAD_DIM:
-        ds_t = torch.empty(B * H * _ceil32(Lk) * _ceil32(Lq),
-                           dtype=torch.float32, device=q.device)
+    ds_t = _ds_scratch(q, B, H, Lq, Lk, D)
     code = kernels.library().csn_flash_attn_bwd(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -406,14 +419,18 @@ def flash_block_backward(q, k, v, kv_mask, out, lse, g, temperature: float,
             row_offset, col_offset)
     g = g.contiguous()
     kernels.require_cuda(what, q, k, v, g, lse, delta, kv_mask, q_mask)
+    _require_aligned(what, q, k, v, g)
+    Lk = k.shape[2]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ds_t = _ds_scratch(q, B, H, Lq, Lk, D)
     code = kernels.library().csn_flash_attn_block_bwd(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(), kv_mask.data_ptr(),
-        q_mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
-        Lq, k.shape[2], D, 1.0 / float(temperature), *drop, int(row_offset),
-        int(col_offset), kernels.stream())
+        q_mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        0 if ds_t is None else ds_t.data_ptr(), B, H, Lq, Lk, D,
+        1.0 / float(temperature), *drop, int(row_offset), int(col_offset),
+        kernels.stream())
     kernels.check(code, what)
     kernels.LAUNCHES[what] += 1
     return dq, dk, dv

@@ -412,11 +412,13 @@ def test_tensor_core_rounding_points_hold_the_bf16_tolerance(dropout):
 
 
 def _tf32(x):
-    """x rounded to TF32 as `cvt.rna.tf32.f32` does: to nearest, ties away
-    from zero, 10 stored mantissa bits kept (on the int32 view: add half of
-    the dropped 13 bits to the magnitude, then clear them)."""
+    """x rounded to TF32 as `cvt.rn.tf32.f32` does: to nearest, ties to
+    even, 10 stored mantissa bits kept (on the int32 view: add just under
+    half of the dropped 13 bits, plus the lowest kept bit, to the magnitude,
+    then clear them)."""
     bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return ((bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF).view(
+        torch.float32)
 
 
 def _tf32_trunc(x):
@@ -427,7 +429,7 @@ def _tf32_trunc(x):
 
 def _mm3(a, b):
     """a @ b as the split-TF32 kernels compute it: a = a_hi + a_lo with
-    a_hi = tf32(a) (`cvt.rna`) and a_lo = a - a_hi, of which the product
+    a_hi = tf32(a) (`cvt.rn`) and a_lo = a - a_hi, of which the product
     reads the top 10 mantissa bits (b the same), and a_lo b_hi + a_hi b_lo
     + a_hi b_hi accumulated in f32."""
     ah, bh = _tf32(a), _tf32(b)
@@ -439,16 +441,18 @@ def test_tf32_rounding_known_answers():
     one = 1.0
     x = torch.tensor([one + 2.0 ** -11, one + 2.0 ** -12,
                       one + 3 * 2.0 ** -12, one + 2.0 ** -10,
-                      one + 2.0 ** -11 + 2.0 ** -23, 3.0],
+                      one + 2.0 ** -11 + 2.0 ** -23, 3.0,
+                      one + 3 * 2.0 ** -11],
                      dtype=torch.float32)
-    want = torch.tensor([one + 2.0 ** -10, one, one + 2.0 ** -10,
-                         one + 2.0 ** -10, one + 2.0 ** -10, 3.0],
+    want = torch.tensor([one, one, one + 2.0 ** -10,
+                         one + 2.0 ** -10, one + 2.0 ** -10, 3.0,
+                         one + 2.0 ** -9],
                         dtype=torch.float32)
     assert torch.equal(_tf32(x), want)
-    assert torch.equal(_tf32(-x), -want)   # ties away from zero, mirrored
+    assert torch.equal(_tf32(-x), -want)   # ties to even, mirrored
     # the operand read of the remainder drops its low bits toward zero
     assert torch.equal(_tf32_trunc(x), torch.tensor(
-        [one, one, one, one + 2.0 ** -10, one, 3.0]))
+        [one, one, one, one + 2.0 ** -10, one, 3.0, one + 2.0 ** -10]))
     # the split keeps ~21 bits: hi + lo is within 2^-21 relative of x
     y = torch.from_numpy(np.random.default_rng(12).normal(
         size=1000).astype(np.float32))
@@ -458,28 +462,40 @@ def test_tf32_rounding_known_answers():
     assert ((hi + lo - y).abs() <= 2.0 ** -21 * y.abs()).all()
 
 
-def _split_tf32_backward(q, k, v, dout, kv_mask, temp, dropout, seed):
-    """The f32 head-dim-256 backward (`csrc/flash_tf32.cuh`) in plain torch:
-    every product (S = Q K^T, dP = dO V^T, dV, dK, dQ) as three TF32
-    products (`_mm3`), p = exp(S / T - lse) from the f32 forward's lse,
-    dS = p (m dP / keep - delta) in f32, dK and dQ times 1/T at the end."""
-    out, lse = attention.scaled_dot_product_attention(
-        q, k, v, kv_mask, temp, dropout=dropout, seed=seed, return_lse=True)
+def _split_tf32_block_backward(q, k, v, dout, kv_mask, lse, delta, temp,
+                               dropout, seed, row_offset=0, col_offset=0):
+    """The f32 head-dim-256 backward passes (`csrc/flash_tf32_bwd.cuh`) on
+    one key block in plain torch: every product (S = Q K^T, dP = dO V^T,
+    dV, dK, dQ) as three TF32 products (`_mm3`), p = exp(S / T - lse) from
+    the GLOBAL lse, the dropout mask at the block's offsets in the global
+    score matrix, dS = p (m dP / keep - delta) in f32, dK and dQ times 1/T
+    at the end. Over all keys at offsets 0 it is the full backward."""
     s = _mm3(q, k.transpose(-1, -2))
     s = s.masked_fill(~kv_mask[:, None, None, :], flash.NEG_INF)
     p = torch.exp(s / temp - lse[..., None])
     dp = _mm3(dout, v.transpose(-1, -2))
     pd = p
     if dropout:
-        keep = flash.dropout_keep_mask(seed, dropout, tuple(p.shape))
+        keep = flash.dropout_keep_mask(seed, dropout, tuple(p.shape),
+                                       row_offset=row_offset,
+                                       col_offset=col_offset)
         dp = torch.where(keep, dp / (1.0 - dropout), 0.0)
         pd = torch.where(keep, p / (1.0 - dropout), 0.0)
-    delta = (dout * out).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta)
+    ds = p * (dp - delta[..., None])
     dv = _mm3(pd.transpose(-1, -2), dout)
     dk = _mm3(ds.transpose(-1, -2), q) / temp
     dq = _mm3(ds, k) / temp
     return dq, dk, dv
+
+
+def _split_tf32_backward(q, k, v, dout, kv_mask, temp, dropout, seed):
+    """The f32 head-dim-256 backward over all keys, from the f32 forward's
+    lse and delta = rowsum(dO o O)."""
+    out, lse = attention.scaled_dot_product_attention(
+        q, k, v, kv_mask, temp, dropout=dropout, seed=seed, return_lse=True)
+    delta = (dout * out).sum(dim=-1)
+    return _split_tf32_block_backward(q, k, v, dout, kv_mask, lse, delta,
+                                      temp, dropout, seed)
 
 
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
@@ -544,3 +560,199 @@ def test_single_tf32_pass_misses_the_f32_tolerance(monkeypatch):
                         lambda a, b_: _tf32(a) @ _tf32(b_))
     single = worst(_split_tf32_backward(q, k, v, g, kv, temp, 0.0, None))
     assert split <= 1e-5 < 1e-4 < single
+
+
+def _split_tf32_forward(q, k, v, kv_mask, temp, dropout, seed):
+    """The f32 head-dim-256 forward (`csrc/flash_tf32_fwd.cuh`) in plain
+    torch, over 32-key tiles: S = Q K^T as three TF32 products (hi and lo of
+    Q and K), p = exp(S / T - m) (masked keys 0), the undropped p into the
+    denominator, the dropped p and V split again for P V, which each tile
+    sums from zero and adds to O in f32 (O <- O alpha + P V). Returns (out,
+    lse)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    keep = (flash.dropout_keep_mask(seed, dropout, (b, h, lq, lk))
+            if dropout else None)
+    m = torch.full((b, h, lq, 1), flash.NEG_INF)
+    l, o = torch.zeros(b, h, lq, 1), torch.zeros(b, h, lq, d)
+    for c0 in range(0, lk, 32):
+        c1 = min(c0 + 32, lk)
+        ok = kv_mask[:, None, None, c0:c1]
+        s = _mm3(q, k[:, :, c0:c1].transpose(-1, -2)) / temp
+        s = s.masked_fill(~ok, flash.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if dropout:
+            p = torch.where(keep[..., c0:c1], p / (1.0 - dropout), 0.0)
+        o = o * alpha + _mm3(p, v[:, :, c0:c1])
+        m = m_new
+    den = l.clamp(min=1e-30)
+    return o / den, (m + torch.log(den))[..., 0]
+
+
+def _fwd_inputs(seed=14):
+    """f32 inputs at the MID-FC head dim: a ragged shape with a fully
+    masked 32-key tile and a 64-query tile all padding."""
+    rng = np.random.default_rng(seed)
+    b, h, lq, lk, d = 1, 2, 100, 77, 256
+    q, k, v = _qkv(rng, b, h, lq, lk, d)
+    kv = rng.random((b, lk)) > 0.3
+    kv[0, 32:64] = False
+    qm = rng.random((b, lq)) > 0.2
+    qm[0, 64:] = False
+    return q, k, v, kv, qm, float(d) ** 0.5
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_split_tf32_forward_holds_the_f32_tolerance(dropout):
+    """Before the card: the rounding points of the f32 D=256 forward,
+    emulated, hold chip_smoke's f32 tolerance, 1e-4 x max|ref| on the valid
+    query rows: at dropout 0 the output against the JAX package's dense
+    attention (not the Pallas body, which rounds to bf16) and lse against
+    the port's plain version; at 0.1 both against the port's plain version
+    (the TPU's random bits have no CPU lowering)."""
+    q, k, v, kv, qm, temp = _fwd_inputs()
+    tq, tk, tv, tkv = map(torch.from_numpy, (q, k, v, kv))
+    seed = 0x5EED if dropout else None
+    out, lse = _split_tf32_forward(tq, tk, tv, tkv, temp, dropout, seed)
+    ref, ref_lse = attention.scaled_dot_product_attention(
+        tq, tk, tv, tkv, temp, dropout=dropout, seed=seed, return_lse=True)
+    if dropout == 0.0:
+        ref = torch.from_numpy(np.array(jattn.scaled_dot_product_attention(
+            *map(jnp.asarray, (q, k, v)), jnp.asarray(kv),
+            temperature=temp)))
+    valid = torch.from_numpy(qm)[:, None, :]
+    for got, want, vm in ((out, ref, valid[..., None]),
+                          (lse, ref_lse, valid)):
+        got, want = got * vm, want * vm
+        scale = want.abs().max().item()
+        assert scale > 0
+        assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+def test_single_tf32_pass_misses_the_f32_tolerance_forward(monkeypatch):
+    """Why three products in the forward too: with one TF32 product per
+    product the emulated output misses 1e-4 x max|ref| of the float64
+    attention on the inputs where the split version holds it."""
+    q, k, v, kv, qm, temp = _fwd_inputs()
+    tq, tk, tv, tkv = map(torch.from_numpy, (q, k, v, kv))
+    s = torch.matmul(tq.double() / temp, tk.double().transpose(-1, -2))
+    s = s.masked_fill(~tkv[:, None, None, :], flash.NEG_INF)
+    ref = torch.softmax(s, dim=-1) @ tv.double()
+    valid = torch.from_numpy(qm)[:, None, :, None]
+
+    def worst(got):
+        return ((got.double() - ref) * valid).abs().max().item() \
+            / (ref * valid).abs().max().item()
+
+    split = worst(_split_tf32_forward(tq, tk, tv, tkv, temp, 0.0, None)[0])
+    monkeypatch.setitem(globals(), "_mm3",
+                        lambda a, b_: _tf32(a) @ _tf32(b_))
+    single = worst(_split_tf32_forward(tq, tk, tv, tkv, temp, 0.0, None)[0])
+    assert split <= 1e-5 < 1e-4 < single
+
+
+# the ring's uneven key blocks: they start at columns 1, 3 and 2 mod 4, so a
+# Philox group straddles each block edge
+RING_CUTS = (0, 25, 51, 62, 77)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_split_tf32_block_backward_holds_the_f32_tolerance(dropout):
+    """Before the card: the split-TF32 backward on the ring's key blocks
+    (offsets at columns 1, 3, 2 mod 4, and a slice of the query rows at a
+    row offset), emulated. At dropout 0 the f32 dQ terms summed and the
+    per-block dK, dV hold 1e-4 x max|ref| of `jax.vjp` of the JAX package's
+    dense attention, and the JAX `flash_block_backward` (the Pallas body in
+    interpret mode, which rounds q, k, v and dO to bf16) per block within
+    3e-2 x max|ref|; at 0.1 every block holds 1e-4 x max|ref| of the port's
+    `block_backward_plain` at the same offsets."""
+    q, k, v, kv, _, temp = _fwd_inputs(seed=15)
+    rng = np.random.default_rng(16)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    tq, tk, tv, tg, tkv = map(torch.from_numpy, (q, k, v, g, kv))
+    seed = 0x5EED if dropout else None
+    out, lse = attention.scaled_dot_product_attention(
+        tq, tk, tv, tkv, temp, dropout=dropout, seed=seed, return_lse=True)
+    delta = (tg * out).sum(dim=-1)
+
+    def close(got, want, tol):
+        # a fully masked block (keys 51-61) has dK = dV = 0 exactly
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol * scale
+
+    blocks = list(zip(RING_CUTS, RING_CUTS[1:]))
+    got = [_split_tf32_block_backward(
+        tq, tk[:, :, c0:c1], tv[:, :, c0:c1], tg, tkv[:, c0:c1], lse, delta,
+        temp, dropout, seed, col_offset=c0) for c0, c1 in blocks]
+    if dropout == 0.0:
+        _, vjp = jax.vjp(lambda a, b_, c: jattn.scaled_dot_product_attention(
+            a, b_, c, jnp.asarray(kv), temperature=temp),
+            *map(jnp.asarray, (q, k, v)))
+        refs = [torch.from_numpy(np.array(x)) for x in vjp(jnp.asarray(g))]
+        close(sum(x[0] for x in got), refs[0], 1e-4)
+        close(torch.cat([x[1] for x in got], 2), refs[1], 1e-4)
+        close(torch.cat([x[2] for x in got], 2), refs[2], 1e-4)
+        jq, jg, jout, jlse = map(jnp.asarray, (q, g, out.numpy(),
+                                               lse.numpy()))
+        with jflash.interpret_mode():
+            for (c0, c1), mine in zip(blocks, got):
+                jref = jflash.flash_block_backward(
+                    jq, jnp.asarray(k[:, :, c0:c1]),
+                    jnp.asarray(v[:, :, c0:c1]), jnp.asarray(kv[:, c0:c1]),
+                    jout, jlse, jg, temp)
+                for a, r in zip(mine, jref):
+                    close(a, torch.from_numpy(np.array(r)), 3e-2)
+        return
+    for (c0, c1), mine in zip(blocks, got):
+        want = flash.block_backward_plain(
+            tq, tk[:, :, c0:c1], tv[:, :, c0:c1], tkv[:, c0:c1], lse, delta,
+            tg, temp, dropout, seed, col_offset=c0)
+        for a, r in zip(mine, want):
+            close(a, r, 1e-4)
+    # a slice of the query rows against one block, both at their offsets
+    r0, (c0, c1) = 37, blocks[2]
+    rows = slice(r0, None)
+    mine = _split_tf32_block_backward(
+        tq[:, :, rows], tk[:, :, c0:c1], tv[:, :, c0:c1], tg[:, :, rows],
+        tkv[:, c0:c1], lse[:, :, rows], delta[:, :, rows], temp, dropout,
+        seed, row_offset=r0, col_offset=c0)
+    want = flash.block_backward_plain(
+        tq[:, :, rows], tk[:, :, c0:c1], tv[:, :, c0:c1], tkv[:, c0:c1],
+        lse[:, :, rows], delta[:, :, rows], tg[:, :, rows], temp, dropout,
+        seed, row_offset=r0, col_offset=c0)
+    for a, r in zip(mine, want):
+        close(a, r, 1e-4)
+
+
+def test_block_backward_refuses_a_misaligned_view(monkeypatch):
+    """The split-TF32 passes copy q, k, v and dO 16 bytes at a time with
+    cp.async: `flash_block_backward` refuses a view that does not start on
+    a 16-byte boundary before the launch, as `flash_attention_bwd` does
+    (meta tensors through the wrapper's checks, the CUDA-device check
+    stubbed out); an aligned call gets as far as the library."""
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+
+    def no_library():
+        raise LookupError("reached the launch")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    b, h, lq, lk, d = 1, 2, 9, 11, 256
+    meta = dict(device="meta")
+    k = torch.empty(b, h, lk, d, **meta)
+    lse = torch.empty(b, h, lq, **meta)
+    kv = torch.ones(b, lk, dtype=torch.bool, **meta)
+    aligned = torch.empty(b, h, lq, d, **meta)
+    shifted = torch.empty(b * h * lq * d + 1, **meta)[1:].view(b, h, lq, d)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = dict(kernels.LAUNCHES)
+    for q, g in ((shifted, aligned), (aligned, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash.flash_block_backward(q, k, k, kv, aligned, lse, g, 16.0,
+                                       delta=lse)
+    with pytest.raises(LookupError, match="reached the launch"):
+        flash.flash_block_backward(aligned, k, k, kv, aligned, lse, aligned,
+                                   16.0, delta=lse)
+    assert kernels.LAUNCHES == before
