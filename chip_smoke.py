@@ -20,7 +20,9 @@ Phases (each prints its lines; any failure exits nonzero):
   3. kernels, each in f32 and bf16 against its plain version on the same
      inputs, with median times of both (bf16, the main path's type):
      K1 (sparse conv) on every map and width of the model, and on every
-     transpose map with the weights transposed (the backward's d_feats);
+     transpose map with the weights transposed (the backward's d_feats),
+     where its tensor-core body runs (bf16, Cin % 16 == 0, Cout % 8 == 0)
+     also against a float64 conv of the same bf16 operands (K1_F64_TOL);
      `sparse_conv_dw` (dW) at the same convs, random asymmetric weights,
      against `conv_bwd_plain`; on the same inputs `sparse_conv_im2col_fwd`
      against `conv_im2col_plain` and K1, and `sparse_conv_im2col_bwd`
@@ -34,13 +36,18 @@ Phases (each prints its lines; any failure exits nonzero):
      interpolation) and `interp_bwd` against their plain versions; K2 and
      `flash_attn_bwd` at the MID-FC chunk shape [80, 8, 500, 256], the f32
      forward (out, lse) and backward at dropout 0.1 also against a float64
-     reference beside the f32 plain version; `flash_attn_carry` chained over 4 key blocks
-     of 2500 at [2, 8, 10000, 256] against `online_block_update` chained the
-     same way and against one K2 pass over all 10000 keys, and
-     `flash_attn_block_bwd` summed over the 4 blocks against one
-     `flash_attn_bwd` call; the four conv kernels again on every (map, Cin,
-     Cout) of Res16UNet34C (8-offset k2 maps, five levels, widths 96, 192,
-     384; timed, B=8) and of ResUNet14 and ResNet14 (1-offset k1 maps, six
+     reference beside the f32 plain version; `flash_attn_carry` chained
+     over 4 key blocks of 2500 at [2, 8, 10000, 256] against
+     `online_block_update` chained the same way and against one K2 pass
+     over all 10000 keys, and `flash_attn_block_bwd` summed over the 4
+     blocks against one `flash_attn_bwd` call; in the chain cut unevenly
+     (blocks at columns 1, 3, 2 mod 4, f32, dropout 0.1) the carry also
+     against a float64 reference with a wrong-offset run that must
+     disagree, and a block with padding query rows (scattered, and one
+     padding 64-row tile) whose carry must pass through bit for bit; the
+     four conv kernels again on every (map, Cin, Cout) of Res16UNet34C
+     (8-offset k2 maps, five levels, widths 96, 192, 384; timed, B=8) and
+     of ResUNet14 and ResNet14 (1-offset k1 maps, six
      levels, widths up to 768; checked only, B=2); the probe kernels:
      `probe_window_gather` in f32 and bf16, both layouts, W = 384 and 256,
      matched and unmatched, with a row id outside the window;
@@ -183,6 +190,9 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max|ref|
 # f32 train step, kernels on the GPU vs plain on the CPU: x max|ref| per
 # gradient tensor
 GRAD_TOL = 1e-3
+# K1's tensor-core body (bf16) against a float64 conv of the same bf16
+# operands: x max|ref|, two bf16 ulps (the f32 sums are stored once in bf16)
+K1_F64_TOL = 4e-3
 # gradients that vanish analytically (a bias right before train-mode
 # BatchNorm): held to GRAD_TOL x the largest gradient of the step
 VANISHING = {"fc1.linear.bias"}
@@ -209,13 +219,15 @@ KERNELS = {
     "sparse_conv_im2col_bwd": ("csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu",
                                "csn_tpu/core/window_conv.py:1135"),
     # the MID-FC bodies (f32, head dim 256, split TF32 on the tensor cores);
-    # flash_attn.cu, flash_attn_bwd.cu and flash_attn_block_bwd.cu hold the
-    # dispatch (and the bf16 head-dim-64 bodies)
+    # flash_attn.cu, flash_attn_bwd.cu, flash_attn_carry.cu and
+    # flash_attn_block_bwd.cu hold the dispatch (and the bf16 head-dim-64
+    # bodies); sparse_conv.cu holds K1's tensor-core body (bf16) and its
+    # CUDA-core body (f32, stems)
     "flash_attn_fwd": ("csn_tpu_torch/csrc/flash_tf32_fwd.cuh",
                        "csn_tpu/ops/flash.py:262"),
     "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
                        "csn_tpu/ops/flash.py:600"),
-    "flash_attn_carry": ("csn_tpu_torch/csrc/flash_attn_carry.cu",
+    "flash_attn_carry": ("csn_tpu_torch/csrc/flash_tf32_fwd.cuh",
                          "csn_tpu/ops/flash.py:412"),
     "flash_attn_block_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
                              "csn_tpu/ops/flash.py:488"),
@@ -421,12 +433,38 @@ def conv_bwd_work(kmap_t, n_g, cin, cout, es, input_grad):
     return nbytes, 2 * nnz * cin * cout * (2 if input_grad else 1)
 
 
+def conv_f64(feats, kmap, weights):
+    """The sparse conv in float64 on the same operands (bf16 values held
+    exactly): the reference that bounds K1's one rounding."""
+    f, w = feats.double(), weights.double()
+    out = torch.zeros((kmap.shape[1], w.shape[2]), dtype=torch.float64,
+                      device=feats.device)
+    for k in range(kmap.shape[0]):
+        out += conv.gather_rows(f, kmap[k]) @ w[k]
+    return out
+
+
+def check_k1_f64(table, what, got, feats, kmap, weights):
+    """K1's tensor-core body against `conv_f64` within K1_F64_TOL."""
+    ref = conv_f64(feats, kmap, weights)
+    err = (got.double() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    tol = K1_F64_TOL * scale
+    ok = bool(torch.isfinite(got).all()) and err <= tol
+    print(f"[check] sparse_conv_fwd {what} bfloat16 (tensor cores) vs "
+          f"float64: max_abs_err {err:.3e} tol {tol:.3e} (max|ref| "
+          f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"sparse_conv_fwd {what}: bf16 tensor-core body vs float64")
+    table.err["sparse_conv_fwd"] = max(table.err["sparse_conv_fwd"], err)
+
+
 def check_convs(model, big, dev, table, g, timed=True):
     """K1 forward and on the transpose map, and `sparse_conv_dw`, at every
-    (map, Cin, Cout) the model runs; on the same inputs the im2col pair
-    (`CSN_DYNG=2/3`) against its plain versions and against K1 /
-    `sparse_conv_dw`; with `timed`, each family's bf16 times are added to
-    the table. Returns the number of convs."""
+    (map, Cin, Cout) the model runs; where K1 takes its tensor-core body
+    (bf16), also against a float64 conv of the same operands; on the same
+    inputs the im2col pair (`CSN_DYNG=2/3`) against its plain versions and
+    against K1 / `sparse_conv_dw`; with `timed`, each family's bf16 times
+    are added to the table. Returns the number of convs."""
     convs = {}
     for m in model.modules():
         if isinstance(m, SparseConv):
@@ -447,16 +485,20 @@ def check_convs(model, big, dev, table, g, timed=True):
             f, wt, gd = feats.to(dt), w.to(dt), grad.to(dt)
             w_t = (wt.flip(0) if mirror else wt).transpose(1, 2).contiguous()
             what = f"{name} {cin}->{cout} N_out={kmap.shape[1]}"
-            table.check("sparse_conv_fwd", what,
-                        window_conv.sparse_conv_fwd(f, kmap, wt),
+            got = window_conv.sparse_conv_fwd(f, kmap, wt)
+            table.check("sparse_conv_fwd", what, got,
                         conv.conv_plain(f, kmap, wt), dt)
+            if window_conv.k1_tensor_cores(dt, cin, cout):
+                check_k1_f64(table, what, got, f, kmap, wt)
             ref_df, ref_dw = conv.conv_bwd_plain(f, gd, kmap_t, wt.float(),
                                                  mirror, n_dfeats > 0)
             got_df, got_dw = conv.conv_bwd_kernels(f, gd, kmap_t, wt.float(),
                                                    mirror, n_dfeats > 0)
             if n_dfeats:
-                table.check("sparse_conv_fwd", f"d_feats over {t_name} "
-                            f"{cout}->{cin} N_out={n_in}", got_df, ref_df, dt)
+                dwhat = f"d_feats over {t_name} {cout}->{cin} N_out={n_in}"
+                table.check("sparse_conv_fwd", dwhat, got_df, ref_df, dt)
+                if window_conv.k1_tensor_cores(dt, cout, cin):
+                    check_k1_f64(table, dwhat, got_df, gd, kmap_t, w_t)
             table.check("sparse_conv_dw", f"{what} ({t_name}, mirror "
                         f"{mirror})", got_dw, ref_dw, dt)
             # the im2col pair on the same inputs: against its plain versions
@@ -556,6 +598,26 @@ def attention_fwd_f64(q, k, v, km, temp, dropout, seed):
         p = torch.where(keep, p / (1.0 - dropout), torch.zeros_like(p))
         del keep
     return torch.matmul(p, v.double()), lse
+
+
+def carry_f64(q, k, v, km, temp, dropout, seed):
+    """(m, l, acc) of the online-softmax carry over all keys in float64:
+    m = max_j s_j over valid keys, l = sum_j exp(s_j - m), acc = sum_j
+    keep_j exp(s_j - m) v_j / (1 - dropout). A carry chain ends in this state
+    whatever its blocks, so it bounds the kernel's chain and the f32 plain
+    chain."""
+    s = torch.matmul(q.double() / temp, k.double().transpose(-1, -2))
+    s = s.masked_fill(~km[:, None, None, :], flash.NEG_INF)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    del s
+    l = e.sum(dim=-1)
+    if dropout:
+        keep = flash.dropout_keep_mask(seed, dropout, tuple(e.shape),
+                                       e.device)
+        e = torch.where(keep, e / (1.0 - dropout), torch.zeros_like(e))
+        del keep
+    return m, l, torch.matmul(e, v.double())
 
 
 def attention_bwd_f64(q, k, v, km, dout, temp, dropout, seed):
@@ -787,7 +849,10 @@ def check_ring_kernels(dev, table, g):
         carry = flash.flash_carry_init(b, h, L, dk, dev)
         plain = flash.flash_carry_init(b, h, L, dk, dev)
         qt = (qd / temp).float()
+        hop_in = {}   # the uneven chain: the kernel's carry into each block
         for c0, kb_, vb_, mb_ in blocks_:
+            if cuts is uneven:
+                hop_in[c0] = carry
             carry = flash.flash_forward_carry(qd, kb_, vb_, mb_, None, carry,
                                               temp, drop, sd, col_offset=c0)
             plain = attention.online_block_update(plain, qt, kb_, vb_, mb_,
@@ -798,6 +863,7 @@ def check_ring_kernels(dev, table, g):
         out_c, lse_c = flash.flash_carry_finalize(carry)
         out_p, lse = flash.flash_carry_finalize(plain)
         out = out_p.to(dt)
+        final = carry if cuts is uneven else None
         del carry, out_p
         out_k2, lse_k2 = flash.flash_attention(qd, kd, vd, km, full, temp,
                                                drop, sd)
@@ -902,6 +968,65 @@ def check_ring_kernels(dev, table, g):
                 table.err["flash_attn_block_bwd"] = max(
                     table.err["flash_attn_block_bwd"], err)
             del got, want, ref64, off
+            # The carry chain against float64 on the same rows (its final
+            # state does not depend on the blocks); the kernel on the block
+            # at c0 from the same carry but at column offset c0 + 1 must
+            # disagree in acc (m and l are undropped)
+            ref64 = carry_f64(qd[hs], kd[hs], vd[hs], km[:1], temp, drop, sd)
+            off = flash.flash_forward_carry(
+                qd, kb_, vb_, mb_, None, hop_in[c0], temp, drop, sd,
+                col_offset=c0 + 1)[2]
+            want = attention.online_block_update(
+                hop_in[c0], qt, kb_, vb_, mb_, drop, sd, col_offset=c0)[2]
+            for nm, a, r, r64 in zip(("m", "l", "acc"), final, plain, ref64):
+                err = (a[hs].double() - r64).abs().max().item()
+                perr = (r[hs].double() - r64).abs().max().item()
+                scale = r64.abs().max().item()
+                ok = err <= TOL[dt] * scale
+                line = (f"[check] flash_attn_carry chain at cuts "
+                        f"{cuts[1:-1]} {mtag} dropout {drop} {nm} vs float64 "
+                        f"(batch row 0, heads 0-1): kernel {err:.3e}, plain "
+                        f"{perr:.3e}, tol {TOL[dt] * scale:.3e} (max|ref| "
+                        f"{scale:.3e})")
+                if nm == "acc":
+                    oerr = (off - want).abs().max().item()
+                    ok = ok and oerr > 100 * TOL[dt] * scale
+                    line += (f"; kernel on the block at column {c0} given "
+                             f"offset {c0 + 1} vs plain at {c0}: {oerr:.3e}, "
+                             f"must exceed {100 * TOL[dt] * scale:.3e}")
+                print(f"{line} {'ok' if ok else 'FAIL'}")
+                require(ok, f"flash_attn_carry {nm}: float64 reference or "
+                        f"wrong-offset check failed")
+                table.err["flash_attn_carry"] = max(
+                    table.err["flash_attn_carry"], err)
+            del ref64, off, want
+            # padding query rows scattered through live 64-row tiles, and
+            # one padding tile (rows 128-191): the kernel keeps their carry
+            # bit for bit; the live rows agree with the plain version
+            c0, kb_, vb_, mb_ = blocks_[1]
+            gq = torch.Generator().manual_seed(SEED + 11)
+            qmask = (torch.rand(b, L, generator=gq) > 0.2).to(dev)
+            qmask[:, 128:192] = False
+            c_in = hop_in[c0]
+            got = flash.flash_forward_carry(qd, kb_, vb_, mb_, qmask, c_in,
+                                            temp, drop, sd, col_offset=c0)
+            new = attention.online_block_update(c_in, qt, kb_, vb_, mb_,
+                                                drop, sd, col_offset=c0)
+            ptag = (f"[{b},{h},{L},{dk}] keys at {c0}, padding query rows "
+                    f"(scattered, and rows 128-191) {mtag} dropout {drop}")
+            same = True
+            for nm, a, n_, c in zip(("m", "l", "acc"), got, new, c_in):
+                lv = qmask[:, None, :] if a.dim() == 3 else \
+                    qmask[:, None, :, None]
+                table.check("flash_attn_carry", f"{ptag} carry {nm} vs "
+                            f"plain", a, torch.where(lv, n_, c), dt)
+                pad = ~lv.expand_as(a)
+                same = same and torch.equal(a[pad], c[pad])
+            print(f"[check] flash_attn_carry {ptag}: the padding rows keep "
+                  f"the carry bit for bit {'ok' if same else 'FAIL'}")
+            require(same, "flash_attn_carry: a padding row changed the carry")
+            del got, new, c_in, final
+        hop_in.clear()
         if dt == torch.float32 and drop and cuts is even:   # phase 7's calls
             fb, bb, ff, bf = attention_work(full, km, h, dk, 4)
             cin = flash.flash_carry_init(b, h, L, dk, dev)

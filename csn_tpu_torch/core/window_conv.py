@@ -10,7 +10,10 @@ straight from the kernel map:
 
 * K1 (`csn_tpu_torch/csrc/sparse_conv.cu`): one block per tile of output
   rows x output channels, f32 accumulation over all offsets in registers,
-  one store in the activation dtype. Plain version:
+  one store in the activation dtype. bf16 with Cin % 16 == 0 and Cout % 8
+  == 0 (every conv but the stems) runs on the tensor cores (`mma.sync` on
+  rows gathered by `cp.async`, `k1_tensor_cores`); f32 and the stems run
+  f32 FMAs on the CUDA cores. Plain version:
   `csn_tpu_torch.core.conv.conv_plain`.
 * `sparse_conv_dw` (`csn_tpu_torch/csrc/sparse_conv_bwd.cu`): one block per
   (channel tile, offset, row split), f32 partials per split summed by a
@@ -66,10 +69,20 @@ def dyng(mode):
             os.environ["CSN_DYNG"] = saved
 
 
+def k1_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether K1 runs its tensor-core body (`csrc/sparse_conv.cu`
+    `csn_sparse_conv_fwd` chooses by the same rule): bf16 with Cin a
+    multiple of 16 and Cout a multiple of 8. f32 and the stems (Cin 3) run
+    its CUDA-core body."""
+    return dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0
+
+
 def sparse_conv_fwd(feats: torch.Tensor, kmap: torch.Tensor,
                     weights: torch.Tensor) -> torch.Tensor:
     """Launch K1: feats [N_in, Cin], kmap [K, N_out] int32 (sentinel N_in),
-    weights [K, Cin, Cout] of the feats' dtype -> [N_out, Cout]."""
+    weights [K, Cin, Cout] of the feats' dtype -> [N_out, Cout]. The
+    tensor-core body copies feats and weights 16 bytes at a time: it takes
+    only views that start on a 16-byte boundary."""
     what = "sparse_conv_fwd"
     kernels.require_cuda(what, feats, kmap, weights)
     if feats.dim() != 2 or kmap.dim() != 2 or weights.dim() != 3:
@@ -87,6 +100,10 @@ def sparse_conv_fwd(feats: torch.Tensor, kmap: torch.Tensor,
         raise TypeError(f"{what}: weights {weights.dtype} != feats "
                         f"{feats.dtype}")
     cout = weights.shape[2]
+    if k1_tensor_cores(feats.dtype, cin, cout) and (
+            feats.data_ptr() % 16 or weights.data_ptr() % 16):
+        raise ValueError(f"{what}: bf16 feats and weights must start on a "
+                         f"16-byte boundary (cp.async copies)")
     out = torch.empty((n_out, cout), dtype=feats.dtype, device=feats.device)
     code = kernels.library().csn_sparse_conv_fwd(
         kernels.dtype_code(feats), feats.data_ptr(), kmap.data_ptr(),

@@ -251,9 +251,9 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
     return launch_tc(q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk,
                      inv_temp, seed, thresh, inv_keep, use_drop, s);
   if (dtype == csn::kF32 && D == csn_tf32::D)
-    return csn_tf32::launch_fwd_tf32(
-        q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk, inv_temp,
-        csn_tf32::Drop{seed, thresh, inv_keep, use_drop, 0, 0}, s);
+    return csn_tf32::launch_fwd_tf32<false, false>(
+        q, k, v, kv_mask, q_mask, out, lse, csn_tf32::Carry{}, B, H, Lq, Lk,
+        inv_temp, csn_tf32::Drop{seed, thresh, inv_keep, use_drop, 0, 0}, s);
 #define CSN_WIDE(T, DD)                                                       \
   return csn_wide::launch_fwd_wide<T, DD, false>(                             \
       q, k, v, kv_mask, q_mask, out, lse, nullptr, nullptr, nullptr, nullptr, \

@@ -19,21 +19,27 @@
 // What bounds it on the H100: as K2, 4*Lq*Lk*D flops per (batch, head)
 // against (Lq + 2*Lk)*D reads plus the carry (2*Lq*(D + 2) f32 words in and
 // out): compute-bound at the ring's shapes (Lq = Lk = 10000 / ranks,
-// D = 256), run on the CUDA cores in f32; the tensor-core form is later work.
+// D = 256).
 //
-// Design: the kernel of flash_wide.cuh with CARRY set. The TPU kernel keeps
-// the carry in VMEM scratch across its sequential kv grid axis; here the
-// accumulator lives in the registers of the block that owns the query tile
-// for the whole key loop, and touches device memory once on the way in and
-// once on the way out.
+// f32 at D = 256 (the MID-FC heads, the ring's shape): the split-TF32 body
+// of flash_tf32_fwd.cuh on the tensor cores with CARRY set (three TF32
+// products per f32 product; its header states the carry's units, the
+// pass-through and the dropout words at any column offset). The other
+// dtypes and head dims take the f32 CUDA-core kernel of flash_wide.cuh with
+// CARRY set. Both keep the accumulator in the registers of the block that
+// owns the query tile for the whole key loop, where the TPU kernel keeps it
+// in VMEM scratch across its sequential kv grid axis, and touch the carry in
+// device memory once on the way in and once on the way out.
 
 #include "common.cuh"
+#include "flash_tf32_fwd.cuh"
 #include "flash_wide.cuh"
 
-// q [B, H, Lq, D], k and v [B, H, Lk, D] contiguous in one type; kv_mask
-// [B, Lk], q_mask [B, Lq] bool bytes; m, l [B, H, Lq] and acc [B, H, Lq, D]
-// f32, in and out (distinct buffers). D is 64, 128 or 256. Dropout arguments
-// as csn_flash_attn_fwd's.
+// q [B, H, Lq, D], k and v [B, H, Lk, D] contiguous in one type (q, k, v
+// and acc_in 16-byte aligned); kv_mask [B, Lk], q_mask [B, Lq] bool bytes;
+// m, l [B, H, Lq] and acc [B, H, Lq, D] f32, in and out (distinct buffers).
+// D is 64, 128 or 256. Dropout arguments as csn_flash_attn_fwd's. Returns
+// the first CUDA error of the one body its (dtype, D) selects.
 extern "C" int csn_flash_attn_carry(
     int dtype, const void* q, const void* k, const void* v,
     const void* kv_mask, const void* q_mask, const void* m_in,
@@ -43,6 +49,24 @@ extern "C" int csn_flash_attn_carry(
     int col_off, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == csn::kF32 && D == csn_tf32::D) {
+    const csn_tf32::Carry cy{static_cast<const float*>(m_in),
+                             static_cast<const float*>(l_in),
+                             static_cast<const float*>(acc_in),
+                             static_cast<float*>(m_out),
+                             static_cast<float*>(l_out),
+                             static_cast<float*>(acc_out)};
+    const csn_tf32::Drop drop{seed, thresh, inv_keep, use_drop, row_off,
+                              col_off};
+    // the dropout words of drop_words need a key tile on a multiple of 4
+    if (use_drop && col_off % 4 != 0)
+      return csn_tf32::launch_fwd_tf32<true, true>(
+          q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H, Lq, Lk,
+          inv_temp, drop, s);
+    return csn_tf32::launch_fwd_tf32<true, false>(
+        q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H, Lq, Lk, inv_temp,
+        drop, s);
+  }
 #define CSN_CARRY(T, DD)                                                     \
   return csn_wide::launch_fwd_wide<T, DD, true>(                             \
       q, k, v, kv_mask, q_mask, nullptr, nullptr, m_in, l_in, acc_in, m_out, \
@@ -51,7 +75,6 @@ extern "C" int csn_flash_attn_carry(
   if (dtype == csn::kF32) {
     if (D == 64) CSN_CARRY(float, 64);
     if (D == 128) CSN_CARRY(float, 128);
-    if (D == 256) CSN_CARRY(float, 256);
   }
   if (dtype == csn::kBF16) {
     if (D == 64) CSN_CARRY(__nv_bfloat16, 64);

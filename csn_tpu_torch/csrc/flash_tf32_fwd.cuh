@@ -53,15 +53,36 @@
 // Q is split as its fragments load, once per key tile: keeping Q's hi and lo
 // halves in shared memory (128 KB) leaves room only for 16-key K and V
 // tiles, and that variant ran slower.
-// The dropout words assume key tiles that start on a multiple of 4 columns
-// (drop_words); a carry form over ring hops at any column offset would draw
-// them with csn::dropout_words instead.
+//
+// The carry form (CARRY; flash_attn_carry.cu, the ring's per-hop kernel)
+// runs the same body over one key block with the online-softmax state
+// carried in and out raw (ops/attention.py online_block_update's units):
+//  * in: m_in (natural units) enters as m_in log2 e, the body's units;
+//    l_in on lane t = 0 of the row's quad (0 on the others: the
+//    denominator is summed per lane and reduced over the quad at the end,
+//    so the alpha rescale applies to each lane's partial sum); acc_in at
+//    the lane's C-fragment positions of O, rows r0 + 16 i + g (+ 8),
+//    columns d0 + 8 n + 2 t (+ 1);
+//  * out: m ln 2, the quad-reduced l and O without the division; no lse
+//    (the caller finalizes, ops/flash.py flash_carry_finalize);
+//  * pass-through, bit for bit: a query tile with no valid row, a block
+//    with no live key tile (copied from the input, not through the log2
+//    round trip), and a row whose q_mask is false inside a live tile (the
+//    body computes it with whatever q holds, then stores the carry in).
+// The dropout words of drop_words assume a key tile that starts on a
+// multiple of 4 columns; a ring hop's block may start anywhere
+// (col_off = origin * Lk), so ANY_COL draws them with csn::dropout_words
+// (two runs of two columns a lane, one or two Philox calls each);
+// flash_attn_carry.cu picks it when dropout is on and col_off % 4 != 0.
+// The kernels and their launcher have internal linkage: both entry points
+// (flash_attn.cu, flash_attn_carry.cu) include this file.
 
 #pragma once
 
 #include "flash_tf32.cuh"
 
 namespace csn_tf32 {
+namespace {
 
 using csn_tc::drop_words;
 using csn_tc::LN2;
@@ -89,6 +110,35 @@ struct FwdSmem {
   float part[FSTRIPS * FSPLIT][2 * 4 * FNB][32];
   uint32_t keep[FSTRIPS * FSPLIT][32];
 };
+
+// The online-softmax state of a carry launch: m, l [B, H, Lq] and acc
+// [B, H, Lq, D] f32, in and out (distinct buffers)
+struct Carry {
+  const float* m_in;
+  const float* l_in;
+  const float* acc_in;
+  float* m_out;
+  float* l_out;
+  float* acc_out;
+};
+
+// rows q0 .. q0 + FQ - 1 (those below Lq) of the carry, in -> out unchanged
+__device__ __forceinline__ void carry_through(const Carry& cy,
+                                              int64_t row_base, int q0,
+                                              int Lq, int tid) {
+  for (int i = tid; i < FQ * D / 4; i += FWD_THREADS) {
+    const int r = q0 + i / (D / 4);
+    if (r < Lq) {
+      const int64_t o = (row_base + r) * (D / 4) + i % (D / 4);
+      reinterpret_cast<float4*>(cy.acc_out)[o] =
+          reinterpret_cast<const float4*>(cy.acc_in)[o];
+    }
+  }
+  if (tid < FQ && q0 + tid < Lq) {
+    cy.m_out[row_base + q0 + tid] = cy.m_in[row_base + q0 + tid];
+    cy.l_out[row_base + q0 + tid] = cy.l_in[row_base + q0 + tid];
+  }
+}
 
 // rows r0 .. r0 + ROWS - 1 of a [L, D] f32 matrix into a swizzled tile; rows
 // at or past L are zeros
@@ -127,13 +177,16 @@ __device__ __forceinline__ void strip_sync(int strip) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + strip), "n"(32 * FSPLIT));
 }
 
+// CARRY: the carry form (out and lse unused; cy read and written); ANY_COL:
+// the dropout words at a column offset that is no multiple of 4
+template <bool CARRY, bool ANY_COL>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const uint8_t* __restrict__ kv_mask,
                       const uint8_t* __restrict__ q_mask,
                       float* __restrict__ out, float* __restrict__ lse, int H,
-                      int Lq, int Lk, float inv_temp, Drop drop) {
+                      int Lq, int Lk, float inv_temp, Drop drop, Carry cy) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -149,20 +202,25 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* op = out + (int64_t)bh * Lq * D;
   float* lp = lse + (int64_t)bh * Lq;
   const uint8_t* km = kv_mask + (int64_t)b * Lk;
+  const int64_t row_base = (int64_t)bh * Lq;
 
   int qlive = 0;
   if (tid < FQ) {
     const int r = q0 + tid;
     qlive = r < Lq && q_mask[(int64_t)b * Lq + r];
   }
-  if (!__syncthreads_or(qlive)) {  // padding tile: zeros
-    for (int i = tid; i < FQ * D / 4; i += FWD_THREADS) {
-      const int r = q0 + i / (D / 4);
-      if (r < Lq)
-        reinterpret_cast<float4*>(op + (int64_t)r * D)[i % (D / 4)] =
-            make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!__syncthreads_or(qlive)) {  // padding tile: zeros, or the carry
+    if (CARRY) {
+      carry_through(cy, row_base, q0, Lq, tid);
+    } else {
+      for (int i = tid; i < FQ * D / 4; i += FWD_THREADS) {
+        const int r = q0 + i / (D / 4);
+        if (r < Lq)
+          reinterpret_cast<float4*>(op + (int64_t)r * D)[i % (D / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (tid < FQ && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
     }
-    if (tid < FQ && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
     return;
   }
 
@@ -175,6 +233,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   fwd_copy<FQ>(sm.q, qp, q0, Lq, tid);
   int live = row_live<FK>(km, Lk, 0, tid);
   int kt = find_live<FK>(0, nt, live, km, Lk, tid);
+  const bool any_key = kt < nt;  // else the carry passes through
   if (kt < nt) {
     if (tid < FK) sm.kval[0][tid] = live ? 1.f : 0.f;
     fwd_copy<FK>(sm.k[0], kp, kt * FK, Lk, tid);
@@ -196,6 +255,24 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < FDN; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[i][n][e] = 0.f;
+  if (CARRY && any_key) {  // the carry in, in the body's units
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = q0 + r0 + 16 * i + g + 8 * h;
+        if (r >= Lq) continue;
+        m[i][h] = cy.m_in[row_base + r] * LOG2E;
+        l[i][h] = t == 0 ? cy.l_in[row_base + r] : 0.f;
+        const float* ai = cy.acc_in + (row_base + r) * D + d0 + 2 * t;
+#pragma unroll
+        for (int n = 0; n < FDN; ++n) {
+          const float2 a = ld2(ai + 8 * n);
+          o[i][n][2 * h] = a.x;
+          o[i][n][2 * h + 1] = a.y;
+        }
+      }
+  }
   const float inv_keep = drop.on ? drop.inv_keep : 1.f;
 
   for (int buf = 0; kt < nt; buf ^= 1) {
@@ -236,10 +313,19 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (st == FD / 16 && drop.on) {  // keys 8 quarter .. + 7
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
+          const uint32_t row = drop.row_off + q0 + r0 + 16 * i + g;
+          const uint32_t col = drop.col_off + kt * FK + 8 * quarter;
           uint32_t w[4];
-          drop_words(w, drop.seed, (uint32_t)bh,
-                     (uint32_t)(drop.row_off + q0 + r0 + 16 * i + g),
-                     (uint32_t)(drop.col_off + kt * FK + 8 * quarter), t);
+          if (ANY_COL) {  // rows g and g + 8, columns col + 2t, + 1
+            uint32_t w0[2], w1[2];
+            csn::dropout_words<2>(drop.seed, (uint32_t)bh, row, col + 2 * t,
+                                  w0);
+            csn::dropout_words<2>(drop.seed, (uint32_t)bh, row + 8u,
+                                  col + 2 * t, w1);
+            w[0] = w0[0], w[1] = w0[1], w[2] = w1[0], w[3] = w1[1];
+          } else {
+            drop_words(w, drop.seed, (uint32_t)bh, row, col, t);
+          }
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             keep |= (w[e] < drop.thresh ? 1u : 0u)
@@ -354,6 +440,27 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ll += __shfl_xor_sync(0xffffffffu, ll, 2);
       const int r = q0 + r0 + 16 * i + g + 8 * h;
       if (r >= Lq) continue;
+      if (CARRY) {  // raw, or the carry in where the row passes through
+        const int64_t rr = row_base + r;
+        float* ao = cy.acc_out + rr * D + d0 + 2 * t;
+        const bool through = !any_key || !q_mask[(int64_t)b * Lq + r];
+        if (through) {
+          const float* ai = cy.acc_in + rr * D + d0 + 2 * t;
+#pragma unroll
+          for (int n = 0; n < FDN; ++n)
+            *reinterpret_cast<float2*>(ao + 8 * n) = ld2(ai + 8 * n);
+        } else {
+#pragma unroll
+          for (int n = 0; n < FDN; ++n)
+            *reinterpret_cast<float2*>(ao + 8 * n) =
+                make_float2(o[i][n][2 * h], o[i][n][2 * h + 1]);
+        }
+        if (quarter == 0 && t == 0) {
+          cy.m_out[rr] = through ? cy.m_in[rr] : m[i][h] * LN2;
+          cy.l_out[rr] = through ? cy.l_in[rr] : ll;
+        }
+        continue;
+      }
       const float den = fmaxf(ll, 1e-30f);
       const float inv = 1.f / den;
 #pragma unroll
@@ -365,28 +472,32 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-// f32 q, k, v, out [B, H, L, 256] (16-byte aligned), lse [B, H, Lq] f32;
-// drop.row_off places the query rows in the dropout mask, drop.col_off
-// (a multiple of 4) the keys. Returns the first CUDA error; never another
-// kernel.
-inline cudaError_t launch_fwd_tf32(const void* q, const void* k,
-                                   const void* v, const void* kv_mask,
-                                   const void* q_mask, void* out, void* lse,
-                                   int B, int H, int Lq, int Lk,
-                                   float inv_temp, Drop drop,
-                                   cudaStream_t stream) {
+// Launches one body: K2 (CARRY false: out [B, H, Lq, 256] f32 and lse
+// [B, H, Lq] f32 written; drop.col_off a multiple of 4) or the carry form
+// (cy read and written; ANY_COL when drop.col_off % 4 != 0). f32 q, k, v
+// (and the carry's acc) 16-byte aligned; drop.row_off / col_off place the
+// query rows and the keys in the global score matrix. Returns the first CUDA
+// error; never another kernel. Each entry point instantiates only the forms
+// it launches (flash_attn.cu K2, flash_attn_carry.cu the carry).
+template <bool CARRY, bool ANY_COL>
+cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v,
+                            const void* kv_mask, const void* q_mask, void* out,
+                            void* lse, const Carry& cy, int B, int H, int Lq,
+                            int Lk, float inv_temp, const Drop& drop,
+                            cudaStream_t stream) {
   constexpr int smem = (int)sizeof(FwdSmem);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_tf32_kernel<CARRY, ANY_COL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((Lq + FQ - 1) / FQ), (unsigned)(B * H));
-  flash_fwd_tf32_kernel<<<grid, FWD_THREADS, smem, stream>>>(
+  flash_fwd_tf32_kernel<CARRY, ANY_COL><<<grid, FWD_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(kv_mask),
       static_cast<const uint8_t*>(q_mask), static_cast<float*>(out),
-      static_cast<float*>(lse), H, Lq, Lk, inv_temp, drop);
+      static_cast<float*>(lse), H, Lq, Lk, inv_temp, drop, cy);
   return cudaGetLastError();
 }
 
+}  // namespace
 }  // namespace csn_tf32

@@ -22,14 +22,16 @@ scratch.
   the block backward on them in split TF32, three TF32 products per f32
   product (`csrc/flash_tf32_fwd.cuh`, `csrc/flash_tf32_bwd.cuh` over the
   blocks of `csrc/flash_tf32.cuh`); every other case (f32 at 64 and 128,
-  bf16 at 128 and 256, and the carry forward) takes the f32 CUDA-core
-  kernels that walk D in chunks of 64 (`csrc/flash_wide.cuh`,
-  `csrc/flash_bwd_wide.cuh`).
+  bf16 at 128 and 256) takes the f32 CUDA-core kernels that walk D in
+  chunks of 64 (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
   loop over ONE key block with the running max, denominator and f32
   accumulator carried in and written back raw; `flash_carry_finalize`
   divides once. A chain over disjoint key blocks equals one K2 pass over
-  their union. Its plain version is `ops.attention.online_block_update`.
+  their union. f32 at D = 256 (the ring's shape) runs the split-TF32
+  forward body with the carry (`csrc/flash_tf32_fwd.cuh`), the other
+  dtypes and head dims the CUDA-core kernel of `csrc/flash_wide.cuh`. Its
+  plain version is `ops.attention.online_block_update`.
 * Block backward (`csrc/flash_attn_block_bwd.cu`, `flash_block_backward`):
   the two backward passes on one key block given the GLOBAL `lse`, `delta`
   and `dout`; returns that block's dK, dV and its f32 term of dQ. Its plain
@@ -188,11 +190,12 @@ def _masks(what, q, k, kv_mask, q_mask):
 
 def _require_aligned(what, *tensors):
     """The tensor-core bodies (bf16 at head dim 64, f32 at 256) copy their
-    tiles 16 bytes at a time with cp.async: a misaligned start would read
-    the wrong bytes rather than fail."""
+    tiles 16 bytes at a time with cp.async, and the carry kernels read the
+    accumulator in 8- and 16-byte words: a misaligned start would read the
+    wrong bytes rather than fail."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{what}: q, k, v (and dout) must start on a "
-                         f"16-byte boundary")
+        raise ValueError(f"{what}: q, k, v (and dout, or the carry's acc) "
+                         f"must start on a 16-byte boundary")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -321,9 +324,11 @@ def flash_forward_carry(q, k, v, kv_mask, q_mask, carry, temperature: float,
                         row_offset: int = 0, col_offset: int = 0):
     """One flash pass over THIS key block, continuing the online-softmax
     state `carry` = (m [B, H, Lq], l [B, H, Lq], acc [B, H, Lq, D]), all f32.
-    Returns the updated carry, un-normalised (`flash_carry_finalize`).
-    `row_offset` / `col_offset` place q's rows and this block's columns in
-    the global score matrix for the dropout mask. CUDA tensors launch the
+    Returns the updated carry, un-normalised (`flash_carry_finalize`); rows
+    whose q_mask is false keep the carry as it came in (the kernels also
+    copy it through for a block with no valid key). `row_offset` /
+    `col_offset` place q's rows and this block's columns in the global
+    score matrix for the dropout mask. CUDA tensors launch the
     carry kernel; CPU tensors take `ops.attention.online_block_update`. Not
     differentiable on its own: `RingFlashAttentionFn` wraps the whole ring."""
     what = "flash_attn_carry"
@@ -344,6 +349,7 @@ def flash_forward_carry(q, k, v, kv_mask, q_mask, carry, temperature: float,
                 torch.where(live[..., None], new[2], carry[2]))
     carry = tuple(c.contiguous() for c in carry)
     kernels.require_cuda(what, q, k, v, kv_mask, q_mask, *carry)
+    _require_aligned(what, q, k, v, carry[2])
     B, H, Lq, D = q.shape
     out = tuple(torch.empty_like(c) for c in carry)
     code = kernels.library().csn_flash_attn_carry(

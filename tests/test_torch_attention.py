@@ -562,34 +562,59 @@ def test_single_tf32_pass_misses_the_f32_tolerance(monkeypatch):
     assert split <= 1e-5 < 1e-4 < single
 
 
-def _split_tf32_forward(q, k, v, kv_mask, temp, dropout, seed):
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _split_tf32_forward(q, k, v, kv_mask, temp, dropout, seed, carry=None,
+                        q_mask=None, row_offset=0, col_offset=0):
     """The f32 head-dim-256 forward (`csrc/flash_tf32_fwd.cuh`) in plain
-    torch, over 32-key tiles: S = Q K^T as three TF32 products (hi and lo of
-    Q and K), p = exp(S / T - m) (masked keys 0), the undropped p into the
+    torch, over 32-key tiles from the block's first key: S = Q K^T as three
+    TF32 products (hi and lo of Q and K), scores in log2 units (S / T times
+    log2 e), p = 2^(s - m) (masked keys 0), the undropped p into the
     denominator, the dropped p and V split again for P V, which each tile
-    sums from zero and adds to O in f32 (O <- O alpha + P V). Returns (out,
-    lse)."""
+    sums from zero and adds to O in f32 (O <- O alpha + P V).
+
+    Without `carry` it starts from (NEG_INF, 0, 0) and returns (out, lse),
+    K2's form. With `carry` = (m, l, acc) in the port's units (m natural, as
+    `online_block_update` keeps it) it is the carry form: m enters as
+    m log2 e, and (m ln 2, l, O) leave raw; rows whose `q_mask` is false,
+    and every row when no key of the block is valid, keep the carry as it
+    came in. `row_offset` / `col_offset` place the rows and keys in the
+    dropout mask."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    keep = (flash.dropout_keep_mask(seed, dropout, (b, h, lq, lk))
+    keep = (flash.dropout_keep_mask(seed, dropout, (b, h, lq, lk),
+                                    row_offset=row_offset,
+                                    col_offset=col_offset)
             if dropout else None)
-    m = torch.full((b, h, lq, 1), flash.NEG_INF)
-    l, o = torch.zeros(b, h, lq, 1), torch.zeros(b, h, lq, d)
+    if carry is None:
+        m = torch.full((b, h, lq, 1), flash.NEG_INF)
+        l, o = torch.zeros(b, h, lq, 1), torch.zeros(b, h, lq, d)
+    else:
+        m, l, o = carry[0][..., None] * LOG2E, carry[1][..., None], carry[2]
+    sc = LOG2E / temp
     for c0 in range(0, lk, 32):
         c1 = min(c0 + 32, lk)
         ok = kv_mask[:, None, None, c0:c1]
-        s = _mm3(q, k[:, :, c0:c1].transpose(-1, -2)) / temp
+        s = _mm3(q, k[:, :, c0:c1].transpose(-1, -2)) * sc
         s = s.masked_fill(~ok, flash.NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(s - m_new), 0.0)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         if dropout:
             p = torch.where(keep[..., c0:c1], p / (1.0 - dropout), 0.0)
         o = o * alpha + _mm3(p, v[:, :, c0:c1])
         m = m_new
-    den = l.clamp(min=1e-30)
-    return o / den, (m + torch.log(den))[..., 0]
+    if carry is None:
+        den = l.clamp(min=1e-30)
+        return o / den, (m * LN2 + torch.log(den))[..., 0]
+    live = kv_mask.any(dim=1)[:, None, None]       # [B, 1, 1]
+    if q_mask is not None:
+        live = live & q_mask[:, None, :]
+    new = (m[..., 0] * LN2, l[..., 0], o)
+    return tuple(torch.where(live if n.dim() == 3 else live[..., None], n, c)
+                 for n, c in zip(new, carry))
 
 
 def _fwd_inputs(seed=14):
@@ -725,6 +750,127 @@ def test_split_tf32_block_backward_holds_the_f32_tolerance(dropout):
         seed, row_offset=r0, col_offset=c0)
     for a, r in zip(mine, want):
         close(a, r, 1e-4)
+
+
+def _close(got, want, tol):
+    scale = want.abs().max().item()
+    assert scale > 0
+    assert (got - want).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_split_tf32_carry_chain_holds_the_f32_tolerance(dropout):
+    """Before the card: the carry form of the f32 D=256 forward, emulated,
+    chained over the ring's uneven key blocks (starts at columns 1, 3, 2
+    mod 4; one block fully masked). The final (m, l, acc) hold 1e-4 x
+    max|ref| of the port's `online_block_update` chain at the same offsets;
+    at dropout 0 the finalized output holds 1e-4 of the JAX package's dense
+    attention, and every block's carry out holds 3e-2 of the JAX
+    `flash_forward_carry` (the Pallas body in interpret mode, which rounds
+    q, k, v and P to bf16) given the same carry in."""
+    q, k, v, kv, _, temp = _fwd_inputs(seed=17)
+    tq, tk, tv, tkv = map(torch.from_numpy, (q, k, v, kv))
+    seed = 0x5EED if dropout else None
+    b, h, lq, d = q.shape
+    mine = plain = flash.flash_carry_init(b, h, lq, d)
+    hops = []                                   # (c0, c1, carry in, out)
+    for c0, c1 in zip(RING_CUTS, RING_CUTS[1:]):
+        kb, vb, mb = tk[:, :, c0:c1], tv[:, :, c0:c1], tkv[:, c0:c1]
+        new = _split_tf32_forward(tq, kb, vb, mb, temp, dropout, seed,
+                                  carry=mine, col_offset=c0)
+        hops.append((c0, c1, mine, new))
+        mine = new
+        plain = attention.online_block_update(plain, tq / temp, kb, vb, mb,
+                                              dropout, seed, col_offset=c0)
+    for a, r in zip(mine, plain):
+        _close(a, r, 1e-4)
+    if dropout:
+        return
+    ref = torch.from_numpy(np.array(jattn.scaled_dot_product_attention(
+        *map(jnp.asarray, (q, k, v)), jnp.asarray(kv), temperature=temp)))
+    _close(flash.flash_carry_finalize(mine)[0], ref, 1e-4)
+    with jflash.interpret_mode():
+        for c0, c1, c_in, c_out in hops:
+            jref = jflash.flash_forward_carry(
+                jnp.asarray(q), jnp.asarray(k[:, :, c0:c1]),
+                jnp.asarray(v[:, :, c0:c1]), jnp.asarray(kv[:, c0:c1]), None,
+                tuple(jnp.asarray(c.numpy()) for c in c_in), temp)
+            for a, r in zip(c_out, jref):
+                _close(a, torch.from_numpy(np.array(r)), 3e-2)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_split_tf32_carry_passes_rows_through(dropout):
+    """The carry form's pass-through, emulated, against the plain version
+    (`flash_forward_carry` on CPU tensors): padding query rows scattered
+    inside a live 64-row tile, a partial tile of padding, and a block with
+    no valid key keep the carry bit for bit; the live rows hold 1e-4 x
+    max|ref| at a block that starts at column 25 (1 mod 4)."""
+    q, k, v, kv, _, temp = _fwd_inputs(seed=18)
+    tq, tk, tv, tkv = map(torch.from_numpy, (q, k, v, kv))
+    seed = 0x5EED if dropout else None
+    b, h, lq, d = q.shape
+    c_in = _split_tf32_forward(tq, tk[:, :, :25], tv[:, :, :25], tkv[:, :25],
+                               temp, dropout, seed,
+                               carry=flash.flash_carry_init(b, h, lq, d))
+    qm = torch.ones(b, lq, dtype=torch.bool)
+    qm[0, [3, 17, 40, 41, 63]] = False          # inside the live tile 0-63
+    qm[0, 90:] = False
+    kb, vb, mb = tk[:, :, 25:], tv[:, :, 25:], tkv[:, 25:]
+    got = _split_tf32_forward(tq, kb, vb, mb, temp, dropout, seed,
+                              carry=c_in, q_mask=qm, col_offset=25)
+    want = flash.flash_forward_carry(tq, kb, vb, mb, qm, c_in, temp, dropout,
+                                     seed, col_offset=25)
+    pad = ~qm[:, None, :]
+    for a, r, c in zip(got, want, c_in):
+        p = pad if a.dim() == 3 else pad[..., None]
+        assert torch.equal(a[p.expand_as(a)], c[p.expand_as(c)])
+        assert torch.equal(r[p.expand_as(r)], c[p.expand_as(c)])
+        _close(torch.where(p, 0.0, a), torch.where(p, 0.0, r), 1e-4)
+    dead = torch.zeros_like(mb)
+    same = _split_tf32_forward(tq, kb, vb, dead, temp, dropout, seed,
+                               carry=c_in, col_offset=25)
+    assert all(torch.equal(a, c) for a, c in zip(same, c_in))
+
+
+def test_carry_refuses_a_misaligned_view(monkeypatch):
+    """The split-TF32 carry body copies q, k and v 16 bytes at a time with
+    cp.async and reads the carry's acc in 8- and 16-byte words:
+    `flash_forward_carry` refuses a view of any of them that does not start
+    on a 16-byte boundary before the launch (meta tensors through the
+    wrapper's checks, the CUDA-device check stubbed out); an aligned call
+    gets as far as the library."""
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+
+    def no_library():
+        raise LookupError("reached the launch")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    b, h, lq, lk, d = 1, 2, 9, 11, 256
+    meta = dict(device="meta")
+
+    def shifted(*shape):
+        n = int(np.prod(shape))
+        t = torch.empty(n + 1, **meta)[1:].view(*shape)
+        assert t.is_contiguous() and t.data_ptr() % 16
+        return t
+
+    q = torch.empty(b, h, lq, d, **meta)
+    k = torch.empty(b, h, lk, d, **meta)
+    kv = torch.ones(b, lk, dtype=torch.bool, **meta)
+    carry = (torch.empty(b, h, lq, **meta), torch.empty(b, h, lq, **meta),
+             torch.empty(b, h, lq, d, **meta))
+    bad_acc = carry[:2] + (shifted(b, h, lq, d),)
+    before = dict(kernels.LAUNCHES)
+    for args in ((shifted(b, h, lq, d), k, k, carry),
+                 (q, shifted(b, h, lk, d), k, carry),
+                 (q, k, shifted(b, h, lk, d), carry), (q, k, k, bad_acc)):
+        qq, kk, vv, cc = args
+        with pytest.raises(ValueError, match="16-byte"):
+            flash.flash_forward_carry(qq, kk, vv, kv, None, cc, 16.0)
+    with pytest.raises(LookupError, match="reached the launch"):
+        flash.flash_forward_carry(q, k, k, kv, None, carry, 16.0)
+    assert kernels.LAUNCHES == before
 
 
 def test_block_backward_refuses_a_misaligned_view(monkeypatch):

@@ -76,6 +76,51 @@ def test_k1_launcher_refuses_cpu_tensors():
                                     torch.zeros(27, 3, 8))
 
 
+def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
+    """K1's tensor-core body (bf16, Cin % 16 == 0, Cout % 8 == 0) copies
+    feats and weights 16 bytes at a time with cp.async: `sparse_conv_fwd`
+    refuses a view of either that does not start on a 16-byte boundary
+    before the launch (meta tensors through the wrapper's checks, the
+    CUDA-device check stubbed out). An aligned call, and a misaligned one
+    that the CUDA-core body takes (f32, or a stem's Cin of 3), get as far as
+    the library."""
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+
+    def no_library():
+        raise LookupError("reached the launch")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    meta = dict(device="meta")
+
+    def view(*shape, dtype, shift):
+        n = int(np.prod(shape))
+        t = torch.empty(n + shift, dtype=dtype, **meta)[shift:].view(*shape)
+        assert t.is_contiguous() and bool(t.data_ptr() % 16) == bool(shift)
+        return t
+
+    n_in, n_out, k = 10, 7, 27
+    kmap = torch.empty(k, n_out, dtype=torch.int32, **meta)
+    bf = torch.bfloat16
+    assert window_conv.k1_tensor_cores(bf, 32, 64)
+    assert not window_conv.k1_tensor_cores(bf, 3, 32)
+    assert not window_conv.k1_tensor_cores(bf, 24, 64)
+    assert not window_conv.k1_tensor_cores(bf, 32, 60)
+    assert not window_conv.k1_tensor_cores(torch.float32, 32, 64)
+    before = dict(kernels.LAUNCHES)
+    for fs, ws in ((1, 0), (0, 1)):
+        with pytest.raises(ValueError, match="16-byte"):
+            window_conv.sparse_conv_fwd(
+                view(n_in, 32, dtype=bf, shift=fs), kmap,
+                view(k, 32, 64, dtype=bf, shift=ws))
+    for cin, cout, dt, shift in ((32, 64, bf, 0), (3, 32, bf, 1),
+                                 (32, 64, torch.float32, 1)):
+        with pytest.raises(LookupError, match="reached the launch"):
+            window_conv.sparse_conv_fwd(
+                view(n_in, cin, dtype=dt, shift=shift), kmap,
+                view(k, cin, cout, dtype=dt, shift=shift))
+    assert kernels.LAUNCHES == before
+
+
 def _close(got, ref):
     assert got.shape == ref.shape
     err = np.abs(got - ref).max()
