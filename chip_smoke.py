@@ -9,9 +9,10 @@ extraction -> SSA -> kNN -> CSA -> `get_csa_pred` chain and the probes.
 
     python3 chip_smoke.py [--profile]
 
-With --profile, phases 6, 7 and 8 also run their train step (phase 8: also
-whole trainer iterations) under `torch.profiler` and print the device's busy
-share and the device time by kernel (the breakdown PERF.md quotes).
+With --profile, phases 4-8 also run their step (phase 4 its eval step,
+phase 8 also whole trainer iterations) under `torch.profiler` and print the
+device's busy share and the device time by kernel (the breakdown PERF.md
+quotes).
 
 Phases (each prints its lines; any failure exits nonzero):
   1. device: the card's name and power limit (nvidia-smi), the C++ host
@@ -24,7 +25,14 @@ Phases (each prints its lines; any failure exits nonzero):
      where its tensor-core body runs (bf16, Cin % 16 == 0, Cout % 8 == 0)
      also against a float64 conv of the same bf16 operands (K1_F64_TOL);
      `sparse_conv_dw` (dW) at the same convs, random asymmetric weights,
-     against `conv_bwd_plain`; on the same inputs `sparse_conv_im2col_fwd`
+     against `conv_bwd_plain`, and where its tensor-core body runs (bf16,
+     the same rule) also against a float64 reduction of the same bf16
+     operands (DW_F64_TOL), a repeat that must be bitwise equal, and the
+     map with its densest offset made all sentinels (exact zeros there, the
+     other offsets' bits unchanged), plus synthetic maps at the body's
+     edges (rows not a multiple of its step, splits spanning two
+     compaction chunks, empty / full / one-row offsets, part channel
+     tiles); on the same inputs `sparse_conv_im2col_fwd`
      against `conv_im2col_plain` and K1, and `sparse_conv_im2col_bwd`
      (d_feats and dW; dW only for the stem) against `conv_im2col_bwd_plain`
      and K1 / `sparse_conv_dw`; K2 (flash attention) at the SSA and CSA
@@ -193,6 +201,10 @@ GRAD_TOL = 1e-3
 # K1's tensor-core body (bf16) against a float64 conv of the same bf16
 # operands: x max|ref|, two bf16 ulps (the f32 sums are stored once in bf16)
 K1_F64_TOL = 4e-3
+# dW's tensor-core body (bf16 operands, f32 sums stored in f32) against a
+# float64 reduction of the same bf16 operands: x max|ref| (no output
+# rounding; the f32 sums over up to 90112 rows per offset)
+DW_F64_TOL = 1e-4
 # gradients that vanish analytically (a bias right before train-mode
 # BatchNorm): held to GRAD_TOL x the largest gradient of the step
 VANISHING = {"fc1.linear.bias"}
@@ -355,6 +367,7 @@ class Table:
         self.bound_bytes_ms = {k: 0.0 for k in KERNELS}
         self.bound_ops_ms = {k: 0.0 for k in KERNELS}
         self.library_ms = {k: None for k in KERNELS}
+        self.dw_f64 = []   # (error / max|ref|) of each dW float64 line
 
     def check(self, name, what, got, ref, dtype, valid=None):
         got, ref = got.float(), ref.float()
@@ -458,13 +471,95 @@ def check_k1_f64(table, what, got, feats, kmap, weights):
     table.err["sparse_conv_fwd"] = max(table.err["sparse_conv_fwd"], err)
 
 
+def dw_f64(feats, g, kmap_t):
+    """dW_t in float64 on the same operands (bf16 values held exactly):
+    dW_t[k] = feats^T . gather(g, kmap_t[k]), the reference that bounds the
+    tensor-core body's f32 sums."""
+    f, gg = feats.double(), g.double()
+    return torch.stack([f.t() @ conv.gather_rows(gg, kmap_t[k])
+                        for k in range(kmap_t.shape[0])])
+
+
+def check_dw_tc(table, what, feats, g, kmap_t):
+    """`sparse_conv_dw` on its tensor-core body: against `dw_f64` within
+    DW_F64_TOL, a second call equal bit for bit, and the same map with one
+    offset made all sentinels (the densest one): exact zeros there and the
+    first call's bits at every other offset. Returns the first call."""
+    name = "sparse_conv_dw"
+    got = window_conv.sparse_conv_dw(feats, g, kmap_t)
+    ref = dw_f64(feats, g, kmap_t)
+    err = (got.double() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    tol = DW_F64_TOL * scale
+    ok = bool(torch.isfinite(got).all()) and err <= tol
+    print(f"[check] {name} {what} bfloat16 (tensor cores) vs float64: "
+          f"max_abs_err {err:.3e} tol {tol:.3e} (max|ref| {scale:.3e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{name} {what}: bf16 tensor-core body vs float64")
+    table.err[name] = max(table.err[name], err)
+    table.dw_f64.append(err / scale if scale else 0.0)
+    del ref
+    same = torch.equal(got, window_conv.sparse_conv_dw(feats, g, kmap_t))
+    print(f"[check] {name} {what} bfloat16 (tensor cores) repeat: "
+          f"{'bitwise equal ok' if same else 'FAIL'}")
+    require(same, f"{name} {what}: two calls differ")
+    k0 = int((kmap_t < g.shape[0]).sum(1).argmax())
+    dead = kmap_t.clone()
+    dead[k0] = g.shape[0]
+    got_dead = window_conv.sparse_conv_dw(feats, g, dead)
+    zero = not got_dead[k0].any().item()
+    rest = torch.equal(torch.cat([got_dead[:k0], got_dead[k0 + 1:]]),
+                       torch.cat([got[:k0], got[k0 + 1:]]))
+    print(f"[check] {name} {what} bfloat16 (tensor cores) offset {k0} "
+          f"without live rows: exact zeros {zero}, other offsets bitwise "
+          f"equal {rest} {'ok' if zero and rest else 'FAIL'}")
+    require(zero and rest, f"{name} {what}: offset without live rows")
+    return got
+
+
+def check_dw_edges(dev, table, g):
+    """The tensor-core dW body on synthetic maps cut to its edges: N_in not a
+    multiple of its row step, splits whose row counts are not either and
+    that span more than one compaction chunk (pairs carried over), an
+    offset fully live, one without a live row, one with only the last row,
+    sparse ones; Cin and Cout that leave part tiles (48 and 40: one warp
+    row of 16 channels, a half 16-column block; 160 and 200: a 32-channel
+    Cin tile, one 256-column tile). Against the plain version (TOL) and
+    `check_dw_tc`."""
+    n_in, n_g = 9 * window_conv.DW_TC_CHUNK + 77, 7000
+    step = window_conv.DW_TC_STEP
+    gen = torch.Generator().manual_seed(SEED + 7)
+    pick = torch.randint(0, n_g, (5, n_in), generator=gen, dtype=torch.int32)
+    live = torch.rand(5, n_in, generator=gen) < torch.tensor(
+        [0.3, 1.0, 0.0, 0.0, 0.05])[:, None]
+    live[3, -1] = True
+    kmap_t = torch.where(live, pick, n_g).to(dev)
+    for cin, cout in ((48, 40), (160, 200)):
+        s = window_conv.dw_splits(n_in, 5, cin, cout, tensor_cores=True)
+        rows = -(-n_in // s)
+        require(n_in % step and rows % step and rows > window_conv.DW_TC_CHUNK
+                and s > 1, f"dW edge case {cin}->{cout}: S={s} rows {rows}")
+        f = torch.randn(n_in, cin, generator=gen).to(dev, torch.bfloat16)
+        gd = torch.randn(n_g, cout, generator=gen).to(dev, torch.bfloat16)
+        what = (f"edges {cin}->{cout} N_in={n_in} S={s} ({rows} rows per "
+                f"split, step {step})")
+        got = check_dw_tc(table, what, f, gd, kmap_t)
+        _, ref = conv.conv_bwd_plain(
+            f, gd, kmap_t, torch.zeros(5, cin, cout, device=dev), False,
+            False)
+        table.check("sparse_conv_dw", what, got, ref, torch.bfloat16)
+        require(not got[2].any().item() and got[3].any().item(),
+                f"dW {what}: the empty offset and the one-row offset")
+
+
 def check_convs(model, big, dev, table, g, timed=True):
     """K1 forward and on the transpose map, and `sparse_conv_dw`, at every
     (map, Cin, Cout) the model runs; where K1 takes its tensor-core body
     (bf16), also against a float64 conv of the same operands; on the same
     inputs the im2col pair (`CSN_DYNG=2/3`) against its plain versions and
-    against K1 / `sparse_conv_dw`; with `timed`, each family's bf16 times
-    are added to the table. Returns the number of convs."""
+    against K1 / `sparse_conv_dw`; where `sparse_conv_dw` takes its
+    tensor-core body (bf16), also `check_dw_tc`; with `timed`, each family's
+    bf16 times are added to the table. Returns the number of convs."""
     convs = {}
     for m in model.modules():
         if isinstance(m, SparseConv):
@@ -501,6 +596,9 @@ def check_convs(model, big, dev, table, g, timed=True):
                     check_k1_f64(table, dwhat, got_df, gd, kmap_t, w_t)
             table.check("sparse_conv_dw", f"{what} ({t_name}, mirror "
                         f"{mirror})", got_dw, ref_dw, dt)
+            dw_tc = window_conv.dw_tensor_cores(dt, cin, cout)
+            if dw_tc:
+                check_dw_tc(table, f"{what} ({t_name})", f, gd, kmap_t)
             # the im2col pair on the same inputs: against its plain versions
             # and against K1 / sparse_conv_dw (another order of the same sum)
             fwd = "sparse_conv_im2col_fwd"
@@ -542,7 +640,8 @@ def check_convs(model, big, dev, table, g, timed=True):
                            nbytes=nb, flops=fl)
             # dW reads the features and the output gradient, writes f32
             nb, fl = conv_work(kmap_t, kmap.shape[1], cout, cin, 2, 4)
-            table.time("sparse_conv_dw", what,
+            body = "tensor cores" if dw_tc else "CUDA cores"
+            table.time("sparse_conv_dw", f"{what} ({body})",
                        lambda: window_conv.sparse_conv_dw(f, gd, kmap_t),
                        lambda: conv.conv_bwd_plain(f, gd, kmap_t, wt.float(),
                                                    mirror, False), count,
@@ -1158,7 +1257,7 @@ def require_launches(tag, launches, expect, n_requests=N_REQUESTS):
 def time_steps(tag, step, what=f"B={B}, K={K_NEIGHBORS}, bf16", n_shapes=B,
                timed_steps=TIMED_STEPS):
     """ms/step of `step()` over `timed_steps` after 2 warm-up steps, and the
-    peak device memory of the timed steps."""
+    peak device memory of the timed steps. Returns the ms/step."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -1172,36 +1271,51 @@ def time_steps(tag, step, what=f"B={B}, K={K_NEIGHBORS}, bf16", n_shapes=B,
     print(f"[{tag}] {ms:.3f} ms/step over {timed_steps} steps ({what}), "
           f"{n_shapes / ms * 1e3:.3f} query shapes/s, peak memory "
           f"{peak / 2 ** 30:.3f} GiB")
+    return ms
 
 
-def profile_steps(tag, step, n_steps=3):
+def profile_steps(tag, step, n_steps=3, step_ms=None):
     """Device busy share and device time by kernel over `n_steps` of
-    `step()`, by torch.profiler."""
+    `step()`, by torch.profiler (the wall time from the profiler's start,
+    so its set-up is not counted); with `step_ms`, the unprofiled ms/step,
+    also the device time's share of that, and the host's operators with the
+    most CPU time of their own (under the profiler, which inflates them)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    events = prof.key_averages()
     rows = [(e.device_time_total / 1e3 / n_steps, e.count // n_steps, e.key)
-            for e in prof.key_averages()
+            for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    unprofiled = (f"; {100 * busy / step_ms:.1f} % of the unprofiled "
+                  f"{step_ms:.3f} ms/step" if step_ms else "")
     print(f"[profile] {tag}: {wall_ms:.1f} ms/step wall under the profiler, "
           f"{busy:.1f} ms/step device time ({100 * busy / wall_ms:.1f} % "
-          f"busy)")
+          f"busy{unprofiled})")
     for ms, n, key in rows[:12]:
         print(f"[profile] {tag}: {ms:9.3f} ms/step {100 * ms / busy:5.1f} % "
               f"x{n:<4d} {key[:90]}")
+    if step_ms:
+        host = sorted(((e.self_cpu_time_total / 1e3 / n_steps,
+                        e.count // n_steps, e.key) for e in events
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      reverse=True)
+        for ms, n, key in host[:6]:
+            print(f"[profile] {tag} host: {ms:9.3f} ms/step self CPU "
+                  f"x{n:<5d} {key[:80]}")
 
 
-def eval_slice(cls, reqs, dev, n_convs):
+def eval_slice(cls, reqs, dev, n_convs, do_profile=False):
     model = make_model(cls, "bfloat16", ATTN_DROPOUT).eval().to(dev)
     kernels.reset_launches()
     for r, (qb, keys) in enumerate(reqs):
@@ -1213,7 +1327,10 @@ def eval_slice(cls, reqs, dev, n_convs):
                      {"sparse_conv_fwd": n_convs, "flash_attn_fwd": 2,
                       "interp_fwd": 1})
     qb, keys = reqs[0]
-    time_steps("slice", lambda: eval_step(model, qb, keys))
+    ms = time_steps("slice", lambda: eval_step(model, qb, keys))
+    if do_profile:
+        profile_steps("eval K=1", lambda: eval_step(model, qb, keys),
+                      step_ms=ms)
 
     # the f32 forward through the kernels against the plain forward (CPU)
     m32 = make_model(cls, "float32", ATTN_DROPOUT).eval().to(dev)
@@ -1279,7 +1396,7 @@ def f32_step_check(cls, spec, dev, tag, mode=None):
           f"({worst[1]}), tol {GRAD_TOL:.0e}; loss {lg:.6f} vs {lc:.6f}")
 
 
-def train_slice(cls, spec, reqs, dev, n_convs, n_stems):
+def train_slice(cls, spec, reqs, dev, n_convs, n_stems, do_profile=False):
     """Phase 5. Returns the launch counts of the 3 train requests."""
     model = make_model(cls, "bfloat16", ATTN_DROPOUT).to(dev)
     opt = optim.make_optimizer(model.parameters(), "SGD", lr=LR)
@@ -1296,7 +1413,11 @@ def train_slice(cls, spec, reqs, dev, n_convs, n_stems):
         "flash_attn_fwd": 2, "flash_attn_bwd": 2, "interp_fwd": 1,
         "interp_bwd": 1})
     qb, keys = reqs[0]
-    time_steps("train", lambda: train_step(model, opt, qb, keys, gen))
+    ms = time_steps("train", lambda: train_step(model, opt, qb, keys, gen))
+    if do_profile:
+        profile_steps("train K=1",
+                      lambda: train_step(model, opt, qb, keys, gen),
+                      step_ms=ms)
     del model, opt
     torch.cuda.empty_cache()
 
@@ -1402,9 +1523,9 @@ def midfc_chunked_slice(dev, profile=False):
                                 runner.draw_step_seed())
         runner._apply(grads)
 
-    time_steps("midfc train", step, what + ", dropout 0.1, Adam", MF_B)
+    ms = time_steps("midfc train", step, what + ", dropout 0.1, Adam", MF_B)
     if profile:
-        profile_steps("midfc train", step)
+        profile_steps("midfc train", step, step_ms=ms)
     del runner
     torch.cuda.empty_cache()
 
@@ -1490,10 +1611,10 @@ def midfc_ring_slice(dev, profile=False):
             _, grads = steps.grad(feats, labels, None, ring.draw_step_seed())
             ring._apply(grads)
 
-        time_steps("ring train", step, what + ", dropout 0.1, Adam",
-                   MF_RING_B, timed_steps=3)
+        ms = time_steps("ring train", step, what + ", dropout 0.1, Adam",
+                        MF_RING_B, timed_steps=3)
         if profile:
-            profile_steps("ring train", step)
+            profile_steps("ring train", step, step_ms=ms)
         del ring, steps
         torch.cuda.empty_cache()
 
@@ -1668,10 +1789,11 @@ def _trainer_slice(dev, n_convs, log_dir, C, do_profile):
     def step():
         train_step(trainer.model, trainer.optimizer, qb, keys, gen)
 
-    time_steps("trainer", step, f"B={B}, K={K_NEIGHBORS}, bf16, CSN_DYNG=2, "
-               f"batch held fixed: no host batch build", timed_steps=5)
+    ms = time_steps("trainer", step, f"B={B}, K={K_NEIGHBORS}, bf16, "
+                    f"CSN_DYNG=2, batch held fixed: no host batch build",
+                    timed_steps=5)
     if do_profile:
-        profile_steps("trainer step, CSN_DYNG=2", step)
+        profile_steps("trainer step, CSN_DYNG=2", step, step_ms=ms)
         # whole iterations as train() runs them: prefetch thread, batch
         # wait, step, the predictions' copy back for the score
         profile_steps("trainer iteration, CSN_DYNG=2", trainer._train_iter)
@@ -2251,22 +2373,27 @@ def main() -> int:
     g = torch.Generator(device="cpu").manual_seed(SEED)
     n_convs = check_convs(model, big, dev, table, g)
     n_stems = 1   # conv0 reads the raw voxel features: no d_feats
+    check_dw_edges(dev, table, g)
     check_attention(qb, kb, big, dev, table, g)
     check_interp(qb, dev, table, g)
     del big
     check_ring_kernels(dev, table, g)
     n_unet_convs = check_family_convs(dev, table, g)
+    print(f"[check] sparse_conv_dw bfloat16 (tensor cores) vs float64: "
+          f"worst {max(table.dw_f64):.3e} of max|ref| over "
+          f"{len(table.dw_f64)} lines (tol {DW_F64_TOL:.0e}) ok")
     check_probes(dev, table)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     # 4. the eval slice
     phase("4 eval slice")
-    eval_slice(cls, reqs, dev, n_convs)
+    eval_slice(cls, reqs, dev, n_convs, do_profile)
 
     # 5. the train slice
     phase("5 train slice")
-    launches = train_slice(cls, spec, reqs, dev, n_convs, n_stems)
+    launches = train_slice(cls, spec, reqs, dev, n_convs, n_stems,
+                           do_profile)
     del reqs
     torch.cuda.empty_cache()
 

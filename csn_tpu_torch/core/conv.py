@@ -269,3 +269,18 @@ def sparse_conv(feats: torch.Tensor, kmap: torch.Tensor,
                 "transpose map kmap_t (the backward kernels gather over it)")
         return conv_autograd_plain(feats, kmap, weights)
     return SparseConvFn.apply(feats, weights, kmap, kmap_t, mirror)
+
+
+def sparse_conv_with_bias(feats: torch.Tensor, kmap: torch.Tensor,
+                          weights: torch.Tensor, bias: torch.Tensor,
+                          **kw) -> torch.Tensor:
+    """`sparse_conv` plus a per-channel bias [Cout], cast to the output's
+    dtype."""
+    out = sparse_conv(feats, kmap, weights, **kw)
+    return out + bias[None, :].to(out.dtype)
+
+
+def masked_fill(feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Zero out padded rows. feats [..., N, C] or [B, L, C]; mask matches
+    leading dims."""
+    return torch.where(mask[..., None], feats, 0.0)

@@ -17,8 +17,11 @@ straight from the kernel map:
   `csn_tpu_torch.core.conv.conv_plain`.
 * `sparse_conv_dw` (`csn_tpu_torch/csrc/sparse_conv_bwd.cu`): one block per
   (channel tile, offset, row split), f32 partials per split summed by a
-  second kernel in a fixed order. Plain version: the dW half of
-  `csn_tpu_torch.core.conv.conv_bwd_plain`.
+  second kernel in a fixed order. bf16 with Cin % 16 == 0 and Cout % 8 == 0
+  runs on the tensor cores (`mma.sync` over the split's live rows only,
+  compacted into a list and gathered by `cp.async`, `dw_tensor_cores`); f32
+  and the stems run f32 FMAs on the CUDA cores. Plain version: the dW half
+  of `csn_tpu_torch.core.conv.conv_bwd_plain`.
 * `sparse_conv_im2col_fwd` (`csn_tpu_torch/csrc/sparse_conv_im2col.cu`): the
   forward as one product per output tile over the flattened axis K*Cin,
   walked in chunks. Plain version: `csn_tpu_torch.core.conv.conv_im2col_plain`.
@@ -114,17 +117,48 @@ def sparse_conv_fwd(feats: torch.Tensor, kmap: torch.Tensor,
     return out
 
 
+def dw_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether `sparse_conv_dw` runs its tensor-core body
+    (`csrc/sparse_conv_bwd.cu` `csn_sparse_conv_dw` chooses by the same
+    rule, K1's): bf16 with Cin a multiple of 16 and Cout a multiple of 8.
+    f32 and the stems (Cin 3) run its CUDA-core body."""
+    return k1_tensor_cores(dtype, cin, cout)
+
+
 SMS = 132            # streaming multiprocessors of the H100 SXM
 MIN_SPLIT_ROWS = 1024
+# the dW tensor-core body (csrc/sparse_conv_bwd.cu): live rows per product
+# step, map entries compacted per refill of its list, warps per SM it aims at
+DW_TC_STEP = 32
+DW_TC_CHUNK = 1024
+DW_TC_WARPS_PER_SM = 32
 
 
-def dw_splits(n_in: int, n_off: int, cin: int, cout: int) -> int:
-    """Row splits S of the dW kernel: enough that the grid of (channel
-    tiles x offsets x S) blocks puts about two on each SM, with at least
-    MIN_SPLIT_ROWS rows per split and at most 64 splits."""
-    tm = 16 if cin <= 16 else 64              # the kernel's channel tile
-    blocks = -(-cin // tm) * -(-cout // 64) * n_off
-    want = -(-2 * SMS // blocks)
+def col_tiles(cout: int):
+    """(tiles, WN) of the tensor-core conv bodies: Cout in tiles of BN =
+    64 WN channels, one tile up to Cout 256, else ceil(Cout / 256) tiles of
+    equal width (Cout 384: two of 192)."""
+    n64 = -(-cout // 64)
+    tiles = -(-n64 // 4)
+    return tiles, -(-n64 // tiles)
+
+
+def dw_splits(n_in: int, n_off: int, cin: int, cout: int,
+              tensor_cores: bool = False) -> int:
+    """Row splits S of the dW kernel, with at least MIN_SPLIT_ROWS rows per
+    split and at most 64 splits. The CUDA-core body: enough that the grid of
+    (channel tiles x offsets x S) blocks puts about two on each SM. The
+    tensor-core body (`tensor_cores`), whose blocks are 2 WN warps (input
+    channels in tiles of 64, output channels in `col_tiles`): about
+    DW_TC_WARPS_PER_SM warps on each SM."""
+    if tensor_cores:
+        tiles, wn = col_tiles(cout)
+        warps = -(-cin // 64) * tiles * n_off * 2 * wn
+        want = -(-DW_TC_WARPS_PER_SM * SMS // warps)
+    else:
+        tm = 16 if cin <= 16 else 64          # the kernel's channel tile
+        blocks = -(-cin // tm) * -(-cout // 64) * n_off
+        want = -(-2 * SMS // blocks)
     return max(1, min(want, 64, n_in // MIN_SPLIT_ROWS))
 
 
@@ -132,7 +166,9 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
                    kmap_t: torch.Tensor) -> torch.Tensor:
     """Launch the dW kernel: feats [N_in, Cin] and g [N_g, Cout] of one
     dtype, kmap_t [K, N_in] int32 (sentinel N_g) -> dW_t [K, Cin, Cout] f32,
-    dW_t[k] = feats^T . gather(g, kmap_t[k])."""
+    dW_t[k] = feats^T . gather(g, kmap_t[k]). The tensor-core body copies
+    feats and g rows 16 bytes at a time: it takes only views that start on a
+    16-byte boundary."""
     what = "sparse_conv_dw"
     kernels.require_cuda(what, feats, g, kmap_t)
     if feats.dim() != 2 or g.dim() != 2 or kmap_t.dim() != 2 \
@@ -147,7 +183,11 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
     n_in, cin = feats.shape
     n_g, cout = g.shape
     n_off = kmap_t.shape[0]
-    n_split = dw_splits(n_in, n_off, cin, cout)
+    tc = dw_tensor_cores(feats.dtype, cin, cout)
+    if tc and (feats.data_ptr() % 16 or g.data_ptr() % 16):
+        raise ValueError(f"{what}: bf16 feats and g must start on a "
+                         f"16-byte boundary (cp.async copies)")
+    n_split = dw_splits(n_in, n_off, cin, cout, tc)
     out = torch.empty((n_off, cin, cout), dtype=torch.float32,
                       device=feats.device)
     part = (torch.empty((n_split, n_off, cin, cout), dtype=torch.float32,

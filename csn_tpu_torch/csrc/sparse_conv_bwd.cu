@@ -17,27 +17,68 @@
 // dW_t is stored in f32. The caller un-mirrors same-level maps (dW = dW_t
 // reversed over k).
 //
-// What bounds it on the H100: the same 2*Cin*Cout flops per (row, offset)
-// as the forward, on the CUDA cores (FMA); it is a reduction over up to
-// 90112 rows per offset into a small [Cin, Cout] tile, so the level-0 convs
-// (K tiles of 64x64) would leave most of the 132 SMs idle without a split of
-// the rows.
+// Two bodies, chosen by dtype and shape by the rule of K1 (sparse_conv.cu;
+// a failed launch returns its error, there is no retry on the other body):
+//  * bf16 with Cin % 16 == 0 and Cout % 8 == 0 (every conv of the HRNet,
+//    Res16UNet, ResUNet and ResNet families but the stems, whose Cin is 3):
+//    the tensor-core body, mma.sync m16n8k16 on bf16 operands with f32
+//    accumulators, over the live rows only;
+//  * f32, and the stems: the CUDA-core body (f32 FMAs).
 //
-// Design: deterministic split-N with no atomics. Block (tile of TM input
-// channels x 64 output channels, offset k, split s) walks its share of the
-// rows in chunks of 16: it stages the chunk's kmap_t entries, skips the
-// chunk when all are sentinels (padding rows, offsets without neighbours),
-// loads the feats rows and the gathered g rows into shared memory, and each
-// of the 256 threads accumulates a (TM/16) x 4 register tile. The block
-// stores its partial [TM, 64] tile once; a second small kernel (common.cuh)
-// sums the S partials [S, K, Cin, Cout] in a fixed order. The caller picks S
-// so that the grid holds at least about two blocks per SM. TM is 16 for the
-// 3-channel stem (so 3 of 16 rows of the tile, not 3 of 64, are padding) and
-// 64 otherwise. The TPU kernel fused d_feats into the same pass over its
-// VMEM windows; here d_feats, an output-stationary conv, and dW, an
+// What bounds it on the H100: the same 2*Cin*Cout operations per live (row,
+// offset) pair as the forward; the bound counts each input byte once
+// (chip_smoke.py conv_work). It is a reduction over up to 90112 rows per
+// offset into a small [Cin, Cout] tile, so the level-0 convs (K tiles of
+// 64x64) would leave most of the 132 SMs idle without a split of the rows;
+// and most (row, offset) pairs are dead (same-level maps are about 26 %
+// dense, up maps 7 %).
+//
+// Both bodies split the rows deterministically, with no atomics: block
+// (channel tile, offset k, split s) reduces its share of the rows and
+// stores its partial tile once; a second small kernel (common.cuh) sums the
+// S partials [S, K, Cin, Cout] in the order s = 0, 1, ..., so two runs give
+// the same bits. The caller picks S (csn_tpu_torch/core/window_conv.py
+// dw_splits). The TPU kernel fused d_feats into the same pass over its VMEM
+// windows; here d_feats, an output-stationary conv, and dW, an
 // offset-stationary reduction, want different block shapes.
+//
+// Tensor-core design. One block per (tile of 64 input channels, tile of BN
+// = 64 WN output channels, offset k, split s), WN = ceil(Cout / 64) up to 4
+// as K1 picks it (a wider Cout takes several column tiles of equal width).
+// Warps of 32 input x 64 output channels (2 x WN of them) hold 64 f32
+// accumulators a lane over the whole split. The rows are the reduction
+// axis, so dead rows are dropped and live ones packed densely:
+//  1. The block walks its rows in chunks of CHUNK map entries. It reads a
+//     chunk's kmap_t[k] entries (coalesced, RPT per lane per pass), finds
+//     the live ones by a warp ballot, and appends their (feats row, g row)
+//     pairs to a list in shared memory at positions from a prefix over the
+//     warps' counts: row order, whatever the timing.
+//  2. It walks the list in steps of STEP pairs. A step gathers the pairs'
+//     feats rows (the tile's 64 channels) and g rows (BN channels) by
+//     cp.async, 16 bytes at a time, into [STEP][64 + 8] and [STEP][BN + 8]
+//     bf16 tiles (flash_tc.cuh's stride: ldmatrix without bank conflicts);
+//     entries past the list's end, and channels past Cin or Cout, are
+//     zero-filled. Two stages: the next step's copies are issued right
+//     after the barrier that publishes this step's, before its products.
+//     Pairs short of a whole step wait for the next chunk (moved to the
+//     list's front); the split's last step runs with a zero-filled tail.
+//  3. Per 16-row k-step a warp loads A = feats^T (M = its 32 input
+//     channels, K = rows) by ldmatrix.trans of the [rows][Cin] tile, B by
+//     ldmatrix.trans of the [rows][Cout] tile, and runs up to 16 mma.sync;
+//     channel blocks past Cin or Cout are skipped.
+// A split with no live row does no products and stores zeros. wgmma and TMA
+// are later work.
+//
+// CUDA-core design (f32, stems). One block per (tile of TM input channels x
+// 64 output channels, offset, split) walks its rows in chunks of 16: it
+// stages the chunk's kmap_t entries, skips the chunk when all are sentinels,
+// loads the feats rows and the gathered g rows into shared memory in f32,
+// and each of the 256 threads accumulates a (TM/16) x 4 register tile. TM is
+// 16 for the 3-channel stem (so 3 of 16 rows of the tile, not 3 of 64, are
+// padding) and 64 otherwise.
 
 #include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -143,34 +184,279 @@ sparse_conv_dw_kernel(const T* __restrict__ feats, const T* __restrict__ g,
 
 template <typename T, int TM>
 cudaError_t launch(const void* feats, const void* g, const void* kmap_t,
-                   void* part, void* out, int64_t n_in, int64_t n_g,
-                   int n_off, int cin, int cout, int n_split,
+                   float* dst, int64_t n_in, int64_t n_g, int n_off, int cin,
+                   int cout, int n_split, int64_t rows_per_split,
                    cudaStream_t stream) {
-  const int64_t rows_per_split = (n_in + n_split - 1) / n_split;
   const unsigned tiles =
       (unsigned)(((cin + TM - 1) / TM) * ((cout + BN - 1) / BN));
   const dim3 grid(tiles, (unsigned)n_off, (unsigned)n_split);
-  // one split writes the result directly
-  float* dst = static_cast<float*>(n_split == 1 ? out : part);
   sparse_conv_dw_kernel<T, TM><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(feats), static_cast<const T*>(g),
       static_cast<const int32_t*>(kmap_t), dst, n_in, n_g, n_off, cin, cout,
       rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return err;
-  const int64_t n = (int64_t)n_off * cin * cout;
-  csn::sum_splits_kernel<THREADS>
-      <<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-          static_cast<const float*>(part), static_cast<float*>(out), n,
-          n_split);
   return cudaGetLastError();
+}
+
+// --- the tensor-core body (bf16, Cin % 16 == 0, Cout % 8 == 0) -------------
+
+using csn_tc::bf16;
+using csn_tc::cp_async16;
+using csn_tc::cp_async_commit;
+using csn_tc::cp_async_wait;
+using csn_tc::ldsm_x4_t;
+using csn_tc::load_a_t;
+using csn_tc::mma;
+
+constexpr int TBM = 64;         // input channels per tile
+constexpr int LDA = TBM + 8;    // feats tile row stride (flash_tc.cuh's LDS)
+constexpr int STEP = 32;        // live rows per step (the products' K)
+constexpr int CHUNK = 1024;     // map entries compacted per refill of the list
+static_assert(LDA == csn_tc::LDS, "load_a_t reads rows LDS elements apart");
+
+template <int WN>
+struct DwTile {
+  static constexpr int BN = 64 * WN;         // output channels
+  static constexpr int THREADS = 64 * WN;    // 2 x WN warps of 32 x 64
+  static constexpr int NWARPS = THREADS / 32;
+  static constexpr int RPT = WN >= 4 ? 2 : 8 / WN;  // map entries per lane
+  static constexpr int PASS = THREADS * RPT;        // per compaction pass
+  static constexpr int LDB = BN + 8;         // g tile row stride
+  static constexpr int A_ELEMS = STEP * LDA;
+  static constexpr int STAGE_ELEMS = A_ELEMS + STEP * LDB;
+  static constexpr int LIST = CHUNK + STEP;  // a chunk + what a step left
+  // two stages, the list's feats rows and g rows, the warps' counts
+  static constexpr size_t SMEM =
+      sizeof(bf16) * 2 * STAGE_ELEMS + sizeof(int32_t) * (2 * LIST + NWARPS);
+};
+
+template <int WN>
+__global__ void __launch_bounds__(64 * WN, WN >= 3 ? 2 : 8 / WN)
+sparse_conv_dw_tc_kernel(const bf16* __restrict__ feats,
+                         const bf16* __restrict__ g,
+                         const int32_t* __restrict__ kmap_t,
+                         float* __restrict__ part, int64_t n_in, int64_t n_g,
+                         int n_off, int cin, int cout,
+                         int64_t rows_per_split) {
+  using Tl = DwTile<WN>;
+  constexpr int BN = Tl::BN, THREADS = Tl::THREADS, NWARPS = Tl::NWARPS;
+  constexpr int RPT = Tl::RPT, LDB = Tl::LDB;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  int32_t* lf = reinterpret_cast<int32_t*>(stages + 2 * Tl::STAGE_ELEMS);
+  int32_t* lg = lf + Tl::LIST;
+  int32_t* wcnt = lg + Tl::LIST;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int n_tiles = (cout + BN - 1) / BN;
+  const int c0 = (blockIdx.x / n_tiles) * TBM;   // the tile's input channels
+  const int n0 = (blockIdx.x % n_tiles) * BN;    // and output channels
+  const int k = blockIdx.y, s = blockIdx.z;
+  const int64_t r_begin = (int64_t)s * rows_per_split;
+  const int64_t r_end =
+      r_begin + rows_per_split < n_in ? r_begin + rows_per_split : n_in;
+  const int32_t* km = kmap_t + (int64_t)k * n_in;
+
+  // 1. append the live pairs of rows [a, b) to the list after its n
+  // entries, in row order; returns the new count. Two barriers per pass;
+  // the last one publishes the list.
+  auto compact = [&](int64_t a, int64_t b, int n) {
+    for (int64_t p = a; p < b; p += Tl::PASS) {
+      int32_t v[RPT];
+      unsigned bal[RPT];
+      int cnt = 0;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int64_t r = p + (int64_t)(warp * RPT + j) * 32 + lane;
+        int32_t x = -1;
+        if (r < b) {
+          const int32_t y = __ldg(km + r);
+          if (y >= 0 && y < n_g) x = y;
+        }
+        v[j] = x;
+        bal[j] = __ballot_sync(0xffffffffu, x >= 0);
+        cnt += __popc(bal[j]);
+      }
+      if (lane == 0) wcnt[warp] = cnt;
+      __syncthreads();
+      int pos = n;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) {
+        const int c = wcnt[w];
+        pos += w < warp ? c : 0;
+        n += c;
+      }
+      const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        if (v[j] >= 0) {
+          const int q = pos + __popc(bal[j] & below);
+          lf[q] = (int32_t)(p + (int64_t)(warp * RPT + j) * 32 + lane);
+          lg[q] = v[j];
+        }
+        pos += __popc(bal[j]);
+      }
+      __syncthreads();  // the counts are rewritten by the next pass
+    }
+    return n;
+  };
+
+  // 2. the copies of the step at list entry e0 (of n) into stage st
+  auto load = [&](int st, int e0, int n) {
+    bf16* as = stages + st * Tl::STAGE_ELEMS;
+    bf16* bs = as + Tl::A_ELEMS;
+#pragma unroll
+    for (int i = tid; i < STEP * (TBM / 8); i += THREADS) {
+      const int r = i / (TBM / 8), c = (i % (TBM / 8)) * 8;
+      const bool ok = e0 + r < n && c0 + c < cin;
+      cp_async16(as + r * LDA + c,
+                 feats + (ok ? (int64_t)lf[e0 + r] * cin + c0 + c : 0), ok);
+    }
+#pragma unroll
+    for (int i = tid; i < STEP * (BN / 8); i += THREADS) {
+      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      const bool ok = e0 + r < n && n0 + c < cout;
+      cp_async16(bs + r * LDB + c,
+                 g + (ok ? (int64_t)lg[e0 + r] * cout + n0 + c : 0), ok);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  const int cm = c0 + 32 * wm;   // the warp's first input channel
+  const int wc = n0 + 64 * wn;   // and output channel
+  const int mi = cm < cin ? min(2, (cin - cm) / 16) : 0;  // 16-channel blocks
+
+  // 3. the products of the step in stage st
+  auto compute = [&](int st) {
+    if (mi == 0 || wc >= cout) return;
+    const bf16* as = stages + st * Tl::STAGE_ELEMS;
+    const bf16* bs = as + Tl::A_ELEMS;
+#pragma unroll
+    for (int ks = 0; ks < STEP / 16; ++ks) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (i < mi) load_a_t(a[i], as, 32 * wm + 16 * i, ks, lane);
+#pragma unroll
+      for (int nb2 = 0; nb2 < 4; ++nb2) {
+        if (wc + 16 * nb2 >= cout) break;
+        uint32_t b[4];
+        ldsm_x4_t(b, bs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              LDB +
+                         64 * wn + nb2 * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (i >= mi) break;
+          mma(acc[i][2 * nb2], a[i], b[0], b[1]);
+          mma(acc[i][2 * nb2 + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  };
+
+  int n = 0;  // pairs in the list
+  for (int64_t a = r_begin; a < r_end; a += CHUNK) {
+    const int64_t b = a + CHUNK < r_end ? a + CHUNK : r_end;
+    n = compact(a, b, n);
+    const bool last = b >= r_end;
+    const int steps = last ? (n + STEP - 1) / STEP : n / STEP;
+    // one barrier per step, which publishes its tiles and orders every
+    // warp's reads of the other stage before its next copy
+    if (steps > 0) load(0, 0, n);
+    cp_async_commit();
+    for (int i = 0; i < steps; ++i) {
+      cp_async_wait<0>();
+      __syncthreads();
+      if (i + 1 < steps) load((i + 1) & 1, (i + 1) * STEP, n);
+      cp_async_commit();
+      compute(i & 1);
+    }
+    cp_async_wait<0>();
+    // every warp is done with the stages and with the list's used entries
+    __syncthreads();
+    // the pairs short of a step go to the front (a step took STEP > rest
+    // entries, so the two ranges are disjoint); the next compaction writes
+    // after them only past its first barrier
+    const int used = steps * STEP;
+    const int rest = last ? 0 : n - used;
+    if (used > 0)
+      for (int e = tid; e < rest; e += THREADS) {
+        lf[e] = lf[used + e];
+        lg[e] = lg[used + e];
+      }
+    n = rest;
+  }
+
+  float* out = part + ((int64_t)s * n_off + k) * cin * cout;
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = cm + 16 * i + gr + 8 * h;
+      if (c >= cin) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = wc + 8 * j + 2 * t;
+        if (col < cout)
+          *reinterpret_cast<float2*>(out + (int64_t)c * cout + col) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+template <int WN>
+cudaError_t launch_tc_body(const void* feats, const void* g,
+                           const void* kmap_t, float* dst, int64_t n_in,
+                           int64_t n_g, int n_off, int cin, int cout,
+                           int n_split, int64_t rows_per_split,
+                           cudaStream_t stream) {
+  using Tl = DwTile<WN>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sparse_conv_dw_tc_kernel<WN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::SMEM);
+  if (err != cudaSuccess) return err;
+  const unsigned tiles =
+      (unsigned)(((cin + TBM - 1) / TBM) * ((cout + Tl::BN - 1) / Tl::BN));
+  const dim3 grid(tiles, (unsigned)n_off, (unsigned)n_split);
+  sparse_conv_dw_tc_kernel<WN><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
+      static_cast<const bf16*>(feats), static_cast<const bf16*>(g),
+      static_cast<const int32_t*>(kmap_t), dst, n_in, n_g, n_off, cin, cout,
+      rows_per_split);
+  return cudaGetLastError();
+}
+
+// BN = 64 WN by K1's rule: one column tile up to Cout 256, else
+// ceil(Cout / 256) tiles of equal width
+cudaError_t launch_tc(const void* feats, const void* g, const void* kmap_t,
+                      float* dst, int64_t n_in, int64_t n_g, int n_off,
+                      int cin, int cout, int n_split, int64_t rows_per_split,
+                      cudaStream_t stream) {
+  const int n64 = (cout + 63) / 64;
+  const int tiles = (n64 + 3) / 4;
+  const int wn = (n64 + tiles - 1) / tiles;
+#define CSN_TC(WN)                                                      \
+  return launch_tc_body<WN>(feats, g, kmap_t, dst, n_in, n_g, n_off, cin, \
+                            cout, n_split, rows_per_split, stream)
+  if (wn == 1) CSN_TC(1);
+  if (wn == 2) CSN_TC(2);
+  if (wn == 3) CSN_TC(3);
+  CSN_TC(4);
+#undef CSN_TC
 }
 
 }  // namespace
 
-// feats [n_in, cin] and g [n_g, cout] of one type, kmap_t [n_off, n_in]
-// int32 (sentinel n_g), part [n_split, n_off, cin, cout] f32 scratch (unused
-// when n_split == 1), out [n_off, cin, cout] f32.
+// feats [n_in, cin] and g [n_g, cout] of one type (16-byte aligned for the
+// tensor-core body), kmap_t [n_off, n_in] int32 (sentinel n_g), part
+// [n_split, n_off, cin, cout] f32 scratch (unused when n_split == 1), out
+// [n_off, cin, cout] f32.
 extern "C" int csn_sparse_conv_dw(int dtype, const void* feats, const void* g,
                                   const void* kmap_t, void* part, void* out,
                                   int64_t n_in, int64_t n_g, int n_off,
@@ -179,18 +465,33 @@ extern "C" int csn_sparse_conv_dw(int dtype, const void* feats, const void* g,
   if (n_off == 0 || cin == 0 || cout == 0) return cudaSuccess;
   if (n_split < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t rows = (n_in + n_split - 1) / n_split;
+  // one split writes the result directly
+  float* dst = static_cast<float*>(n_split == 1 ? out : part);
   const bool narrow = cin <= 16;
-  if (dtype == csn::kF32)
-    return narrow ? launch<float, 16>(feats, g, kmap_t, part, out, n_in, n_g,
-                                      n_off, cin, cout, n_split, s)
-                  : launch<float, 64>(feats, g, kmap_t, part, out, n_in, n_g,
-                                      n_off, cin, cout, n_split, s);
-  if (dtype == csn::kBF16)
-    return narrow ? launch<__nv_bfloat16, 16>(feats, g, kmap_t, part, out,
-                                              n_in, n_g, n_off, cin, cout,
-                                              n_split, s)
-                  : launch<__nv_bfloat16, 64>(feats, g, kmap_t, part, out,
-                                              n_in, n_g, n_off, cin, cout,
-                                              n_split, s);
-  return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (dtype == csn::kBF16 && cin % 16 == 0 && cout % 8 == 0)
+    err = launch_tc(feats, g, kmap_t, dst, n_in, n_g, n_off, cin, cout,
+                    n_split, rows, s);
+  else if (dtype == csn::kF32)
+    err = narrow ? launch<float, 16>(feats, g, kmap_t, dst, n_in, n_g, n_off,
+                                     cin, cout, n_split, rows, s)
+                 : launch<float, 64>(feats, g, kmap_t, dst, n_in, n_g, n_off,
+                                     cin, cout, n_split, rows, s);
+  else if (dtype == csn::kBF16)
+    err = narrow ? launch<__nv_bfloat16, 16>(feats, g, kmap_t, dst, n_in,
+                                             n_g, n_off, cin, cout, n_split,
+                                             rows, s)
+                 : launch<__nv_bfloat16, 64>(feats, g, kmap_t, dst, n_in,
+                                             n_g, n_off, cin, cout, n_split,
+                                             rows, s);
+  else
+    return cudaErrorInvalidValue;
+  if (err != cudaSuccess || n_split == 1) return err;
+  const int64_t n = (int64_t)n_off * cin * cout;
+  csn::sum_splits_kernel<THREADS>
+      <<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+          static_cast<const float*>(part), static_cast<float*>(out), n,
+          n_split);
+  return cudaGetLastError();
 }

@@ -4,7 +4,8 @@ package on a real built and concatenated batch: the plain forward against
 against `jax.vjp` of the JAX `sparse_conv` with the transpose map, with
 random asymmetric weights so that a missed mirror shows. Also the dtypes of
 the gradients, the dW kernel's split choice and the launchers' refusal of
-CPU tensors. Tolerance: max abs <= 1e-5 * max|ref| (f32 on both sides; the
+CPU tensors; `sparse_conv_with_bias` and `masked_fill` against the JAX
+functions. Tolerance: max abs <= 1e-5 * max|ref| (f32 on both sides; the
 two sum in different orders)."""
 
 import jax
@@ -15,7 +16,9 @@ import torch
 
 import bench
 from csn_tpu.core.conv import _conv_impl
+from csn_tpu.core.conv import masked_fill as j_masked_fill
 from csn_tpu.core.conv import sparse_conv as j_sparse_conv
+from csn_tpu.core.conv import sparse_conv_with_bias as j_sparse_conv_with_bias
 from csn_tpu.models.layers import transpose_map_name as j_transpose_map_name
 from csn_tpu_torch import kernels
 from csn_tpu_torch.core import conv, window_conv
@@ -76,6 +79,26 @@ def test_k1_launcher_refuses_cpu_tensors():
                                     torch.zeros(27, 3, 8))
 
 
+def _stub_launch(monkeypatch):
+    """Wrappers run their checks on meta tensors: the CUDA-device check
+    passes, and reaching the library raises LookupError."""
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+
+    def no_library():
+        raise LookupError("reached the launch")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+
+
+def _meta_view(*shape, dtype, shift):
+    """A contiguous meta view of `shape` that starts `shift` elements into
+    its storage: off a 16-byte boundary iff `shift`."""
+    n = int(np.prod(shape))
+    t = torch.empty(n + shift, dtype=dtype, device="meta")[shift:].view(*shape)
+    assert t.is_contiguous() and bool(t.data_ptr() % 16) == bool(shift)
+    return t
+
+
 def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
     """K1's tensor-core body (bf16, Cin % 16 == 0, Cout % 8 == 0) copies
     feats and weights 16 bytes at a time with cp.async: `sparse_conv_fwd`
@@ -84,22 +107,10 @@ def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
     CUDA-device check stubbed out). An aligned call, and a misaligned one
     that the CUDA-core body takes (f32, or a stem's Cin of 3), get as far as
     the library."""
-    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
-
-    def no_library():
-        raise LookupError("reached the launch")
-
-    monkeypatch.setattr(kernels, "library", no_library)
-    meta = dict(device="meta")
-
-    def view(*shape, dtype, shift):
-        n = int(np.prod(shape))
-        t = torch.empty(n + shift, dtype=dtype, **meta)[shift:].view(*shape)
-        assert t.is_contiguous() and bool(t.data_ptr() % 16) == bool(shift)
-        return t
-
+    _stub_launch(monkeypatch)
+    view = _meta_view
     n_in, n_out, k = 10, 7, 27
-    kmap = torch.empty(k, n_out, dtype=torch.int32, **meta)
+    kmap = torch.empty(k, n_out, dtype=torch.int32, device="meta")
     bf = torch.bfloat16
     assert window_conv.k1_tensor_cores(bf, 32, 64)
     assert not window_conv.k1_tensor_cores(bf, 3, 32)
@@ -118,6 +129,44 @@ def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
             window_conv.sparse_conv_fwd(
                 view(n_in, cin, dtype=dt, shift=shift), kmap,
                 view(k, cin, cout, dtype=dt, shift=shift))
+    assert kernels.LAUNCHES == before
+
+TC_RULE_CASES = [(torch.bfloat16, 32, 64, True), (torch.bfloat16, 3, 32, False),
+                 (torch.bfloat16, 24, 64, False),
+                 (torch.bfloat16, 32, 60, False),
+                 (torch.float32, 32, 64, False)]
+
+
+@pytest.mark.parametrize("dtype,cin,cout,want", TC_RULE_CASES)
+def test_dw_tensor_cores_rule(dtype, cin, cout, want):
+    """dW's tensor-core body takes what K1's takes: bf16, Cin % 16 == 0,
+    Cout % 8 == 0 (the rule `csn_sparse_conv_dw` applies)."""
+    assert window_conv.dw_tensor_cores(dtype, cin, cout) is want
+    assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
+
+
+def test_dw_refuses_a_misaligned_bf16_view(monkeypatch):
+    """dW's tensor-core body copies feats and g rows 16 bytes at a time with
+    cp.async: `sparse_conv_dw` refuses a view of either that does not start
+    on a 16-byte boundary before the launch. An aligned call, and a
+    misaligned one that the CUDA-core body takes (f32, or a stem's Cin of
+    3), get as far as the library."""
+    _stub_launch(monkeypatch)
+    n_in, n_g, k = 10, 7, 27
+    kmap_t = torch.empty(k, n_in, dtype=torch.int32, device="meta")
+    bf = torch.bfloat16
+    before = dict(kernels.LAUNCHES)
+    for fs, gs in ((1, 0), (0, 1)):
+        with pytest.raises(ValueError, match="16-byte"):
+            window_conv.sparse_conv_dw(_meta_view(n_in, 32, dtype=bf, shift=fs),
+                                       _meta_view(n_g, 64, dtype=bf, shift=gs),
+                                       kmap_t)
+    for cin, cout, dt, shift in ((32, 64, bf, 0), (3, 32, bf, 1),
+                                 (32, 64, torch.float32, 1)):
+        with pytest.raises(LookupError, match="reached the launch"):
+            window_conv.sparse_conv_dw(
+                _meta_view(n_in, cin, dtype=dt, shift=shift),
+                _meta_view(n_g, cout, dtype=dt, shift=shift), kmap_t)
     assert kernels.LAUNCHES == before
 
 
@@ -206,6 +255,23 @@ def test_dw_splits_fill_the_card(n_in, k, cin, cout, want):
     tm = 16 if cin <= 16 else 64
     blocks = -(-cin // tm) * -(-cout // 64) * k * s
     assert blocks >= 2 * window_conv.SMS or s == n_in // 1024 or s == 1
+
+
+@pytest.mark.parametrize("n_in,k,cin,cout,want", [
+    (90112, 27, 64, 64, 64), (30208, 27, 128, 128, 20),
+    (10240, 27, 256, 256, 5), (45056, 27, 96, 96, 20),
+    (90112, 27, 64, 384, 14), (9293, 5, 48, 40, 9), (500, 27, 64, 64, 1)])
+def test_dw_tc_splits_fill_the_card(n_in, k, cin, cout, want):
+    """The tensor-core body's splits: about DW_TC_WARPS_PER_SM warps on each
+    SM, unless the rows run out (at least MIN_SPLIT_ROWS per split) or 64
+    splits are reached; its Cout tiles (K1's) cover Cout."""
+    s = window_conv.dw_splits(n_in, k, cin, cout, tensor_cores=True)
+    assert s == want
+    tiles, wn = window_conv.col_tiles(cout)
+    assert 1 <= wn <= 4 and tiles * 64 * wn >= cout > (tiles * wn - 1) * 64
+    warps = -(-cin // 64) * tiles * k * 2 * wn * s
+    assert (warps >= window_conv.DW_TC_WARPS_PER_SM * window_conv.SMS
+            or s == min(64, n_in // window_conv.MIN_SPLIT_ROWS) or s == 1)
 
 
 def test_dw_launcher_refuses_cpu_tensors():
@@ -394,3 +460,41 @@ def test_im2col_bwd_splits_bounded(n_in, k, cin, cout, want):
     assert s == want
     assert s <= -(-n_in // window_conv.IM2COL_TILE)
     assert s * cin * k * cout * 4 <= window_conv.IM2COL_PART_BYTES or s == 1
+
+
+@pytest.mark.parametrize("with_t", [False, True])
+def test_sparse_conv_with_bias_matches_jax(big, with_t):
+    """Forward (and with the transpose map, every gradient through the
+    gather backward) against the JAX `sparse_conv_with_bias`, f32."""
+    kmap, kmap_t, mirror, feats, w, g = _conv_inputs(big, "same1k3", 16, 24,
+                                                     19)
+    bias = np.random.default_rng(5).normal(size=24).astype(np.float32)
+    kw = dict(kmap_t=kmap_t, mirror=mirror) if with_t else {}
+    j_kw = (dict(kmap_t=jnp.asarray(kmap_t.numpy()), mirror=mirror)
+            if with_t else {})
+    ref, vjp = jax.vjp(
+        lambda f, ww, b: j_sparse_conv_with_bias(
+            f, jnp.asarray(kmap.numpy()), ww, b, **j_kw),
+        jnp.asarray(feats), jnp.asarray(w), jnp.asarray(bias))
+    tf, tw, tb = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (feats, w, bias))
+    out = conv.sparse_conv_with_bias(tf, kmap, tw, tb, **kw)
+    _close(out.detach().numpy(), np.asarray(ref))
+    from csn_tpu_torch.core import sparse_conv_with_bias
+    assert sparse_conv_with_bias is conv.sparse_conv_with_bias
+    out.backward(torch.from_numpy(g))
+    for got, want in zip((tf.grad, tw.grad, tb.grad),
+                         vjp(jnp.asarray(g))):
+        _close(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape", [(37, 5), (3, 11, 4)])
+def test_masked_fill_matches_jax(shape):
+    rng = np.random.default_rng(len(shape))
+    feats = rng.normal(size=shape).astype(np.float32)
+    mask = rng.random(shape[:-1]) < 0.6
+    got = conv.masked_fill(torch.from_numpy(feats), torch.from_numpy(mask))
+    ref = np.asarray(j_masked_fill(jnp.asarray(feats), jnp.asarray(mask)))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert not got.numpy()[~mask].any()
