@@ -35,7 +35,18 @@ Phases (each prints its lines; any failure exits nonzero):
      tiles); on the same inputs `sparse_conv_im2col_fwd`
      against `conv_im2col_plain` and K1, and `sparse_conv_im2col_bwd`
      (d_feats and dW; dW only for the stem) against `conv_im2col_bwd_plain`
-     and K1 / `sparse_conv_dw`; K2 (flash attention) at the SSA and CSA
+     and K1 / `sparse_conv_dw`, and where their tensor-core bodies run
+     (bf16, Cout % 8 == 0, the stem included: `im2col_tensor_cores`) the
+     forward, d_feats (K1_F64_TOL) and dW (DW_F64_TOL) against float64
+     references of the same bf16 operands, repeats that must be bitwise
+     equal, the densest transpose-map offset made all sentinels (exact
+     zeros there, the other offsets' bits unchanged), and where Cin % 16
+     == 0 the forward bitwise equal to K1 (it runs K1's loop), plus
+     synthetic maps at the bodies' edges (rows not a multiple of the row
+     tile or the 256-row super-tile, splits with a remainder, Cin/Cout
+     48/40 and 160/200, the stem with a dead and a one-row offset) and a
+     `[perconv]` line per timed conv (the im2col pair against K1 +
+     `sparse_conv_dw`); K2 (flash attention) at the SSA and CSA
      shapes with masks, and at a ragged shape (Lq 1000 against Lk 777, a
      ragged key mask with one fully masked 64-key tile, one query tile all
      padding), at head dims 64 (4 heads) and 256 (8 heads), at dropout 0
@@ -368,6 +379,9 @@ class Table:
         self.bound_ops_ms = {k: 0.0 for k in KERNELS}
         self.library_ms = {k: None for k in KERNELS}
         self.dw_f64 = []   # (error / max|ref|) of each dW float64 line
+        # (error / max|ref|) of the im2col pair's float64 lines: forward and
+        # d_feats, dW
+        self.im2col_f64 = {"out": [], "dW": []}
 
     def check(self, name, what, got, ref, dtype, valid=None):
         got, ref = got.float(), ref.float()
@@ -390,7 +404,7 @@ class Table:
         (`nbytes` moved once over the memory rate, `flops` over the peak of
         `dtype`) and, with `fn_library`, the median ms of the one PyTorch
         call that computes the same function; all added `count` times to
-        the train step's totals."""
+        the train step's totals. Returns the kernel's median ms."""
         ms = median_ms(fn_kernel)
         pms = median_ms(fn_plain, warmup=1, reps=reps)
         b_ms = nbytes / HBM_BYTES_S * 1e3
@@ -410,6 +424,7 @@ class Table:
         self.bound_ms[name] += count * max(b_ms, o_ms)
         self.bound_bytes_ms[name] += count * b_ms
         self.bound_ops_ms[name] += count * o_ms
+        return ms
 
     def bound(self, name):
         """(bound_ms, bound_by) of the kernel's launches of one train step:
@@ -457,18 +472,47 @@ def conv_f64(feats, kmap, weights):
     return out
 
 
-def check_k1_f64(table, what, got, feats, kmap, weights):
-    """K1's tensor-core body against `conv_f64` within K1_F64_TOL."""
-    ref = conv_f64(feats, kmap, weights)
+def check_f64(table, name, what, got, ref, tol):
+    """One `vs float64` line of a tensor-core body: max|got - ref| within
+    tol x max|ref| (ref a float64 result of the same bf16 operands).
+    Returns the error's share of max|ref|."""
     err = (got.double() - ref).abs().max().item()
     scale = ref.abs().max().item()
-    tol = K1_F64_TOL * scale
-    ok = bool(torch.isfinite(got).all()) and err <= tol
-    print(f"[check] sparse_conv_fwd {what} bfloat16 (tensor cores) vs "
-          f"float64: max_abs_err {err:.3e} tol {tol:.3e} (max|ref| "
+    ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+    print(f"[check] {name} {what} bfloat16 (tensor cores) vs float64: "
+          f"max_abs_err {err:.3e} tol {tol * scale:.3e} (max|ref| "
           f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
-    require(ok, f"sparse_conv_fwd {what}: bf16 tensor-core body vs float64")
-    table.err["sparse_conv_fwd"] = max(table.err["sparse_conv_fwd"], err)
+    require(ok, f"{name} {what}: bf16 tensor-core body vs float64")
+    table.err[name] = max(table.err[name], err)
+    return err / scale if scale else 0.0
+
+
+def check_same(name, what, check, same):
+    """One exact line of a tensor-core body: `check` holds (`same`)."""
+    print(f"[check] {name} {what} bfloat16 (tensor cores) {check} "
+          f"{'ok' if same else 'FAIL'}")
+    require(same, f"{name} {what}: {check}")
+
+
+def check_dead_offset(name, what, dw_call, kmap_t, n_g, dw):
+    """The map `kmap_t` with its densest offset made all sentinels:
+    `dw_call(map)` -> dW_t gives exact zeros at that offset and the bits of
+    `dw` (the call on `kmap_t`) at every other."""
+    k0 = int((kmap_t < n_g).sum(1).argmax())
+    dead = kmap_t.clone()
+    dead[k0] = n_g
+    got = dw_call(dead)
+    zero = not got[k0].any().item()
+    rest = torch.equal(torch.cat([got[:k0], got[k0 + 1:]]),
+                       torch.cat([dw[:k0], dw[k0 + 1:]]))
+    check_same(name, what, f"offset {k0} without live rows: exact zeros "
+               f"{zero}, other offsets bitwise equal {rest}", zero and rest)
+
+
+def check_k1_f64(table, what, got, feats, kmap, weights):
+    """K1's tensor-core body against `conv_f64` within K1_F64_TOL."""
+    check_f64(table, "sparse_conv_fwd", what, got,
+              conv_f64(feats, kmap, weights), K1_F64_TOL)
 
 
 def dw_f64(feats, g, kmap_t):
@@ -487,33 +531,13 @@ def check_dw_tc(table, what, feats, g, kmap_t):
     first call's bits at every other offset. Returns the first call."""
     name = "sparse_conv_dw"
     got = window_conv.sparse_conv_dw(feats, g, kmap_t)
-    ref = dw_f64(feats, g, kmap_t)
-    err = (got.double() - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    tol = DW_F64_TOL * scale
-    ok = bool(torch.isfinite(got).all()) and err <= tol
-    print(f"[check] {name} {what} bfloat16 (tensor cores) vs float64: "
-          f"max_abs_err {err:.3e} tol {tol:.3e} (max|ref| {scale:.3e}) "
-          f"{'ok' if ok else 'FAIL'}")
-    require(ok, f"{name} {what}: bf16 tensor-core body vs float64")
-    table.err[name] = max(table.err[name], err)
-    table.dw_f64.append(err / scale if scale else 0.0)
-    del ref
-    same = torch.equal(got, window_conv.sparse_conv_dw(feats, g, kmap_t))
-    print(f"[check] {name} {what} bfloat16 (tensor cores) repeat: "
-          f"{'bitwise equal ok' if same else 'FAIL'}")
-    require(same, f"{name} {what}: two calls differ")
-    k0 = int((kmap_t < g.shape[0]).sum(1).argmax())
-    dead = kmap_t.clone()
-    dead[k0] = g.shape[0]
-    got_dead = window_conv.sparse_conv_dw(feats, g, dead)
-    zero = not got_dead[k0].any().item()
-    rest = torch.equal(torch.cat([got_dead[:k0], got_dead[k0 + 1:]]),
-                       torch.cat([got[:k0], got[k0 + 1:]]))
-    print(f"[check] {name} {what} bfloat16 (tensor cores) offset {k0} "
-          f"without live rows: exact zeros {zero}, other offsets bitwise "
-          f"equal {rest} {'ok' if zero and rest else 'FAIL'}")
-    require(zero and rest, f"{name} {what}: offset without live rows")
+    table.dw_f64.append(check_f64(table, name, what, got,
+                                  dw_f64(feats, g, kmap_t), DW_F64_TOL))
+    check_same(name, what, "repeat: bitwise equal", torch.equal(
+        got, window_conv.sparse_conv_dw(feats, g, kmap_t)))
+    check_dead_offset(name, what,
+                      lambda km: window_conv.sparse_conv_dw(feats, g, km),
+                      kmap_t, g.shape[0], got)
     return got
 
 
@@ -550,6 +574,138 @@ def check_dw_edges(dev, table, g):
         table.check("sparse_conv_dw", what, got, ref, torch.bfloat16)
         require(not got[2].any().item() and got[3].any().item(),
                 f"dW {what}: the empty offset and the one-row offset")
+
+
+def check_im2col_fwd_tc(table, what, feats, kmap, weights, vs_k1=True):
+    """`sparse_conv_im2col_fwd` on its tensor-core body (bf16,
+    `im2col_tensor_cores`): against `conv_f64` (K1_F64_TOL), a repeat
+    bitwise equal, and where Cin % 16 == 0 (K1's loop) and `vs_k1` bitwise
+    equal to K1. Returns the first call."""
+    name = "sparse_conv_im2col_fwd"
+    out = window_conv.sparse_conv_im2col_fwd(feats, kmap, weights)
+    table.im2col_f64["out"].append(check_f64(
+        table, name, what, out, conv_f64(feats, kmap, weights), K1_F64_TOL))
+    check_same(name, what, "repeat: bitwise equal", torch.equal(
+        out, window_conv.sparse_conv_im2col_fwd(feats, kmap, weights)))
+    if vs_k1 and feats.shape[1] % 16 == 0:
+        check_same(name, what, "vs K1 (K1's loop): bitwise equal",
+                   torch.equal(out, window_conv.sparse_conv_fwd(feats, kmap,
+                                                                weights)))
+    return out
+
+
+def check_im2col_bwd_tc(table, what, feats, g, kmap_t, w_pair, dw_only):
+    """`sparse_conv_im2col_bwd` on its tensor-core body: d_feats (unless
+    `dw_only`) against `conv_f64` over the transpose map with the paired
+    weights `w_pair` [K, Cin, Cout] transposed (K1_F64_TOL), dW against
+    `dw_f64` (DW_F64_TOL), a repeat bitwise equal in both, and the same map
+    with its densest offset made all sentinels: exact zeros in that
+    offset's dW, the first call's bits at every other offset. Returns the
+    first call's dW_t [K, Cin, Cout]."""
+    name = "sparse_conv_im2col_bwd"
+    n_off = kmap_t.shape[0]
+    wt_flat = None if dw_only else conv.stack_pair_transposed(
+        w_pair).contiguous()
+
+    def call(km):
+        d, dw = window_conv.sparse_conv_im2col_bwd(feats, g, km, wt_flat,
+                                                   dw_only)
+        return d, conv.unstack_dw(dw, n_off)
+
+    what = f"{what} dw_only {dw_only}"
+    d_feats, dw = call(kmap_t)
+    if not dw_only:
+        table.im2col_f64["out"].append(check_f64(
+            table, name, f"{what} d_feats", d_feats,
+            conv_f64(g, kmap_t, w_pair.transpose(1, 2)), K1_F64_TOL))
+    table.im2col_f64["dW"].append(check_f64(
+        table, name, f"{what} dW", dw, dw_f64(feats, g, kmap_t), DW_F64_TOL))
+    d2, dw2 = call(kmap_t)
+    check_same(name, what, "repeat: bitwise equal", torch.equal(dw, dw2)
+               and (dw_only or torch.equal(d_feats, d2)))
+    check_dead_offset(name, what, lambda km: call(km)[1], kmap_t, g.shape[0],
+                      dw)
+    return dw
+
+
+def check_im2col_edges(dev, table, g):
+    """The im2col pair's tensor-core bodies on synthetic maps cut to their
+    edges: a conv from N_in = 141 super-tiles - 179 rows (not a multiple of
+    the backward's 256-row super-tile) to 7000 rows (not a multiple of the
+    forward's 64- or 128-row tile), with splits of whole super-tiles that
+    leave a remainder; offsets fully live, without a live row, with only
+    the last row, sparse ones; Cin and Cout 48 and 40 (a part channel tile,
+    64-column chunks that span offsets) and 160 and 200 (three channel
+    tiles, one 256-column tile); the k5 stem (Cin 3, 125 offsets: the
+    forward's flattened steps, the backward's 16-channel tile) with and
+    without d_feats; IM2COL_MAX_OFFSETS offsets (the forward's shorter row
+    tiles). Against the plain versions (TOL), `check_im2col_fwd_tc` and
+    `check_im2col_bwd_tc`."""
+    rows = window_conv.IM2COL_TC_ROWS
+    n_in, n_out = 141 * rows - 179, 7000
+    gen = torch.Generator().manual_seed(SEED + 8)
+    for cin, cout, n_off, dense in ((48, 40, 5, None), (160, 200, 5, None),
+                                    (3, 32, 125, 0.1)):
+        fill = (torch.tensor([0.3, 1.0, 0.0, 0.0, 0.05]) if dense is None
+                else torch.full((n_off,), dense))
+        maps = []
+        for n_dst, n_src in ((n_out, n_in), (n_in, n_out)):
+            pick = torch.randint(0, n_src, (n_off, n_dst), generator=gen,
+                                 dtype=torch.int32)
+            live = torch.rand(n_off, n_dst, generator=gen) < fill[:, None]
+            live[2] = False
+            live[3] = False
+            live[3, -1] = True
+            maps.append(torch.where(live, pick, n_src).to(dev))
+        kmap, kmap_t = maps
+        s = window_conv.im2col_bwd_tc_splits(n_in, n_off, cin, cout)
+        n_st = -(-n_in // rows)
+        per = -(-n_st // s)
+        require(n_in % rows and n_out % 64 and s > 1 and n_st % per,
+                f"im2col edge case {cin}->{cout}: S={s}, {n_st} super-tiles")
+        f = torch.randn(n_in, cin, generator=gen).to(dev, torch.bfloat16)
+        w = ((torch.rand(n_off, cin, cout, generator=gen) * 2 - 1)
+             / (cin * n_off) ** 0.5).to(dev, torch.bfloat16)
+        gd = torch.randn(n_out, cout, generator=gen).to(dev, torch.bfloat16)
+        what = (f"edges {cin}->{cout} K={n_off} N_in={n_in} N_out={n_out} "
+                f"S={s} ({per} super-tiles of {rows} per split, {n_st} in "
+                f"all)")
+        out = check_im2col_fwd_tc(table, what, f, kmap, w)
+        table.check("sparse_conv_im2col_fwd", what, out,
+                    conv.conv_im2col_plain(f, kmap, w), torch.bfloat16)
+        for dw_only in ((True, False) if cin == 3 else (False,)):
+            dw = check_im2col_bwd_tc(table, what, f, gd, kmap_t, w, dw_only)
+            pl_df, pl_dw = conv.conv_im2col_bwd_plain(
+                f, gd, kmap_t, w.float(), False, not dw_only)
+            im_df, im_dw = conv.conv_im2col_bwd_kernels(
+                f, gd, kmap_t, w.float(), False, not dw_only)
+            if not dw_only:
+                table.check("sparse_conv_im2col_bwd", f"{what} d_feats",
+                            im_df, pl_df, torch.bfloat16)
+            table.check("sparse_conv_im2col_bwd", f"{what} dw_only {dw_only} "
+                        f"dW", im_dw, pl_dw, torch.bfloat16)
+            require(not dw[2].any().item() and dw[3].any().item(),
+                    f"im2col dW {what}: the empty offset and the one-row "
+                    f"offset")
+    # the most offsets the wrappers take: the forward's kmap slab does not
+    # fit beside K1's tiles, so its tiles hold fewer rows (K1's loop at Cin
+    # 32, where K1 itself cannot launch; the flattened steps at Cin 40)
+    n_off, n_in, n_out = window_conv.IM2COL_MAX_OFFSETS, 2000, 3000
+    for cin, cout in ((32, 64), (32, 256), (40, 64)):
+        kmap, kmap_t = (torch.where(
+            torch.rand(n_off, n_dst, generator=gen) < 0.05,
+            torch.randint(0, n_src, (n_off, n_dst), generator=gen,
+                          dtype=torch.int32), n_src).to(dev)
+            for n_dst, n_src in ((n_out, n_in), (n_in, n_out)))
+        f = torch.randn(n_in, cin, generator=gen).to(dev, torch.bfloat16)
+        w = ((torch.rand(n_off, cin, cout, generator=gen) * 2 - 1)
+             / (cin * n_off) ** 0.5).to(dev, torch.bfloat16)
+        gd = torch.randn(n_out, cout, generator=gen).to(dev, torch.bfloat16)
+        what = f"edges {cin}->{cout} K={n_off} N_in={n_in} N_out={n_out}"
+        out = check_im2col_fwd_tc(table, what, f, kmap, w, vs_k1=False)
+        table.check("sparse_conv_im2col_fwd", what, out,
+                    conv.conv_im2col_plain(f, kmap, w), torch.bfloat16)
+        check_im2col_bwd_tc(table, what, f, gd, kmap_t, w, False)
 
 
 def check_convs(model, big, dev, table, g, timed=True):
@@ -624,46 +780,65 @@ def check_convs(model, big, dev, table, g, timed=True):
                         dt)
             del ref_df, ref_dw, got_df, got_dw, got, pl_df, pl_dw, im_df, \
                 im_dw
+            im_tc = window_conv.im2col_tensor_cores(dt, cin, cout)
+            if im_tc:
+                check_im2col_fwd_tc(table, what, f, kmap, wt)
+                check_im2col_bwd_tc(table, f"{what} ({t_name}, mirror "
+                                    f"{mirror})", f, gd, kmap_t,
+                                    wt.flip(0) if mirror else wt,
+                                    n_dfeats == 0)
             if dt != torch.bfloat16 or not timed:
                 continue
             nb, fl = conv_work(kmap, n_in, cin, cout, 2, 2)
-            table.time("sparse_conv_fwd", what,
-                       lambda: window_conv.sparse_conv_fwd(f, kmap, wt),
-                       lambda: conv.conv_plain(f, kmap, wt), count,
-                       nbytes=nb, flops=fl)
+            k1_ms = table.time("sparse_conv_fwd", what,
+                               lambda: window_conv.sparse_conv_fwd(f, kmap,
+                                                                   wt),
+                               lambda: conv.conv_plain(f, kmap, wt), count,
+                               nbytes=nb, flops=fl)
+            k1_bwd_ms = 0.0
             if n_dfeats:
                 nb, fl = conv_work(kmap_t, kmap.shape[1], cout, cin, 2, 2)
-                table.time("sparse_conv_fwd", f"d_feats over {t_name}",
-                           lambda: window_conv.sparse_conv_fwd(gd, kmap_t,
-                                                               w_t),
-                           lambda: conv.conv_plain(gd, kmap_t, w_t), n_dfeats,
-                           nbytes=nb, flops=fl)
+                k1_bwd_ms = table.time(
+                    "sparse_conv_fwd", f"d_feats over {t_name}",
+                    lambda: window_conv.sparse_conv_fwd(gd, kmap_t, w_t),
+                    lambda: conv.conv_plain(gd, kmap_t, w_t), n_dfeats,
+                    nbytes=nb, flops=fl)
             # dW reads the features and the output gradient, writes f32
             nb, fl = conv_work(kmap_t, kmap.shape[1], cout, cin, 2, 4)
             body = "tensor cores" if dw_tc else "CUDA cores"
-            table.time("sparse_conv_dw", f"{what} ({body})",
-                       lambda: window_conv.sparse_conv_dw(f, gd, kmap_t),
-                       lambda: conv.conv_bwd_plain(f, gd, kmap_t, wt.float(),
-                                                   mirror, False), count,
-                       reps=3, nbytes=nb, flops=fl)
+            k1_bwd_ms += table.time(
+                "sparse_conv_dw", f"{what} ({body})",
+                lambda: window_conv.sparse_conv_dw(f, gd, kmap_t),
+                lambda: conv.conv_bwd_plain(f, gd, kmap_t, wt.float(),
+                                            mirror, False), count,
+                reps=3, nbytes=nb, flops=fl)
+            body = "tensor cores" if im_tc else "CUDA cores"
             nb, fl = conv_work(kmap, n_in, cin, cout, 2, 2)
-            table.time(fwd, what,
-                       lambda: window_conv.sparse_conv_im2col_fwd(f, kmap,
-                                                                  wt),
-                       lambda: conv.conv_im2col_plain(f, kmap, wt), count,
-                       reps=3, nbytes=nb, flops=fl)
+            im_ms = table.time(fwd, f"{what} ({body})",
+                               lambda: window_conv.sparse_conv_im2col_fwd(
+                                   f, kmap, wt),
+                               lambda: conv.conv_im2col_plain(f, kmap, wt),
+                               count, reps=3, nbytes=nb, flops=fl)
             # stem: dW only; every other conv of the family: both gradients
+            im_bwd_ms = {}
             for with_df, n in ((True, n_dfeats), (False, count - n_dfeats)):
                 if not n:
                     continue
                 nb, fl = conv_bwd_work(kmap_t, kmap.shape[1], cin, cout, 2,
                                        with_df)
-                table.time(bwd, f"{what} dw_only {not with_df}",
-                           lambda: conv.conv_im2col_bwd_kernels(
-                               f, gd, kmap_t, wt.float(), mirror, with_df),
-                           lambda: conv.conv_im2col_bwd_plain(
-                               f, gd, kmap_t, wt.float(), mirror, with_df),
-                           n, reps=3, nbytes=nb, flops=fl)
+                im_bwd_ms[with_df] = table.time(
+                    bwd, f"{what} dw_only {not with_df} ({body})",
+                    lambda: conv.conv_im2col_bwd_kernels(
+                        f, gd, kmap_t, wt.float(), mirror, with_df),
+                    lambda: conv.conv_im2col_bwd_plain(
+                        f, gd, kmap_t, wt.float(), mirror, with_df),
+                    n, reps=3, nbytes=nb, flops=fl)
+            # the data of a per-conv choice between the forms: per call
+            print(f"[perconv] {what} (x{count}, {body}): forward im2col "
+                  f"{im_ms:.4f} / K1 {k1_ms:.4f} ms; backward im2col "
+                  f"{im_bwd_ms[n_dfeats > 0]:.4f} / K1 "
+                  f"{'d_feats + ' if n_dfeats else ''}sparse_conv_dw "
+                  f"{k1_bwd_ms:.4f} ms")
         torch.cuda.empty_cache()
     return sum(convs.values())
 
@@ -2374,6 +2549,7 @@ def main() -> int:
     n_convs = check_convs(model, big, dev, table, g)
     n_stems = 1   # conv0 reads the raw voxel features: no d_feats
     check_dw_edges(dev, table, g)
+    check_im2col_edges(dev, table, g)
     check_attention(qb, kb, big, dev, table, g)
     check_interp(qb, dev, table, g)
     del big
@@ -2382,6 +2558,11 @@ def main() -> int:
     print(f"[check] sparse_conv_dw bfloat16 (tensor cores) vs float64: "
           f"worst {max(table.dw_f64):.3e} of max|ref| over "
           f"{len(table.dw_f64)} lines (tol {DW_F64_TOL:.0e}) ok")
+    for kind, tol in (("out", K1_F64_TOL), ("dW", DW_F64_TOL)):
+        errs = table.im2col_f64[kind]
+        print(f"[check] im2col pair bfloat16 (tensor cores) {kind} vs "
+              f"float64: worst {max(errs):.3e} of max|ref| over {len(errs)} "
+              f"lines (tol {tol:.0e}) ok")
     check_probes(dev, table)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

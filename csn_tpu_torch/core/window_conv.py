@@ -24,11 +24,20 @@ straight from the kernel map:
   of `csn_tpu_torch.core.conv.conv_bwd_plain`.
 * `sparse_conv_im2col_fwd` (`csn_tpu_torch/csrc/sparse_conv_im2col.cu`): the
   forward as one product per output tile over the flattened axis K*Cin,
-  walked in chunks. Plain version: `csn_tpu_torch.core.conv.conv_im2col_plain`.
+  walked in steps of 64 columns. bf16 with Cout % 8 == 0, the k5 stem
+  included (`im2col_tensor_cores`), runs on the tensor cores: where Cin %
+  16 == 0 the walk is K1's loop (`csrc/sparse_conv_tc.cuh`, K1's bits), and
+  other Cin (the stem's 3) take steps that span offsets, gathered element
+  by element. f32 runs f32 FMAs on the CUDA cores. Plain version:
+  `csn_tpu_torch.core.conv.conv_im2col_plain`.
 * `sparse_conv_im2col_bwd` (`csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu`):
-  the fused backward, one gather of the output gradient per (row tile, chunk
-  of K*Cout) feeding d_feats and the whole dW. Plain version:
-  `csn_tpu_torch.core.conv.conv_im2col_bwd_plain`.
+  the fused backward, one gather of the output gradient per (row tile,
+  chunk of K*Cout) feeding d_feats and the whole dW. bf16 by the same rule
+  runs on the tensor cores (`mma.sync`; super-tiles of 256 rows keep
+  d_feats in registers over all chunks, and dW goes to the split's partial
+  once per super-tile and chunk, stored first and added after, so the
+  partials need no zero fill); f32 runs f32 FMAs on the CUDA cores. Plain
+  version: `csn_tpu_torch.core.conv.conv_im2col_bwd_plain`.
 
 `dyng_mode()` reads `CSN_DYNG` at call time, as the JAX package's function
 does: `0` and `1` take K1 + `sparse_conv_dw` (mode 1's per-offset row gather
@@ -201,19 +210,36 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
     return out
 
 
-# the im2col kernels stage a tile's map columns in shared memory, 65 int32
-# per offset beside at most 48 KB of operand tiles, of 227 KB a block can use
+# the im2col forward stages a tile's map columns in shared memory (the
+# CUDA-core body 65 int32 per offset beside 8 KB of operand tiles, the
+# tensor-core body fewer rows per tile where many offsets need it), of 227
+# KB a block can use
 IM2COL_MAX_OFFSETS = 640
 # device memory the backward's per-split dW partials may take
 IM2COL_PART_BYTES = 512 * 2 ** 20
 IM2COL_TILE = 64
+# the tensor-core backward's rows per super-tile (csrc/sparse_conv_im2col_bwd.cu
+# SR): a block's d_feats stays in registers over one, and its dW partial is
+# written once per super-tile and chunk
+IM2COL_TC_ROWS = 256
+
+
+def im2col_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether the im2col pair runs its tensor-core bodies
+    (`csn_sparse_conv_im2col_fwd` and `csn_sparse_conv_im2col_bwd` choose by
+    the same rule): bf16 with Cout a multiple of 8, whatever Cin. Unlike
+    K1's rule it takes the stems (Cin 3): the flattened axis K*Cin is one
+    long reduction whatever Cin is. f32 runs the CUDA-core bodies."""
+    return dtype == torch.bfloat16 and cout % 8 == 0
 
 
 def sparse_conv_im2col_fwd(feats: torch.Tensor, kmap: torch.Tensor,
                            weights: torch.Tensor) -> torch.Tensor:
     """Launch the im2col forward: feats [N_in, Cin], kmap [K, N_out] int32
     (sentinel N_in), weights [K, Cin, Cout] of the feats' dtype ->
-    [N_out, Cout] = IC @ weights.reshape(K * Cin, Cout)."""
+    [N_out, Cout] = IC @ weights.reshape(K * Cin, Cout). The tensor-core
+    body copies the weights, and feats where Cin % 16 == 0, 16 bytes at a
+    time: it takes only such views that start on a 16-byte boundary."""
     what = "sparse_conv_im2col_fwd"
     kernels.require_cuda(what, feats, kmap, weights)
     if feats.dim() != 2 or kmap.dim() != 2 or weights.dim() != 3:
@@ -234,6 +260,12 @@ def sparse_conv_im2col_fwd(feats: torch.Tensor, kmap: torch.Tensor,
         raise ValueError(f"{what}: {n_off} offsets; the kernel stages at "
                          f"most {IM2COL_MAX_OFFSETS}")
     cout = weights.shape[2]
+    if im2col_tensor_cores(feats.dtype, cin, cout) and (
+            weights.data_ptr() % 16 or (cin % 16 == 0
+                                        and feats.data_ptr() % 16)):
+        raise ValueError(f"{what}: bf16 weights, and feats where Cin % 16 == "
+                         f"0, must start on a 16-byte boundary (cp.async "
+                         f"copies)")
     out = torch.empty((n_out, cout), dtype=feats.dtype, device=feats.device)
     code = kernels.library().csn_sparse_conv_im2col_fwd(
         kernels.dtype_code(feats), feats.data_ptr(), kmap.data_ptr(),
@@ -257,6 +289,22 @@ def im2col_bwd_splits(n_in: int, n_off: int, cin: int, cout: int) -> int:
     return -(-n_tiles // per_split)   # no split without a tile
 
 
+def im2col_bwd_tc_splits(n_in: int, n_off: int, cin: int, cout: int) -> int:
+    """Row splits S of the tensor-core im2col backward, whose blocks of 8
+    warps (split x tile of 64 input channels, 16 at Cin <= 16) fill an SM
+    each: about one block per SM, whole super-tiles of IM2COL_TC_ROWS rows
+    per split spread evenly (no split without one), and partials [S, Cin,
+    K * Cout] f32 within IM2COL_PART_BYTES. The partial traffic is one
+    write of dW per super-tile whatever S is, so S only has to fill the
+    card."""
+    bc = 16 if cin <= 16 else 64              # the kernel's channel tile
+    want = -(-SMS // -(-cin // bc))
+    n_st = max(1, -(-n_in // IM2COL_TC_ROWS))
+    fit = IM2COL_PART_BYTES // (4 * cin * n_off * cout)
+    per_split = -(-n_st // max(1, min(want, n_st, fit)))
+    return -(-n_st // per_split)
+
+
 def sparse_conv_im2col_bwd(feats: torch.Tensor, g: torch.Tensor,
                            kmap_t: torch.Tensor, wt_flat,
                            dw_only: bool = False):
@@ -264,7 +312,10 @@ def sparse_conv_im2col_bwd(feats: torch.Tensor, g: torch.Tensor,
     of one dtype, kmap_t [K, N_in] int32 (sentinel N_g), wt_flat
     [K * Cout, Cin] of that dtype (the paired weights transposed and
     stacked; None with `dw_only`) -> (d_feats [N_in, Cin] in that dtype, or
-    None with `dw_only`; dW_flat [Cin, K * Cout] f32 = feats^T @ GG)."""
+    None with `dw_only`; dW_flat [Cin, K * Cout] f32 = feats^T @ GG). The
+    tensor-core body copies g, and feats and wt_flat where Cin % 8 == 0, 16
+    bytes at a time: it takes only such views that start on a 16-byte
+    boundary."""
     what = "sparse_conv_im2col_bwd"
     tensors = (feats, g, kmap_t) if dw_only else (feats, g, kmap_t, wt_flat)
     kernels.require_cuda(what, *tensors)
@@ -290,10 +341,19 @@ def sparse_conv_im2col_bwd(feats: torch.Tensor, g: torch.Tensor,
                              f"{g.dtype}; got {tuple(wt_flat.shape)} "
                              f"{wt_flat.dtype}")
         d_feats = torch.empty_like(feats)
-    n_split = im2col_bwd_splits(n_in, n_off, cin, cout)
-    # the blocks add into their partials, so these start at zero
-    part = torch.zeros((n_split, cin, n_off * cout), dtype=torch.float32,
-                       device=feats.device)
+    tc = im2col_tensor_cores(feats.dtype, cin, cout)
+    if tc and (g.data_ptr() % 16 or cin % 8 == 0 and (
+            feats.data_ptr() % 16
+            or not dw_only and wt_flat.data_ptr() % 16)):
+        raise ValueError(f"{what}: bf16 g, and feats and wt_flat where Cin % "
+                         f"8 == 0, must start on a 16-byte boundary "
+                         f"(cp.async copies)")
+    n_split = (im2col_bwd_tc_splits if tc else im2col_bwd_splits)(
+        n_in, n_off, cin, cout)
+    # the tensor-core blocks store their slices of the partials before they
+    # add to them; the CUDA-core blocks only add, so theirs start at zero
+    part = (torch.empty if tc else torch.zeros)(
+        (n_split, cin, n_off * cout), dtype=torch.float32, device=feats.device)
     out = part[0] if n_split == 1 else torch.empty_like(part[0])
     code = kernels.library().csn_sparse_conv_im2col_bwd(
         kernels.dtype_code(feats), feats.data_ptr(), g.data_ptr(),

@@ -15,31 +15,81 @@
 // unstacks dW_flat [Cin, K, Cout] -> dW_t [K, Cin, Cout] and un-mirrors
 // same-level maps.
 //
-// What bounds it on the H100: operations. 4*Cin*Cout flops per valid (row,
-// offset), on the CUDA cores (FMA), the sum of K1 over the transpose map and
-// sparse_conv_dw; what the form saves is the second gather of g.
+// Two bodies, chosen by dtype and shape (window_conv.im2col_tensor_cores is
+// the same rule; a failed launch returns its error, there is no retry on the
+// other body):
+//  * bf16 with Cout % 8 == 0, any Cin (every conv of the HRNet, Res16UNet,
+//    ResUNet and ResNet families, the k5 stem included): the tensor-core
+//    body, mma.sync m16n8k16 on bf16 operands with f32 accumulators;
+//  * f32 (and bf16 with Cout % 8 != 0): the CUDA-core body, f32 FMAs.
 //
-// Design. The TPU grid is sequential and adds every tile's product into one
-// resident dW block. Here the row tiles run in parallel, so block (split s,
-// tile ct of BC input channels) owns a contiguous run of 64-row tiles and a
-// private f32 partial part[s][ct*BC .. +BC][K*Cout], zeroed by the caller.
-// For each of its row tiles it stages the tile's transpose-map columns and
-// its feats rows in shared memory, then walks the flattened axis K*Cout in
-// chunks of 64 columns: it gathers GG[:, chunk] into shared memory once, adds
-// GG[:, chunk] @ WT[chunk] to the d_feats tile it keeps in registers, forms
-// feats_tile^T @ GG[:, chunk] in registers and adds it to its partial in
-// device memory (no other block touches that slice, so the read-modify-write
-// needs no atomics and the order of the sum is fixed). A chunk whose offsets
-// have no valid row in the tile is skipped. A second kernel (common.cuh) sums
-// the S partials in the order s = 0, 1, ... The input channels are a grid
-// dimension, so a wide conv (Cin 256) gathers each GG chunk once per tile of
-// 64 channels; both products split cleanly along it. The partial costs
-// BC * 64 * 8 bytes of read-modify-write per 4 * 64 * BC * 64 flops, one byte
-// per 32 flops, and S is bounded by the caller so that the partials stay
-// within a fixed memory budget. BC is 16 for the 3-channel stem and 64
-// otherwise.
+// What bounds it on the H100: 4*Cin*Cout operations per valid (row,
+// offset), the sum of K1 over the transpose map and sparse_conv_dw; what
+// the form saves is the second gather of g. Both bodies run the products
+// over every row of a tile: the CUDA-core body at each chunk of K*Cout that
+// holds a live offset, the tensor-core body at every chunk (below).
+//
+// The TPU grid is sequential and adds every tile's product into one
+// resident dW block. Here the row tiles run in parallel, so each block
+// (split s, tile of BC input channels) owns a contiguous run of row tiles
+// and a private f32 partial part[s][c0 .. c0+BC][K*Cout]; a second kernel
+// (common.cuh) sums the S partials in the order s = 0, 1, ... (no atomics,
+// one fixed order: two runs give the same bits). The input channels are a
+// grid dimension, so a wide conv gathers each GG chunk once per channel
+// tile; both products split cleanly along it. dW [BC, K*Cout] does not fit
+// on chip (1.7 MB at 64 x 6912), so a block writes it once per row tile and
+// chunk: that traffic is what bounds a fused body.
+//
+// Tensor-core design (bf16). Block = (split, BC = 64 input channels, 16
+// where Cin <= 16), 8 warps, one block per SM. It walks its steps: its
+// super-tiles of SR = 256 rows in order, and in each the chunks of BJ = 64
+// columns of K*Cout, as one pipeline of three stages:
+//  1. A super-tile's feats tile [SR][BC + 8] comes in by cp.async (16-byte
+//     pieces where Cin % 8 == 0, else element by element: the stem's rows
+//     are 6 bytes) into one of two buffers, one step before its first
+//     chunk.
+//  2. Per step, warp w gathers GG's columns 8w .. 8w+7 of all SR rows, 16
+//     bytes per (row, piece) by cp.async (Cout % 8 == 0, so a piece lies in
+//     one offset and chunks may span offsets), zero-filled for a sentinel:
+//     no read. The transpose-map entries are read into registers a step
+//     before the gather that uses them; WT's [BJ][BC + 8] rows come by
+//     cp.async beside it. The copies of the step after next are issued
+//     right after the barrier that publishes this step's.
+//  3. d_feats[SR x BC] += GG @ WT: warp w owns rows 32w .. 32w+31 (A by
+//     ldmatrix, B by ldmatrix.trans, as in K1) and keeps them in registers
+//     over the super-tile's chunks; they are stored once, in bf16.
+//  4. dW[BC x BJ] = feats_tile^T @ GG: A = feats^T by ldmatrix.trans of
+//     the feats tile (flash_tc.cuh load_a_t), B = GG by ldmatrix.trans; the
+//     block's split stores it in its first super-tile and adds it in the
+//     others, to its own slice (the values it adds to are read before the
+//     step's products, so their latency hides behind them): R super-tiles
+//     per split write dW R times where a 64-row walk wrote it 4R times, and
+//     the partials need no zero fill. SR = 256 is what the d_feats
+//     accumulators allow (64 f32 a lane). That write of dW, 8 bytes of
+//     partial traffic per row and dW element, is what bounds this body:
+//     the products over 256 rows are 2 x 256 operations per element.
+// Every chunk runs, also one whose offsets have no live row in the
+// super-tile: at 256 rows that is rare on the models' maps, and without a
+// scan of the map for it the pipeline runs on across super-tiles. Such a
+// chunk's gather is all zero-fill and its products add exact zeros, so a
+// dead offset's dW is exactly zero. With dw_only (the stem) WT and d_feats are skipped.
+// The stem's dW pads Cin 3 to BC = 16 (one m16 tile; 13 of 16 rows are
+// zeros) rather than swapping the product's operands, and sums its 16
+// k-steps in two halves so that its products do not wait on one another.
+//
+// CUDA-core design (f32). For each of its 64-row tiles the block stages
+// the tile's transpose-map columns and its feats rows in shared memory,
+// then walks K*Cout in chunks of 64 columns: it gathers GG[:, chunk] into
+// shared memory once, adds GG[:, chunk] @ WT[chunk] to the d_feats tile it
+// keeps in registers, forms feats_tile^T @ GG[:, chunk] in registers and
+// adds it to its partial in device memory, zeroed by the caller (no other
+// block touches that slice, so the read-modify-write needs no atomics). A
+// chunk whose offsets have no valid row in the tile is skipped. S is bounded
+// by the caller so that the partials stay within a fixed memory budget. BC
+// is 16 for the 3-channel stem and 64 otherwise.
 
 #include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -265,13 +315,378 @@ cudaError_t launch(const void* feats, const void* g, const void* kmap_t,
   return cudaGetLastError();
 }
 
+// --- the tensor-core body (bf16, Cout % 8 == 0) ----------------------------
+
+using csn_tc::bf16;
+using csn_tc::cp_async16;
+using csn_tc::cp_async_commit;
+using csn_tc::cp_async_wait;
+using csn_tc::ldsm_x4;
+using csn_tc::ldsm_x4_t;
+using csn_tc::mma;
+using csn_tc::pack;
+
+constexpr int SR = 256;        // rows per super-tile
+constexpr int LDG = BJ + 8;    // GG tile row stride (flash_tc.cuh's LDS)
+constexpr int NWARPS = THREADS / 32;
+constexpr int RPL = SR / 32;   // GG rows a lane gathers per chunk
+constexpr int NST = 3;         // stages of the chunk pipeline
+static_assert(BJ == 8 * NWARPS, "a warp gathers one 8-column piece");
+static_assert(SR == 32 * NWARPS, "a warp owns 32 rows of d_feats");
+
+template <int MC>
+struct BwdTile {
+  static constexpr int BC = 16 * MC;     // input channels per block
+  static constexpr int LDF = BC + 8;     // feats and WT tile row stride
+  static constexpr int G_ELEMS = SR * LDG;
+  static constexpr int STAGE_ELEMS = G_ELEMS + BJ * LDF;
+  static constexpr int F_ELEMS = SR * LDF;
+  // NST stages (GG, WT), two feats tiles (this super-tile's, the next's)
+  static constexpr size_t SMEM =
+      sizeof(bf16) * (NST * STAGE_ELEMS + 2 * F_ELEMS);
+};
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(csn_tc::smem_addr(p)));
+}
+
+// flash_tc.cuh load_a_t for a tile whose rows are LD elements apart: the A
+// fragment of k-step ks of T^T for T's columns col0 .. col0+15
+template <int LD>
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* tile,
+                                         int col0, int ks, int lane) {
+  ldsm_x4_t(a, tile + (ks * 16 + (lane & 7) + (lane >> 4) * 8) * LD + col0 +
+                   ((lane >> 3) & 1) * 8);
+}
+
+template <int MC>
+__global__ void __launch_bounds__(THREADS, 1)
+im2col_bwd_tc_kernel(const bf16* __restrict__ feats,
+                     const bf16* __restrict__ g,
+                     const int32_t* __restrict__ kmap_t,
+                     const bf16* __restrict__ wt, bf16* __restrict__ dfeats,
+                     float* __restrict__ part, int64_t n_in, int64_t n_g,
+                     int n_off, int cin, int cout, int64_t n_st,
+                     int64_t st_per_split, int dw_only) {
+  using Tl = BwdTile<MC>;
+  constexpr int BC = Tl::BC, LDF = Tl::LDF;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ftiles = stages + NST * Tl::STAGE_ELEMS;  // [2][SR][LDF]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int c0 = blockIdx.y * BC;
+  const int kj = n_off * cout;  // length of the flattened axis
+  const int n_chunks = (kj + BJ - 1) / BJ;
+  float* my = part + (int64_t)blockIdx.x * cin * kj;
+  const bool vec = cin % 8 == 0;  // feats and WT rows in 16-byte pieces
+  const int64_t t_begin = (int64_t)blockIdx.x * st_per_split;
+  const int64_t t_end =
+      t_begin + st_per_split < n_st ? t_begin + st_per_split : n_st;
+  // dW: warp (wm, wn) owns input channels c0 + 16 wm .. +15 and columns
+  // colw .. colw + 8 MC - 1 of a chunk
+  const int wm = warp % MC, wn = warp / MC;
+  const int colw = 8 * MC * wn;
+
+  if (t_begin >= t_end) {  // a split without rows: its dW is zero
+    for (int e = tid; e < BC * kj; e += THREADS) {
+      const int c = c0 + e / kj;
+      if (c < cin) my[(int64_t)c * kj + e % kj] = 0.f;
+    }
+    return;
+  }
+  // the steps, (super-tile, chunk) in that order
+  struct Step {
+    int64_t t;
+    int c;
+  };
+  auto advance = [&](Step& p) {
+    if (++p.c == n_chunks) p.c = 0, ++p.t;
+  };
+
+  // 1. the feats tile of super-tile t into its buffer (t & 1)
+  auto load_feats = [&](int64_t t) {
+    const int64_t m0 = t * SR;
+    bf16* fs = ftiles + (t & 1) * Tl::F_ELEMS;
+    if (vec) {
+      for (int e = tid; e < SR * (BC / 8); e += THREADS) {
+        const int r = e / (BC / 8), q = (e % (BC / 8)) * 8;
+        const bool ok = m0 + r < n_in && c0 + q < cin;
+        cp_async16(fs + r * LDF + q,
+                   feats + (ok ? (m0 + r) * cin + c0 + q : 0), ok);
+      }
+    } else {
+      for (int e = tid; e < SR * BC; e += THREADS) {
+        const int r = e / BC, q = e % BC;
+        fs[r * LDF + q] = m0 + r < n_in && c0 + q < cin
+                              ? feats[(m0 + r) * cin + c0 + q]
+                              : __float2bfloat16(0.f);
+      }
+    }
+  };
+  // the transpose-map entries of this lane's piece of step p: column
+  // c*BJ + 8 warp, rows m0 + lane + 32 q (-1 past the end)
+  int32_t mv[RPL];
+  auto load_map = [&](const Step& p) {
+    if (p.t >= t_end) return;
+    const int64_t m0 = p.t * SR;
+    const int j = p.c * BJ + 8 * warp;
+    const bool ok = j < kj;
+    const int32_t* km = kmap_t + (int64_t)(ok ? j / cout : 0) * n_in + m0;
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      const int r = lane + 32 * q;
+      mv[q] = ok && m0 + r < n_in ? __ldg(km + r) : -1;
+    }
+  };
+  // 2. the copies of step p into stage st: GG [SR][BJ] and WT [BJ][BC]
+  auto issue = [&](int st, const Step& p) {
+    bf16* gs = stages + st * Tl::STAGE_ELEMS;
+    bf16* ws = gs + Tl::G_ELEMS;
+    const int jb = p.c * BJ;
+    const int j = jb + 8 * warp;
+    const int d = j < kj ? j % cout : 0;
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      const int32_t v = mv[q];
+      const bool ok = v >= 0 && v < n_g;
+      cp_async16(gs + (lane + 32 * q) * LDG + 8 * warp,
+                 g + (ok ? (int64_t)v * cout + d : 0), ok);
+    }
+    if (dw_only) return;
+    if (vec) {
+      for (int e = tid; e < BJ * (BC / 8); e += THREADS) {
+        const int r = e / (BC / 8), q = (e % (BC / 8)) * 8;
+        const bool ok = jb + r < kj && c0 + q < cin;
+        cp_async16(ws + r * LDF + q,
+                   wt + (ok ? (int64_t)(jb + r) * cin + c0 + q : 0), ok);
+      }
+    } else {
+      for (int e = tid; e < BJ * BC; e += THREADS) {
+        const int r = e / BC, q = e % BC;
+        ws[r * LDF + q] = jb + r < kj && c0 + q < cin
+                              ? wt[(int64_t)(jb + r) * cin + c0 + q]
+                              : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  float dacc[2][2 * MC][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < 2 * MC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dacc[i][n][e] = 0.f;
+
+  // The steps run as one pipeline of NST stages over all super-tiles of
+  // the split, with one barrier each, which publishes the step's tiles and
+  // orders every warp's reads of the stage (and feats buffer) that the
+  // copies issued after it overwrite. A step's copies are issued two steps
+  // ahead, the next super-tile's feats tile one step ahead in a group of
+  // its own, so that the wait for all but the newest group covers both.
+  load_feats(t_begin);
+  cp_async_commit();
+  Step ahead{t_begin, 0};  // the step whose copies go out next
+  load_map(ahead);
+  issue(0, ahead);
+  cp_async_commit();
+  advance(ahead);
+  load_map(ahead);
+  if (ahead.t < t_end) issue(1, ahead);
+  cp_async_commit();
+  advance(ahead);
+  load_map(ahead);
+  int64_t t = t_begin;  // this step's super-tile and chunk
+  int c = 0;
+  for (int st = 0; t < t_end; st = st == NST - 1 ? 0 : st + 1) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (c == n_chunks - 1 && t + 1 < t_end) {
+      load_feats(t + 1);
+      cp_async_commit();
+    }
+    if (ahead.t < t_end) issue((st + 2) % NST, ahead);
+    cp_async_commit();
+    advance(ahead);
+    load_map(ahead);
+    const bool first = t == t_begin;
+    const int64_t m0 = t * SR;
+    const bf16* gs = stages + st * Tl::STAGE_ELEMS;
+    const bf16* ws = gs + Tl::G_ELEMS;
+    const bf16* fs = ftiles + (t & 1) * Tl::F_ELEMS;
+    // this chunk's dW so far (later super-tiles add to it): loaded now,
+    // added after the products
+    float2 old[MC][2];
+    if (!first && c0 + 16 * wm < cin) {
+#pragma unroll
+      for (int n = 0; n < MC; ++n) {
+        const int col = c * BJ + colw + 8 * n + 2 * t4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ch = c0 + 16 * wm + gq + 8 * h;
+          old[n][h] = col < kj && ch < cin
+                          ? *reinterpret_cast<const float2*>(
+                                my + (int64_t)ch * kj + col)
+                          : make_float2(0.f, 0.f);
+        }
+      }
+    }
+    if (!dw_only) {  // 3. d_feats += GG @ WT
+#pragma unroll
+      for (int ks = 0; ks < BJ / 16; ++ks) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          ldsm_x4(a[q], gs + (32 * warp + 16 * q + (lane & 15)) * LDG +
+                            ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int nb2 = 0; nb2 < MC; ++nb2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, ws + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                LDF +
+                           nb2 * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            mma(dacc[q][2 * nb2], a[q], b[0], b[1]);
+            mma(dacc[q][2 * nb2 + 1], a[q], b[2], b[3]);
+          }
+        }
+      }
+    }
+    if (c0 + 16 * wm < cin) {  // 4. dW = feats_tile^T @ GG
+      // two sums over alternate k-steps where a warp has one column block,
+      // so that its products do not wait on one another
+      constexpr int NS = MC == 1 ? 2 : 1;
+      float wacc[NS][MC][4];
+#pragma unroll
+      for (int p = 0; p < NS; ++p)
+#pragma unroll
+        for (int n = 0; n < MC; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) wacc[p][n][e] = 0.f;
+#pragma unroll 4
+      for (int ks = 0; ks < SR / 16; ++ks) {
+        uint32_t a[4];
+        load_a_t<LDF>(a, fs, 16 * wm, ks, lane);
+        const bf16* brow =
+            gs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDG + colw;
+        if constexpr (MC == 1) {
+          uint32_t b[2];
+          ldsm_x2_t(b, brow);
+          mma(wacc[ks & 1][0], a, b[0], b[1]);
+        } else {
+#pragma unroll
+          for (int nb2 = 0; nb2 < MC / 2; ++nb2) {
+            uint32_t b[4];
+            ldsm_x4_t(b, brow + nb2 * 16 + (lane >> 4) * 8);
+            mma(wacc[0][2 * nb2], a, b[0], b[1]);
+            mma(wacc[0][2 * nb2 + 1], a, b[2], b[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < MC; ++n) {
+        const int col = c * BJ + colw + 8 * n + 2 * t4;
+        if (col >= kj) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ch = c0 + 16 * wm + gq + 8 * h;
+          if (ch >= cin) continue;
+          float2 v = make_float2(wacc[0][n][2 * h], wacc[0][n][2 * h + 1]);
+          if constexpr (NS == 2) {
+            v.x += wacc[1][n][2 * h];
+            v.y += wacc[1][n][2 * h + 1];
+          }
+          if (!first) {
+            v.x += old[n][h].x;
+            v.y += old[n][h].y;
+          }
+          *reinterpret_cast<float2*>(my + (int64_t)ch * kj + col) = v;
+        }
+      }
+    }
+    if (c == n_chunks - 1) {  // the super-tile's d_feats, stored once
+      if (!dw_only) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int64_t row = m0 + 32 * warp + 16 * q + gq + 8 * h;
+            if (row >= n_in) continue;
+            bf16* dst = dfeats + row * cin;
+#pragma unroll
+            for (int n = 0; n < 2 * MC; ++n) {
+              const int ch = c0 + 8 * n + 2 * t4;
+              const float lo = dacc[q][n][2 * h], hi = dacc[q][n][2 * h + 1];
+              if (ch + 1 < cin && cin % 2 == 0) {
+                *reinterpret_cast<uint32_t*>(dst + ch) = pack(lo, hi);
+              } else {
+                if (ch < cin) dst[ch] = __float2bfloat16(lo);
+                if (ch + 1 < cin) dst[ch + 1] = __float2bfloat16(hi);
+              }
+            }
+          }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int n = 0; n < 2 * MC; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dacc[q][n][e] = 0.f;
+      }
+      ++t, c = 0;
+    } else {
+      ++c;
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+template <int MC>
+cudaError_t launch_tc(const void* feats, const void* g, const void* kmap_t,
+                      const void* wt, void* dfeats, void* part, void* out,
+                      int64_t n_in, int64_t n_g, int n_off, int cin, int cout,
+                      int n_split, int dw_only, cudaStream_t stream) {
+  using Tl = BwdTile<MC>;
+  const size_t bytes = Tl::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      im2col_bwd_tc_kernel<MC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int64_t n_st = (n_in + SR - 1) / SR;
+  const int64_t st_per_split = (n_st + n_split - 1) / n_split;
+  const dim3 grid((unsigned)n_split, (unsigned)((cin + Tl::BC - 1) / Tl::BC));
+  // one split writes the result directly
+  float* dst = static_cast<float*>(n_split == 1 ? out : part);
+  im2col_bwd_tc_kernel<MC><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(feats), static_cast<const bf16*>(g),
+      static_cast<const int32_t*>(kmap_t), static_cast<const bf16*>(wt),
+      static_cast<bf16*>(dfeats), dst, n_in, n_g, n_off, cin, cout, n_st,
+      st_per_split, dw_only);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const int64_t n = (int64_t)cin * n_off * cout;
+  csn::sum_splits_kernel<THREADS>
+      <<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+          static_cast<const float*>(part), static_cast<float*>(out), n,
+          n_split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // feats [n_in, cin], g [n_g, cout] and wt [n_off * cout, cin] of one type,
 // kmap_t [n_off, n_in] int32 (sentinel n_g); dfeats [n_in, cin] of that type
-// (unused with dw_only); part [n_split, cin, n_off * cout] f32 zeroed by the
-// caller (unused when n_split == 1, and then out must be zeroed); out
-// [cin, n_off * cout] f32.
+// (unused with dw_only); part [n_split, cin, n_off * cout] f32 scratch
+// (unused when n_split == 1), out [cin, n_off * cout] f32. The CUDA-core
+// body adds into part (or out when n_split == 1), which the caller zeroes;
+// the tensor-core body stores every element first. The tensor-core body
+// copies g, and feats and wt where Cin % 8 == 0, 16 bytes at a time: those
+// start on a 16-byte boundary.
 extern "C" int csn_sparse_conv_im2col_bwd(int dtype, const void* feats,
                                           const void* g, const void* kmap_t,
                                           const void* wt, void* dfeats,
@@ -279,9 +694,18 @@ extern "C" int csn_sparse_conv_im2col_bwd(int dtype, const void* feats,
                                           int64_t n_g, int n_off, int cin,
                                           int cout, int n_split, int dw_only,
                                           void* stream) {
-  if (n_in == 0 || n_off == 0 || cin == 0 || cout == 0) return cudaSuccess;
+  if (n_off == 0 || cin == 0 || cout == 0) return cudaSuccess;
   if (n_split < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // with no rows the tensor-core body's blocks store dW's zeros
+  if (dtype == csn::kBF16 && cout % 8 == 0)
+    return cin <= 16 ? launch_tc<1>(feats, g, kmap_t, wt, dfeats, part, out,
+                                    n_in, n_g, n_off, cin, cout, n_split,
+                                    dw_only, s)
+                     : launch_tc<4>(feats, g, kmap_t, wt, dfeats, part, out,
+                                    n_in, n_g, n_off, cin, cout, n_split,
+                                    dw_only, s);
+  if (n_in == 0) return cudaSuccess;
   const bool narrow = cin <= 16;
   if (dtype == csn::kF32)
     return narrow ? launch<float, 1>(feats, g, kmap_t, wt, dfeats, part, out,

@@ -4,7 +4,8 @@ package on a real built and concatenated batch: the plain forward against
 against `jax.vjp` of the JAX `sparse_conv` with the transpose map, with
 random asymmetric weights so that a missed mirror shows. Also the dtypes of
 the gradients, the dW kernel's split choice and the launchers' refusal of
-CPU tensors; `sparse_conv_with_bias` and `masked_fill` against the JAX
+CPU tensors; the im2col pair's tensor-core rule, splits and refusal of
+misaligned bf16 views; `sparse_conv_with_bias` and `masked_fill` against the JAX
 functions. Tolerance: max abs <= 1e-5 * max|ref| (f32 on both sides; the
 two sum in different orders)."""
 
@@ -460,6 +461,122 @@ def test_im2col_bwd_splits_bounded(n_in, k, cin, cout, want):
     assert s == want
     assert s <= -(-n_in // window_conv.IM2COL_TILE)
     assert s * cin * k * cout * 4 <= window_conv.IM2COL_PART_BYTES or s == 1
+
+
+IM2COL_TC_RULE_CASES = [
+    (torch.bfloat16, 32, 64, True), (torch.bfloat16, 3, 32, True),
+    (torch.bfloat16, 24, 64, True), (torch.bfloat16, 48, 40, True),
+    (torch.bfloat16, 160, 200, True), (torch.bfloat16, 32, 60, False),
+    (torch.bfloat16, 3, 30, False), (torch.float32, 32, 64, False),
+    (torch.float32, 3, 32, False)]
+
+
+@pytest.mark.parametrize("dtype,cin,cout,want", IM2COL_TC_RULE_CASES)
+def test_im2col_tensor_cores_rule(dtype, cin, cout, want):
+    """The im2col pair's tensor-core bodies take bf16 with Cout % 8 == 0
+    whatever Cin (the rule `csn_sparse_conv_im2col_fwd` and `_bwd` apply):
+    unlike K1's rule it takes the stem's Cin of 3 and a Cin off the
+    multiples of 16; f32 and a Cout off the multiples of 8 run the
+    CUDA-core bodies."""
+    assert window_conv.im2col_tensor_cores(dtype, cin, cout) is want
+    if want and cin % 16:
+        assert not window_conv.k1_tensor_cores(dtype, cin, cout)
+
+
+@pytest.mark.parametrize("n_in,k,cin,cout,want", [
+    (90112, 27, 64, 64, 118), (90112, 125, 3, 32, 118),
+    (10240, 27, 256, 256, 20), (30208, 27, 128, 128, 59),
+    (45056, 8, 96, 384, 59), (1792, 8, 384, 384, 7),
+    (35917, 5, 48, 40, 71), (35917, 5, 160, 200, 36),
+    (90112, 640, 256, 256, 3), (500, 27, 64, 64, 2), (200, 27, 64, 64, 1),
+    (0, 27, 64, 64, 1)])
+def test_im2col_bwd_tc_splits(n_in, k, cin, cout, want):
+    """The tensor-core backward's splits: whole super-tiles of
+    IM2COL_TC_ROWS rows each, spread so that no split is empty, about one
+    block (split x channel tile) per SM, partials within
+    IM2COL_PART_BYTES, one split when the rows fit one super-tile."""
+    s = window_conv.im2col_bwd_tc_splits(n_in, k, cin, cout)
+    assert s == want
+    rows = window_conv.IM2COL_TC_ROWS
+    n_st = max(1, -(-n_in // rows))
+    per = -(-n_st // s)                  # super-tiles per split, as the kernel
+    assert (s - 1) * per < n_st <= s * per
+    assert s * cin * k * cout * 4 <= window_conv.IM2COL_PART_BYTES or s == 1
+    tiles = -(-cin // (16 if cin <= 16 else 64))
+    assert s * tiles <= window_conv.SMS or s == 1
+    # and not far fewer blocks than SMs, unless the rows or the budget end
+    assert s == n_st or 2 * s * tiles > window_conv.SMS or (
+        s + 1) * cin * k * cout * 4 > window_conv.IM2COL_PART_BYTES
+    if n_in <= rows:
+        assert s == 1
+
+
+def test_im2col_fwd_refuses_a_misaligned_bf16_view(monkeypatch):
+    """The im2col forward's tensor-core body copies the weights, and feats
+    where Cin % 16 == 0 (K1's loop), 16 bytes at a time with cp.async:
+    `sparse_conv_im2col_fwd` refuses such a view that does not start on a
+    16-byte boundary before the launch. Aligned calls, and misaligned ones
+    that no 16-byte copy reads (the stem's feats, which the flattened steps
+    gather element by element; f32 and a Cout off the multiples of 8, on
+    the CUDA-core body), get as far as the library."""
+    _stub_launch(monkeypatch)
+    view = _meta_view
+    n_in, n_out, k = 10, 7, 27
+    kmap = torch.empty(k, n_out, dtype=torch.int32, device="meta")
+    bf = torch.bfloat16
+    before = dict(kernels.LAUNCHES)
+    for cin, fs, ws in ((32, 1, 0), (32, 0, 1), (3, 0, 1)):
+        with pytest.raises(ValueError, match="16-byte"):
+            window_conv.sparse_conv_im2col_fwd(
+                view(n_in, cin, dtype=bf, shift=fs), kmap,
+                view(k, cin, 64, dtype=bf, shift=ws))
+    for cin, cout, dt, fs, ws in ((32, 64, bf, 0, 0), (3, 32, bf, 1, 0),
+                                  (32, 60, bf, 1, 1),
+                                  (32, 64, torch.float32, 1, 1)):
+        with pytest.raises(LookupError, match="reached the launch"):
+            window_conv.sparse_conv_im2col_fwd(
+                view(n_in, cin, dtype=dt, shift=fs), kmap,
+                view(k, cin, cout, dtype=dt, shift=ws))
+    assert kernels.LAUNCHES == before
+
+
+def test_im2col_bwd_refuses_a_misaligned_bf16_view(monkeypatch):
+    """The im2col backward's tensor-core body copies g, and feats and
+    wt_flat where Cin % 8 == 0, 16 bytes at a time with cp.async:
+    `sparse_conv_im2col_bwd` refuses such a view that does not start on a
+    16-byte boundary before the launch. Aligned calls, and misaligned ones
+    that no 16-byte copy reads (the stem's feats and wt_flat, element by
+    element; f32 and a Cout off the multiples of 8, on the CUDA-core body),
+    get as far as the library."""
+    _stub_launch(monkeypatch)
+    view = _meta_view
+    n_in, n_g, k = 10, 7, 27
+    kmap_t = torch.empty(k, n_in, dtype=torch.int32, device="meta")
+    bf = torch.bfloat16
+    before = dict(kernels.LAUNCHES)
+    for cin, fs, gs, ws, dw_only in ((32, 1, 0, 0, False),
+                                     (32, 0, 1, 0, False),
+                                     (32, 0, 0, 1, False),
+                                     (32, 1, 0, 0, True), (3, 0, 1, 0, True)):
+        with pytest.raises(ValueError, match="16-byte"):
+            window_conv.sparse_conv_im2col_bwd(
+                view(n_in, cin, dtype=bf, shift=fs),
+                view(n_g, 64, dtype=bf, shift=gs), kmap_t,
+                None if dw_only else view(k * 64, cin, dtype=bf, shift=ws),
+                dw_only=dw_only)
+    for cin, cout, dt, fs, gs, ws in ((32, 64, bf, 0, 0, 0),
+                                      (3, 32, bf, 1, 0, 1),
+                                      (32, 60, bf, 1, 1, 1),
+                                      (32, 64, torch.float32, 1, 1, 1)):
+        for dw_only in (False, True):
+            with pytest.raises(LookupError, match="reached the launch"):
+                window_conv.sparse_conv_im2col_bwd(
+                    view(n_in, cin, dtype=dt, shift=fs),
+                    view(n_g, cout, dtype=dt, shift=gs), kmap_t,
+                    None if dw_only
+                    else view(k * cout, cin, dtype=dt, shift=ws),
+                    dw_only=dw_only)
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.parametrize("with_t", [False, True])
