@@ -45,8 +45,9 @@ Phases (each prints its lines; any failure exits nonzero):
      synthetic maps at the bodies' edges (rows not a multiple of the row
      tile or the 256-row super-tile, splits with a remainder, Cin/Cout
      48/40 and 160/200, the stem with a dead and a one-row offset) and a
-     `[perconv]` line per timed conv (the im2col pair against K1 +
-     `sparse_conv_dw`); K2 (flash attention) at the SSA and CSA
+     `[perconv]` line per timed conv (per call, the im2col forward
+     against K1 and each form's backward function as the autograd function
+     calls it); K2 (flash attention) at the SSA and CSA
      shapes with masks, and at a ragged shape (Lq 1000 against Lk 777, a
      ragged key mask with one fully masked 64-key tile, one query tile all
      padding), at head dims 64 (4 heads) and 256 (8 heads), at dropout 0
@@ -576,18 +577,18 @@ def check_dw_edges(dev, table, g):
                 f"dW {what}: the empty offset and the one-row offset")
 
 
-def check_im2col_fwd_tc(table, what, feats, kmap, weights, vs_k1=True):
+def check_im2col_fwd_tc(table, what, feats, kmap, weights):
     """`sparse_conv_im2col_fwd` on its tensor-core body (bf16,
     `im2col_tensor_cores`): against `conv_f64` (K1_F64_TOL), a repeat
-    bitwise equal, and where Cin % 16 == 0 (K1's loop) and `vs_k1` bitwise
-    equal to K1. Returns the first call."""
+    bitwise equal, and where Cin % 16 == 0 (K1's loop) bitwise equal to K1.
+    Returns the first call."""
     name = "sparse_conv_im2col_fwd"
     out = window_conv.sparse_conv_im2col_fwd(feats, kmap, weights)
     table.im2col_f64["out"].append(check_f64(
         table, name, what, out, conv_f64(feats, kmap, weights), K1_F64_TOL))
     check_same(name, what, "repeat: bitwise equal", torch.equal(
         out, window_conv.sparse_conv_im2col_fwd(feats, kmap, weights)))
-    if vs_k1 and feats.shape[1] % 16 == 0:
+    if feats.shape[1] % 16 == 0:
         check_same(name, what, "vs K1 (K1's loop): bitwise equal",
                    torch.equal(out, window_conv.sparse_conv_fwd(feats, kmap,
                                                                 weights)))
@@ -641,7 +642,8 @@ def check_im2col_edges(dev, table, g):
     without d_feats; IM2COL_MAX_OFFSETS offsets (the forward's shorter row
     tiles). Against the plain versions (TOL), `check_im2col_fwd_tc` and
     `check_im2col_bwd_tc`."""
-    rows = window_conv.IM2COL_TC_ROWS
+    lib = kernels.library()
+    rows = lib.csn_sparse_conv_im2col_bwd_tc_rows()
     n_in, n_out = 141 * rows - 179, 7000
     gen = torch.Generator().manual_seed(SEED + 8)
     for cin, cout, n_off, dense in ((48, 40, 5, None), (160, 200, 5, None),
@@ -658,7 +660,9 @@ def check_im2col_edges(dev, table, g):
             live[3, -1] = True
             maps.append(torch.where(live, pick, n_src).to(dev))
         kmap, kmap_t = maps
-        s = window_conv.im2col_bwd_tc_splits(n_in, n_off, cin, cout)
+        s = window_conv.im2col_bwd_tc_splits(
+            n_in, n_off, cin, cout, rows,
+            lib.csn_sparse_conv_im2col_bwd_tc_channels(cin))
         n_st = -(-n_in // rows)
         per = -(-n_st // s)
         require(n_in % rows and n_out % 64 and s > 1 and n_st % per,
@@ -687,9 +691,10 @@ def check_im2col_edges(dev, table, g):
             require(not dw[2].any().item() and dw[3].any().item(),
                     f"im2col dW {what}: the empty offset and the one-row "
                     f"offset")
-    # the most offsets the wrappers take: the forward's kmap slab does not
-    # fit beside K1's tiles, so its tiles hold fewer rows (K1's loop at Cin
-    # 32, where K1 itself cannot launch; the flattened steps at Cin 40)
+    # the most offsets the wrappers take: the kmap slab does not fit beside
+    # the full tiles, so the shared launcher gives fewer rows per tile (K1's
+    # loop at Cin 32, still bitwise equal to K1; the flattened steps at Cin
+    # 40)
     n_off, n_in, n_out = window_conv.IM2COL_MAX_OFFSETS, 2000, 3000
     for cin, cout in ((32, 64), (32, 256), (40, 64)):
         kmap, kmap_t = (torch.where(
@@ -702,7 +707,7 @@ def check_im2col_edges(dev, table, g):
              / (cin * n_off) ** 0.5).to(dev, torch.bfloat16)
         gd = torch.randn(n_out, cout, generator=gen).to(dev, torch.bfloat16)
         what = f"edges {cin}->{cout} K={n_off} N_in={n_in} N_out={n_out}"
-        out = check_im2col_fwd_tc(table, what, f, kmap, w, vs_k1=False)
+        out = check_im2col_fwd_tc(table, what, f, kmap, w)
         table.check("sparse_conv_im2col_fwd", what, out,
                     conv.conv_im2col_plain(f, kmap, w), torch.bfloat16)
         check_im2col_bwd_tc(table, what, f, gd, kmap_t, w, False)
@@ -795,10 +800,9 @@ def check_convs(model, big, dev, table, g, timed=True):
                                                                    wt),
                                lambda: conv.conv_plain(f, kmap, wt), count,
                                nbytes=nb, flops=fl)
-            k1_bwd_ms = 0.0
             if n_dfeats:
                 nb, fl = conv_work(kmap_t, kmap.shape[1], cout, cin, 2, 2)
-                k1_bwd_ms = table.time(
+                table.time(
                     "sparse_conv_fwd", f"d_feats over {t_name}",
                     lambda: window_conv.sparse_conv_fwd(gd, kmap_t, w_t),
                     lambda: conv.conv_plain(gd, kmap_t, w_t), n_dfeats,
@@ -806,7 +810,7 @@ def check_convs(model, big, dev, table, g, timed=True):
             # dW reads the features and the output gradient, writes f32
             nb, fl = conv_work(kmap_t, kmap.shape[1], cout, cin, 2, 4)
             body = "tensor cores" if dw_tc else "CUDA cores"
-            k1_bwd_ms += table.time(
+            table.time(
                 "sparse_conv_dw", f"{what} ({body})",
                 lambda: window_conv.sparse_conv_dw(f, gd, kmap_t),
                 lambda: conv.conv_bwd_plain(f, gd, kmap_t, wt.float(),
@@ -820,25 +824,31 @@ def check_convs(model, big, dev, table, g, timed=True):
                                lambda: conv.conv_im2col_plain(f, kmap, wt),
                                count, reps=3, nbytes=nb, flops=fl)
             # stem: dW only; every other conv of the family: both gradients
-            im_bwd_ms = {}
             for with_df, n in ((True, n_dfeats), (False, count - n_dfeats)):
                 if not n:
                     continue
                 nb, fl = conv_bwd_work(kmap_t, kmap.shape[1], cin, cout, 2,
                                        with_df)
-                im_bwd_ms[with_df] = table.time(
+                table.time(
                     bwd, f"{what} dw_only {not with_df} ({body})",
                     lambda: conv.conv_im2col_bwd_kernels(
                         f, gd, kmap_t, wt.float(), mirror, with_df),
                     lambda: conv.conv_im2col_bwd_plain(
                         f, gd, kmap_t, wt.float(), mirror, with_df),
                     n, reps=3, nbytes=nb, flops=fl)
-            # the data of a per-conv choice between the forms: per call
+            # the data of a per-conv choice between the forms, per call: the
+            # forward wrappers, and each form's backward as the autograd
+            # function calls it (weight flip, casts and copies included)
+            w32 = wt.float()
+            bwd_ms = [median_ms(lambda: fn(f, gd, kmap_t, w32, mirror,
+                                           n_dfeats > 0), reps=15)
+                      for fn in (conv.conv_im2col_bwd_kernels,
+                                 conv.conv_bwd_kernels)]
             print(f"[perconv] {what} (x{count}, {body}): forward im2col "
                   f"{im_ms:.4f} / K1 {k1_ms:.4f} ms; backward im2col "
-                  f"{im_bwd_ms[n_dfeats > 0]:.4f} / K1 "
+                  f"{bwd_ms[0]:.4f} / K1 "
                   f"{'d_feats + ' if n_dfeats else ''}sparse_conv_dw "
-                  f"{k1_bwd_ms:.4f} ms")
+                  f"{bwd_ms[1]:.4f} ms")
         torch.cuda.empty_cache()
     return sum(convs.values())
 

@@ -218,10 +218,6 @@ IM2COL_MAX_OFFSETS = 640
 # device memory the backward's per-split dW partials may take
 IM2COL_PART_BYTES = 512 * 2 ** 20
 IM2COL_TILE = 64
-# the tensor-core backward's rows per super-tile (csrc/sparse_conv_im2col_bwd.cu
-# SR): a block's d_feats stays in registers over one, and its dW partial is
-# written once per super-tile and chunk
-IM2COL_TC_ROWS = 256
 
 
 def im2col_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
@@ -289,17 +285,18 @@ def im2col_bwd_splits(n_in: int, n_off: int, cin: int, cout: int) -> int:
     return -(-n_tiles // per_split)   # no split without a tile
 
 
-def im2col_bwd_tc_splits(n_in: int, n_off: int, cin: int, cout: int) -> int:
+def im2col_bwd_tc_splits(n_in: int, n_off: int, cin: int, cout: int,
+                         rows: int, bc: int) -> int:
     """Row splits S of the tensor-core im2col backward, whose blocks of 8
-    warps (split x tile of 64 input channels, 16 at Cin <= 16) fill an SM
-    each: about one block per SM, whole super-tiles of IM2COL_TC_ROWS rows
-    per split spread evenly (no split without one), and partials [S, Cin,
-    K * Cout] f32 within IM2COL_PART_BYTES. The partial traffic is one
-    write of dW per super-tile whatever S is, so S only has to fill the
-    card."""
-    bc = 16 if cin <= 16 else 64              # the kernel's channel tile
+    warps (split x tile of `bc` input channels) fill an SM each: about one
+    block per SM, whole super-tiles of `rows` rows per split spread evenly
+    (no split without one), and partials [S, Cin, K * Cout] f32 within
+    IM2COL_PART_BYTES. The partial traffic is one write of dW per
+    super-tile whatever S is, so S only has to fill the card. The kernel
+    gives its tiles: `csn_sparse_conv_im2col_bwd_tc_rows()` and
+    `csn_sparse_conv_im2col_bwd_tc_channels(cin)`."""
     want = -(-SMS // -(-cin // bc))
-    n_st = max(1, -(-n_in // IM2COL_TC_ROWS))
+    n_st = max(1, -(-n_in // rows))
     fit = IM2COL_PART_BYTES // (4 * cin * n_off * cout)
     per_split = -(-n_st // max(1, min(want, n_st, fit)))
     return -(-n_st // per_split)
@@ -348,14 +345,17 @@ def sparse_conv_im2col_bwd(feats: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"{what}: bf16 g, and feats and wt_flat where Cin % "
                          f"8 == 0, must start on a 16-byte boundary "
                          f"(cp.async copies)")
-    n_split = (im2col_bwd_tc_splits if tc else im2col_bwd_splits)(
-        n_in, n_off, cin, cout)
+    lib = kernels.library()
+    n_split = im2col_bwd_tc_splits(
+        n_in, n_off, cin, cout, lib.csn_sparse_conv_im2col_bwd_tc_rows(),
+        lib.csn_sparse_conv_im2col_bwd_tc_channels(cin)) if tc \
+        else im2col_bwd_splits(n_in, n_off, cin, cout)
     # the tensor-core blocks store their slices of the partials before they
     # add to them; the CUDA-core blocks only add, so theirs start at zero
     part = (torch.empty if tc else torch.zeros)(
         (n_split, cin, n_off * cout), dtype=torch.float32, device=feats.device)
     out = part[0] if n_split == 1 else torch.empty_like(part[0])
-    code = kernels.library().csn_sparse_conv_im2col_bwd(
+    code = lib.csn_sparse_conv_im2col_bwd(
         kernels.dtype_code(feats), feats.data_ptr(), g.data_ptr(),
         kmap_t.data_ptr(), 0 if dw_only else wt_flat.data_ptr(),
         0 if dw_only else d_feats.data_ptr(), part.data_ptr(),

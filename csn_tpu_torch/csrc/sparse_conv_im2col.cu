@@ -21,11 +21,11 @@
 //    body of sparse_conv_tc.cuh, mma.sync m16n8k16 on bf16 operands with f32
 //    accumulators. Where Cin % 16 == 0 a walk of the flattened axis in
 //    steps of 64 columns is K1's walk over (offset, 64 input channels), so
-//    it runs K1's loop (FLAT false) and gives K1's bits. Other Cin (the
-//    stem's 3) take its flattened steps (FLAT true): 64 columns of K*Cin
-//    that span offsets, gathered element by element, so the stem's 375
-//    columns are 24 k16 products per tile where K1 runs 125 offsets that are
-//    3 deep on the CUDA cores;
+//    it runs K1's loop (FLAT false) through K1's launcher and gives K1's
+//    bits. Other Cin (the stem's 3) take its flattened steps (FLAT true):
+//    64 columns of K*Cin that span offsets, gathered element by element, so
+//    the stem's 375 columns are 24 k16 products per tile where K1 runs 125
+//    offsets that are 3 deep on the CUDA cores;
 //  * f32 (and bf16 with Cout % 8 != 0): the CUDA-core body below, f32 FMAs.
 //
 // What bounds it on the H100: the same bytes and 2*Cin*Cout operations per
@@ -179,41 +179,6 @@ cudaError_t launch(const void* feats, const void* kmap, const void* w,
   return cudaGetLastError();
 }
 
-// --- the tensor-core body (bf16, Cout % 8 == 0) ----------------------------
-
-// K1's tiles (sparse_conv_tc.cuh launch_tc), with fewer rows per tile where
-// the kmap slab of many offsets (the wrapper takes up to 640) would not fit
-// beside the stages. An output element's sum does not depend on the rows
-// per tile, so the bits are K1's either way.
-template <int WM, int WN, bool FLAT>
-cudaError_t launch_tc_fit(const void* feats, const void* kmap, const void* w,
-                          void* out, int64_t n_in, int64_t n_out, int n_off,
-                          int cin, int cout, cudaStream_t stream) {
-  using csn_conv_tc::TcTile;
-  if constexpr (WM > (WN == 1 ? 2 : 1)) {
-    if (TcTile<WM, WN>::smem_bytes(n_off) > csn_conv_tc::MAX_SMEM)
-      return launch_tc_fit<WM / 2, WN, FLAT>(feats, kmap, w, out, n_in,
-                                             n_out, n_off, cin, cout, stream);
-  }
-  return csn_conv_tc::launch_tc_body<WM, WN, FLAT>(
-      feats, kmap, w, out, n_in, n_out, n_off, cin, cout, stream);
-}
-
-template <bool FLAT>
-cudaError_t launch_tc(const void* feats, const void* kmap, const void* w,
-                      void* out, int64_t n_in, int64_t n_out, int n_off,
-                      int cin, int cout, cudaStream_t stream) {
-  const int wn = csn_conv_tc::tc_wn(cout);
-#define CSN_TC(WM, WN)                                                  \
-  return launch_tc_fit<WM, WN, FLAT>(feats, kmap, w, out, n_in, n_out, \
-                                     n_off, cin, cout, stream)
-  if (wn == 1) CSN_TC(4, 1);
-  if (wn == 2) CSN_TC(2, 2);
-  if (wn == 3) CSN_TC(2, 3);
-  CSN_TC(2, 4);
-#undef CSN_TC
-}
-
 }  // namespace
 
 // feats [n_in, cin], kmap [n_off, n_out] int32 (sentinel n_in), w
@@ -229,10 +194,10 @@ extern "C" int csn_sparse_conv_im2col_fwd(int dtype, const void* feats,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == csn::kBF16 && cout % 8 == 0)
     return cin % 16 == 0
-               ? launch_tc<false>(feats, kmap, w, out, n_in, n_out, n_off,
-                                  cin, cout, s)
-               : launch_tc<true>(feats, kmap, w, out, n_in, n_out, n_off, cin,
-                                 cout, s);
+               ? csn_conv_tc::launch_tc<false>(feats, kmap, w, out, n_in,
+                                               n_out, n_off, cin, cout, s)
+               : csn_conv_tc::launch_tc<true>(feats, kmap, w, out, n_in, n_out,
+                                              n_off, cin, cout, s);
   if (dtype == csn::kF32)
     return launch<float>(feats, kmap, w, out, n_in, n_out, n_off, cin, cout, s);
   if (dtype == csn::kBF16)

@@ -646,6 +646,10 @@ im2col_bwd_tc_kernel(const bf16* __restrict__ feats,
   cp_async_wait<0>();  // no copy outlives the block
 }
 
+// the tensor-core body's channel tile at this Cin: 16 (MC 1) for the stem,
+// else 64 (MC 4)
+bool tc_narrow(int cin) { return cin <= 16; }
+
 template <int MC>
 cudaError_t launch_tc(const void* feats, const void* g, const void* kmap_t,
                       const void* wt, void* dfeats, void* part, void* out,
@@ -699,12 +703,11 @@ extern "C" int csn_sparse_conv_im2col_bwd(int dtype, const void* feats,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // with no rows the tensor-core body's blocks store dW's zeros
   if (dtype == csn::kBF16 && cout % 8 == 0)
-    return cin <= 16 ? launch_tc<1>(feats, g, kmap_t, wt, dfeats, part, out,
-                                    n_in, n_g, n_off, cin, cout, n_split,
-                                    dw_only, s)
-                     : launch_tc<4>(feats, g, kmap_t, wt, dfeats, part, out,
-                                    n_in, n_g, n_off, cin, cout, n_split,
-                                    dw_only, s);
+    return tc_narrow(cin)
+               ? launch_tc<1>(feats, g, kmap_t, wt, dfeats, part, out, n_in,
+                              n_g, n_off, cin, cout, n_split, dw_only, s)
+               : launch_tc<4>(feats, g, kmap_t, wt, dfeats, part, out, n_in,
+                              n_g, n_off, cin, cout, n_split, dw_only, s);
   if (n_in == 0) return cudaSuccess;
   const bool narrow = cin <= 16;
   if (dtype == csn::kF32)
@@ -722,4 +725,13 @@ extern "C" int csn_sparse_conv_im2col_bwd(int dtype, const void* feats,
                                              part, out, n_in, n_g, n_off, cin,
                                              cout, n_split, dw_only, s);
   return cudaErrorInvalidValue;
+}
+
+// The tensor-core body's tiles, from which the wrapper sizes its splits
+// (window_conv.im2col_bwd_tc_splits): rows per super-tile, and input
+// channels per block at this Cin.
+extern "C" int csn_sparse_conv_im2col_bwd_tc_rows() { return SR; }
+
+extern "C" int csn_sparse_conv_im2col_bwd_tc_channels(int cin) {
+  return tc_narrow(cin) ? BwdTile<1>::BC : BwdTile<4>::BC;
 }

@@ -6,8 +6,9 @@
 // One block per tile of BM output rows x BN output channels, BN = 64 WN with
 // WN = ceil(Cout / 64) up to 4 (a wider Cout takes several column tiles,
 // spread evenly): the gather of a row feeds up to 256 output channels. BM =
-// 32 WM: K1 takes WM = 4 at Cout <= 64, where the block would otherwise be
-// two warps and W[k] is read again by every 64 rows, else WM = 2. Warps of
+// 32 WM: WM = 4 at Cout <= 64, where the block would otherwise be two
+// warps and W[k] is read again by every 64 rows, else WM = 2, halved where
+// the kmap slab of many offsets would not fit (launch_tc_body). Warps of
 // 32 rows x 64 channels (WM x WN of them) hold 64 f32 accumulators a lane
 // over all steps; each output element is stored once in bf16, by exactly one
 // block (no atomics: the same result on every run). An output element's sum
@@ -284,12 +285,21 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
     }
 }
 
+// Halves WM (down to 2 at WN = 1, else 1) while the kmap slab of n_off
+// offsets does not fit beside the stages (the im2col wrapper takes up to
+// 640 offsets; at the models' 125 or fewer every tile fits). An output
+// element's sum does not depend on WM, so the bits are the same either way.
 template <int WM, int WN, bool FLAT>
 cudaError_t launch_tc_body(const void* feats, const void* kmap, const void* w,
                            void* out, int64_t n_in, int64_t n_out, int n_off,
                            int cin, int cout, cudaStream_t stream) {
   using Tl = TcTile<WM, WN>;
   const size_t smem = Tl::smem_bytes(n_off);
+  if constexpr (WM > (WN == 1 ? 2 : 1)) {
+    if (smem > MAX_SMEM)
+      return launch_tc_body<WM / 2, WN, FLAT>(feats, kmap, w, out, n_in,
+                                              n_out, n_off, cin, cout, stream);
+  }
   const cudaError_t err = cudaFuncSetAttribute(
       sparse_conv_fwd_tc_kernel<WM, WN, FLAT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -311,7 +321,8 @@ int tc_wn(int cout) {
   return (n64 + tiles - 1) / tiles;
 }
 
-// K1's tiles: BM = 128 at WN = 1, else 64
+// The tiles of both entries: BM = 128 at WN = 1, else 64 (fewer rows
+// where the kmap slab needs it, launch_tc_body)
 template <bool FLAT>
 cudaError_t launch_tc(const void* feats, const void* kmap, const void* w,
                       void* out, int64_t n_in, int64_t n_out, int n_off,

@@ -71,6 +71,9 @@ _SIGNATURES = {
     # cout, n_split, dw_only, stream
     "csn_sparse_conv_im2col_bwd": [_I] + [_P] * 7 + [_I64, _I64] + [_I] * 5
                                   + [_P],
+    # (): rows per super-tile; (cin): input channels per block
+    "csn_sparse_conv_im2col_bwd_tc_rows": [],
+    "csn_sparse_conv_im2col_bwd_tc_channels": [_I],
     # dtype, q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk, D, inv_temp,
     # seed, thresh, inv_keep, use_drop, stream
     "csn_flash_attn_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

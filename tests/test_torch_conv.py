@@ -491,18 +491,19 @@ def test_im2col_tensor_cores_rule(dtype, cin, cout, want):
     (90112, 640, 256, 256, 3), (500, 27, 64, 64, 2), (200, 27, 64, 64, 1),
     (0, 27, 64, 64, 1)])
 def test_im2col_bwd_tc_splits(n_in, k, cin, cout, want):
-    """The tensor-core backward's splits: whole super-tiles of
-    IM2COL_TC_ROWS rows each, spread so that no split is empty, about one
+    """The tensor-core backward's splits at the kernel's tiles (256-row
+    super-tiles, 64 input channels per block, 16 for the stem): whole
+    super-tiles per split, spread so that no split is empty, about one
     block (split x channel tile) per SM, partials within
     IM2COL_PART_BYTES, one split when the rows fit one super-tile."""
-    s = window_conv.im2col_bwd_tc_splits(n_in, k, cin, cout)
+    rows, bc = 256, 16 if cin <= 16 else 64
+    s = window_conv.im2col_bwd_tc_splits(n_in, k, cin, cout, rows, bc)
     assert s == want
-    rows = window_conv.IM2COL_TC_ROWS
     n_st = max(1, -(-n_in // rows))
     per = -(-n_st // s)                  # super-tiles per split, as the kernel
     assert (s - 1) * per < n_st <= s * per
     assert s * cin * k * cout * 4 <= window_conv.IM2COL_PART_BYTES or s == 1
-    tiles = -(-cin // (16 if cin <= 16 else 64))
+    tiles = -(-cin // bc)
     assert s * tiles <= window_conv.SMS or s == 1
     # and not far fewer blocks than SMs, unless the rows or the budget end
     assert s == n_st or 2 * s * tiles > window_conv.SMS or (
