@@ -22,26 +22,32 @@ Phases (each prints its lines; any failure exits nonzero):
      inputs, with median times of both (bf16, the main path's type):
      K1 (sparse conv) on every map and width of the model, and on every
      transpose map with the weights transposed (the backward's d_feats),
-     where its tensor-core body runs (bf16, Cin % 16 == 0, Cout % 8 == 0)
-     also against a float64 conv of the same bf16 operands (K1_F64_TOL);
-     `sparse_conv_dw` (dW) at the same convs, random asymmetric weights,
-     against `conv_bwd_plain`, and where its tensor-core body runs (bf16,
-     the same rule) also against a float64 reduction of the same bf16
-     operands (DW_F64_TOL), a repeat that must be bitwise equal, and the
-     map with its densest offset made all sentinels (exact zeros there, the
-     other offsets' bits unchanged), plus synthetic maps at the body's
-     edges (rows not a multiple of its step, splits spanning two
-     compaction chunks, empty / full / one-row offsets, part channel
-     tiles); on the same inputs `sparse_conv_im2col_fwd`
-     against `conv_im2col_plain` and K1, and `sparse_conv_im2col_bwd`
+     where its tensor-core body runs (bf16, Cout % 8 == 0, the stems'
+     Cin 3 included) also against a float64 conv of the same bf16 operands
+     (K1_F64_TOL), and at the stems (its flattened steps) a repeat that
+     must be bitwise equal and the densest offset made all sentinels
+     (bitwise equal to that offset's W zeroed; rows without a live offset
+     exact zeros); `sparse_conv_dw` (dW) at the same convs, random
+     asymmetric weights, against `conv_bwd_plain`, and where its
+     tensor-core bodies run (bf16, the same rule; the narrow body at the
+     stems) also against a float64 reduction of the same bf16 operands
+     (DW_F64_TOL), a repeat that must be bitwise equal, and the map with
+     its densest offset made all sentinels (exact zeros there, the other
+     offsets' bits unchanged), at the stems against the im2col `dw_only`
+     body (DW_F64_TOL), plus synthetic maps at the bodies' edges (rows not
+     a multiple of their steps, splits spanning two compaction chunks,
+     empty / full / one-row offsets, part channel tiles, the stems'
+     3 -> 32 and 24 -> 40 on the narrow body); on the same inputs
+     `sparse_conv_im2col_fwd` against `conv_im2col_plain` and K1 (in bf16
+     bitwise: one body), and `sparse_conv_im2col_bwd`
      (d_feats and dW; dW only for the stem) against `conv_im2col_bwd_plain`
      and K1 / `sparse_conv_dw`, and where their tensor-core bodies run
      (bf16, Cout % 8 == 0, the stem included: `im2col_tensor_cores`) the
      forward, d_feats (K1_F64_TOL) and dW (DW_F64_TOL) against float64
      references of the same bf16 operands, repeats that must be bitwise
      equal, the densest transpose-map offset made all sentinels (exact
-     zeros there, the other offsets' bits unchanged), and where Cin % 16
-     == 0 the forward bitwise equal to K1 (it runs K1's loop), plus
+     zeros there, the other offsets' bits unchanged), and the forward
+     bitwise equal to K1, plus
      synthetic maps at the bodies' edges (rows not a multiple of the row
      tile or the 256-row super-tile, splits with a remainder, Cin/Cout
      48/40 and 160/200, the stem with a dead and a one-row offset) and a
@@ -145,9 +151,10 @@ peak of the input type: 989 TFLOP/s bf16, 494.7 / 3 TFLOP/s f32 (split
 TF32: three dense TF32 products per f32 product), counting valid
 rows and keys only), and `library_ms`, the time of the one PyTorch call
 that computes the same function (`F.scaled_dot_product_attention` for the
-attention kernels, timed here and used nowhere in the port; null where
-there is no such call; `embedding_bag` for the readout and the accumulating
-gather probe, `index_select` for the window gather probe). The last line is
+attention kernels, at their dropout, timed here and used nowhere in the
+port; null where there is no such call; `embedding_bag` for the readout and
+the accumulating gather probe, its gradient for the readout's backward,
+`index_select` for the window gather probe). The last line is
 {"ok": true, "device": {...}}.
 
 Protocol (the JAX package's bench.py): B=8 query shapes of 10000 points,
@@ -245,8 +252,8 @@ KERNELS = {
     # the MID-FC bodies (f32, head dim 256, split TF32 on the tensor cores);
     # flash_attn.cu, flash_attn_bwd.cu, flash_attn_carry.cu and
     # flash_attn_block_bwd.cu hold the dispatch (and the bf16 head-dim-64
-    # bodies); sparse_conv.cu holds K1's tensor-core body (bf16) and its
-    # CUDA-core body (f32, stems)
+    # bodies); sparse_conv.cu holds K1's dispatch to the tensor-core body
+    # of sparse_conv_tc.cuh (bf16) and its CUDA-core body (f32)
     "flash_attn_fwd": ("csn_tpu_torch/csrc/flash_tf32_fwd.cuh",
                        "csn_tpu/ops/flash.py:262"),
     "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
@@ -473,17 +480,18 @@ def conv_f64(feats, kmap, weights):
     return out
 
 
-def check_f64(table, name, what, got, ref, tol):
+def check_f64(table, name, what, got, ref, tol, vs="float64"):
     """One `vs float64` line of a tensor-core body: max|got - ref| within
-    tol x max|ref| (ref a float64 result of the same bf16 operands).
-    Returns the error's share of max|ref|."""
-    err = (got.double() - ref).abs().max().item()
+    tol x max|ref| (ref a float64 result of the same bf16 operands, or,
+    named by `vs`, another body's f32 sums of them). Returns the error's
+    share of max|ref|."""
+    err = (got.double() - ref.double()).abs().max().item()
     scale = ref.abs().max().item()
     ok = bool(torch.isfinite(got).all()) and err <= tol * scale
-    print(f"[check] {name} {what} bfloat16 (tensor cores) vs float64: "
+    print(f"[check] {name} {what} bfloat16 (tensor cores) vs {vs}: "
           f"max_abs_err {err:.3e} tol {tol * scale:.3e} (max|ref| "
           f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
-    require(ok, f"{name} {what}: bf16 tensor-core body vs float64")
+    require(ok, f"{name} {what}: bf16 tensor-core body vs {vs}")
     table.err[name] = max(table.err[name], err)
     return err / scale if scale else 0.0
 
@@ -516,6 +524,30 @@ def check_k1_f64(table, what, got, feats, kmap, weights):
               conv_f64(feats, kmap, weights), K1_F64_TOL)
 
 
+def check_k1_flat(what, got, feats, kmap, weights):
+    """K1's flattened steps (Cin % 16 != 0, the stems), beside
+    `check_k1_f64`: a repeat bitwise equal, and the map with its densest
+    offset made all sentinels bitwise equal to the map as it is with that
+    offset's W zeroed (a dead offset adds exact zeros), its rows without a
+    live offset exact zeros."""
+    name = "sparse_conv_fwd"
+    check_same(name, what, "repeat: bitwise equal", torch.equal(
+        got, window_conv.sparse_conv_fwd(feats, kmap, weights)))
+    n_in = feats.shape[0]
+    k0 = int((kmap < n_in).sum(1).argmax())
+    dead = kmap.clone()
+    dead[k0] = n_in
+    w0 = weights.clone()
+    w0[k0] = 0
+    out = window_conv.sparse_conv_fwd(feats, dead, weights)
+    same = torch.equal(out, window_conv.sparse_conv_fwd(feats, kmap, w0))
+    rows = ((dead < 0) | (dead >= n_in)).all(0)
+    zero = not out[rows].any().item()
+    check_same(name, what, f"offset {k0} without live rows: bitwise equal "
+               f"to W[{k0}] = 0 {same}, the {int(rows.sum())} rows without "
+               f"a live offset exact zeros {zero}", same and zero)
+
+
 def dw_f64(feats, g, kmap_t):
     """dW_t in float64 on the same operands (bf16 values held exactly):
     dW_t[k] = feats^T . gather(g, kmap_t[k]), the reference that bounds the
@@ -543,23 +575,27 @@ def check_dw_tc(table, what, feats, g, kmap_t):
 
 
 def check_dw_edges(dev, table, g):
-    """The tensor-core dW body on synthetic maps cut to its edges: N_in not a
-    multiple of its row step, splits whose row counts are not either and
+    """The tensor-core dW bodies on synthetic maps cut to their edges: N_in
+    not a multiple of the row step (the wide body's 32 live pairs, the
+    narrow one's tile of 256), splits whose row counts are not either and
     that span more than one compaction chunk (pairs carried over), an
     offset fully live, one without a live row, one with only the last row,
-    sparse ones; Cin and Cout that leave part tiles (48 and 40: one warp
-    row of 16 channels, a half 16-column block; 160 and 200: a 32-channel
-    Cin tile, one 256-column tile). Against the plain version (TOL) and
-    `check_dw_tc`."""
+    sparse ones; Cin and Cout that leave part tiles: the wide body at 48 and
+    40 (one warp row of 16 channels, a half 16-column block) and 160 and
+    200 (a 32-channel Cin tile, one 256-column tile), the narrow body at 3
+    and 32 (the stems' channels) and 24 and 40 (two 16-channel tiles, the
+    second half empty; a 64-column tile with a half 16-column block).
+    Against the plain version (TOL) and `check_dw_tc`."""
     n_in, n_g = 9 * window_conv.DW_TC_CHUNK + 77, 7000
-    step = window_conv.DW_TC_STEP
     gen = torch.Generator().manual_seed(SEED + 7)
     pick = torch.randint(0, n_g, (5, n_in), generator=gen, dtype=torch.int32)
     live = torch.rand(5, n_in, generator=gen) < torch.tensor(
         [0.3, 1.0, 0.0, 0.0, 0.05])[:, None]
     live[3, -1] = True
     kmap_t = torch.where(live, pick, n_g).to(dev)
-    for cin, cout in ((48, 40), (160, 200)):
+    for cin, cout in ((48, 40), (160, 200), (3, 32), (24, 40)):
+        step = (window_conv.DW_TC_STEP if cin % 16 == 0
+                else window_conv.DW_NARROW_TILE)
         s = window_conv.dw_splits(n_in, 5, cin, cout, tensor_cores=True)
         rows = -(-n_in // s)
         require(n_in % step and rows % step and rows > window_conv.DW_TC_CHUNK
@@ -580,18 +616,19 @@ def check_dw_edges(dev, table, g):
 def check_im2col_fwd_tc(table, what, feats, kmap, weights):
     """`sparse_conv_im2col_fwd` on its tensor-core body (bf16,
     `im2col_tensor_cores`): against `conv_f64` (K1_F64_TOL), a repeat
-    bitwise equal, and where Cin % 16 == 0 (K1's loop) bitwise equal to K1.
-    Returns the first call."""
+    bitwise equal, and bitwise equal to K1 (one body: K1's loop where Cin %
+    16 == 0, the flattened steps elsewhere). Returns the first call."""
     name = "sparse_conv_im2col_fwd"
     out = window_conv.sparse_conv_im2col_fwd(feats, kmap, weights)
     table.im2col_f64["out"].append(check_f64(
         table, name, what, out, conv_f64(feats, kmap, weights), K1_F64_TOL))
     check_same(name, what, "repeat: bitwise equal", torch.equal(
         out, window_conv.sparse_conv_im2col_fwd(feats, kmap, weights)))
-    if feats.shape[1] % 16 == 0:
-        check_same(name, what, "vs K1 (K1's loop): bitwise equal",
-                   torch.equal(out, window_conv.sparse_conv_fwd(feats, kmap,
-                                                                weights)))
+    loop = ("K1's loop" if feats.shape[1] % 16 == 0
+            else "the flattened steps")
+    check_same(name, what, f"vs K1 ({loop}): bitwise equal",
+               torch.equal(out, window_conv.sparse_conv_fwd(feats, kmap,
+                                                            weights)))
     return out
 
 
@@ -716,11 +753,14 @@ def check_im2col_edges(dev, table, g):
 def check_convs(model, big, dev, table, g, timed=True):
     """K1 forward and on the transpose map, and `sparse_conv_dw`, at every
     (map, Cin, Cout) the model runs; where K1 takes its tensor-core body
-    (bf16), also against a float64 conv of the same operands; on the same
-    inputs the im2col pair (`CSN_DYNG=2/3`) against its plain versions and
-    against K1 / `sparse_conv_dw`; where `sparse_conv_dw` takes its
-    tensor-core body (bf16), also `check_dw_tc`; with `timed`, each family's
-    bf16 times are added to the table. Returns the number of convs."""
+    (bf16), also against a float64 conv of the same operands, and at the
+    stems (its flattened steps) `check_k1_flat`; on the same inputs the
+    im2col pair (`CSN_DYNG=2/3`) against its plain versions and against K1
+    (in bf16 bitwise: one body) / `sparse_conv_dw`; where `sparse_conv_dw`
+    takes its tensor-core bodies (bf16), also `check_dw_tc`, and at the
+    stems its narrow body against the im2col `dw_only` body within
+    DW_F64_TOL; with `timed`, each family's bf16 times are added to the
+    table. Returns the number of convs."""
     convs = {}
     for m in model.modules():
         if isinstance(m, SparseConv):
@@ -746,6 +786,8 @@ def check_convs(model, big, dev, table, g, timed=True):
                         conv.conv_plain(f, kmap, wt), dt)
             if window_conv.k1_tensor_cores(dt, cin, cout):
                 check_k1_f64(table, what, got, f, kmap, wt)
+                if cin % 16:
+                    check_k1_flat(what, got, f, kmap, wt)
             ref_df, ref_dw = conv.conv_bwd_plain(f, gd, kmap_t, wt.float(),
                                                  mirror, n_dfeats > 0)
             got_df, got_dw = conv.conv_bwd_kernels(f, gd, kmap_t, wt.float(),
@@ -767,8 +809,14 @@ def check_convs(model, big, dev, table, g, timed=True):
             got = window_conv.sparse_conv_im2col_fwd(f, kmap, wt)
             table.check(fwd, what, got, conv.conv_im2col_plain(f, kmap, wt),
                         dt)
-            table.check(fwd, f"{what} vs K1", got,
-                        window_conv.sparse_conv_fwd(f, kmap, wt), dt)
+            im_tc = window_conv.im2col_tensor_cores(dt, cin, cout)
+            k1_out = window_conv.sparse_conv_fwd(f, kmap, wt)
+            if im_tc:   # K1's tensor-core body: the same bits
+                check_same(fwd, what, "vs K1: bitwise equal",
+                           torch.equal(got, k1_out))
+            else:
+                table.check(fwd, f"{what} vs K1", got, k1_out, dt)
+            del k1_out
             pl_df, pl_dw = conv.conv_im2col_bwd_plain(
                 f, gd, kmap_t, wt.float(), mirror, n_dfeats > 0)
             im_df, im_dw = conv.conv_im2col_bwd_kernels(
@@ -783,9 +831,12 @@ def check_convs(model, big, dev, table, g, timed=True):
             table.check(bwd, f"{btag} dW", im_dw, pl_dw, dt)
             table.check(bwd, f"{btag} dW vs sparse_conv_dw", im_dw, got_dw,
                         dt)
+            if dw_tc and cin % 16:   # the narrow body: the stems
+                check_f64(table, "sparse_conv_dw", f"{what} ({t_name})",
+                          got_dw, im_dw, DW_F64_TOL,
+                          vs="the im2col dw_only body")
             del ref_df, ref_dw, got_df, got_dw, got, pl_df, pl_dw, im_df, \
                 im_dw
-            im_tc = window_conv.im2col_tensor_cores(dt, cin, cout)
             if im_tc:
                 check_im2col_fwd_tc(table, what, f, kmap, wt)
                 check_im2col_bwd_tc(table, f"{what} ({t_name}, mirror "
@@ -809,7 +860,8 @@ def check_convs(model, big, dev, table, g, timed=True):
                     nbytes=nb, flops=fl)
             # dW reads the features and the output gradient, writes f32
             nb, fl = conv_work(kmap_t, kmap.shape[1], cout, cin, 2, 4)
-            body = "tensor cores" if dw_tc else "CUDA cores"
+            body = ("CUDA cores" if not dw_tc else "tensor cores"
+                    if cin % 16 == 0 else "tensor cores, narrow")
             table.time(
                 "sparse_conv_dw", f"{what} ({body})",
                 lambda: window_conv.sparse_conv_dw(f, gd, kmap_t),
@@ -932,8 +984,10 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
     [b, n_head, Lq, dk] against k, v [b, n_head, Lk, dk] under the masks qm,
     km, in f32 and bf16; timed in `time_dt` (None: not timed) at dropout
     ATTN_DROPOUT (the train path's call, `count` per train step), beside the
-    library call `F.scaled_dot_product_attention` with the key mask at
-    dropout 0. With `ref64`, the f32 forward (out, lse) and backward at
+    library call `F.scaled_dot_product_attention` with the key mask at the
+    same dropout (it draws its own mask: a time yardstick, never a check),
+    and at dropout 0 (the eval path's call) both again, outside the kernel
+    line. With `ref64`, the f32 forward (out, lse) and backward at
     ATTN_DROPOUT are also held, with the f32 plain version beside them,
     against `attention_fwd_f64` and `attention_bwd_f64`."""
     temp = float(dk) ** 0.5
@@ -1019,22 +1073,31 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
                         table.err["flash_attn_bwd"], err)
                 del r64
             del got, refs
+            if dt == time_dt:
+                # the library call: one fused attention with the key mask,
+                # at the kernel's dropout
+                lib = F.scaled_dot_product_attention(
+                    *leaves, attn_mask=km[:, None, None, :],
+                    scale=1.0 / temp, dropout_p=drop)
             if dt == time_dt and not drop:   # the eval path's forward
                 fwd_ms = median_ms(lambda: flash.flash_attention(
                     qd, kd, vd, km, qm, temp))
                 bwd_ms = median_ms(lambda: flash.flash_attention_bwd(
                     qd, kd, vd, dod, lse, delta, km, qm, temp))
+                lfwd_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=km[:, None, None, :],
+                    scale=1.0 / temp))
+                lbwd_ms = median_ms(lambda: torch.autograd.grad(
+                    lib, leaves, dod, retain_graph=True))
                 print(f"[time] flash_attn_fwd {tag} {str(dt)[6:]}: kernel "
-                      f"{fwd_ms:.4f} ms; flash_attn_bwd kernel "
-                      f"{bwd_ms:.4f} ms (dropout 0: the eval path's call; "
+                      f"{fwd_ms:.4f} ms, library {lfwd_ms:.4f} ms; "
+                      f"flash_attn_bwd kernel {bwd_ms:.4f} ms, library "
+                      f"{lbwd_ms:.4f} ms (dropout 0: the eval path's call; "
                       f"not in the kernel line)")
+                del lib
             if dt == time_dt and drop:   # the train path's call
                 fb, bb, ff, bf = attention_work(qm, km, n_head, dk,
                                                 qd.element_size())
-                # the library call: one fused attention with the key mask
-                lib = F.scaled_dot_product_attention(
-                    *leaves, attn_mask=km[:, None, None, :],
-                    scale=1.0 / temp)
                 table.time(
                     "flash_attn_fwd", tag,
                     lambda: flash.flash_attention(qd, kd, vd, km, qm,
@@ -1044,7 +1107,7 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
                     count, reps=3, nbytes=fb, flops=ff, dtype=dt,
                     fn_library=lambda: F.scaled_dot_product_attention(
                         qd, kd, vd, attn_mask=km[:, None, None, :],
-                        scale=1.0 / temp))
+                        scale=1.0 / temp, dropout_p=drop))
                 table.time(
                     "flash_attn_bwd", tag,
                     lambda: flash.flash_attention_bwd(
@@ -1350,14 +1413,17 @@ def check_ring_kernels(dev, table, g):
                 flops=ff, dtype=dt,
                 fn_library=lambda: F.scaled_dot_product_attention(
                     qd, kd, vd, attn_mask=km[:, None, None, :],
-                    scale=1.0 / temp))
+                    scale=1.0 / temp, dropout_p=drop))
             print(f"[time] flash_attn_carry, flash_attn_block_bwd: the plain "
                   f"versions walk the keys in {MF_BLOCKS} blocks (all keys "
-                  f"at once would hold a [{b},{h},{L},{L}] f32 score matrix)")
+                  f"at once would hold a [{b},{h},{L},{L}] f32 score matrix); "
+                  f"the library call runs at the kernels' dropout and draws "
+                  f"its own mask")
             leaves = [x.detach().clone().requires_grad_(True)
                       for x in (qd, kd, vd)]
-            lib = F.scaled_dot_product_attention(
-                *leaves, attn_mask=km[:, None, None, :], scale=1.0 / temp)
+            lib, lib0 = (F.scaled_dot_product_attention(
+                *leaves, attn_mask=km[:, None, None, :], scale=1.0 / temp,
+                dropout_p=p) for p in (drop, 0.0))
             table.time(
                 "flash_attn_block_bwd", atag,
                 lambda: flash.flash_block_backward(
@@ -1366,7 +1432,24 @@ def check_ring_kernels(dev, table, g):
                 plain_bwd_chain, reps=3, nbytes=bb, flops=bf, dtype=dt,
                 fn_library=lambda: torch.autograd.grad(
                     lib, leaves, dod, retain_graph=True))
-            del lib, leaves, cin
+            # the same calls at dropout 0, outside the kernel line
+            ms0 = [median_ms(fn, warmup=1, reps=3) for fn in (
+                lambda: flash.flash_forward_carry(qd, kd, vd, km, None, cin,
+                                                  temp),
+                lambda: F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=km[:, None, None, :],
+                    scale=1.0 / temp),
+                lambda: flash.flash_block_backward(
+                    qd, kd, vd, km, out, lse, dod, temp, delta=delta),
+                lambda: torch.autograd.grad(lib0, leaves, dod,
+                                            retain_graph=True))]
+            print(f"[time] flash_attn_carry [{b},{h},{L},{dk}] all keys "
+                  f"{mtag} dropout 0.0 {str(dt)[6:]}: kernel "
+                  f"{ms0[0]:.4f} ms, library "
+                  f"{ms0[1]:.4f} ms; flash_attn_block_bwd kernel "
+                  f"{ms0[2]:.4f} ms, library {ms0[3]:.4f} ms (not in the "
+                  f"kernel line)")
+            del lib, lib0, leaves, cin
         del out, lse, delta, blocks_, plain, sums_p
         torch.cuda.empty_cache()
 
@@ -1406,11 +1489,18 @@ def check_interp(qb, dev, table, g):
                        nbytes=nb, flops=2 * nnz * NUM_CLASSES,
                        fn_library=lambda: F.embedding_bag(
                            bags, flz, per_sample_weights=wb, mode="sum"))
+            # the backward's yardstick: the gradient of that bag sum with
+            # respect to the voxel features, the same scatter-add
+            flz_l = flz.detach().requires_grad_(True)
+            bag = F.embedding_bag(bags, flz_l, per_sample_weights=wb,
+                                  mode="sum")
             table.time("interp_bwd", bwd,
                        lambda: interp_window.interp_bwd(
                            gd, qb.interp_ptr, qb.interp_ent, w8),
                        lambda: interp.interp_bwd_plain(gd, idx, w8, n0),
-                       nbytes=nb + (n0 + 1) * 4, flops=2 * nnz * NUM_CLASSES)
+                       nbytes=nb + (n0 + 1) * 4, flops=2 * nnz * NUM_CLASSES,
+                       fn_library=lambda: torch.autograd.grad(
+                           bag, flz_l, gd, retain_graph=True))
 
 
 def check_point_outputs(tag, loss, point_logits, pred, qb):

@@ -10,25 +10,27 @@ straight from the kernel map:
 
 * K1 (`csn_tpu_torch/csrc/sparse_conv.cu`): one block per tile of output
   rows x output channels, f32 accumulation over all offsets in registers,
-  one store in the activation dtype. bf16 with Cin % 16 == 0 and Cout % 8
-  == 0 (every conv but the stems) runs on the tensor cores (`mma.sync` on
-  rows gathered by `cp.async`, `k1_tensor_cores`); f32 and the stems run
-  f32 FMAs on the CUDA cores. Plain version:
-  `csn_tpu_torch.core.conv.conv_plain`.
+  one store in the activation dtype. bf16 with Cout % 8 == 0 runs on the
+  tensor cores (`mma.sync`, `k1_tensor_cores`): where Cin % 16 == 0 over
+  rows gathered by `cp.async` per (offset, 64 input channels), and at other
+  Cin (the k5 stems' Cin 3) over the im2col forward's flattened steps of
+  K*Cin, gathered element by element, so that K1's stem output is the
+  im2col forward's bit for bit. f32 runs f32 FMAs on the CUDA cores. Plain
+  version: `csn_tpu_torch.core.conv.conv_plain`.
 * `sparse_conv_dw` (`csn_tpu_torch/csrc/sparse_conv_bwd.cu`): one block per
   (channel tile, offset, row split), f32 partials per split summed by a
-  second kernel in a fixed order. bf16 with Cin % 16 == 0 and Cout % 8 == 0
-  runs on the tensor cores (`mma.sync` over the split's live rows only,
-  compacted into a list and gathered by `cp.async`, `dw_tensor_cores`); f32
-  and the stems run f32 FMAs on the CUDA cores. Plain version: the dW half
-  of `csn_tpu_torch.core.conv.conv_bwd_plain`.
+  second kernel in a fixed order. bf16 by K1's rule runs on the tensor
+  cores (`mma.sync` over the split's live rows only, compacted into a list
+  by warp ballots, g rows gathered by `cp.async`, `dw_tensor_cores`): in
+  64-channel tiles where Cin % 16 == 0, in 16-channel tiles elsewhere (the
+  stems: each lane loads its A fragment of 6-byte feats rows element by
+  element). f32 runs f32 FMAs on the CUDA cores. Plain version: the dW
+  half of `csn_tpu_torch.core.conv.conv_bwd_plain`.
 * `sparse_conv_im2col_fwd` (`csn_tpu_torch/csrc/sparse_conv_im2col.cu`): the
   forward as one product per output tile over the flattened axis K*Cin,
-  walked in steps of 64 columns. bf16 with Cout % 8 == 0, the k5 stem
-  included (`im2col_tensor_cores`), runs on the tensor cores: where Cin %
-  16 == 0 the walk is K1's loop (`csrc/sparse_conv_tc.cuh`, K1's bits), and
-  other Cin (the stem's 3) take steps that span offsets, gathered element
-  by element. f32 runs f32 FMAs on the CUDA cores. Plain version:
+  walked in steps of 64 columns. bf16 by K1's rule runs K1's tensor-core
+  body (`csrc/sparse_conv_tc.cuh`, K1's bits at every Cin). f32 runs f32
+  FMAs on the CUDA cores. Plain version:
   `csn_tpu_torch.core.conv.conv_im2col_plain`.
 * `sparse_conv_im2col_bwd` (`csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu`):
   the fused backward, one gather of the output gradient per (row tile,
@@ -82,20 +84,25 @@ def dyng(mode):
 
 
 def k1_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
-    """Whether K1 runs its tensor-core body (`csrc/sparse_conv.cu`
-    `csn_sparse_conv_fwd` chooses by the same rule): bf16 with Cin a
-    multiple of 16 and Cout a multiple of 8. f32 and the stems (Cin 3) run
-    its CUDA-core body."""
-    return dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0
+    """Whether the sparse conv kernels run their tensor-core bodies: bf16
+    with Cout a multiple of 8, whatever Cin (the k5 stems' Cin 3 included).
+    The C entries `csn_sparse_conv_fwd`, `csn_sparse_conv_dw`,
+    `csn_sparse_conv_im2col_fwd` and `csn_sparse_conv_im2col_bwd` choose by
+    this rule; f32 runs the CUDA-core bodies."""
+    return dtype == torch.bfloat16 and cout % 8 == 0
 
 
-def sparse_conv_fwd(feats: torch.Tensor, kmap: torch.Tensor,
-                    weights: torch.Tensor) -> torch.Tensor:
-    """Launch K1: feats [N_in, Cin], kmap [K, N_out] int32 (sentinel N_in),
-    weights [K, Cin, Cout] of the feats' dtype -> [N_out, Cout]. The
-    tensor-core body copies feats and weights 16 bytes at a time: it takes
-    only views that start on a 16-byte boundary."""
-    what = "sparse_conv_fwd"
+# one rule for every sparse conv kernel (`k1_tensor_cores`)
+dw_tensor_cores = im2col_tensor_cores = k1_tensor_cores
+
+
+def _conv_fwd(what: str, entry: str, feats: torch.Tensor, kmap: torch.Tensor,
+              weights: torch.Tensor, max_offsets=None) -> torch.Tensor:
+    """Check the arguments of a forward conv launcher and launch C entry
+    `entry` (`csn_sparse_conv_fwd` or `csn_sparse_conv_im2col_fwd`, one
+    contract). The tensor-core body copies the weights, and feats where
+    Cin % 16 == 0, 16 bytes at a time: it takes only such views that start
+    on a 16-byte boundary."""
     kernels.require_cuda(what, feats, kmap, weights)
     if feats.dim() != 2 or kmap.dim() != 2 or weights.dim() != 3:
         raise ValueError(f"{what}: want feats [N, Cin], kmap [K, N_out], "
@@ -111,13 +118,18 @@ def sparse_conv_fwd(feats: torch.Tensor, kmap: torch.Tensor,
     if weights.dtype != feats.dtype:
         raise TypeError(f"{what}: weights {weights.dtype} != feats "
                         f"{feats.dtype}")
+    if max_offsets is not None and n_off > max_offsets:
+        raise ValueError(f"{what}: {n_off} offsets; the kernel stages at "
+                         f"most {max_offsets}")
     cout = weights.shape[2]
     if k1_tensor_cores(feats.dtype, cin, cout) and (
-            feats.data_ptr() % 16 or weights.data_ptr() % 16):
-        raise ValueError(f"{what}: bf16 feats and weights must start on a "
-                         f"16-byte boundary (cp.async copies)")
+            weights.data_ptr() % 16 or (cin % 16 == 0
+                                        and feats.data_ptr() % 16)):
+        raise ValueError(f"{what}: bf16 weights, and feats where Cin % 16 == "
+                         f"0, must start on a 16-byte boundary (cp.async "
+                         f"copies)")
     out = torch.empty((n_out, cout), dtype=feats.dtype, device=feats.device)
-    code = kernels.library().csn_sparse_conv_fwd(
+    code = getattr(kernels.library(), entry)(
         kernels.dtype_code(feats), feats.data_ptr(), kmap.data_ptr(),
         weights.data_ptr(), out.data_ptr(), n_in, n_out, n_off, cin, cout,
         kernels.stream())
@@ -126,21 +138,32 @@ def sparse_conv_fwd(feats: torch.Tensor, kmap: torch.Tensor,
     return out
 
 
-def dw_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
-    """Whether `sparse_conv_dw` runs its tensor-core body
-    (`csrc/sparse_conv_bwd.cu` `csn_sparse_conv_dw` chooses by the same
-    rule, K1's): bf16 with Cin a multiple of 16 and Cout a multiple of 8.
-    f32 and the stems (Cin 3) run its CUDA-core body."""
-    return k1_tensor_cores(dtype, cin, cout)
+def sparse_conv_fwd(feats: torch.Tensor, kmap: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """Launch K1: feats [N_in, Cin], kmap [K, N_out] int32 (sentinel N_in),
+    weights [K, Cin, Cout] of the feats' dtype -> [N_out, Cout]. The
+    tensor-core body takes only bf16 weights, and feats where Cin % 16 ==
+    0, that start on a 16-byte boundary (`_conv_fwd`)."""
+    return _conv_fwd("sparse_conv_fwd", "csn_sparse_conv_fwd", feats, kmap,
+                     weights)
 
 
 SMS = 132            # streaming multiprocessors of the H100 SXM
 MIN_SPLIT_ROWS = 1024
-# the dW tensor-core body (csrc/sparse_conv_bwd.cu): live rows per product
-# step, map entries compacted per refill of its list, warps per SM it aims at
-DW_TC_STEP = 32
+# the dW tensor-core bodies (csrc/sparse_conv_bwd.cu): map entries compacted
+# per refill of the list; the wide body's (Cin % 16 == 0) live rows per
+# product step and warps per SM it aims at; the narrow body's (other Cin)
+# warps per block, input channels per tile, live rows gathered at once and
+# warps of its grid per SM (several waves: its blocks wait on latency, so
+# more and shorter splits keep the card busier; this gives the 26 splits
+# that measured best at both stems)
 DW_TC_CHUNK = 1024
+DW_TC_STEP = 32
 DW_TC_WARPS_PER_SM = 32
+DW_NARROW_WARPS = 4
+DW_NARROW_CHANNELS = 16
+DW_NARROW_TILE = 256
+DW_NARROW_WARPS_PER_SM = 96
 
 
 def col_tiles(cout: int):
@@ -152,18 +175,30 @@ def col_tiles(cout: int):
     return tiles, -(-n64 // tiles)
 
 
+def dw_narrow_tiles(cin: int, cout: int) -> int:
+    """Channel tiles of the narrow dW body: 16 input channels by 32 output
+    channels up to Cout 32 (the stems), else by 64."""
+    bn = 32 if cout <= 32 else 64
+    return -(-cin // DW_NARROW_CHANNELS) * -(-cout // bn)
+
+
 def dw_splits(n_in: int, n_off: int, cin: int, cout: int,
               tensor_cores: bool = False) -> int:
     """Row splits S of the dW kernel, with at least MIN_SPLIT_ROWS rows per
     split and at most 64 splits. The CUDA-core body: enough that the grid of
     (channel tiles x offsets x S) blocks puts about two on each SM. The
-    tensor-core body (`tensor_cores`), whose blocks are 2 WN warps (input
-    channels in tiles of 64, output channels in `col_tiles`): about
-    DW_TC_WARPS_PER_SM warps on each SM."""
-    if tensor_cores:
+    tensor-core bodies (`tensor_cores`): the wide one (Cin % 16 == 0), whose
+    blocks are 2 WN warps (input channels in tiles of 64, output channels in
+    `col_tiles`), about DW_TC_WARPS_PER_SM warps on each SM; the narrow one
+    (other Cin), blocks of DW_NARROW_WARPS warps per `dw_narrow_tiles`
+    tile, about DW_NARROW_WARPS_PER_SM."""
+    if tensor_cores and cin % 16 == 0:
         tiles, wn = col_tiles(cout)
         warps = -(-cin // 64) * tiles * n_off * 2 * wn
         want = -(-DW_TC_WARPS_PER_SM * SMS // warps)
+    elif tensor_cores:
+        warps = dw_narrow_tiles(cin, cout) * n_off * DW_NARROW_WARPS
+        want = -(-DW_NARROW_WARPS_PER_SM * SMS // warps)
     else:
         tm = 16 if cin <= 16 else 64          # the kernel's channel tile
         blocks = -(-cin // tm) * -(-cout // 64) * n_off
@@ -175,9 +210,9 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
                    kmap_t: torch.Tensor) -> torch.Tensor:
     """Launch the dW kernel: feats [N_in, Cin] and g [N_g, Cout] of one
     dtype, kmap_t [K, N_in] int32 (sentinel N_g) -> dW_t [K, Cin, Cout] f32,
-    dW_t[k] = feats^T . gather(g, kmap_t[k]). The tensor-core body copies
-    feats and g rows 16 bytes at a time: it takes only views that start on a
-    16-byte boundary."""
+    dW_t[k] = feats^T . gather(g, kmap_t[k]). The tensor-core bodies copy
+    g rows, and feats rows where Cin % 16 == 0, 16 bytes at a time: they
+    take only such views that start on a 16-byte boundary."""
     what = "sparse_conv_dw"
     kernels.require_cuda(what, feats, g, kmap_t)
     if feats.dim() != 2 or g.dim() != 2 or kmap_t.dim() != 2 \
@@ -193,9 +228,10 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
     n_g, cout = g.shape
     n_off = kmap_t.shape[0]
     tc = dw_tensor_cores(feats.dtype, cin, cout)
-    if tc and (feats.data_ptr() % 16 or g.data_ptr() % 16):
-        raise ValueError(f"{what}: bf16 feats and g must start on a "
-                         f"16-byte boundary (cp.async copies)")
+    if tc and (g.data_ptr() % 16 or cin % 16 == 0 and feats.data_ptr() % 16):
+        raise ValueError(f"{what}: bf16 g, and feats where Cin % 16 == 0, "
+                         f"must start on a 16-byte boundary (cp.async "
+                         f"copies)")
     n_split = dw_splits(n_in, n_off, cin, cout, tc)
     out = torch.empty((n_off, cin, cout), dtype=torch.float32,
                       device=feats.device)
@@ -220,56 +256,15 @@ IM2COL_PART_BYTES = 512 * 2 ** 20
 IM2COL_TILE = 64
 
 
-def im2col_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
-    """Whether the im2col pair runs its tensor-core bodies
-    (`csn_sparse_conv_im2col_fwd` and `csn_sparse_conv_im2col_bwd` choose by
-    the same rule): bf16 with Cout a multiple of 8, whatever Cin. Unlike
-    K1's rule it takes the stems (Cin 3): the flattened axis K*Cin is one
-    long reduction whatever Cin is. f32 runs the CUDA-core bodies."""
-    return dtype == torch.bfloat16 and cout % 8 == 0
-
-
 def sparse_conv_im2col_fwd(feats: torch.Tensor, kmap: torch.Tensor,
                            weights: torch.Tensor) -> torch.Tensor:
     """Launch the im2col forward: feats [N_in, Cin], kmap [K, N_out] int32
     (sentinel N_in), weights [K, Cin, Cout] of the feats' dtype ->
-    [N_out, Cout] = IC @ weights.reshape(K * Cin, Cout). The tensor-core
-    body copies the weights, and feats where Cin % 16 == 0, 16 bytes at a
-    time: it takes only such views that start on a 16-byte boundary."""
-    what = "sparse_conv_im2col_fwd"
-    kernels.require_cuda(what, feats, kmap, weights)
-    if feats.dim() != 2 or kmap.dim() != 2 or weights.dim() != 3:
-        raise ValueError(f"{what}: want feats [N, Cin], kmap [K, N_out], "
-                         f"weights [K, Cin, Cout]; got {tuple(feats.shape)}, "
-                         f"{tuple(kmap.shape)}, {tuple(weights.shape)}")
-    n_in, cin = feats.shape
-    n_off, n_out = kmap.shape
-    if weights.shape[:2] != (n_off, cin):
-        raise ValueError(f"{what}: weights {tuple(weights.shape)} do not fit "
-                         f"{n_off} offsets x Cin {cin}")
-    if kmap.dtype != torch.int32:
-        raise TypeError(f"{what}: kmap must be int32, got {kmap.dtype}")
-    if weights.dtype != feats.dtype:
-        raise TypeError(f"{what}: weights {weights.dtype} != feats "
-                        f"{feats.dtype}")
-    if n_off > IM2COL_MAX_OFFSETS:
-        raise ValueError(f"{what}: {n_off} offsets; the kernel stages at "
-                         f"most {IM2COL_MAX_OFFSETS}")
-    cout = weights.shape[2]
-    if im2col_tensor_cores(feats.dtype, cin, cout) and (
-            weights.data_ptr() % 16 or (cin % 16 == 0
-                                        and feats.data_ptr() % 16)):
-        raise ValueError(f"{what}: bf16 weights, and feats where Cin % 16 == "
-                         f"0, must start on a 16-byte boundary (cp.async "
-                         f"copies)")
-    out = torch.empty((n_out, cout), dtype=feats.dtype, device=feats.device)
-    code = kernels.library().csn_sparse_conv_im2col_fwd(
-        kernels.dtype_code(feats), feats.data_ptr(), kmap.data_ptr(),
-        weights.data_ptr(), out.data_ptr(), n_in, n_out, n_off, cin, cout,
-        kernels.stream())
-    kernels.check(code, what)
-    kernels.LAUNCHES[what] += 1
-    return out
+    [N_out, Cout] = IC @ weights.reshape(K * Cin, Cout), at most
+    IM2COL_MAX_OFFSETS offsets. Its tensor-core body is K1's, with K1's
+    alignment rule (`_conv_fwd`)."""
+    return _conv_fwd("sparse_conv_im2col_fwd", "csn_sparse_conv_im2col_fwd",
+                     feats, kmap, weights, IM2COL_MAX_OFFSETS)
 
 
 def im2col_bwd_splits(n_in: int, n_off: int, cin: int, cout: int) -> int:

@@ -19,11 +19,12 @@
 //
 // Two bodies, chosen by dtype and shape by the rule of K1 (sparse_conv.cu;
 // a failed launch returns its error, there is no retry on the other body):
-//  * bf16 with Cin % 16 == 0 and Cout % 8 == 0 (every conv of the HRNet,
-//    Res16UNet, ResUNet and ResNet families but the stems, whose Cin is 3):
-//    the tensor-core body, mma.sync m16n8k16 on bf16 operands with f32
-//    accumulators, over the live rows only;
-//  * f32, and the stems: the CUDA-core body (f32 FMAs).
+//  * bf16 with Cout % 8 == 0, whatever Cin (every conv of the HRNet,
+//    Res16UNet, ResUNet and ResNet families, the k5 stems' Cin 3
+//    included): the tensor-core bodies, mma.sync m16n8k16 on bf16 operands
+//    with f32 accumulators, over the live rows only; the wide body where
+//    Cin % 16 == 0, the narrow one (16-channel tiles) elsewhere;
+//  * f32, and bf16 with Cout % 8 != 0: the CUDA-core body (f32 FMAs).
 //
 // What bounds it on the H100: the same 2*Cin*Cout operations per live (row,
 // offset) pair as the forward; the bound counts each input byte once
@@ -42,9 +43,10 @@
 // windows; here d_feats, an output-stationary conv, and dW, an
 // offset-stationary reduction, want different block shapes.
 //
-// Tensor-core design. One block per (tile of 64 input channels, tile of BN
-// = 64 WN output channels, offset k, split s), WN = ceil(Cout / 64) up to 4
-// as K1 picks it (a wider Cout takes several column tiles of equal width).
+// Wide tensor-core design (Cin % 16 == 0). One block per (tile of 64 input
+// channels, tile of BN = 64 WN output channels, offset k, split s), WN =
+// ceil(Cout / 64) up to 4 as K1 picks it (a wider Cout takes several column
+// tiles of equal width).
 // Warps of 32 input x 64 output channels (2 x WN of them) hold 64 f32
 // accumulators a lane over the whole split. The rows are the reduction
 // axis, so dead rows are dropped and live ones packed densely:
@@ -69,13 +71,45 @@
 // A split with no live row does no products and stores zeros. wgmma and TMA
 // are later work.
 //
-// CUDA-core design (f32, stems). One block per (tile of TM input channels x
-// 64 output channels, offset, split) walks its rows in chunks of 16: it
-// stages the chunk's kmap_t entries, skips the chunk when all are sentinels,
-// loads the feats rows and the gathered g rows into shared memory in f32,
-// and each of the 256 threads accumulates a (TM/16) x 4 register tile. TM is
-// 16 for the 3-channel stem (so 3 of 16 rows of the tile, not 3 of 64, are
-// padding) and 64 otherwise.
+// Narrow tensor-core design (Cin % 16 != 0: the stems, 3 -> 32 over 125
+// offsets). What bounds it is not the products (0.36 GFLOP at HRNet's
+// stem) but the bytes and their latency: the [125, N] int32 map read once
+// (45 MB at 90112 rows, the floor), and per live pair a 64-byte g row
+// gathered (from L2: g is 5.8 MB) and a 6-byte feats row. The body keeps
+// the wide one's scheme and cuts what a 3-channel tile does not need. One
+// block of 4 warps per (tile of 16 input channels, tile of 32 output
+// channels, or 64 past Cout 32, offset k, split s):
+//  1. Chunks of CHUNK map entries, one compaction pass each (8 per lane,
+//     the wide body's ballots and prefix). The next chunk's entries are
+//     read into registers right after a chunk's compaction and looked at
+//     only in the next one, so their latency hides behind the chunk's
+//     gathers.
+//  2. Tiles of NTILE = 256 live pairs, gathered at once: every g row by
+//     cp.async into one [256][BN + 8] tile, and beside it each lane's A
+//     fragments (A = feats^T, M = one m16 tile of channels, 13 of its 16
+//     rows zero at Cin 3): feats rows of Cin 3 are 6 bytes, too short for a
+//     16-byte copy, so each lane loads its own values element by element
+//     into registers, zero past Cin and past the list's end. No feats
+//     tile, no ldmatrix for A; at Cin <= 8 the registers of channels 8-15
+//     are known zeros, neither loaded nor kept (C8). One wait and two
+//     barriers per tile; each warp runs 4 k16 steps of it. Pairs short of
+//     a tile wait for the next chunk, as in the wide body. (Measured no
+//     faster: two 64-pair stages; a ring that keeps a tile in flight
+//     across the next compaction; chunks of 2048 or 4096 entries.)
+//  3. Each warp holds a 16 x BN partial over its pairs; at the split's end
+//     the four are added in warp order through shared memory and stored
+//     once: the same bits on every run.
+// The splits (window_conv.dw_splits) matter more than the tile: the blocks
+// wait on latency, not on a unit, so more and shorter splits fill the
+// card; 26 measured best at both stems.
+//
+// CUDA-core design (f32). One block per (tile of TM input channels x 64
+// output channels, offset, split) walks its rows in chunks of 16: it stages
+// the chunk's kmap_t entries, skips the chunk when all are sentinels, loads
+// the feats rows and the gathered g rows into shared memory in f32, and
+// each of the 256 threads accumulates a (TM/16) x 4 register tile. TM is
+// 16 for Cin <= 16 (so 3 of 16 rows of the tile, not 3 of 64, are padding)
+// and 64 otherwise.
 
 #include "common.cuh"
 #include "flash_tc.cuh"
@@ -197,7 +231,7 @@ cudaError_t launch(const void* feats, const void* g, const void* kmap_t,
   return cudaGetLastError();
 }
 
-// --- the tensor-core body (bf16, Cin % 16 == 0, Cout % 8 == 0) -------------
+// --- the tensor-core bodies (bf16, Cout % 8 == 0) ---------------------------
 
 using csn_tc::bf16;
 using csn_tc::cp_async16;
@@ -207,10 +241,13 @@ using csn_tc::ldsm_x4_t;
 using csn_tc::load_a_t;
 using csn_tc::mma;
 
+constexpr int CHUNK = 1024;     // map entries compacted per refill of the list
+
+// The wide body (Cin % 16 == 0): channel tiles of 64.
+
 constexpr int TBM = 64;         // input channels per tile
 constexpr int LDA = TBM + 8;    // feats tile row stride (flash_tc.cuh's LDS)
 constexpr int STEP = 32;        // live rows per step (the products' K)
-constexpr int CHUNK = 1024;     // map entries compacted per refill of the list
 static_assert(LDA == csn_tc::LDS, "load_a_t reads rows LDS elements apart");
 
 template <int WN>
@@ -451,12 +488,283 @@ cudaError_t launch_tc(const void* feats, const void* g, const void* kmap_t,
 #undef CSN_TC
 }
 
+// The narrow body (Cin % 16 != 0: the k5 stems' Cin 3): channel tiles of 16.
+
+constexpr int NW = 4;                   // warps of a block
+constexpr int NTHREADS = 32 * NW;
+constexpr int NKS = 4;                  // k16 steps of a warp per tile
+constexpr int NTILE = 16 * NKS * NW;    // live pairs gathered at once
+constexpr int NRPT = CHUNK / NTHREADS;  // map entries per lane: a chunk a pass
+constexpr int NLIST = CHUNK + NTILE;    // a chunk + what a tile left
+static_assert(NRPT * NTHREADS == CHUNK, "one compaction pass per chunk");
+
+// The narrow body's compaction: the wide body's (its step 1), split in two
+// so that a chunk's map loads are in flight during the previous chunk's
+// tiles.
+
+// Map entries p + (warp * NRPT + j) * 32 + lane of a chunk (rows before b;
+// -1 past b). A warp's loads of one j are 128 contiguous bytes.
+// The values are not looked at here, so the loads stay in flight until
+// append_live needs them.
+__device__ __forceinline__ void read_map(int32_t (&v)[NRPT],
+                                         const int32_t* __restrict__ km,
+                                         int64_t p, int64_t b, int warp,
+                                         int lane) {
+#pragma unroll
+  for (int j = 0; j < NRPT; ++j) {
+    const int64_t r = p + (int64_t)(warp * NRPT + j) * 32 + lane;
+    v[j] = r < b ? __ldg(km + r) : -1;
+  }
+}
+
+// Appends the live pairs (feats row, g row) among a chunk's entries v
+// (read_map at row p; live: inside [0, n_g), not the sentinel) to the list
+// lf / lg after its n entries, at positions from a prefix over the warps'
+// counts: row order, whatever the timing. Returns the new count. Every
+// thread of the block calls it; two barriers, the last of which publishes
+// the list.
+__device__ __forceinline__ int append_live(const int32_t (&v)[NRPT],
+                                           int64_t p, int64_t n_g, int n,
+                                           int32_t* lf, int32_t* lg,
+                                           int32_t* wcnt, int warp,
+                                           int lane) {
+  bool ok[NRPT];
+  unsigned bal[NRPT];
+  int cnt = 0;
+#pragma unroll
+  for (int j = 0; j < NRPT; ++j) {
+    ok[j] = v[j] >= 0 && v[j] < n_g;
+    bal[j] = __ballot_sync(0xffffffffu, ok[j]);
+    cnt += __popc(bal[j]);
+  }
+  if (lane == 0) wcnt[warp] = cnt;
+  __syncthreads();
+  int pos = n;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int c = wcnt[w];
+    pos += w < warp ? c : 0;
+    n += c;
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < NRPT; ++j) {
+    if (ok[j]) {
+      const int q = pos + __popc(bal[j] & below);
+      lf[q] = (int32_t)(p + (int64_t)(warp * NRPT + j) * 32 + lane);
+      lg[q] = v[j];
+    }
+    pos += __popc(bal[j]);
+  }
+  __syncthreads();  // the counts are rewritten by the next chunk
+  return n;
+}
+
+template <int NB>  // 8-column blocks of the block's output channels
+struct NarrowTile {
+  static constexpr int BN = 8 * NB, LDB = BN + 8;
+  // the g tile [NTILE][LDB] (at the end the warps' sums), the list's feats
+  // rows and g rows, the warps' counts
+  static constexpr size_t SMEM = sizeof(bf16) * NTILE * LDB +
+                                 sizeof(int32_t) * (2 * NLIST + NW);
+  static_assert(NW * 16 * BN * sizeof(float) <= NTILE * LDB * sizeof(bf16),
+                "the warps' sums fit in the g tile");
+};
+
+// C8: Cin <= 8, so the A fragments' registers of channels 8-15 (a1, a3)
+// are zeros the body neither loads nor keeps
+template <int NB, bool C8>
+__global__ void __launch_bounds__(NTHREADS)
+sparse_conv_dw_narrow_kernel(const bf16* __restrict__ feats,
+                             const bf16* __restrict__ g,
+                             const int32_t* __restrict__ kmap_t,
+                             float* __restrict__ part, int64_t n_in,
+                             int64_t n_g, int n_off, int cin, int cout,
+                             int64_t rows_per_split) {
+  constexpr int BN = NarrowTile<NB>::BN, LDB = NarrowTile<NB>::LDB;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* gs = reinterpret_cast<bf16*>(smem_raw);  // g rows [NTILE][LDB]
+  int32_t* lf = reinterpret_cast<int32_t*>(gs + NTILE * LDB);
+  int32_t* lg = lf + NLIST;
+  int32_t* wcnt = lg + NLIST;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, t = lane & 3;
+  const int n_tiles = (cout + BN - 1) / BN;
+  const int c0 = (blockIdx.x / n_tiles) * 16;  // the tile's input channels
+  const int n0 = (blockIdx.x % n_tiles) * BN;  // and output channels
+  const int k = blockIdx.y, s = blockIdx.z;
+  const int64_t r_begin = (int64_t)s * rows_per_split;
+  const int64_t r_end =
+      r_begin + rows_per_split < n_in ? r_begin + rows_per_split : n_in;
+  const int32_t* km = kmap_t + (int64_t)k * n_in;
+
+  // the g rows of the tile at list entry e0 (of n)
+  auto load_g = [&](int e0, int n) {
+#pragma unroll
+    for (int i = tid; i < NTILE * NB; i += NTHREADS) {
+      const int r = i / NB, c = (i % NB) * 8;
+      const bool ok = e0 + r < n && n0 + c < cout;
+      cp_async16(gs + r * LDB + c,
+                 g + (ok ? (int64_t)lg[e0 + r] * cout + n0 + c : 0), ok);
+    }
+  };
+  // the feats values of the warp's A fragments (A = feats^T: M the tile's 16
+  // channels, K the pairs of k16 step ks, e0 + 16 (NW ks + warp) .. +15):
+  // x[ks][i][h] is half h of register i, channel c0 + gr + 8 (i & 1) of pair
+  // 2t + h + 8 (i >> 1); zero past Cin and past the list's end. Loaded beside
+  // the tile's g copies, used after its barrier.
+  bf16 x[NKS][4][2];
+  auto load_feats = [&](int e0, int n) {
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + gr + 8 * (i & 1);
+          const int q = e0 + 16 * (NW * ks + warp) + 2 * t + 8 * (i >> 1) + h;
+          x[ks][i][h] = __float2bfloat16(0.f);
+          if ((!C8 || (i & 1) == 0) && c < cin && q < n)
+            x[ks][i][h] = feats[(int64_t)lf[q] * cin + c];
+        }
+  };
+
+  float acc[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // the products of the warp's k16 steps of the tile
+  auto compute = [&]() {
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      uint32_t a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 p = __halves2bfloat162(x[ks][i][0], x[ks][i][1]);
+        a[i] = *reinterpret_cast<const uint32_t*>(&p);
+      }
+      const int r0 = 16 * (NW * ks + warp);
+#pragma unroll
+      for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+        if (n0 + 16 * nb2 >= cout) break;
+        uint32_t b[4];
+        ldsm_x4_t(b, gs + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB +
+                         nb2 * 16 + (lane >> 4) * 8);
+        mma(acc[2 * nb2], a, b[0], b[1]);
+        mma(acc[2 * nb2 + 1], a, b[2], b[3]);
+      }
+    }
+  };
+
+  // the end of the chunk that starts at row a
+  auto chunk_end = [&](int64_t a) {
+    return a + CHUNK < r_end ? a + CHUNK : r_end;
+  };
+  int32_t v[NRPT];
+  if (r_begin < r_end) read_map(v, km, r_begin, chunk_end(r_begin), warp, lane);
+  int n = 0;  // pairs in the list
+  for (int64_t a = r_begin; a < r_end; a += CHUNK) {
+    const int64_t b = chunk_end(a);
+    n = append_live(v, a, n_g, n, lf, lg, wcnt, warp, lane);
+    // the next chunk's map entries are in flight during this chunk's tiles
+    if (b < r_end) read_map(v, km, b, chunk_end(b), warp, lane);
+    const bool last = b >= r_end;
+    const int tiles = last ? (n + NTILE - 1) / NTILE : n / NTILE;
+    // two barriers per tile: after its copies, and before the next tile's
+    for (int i = 0; i < tiles; ++i) {
+      load_g(i * NTILE, n);
+      cp_async_commit();
+      load_feats(i * NTILE, n);
+      cp_async_wait<0>();
+      __syncthreads();
+      compute();
+      __syncthreads();
+    }
+    // the pairs short of a tile go to the front (a tile took NTILE > rest
+    // entries, so the two ranges are disjoint); the next compaction writes
+    // after them only past its first barrier
+    const int used = tiles * NTILE;
+    const int rest = last ? 0 : n - used;
+    if (used > 0)
+      for (int e = tid; e < rest; e += NTHREADS) {
+        lf[e] = lf[used + e];
+        lg[e] = lg[used + e];
+      }
+    n = rest;
+  }
+
+  // the warps' sums over their pairs, added in warp order (the g tile is
+  // free: a barrier follows every read of it)
+  float* red = reinterpret_cast<float*>(gs);  // [NW][16][BN]
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(red + (warp * 16 + gr + 8 * h) * BN + 8 * j +
+                                 2 * t) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+  __syncthreads();
+  float* out = part + ((int64_t)s * n_off + k) * cin * cout;
+  for (int i = tid; i < 16 * BN; i += NTHREADS) {
+    const int c = c0 + i / BN, col = n0 + i % BN;
+    if (c < cin && col < cout) {
+      float sum = red[i];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) sum += red[w * 16 * BN + i];
+      out[(int64_t)c * cout + col] = sum;
+    }
+  }
+}
+
+template <int NB, bool C8>
+cudaError_t launch_narrow_body(const void* feats, const void* g,
+                               const void* kmap_t, float* dst, int64_t n_in,
+                               int64_t n_g, int n_off, int cin, int cout,
+                               int n_split, int64_t rows_per_split,
+                               cudaStream_t stream) {
+  using Tl = NarrowTile<NB>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sparse_conv_dw_narrow_kernel<NB, C8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::SMEM);
+  if (err != cudaSuccess) return err;
+  const unsigned tiles =
+      (unsigned)(((cin + 15) / 16) * ((cout + Tl::BN - 1) / Tl::BN));
+  const dim3 grid(tiles, (unsigned)n_off, (unsigned)n_split);
+  sparse_conv_dw_narrow_kernel<NB, C8><<<grid, NTHREADS, Tl::SMEM, stream>>>(
+      static_cast<const bf16*>(feats), static_cast<const bf16*>(g),
+      static_cast<const int32_t*>(kmap_t), dst, n_in, n_g, n_off, cin, cout,
+      rows_per_split);
+  return cudaGetLastError();
+}
+
+// 32 output channels per block up to Cout 32 (the stems), else 64
+cudaError_t launch_narrow(const void* feats, const void* g,
+                          const void* kmap_t, float* dst, int64_t n_in,
+                          int64_t n_g, int n_off, int cin, int cout,
+                          int n_split, int64_t rows_per_split,
+                          cudaStream_t stream) {
+#define CSN_NARROW(NB, C8)                                             \
+  return launch_narrow_body<NB, C8>(feats, g, kmap_t, dst, n_in, n_g, \
+                                    n_off, cin, cout, n_split,         \
+                                    rows_per_split, stream)
+  if (cout <= 32) {
+    if (cin <= 8) CSN_NARROW(4, true);
+    CSN_NARROW(4, false);
+  }
+  if (cin <= 8) CSN_NARROW(8, true);
+  CSN_NARROW(8, false);
+#undef CSN_NARROW
+}
+
 }  // namespace
 
-// feats [n_in, cin] and g [n_g, cout] of one type (16-byte aligned for the
-// tensor-core body), kmap_t [n_off, n_in] int32 (sentinel n_g), part
-// [n_split, n_off, cin, cout] f32 scratch (unused when n_split == 1), out
-// [n_off, cin, cout] f32.
+// feats [n_in, cin] and g [n_g, cout] of one type, kmap_t [n_off, n_in]
+// int32 (sentinel n_g), part [n_split, n_off, cin, cout] f32 scratch
+// (unused when n_split == 1), out [n_off, cin, cout] f32. The tensor-core
+// bodies copy g, and feats where Cin % 16 == 0, 16 bytes at a time: those
+// start on a 16-byte boundary.
 extern "C" int csn_sparse_conv_dw(int dtype, const void* feats, const void* g,
                                   const void* kmap_t, void* part, void* out,
                                   int64_t n_in, int64_t n_g, int n_off,
@@ -468,23 +776,25 @@ extern "C" int csn_sparse_conv_dw(int dtype, const void* feats, const void* g,
   const int64_t rows = (n_in + n_split - 1) / n_split;
   // one split writes the result directly
   float* dst = static_cast<float*>(n_split == 1 ? out : part);
-  const bool narrow = cin <= 16;
+  const bool tm16 = cin <= 16;  // the CUDA-core body's channel tile
   cudaError_t err;
-  if (dtype == csn::kBF16 && cin % 16 == 0 && cout % 8 == 0)
-    err = launch_tc(feats, g, kmap_t, dst, n_in, n_g, n_off, cin, cout,
-                    n_split, rows, s);
+  if (dtype == csn::kBF16 && cout % 8 == 0)
+    err = cin % 16 == 0 ? launch_tc(feats, g, kmap_t, dst, n_in, n_g, n_off,
+                                    cin, cout, n_split, rows, s)
+                        : launch_narrow(feats, g, kmap_t, dst, n_in, n_g,
+                                        n_off, cin, cout, n_split, rows, s);
   else if (dtype == csn::kF32)
-    err = narrow ? launch<float, 16>(feats, g, kmap_t, dst, n_in, n_g, n_off,
-                                     cin, cout, n_split, rows, s)
-                 : launch<float, 64>(feats, g, kmap_t, dst, n_in, n_g, n_off,
-                                     cin, cout, n_split, rows, s);
+    err = tm16 ? launch<float, 16>(feats, g, kmap_t, dst, n_in, n_g, n_off,
+                                   cin, cout, n_split, rows, s)
+               : launch<float, 64>(feats, g, kmap_t, dst, n_in, n_g, n_off,
+                                   cin, cout, n_split, rows, s);
   else if (dtype == csn::kBF16)
-    err = narrow ? launch<__nv_bfloat16, 16>(feats, g, kmap_t, dst, n_in,
-                                             n_g, n_off, cin, cout, n_split,
-                                             rows, s)
-                 : launch<__nv_bfloat16, 64>(feats, g, kmap_t, dst, n_in,
-                                             n_g, n_off, cin, cout, n_split,
-                                             rows, s);
+    err = tm16 ? launch<__nv_bfloat16, 16>(feats, g, kmap_t, dst, n_in,
+                                           n_g, n_off, cin, cout, n_split,
+                                           rows, s)
+               : launch<__nv_bfloat16, 64>(feats, g, kmap_t, dst, n_in, n_g,
+                                           n_off, cin, cout, n_split, rows,
+                                           s);
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess || n_split == 1) return err;

@@ -24,8 +24,8 @@
 //    it runs K1's loop (FLAT false) through K1's launcher and gives K1's
 //    bits. Other Cin (the stem's 3) take its flattened steps (FLAT true):
 //    64 columns of K*Cin that span offsets, gathered element by element, so
-//    the stem's 375 columns are 24 k16 products per tile where K1 runs 125
-//    offsets that are 3 deep on the CUDA cores;
+//    the stem's 375 columns are 24 k16 products per tile; K1 runs the same
+//    steps there, so the two forms agree bit for bit at every bf16 conv;
 //  * f32 (and bf16 with Cout % 8 != 0): the CUDA-core body below, f32 FMAs.
 //
 // What bounds it on the H100: the same bytes and 2*Cin*Cout operations per

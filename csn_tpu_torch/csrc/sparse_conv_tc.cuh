@@ -1,6 +1,6 @@
 // The tensor-core body of the sparse conv forward, shared by K1
-// (sparse_conv.cu, Cin % 16 == 0) and the im2col forward
-// (sparse_conv_im2col.cu, any Cin): out = IC @ W.reshape(K*Cin, Cout) in
+// (sparse_conv.cu) and the im2col forward (sparse_conv_im2col.cu), both at
+// bf16 with Cout % 8 == 0 and any Cin: out = IC @ W.reshape(K*Cin, Cout) in
 // bf16 with f32 accumulation, mma.sync m16n8k16.
 //
 // One block per tile of BM output rows x BN output channels, BN = 64 WN with
@@ -23,10 +23,10 @@
 //       input channels). A step gathers its BM source rows straight from
 //       device memory / L2 by cp.async, 16 bytes at a time (a sentinel row
 //       zero-filled, no read);
-//     * flattened steps (FLAT true, any Cin: the k5 stem's Cin 3): the
-//       columns j0 .. j0+63 of the flattened axis K*Cin, which span offsets
-//       (the stem's 375 columns are 6 steps where K1's walk has 125 that are
-//       3 deep). Rows of Cin bf16 values are not 16-byte pieces, so the
+//     * flattened steps (FLAT true, Cin % 16 != 0: the k5 stem's Cin 3):
+//       the columns j0 .. j0+63 of the flattened axis K*Cin, which span
+//       offsets (the stem's 375 columns are 6 steps where a walk by offset
+//       would take 125 that are 3 deep). Rows of Cin bf16 values are not 16-byte pieces, so the
 //       step gathers element by element (2-byte loads; zero for a sentinel
 //       and for the padding past K*Cin).
 //     W's rows of the step (contiguous in W.reshape(K*Cin, Cout) either

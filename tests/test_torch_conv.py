@@ -3,10 +3,11 @@ package on a real built and concatenated batch: the plain forward against
 `_conv_impl`, and `SparseConvFn`'s backward (its plain version on the CPU)
 against `jax.vjp` of the JAX `sparse_conv` with the transpose map, with
 random asymmetric weights so that a missed mirror shows. Also the dtypes of
-the gradients, the dW kernel's split choice and the launchers' refusal of
-CPU tensors; the im2col pair's tensor-core rule, splits and refusal of
-misaligned bf16 views; `sparse_conv_with_bias` and `masked_fill` against the JAX
-functions. Tolerance: max abs <= 1e-5 * max|ref| (f32 on both sides; the
+the gradients, the dW kernel's split choice (its CUDA-core body and both
+tensor-core bodies) and the launchers' refusal of CPU tensors and of
+misaligned bf16 views; the one tensor-core rule of K1, dW and the im2col
+pair and the im2col backward's splits; `sparse_conv_with_bias` and
+`masked_fill` against the JAX functions. Tolerance: max abs <= 1e-5 * max|ref| (f32 on both sides; the
 two sum in different orders)."""
 
 import jax
@@ -101,12 +102,13 @@ def _meta_view(*shape, dtype, shift):
 
 
 def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
-    """K1's tensor-core body (bf16, Cin % 16 == 0, Cout % 8 == 0) copies
-    feats and weights 16 bytes at a time with cp.async: `sparse_conv_fwd`
-    refuses a view of either that does not start on a 16-byte boundary
-    before the launch (meta tensors through the wrapper's checks, the
-    CUDA-device check stubbed out). An aligned call, and a misaligned one
-    that the CUDA-core body takes (f32, or a stem's Cin of 3), get as far as
+    """K1's tensor-core body (bf16, Cout % 8 == 0) copies the weights, and
+    feats where Cin % 16 == 0, 16 bytes at a time with cp.async:
+    `sparse_conv_fwd` refuses such a view that does not start on a 16-byte
+    boundary before the launch (meta tensors through the wrapper's checks,
+    the CUDA-device check stubbed out). Aligned calls, and misaligned ones
+    that no 16-byte copy reads (the stem's feats, which the flattened steps
+    gather element by element; f32 on the CUDA-core body), get as far as
     the library."""
     _stub_launch(monkeypatch)
     view = _meta_view
@@ -114,60 +116,62 @@ def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
     kmap = torch.empty(k, n_out, dtype=torch.int32, device="meta")
     bf = torch.bfloat16
     assert window_conv.k1_tensor_cores(bf, 32, 64)
-    assert not window_conv.k1_tensor_cores(bf, 3, 32)
-    assert not window_conv.k1_tensor_cores(bf, 24, 64)
+    assert window_conv.k1_tensor_cores(bf, 3, 32)
+    assert window_conv.k1_tensor_cores(bf, 24, 64)
     assert not window_conv.k1_tensor_cores(bf, 32, 60)
     assert not window_conv.k1_tensor_cores(torch.float32, 32, 64)
     before = dict(kernels.LAUNCHES)
-    for fs, ws in ((1, 0), (0, 1)):
+    for cin, fs, ws in ((32, 1, 0), (32, 0, 1), (3, 0, 1)):
         with pytest.raises(ValueError, match="16-byte"):
             window_conv.sparse_conv_fwd(
-                view(n_in, 32, dtype=bf, shift=fs), kmap,
-                view(k, 32, 64, dtype=bf, shift=ws))
-    for cin, cout, dt, shift in ((32, 64, bf, 0), (3, 32, bf, 1),
-                                 (32, 64, torch.float32, 1)):
+                view(n_in, cin, dtype=bf, shift=fs), kmap,
+                view(k, cin, 64, dtype=bf, shift=ws))
+    for cin, cout, dt, fs, ws in ((32, 64, bf, 0, 0), (3, 32, bf, 1, 0),
+                                  (32, 64, torch.float32, 1, 1)):
         with pytest.raises(LookupError, match="reached the launch"):
             window_conv.sparse_conv_fwd(
-                view(n_in, cin, dtype=dt, shift=shift), kmap,
-                view(k, cin, cout, dtype=dt, shift=shift))
+                view(n_in, cin, dtype=dt, shift=fs), kmap,
+                view(k, cin, cout, dtype=dt, shift=ws))
     assert kernels.LAUNCHES == before
 
-TC_RULE_CASES = [(torch.bfloat16, 32, 64, True), (torch.bfloat16, 3, 32, False),
-                 (torch.bfloat16, 24, 64, False),
+TC_RULE_CASES = [(torch.bfloat16, 32, 64, True), (torch.bfloat16, 3, 32, True),
+                 (torch.bfloat16, 24, 64, True),
                  (torch.bfloat16, 32, 60, False),
                  (torch.float32, 32, 64, False)]
 
 
 @pytest.mark.parametrize("dtype,cin,cout,want", TC_RULE_CASES)
 def test_dw_tensor_cores_rule(dtype, cin, cout, want):
-    """dW's tensor-core body takes what K1's takes: bf16, Cin % 16 == 0,
-    Cout % 8 == 0 (the rule `csn_sparse_conv_dw` applies)."""
+    """dW's tensor-core bodies take what K1's takes: bf16 with Cout % 8 ==
+    0, whatever Cin, the stems' Cin 3 included (the rule `csn_sparse_conv_dw`
+    and `csn_sparse_conv_fwd` apply)."""
     assert window_conv.dw_tensor_cores(dtype, cin, cout) is want
     assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
 
 
 def test_dw_refuses_a_misaligned_bf16_view(monkeypatch):
-    """dW's tensor-core body copies feats and g rows 16 bytes at a time with
-    cp.async: `sparse_conv_dw` refuses a view of either that does not start
-    on a 16-byte boundary before the launch. An aligned call, and a
-    misaligned one that the CUDA-core body takes (f32, or a stem's Cin of
-    3), get as far as the library."""
+    """dW's tensor-core bodies copy g rows, and feats rows where Cin % 16 ==
+    0, 16 bytes at a time with cp.async: `sparse_conv_dw` refuses such a
+    view that does not start on a 16-byte boundary before the launch.
+    Aligned calls, and misaligned ones that no 16-byte copy reads (the
+    stem's feats, loaded element by element by the narrow body; f32 on the
+    CUDA-core body), get as far as the library."""
     _stub_launch(monkeypatch)
     n_in, n_g, k = 10, 7, 27
     kmap_t = torch.empty(k, n_in, dtype=torch.int32, device="meta")
     bf = torch.bfloat16
     before = dict(kernels.LAUNCHES)
-    for fs, gs in ((1, 0), (0, 1)):
+    for cin, cout, fs, gs in ((32, 64, 1, 0), (32, 64, 0, 1), (3, 32, 0, 1)):
         with pytest.raises(ValueError, match="16-byte"):
-            window_conv.sparse_conv_dw(_meta_view(n_in, 32, dtype=bf, shift=fs),
-                                       _meta_view(n_g, 64, dtype=bf, shift=gs),
-                                       kmap_t)
-    for cin, cout, dt, shift in ((32, 64, bf, 0), (3, 32, bf, 1),
-                                 (32, 64, torch.float32, 1)):
+            window_conv.sparse_conv_dw(
+                _meta_view(n_in, cin, dtype=bf, shift=fs),
+                _meta_view(n_g, cout, dtype=bf, shift=gs), kmap_t)
+    for cin, cout, dt, fs, gs in ((32, 64, bf, 0, 0), (3, 32, bf, 1, 0),
+                                  (32, 64, torch.float32, 1, 1)):
         with pytest.raises(LookupError, match="reached the launch"):
             window_conv.sparse_conv_dw(
-                _meta_view(n_in, cin, dtype=dt, shift=shift),
-                _meta_view(n_g, cout, dtype=dt, shift=shift), kmap_t)
+                _meta_view(n_in, cin, dtype=dt, shift=fs),
+                _meta_view(n_g, cout, dtype=dt, shift=gs), kmap_t)
     assert kernels.LAUNCHES == before
 
 
@@ -273,6 +277,29 @@ def test_dw_tc_splits_fill_the_card(n_in, k, cin, cout, want):
     warps = -(-cin // 64) * tiles * k * 2 * wn * s
     assert (warps >= window_conv.DW_TC_WARPS_PER_SM * window_conv.SMS
             or s == min(64, n_in // window_conv.MIN_SPLIT_ROWS) or s == 1)
+
+
+@pytest.mark.parametrize("n_in,k,cin,cout,want", [
+    (90112, 125, 3, 32, 26), (45056, 125, 3, 32, 26), (9293, 5, 24, 40, 9),
+    (9293, 5, 3, 200, 9), (500, 125, 3, 32, 1)])
+def test_dw_narrow_splits_fill_the_card(n_in, k, cin, cout, want):
+    """The narrow tensor-core body's splits (Cin % 16 != 0: HRNet's stem at
+    90112 rows, Res16UNet34C's at 45056): blocks of DW_NARROW_WARPS warps
+    per tile of 16 input channels by 32 output channels (64 past Cout 32),
+    about DW_NARROW_WARPS_PER_SM warps of the grid on each SM, unless the
+    rows run out (at least MIN_SPLIT_ROWS per split) or 64 splits are
+    reached."""
+    s = window_conv.dw_splits(n_in, k, cin, cout, tensor_cores=True)
+    assert s == want
+    bn = 32 if cout <= 32 else 64
+    tiles = -(-cin // 16) * -(-cout // bn)
+    assert tiles == window_conv.dw_narrow_tiles(cin, cout)
+    warps = tiles * k * window_conv.DW_NARROW_WARPS * s
+    assert (warps >= window_conv.DW_NARROW_WARPS_PER_SM * window_conv.SMS
+            or s == min(64, n_in // window_conv.MIN_SPLIT_ROWS) or s == 1)
+    # not far more than it aims at either
+    assert warps - tiles * k * window_conv.DW_NARROW_WARPS < (
+        window_conv.DW_NARROW_WARPS_PER_SM * window_conv.SMS)
 
 
 def test_dw_launcher_refuses_cpu_tensors():
@@ -475,12 +502,22 @@ IM2COL_TC_RULE_CASES = [
 def test_im2col_tensor_cores_rule(dtype, cin, cout, want):
     """The im2col pair's tensor-core bodies take bf16 with Cout % 8 == 0
     whatever Cin (the rule `csn_sparse_conv_im2col_fwd` and `_bwd` apply):
-    unlike K1's rule it takes the stem's Cin of 3 and a Cin off the
-    multiples of 16; f32 and a Cout off the multiples of 8 run the
+    the stem's Cin of 3 and a Cin off the multiples of 16 included, as K1
+    and dW take them; f32 and a Cout off the multiples of 8 run the
     CUDA-core bodies."""
     assert window_conv.im2col_tensor_cores(dtype, cin, cout) is want
-    if want and cin % 16:
-        assert not window_conv.k1_tensor_cores(dtype, cin, cout)
+    assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
+
+
+@pytest.mark.parametrize("dtype,cin,cout,want",
+                         TC_RULE_CASES + IM2COL_TC_RULE_CASES)
+def test_k1_and_im2col_rules_agree(dtype, cin, cout, want):
+    """K1 and the im2col forward share one tensor-core body, so they take
+    it at the same convs; dW at the same again."""
+    got = window_conv.k1_tensor_cores(dtype, cin, cout)
+    assert got is want
+    assert window_conv.im2col_tensor_cores(dtype, cin, cout) is got
+    assert window_conv.dw_tensor_cores(dtype, cin, cout) is got
 
 
 @pytest.mark.parametrize("n_in,k,cin,cout,want", [
