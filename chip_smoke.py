@@ -59,7 +59,10 @@ Phases (each prints its lines; any failure exits nonzero):
      padding), at head dims 64 (4 heads) and 256 (8 heads), at dropout 0
      and 0.1 (same seed as the plain version); `flash_attn_bwd` at the same
      cases against autograd of the plain version; K3 (voxel -> point
-     interpolation) and `interp_bwd` against their plain versions; K2 and
+     interpolation) and `interp_bwd` against their plain versions on the
+     query batch's corner table, at 39 classes in f32 (the main path's
+     form, timed for the kernel line) and bf16, and at the extraction
+     chain's 256 channels in f32 and bf16 (timed beside the line); K2 and
      `flash_attn_bwd` at the MID-FC chunk shape [80, 8, 500, 256], the f32
      forward (out, lse) and backward at dropout 0.1 also against a float64
      reference beside the f32 plain version; `flash_attn_carry` chained
@@ -141,14 +144,16 @@ the counts to 0 before and reads them after; phase 9 counts the Res16UNet34C
 train iterations, the chain and the probes' entry points), its worst error
 over phase 3's checks, and four times summed over one train step's launches
 of every path the kernel is on (bf16 at the HRNet and Res16UNet34C shapes,
-f32 at the MID-FC shapes; the probe kernels: one call of
+f32 at the MID-FC shapes; the interpolation pair f32 at 39 classes, as the
+HRNet heads' f32 logits reach it; the probe kernels: one call of
 `probe_window_gather` at [384, 128] f32, the three modes of
 `probe_gather_accum` with the bf16 window at 352 tiles x 9 offsets, the seven
 variants of `probe_slot_load`):
 the kernel's and the plain version's median ms, `bound_ms`, the least time
 the card could take (the larger of bytes / 3.35 TB/s and operations / the
 peak of the input type: 989 TFLOP/s bf16, 494.7 / 3 TFLOP/s f32 (split
-TF32: three dense TF32 products per f32 product), counting valid
+TF32: three dense TF32 products per f32 product), the interpolation pair's
+f32 FMAs over 67 TFLOP/s, counting valid
 rows and keys only), and `library_ms`, the time of the one PyTorch call
 that computes the same function (`F.scaled_dot_product_attention` for the
 attention kernels, at their dropout, timed here and used nowhere in the
@@ -205,6 +210,7 @@ from csn_tpu_torch.parallel.midfc import make_midfc_steps
 from csn_tpu_torch.probes import dyngather, dyngather2, iw_bwd
 from csn_tpu_torch.retrieval import graph as retrieval_graph
 from csn_tpu_torch.tasks import main_csn, main_seg
+from csn_tpu_torch.tools.timing import graph_ms
 from csn_tpu_torch.train import optim
 from csn_tpu_torch.train.steps import eval_step, train_step
 
@@ -239,6 +245,8 @@ HBM_BYTES_S = 3.35e12                       # H100 SXM, NVIDIA's data sheet
 # for f32-accurate products is 3 x work / 494.7e12 (the CUDA cores' f32
 # rate, 67 TFLOP/s, is slower)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
+# f32 FMAs on the CUDA cores (the interpolation pair, in either type)
+PEAK_FLOPS_FMA = 67e12
 
 KERNELS = {
     "sparse_conv_fwd": ("csn_tpu_torch/csrc/sparse_conv.cu",
@@ -407,26 +415,41 @@ class Table:
         self.err[name] = max(self.err[name], err)
 
     def time(self, name, what, fn_kernel, fn_plain, count=1, reps=7, *,
-             nbytes, flops, dtype=torch.bfloat16, fn_library=None):
+             nbytes, flops, dtype=torch.bfloat16, peak_flops=None,
+             fn_library=None, graph=False):
         """Median ms of the kernel and its plain version, the call's bound
-        (`nbytes` moved once over the memory rate, `flops` over the peak of
-        `dtype`) and, with `fn_library`, the median ms of the one PyTorch
-        call that computes the same function; all added `count` times to
-        the train step's totals. Returns the kernel's median ms."""
-        ms = median_ms(fn_kernel)
+        (`nbytes` moved once over the memory rate, `flops` over
+        `peak_flops`, by default the peak of `dtype`) and, with
+        `fn_library`, the median ms of the one PyTorch call that computes
+        the same function; all added `count` times to the train step's
+        totals (count 0: printed only). With `graph`, the kernel's and the
+        library call's ms are device times from CUDA graphs of calls with a
+        warm L2 (`graph_ms`), the line also shows the kernel's time from
+        device memory and one call timed with its wrapper, and the plain
+        version (not capturable: it synchronises with the host) stays one
+        call with its host work. Returns the kernel's median ms."""
+        ms = graph_ms(fn_kernel) if graph else median_ms(fn_kernel)
         pms = median_ms(fn_plain, warmup=1, reps=reps)
         b_ms = nbytes / HBM_BYTES_S * 1e3
-        o_ms = flops / PEAK_FLOPS[dtype] * 1e3
-        line = (f"[time] {name} {what} {str(dtype)[6:]}: kernel {ms:.4f} ms, "
-                f"plain {pms:.4f} ms, bound {max(b_ms, o_ms):.4f} ms "
+        o_ms = flops / (peak_flops or PEAK_FLOPS[dtype]) * 1e3
+        kern = (f"kernel {ms:.4f} ms (device, CUDA graph, warm L2; from "
+                f"device memory {graph_ms(fn_kernel, cold=True):.4f} ms; one "
+                f"call with its wrapper {median_ms(fn_kernel):.4f} ms)"
+                if graph else f"kernel {ms:.4f} ms")
+        line = (f"[time] {name} {what} {str(dtype)[6:]}: {kern}, "
+                f"plain {pms:.4f} ms{' (one call)' if graph else ''}, "
+                f"bound {max(b_ms, o_ms):.4f} ms "
                 f"({'bytes' if b_ms >= o_ms else 'operations'}: "
                 f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         if fn_library is not None:
-            lms = median_ms(fn_library, warmup=1, reps=reps)
-            line += f", library {lms:.4f} ms"
-            self.library_ms[name] = (self.library_ms[name] or 0.0) \
-                + count * lms
-        print(f"{line} (x{count} per train step)")
+            lms = graph_ms(fn_library) if graph \
+                else median_ms(fn_library, warmup=1, reps=reps)
+            line += f", library {lms:.4f} ms{' (device)' if graph else ''}"
+            if count:
+                self.library_ms[name] = (self.library_ms[name] or 0.0) \
+                    + count * lms
+        print(f"{line} (x{count} per train step)" if count
+              else f"{line} (not in the kernel line)")
         self.ms[name] += count * ms
         self.plain_ms[name] += count * pms
         self.bound_ms[name] += count * max(b_ms, o_ms)
@@ -1455,52 +1478,100 @@ def check_ring_kernels(dev, table, g):
 
 
 def check_interp(qb, dev, table, g):
-    """K3 and its backward kernel on the query batch's readout."""
+    """K3 and its backward kernel on the query batch's readout: at the main
+    path's 39 classes in f32 (what the HRNet heads hand `interp_batch`; the
+    kernel line's times) and in bf16, and at the extraction chain's 256
+    channels (f32 `fc_1`) in f32 and bf16, all on the same corner table."""
     n0 = qb.masks[0].numel()
-    flat = torch.randn(n0, NUM_CLASSES, generator=g).to(dev)
     idx = qb.interp_idx.reshape(-1, 8)
     w8 = qb.interp_w.reshape(-1, 8)
-    grad = torch.randn(idx.shape[0], NUM_CLASSES, generator=g).to(dev)
-    for dt in (torch.float32, torch.bfloat16):
-        fl, gd = flat.to(dt), grad.to(dt)
-        what = f"[{n0},{NUM_CLASSES}] -> [{idx.shape[0]},{NUM_CLASSES}]"
+    n_pts = idx.shape[0]
+    nnz = int((idx < n0).sum())
+    require(qb.interp_ent.numel() == nnz,
+            f"interp CSR table: {qb.interp_ent.numel()} entries, {nnz} live "
+            f"corners")
+    # the one-call yardstick: a weighted bag sum of 8 rows per point (the
+    # sentinel rows point at an appended zero row)
+    bags = idx.clamp(max=n0).long()
+    # the same bags flat, as the bag sum's forward and backward operators
+    # take them
+    ind = bags.reshape(-1)
+    offs = torch.arange(0, ind.numel(), 8, device=dev)
+    flat = torch.randn(n0, NUM_CLASSES, generator=g).to(dev)
+    grad = torch.randn(n_pts, NUM_CLASSES, generator=g).to(dev)
+    # the 256-channel inputs come from a generator of their own, so that
+    # the checks after this one draw what they drew before
+    g256 = torch.Generator(device="cpu").manual_seed(SEED + 256)
+    wide = (torch.randn(n0, 256, generator=g256).to(dev),
+            torch.randn(n_pts, 256, generator=g256).to(dev))
+    for (fl32, gd32), dt in (((flat, grad), torch.float32),
+                             ((flat, grad), torch.bfloat16),
+                             (wide, torch.float32), (wide, torch.bfloat16)):
+        fl, gd = fl32.to(dt), gd32.to(dt)
+        c = fl.shape[1]
+        what = f"[{n0},{c}] -> [{n_pts},{c}]"
         table.check("interp_fwd", what, interp_window.interp_fwd(fl, idx, w8),
                     interp.interpolate_to_points(fl, idx[None], w8[None])[0],
                     dt)
-        bwd = f"[{idx.shape[0]},{NUM_CLASSES}] -> [{n0},{NUM_CLASSES}]"
+        bwd = f"[{n_pts},{c}] -> [{n0},{c}]"
         table.check("interp_bwd", bwd,
                     interp_window.interp_bwd(gd, qb.interp_ptr, qb.interp_ent,
                                              w8),
                     interp.interp_bwd_plain(gd, idx, w8, n0), dt)
-        if dt == torch.bfloat16:
-            # both move the voxel and point features once and the 8-corner
-            # tables (int32 index or CSR entry + f32 weight per corner)
-            nb = (n0 + idx.shape[0]) * NUM_CLASSES * 2 + idx.numel() * 8
-            nnz = int((idx < n0).sum())
-            # the one-call yardstick: a weighted bag sum of 8 rows per point
-            # (the sentinel rows point at an appended zero row)
-            flz = torch.cat([fl, fl.new_zeros(1, NUM_CLASSES)])
-            bags = idx.clamp(max=n0).long()
-            wb = w8.to(dt)
-            table.time("interp_fwd", what,
-                       lambda: interp_window.interp_fwd(fl, idx, w8),
-                       lambda: interp.interpolate_to_points(fl, idx[None],
-                                                            w8[None]),
-                       nbytes=nb, flops=2 * nnz * NUM_CLASSES,
-                       fn_library=lambda: F.embedding_bag(
-                           bags, flz, per_sample_weights=wb, mode="sum"))
-            # the backward's yardstick: the gradient of that bag sum with
-            # respect to the voxel features, the same scatter-add
-            flz_l = flz.detach().requires_grad_(True)
-            bag = F.embedding_bag(bags, flz_l, per_sample_weights=wb,
-                                  mode="sum")
-            table.time("interp_bwd", bwd,
-                       lambda: interp_window.interp_bwd(
-                           gd, qb.interp_ptr, qb.interp_ent, w8),
-                       lambda: interp.interp_bwd_plain(gd, idx, w8, n0),
-                       nbytes=nb + (n0 + 1) * 4, flops=2 * nnz * NUM_CLASSES,
-                       fn_library=lambda: torch.autograd.grad(
-                           bag, flz_l, gd, retain_graph=True))
+        # one launch of each per main-path step reads f32 at 39 classes:
+        # those times go into the kernel line, the others beside it. The
+        # kernels' and library calls' times are device times (CUDA graphs
+        # of calls): one call's wrapper takes longer on the host than the
+        # kernel on the card
+        count = int(dt == torch.float32 and c == NUM_CLASSES)
+        # both move the voxel and point features once, and the sums are f32
+        # FMAs on the CUDA cores whatever the features' type. The forward
+        # reads the corner table (int32 index + f32 weight per corner); the
+        # backward reads the CSR table (ptr, an int32 entry per live
+        # corner) and the weights
+        rows = (n0 + n_pts) * c * fl.element_size()
+        nb_fwd = rows + idx.numel() * 4 + w8.numel() * 4
+        nb_bwd = rows + (qb.interp_ptr.numel() + qb.interp_ent.numel()
+                         + w8.numel()) * 4
+        flz = torch.cat([fl, fl.new_zeros(1, c)])
+        wb = w8.to(dt)
+        table.time("interp_fwd", what,
+                   lambda: interp_window.interp_fwd(fl, idx, w8),
+                   lambda: interp.interpolate_to_points(fl, idx[None],
+                                                        w8[None]),
+                   count=count, nbytes=nb_fwd, flops=2 * nnz * c, dtype=dt,
+                   peak_flops=PEAK_FLOPS_FMA, graph=True,
+                   fn_library=lambda: F.embedding_bag(
+                       bags, flz, per_sample_weights=wb, mode="sum"))
+        # the backward's yardstick: the gradient of that bag sum with
+        # respect to the voxel features, the same scatter-add, as the one
+        # operator that autograd calls for it (its forward's bag tables
+        # made once, as autograd saves them)
+        wf = wb.reshape(-1)
+        _, o2b, bag_size, max_idx = torch.ops.aten._embedding_bag(
+            flz, ind, offs, False, 0, False, wf)
+        lib_bwd = torch.ops.aten._embedding_bag_backward
+        flz_l = flz.detach().requires_grad_(True)
+        lib_g = lib_bwd(gd, ind, offs, o2b, bag_size, max_idx, n0 + 1, False,
+                        0, False, wf).float()
+        auto_g = torch.autograd.grad(F.embedding_bag(
+            bags, flz_l, per_sample_weights=wb, mode="sum"), flz_l,
+            gd)[0].float()
+        require(float((lib_g - auto_g).abs().max())
+                <= TOL[dt] * float(auto_g.abs().max()),
+                "the bag sum's backward operator is not its gradient")
+        table.time("interp_bwd", bwd,
+                   lambda: interp_window.interp_bwd(
+                       gd, qb.interp_ptr, qb.interp_ent, w8),
+                   lambda: interp.interp_bwd_plain(gd, idx, w8, n0),
+                   count=count, nbytes=nb_bwd, flops=2 * nnz * c,
+                   dtype=dt, peak_flops=PEAK_FLOPS_FMA, graph=True,
+                   fn_library=lambda: lib_bwd(
+                       gd, ind, offs, o2b, bag_size, max_idx, n0 + 1, False,
+                       0, False, wf))
+        del fl, gd, flz, flz_l, o2b, bag_size, max_idx, lib_g, auto_g
+    del wide
+    torch.cuda.empty_cache()
 
 
 def check_point_outputs(tag, loss, point_logits, pred, qb):

@@ -93,10 +93,10 @@ _SIGNATURES = {
     # use_drop, row_off, col_off, stream
     "csn_flash_attn_block_bwd": [_I] + [_P] * 12 + [_I] * 5 + [
         _F, _U64, _U32, _F, _I, _I, _I, _P],
-    # dtype, flat, idx, w, out, n_vox, n_pts, c, stream
-    "csn_interp_fwd": [_I, _P, _P, _P, _P, _I64, _I64, _I, _P],
-    # dtype, g, ptr, ent, w, dflat, n_vox, c, stream
-    "csn_interp_bwd": [_I, _P, _P, _P, _P, _P, _I64, _I, _P],
+    # dtype, flat, idx, w, out, n_vox, n_pts, c, vec, stream
+    "csn_interp_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, g, ptr, ent, w, dflat, n_vox, c, vec, stream
+    "csn_interp_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, layout, win, rel, out, W, T, C, stream
     "csn_probe_window_gather": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
     # dtype, mode, rows, win, out, n_tiles, K, W, T, C, stream
@@ -204,10 +204,11 @@ def stream() -> int:
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:
     """Wrapper precondition: every tensor contiguous and on the current CUDA
-    device (the launch goes to that device's current stream)."""
+    device (the launch goes to that device's current stream). The layout is
+    checked first, so that a CPU test can see a strided view refused."""
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: tensors must be contiguous")
     for t in tensors:
         if not t.is_cuda or t.device.index != torch.cuda.current_device():
             raise ValueError(f"{what}: tensors must be on the current CUDA "
                              f"device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: tensors must be contiguous")

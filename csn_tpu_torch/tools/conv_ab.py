@@ -1,6 +1,7 @@
-"""Two checkouts' sparse conv kernels side by side on one card.
+"""Two checkouts' sparse conv and interpolation kernels side by side on one
+card.
 
-    python -m csn_tpu_torch.tools.conv_ab OTHER_ROOT
+    python -m csn_tpu_torch.tools.conv_ab OTHER_ROOT [--kernels conv|interp]
 
 OTHER_ROOT is another checkout of this repo, for example `git archive` of
 the parent commit unpacked into a git-ignored directory. Each checkout runs
@@ -8,17 +9,26 @@ in its own process with its own kernel build, in the order other, this,
 this, other. A run times K1 (`sparse_conv_fwd`), `sparse_conv_dw` and the
 im2col pair (`sparse_conv_im2col_fwd`, and the backward through
 `conv_im2col_bwd_kernels`) on seeded bf16 inputs at conv shapes of
-HRNetSimCSN3S and Res16UNet34C (CUDA-event medians per call over batches of
-calls), and hashes every output. The script prints each run's times,
-whether each kernel's outputs are bitwise equal across the checkouts, and
-the registers ptxas reports for the kernels of `csrc/sparse_conv.cu` and
-`csrc/sparse_conv_bwd.cu` in each.
+HRNetSimCSN3S and Res16UNet34C, and the interpolation pair (`interp_fwd`,
+`interp_bwd`) on the corner table of one HRNetSimCSN3S query batch (8
+shapes of 10000 points, built once by this checkout and handed to both) at
+39 and 256 channels in f32 and bf16 (CUDA-event medians per call over
+batches of calls; for the interpolation pair over replays of a CUDA graph
+of 20 calls, the device's time without the wrappers' host work, with a
+warm L2 and from device memory: `tools/timing.py`), and hashes every
+output. The script prints each run's
+times, whether each kernel's outputs are bitwise equal across the
+checkouts and between two launches in one run, and the registers ptxas
+reports for the kernels of `csrc/sparse_conv.cu`, `csrc/sparse_conv_bwd.cu`,
+`csrc/interp.cu` and `csrc/interp_bwd.cu` in each. `--kernels` runs one
+family only.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import os
 import re
@@ -35,7 +45,9 @@ SHAPES = ((90112, 27, 64, 64), (30208, 27, 128, 128), (10240, 27, 256, 256),
           (90112, 125, 3, 32), (5000, 8, 96, 384))
 LIVE = 0.35      # share of map entries that name a row
 SEED = 7
-REGISTER_SOURCES = ("sparse_conv.cu", "sparse_conv_bwd.cu")
+REGISTER_SOURCES = {"conv": ("sparse_conv.cu", "sparse_conv_bwd.cu"),
+                    "interp": ("interp.cu", "interp_bwd.cu")}
+INTERP_WIDTHS = (39, 256)   # the HRNet heads' classes, the extraction chain
 
 
 def _median_ms(fn, reps: int, batch: int = 10) -> float:
@@ -58,6 +70,16 @@ def _median_ms(fn, reps: int, batch: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, **kw) -> float:
+    """`tools/timing.py`'s `graph_ms`, loaded from this file's checkout:
+    a worker imports the other checkout's package, which may lack it."""
+    spec = importlib.util.spec_from_file_location(
+        "csn_ab_timing", Path(__file__).with_name("timing.py"))
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    return timing.graph_ms(fn, **kw)
+
+
 def _digest(t) -> str:
     import torch
     t = t.contiguous()
@@ -65,9 +87,17 @@ def _digest(t) -> str:
     return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def worker(reps: int) -> dict:
-    """The current checkout's kernels at every shape: {shape: {kernel:
-    [ms, digest]}}."""
+def _entry(fn, reps: int, timer=_median_ms, **extra) -> list:
+    """[ms per call, digest, whether a second launch gave the same bits,
+    then the ms of `timer` with each of `extra`'s keyword sets]."""
+    first = _digest(fn())
+    return [timer(fn, reps=reps), first, _digest(fn()) == first] + [
+        timer(fn, reps=reps, **kw) for kw in extra.values()]
+
+
+def conv_worker(reps: int) -> dict:
+    """The current checkout's conv kernels at every shape: {shape: {kernel:
+    entry}}."""
     import torch
     from csn_tpu_torch.core import conv, window_conv
 
@@ -97,19 +127,79 @@ def worker(reps: int) -> dict:
                 f, gd, kmap_t, w32, False, cin != 3)[1],
         }
         res[f"{n}x{k} {cin}->{cout}"] = {
-            name: [_median_ms(fn, reps), _digest(fn())]
-            for name, fn in calls.items()}
+            name: _entry(fn, reps) for name, fn in calls.items()}
     return res
 
 
-def registers(root: Path) -> list:
-    """(kernel, registers) of every kernel ptxas compiles in
-    REGISTER_SOURCES of the checkout at `root`."""
+def interp_table(path: Path) -> None:
+    """Save the corner table (idx, w, the CSR ptr and ent) of one
+    HRNetSimCSN3S query batch at the chip smoke run's protocol."""
+    import numpy as np
+    import torch
+    from csn_tpu_torch.core.pyramid import to_torch
+    from csn_tpu_torch.data import pipeline
+    from csn_tpu_torch.data.synthetic import make_surface_shape
+    from csn_tpu_torch.models import load_model
+
+    spec = pipeline.pyramid_spec_for_model(
+        load_model("HRNetSimCSN3S"), num_points=10000, voxel_size=0.05,
+        conv1_kernel_size=5, level0_cap=5632, shrink=3.0)
+    rng = np.random.default_rng(SEED)
+    qb = to_torch(pipeline.collate_shapes(
+        [make_surface_shape(rng, 10000) for _ in range(8)], spec, rng=rng),
+        "cpu")
+    torch.save({"idx": qb.interp_idx.reshape(-1, 8),
+                "w": qb.interp_w.reshape(-1, 8), "ptr": qb.interp_ptr,
+                "ent": qb.interp_ent}, path)
+
+
+def interp_worker(reps: int, table: Path) -> dict:
+    """The current checkout's interpolation pair on the saved corner table:
+    {shape: {kernel: entry}}."""
+    import torch
+    from csn_tpu_torch.core import interp_window
+
+    dev = torch.device("cuda")
+    tab = {k: v.to(dev) for k, v in torch.load(table).items()}
+    idx, w8, ptr, ent = tab["idx"], tab["w"], tab["ptr"], tab["ent"]
+    n_vox, n_pts = ptr.shape[0] - 1, idx.shape[0]
+    gen = torch.Generator().manual_seed(SEED)
+    res = {}
+    for c in INTERP_WIDTHS:
+        flat32 = torch.randn(n_vox, c, generator=gen)
+        g32 = torch.randn(n_pts, c, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            flat, gd = flat32.to(dev, dt), g32.to(dev, dt)
+            calls = {
+                "interp_fwd": lambda: interp_window.interp_fwd(flat, idx, w8),
+                "interp_bwd": lambda: interp_window.interp_bwd(gd, ptr, ent,
+                                                               w8),
+            }
+            # device time (the host work of a call outlasts the kernel),
+            # with a warm L2 and from device memory
+            res[f"interp [{n_vox},{c}] <-> [{n_pts},{c}] {str(dt)[6:]}"] = {
+                name: _entry(fn, reps, graph_ms, cold={"cold": True})
+                for name, fn in calls.items()}
+    return res
+
+
+def worker(reps: int, families: tuple, table: Path) -> dict:
+    res = {}
+    if "conv" in families:
+        res.update(conv_worker(reps))
+    if "interp" in families:
+        res.update(interp_worker(reps, table))
+    return res
+
+
+def registers(root: Path, families: tuple) -> list:
+    """(kernel, registers) of every kernel ptxas compiles in the
+    REGISTER_SOURCES of `families` in the checkout at `root`."""
     from csn_tpu_torch import kernels
     filt = shutil.which("cu++filt", path=str(Path(kernels.nvcc()).parent))
     out = []
     with tempfile.TemporaryDirectory() as tmp:
-        for src in REGISTER_SOURCES:
+        for src in (s for f in families for s in REGISTER_SOURCES[f]):
             res = subprocess.run(
                 [kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                  str(root / "csn_tpu_torch" / "csrc" / src), "-o",
@@ -140,38 +230,54 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="root of the other checkout")
     ap.add_argument("--reps", type=int, default=15)
+    ap.add_argument("--kernels", choices=("conv", "interp"),
+                    help="one family only (default: both)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--table", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    families = (args.kernels,) if args.kernels else ("conv", "interp")
     if args.worker:
-        print(json.dumps(worker(args.reps)))
+        print(json.dumps(worker(args.reps, families, args.table)))
         return 0
     this = Path(__file__).resolve().parents[2]
     other = args.other.resolve()
     runs = {}
-    for tag, root in (("other", other), ("this", this), ("this", this),
-                      ("other", other)):
-        # the worker imports the package of `root`; this file drives it
-        env = dict(os.environ, PYTHONPATH=str(root))
-        res = subprocess.run(
-            [sys.executable, __file__, str(other), "--worker", "--reps",
-             str(args.reps)], cwd=root, env=env, capture_output=True,
-            text=True)
-        if res.returncode:
-            print(res.stdout, res.stderr, file=sys.stderr)
-            return 1
-        run = json.loads(res.stdout.strip().splitlines()[-1])
-        runs.setdefault(tag, []).append(run)
-        for shape, kern in run.items():
-            print(f"[ab {tag}{len(runs[tag])}] {shape}: " + ", ".join(
-                f"{name} {ms:.4f} ms" for name, (ms, _) in kern.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        table = Path(tmp) / "interp_table.pt"
+        if "interp" in families:
+            interp_table(table)
+        for tag, root in (("other", other), ("this", this), ("this", this),
+                          ("other", other)):
+            # the worker imports the package of `root`; this file drives it
+            env = dict(os.environ, PYTHONPATH=str(root))
+            res = subprocess.run(
+                [sys.executable, __file__, str(other), "--worker", "--reps",
+                 str(args.reps), "--table", str(table)]
+                + (["--kernels", args.kernels] if args.kernels else []),
+                cwd=root, env=env, capture_output=True, text=True)
+            if res.returncode:
+                print(res.stdout, res.stderr, file=sys.stderr)
+                return 1
+            run = json.loads(res.stdout.strip().splitlines()[-1])
+            runs.setdefault(tag, []).append(run)
+            for shape, kern in run.items():
+                print(f"[ab {tag}{len(runs[tag])}] {shape}: " + ", ".join(
+                    f"{name} {e[0]:.4f} ms"
+                    + (f" ({e[3]:.4f} from device memory)" if len(e) > 3
+                       else "") for name, e in kern.items()))
     for shape, kern in runs["this"][0].items():
         same = {name: all(r[shape][name][1] == digest
                           for r in runs["this"] + runs["other"])
-                for name, (_, digest) in kern.items()}
+                for name, (_, digest, *_) in kern.items()}
+        repeat = {name: all(r[shape][name][2]
+                            for r in runs["this"] + runs["other"])
+                  for name in kern}
         print(f"[ab] {shape}: bitwise equal across the checkouts: "
-              + ", ".join(f"{name} {v}" for name, v in same.items()))
+              + ", ".join(f"{name} {v}" for name, v in same.items())
+              + "; two launches bitwise equal in every run: "
+              + ", ".join(f"{name} {v}" for name, v in repeat.items()))
     for tag, root in (("other", other), ("this", this)):
-        for name, regs in registers(root):
+        for name, regs in registers(root, families):
             print(f"[ab registers {tag}] {name}: {regs}")
     return 0
 
