@@ -5,7 +5,9 @@ MID-FC CrossShapeAt heads (CSA on 500-point chunks; SSA with full attention
 through a ring of one) at full width, run the HRNet trainer and the eval
 CLI's path with the sparse conv in its im2col form (CSN_DYNG=2), then the
 Res16UNet34C trainer, a ResUNet14 and a ResNet14 forward, the feature
-extraction -> SSA -> kNN -> CSA -> `get_csa_pred` chain and the probes.
+extraction -> SSA -> kNN -> CSA -> `get_csa_pred` chain and the probes, and
+last the multi-device trainers as far as one card runs them (a data-parallel
+world of one; two collection-parallel ranks sharing the card).
 
     python3 chip_smoke.py [--profile]
 
@@ -137,11 +139,27 @@ Phases (each prints its lines; any failure exits nonzero):
      (f32 through the flash kernels, held to its own `--device cpu` run) and
      the launcher's `pred` mode; last the probes' own entry points
      (`probes.dyngather`, `dyngather2`, `iw_bwd` `main()`), which print the
-     `timing onehot|smem|global` lines.
+     `timing onehot|smem|global` lines;
+ 10. the multi-device trainers, as far as one card runs them: (a) the
+     HRNet trainer at the protocol (K1 form) built inside an NCCL world of
+     one rank, which takes the data-parallel steps, against the same
+     trainer without a world: 3 train iterations with losses and every
+     model tensor after each bitwise equal and equal launch counts, a graph
+     rebuild whose `sharded_retrieval_measure` equals `retrieval_measure`,
+     `test_on` with `cached_eval` through `shard_collection` /
+     `exchange_rows` equal to the single-device cached eval, and the step's
+     ms beside the single-device step's; (b) two rank processes of this
+     script (`--cp-rank`) sharing the card over gloo as a (1 data x 2 col)
+     collection grid, HRNetSimCSN3S at full width, B=2 per member, K=1: the
+     f32 eval logits within 1e-3 max|ref| of the single-process combined
+     pass, one bf16 train step with a finite loss and the parameters
+     bitwise equal on both ranks, and its ms. Scaling across cards is not
+     measured: one card cannot show it.
 The line before the last is the kernel table as JSON: per kernel, its
-launches in the train requests of phases 5, 6, 7, 8 and 9 (each phase sets
-the counts to 0 before and reads them after; phase 9 counts the Res16UNet34C
-train iterations, the chain and the probes' entry points), its worst error
+launches in the train requests of phases 5, 6, 7, 8, 9 and 10 (each phase
+sets the counts to 0 before and reads them after; phase 9 counts the
+Res16UNet34C train iterations, the chain and the probes' entry points;
+phase 10 the data-parallel trainer's iterations), its worst error
 over phase 3's checks, and four times summed over one train step's launches
 of every path the kernel is on (bf16 at the HRNet and Res16UNet34C shapes,
 f32 at the MID-FC shapes; the interpolation pair f32 at 39 classes, as the
@@ -206,6 +224,7 @@ from csn_tpu_torch.models import (
 )
 from csn_tpu_torch.models.layers import SparseConv
 from csn_tpu_torch.ops import attention, flash
+from csn_tpu_torch.parallel import collectives, cp, dp
 from csn_tpu_torch.parallel.midfc import make_midfc_steps
 from csn_tpu_torch.probes import dyngather, dyngather2, iw_bwd
 from csn_tpu_torch.retrieval import graph as retrieval_graph
@@ -1896,13 +1915,17 @@ def midfc_chunked_slice(dev, profile=False):
     return launches
 
 
+def free_tcp_addr():
+    """An address on this host for a torch.distributed rendezvous."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return f"tcp://localhost:{s.getsockname()[1]}"
+
+
 def midfc_ring_slice(dev, profile=False):
     """Phase 7. Returns the launch counts of the train step."""
-    port = socket.socket()
-    port.bind(("localhost", 0))
-    addr = f"tcp://localhost:{port.getsockname()[1]}"
-    port.close()
-    dist.init_process_group("gloo", init_method=addr, world_size=1, rank=0)
+    dist.init_process_group("gloo", init_method=free_tcp_addr(),
+                            world_size=1, rank=0)
     try:
         feats, labels, _ = midfc_data(MF_RING_B, SEED + 11)
         ring = MidfcRunner(midfc_config(MF_RING_B, None), "ssa", device=dev)
@@ -2667,12 +2690,280 @@ def families_slice(dev, n_convs):
     return {k: total[k] + chain[k] + probes[k] for k in total}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the multi-device trainers on one card
+# ---------------------------------------------------------------------------
+
+DP_ITERS = 3
+CP_B, CP_TIMEOUT_S = 2, 300
+
+
+def dp_trainer_run(dev, log_dir, tag):
+    """Phase 10 (a): one drive of the HRNet trainer at the protocol (K1
+    form, bf16), inside or outside a world: random pairs, DP_ITERS train
+    iterations (their launch counts, losses and every model tensor after
+    each), a graph rebuild (SSA descriptors, `_measure`), `test_on` with
+    `cached_eval`, and the step alone on a fixed batch. The same sequence
+    on both sides, so the shared generators make the same draws."""
+    train_ds, val_ds, test_ds = trainer_datasets()
+    t = main_csn.build_trainer(trainer_config(log_dir, dev),
+                               datasets=(train_ds, val_ds))
+    t.initialize()
+    t.construct_shape_graph(recalculate=False)
+    iters, losses, params = [], [], []
+    spy_launches(t, "_train_iter", iters)
+    update = t.losses.update
+    t.losses.update = lambda v, n=1: (losses.append(v), update(v, n))
+    for _ in range(DP_ITERS):
+        t._train_iter()
+        params.append({k: v.detach().cpu().clone()
+                       for k, v in t.model.state_dict().items()})
+    t._close_prefetch()
+    res = dict(losses=losses, params=params,
+               launches=[counts for counts, _, _ in iters],
+               iter_s=[s_ for _, s_, _ in iters])
+    desc, masks = t._all_ssa_descriptors(train_ds)
+    t0 = time.perf_counter()
+    res["measure"] = t._measure(desc, masks, desc, masks)
+    res["measure_s"] = time.perf_counter() - t0
+    if t.world is not None:
+        res["plain_measure"] = retrieval_graph.retrieval_measure(
+            desc, masks, desc, masks, device=dev)
+    t.construct_shape_graph(recalculate=True)
+    res["graph"] = (list(t.train_dataset.neighbors),
+                    list(t.val_dataset.neighbors))
+    t.construct_test_graph(test_ds)
+    t.config.cached_eval = True
+    t0 = time.perf_counter()
+    res["test_on"] = t.test_on(test_ds)
+    res["test_on_s"] = time.perf_counter() - t0
+    qb, keys = t._fetch_data()
+    gen = torch.Generator().manual_seed(SEED)
+    if t.world is None:
+        def step():
+            train_step(t.model, t.optimizer, qb, keys, gen)
+    else:
+        dp_step = dp.make_dp_train_step(t.model, t.optimizer, t.world)
+
+        def step():
+            dp_step(qb, keys, gen)
+    res["step_ms"] = time_steps(
+        tag, step, f"B={B}, K={K_NEIGHBORS}, bf16, batch held fixed")
+    if t.world is not None:
+        # what the world adds to a step: the gradients' and the BatchNorm
+        # statistics' all-reduces (device time)
+        res["reduce_ms"] = median_ms(lambda: (
+            dp.average_grads(t.model, t.world),
+            dp.average_buffers(t.model, t.world)))
+    del t, qb, keys
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_of_one_slice(dev):
+    """Phase 10 (a): the trainer built inside an NCCL world of one rank
+    against the same trainer without a world. Returns the launch counts of
+    the data-parallel train iterations."""
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        ref = dp_trainer_run(dev, os.path.join(log_dir, "single"),
+                             "dp single-device step")
+        dist.init_process_group("nccl", init_method=free_tcp_addr(),
+                                world_size=1, rank=0)
+        try:
+            got = dp_trainer_run(dev, os.path.join(log_dir, "dp"),
+                                 "dp world-of-one step")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    require(got["losses"] == ref["losses"],
+            f"dp: losses {got['losses']} != single-device {ref['losses']}")
+    for i, (a, b) in enumerate(zip(got["params"], ref["params"])):
+        bad = [k for k in b if not torch.equal(a[k], b[k])]
+        require(not bad, f"dp: after iteration {i + 1}, {len(bad)} model "
+                f"tensors differ from the single-device trainer's, e.g. "
+                f"{bad[:3]}")
+    require(got["launches"] == ref["launches"],
+            f"dp: launches {got['launches']} != {ref['launches']}")
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for counts in got["launches"]:
+        for k, n in counts.items():
+            total[k] += n
+    print(f"[dp] world of one (NCCL) vs the single-device trainer: "
+          f"{DP_ITERS} iterations of B={B}, K={K_NEIGHBORS}, bf16, losses "
+          f"{[round(v, 6) for v in got['losses']]} bitwise equal, "
+          f"{len(ref['params'][0])} model tensors bitwise equal after each "
+          f"iteration; launches per iteration equal: "
+          f"{ {k: n for k, n in got['launches'][0].items() if n} }")
+    err = float(np.abs(got["measure"] - got["plain_measure"]).max())
+    require(err <= 1e-5, f"dp: sharded_retrieval_measure off by {err:.3e}")
+    require(np.array_equal(got["measure"], ref["measure"]),
+            "dp: the sharded measure differs from the single-device one")
+    require(got["graph"] == ref["graph"], "dp: retrieved graphs differ")
+    print(f"[dp] sharded_retrieval_measure [{TR_TRAIN}x{TR_TRAIN}]: max abs "
+          f"diff {err:.3e} to retrieval_measure (tol 1e-5), bitwise equal to "
+          f"the single-device trainer's ({got['measure_s']:.2f} s vs "
+          f"{ref['measure_s']:.2f} s); rebuilt graphs equal")
+    require(got["test_on"] == ref["test_on"],
+            f"dp: cached test_on {got['test_on']} != {ref['test_on']}")
+    print(f"[dp] test_on cached_eval through shard_collection / "
+          f"exchange_rows: loss {got['test_on'][0]:.6f}, part IoU "
+          f"{got['test_on'][2]:.3f}, shape IoU {got['test_on'][3]:.3f}, "
+          f"equal to the single-device cached eval ({got['test_on_s']:.2f} s "
+          f"vs {ref['test_on_s']:.2f} s)")
+    print(f"[dp] step on a fixed batch: world of one {got['step_ms']:.3f} "
+          f"ms, single-device {ref['step_ms']:.3f} ms "
+          f"({100 * (got['step_ms'] / ref['step_ms'] - 1):+.1f} %); of it "
+          f"the gradients' and BatchNorm statistics' all-reduces "
+          f"{got['reduce_ms']:.3f} ms device time; ms per iteration with "
+          f"the batch wait: world of one "
+          f"{[round(1e3 * s_, 1) for s_ in got['iter_s']]}, single-device "
+          f"{[round(1e3 * s_, 1) for s_ in ref['iter_s']]}")
+    return total
+
+
+def cp_rank(rank: int, addr: str, out: str) -> int:
+    """Phase 10 (b), one of two rank processes sharing the card: a (1, 2)
+    collection grid over gloo at full width, B=CP_B per member, K=1."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=addr, world_size=2,
+                            rank=rank)
+    try:
+        cls, spec = family_spec("HRNetSimCSN3S")
+        (qb, keys), = build_requests(spec, dev, n_shapes=CP_B, n_requests=1,
+                                     seed=SEED + 17)
+        grid = cp.make_cp_grid(1, 2, dev)
+        lb = (qb, keys[0])[grid.col_index]
+        res = {}
+        m32 = make_model(cls, "float32", ATTN_DROPOUT).to(dev)
+        steps32 = cp.make_cp_trainer_steps(m32, grid, k_neighbors=1)
+        kernels.reset_launches()
+        loss, plog, _ = steps32.eval_step(lb)
+        torch.cuda.synchronize()
+        res["eval_launches"] = dict(kernels.LAUNCHES)
+        res["eval_loss"] = float(loss)
+        if rank == 0:   # the single-process combined pass, same weights
+            with torch.no_grad():
+                ref = interp.interp_batch(m32.eval()(qb, keys), qb)
+            res["err"] = float((plog - ref).abs().max())
+            res["scale"] = float(ref.abs().max())
+        del m32, steps32
+        model = make_model(cls, "bfloat16", ATTN_DROPOUT).to(dev)
+        opt = optim.make_optimizer(model.parameters(), "SGD", lr=LR)
+        steps = cp.make_cp_trainer_steps(model, grid, k_neighbors=1)
+        gen = dp.rank_generator(SEED, rank)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            out = steps.grad_step(lb, gen)
+            steps.reduce_grads()
+            opt.step()
+            return out
+
+        kernels.reset_launches()
+        loss, _ = step()
+        torch.cuda.synchronize()
+        res["train_launches"] = dict(kernels.LAUNCHES)
+        res["train_loss"] = float(loss)
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in model.parameters()])
+        both = collectives.all_gather(flat, rank, 2)
+        res["params_equal"] = bool(torch.equal(both[0], both[1]))
+        res["n_params"] = int(flat.numel())
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        res["step_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+        # of it, the gradient all-reduce over gloo (host clock: gloo moves
+        # CUDA tensors through host memory; the sums are not used after)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            steps.reduce_grads()
+        torch.cuda.synchronize()
+        res["reduce_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+        with open(f"{out}.{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def cp_two_ranks_slice():
+    """Phase 10 (b): two rank processes of this script sharing the card
+    over gloo (NCCL refuses two ranks on one GPU): the f32 eval against the
+    single-process combined pass, one bf16 train step (finite loss, the
+    parameters bitwise equal on both ranks) and its time."""
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_cp_"), "rank")
+    addr = free_tcp_addr()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cp-rank", str(r), addr,
+         out], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=CP_TIMEOUT_S)
+            errs.append(err)
+    finally:
+        for p in procs:   # leave nothing running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        require(p.returncode == 0,
+                f"cp rank {r} exited {p.returncode}:\n{err[-3000:]}")
+    res = []
+    for r in range(2):
+        with open(f"{out}.{r}.json") as f:
+            res.append(json.load(f))
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    r0 = res[0]
+    tol = 1e-3 * r0["scale"]
+    print(f"[cp] (1 data x 2 col) grid, two rank processes on the card over "
+          f"gloo, HRNetSimCSN3S, B={CP_B} per member, K=1, "
+          f"{time.perf_counter() - t0:.1f} s with start-up: f32 eval logits "
+          f"vs the single-process combined pass: max_abs_err "
+          f"{r0['err']:.3e} tol {tol:.3e} (max|ref| {r0['scale']:.3e}); "
+          f"eval launches per rank "
+          f"{[nonzero(x['eval_launches']) for x in res]}")
+    require(r0["err"] <= tol, "cp: eval logits disagree with the combined "
+            "pass")
+    for r, x in enumerate(res):
+        require(np.isfinite(x["train_loss"]) and x["params_equal"],
+                f"cp rank {r}: loss {x['train_loss']}, parameters equal "
+                f"{x['params_equal']}")
+    require(res[0]["train_loss"] == res[1]["train_loss"],
+            "cp: the ranks report different losses")
+    print(f"[cp] bf16 train step: loss {r0['train_loss']:.6f} on both ranks, "
+          f"{r0['n_params']} parameters bitwise equal on both after the step; "
+          f"{r0['step_ms']:.1f} / {res[1]['step_ms']:.1f} ms per step (ranks "
+          f"0 / 1, two processes time-sharing the card), of it the gradient "
+          f"all-reduce {r0['reduce_ms']:.1f} / {res[1]['reduce_ms']:.1f} ms; "
+          f"train launches per rank "
+          f"{[nonzero(x['train_launches']) for x in res]}")
+
+
 def main() -> int:
     do_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this run needs a GPU",
               file=sys.stderr)
         return 1
+    if "--cp-rank" in sys.argv:   # a rank process of phase 10 (b)
+        i = sys.argv.index("--cp-rank")
+        return cp_rank(int(sys.argv[i + 1]), *sys.argv[i + 2:i + 4])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # phases 3-7 run the K1 form whatever the caller's environment says;
@@ -2765,10 +3056,17 @@ def main() -> int:
     # 9. the other model families, the MID-FC chain, the probes
     phase("9 families, chain, probes")
     launches_9 = families_slice(dev, n_unet_convs)
+    torch.cuda.empty_cache()
+
+    # 10. the multi-device trainers, as far as one card runs them
+    phase("10 multi-device")
+    launches_10 = dp_of_one_slice(dev)
+    torch.cuda.empty_cache()
+    cp_two_ranks_slice()
     phase("done")
 
     total = {k: launches[k] + launches_6[k] + launches_7[k] + launches_8[k]
-             + launches_9[k] for k in KERNELS}
+             + launches_9[k] + launches_10[k] for k in KERNELS}
     for name, n in total.items():
         require(n > 0, f"{name} was launched on no main path")
     rows = []

@@ -12,9 +12,9 @@ What differs from the JAX package: one new field, `device` ('cuda' | 'cpu');
 'auto' for `use_flash` and `compute_dtype` resolves from that device (a CUDA
 device: the kernels and bfloat16; the CPU: the plain versions and float32);
 `use_windows` selects nothing here (the CUDA conv kernels read the kernel
-maps directly) and is only carried through; `data_parallel > 1` and
-`collection_parallel` are not ported yet and `check_supported` raises for
-them.
+maps directly) and is only carried through; `data_parallel` counts the
+ranks of a `torch.distributed` world (one process per rank), which
+`check_supported` holds to the world that is initialised.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import json
 from typing import Optional
 
 from csn_tpu_torch.core.pyramid import QMode
+from csn_tpu_torch.parallel.collectives import world_size
 
 
 @dataclasses.dataclass
@@ -116,8 +117,14 @@ class Config:
                                      # CUDA device, f32 on the CPU);
                                      # parameters, optimizer state, BN
                                      # statistics and loss stay f32
-    data_parallel: int = 1           # > 1: not ported yet (ROADMAP A12)
-    collection_parallel: bool = False  # not ported yet (ROADMAP A12)
+    data_parallel: int = 1           # ranks of the torch.distributed
+                                     # world (parallel/dp.py); one per
+                                     # process, = the world's size
+    collection_parallel: bool = False  # the train step on a ('data',
+                                     # 'col') grid of those ranks, one
+                                     # [self]+K member per rank
+                                     # (parallel/cp.py); requires
+                                     # (k_neighbors+1) | data_parallel
     cached_eval: bool = False        # CSN eval: precompute per-key backbone
                                      # features once over the train collection
                                      # (HRNetSimCSN.cache_features) and feed
@@ -168,12 +175,16 @@ class Config:
         return resolve_compute_dtype(self.compute_dtype, self.device)
 
     def check_supported(self) -> None:
-        """Raise for the settings the port does not run yet, or cannot."""
-        if self.data_parallel > 1 or self.collection_parallel:
-            raise NotImplementedError(
-                f"data_parallel={self.data_parallel}, collection_parallel="
-                f"{self.collection_parallel}: the data- and collection-"
-                f"parallel trainers are not ported yet (ROADMAP A12)")
+        """Raise for the settings the port cannot run: a data-parallel
+        size that is not the size of the initialised world (none: one
+        rank), or a kernel flag against the device."""
+        world = world_size()
+        if max(self.data_parallel, 1) != max(world, 1):
+            raise ValueError(
+                f"--data_parallel {self.data_parallel}, but the "
+                f"torch.distributed world has {world} ranks: start one "
+                f"process per rank (torchrun --nproc_per_node "
+                f"{self.data_parallel}), each joining the world")
         if self.resolved_use_flash() != self.on_card():
             raise ValueError(
                 f"use_flash={self.use_flash!r} on device {self.device!r}: "

@@ -50,15 +50,11 @@ SEG_NUM = [15, 9, 39, 11, 7, 4, 5, 10, 12, 10, 41, 6, 7, 24, 51, 11, 6]
 def _init_distributed(n_ranks: int, device: str) -> str:
     """Join the torch.distributed world described by the environment;
     returns this rank's device."""
-    import torch
     import torch.distributed as dist
 
-    on_card = device.startswith("cuda")
-    if on_card:
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        device = f"cuda:{torch.cuda.current_device()}"
-    if not dist.is_initialized():
-        dist.init_process_group(backend="nccl" if on_card else "gloo")
+    from csn_tpu_torch.parallel.collectives import join_world
+
+    device = join_world(device)
     if dist.get_world_size() != n_ranks:
         raise SystemExit(
             f"--data_parallel x --seq_parallel = {n_ranks} ranks, but the "

@@ -30,11 +30,13 @@ from torch import nn
 from csn_tpu_torch.core.pyramid import MapSpec, concat_batches
 from csn_tpu_torch.models.blocks import BasicBlock
 from csn_tpu_torch.models.layers import (
-    Conv1x1, MaskedBatchNorm, SparseConv, global_avg_pool, relu_masked,
+    Conv1x1, MaskedBatchNorm, MaskedInstanceNorm, Norm, NormType, SparseConv,
+    SparseLayerNorm, global_avg_pool, relu_masked,
 )
 from csn_tpu_torch.ops.attention import (
     MultiHeadAttention, compatibility_softmax,
 )
+from csn_tpu_torch.parallel import collectives
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,10 +44,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class _ConvNorm(nn.Module):
     """One (conv, norm) step of an exchange chain or final transition."""
 
-    def __init__(self, cin: int, cout: int, map_name: str):
+    def __init__(self, cin: int, cout: int, map_name: str,
+                 norm_type: NormType):
         super().__init__()
         self.conv = SparseConv(cin, cout, map_name)
-        self.norm = MaskedBatchNorm(cout)
+        self.norm = Norm(norm_type, cout)
 
     def forward(self, batch, x, level: int):
         mask = batch.masks[level]
@@ -53,8 +56,8 @@ class _ConvNorm(nn.Module):
 
 
 class HRNetBase(nn.Module):
-    """Backbone (`models/hrnet.py:16-163` of the reference), with masked
-    BatchNorm (the JAX package's default `norm_type`)."""
+    """Backbone (`models/hrnet.py:16-163` of the reference); its norms are
+    of `norm_type`, masked BatchNorm by default."""
 
     NUM_STAGES = 1
     NUM_BLOCKS = 3
@@ -64,8 +67,10 @@ class HRNetBase(nn.Module):
     def __init__(self, out_channels: int, conv1_kernel_size: int = 5,
                  d_model: int = 256, n_head: int = 4, k_neighbors: int = 0,
                  compute_dtype: str = "float32", in_channels: int = 3,
-                 attn_dropout: float = 0.1):
+                 attn_dropout: float = 0.1,
+                 norm_type: NormType = NormType.BATCH_NORM):
         super().__init__()
+        self.norm_type = nt = norm_type
         self.out_channels = out_channels
         self.d_model, self.n_head = d_model, n_head
         self.attn_dropout = attn_dropout
@@ -75,13 +80,13 @@ class HRNetBase(nn.Module):
 
         self.conv0 = SparseConv(in_channels, self.INIT_DIM,
                                 f"same0k{conv1_kernel_size}")
-        self.norm0 = MaskedBatchNorm(self.INIT_DIM)
+        self.norm0 = Norm(nt, self.INIT_DIM)
         self.conv1 = SparseConv(self.INIT_DIM, isd, "same0k3")
-        self.norm1 = MaskedBatchNorm(isd)
+        self.norm1 = Norm(nt, isd)
 
         self.stages = nn.ModuleList(
             nn.ModuleList(
-                nn.ModuleList(BasicBlock(isd * 2 ** j, j)
+                nn.ModuleList(BasicBlock(isd * 2 ** j, j, norm_type=nt)
                               for _ in range(self.NUM_BLOCKS))
                 for j in range(i + 1))
             for i in range(S))
@@ -93,10 +98,11 @@ class HRNetBase(nn.Module):
             if j < k:
                 return nn.ModuleList(
                     _ConvNorm(ch * 2 ** s, ch * 2 ** (s + 1),
-                              f"down{j + s}k3")
+                              f"down{j + s}k3", nt)
                     for s in range(k - j))
             return nn.ModuleList(
-                _ConvNorm(ch // 2 ** s, ch // 2 ** (s + 1), f"up{j - s - 1}k3")
+                _ConvNorm(ch // 2 ** s, ch // 2 ** (s + 1), f"up{j - s - 1}k3",
+                          nt)
                 for s in range(j - k))
 
         self.exchange = nn.ModuleList(
@@ -133,6 +139,7 @@ class HRNetBase(nn.Module):
         """Seeded init of every parameter and running statistic."""
         for m in self.modules():
             if isinstance(m, (SparseConv, Conv1x1, MaskedBatchNorm,
+                              MaskedInstanceNorm, SparseLayerNorm,
                               MultiHeadAttention)):
                 m.reset_parameters(generator)
 
@@ -184,13 +191,14 @@ class HRNetBase(nn.Module):
 class _FinalTransitions(nn.Module):
     """Upsample every lower-resolution branch to level 0 and concatenate."""
 
-    def __init__(self, num_stages: int, init_stage_dims: int):
+    def __init__(self, num_stages: int, init_stage_dims: int,
+                 norm_type: NormType):
         super().__init__()
         self.num_stages = num_stages
         self.trans = nn.ModuleList(
             nn.ModuleList(
                 _ConvNorm(init_stage_dims * 2 ** i, init_stage_dims * 2 ** i,
-                          f"up{i - s - 1}k3")
+                          f"up{i - s - 1}k3", norm_type)
                 for s in range(i))
             for i in range(1, num_stages))
 
@@ -218,10 +226,10 @@ class HRNetSimCSN(HRNetBase):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         S, isd, d = self.NUM_STAGES, self._init_stage_dims(), self.d_model
-        self.final_transitions = _FinalTransitions(S, isd)
+        self.final_transitions = _FinalTransitions(S, isd, self.norm_type)
         cat_ch = self.INIT_DIM + sum(isd * 2 ** i for i in range(S))
         self.fc1 = Conv1x1(cat_ch, d)
-        self.fc1_norm = MaskedBatchNorm(d)
+        self.fc1_norm = Norm(self.norm_type, d)
         self.mha = MultiHeadAttention(self.n_head, d, d // self.n_head,
                                       d // self.n_head, self.attn_dropout)
         self.out_head = Conv1x1(2 * d, self.out_channels, f32=True)
@@ -286,6 +294,56 @@ class HRNetSimCSN(HRNetBase):
                               feats[B:].reshape(K * B, L0, d), bmask[B:],
                               generator)
 
+    def cp_forward(self, batch, col_index: int, n_col: int, col_group=None,
+                   generator: Optional[torch.Generator] = None):
+        """Collection-parallel CSA forward (`csn_tpu/models/hrnet.py:361`):
+        this rank owns ONE member of the [self]+K collection, position 0 of
+        its col group the query batch and position k the k-th neighbour
+        batch, and runs backbone + SSA on it alone. The cross-shape head is
+        assembled with three collectives over `col_group`:
+
+          * the pooled SSA descriptors [B, d] gathered in col order, the
+            combined pass's concat order [query, key_0, ...];
+          * the query's features and mask from position 0 (a masked sum);
+          * the sum of the compatibility-weighted contributions: position 0
+            its own SSA, a key position the cross attention of the query
+            against its local K/V.
+
+        Every rank computes both contributions and keeps its own, so that
+        all ranks run one autograd graph and meet the same collectives in
+        the backward pass. Train-mode BatchNorm normalises each member with
+        its own statistics (the combined pass: query and keys together);
+        instance or layer norms and eval mode are exact."""
+        if self.k_neighbors == 0:
+            raise ValueError("cp_forward needs k_neighbors > 0 (the col "
+                             "group is the [self]+K collection)")
+        if self.training and self.attn_dropout > 0.0 and generator is None:
+            raise ValueError("training with attention dropout needs a CPU "
+                             "torch.Generator (cp_forward(..., generator=))")
+        is_q = col_index == 0
+        mask = batch.masks[0]
+        feats = self._features(batch)                 # [B, L0, d] own member
+        ssa = self._ssa(feats, mask, generator)
+        q_out = collectives.broadcast_from(feats, is_q, col_group)
+        qmask = collectives.broadcast_from(mask.int(), is_q, col_group) > 0
+
+        pools = collectives.all_gather(global_avg_pool(ssa, mask), col_index,
+                                       n_col, col_group)   # [K+1, B, d]
+        q_glob = self._unit_linear(self.linear_q, pools[0])
+        k_glob = self._unit_linear(self.linear_k, pools.transpose(0, 1))
+        comp = compatibility_softmax(q_glob, k_glob,
+                                     float(self.d_model) ** 0.5)  # [B, K+1]
+
+        cross = self.mha(q_out, feats, feats, mask, qmask, generator).float()
+        zero = torch.zeros((), device=cross.device)
+        cross = torch.where(qmask[..., None], cross, zero)
+        own = torch.where(torch.tensor(is_q, device=cross.device),
+                          ssa.float(), cross)
+        csa = collectives.all_reduce(comp[:, col_index, None, None] * own,
+                                     col_group)           # [B, L0, d] f32
+        out = torch.cat([q_out, csa.to(q_out.dtype)], dim=-1)
+        return self.out_head(out).float()
+
     def _csa_head(self, q_out, qmask, q_ssa, pools, k_out, k_mask, generator):
         """Logits from the query's features and SSA, the pooled SSA
         descriptors of [self]+K `pools` [B, K+1, d] f32, and the K key
@@ -349,10 +407,10 @@ class HRNetSeg(HRNetBase):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         S, isd = self.NUM_STAGES, self._init_stage_dims()
-        self.final_transitions = _FinalTransitions(S, isd)
+        self.final_transitions = _FinalTransitions(S, isd, self.norm_type)
         cat_ch = self.INIT_DIM + sum(isd * 2 ** i for i in range(S))
         self.fc1 = Conv1x1(cat_ch, self.d_model)
-        self.fc1_norm = MaskedBatchNorm(self.d_model)
+        self.fc1_norm = Norm(self.norm_type, self.d_model)
         self.fc2 = Conv1x1(self.d_model, self.out_channels, f32=True)
 
     def forward(self, batch, keys: Sequence = (), return_fc1: bool = False,

@@ -10,16 +10,26 @@ Eval:   python -m csn_tpu_torch.tasks.main_csn --is_train False \
 Runs on the first CUDA device; `--device cpu` runs the plain versions of the
 kernels on the CPU. `CSN_DYNG=2` (or 3) in the environment selects the
 im2col sparse-conv kernels (core/window_conv.py).
+
+Data-parallel over N ranks, one process per rank (NCCL, one card each; or
+gloo with `--device cpu`):
+        torchrun --nproc_per_node N -m csn_tpu_torch.tasks.main_csn \
+            --data_parallel N [--collection_parallel True] ...
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
+
+import torch.distributed as dist
 
 from csn_tpu_torch.config import Config, get_config
 from csn_tpu_torch.data.partnet import NUM_SEG, make_partnet_dataset
 from csn_tpu_torch.data.pipeline import pyramid_spec_for_model
 from csn_tpu_torch.models import load_model
+from csn_tpu_torch.parallel.collectives import join_world
 from csn_tpu_torch.train.trainer import CSNTrainer
 from csn_tpu_torch.utils.logging import setup_logging
 
@@ -92,16 +102,31 @@ def run_eval(trainer, config: Config):
     return res
 
 
-def main(argv=None):
-    config = get_config(argv)
-    setup_logging()
-    logging.info("===> Configurations: %s", config)
+@contextlib.contextmanager
+def rank_process(config: Config):
+    """With `--data_parallel N` (or under torchrun), join the world the
+    environment describes, this rank on `cuda:LOCAL_RANK` or the CPU, and
+    leave it at the end; rank 0 alone logs below WARNING."""
+    joined = config.data_parallel > 1 or "WORLD_SIZE" in os.environ
+    if joined:
+        config.device = join_world(config.device)
+    setup_logging("INFO" if not joined or dist.get_rank() == 0
+                  else "WARNING")
+    try:
+        yield config
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
-    if config.is_train:
-        trainer = build_trainer(config)
-        return trainer.train()
-    trainer = build_trainer(config, phases=("train", "val"))
-    return run_eval(trainer, config)
+
+def main(argv=None):
+    with rank_process(get_config(argv)) as config:
+        logging.info("===> Configurations: %s", config)
+        if config.is_train:
+            trainer = build_trainer(config)
+            return trainer.train()
+        trainer = build_trainer(config, phases=("train", "val"))
+        return run_eval(trainer, config)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ Eval:   python -m csn_tpu_torch.tasks.main_seg --is_train False \
             --resume <log_dir>
 
 Runs on the first CUDA device; `--device cpu` runs the plain versions of the
-kernels on the CPU.
+kernels on the CPU. Data-parallel: as `main_csn` (`torchrun --nproc_per_node
+N ... --data_parallel N`).
 """
 
 from __future__ import annotations
@@ -20,10 +21,9 @@ from csn_tpu_torch.data.partnet import NUM_SEG
 from csn_tpu_torch.models import load_model
 from csn_tpu_torch.models.hrnet import HRNetSimCSN
 from csn_tpu_torch.tasks.main_csn import (
-    build_model_and_spec, make_datasets, run_eval,
+    build_model_and_spec, make_datasets, rank_process, run_eval,
 )
 from csn_tpu_torch.train.trainer import SegTrainer
-from csn_tpu_torch.utils.logging import setup_logging
 
 
 def build_trainer(config: Config, phases=None, datasets=None) -> SegTrainer:
@@ -50,13 +50,12 @@ def build_trainer(config: Config, phases=None, datasets=None) -> SegTrainer:
 
 
 def main(argv=None):
-    config = get_config(argv)
-    setup_logging()
-    logging.info("===> Configurations: %s", config)
-    trainer = build_trainer(config)
-    if config.is_train:
-        return trainer.train()
-    return run_eval(trainer, config)
+    with rank_process(get_config(argv)) as config:
+        logging.info("===> Configurations: %s", config)
+        trainer = build_trainer(config)
+        if config.is_train:
+            return trainer.train()
+        return run_eval(trainer, config)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,19 @@ LR) and draws from the same numpy generators in the same order as the JAX
 trainer, so the two build the same batches and the same random pairs from
 one seed. The compute is `train/steps.py` on `config.device`; the model's
 parameters, its BatchNorm statistics and the optimizer state are updated in
-place. The data- and collection-parallel paths of the JAX trainer are not
-ported (ROADMAP A12): `Config.check_supported` raises for them.
+place.
+
+Built inside an initialised `torch.distributed` world (one process per
+rank, `--data_parallel N` = the world's size), the trainer takes the
+data-parallel steps of `parallel/dp.py`, a world of one included: each rank
+builds its own chunk of the global batch and the world averages gradients,
+BatchNorm statistics and the loss. `--collection_parallel` trains on a
+('data', 'col') grid (`parallel/cp.py`), one collection member per rank;
+evaluation, the collection cache and the shape graph stay data-parallel
+over all ranks. Every rank runs the same host loop on the same numbers
+(every rank builds every eval chunk, so the shared generator `rng` makes
+the same draws as the JAX trainer's one process), and rank 0 alone writes
+checkpoints, `config.json` and the metrics log.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ from csn_tpu_torch.config import Config
 from csn_tpu_torch.core.pyramid import PyramidSpec, build_voxel_batch, to_torch
 from csn_tpu_torch.data.prefetch import Prefetcher
 from csn_tpu_torch.data.sampler import InfSampler
+from csn_tpu_torch.parallel import collection as pc
+from csn_tpu_torch.parallel import collectives, cp, dp
 from csn_tpu_torch.retrieval import graph as retrieval
 from csn_tpu_torch.train import metrics as M
 from csn_tpu_torch.train import steps
@@ -115,7 +128,6 @@ class BaseTrainer:
     def __init__(self, model, config: Config, spec: PyramidSpec,
                  train_dataset, val_dataset, num_labels: int,
                  device: Optional[str] = None):
-        config.check_supported()
         self.model = model
         self.config = config
         self.spec = spec
@@ -126,7 +138,49 @@ class BaseTrainer:
                                    else config.device)
         self.K = getattr(config, "k_neighbors", 0) if self._uses_keys() else 0
 
-        self.writer = MetricsWriter(config.log_dir)
+        # `--data_parallel N`: one rank per process, N = the world's size;
+        # `--collection_parallel`: the train step on a ('data', 'col') grid
+        # of the same ranks, one [self]+K member per rank
+        self.n_dev = max(config.data_parallel, 1)
+        self.n_col = 1
+        if config.collection_parallel:
+            if self.K < 1:
+                raise ValueError(
+                    "--collection_parallel needs k_neighbors >= 1 (the col "
+                    "mesh axis is the [self]+K collection)")
+            if self.n_dev % (self.K + 1) != 0:
+                raise ValueError(
+                    f"--collection_parallel needs k_neighbors+1 "
+                    f"({self.K + 1}) to divide --data_parallel "
+                    f"({self.n_dev})")
+            self.n_col = self.K + 1
+        self.n_data = self.n_dev // self.n_col
+        config.check_supported()
+        ignore = config.ignore_label
+        # a trainer built inside an initialised world takes the
+        # data-parallel steps, a world of one included
+        self.world = self.dp_steps = self.cp = None
+        self._grad_step = lambda qb, keys, gen: steps.grad_step(
+            self.model, qb, keys, gen, ignore)
+        self._reduce_grads = lambda: None
+        if collectives.world_size():
+            self.world = dp.make_dp_world(self.n_dev, self.device)
+            self.dp_steps = dp.make_dp_trainer_steps(model, self.world,
+                                                     ignore_label=ignore)
+            self._grad_step = self.dp_steps.grad_step
+            self._reduce_grads = self.dp_steps.reduce_grads
+            if self.n_col > 1:
+                self.cp = cp.make_cp_grid(self.n_data, self.n_col,
+                                          self.device)
+                cp_steps = cp.make_cp_trainer_steps(
+                    model, self.cp, k_neighbors=self.K, ignore_label=ignore)
+                # the rank's collection member travels in the qb slot
+                self._grad_step = lambda lb, keys, gen: cp_steps.grad_step(
+                    lb, gen)
+                self._reduce_grads = cp_steps.reduce_grads
+        self.rank = self.world.rank if self.world is not None else 0
+
+        self.writer = MetricsWriter(config.log_dir, active=self.rank == 0)
         self.data_timer, self.iter_timer = Timer(), Timer()
         self.data_time_avg, self.iter_time_avg = AverageMeter(), AverageMeter()
         self.losses, self.scores = AverageMeter(), AverageMeter()
@@ -136,7 +190,7 @@ class BaseTrainer:
         # the prefetch thread and must not race the eval/graph paths' rng.
         self.data_rng = np.random.default_rng(config.seed + 1)
         # attention dropout draws its seeds from this CPU generator
-        self.generator = torch.Generator().manual_seed(config.seed)
+        self.generator = dp.rank_generator(config.seed, self.rank)
         self.sampler = InfSampler(len(train_dataset), shuffle=True,
                                   rng=self.data_rng)
 
@@ -214,33 +268,76 @@ class BaseTrainer:
     def _fetch_data(self, augment: bool = True,
                     rng: Optional[np.random.Generator] = None):
         rng = rng if rng is not None else self.data_rng
-        idxs = self.sampler.take(self.config.batch_size)
+        idxs = self.sampler.take(self.config.batch_size * self.n_data)
+        if self.cp is not None:
+            return self._fetch_data_cp(idxs, augment, rng)
+        if self.n_dev > 1:
+            return self._fetch_data_dp(idxs, augment, rng)
         if self.K > 0:
-            # build the query batch and the K neighbor batches concurrently
-            # (independent work; each gets its own spawned generator)
+            # the query batch and the K neighbor batches, each from its own
+            # spawned generator
             rngs = rng.spawn(1 + self.K)
-            nbr_idxs = neighbor_slot_indices(self.train_dataset.neighbors,
-                                             idxs, self.K)
-            with ThreadPoolExecutor(max_workers=1 + self.K) as ex:
-                fq = ex.submit(build_batch_from_dataset, self.train_dataset,
-                               idxs, self.spec, rngs[0], augment,
-                               self.config.train_limit_numpoints)
-                fks = [ex.submit(build_batch_from_dataset,
-                                 self.train_dataset, nbr_idxs[k], self.spec,
-                                 rngs[1 + k], augment)
-                       for k in range(self.K)]
-                qb = fq.result()
-                keys = tuple(self._to_device(f.result()) for f in fks)
-            return self._to_device(qb), keys
+            return self._build_train_batches(idxs, rngs[0], rngs[1:],
+                                             augment)
         qb = build_batch_from_dataset(
             self.train_dataset, idxs, self.spec, rng, augment=augment,
             limit_numpoints=self.config.train_limit_numpoints)
         return self._to_device(qb), ()
 
+    def _build_train_batches(self, idxs, q_rng, k_rngs, augment: bool):
+        """The query batch of `idxs` and its K neighbor-slot batches, built
+        concurrently (independent work, a generator each), on the
+        device."""
+        nbr_idxs = neighbor_slot_indices(self.train_dataset.neighbors, idxs,
+                                         self.K) if self.K else []
+        with ThreadPoolExecutor(max_workers=1 + self.K) as ex:
+            fq = ex.submit(build_batch_from_dataset, self.train_dataset,
+                           idxs, self.spec, q_rng, augment,
+                           self.config.train_limit_numpoints)
+            fks = [ex.submit(build_batch_from_dataset,
+                             self.train_dataset, nbr_idxs[k], self.spec,
+                             k_rngs[k], augment)
+                   for k in range(self.K)]
+            qb = fq.result()
+            keys = tuple(self._to_device(f.result()) for f in fks)
+        return self._to_device(qb), keys
+
+    def _fetch_data_dp(self, idxs, augment: bool, rng):
+        """This rank's chunk of the global batch, built from the generators
+        that the JAX trainer gives chunk `rank` (`trainer.py:343`): of
+        `rng.spawn(n * (1 + K))`, child `rank` for the query and child
+        n * (1 + k) + rank for neighbor slot k."""
+        n, r, B = self.n_dev, self.world.rank, self.config.batch_size
+        rngs = rng.spawn(n * (1 + self.K))
+        return self._build_train_batches(
+            idxs[r * B:(r + 1) * B], rngs[r],
+            [rngs[n * (1 + k) + r] for k in range(self.K)], augment)
+
+    def _fetch_data_cp(self, idxs, augment: bool, rng):
+        """This rank's collection member (`trainer.py:367`): of
+        `rng.spawn(n_data * n_col)`, child d * n_col + c builds member c of
+        data shard d (c = 0 the query chunk, c = k its neighbor slot k - 1).
+        It travels in the qb slot; keys is ()."""
+        B = self.config.batch_size
+        d, c = self.cp.data_index, self.cp.col_index
+        rngs = rng.spawn(self.n_data * self.n_col)
+        chunk = idxs[d * B:(d + 1) * B]
+        if c == 0:
+            hb = build_batch_from_dataset(
+                self.train_dataset, chunk, self.spec, rngs[d * self.n_col],
+                augment, self.config.train_limit_numpoints)
+        else:
+            nbr = [self.train_dataset.neighbors[i][1][c - 1] for i in chunk]
+            hb = build_batch_from_dataset(
+                self.train_dataset, nbr, self.spec,
+                rngs[d * self.n_col + c], augment)
+        return self._to_device(hb), ()
+
     # -- train loop -----------------------------------------------------------
     @property
     def data_len(self) -> int:
-        n_batches = max(len(self.train_dataset) // self.config.batch_size, 1)
+        n_batches = max(len(self.train_dataset)
+                        // (self.config.batch_size * self.n_data), 1)
         return (n_batches + self.config.iter_size - 1) // self.config.iter_size
 
     def _current_lr(self) -> float:
@@ -279,13 +376,13 @@ class BaseTrainer:
             self.data_timer.tic()
             qb, keys = next(self._prefetch)
             data_time += self.data_timer.toc(False)
-            loss, pred = steps.grad_step(self.model, qb, keys, self.generator,
-                                         self.config.ignore_label)
+            loss, pred = self._grad_step(qb, keys, self.generator)
             batch_loss += float(loss) / self.config.iter_size
         if self.config.iter_size > 1:
             for p in self.model.parameters():
                 if p.grad is not None:
                     p.grad /= self.config.iter_size
+        self._reduce_grads()
 
         self._set_lr(self._current_lr())
         self.optimizer.step()
@@ -293,16 +390,30 @@ class BaseTrainer:
         self.data_time_avg.update(data_time)
         self.iter_time_avg.update(self.iter_timer.toc(False))
 
-        pred_np = pred.cpu().numpy()
-        target_np = qb.labels.cpu().numpy()
+        ign = self.config.ignore_label
         mask_np = qb.point_mask.cpu().numpy()
-        score = M.precision_at_one_partnet(
-            np.where(mask_np, pred_np, self.config.ignore_label),
-            np.where(mask_np, target_np, self.config.ignore_label),
-            self.config.ignore_label)
-        n = int(mask_np.sum())
+        pred_np = np.where(mask_np, pred.cpu().numpy(), ign)
+        target_np = np.where(mask_np, qb.labels.cpu().numpy(), ign)
+        if self.world is None:
+            score = M.precision_at_one_partnet(pred_np, target_np, ign)
+            n = int(mask_np.sum())
+        else:
+            score, n = self._world_score(pred_np, target_np, mask_np)
         self.losses.update(batch_loss, n)
         self.scores.update(score, n)
+
+    def _world_score(self, pred, target, mask) -> Tuple[float, int]:
+        """`precision_at_one_partnet` and the valid point count over the
+        query batches of every rank (on a key rank of the collection grid:
+        none), from counts summed over the world."""
+        ign = self.config.ignore_label
+        correct = ((pred == target) | (target == 0))[target != ign]
+        own = self.cp is None or self.cp.col_index == 0
+        counts = torch.tensor([int(correct.sum()), correct.size,
+                               int(mask.sum())], dtype=torch.int64) * own
+        c, size, n = collectives.all_reduce(
+            counts.to(self.device), self.world.group).tolist()
+        return (c * 100.0 / size if size else float("nan")), n
 
     def _log_stats(self):
         lr = self._current_lr()
@@ -322,7 +433,7 @@ class BaseTrainer:
     def _log_params(self):
         """Weight AND gradient histograms (`trainer_csn.py:309-313` logs
         both; grads come from the most recent train iteration)."""
-        if not self.config.save_param_histogram:
+        if not (self.config.save_param_histogram and self.writer.active):
             return
         for name, p in self.model.named_parameters():
             tag = self.model.__class__.__name__ + "/" + name.replace(".", "/")
@@ -348,23 +459,42 @@ class BaseTrainer:
         Mink metric definitions, loss and precision@1 averages. Returns
         (loss, precision@1, part IoU, shape IoU)."""
         bs = max(self.config.test_batch_size, 1)
+        gbs = bs * (self.world.size if self.world is not None else 1)
         self._prepare_eval(dataset)
         losses, scores, ious = AverageMeter(), AverageMeter(), {}
         n = len(dataset)
         shape_id = 0
-        for start in range(0, n, bs):
-            idxs, valid = _padded_indices(start, n, bs)
-            qb_host = build_batch_from_dataset(dataset, idxs, self.spec,
-                                               self.rng, augment=False)
-            # the final partial batch is padded by duplicating the last
-            # shape; mask the duplicates out of the loss (metrics slice
-            # [:valid])
-            qb_host.point_mask[valid:] = False
-            loss, _, pred = self._eval_forward(dataset, idxs,
-                                               self._to_device(qb_host))
-            pred = pred.cpu().numpy()
-            labels, mask = qb_host.labels, qb_host.point_mask
-            losses.update(float(loss), int(mask[:valid].sum()))
+        for start in range(0, n, gbs):
+            idxs, valid = _padded_indices(start, n, gbs)
+            if self.world is not None:
+                # every rank builds every chunk, in chunk order: the shared
+                # `rng` makes the JAX trainer's draws; each forwards its own
+                chunks = self._chunks(idxs, bs)
+                hosts = [build_batch_from_dataset(dataset, ch, self.spec,
+                                                  self.rng, augment=False)
+                         for ch in chunks]
+                # final-batch padding duplicates: masked out of the loss
+                for gi in range(valid, gbs):
+                    hosts[gi // bs].point_mask[gi % bs] = False
+                loss, _, pred = self._eval_forward_dp(
+                    dataset, chunks, self._to_device(hosts[self.world.rank]))
+                pred = pred.cpu().numpy().reshape(gbs, -1)
+                labels = np.concatenate([h.labels for h in hosts])
+                mask = np.concatenate([h.point_mask for h in hosts])
+                for h, lo in zip(hosts, loss.tolist()):
+                    losses.update(lo, int(h.point_mask.sum()))
+            else:
+                qb_host = build_batch_from_dataset(dataset, idxs, self.spec,
+                                                   self.rng, augment=False)
+                # the final partial batch is padded by duplicating the last
+                # shape; mask the duplicates out of the loss (metrics slice
+                # [:valid])
+                qb_host.point_mask[valid:] = False
+                loss, _, pred = self._eval_forward(dataset, idxs,
+                                                   self._to_device(qb_host))
+                pred = pred.cpu().numpy()
+                labels, mask = qb_host.labels, qb_host.point_mask
+                losses.update(float(loss), int(mask[:valid].sum()))
             for b in range(valid):
                 m = mask[b]
                 g, p = labels[b][m], pred[b][m]
@@ -379,14 +509,21 @@ class BaseTrainer:
                         shape_id, n, losses.avg, scores.avg)
         part_iou = M.calculate_part_iou(ious, self.num_labels) * 100
         shape_iou = M.calculate_shape_iou(ious) * 100
-        if save_pred_dir:
+        if save_pred_dir and self.rank == 0:
             os.makedirs(save_pred_dir, exist_ok=True)
             with open(osp.join(save_pred_dir, "results_log.txt"), "w") as f:
                 f.write("Shape IoU: " + str(np.round(shape_iou, 2))
                         + "\nPart IoU: " + str(np.round(part_iou, 2)))
         return losses.avg, scores.avg, part_iou, shape_iou
 
+    def _chunks(self, idxs, bs: int) -> List[List[int]]:
+        """The world's chunks of a global batch, rank r's at r."""
+        return [idxs[r * bs:(r + 1) * bs] for r in range(self.world.size)]
+
     def _fetch_eval_keys(self, dataset, idxs):
+        return ()
+
+    def _fetch_eval_keys_dp(self, dataset, chunks):
         return ()
 
     def _prepare_eval(self, dataset):
@@ -397,6 +534,11 @@ class BaseTrainer:
         return steps.eval_step(self.model, qb,
                                self._fetch_eval_keys(dataset, idxs),
                                self.config.ignore_label)
+
+    def _eval_forward_dp(self, dataset, chunks, qb):
+        """(loss [n], point logits of this rank, pred [n, B, P])."""
+        return self.dp_steps.eval_step(
+            qb, self._fetch_eval_keys_dp(dataset, chunks))
 
     # -- checkpointing --------------------------------------------------------
     def _tree_state(self):
@@ -424,10 +566,15 @@ class BaseTrainer:
         return st
 
     def save_checkpoint(self, postfix: Optional[str] = None):
-        save_checkpoint(
-            self.config.log_dir, self.config.model, self._tree_state(),
-            self._host_state(), config=self.config.to_dict(), postfix=postfix,
-            overwrite=self.config.overwrite_weights)
+        """Rank 0 writes; every rank waits until the file is there (a
+        plateau rebuild reads it back on every rank)."""
+        if self.rank == 0:
+            save_checkpoint(
+                self.config.log_dir, self.config.model, self._tree_state(),
+                self._host_state(), config=self.config.to_dict(),
+                postfix=postfix, overwrite=self.config.overwrite_weights)
+        if self.world is not None:
+            self.world.barrier()
 
     def _save_best_checkpoints(self, val_loss, val_score, val_part_iou,
                                val_shape_iou):
@@ -539,6 +686,10 @@ class CSNTrainer(BaseTrainer):
         self.cooldown = self.MAX_COOLDOWN
         self.n_graph_construction = 0
         self._collection_cache = None
+        # data-parallel: this rank's shard (feats, pools, masks, per) and
+        # the step that exchanges the neighbor rows
+        self._collection_cache_dev = None
+        self._dp_cached_eval_step = None
 
     def _uses_keys(self) -> bool:
         return True
@@ -553,13 +704,30 @@ class CSNTrainer(BaseTrainer):
                 augment=False))
             for i in range(self.K))
 
+    def _fetch_eval_keys_dp(self, dataset, chunks):
+        """Every chunk's neighbor batches, slot-major in chunk order as
+        the JAX trainer builds them (`trainer.py:787`), this rank's kept."""
+        if self.K <= 0:
+            return ()
+        keys = []
+        for i in range(self.K):
+            kbs = [build_batch_from_dataset(
+                self.train_dataset, [dataset.neighbors[idx][1][i]
+                                     for idx in ch],
+                self.spec, self.rng, augment=False) for ch in chunks]
+            keys.append(self._to_device(kbs[self.world.rank]))
+        return tuple(keys)
+
     # -- cached-collection eval ----------------------------------------------
     # `--cached_eval`: forward every train-collection shape ONCE through the
     # backbone (`HRNetSimCSN.cache_features`), keep the per-shape K/V features
     # + pooled SSA on the host (f16/f32), and evaluate queries with
     # `csa_from_cache`: a single-B backbone pass per batch instead of the
     # (K+1)-B combined pass. The reference re-forwards every neighbor per
-    # query (`lib/trainer_csn.py:442-454`).
+    # query (`lib/trainer_csn.py:442-454`). Under data parallelism the
+    # cache is built one chunk per rank and SHARDED over the ranks, each
+    # holding N/n shapes; the neighbor rows are exchanged per eval batch
+    # (parallel/collection.py).
     @torch.no_grad()
     def build_collection_cache(self):
         """Cache (features, ssa_pool, mask) for every train-collection shape.
@@ -585,14 +753,55 @@ class CSNTrainer(BaseTrainer):
                                   np.concatenate(pools_out),
                                   np.concatenate(masks_out))
 
+    @torch.no_grad()
+    def build_collection_cache_dp(self):
+        """The data-parallel cache build (`trainer.py:864`): n collection
+        batches per step, one per rank (`make_dp_cache_step`); each rank
+        keeps, of every gathered step, the rows of its own shard
+        [rank * per, (rank + 1) * per) (`shard_collection`), so that no
+        rank holds the whole collection."""
+        ds = self.train_dataset
+        bs = max(self.config.test_batch_size, 1)
+        gbs = bs * self.world.size
+        n = len(ds)
+        per = -(-n // self.world.size)
+        lo = self.world.rank * per
+        cache_step = pc.make_dp_cache_step(self.model, self.world)
+        own = ([], [], [])
+        for start in range(0, n, gbs):
+            idxs, valid = _padded_indices(start, n, gbs)
+            hosts = [build_batch_from_dataset(ds, ch, self.spec, self.rng,
+                                              augment=False)
+                     for ch in self._chunks(idxs, bs)]
+            feats, pools = cache_step(
+                self._to_device(hosts[self.world.rank]))
+            rows = (feats.reshape(gbs, *feats.shape[2:]).cpu().numpy(),
+                    pools.reshape(gbs, -1).cpu().numpy(),
+                    np.concatenate([h.masks[0] for h in hosts]))
+            a = min(max(lo - start, 0), valid)
+            b = min(max(lo + per - start, 0), valid)
+            for out, x in zip(own, rows):
+                out.append(x[a:b])
+        cf, cpl, cm = (pc.shard_rows(np.concatenate(x), per, self.device)
+                       for x in own)
+        self._collection_cache_dev = (cf, cpl, cm, per)
+        self._dp_cached_eval_step = pc.make_dp_cached_eval_step(
+            self.model, self.world, per=per,
+            ignore_label=self.config.ignore_label)
+
     def _prepare_eval(self, dataset):
         # a cache of an earlier call belongs to other weights, or to a run
         # with cached_eval on
-        self._collection_cache = None
+        self._collection_cache = self._collection_cache_dev = None
         if self.config.cached_eval and self.K > 0:
-            logging.info("===> Building cached-eval collection (%d shapes)",
-                         len(self.train_dataset))
-            self.build_collection_cache()
+            logging.info("===> Building cached-eval collection (%d shapes%s)",
+                         len(self.train_dataset),
+                         f", sharded over {self.world.size} ranks"
+                         if self.world is not None else "")
+            if self.world is not None:
+                self.build_collection_cache_dp()
+            else:
+                self.build_collection_cache()
 
     def _eval_forward(self, dataset, idxs, qb):
         if self._collection_cache is None or self.K <= 0:
@@ -608,27 +817,52 @@ class CSNTrainer(BaseTrainer):
             self.model, qb, put(feats[nbr]), put(pools[nbr]), put(masks[nbr]),
             self.config.ignore_label)
 
+    def _eval_forward_dp(self, dataset, chunks, qb):
+        if self._collection_cache_dev is None or self.K <= 0:
+            return super()._eval_forward_dp(dataset, chunks, qb)
+        cf, cpl, cm, _ = self._collection_cache_dev
+        idx = torch.tensor([[[dataset.neighbors[i][1][k]
+                              for k in range(self.K)] for i in ch]
+                            for ch in chunks])         # [n, B, K] global
+        return self._dp_cached_eval_step(qb, cf, cpl, cm, idx)
+
     # -- shape graph ----------------------------------------------------------
     @torch.no_grad()
     def _all_ssa_descriptors(self, dataset):
         """Batched SSA features for every shape (augmentations disabled, like
         `csn_utils.py:26-27`). Returns (feats [N, L0, d] fp16, masks
-        [N, L0])."""
+        [N, L0]). Data-parallel: one chunk per rank and step, gathered, so
+        that every rank returns every shape's features."""
         bs = self.config.batch_size
+        gbs = bs * (self.world.size if self.world is not None else 1)
         n = len(dataset)
         self.model.eval()
         feats_out, masks_out = [], []
-        for start in range(0, n, bs):
-            idxs, valid = _padded_indices(start, n, bs)
-            qb_host = build_batch_from_dataset(dataset, idxs, self.spec,
-                                               self.rng, augment=False)
-            ssa = self.model(self._to_device(qb_host), return_ssa=True)
+        for start in range(0, n, gbs):
+            idxs, valid = _padded_indices(start, n, gbs)
+            if self.world is not None:
+                hosts = [build_batch_from_dataset(dataset, ch, self.spec,
+                                                  self.rng, augment=False)
+                         for ch in self._chunks(idxs, bs)]
+                ssa = self.dp_steps.ssa_step(
+                    self._to_device(hosts[self.world.rank]))
+                ssa = ssa.reshape(gbs, *ssa.shape[2:])
+                m0 = np.concatenate([h.masks[0] for h in hosts])
+            else:
+                qb_host = build_batch_from_dataset(dataset, idxs, self.spec,
+                                                   self.rng, augment=False)
+                ssa = self.model(self._to_device(qb_host), return_ssa=True)
+                m0 = np.asarray(qb_host.masks[0])
             feats_out.append(ssa[:valid].to(torch.float16).cpu().numpy())
-            masks_out.append(np.asarray(qb_host.masks[0])[:valid])
+            masks_out.append(m0[:valid])
         return np.concatenate(feats_out), np.concatenate(masks_out)
 
     def _measure(self, q_feats, q_mask, k_feats, k_mask):
-        """Mean-of-max cosine retrieval measure, on the trainer's device."""
+        """Mean-of-max cosine retrieval measure, on the trainer's device;
+        data-parallel: the keys sharded over the ranks."""
+        if self.world is not None:
+            return dp.sharded_retrieval_measure(q_feats, q_mask, k_feats,
+                                                k_mask, self.world)
         return retrieval.retrieval_measure(q_feats, q_mask, k_feats, k_mask,
                                            device=self.device)
 

@@ -30,13 +30,17 @@ class MetricsWriter:
     """Scalars -> `<log_dir>/metrics.jsonl` (+ tensorboardX if available).
 
     Mesh logging (`add_mesh`) mirrors the reference's point-cloud logging at
-    graph-construction time."""
+    graph-construction time. An inactive writer (`active=False`: every rank
+    of a multi-rank run but rank 0) writes nothing."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, active: bool = True):
         self.log_dir = log_dir
-        os.makedirs(log_dir, exist_ok=True)
+        self.active = active
         self.path = os.path.join(log_dir, "metrics.jsonl")
         self._tb = None
+        if not active:
+            return
+        os.makedirs(log_dir, exist_ok=True)
         try:
             from tensorboardX import SummaryWriter  # optional
 
@@ -45,6 +49,8 @@ class MetricsWriter:
             self._tb = None
 
     def add_scalar(self, tag: str, value: float, step: int):
+        if not self.active:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps({"t": time.time(), "tag": tag,
                                 "value": float(value), "step": int(step)})
@@ -53,6 +59,8 @@ class MetricsWriter:
             self._tb.add_scalar(tag, value, step)
 
     def add_histogram(self, tag: str, values, step: int):
+        if not self.active:
+            return
         v = np.asarray(values).reshape(-1)
         if self._tb is not None:
             self._tb.add_histogram(tag, v, step)
@@ -64,6 +72,8 @@ class MetricsWriter:
                     "min": float(v.min()), "max": float(v.max())}) + "\n")
 
     def add_mesh(self, tag: str, vertices: np.ndarray, global_step: int = 0):
+        if not self.active:
+            return
         if self._tb is not None:
             try:
                 self._tb.add_mesh(tag, vertices=vertices,

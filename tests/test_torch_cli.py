@@ -1,8 +1,9 @@
 """Port: the command-line entry points `csn_tpu_torch.tasks.main_csn` and
 `main_seg`, run as a user runs them (`python -m ... --device cpu`) on a
 synthetic PartNet directory: two epochs of training, then `--is_train False
---resume`, which writes `results_log.txt`. Also: the settings the port does
-not run yet raise with the ROADMAP item in the message, and no module of the
+--resume`, which writes `results_log.txt`; the same with `--data_parallel 2`
+(and `--collection_parallel True`) over two gloo rank processes. Also: a
+world that does not match `--data_parallel` raises, and no module of the
 port imports the JAX package (h5py only inside the PartNet reader and
 writer).
 
@@ -12,6 +13,7 @@ HRNetSeg2S, d_model 16, 2 heads, k3 stem, batch 2, f32 on the CPU.
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -74,15 +76,76 @@ def test_cli_trains_then_evaluates(synth_root, tmp_path, module, model,
         assert 0.0 <= float(line.split(": ")[1]) <= 100.0
 
 
-def test_data_parallel_raises_with_the_roadmap_item(synth_root, tmp_path):
+def _run_world(module, args, world):
+    """`module` as `world` rank processes of one gloo world, as torchrun
+    starts them (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK)."""
+    from tests.torch_ranks import free_port
+
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"csn_tpu_torch.tasks.{module}", *args],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "1", "RANK": str(r),
+             "LOCAL_RANK": str(r), "WORLD_SIZE": str(world),
+             "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
+        for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            errs.append(err)
+    finally:
+        for p in procs:   # leave nothing running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, f"rank {r}:\n{err[-3000:]}"
+    return errs
+
+
+@pytest.mark.parametrize("case", ["data_parallel", "collection_parallel",
+                                  "world_mismatch", "collection_k0"])
+def test_data_parallel_cli(synth_root, tmp_path, case):
+    """`--data_parallel 2` and `--data_parallel 2 --collection_parallel
+    True` train two epochs and then evaluate in a gloo world of 2 rank
+    processes (rank 0 alone logs and writes the checkpoints, the config and
+    the results); a world that does not match `--data_parallel` raises, and
+    so does `--collection_parallel` with K = 0 (the JAX package's
+    ValueError)."""
     from csn_tpu_torch.tasks.main_csn import build_trainer
 
-    for kw in (dict(data_parallel=2), dict(collection_parallel=True)):
+    if case in ("world_mismatch", "collection_k0"):
+        kw = dict(data_parallel=2, k_neighbors=1) if case == "world_mismatch" \
+            else dict(data_parallel=2, k_neighbors=0,
+                      collection_parallel=True)
         cfg = Config(model="HRNetSimCSN2S", partnet_path=synth_root,
                      partnet_category="Display", device="cpu",
                      log_dir=str(tmp_path), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        with pytest.raises(ValueError, match="world has 0 ranks"
+                           if case == "world_mismatch"
+                           else "k_neighbors >= 1"):
             build_trainer(cfg)
+        return
+    logs, pred = str(tmp_path / "logs"), str(tmp_path / "pred")
+    extra = ["--collection_parallel", "True"] \
+        if case == "collection_parallel" else []
+    errs = _run_world("main_csn", [
+        "--is_train", "True", "--model", "HRNetSimCSN2S", "--partnet_path",
+        synth_root, "--log_dir", logs, "--k_neighbors", "1",
+        "--data_parallel", "2", *extra, *COMMON], 2)
+    assert "Epoch[2]" in errs[0] and "Epoch[" not in errs[1]
+    for name in ("checkpoint_HRNetSimCSN2S.pt", "weights.pt", "config.json",
+                 "metrics.jsonl"):
+        assert os.path.exists(os.path.join(logs, name)), name
+    errs = _run_world("main_csn", [
+        "--is_train", "False", "--resume", logs, "--partnet_path",
+        synth_root, "--partnet_category", "Display", "--save_pred_dir", pred,
+        "--device", "cpu"], 2)
+    assert "Test: loss" in errs[0]
+    text = open(os.path.join(pred, "results_log.txt")).read()
+    assert text.startswith("Shape IoU: ") and "\nPart IoU: " in text
+    shutil.rmtree(logs)   # five checkpoints of ~160 MB
 
 
 def test_pth_weights_raise_with_the_roadmap_item(synth_root, tmp_path):
