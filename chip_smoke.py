@@ -6,8 +6,10 @@ through a ring of one) at full width, run the HRNet trainer and the eval
 CLI's path with the sparse conv in its im2col form (CSN_DYNG=2), then the
 Res16UNet34C trainer, a ResUNet14 and a ResNet14 forward, the feature
 extraction -> SSA -> kNN -> CSA -> `get_csa_pred` chain and the probes, and
-last the multi-device trainers as far as one card runs them (a data-parallel
-world of one; two collection-parallel ranks sharing the card).
+the multi-device trainers as far as one card runs them (a data-parallel
+world of one; two collection-parallel ranks sharing the card), and last the
+learning check of the JAX package's `scripts/learning_check.py` in the
+port's form, with the device-side IoU counts.
 
     python3 chip_smoke.py [--profile]
 
@@ -60,7 +62,14 @@ Phases (each prints its lines; any failure exits nonzero):
      ragged key mask with one fully masked 64-key tile, one query tile all
      padding), at head dims 64 (4 heads) and 256 (8 heads), at dropout 0
      and 0.1 (same seed as the plain version); `flash_attn_bwd` at the same
-     cases against autograd of the plain version; K3 (voxel -> point
+     cases against autograd of the plain version; both again at the head
+     dims the main path does not run (`check_head_dims`): 32 and 16 (bf16
+     on their tensor-core bodies; d_model 256 in 8 and 16 heads) at the
+     SSA masks cut to 8 and 4 shapes and at the ragged masks, and 24 on
+     the ragged masks, f32 and bf16, the ones without a body of their own
+     zero-padded to the next, at the D=64 tolerances; then the bf16 pair's
+     device times (CUDA graphs) at the full SSA call for D = 64, 32 and 16
+     beside the library call, outside the kernel line; K3 (voxel -> point
      interpolation) and `interp_bwd` against their plain versions on the
      query batch's corner table, at 39 classes in f32 (the main path's
      form, timed for the kernel line) and bf16, and at the extraction
@@ -76,6 +85,10 @@ Phases (each prints its lines; any failure exits nonzero):
      against a float64 reference with a wrong-offset run that must
      disagree, and a block with padding query rows (scattered, and one
      padding 64-row tile) whose carry must pass through bit for bit; the
+     carry chain and the block backward zero-padded by their wrappers (D=32
+     f32, D=24 bf16, masked, dropout 0.1, `check_ring_padded`) against the
+     same plain chains, and a ring of one at D=24 bf16 (padded once at its
+     entry) against `FlashAttentionFn` forward and backward; the
      four conv kernels again on every (map, Cin, Cout) of Res16UNet34C
      (8-offset k2 maps, five levels, widths 96, 192, 384; timed, B=8) and
      of ResUNet14 and ResNet14 (1-offset k1 maps, six
@@ -154,12 +167,22 @@ Phases (each prints its lines; any failure exits nonzero):
      f32 eval logits within 1e-3 max|ref| of the single-process combined
      pass, one bf16 train step with a finite loss and the parameters
      bitwise equal on both ranks, and its ms. Scaling across cards is not
-     measured: one card cannot show it.
+     measured: one card cannot show it;
+ 11. the learning check (`tasks/learning_check.py` at the JAX script's
+     defaults, the K1 form): csn (HRNetSimCSN2S, d_model 64 in 2 heads:
+     K2 and its backward on the bf16 D=32 tensor-core bodies, which a
+     spy on the wrappers confirms), seg (HRNetSeg2S) and midfc (the CSA
+     runner, f32, 150 steps), each required to end below 0.8 x its first
+     loss; then one eval request of the trained csn model through
+     `batch_intersection_union` on the card, equal to the same call on
+     the CPU and, through `mink_metrics_from_iu`, to the host's per-shape
+     IoU.
 The line before the last is the kernel table as JSON: per kernel, its
-launches in the train requests of phases 5, 6, 7, 8, 9 and 10 (each phase
-sets the counts to 0 before and reads them after; phase 9 counts the
+launches in the train requests of phases 5, 6, 7, 8, 9, 10 and 11 (each
+phase sets the counts to 0 before and reads them after; phase 9 counts the
 Res16UNet34C train iterations, the chain and the probes' entry points;
-phase 10 the data-parallel trainer's iterations), its worst error
+phase 10 the data-parallel trainer's iterations; phase 11 the three
+learning-check trainings), its worst error
 over phase 3's checks, and four times summed over one train step's launches
 of every path the kernel is on (bf16 at the HRNet and Res16UNet34C shapes,
 f32 at the MID-FC shapes; the interpolation pair f32 at 39 classes, as the
@@ -189,6 +212,7 @@ kernel-vs-plain checks as in the models.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -228,10 +252,11 @@ from csn_tpu_torch.parallel import collectives, cp, dp
 from csn_tpu_torch.parallel.midfc import make_midfc_steps
 from csn_tpu_torch.probes import dyngather, dyngather2, iw_bwd
 from csn_tpu_torch.retrieval import graph as retrieval_graph
-from csn_tpu_torch.tasks import main_csn, main_seg
+from csn_tpu_torch.tasks import learning_check, main_csn, main_seg
 from csn_tpu_torch.tools.timing import graph_ms
-from csn_tpu_torch.train import optim
+from csn_tpu_torch.train import metrics, optim
 from csn_tpu_torch.train.steps import eval_step, train_step
+from csn_tpu_torch.train.trainer import build_batch_from_dataset
 
 B, P, VOXEL, K_NEIGHBORS = 8, 10000, 0.05, 1
 LEVEL0_CAP, SHRINK, STEM_K = 5632, 3.0, 5
@@ -257,6 +282,7 @@ VANISHING = {"fc1.linear.bias"}
 MF_HEADS, MF_K, MF_B, MF_P, MF_D, MF_CHUNK = 8, 4, 4, 10000, 256, 500
 MF_RING_B, MF_BLOCKS = 2, 4   # phase 7's batch; key blocks of phase 3's chain
 RAGGED_LQ, RAGGED_LK = 1000, 777   # phase 3's ragged flash case
+LC_TASKS = ("csn", "seg", "midfc")   # phase 11, the learning check
 
 HBM_BYTES_S = 3.35e12                       # H100 SXM, NVIDIA's data sheet
 # f32: the f32 products run on the tensor cores in split TF32, three TF32
@@ -1198,10 +1224,132 @@ def check_attention(qb, kb, big, dev, table, g):
                 torch.float32, 2 * MF_K + 1, ref64=True)
 
 
-def check_ring_kernels(dev, table, g):
+def check_head_dims(big, dev, table):
+    """K2 and its backward at the head dims the JAX package also runs and
+    the main path does not: bf16 at 32 and 16 on their tensor-core bodies
+    (d_model 256 in 8 and 16 heads, at the SSA call's masks, cut to 8 and 4
+    shapes so that the plain version's f32 score matrices stay within the
+    card: the same batch * heads as the D=64 check), and on the ragged
+    masks (RAGGED_LQ / RAGGED_LK) at 32, 16 and 24 (8 heads), in f32 and
+    bf16, dropout 0 and ATTN_DROPOUT, held to the plain version at the D=64
+    tolerances (TOL). f32 at 16, 24 and 32 and bf16 at 24 run zero-padded
+    to the next body (`ops/flash.py` `k2_head_dim`). Then the device times
+    of the bf16 pair at the full SSA call for D = 64, 32 and 16
+    (`time_head_dims`). A generator of its own keeps the inputs of the
+    other checks those of the D=64 runs."""
+    g = torch.Generator().manual_seed(SEED + 17)
+    bmask = big.masks[0]
+    for dk, n_b in ((32, 8), (16, 4)):
+        check_flash(table, dev, g, "SSA", bmask[:n_b], bmask[:n_b],
+                    D_MODEL // dk, dk, None, 0)
+    rq = torch.rand(2, RAGGED_LQ, generator=g) < 0.8
+    rk = torch.rand(2, RAGGED_LK, generator=g) < 0.7
+    rk[:, 64:128] = False
+    rq[:, 128:192] = False
+    for dk, heads in ((32, 8), (16, 16), (24, 8)):
+        check_flash(table, dev, g, "ragged", rq.to(dev), rk.to(dev), heads,
+                    dk, None, 0)
+    time_head_dims(bmask, dev)
+
+
+def time_head_dims(bmask, dev):
+    """Device ms (CUDA graphs, warm L2: `tools/timing.py`) of the bf16 K2
+    and its backward at the HRNet SSA call [16, H, 5632, D] with d_model
+    256 split into heads of D = 64, 32 and 16, at dropout ATTN_DROPOUT (the
+    train path's call) and 0, beside the call's bound and the library call
+    `F.scaled_dot_product_attention` with the key mask at the same dropout
+    (its backward: a graph of forward and backward less the forward's).
+    Not in the kernel line: the main path runs D = 64."""
+    gd = torch.Generator(device=dev).manual_seed(SEED + 23)
+    b, L = bmask.shape
+    for dk in (64, 32, 16):
+        h = D_MODEL // dk
+        temp = float(dk) ** 0.5
+        q, k, v, dout = (torch.randn(b, h, L, dk, generator=gd, device=dev)
+                         .to(torch.bfloat16) for _ in range(4))
+        dout = dout * bmask[:, None, :, None]
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        fb, bb, ff, bf = attention_work(bmask, bmask, h, dk, 2)
+        bound_f = max(fb / HBM_BYTES_S, ff / PEAK_FLOPS[torch.bfloat16]) * 1e3
+        bound_b = max(bb / HBM_BYTES_S, bf / PEAK_FLOPS[torch.bfloat16]) * 1e3
+        for drop in (ATTN_DROPOUT, 0.0):
+            sd = 0x5EED_0F_C5A if drop else None
+            out, lse = flash.flash_attention(q, k, v, bmask, bmask, temp,
+                                             drop, sd)
+            delta = (dout.float() * out.float()).sum(dim=-1)
+            kf = graph_ms(lambda: flash.flash_attention(
+                q, k, v, bmask, bmask, temp, drop, sd), calls=10)
+            kb_ = graph_ms(lambda: flash.flash_attention_bwd(
+                q, k, v, dout, lse, delta, bmask, bmask, temp, drop, sd),
+                calls=10)
+
+            def lib(x, y, z):
+                return F.scaled_dot_product_attention(
+                    x, y, z, attn_mask=bmask[:, None, None, :],
+                    scale=1.0 / temp, dropout_p=drop)
+
+            lf = graph_ms(lambda: lib(q, k, v), calls=10)
+            lfb = graph_ms(lambda: torch.autograd.grad(
+                lib(*leaves), leaves, dout), calls=10)
+            print(f"[time] flash_attn_fwd / flash_attn_bwd SSA "
+                  f"[{b},{h},{L},{dk}] dropout {drop} bfloat16 (d_model "
+                  f"{D_MODEL} in {h} heads of {dk}; device, CUDA graphs, "
+                  f"warm L2): forward kernel {kf:.4f} ms, library {lf:.4f} "
+                  f"ms, bound {bound_f:.4f} ms; backward kernel {kb_:.4f} "
+                  f"ms, library {lfb - lf:.4f} ms (forward and backward "
+                  f"{lfb:.4f} less the forward), bound {bound_b:.4f} ms "
+                  f"(not in the kernel line)")
+            del out, lse, delta
+        del q, k, v, dout, leaves
+        torch.cuda.empty_cache()
+
+
+def check_ring_padded(dev, table):
+    """The per-block kernels at head dims they are not built for, zero-padded
+    by their wrappers to 64: a carry chain and the block backward at the
+    ring's block layout (`check_ring_kernels`) at D=32 in f32 and D=24 in
+    bf16, masked, dropout ATTN_DROPOUT; then `ring_flash_attention` (a ring
+    of one: `RingFlashAttentionFn` pads once at its entry) at D=24 in bf16,
+    forward and backward, against `FlashAttentionFn` (K2 and its backward
+    on the D=32 tensor-core body) on the same inputs."""
+    g = torch.Generator().manual_seed(SEED + 19)
+    check_ring_kernels(dev, table, g, dk=32,
+                       cases=((torch.float32, ATTN_DROPOUT, True, False),))
+    check_ring_kernels(dev, table, g, dk=24,
+                       cases=((torch.bfloat16, ATTN_DROPOUT, True, False),))
+    b, h, L, dk = MF_RING_B, MF_HEADS, MF_P // MF_BLOCKS, 24
+    temp, sd = float(dk) ** 0.5, 0x5EED_0F_C5A + 2
+    km = torch.rand(b, L, generator=g) < 0.8
+    km[1, 512:1024] = False
+    km = km.to(dev)
+    x = [torch.randn(b, h, L, dk, generator=g).to(dev, torch.bfloat16)
+         for _ in range(4)]
+    dout = x[3] * km[:, None, :, None]
+    tag = f"ring of one [{b},{h},{L},{dk}] masked dropout {ATTN_DROPOUT}"
+    res = []
+    for fn in (lambda q, k, v: attention.ring_flash_attention(
+                   q, k, v, km, None, temp, dropout=ATTN_DROPOUT, seed=sd),
+               lambda q, k, v: flash.FlashAttentionFn.apply(
+                   q, k, v, km, km, temp, ATTN_DROPOUT, sd)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in x[:3]]
+        out = fn(*leaves)
+        res.append([out.detach()] + list(torch.autograd.grad(
+            out, leaves, dout)))
+    valid = km[:, None, :, None]
+    for nm, a, r, name in zip(("out", "dq", "dk", "dv"), *res, (
+            "flash_attn_carry", "flash_attn_block_bwd",
+            "flash_attn_block_bwd", "flash_attn_block_bwd")):
+        table.check(name, f"{tag} {nm} vs FlashAttentionFn", a, r,
+                    torch.bfloat16, valid if nm in ("out", "dq") else None)
+    del res, x, dout
+    torch.cuda.empty_cache()
+
+
+def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
     """`flash_attn_carry` chained over MF_BLOCKS key blocks at phase 7's
-    shape against `online_block_update` chained the same way and against
-    one K2 pass over all keys; `flash_attn_block_bwd` on every block
+    shape (head dim `dk`; another than 64, 128 or 256 runs zero-padded by
+    the wrappers) against `online_block_update` chained the same way and
+    against one K2 pass over all keys; `flash_attn_block_bwd` on every block
     against `block_backward_plain` on that block, and summed over the
     blocks against one `flash_attn_bwd` call. The backward's inputs (out,
     lse) are the plain chain's, so no kernel's output feeds a check of
@@ -1209,8 +1357,10 @@ def check_ring_kernels(dev, table, g):
     multiple of 4 (a block then starts inside a 4-column Philox group), and
     checks a slice of the query rows at its row offset. The one call over
     all keys that phase 7 makes (a ring of one) is held against the plain
-    chains too, and timed in f32 at dropout ATTN_DROPOUT."""
-    b, h, L, dk = MF_RING_B, MF_HEADS, MF_P, MF_D
+    chains too, and timed in f32 at dropout ATTN_DROPOUT (at dk = MF_D).
+    `cases`: (dtype, dropout, masked, uneven) of each chain; by default
+    the four at MF_D."""
+    b, h, L = MF_RING_B, MF_HEADS, MF_P
     temp = float(dk) ** 0.5
     seed = 0x5EED_0F_C5A + 1
     lb = L // MF_BLOCKS
@@ -1222,11 +1372,14 @@ def check_ring_kernels(dev, table, g):
     ragged = full.clone()   # a masked tail, and one fully masked key block
     ragged[0, L - 777:] = False
     ragged[1, lb:2 * lb] = False
-    for dt, drop, km, mtag, cuts in (
-            (torch.float32, 0.0, full, "unmasked", even),
-            (torch.float32, ATTN_DROPOUT, ragged, "masked", even),
-            (torch.bfloat16, ATTN_DROPOUT, ragged, "masked", even),
-            (torch.float32, ATTN_DROPOUT, ragged, "masked", uneven)):
+    if cases is None:
+        cases = ((torch.float32, 0.0, False, False),
+                 (torch.float32, ATTN_DROPOUT, True, False),
+                 (torch.bfloat16, ATTN_DROPOUT, True, False),
+                 (torch.float32, ATTN_DROPOUT, True, True))
+    for dt, drop, masked, cut_unevenly in cases:
+        km, mtag = (ragged, "masked") if masked else (full, "unmasked")
+        cuts = uneven if cut_unevenly else even
         qd, kd, vd, dod = (x.to(dt) for x in (q, k, v, dout))
         sd = seed if drop else None
         sizes = f"{lb}" if cuts is even else f"cuts {cuts[1:-1]}"
@@ -1416,7 +1569,8 @@ def check_ring_kernels(dev, table, g):
             require(same, "flash_attn_carry: a padding row changed the carry")
             del got, new, c_in, final
         hop_in.clear()
-        if dt == torch.float32 and drop and cuts is even:   # phase 7's calls
+        if dt == torch.float32 and drop and cuts is even and dk == MF_D:
+            # phase 7's calls
             fb, bb, ff, bf = attention_work(full, km, h, dk, 4)
             cin = flash.flash_carry_init(b, h, L, dk, dev)
             c_bytes = 2 * sum(c.numel() * 4 for c in cin)  # carry in, out
@@ -2955,6 +3109,121 @@ def cp_two_ranks_slice():
           f"{[nonzero(x['train_launches']) for x in res]}")
 
 
+def flash_dims_spy(seen):
+    """Wrap the K2 wrappers so that each call adds its (kernel, dtype, head
+    dim) to the Counter `seen`; returns the function that undoes it."""
+    inner = {name: getattr(flash, name) for name in
+             ("flash_attention", "flash_attention_bwd")}
+
+    def wrap(name, fn):
+        tag = "flash_attn_fwd" if name == "flash_attention" \
+            else "flash_attn_bwd"
+
+        def wrapped(q, *args, **kwargs):
+            seen[(tag, str(q.dtype)[6:], q.shape[-1])] += 1
+            return fn(q, *args, **kwargs)
+        return wrapped
+
+    for name, fn in inner.items():
+        setattr(flash, name, wrap(name, fn))
+
+    def undo():
+        for name, fn in inner.items():
+            setattr(flash, name, fn)
+    return undo
+
+
+def eval_iou_check(trainer, dev):
+    """One eval request of the trained CSN model (the first train shapes
+    and their retrieved keys): `batch_intersection_union` on its CUDA
+    predictions against the same call on the CPU (equal counts), and
+    `mink_metrics_from_iu` against the host's per-shape `calculate_iou`
+    with `calculate_part_iou` / `calculate_shape_iou` (equal)."""
+    ds = trainer.train_dataset
+    idxs = list(range(trainer.config.batch_size))
+    host = build_batch_from_dataset(ds, idxs, trainer.spec, trainer.rng,
+                                    augment=False)
+    with torch.no_grad():
+        _, _, pred = trainer._eval_forward(ds, idxs, trainer._to_device(host))
+    C = trainer.num_labels
+    labels = torch.as_tensor(np.asarray(host.labels)).to(dev)
+    mask = torch.as_tensor(np.asarray(host.point_mask)).to(dev)
+    inter, union = metrics.batch_intersection_union(pred, labels, mask, C)
+    c_inter, c_union = metrics.batch_intersection_union(
+        pred.cpu(), labels.cpu(), mask.cpu(), C)
+    same = torch.equal(inter.cpu(), c_inter) and \
+        torch.equal(union.cpu(), c_union)
+    pred_np = pred.cpu().numpy()
+    ious = {b: metrics.calculate_iou(host.labels[b][host.point_mask[b]],
+                                     pred_np[b][host.point_mask[b]], C)
+            for b in range(len(idxs))}
+    part, shape = metrics.mink_metrics_from_iu(inter.cpu().numpy(),
+                                               union.cpu().numpy(), C)
+    host_ok = part == metrics.calculate_part_iou(ious, C) and \
+        shape == metrics.calculate_shape_iou(ious)
+    print(f"[learning] csn eval request, B={len(idxs)}, {C} labels: "
+          f"batch_intersection_union on the card vs the CPU: counts "
+          f"{'equal' if same else 'DIFFER'} (intersections "
+          f"{int(inter.sum())}, unions {int(union.sum())}); "
+          f"mink_metrics_from_iu part IoU {part:.6f} shape IoU "
+          f"{shape:.6f} vs the host's calculate_iou: "
+          f"{'equal' if host_ok else 'DIFFER'} "
+          f"{'ok' if same and host_ok else 'FAIL'}")
+    require(same and host_ok, "batch_intersection_union: the card's counts "
+            "or the metrics from them disagree")
+
+
+def learning_slice(dev):
+    """Phase 11: the learning check (`tasks/learning_check.py`, the JAX
+    package's `scripts/learning_check.py` at its defaults) on the card in
+    the K1 form: csn (HRNetSimCSN2S, d_model 64 in 2 heads: the bf16 D=32
+    tensor-core bodies of K2 and its backward), seg (HRNetSeg2S) and midfc
+    (the MID-FC CSA runner, f32). A task whose loss does not fall fails the
+    run. The csn task ends with `eval_iou_check`. Returns the launch counts
+    of the three tasks' training."""
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for task in LC_TASKS:
+        args = learning_check.build_parser().parse_args(["--task", task])
+        seen = collections.Counter()
+        counts, calls = {}, {}
+
+        def inspect(obj):   # the training's counts, before any eval
+            torch.cuda.synchronize()
+            counts.update(kernels.LAUNCHES)
+            calls.update(seen)
+            if task == "csn":
+                eval_iou_check(obj, dev)
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        undo = flash_dims_spy(seen)
+        t0 = time.perf_counter()
+        try:
+            res = learning_check.run(args, inspect)
+        finally:
+            undo()
+        secs = time.perf_counter() - t0
+        for k, n in counts.items():
+            total[k] += n
+        print(f"[learning] task {task} ({res['dtype']}): first loss "
+              f"{res['first']:.4f}, last {res['last']:.4f} (must be below "
+              f"{0.8 * res['first']:.4f}); {secs:.1f} s with set-up; "
+              f"training launches {nonzero(counts)}; K2 wrapper calls by "
+              f"(kernel, dtype, head dim) {calls}")
+        require(res["passed"], f"learning check {task}: the train loss did "
+                f"not fall substantially ({res['first']:.3f} -> "
+                f"{res['last']:.3f})")
+        if task == "csn":
+            want = {("flash_attn_fwd", "bfloat16", 32),
+                    ("flash_attn_bwd", "bfloat16", 32)}
+            require(set(calls) == want and counts["flash_attn_fwd"] > 0
+                    and counts["flash_attn_bwd"] > 0,
+                    f"learning check csn: K2 calls {calls}, expected "
+                    f"bf16 at head dim 32 only")
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     do_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -3013,9 +3282,11 @@ def main() -> int:
     check_dw_edges(dev, table, g)
     check_im2col_edges(dev, table, g)
     check_attention(qb, kb, big, dev, table, g)
+    check_head_dims(big, dev, table)
     check_interp(qb, dev, table, g)
     del big
     check_ring_kernels(dev, table, g)
+    check_ring_padded(dev, table)
     n_unet_convs = check_family_convs(dev, table, g)
     print(f"[check] sparse_conv_dw bfloat16 (tensor cores) vs float64: "
           f"worst {max(table.dw_f64):.3e} of max|ref| over "
@@ -3063,10 +3334,15 @@ def main() -> int:
     launches_10 = dp_of_one_slice(dev)
     torch.cuda.empty_cache()
     cp_two_ranks_slice()
+
+    # 11. the learning check, the device-side IoU
+    phase("11 learning check")
+    launches_11 = learning_slice(dev)
     phase("done")
 
     total = {k: launches[k] + launches_6[k] + launches_7[k] + launches_8[k]
-             + launches_9[k] + launches_10[k] for k in KERNELS}
+             + launches_9[k] + launches_10[k] + launches_11[k]
+             for k in KERNELS}
     for name, n in total.items():
         require(n > 0, f"{name} was launched on no main path")
     rows = []

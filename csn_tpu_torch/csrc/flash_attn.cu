@@ -23,17 +23,24 @@
 //
 // What bounds it on the H100: 4*Lq*Lk*D flops against (Lq + 2*Lk)*D reads
 // per (batch, head): at Lq = Lk = 5632 and D = 64 it is compute-bound.
+// At a fixed d_model, heads of D = 32 or 16 do the same products over 2x
+// or 4x the score entries, and the per-entry work (exp2, the running max,
+// the Philox mask) rather than the tensor cores sets their time.
 //
-// bf16, D = 64 (the HRNet heads): both products on the tensor cores, the
-// FlashAttention-2 shape. One block of 4 warps per (batch*head, 64-query
-// tile); each warp owns 16 query rows. Q, K and V tiles go global -> shared
-// by cp.async into [64][72] tiles (padded rows: ldmatrix without bank
-// conflicts), K and V double-buffered, so the next live key tile's copy runs
-// under this tile's products; one barrier per key tile, the key mask read a
-// tile ahead. Q's A fragments are loaded once (ldmatrix) and
-// kept in registers. S = Q K^T runs on mma.sync m16n8k16 (bf16 in, f32
-// accumulate); 1/temperature multiplies the f32 scores (not Q before
-// rounding), folded with log2(e) so the softmax runs on exp2. The running
+// bf16, D = TD in {16, 32, 64} (64: the HRNet heads, d_model 256 in 4
+// heads; 32: d_model 64 in 2 heads, as the learning check runs it, or 256
+// in 8; 16: d_model 32 in 2): both products on the tensor cores, the
+// FlashAttention-2 shape, one template over TD (flash_tc.cuh: TD / 16
+// k-steps of S, TD / 8 n-tiles of O). One block of 4 warps per
+// (batch*head, 64-query tile); each warp owns 16 query rows. Q, K and V
+// tiles go global -> shared by cp.async into [64][TD + 8] tiles (padded
+// rows: ldmatrix without bank conflicts), K and V double-buffered, so the
+// next live key tile's copy runs under this tile's products; one barrier
+// per key tile, the key mask read a tile ahead. Q's A fragments are loaded
+// once (ldmatrix) and kept in registers. S = Q K^T runs on mma.sync
+// m16n8k16 (bf16 in, f32 accumulate); 1/temperature multiplies the f32
+// scores (not Q before rounding), folded with log2(e) so the softmax runs
+// on exp2. The running
 // max and denominator of a row live in the four lanes that hold it (quad
 // shuffles), the denominator summed per lane and reduced once at the end.
 // P is rounded to bf16 only as the A operand of O += P V (ldmatrix.trans of
@@ -51,6 +58,11 @@
 // f32 at D = 64 / 128, and bf16 at D = 128 / 256, take the CUDA-core kernel
 // of flash_wide.cuh: it keeps only the query tile whole in shared memory and
 // walks D in chunks of 64, in f32 arithmetic.
+//
+// Any other head dim up to 256 reaches this file zero-padded by its wrapper
+// (ops/flash.py) to the next width built here for its dtype: a zero column
+// adds an exact +0 to every score and gives an output column of zeros,
+// which the wrapper cuts off.
 
 #include "common.cuh"
 #include "flash_tc.cuh"
@@ -63,15 +75,17 @@ using namespace csn_tc;
 
 constexpr int THREADS = 128;  // 4 warps x 16 query rows
 
+template <int TD>
 struct FwdSmem {
-  bf16 q[TILE * LDS];
-  bf16 k[2][TILE * LDS];
-  bf16 v[2][TILE * LDS];
+  bf16 q[TILE * lds_of(TD)];
+  bf16 k[2][TILE * lds_of(TD)];
+  bf16 v[2][TILE * lds_of(TD)];
   float kval[2][TILE];  // key flags of the tile in each buffer
 };
 
-// four blocks per SM (128 registers a thread): faster than three with the
-// registers the compiler would take otherwise
+// four blocks per SM (128 registers a thread at TD = 64): faster than three
+// with the registers the compiler would take otherwise
+template <int TD>
 __global__ void __launch_bounds__(THREADS, 4)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
@@ -80,7 +94,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     float* __restrict__ lse, int H, int Lq, int Lk,
                     float inv_temp, uint64_t seed, uint32_t thresh,
                     float inv_keep, int use_drop) {
-  __shared__ __align__(128) FwdSmem sm;
+  __shared__ __align__(128) FwdSmem<TD> sm;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / H;
@@ -112,26 +126,26 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // warp's reads of the other buffer before it is refilled. The mask bytes
   // of the tile after next are loaded a tile ahead (pre).
   const int nt = (Lk + TILE - 1) / TILE;
-  load_tile(sm.q, qp, q0, Lq, tid, THREADS);
+  load_tile<TD>(sm.q, qp, q0, Lq, tid, THREADS);
   int live = row_live(km, Lk, 0, tid);
   int kt = find_live(0, nt, live, km, Lk, tid);
   if (kt < nt) {
     if (tid < TILE) sm.kval[0][tid] = live ? 1.f : 0.f;
-    load_tile(sm.k[0], kp, kt * TILE, Lk, tid, THREADS);
-    load_tile(sm.v[0], vp, kt * TILE, Lk, tid, THREADS);
+    load_tile<TD>(sm.k[0], kp, kt * TILE, Lk, tid, THREADS);
+    load_tile<TD>(sm.v[0], vp, kt * TILE, Lk, tid, THREADS);
   }
   cp_async_commit();
   int pre = row_live(km, Lk, kt + 1, tid);
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[4][4];
-  load_a(qf, sm.q, warp * 16, lane);
+  uint32_t qf[TD / 16][4];
+  load_a<TD>(qf, sm.q, warp * 16, lane);
 
   const float sc = inv_temp * LOG2E;  // scores in log2 units
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[8][4];
+  float o[TD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < TD / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   const uint32_t row = (uint32_t)(q0 + warp * 16 + g);
@@ -141,8 +155,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int next = find_live(kt + 1, nt, pre, km, Lk, tid);
     if (next < nt) {  // the next live tile's copy runs under this one
       if (tid < TILE) sm.kval[buf ^ 1][tid] = pre ? 1.f : 0.f;
-      load_tile(sm.k[buf ^ 1], kp, next * TILE, Lk, tid, THREADS);
-      load_tile(sm.v[buf ^ 1], vp, next * TILE, Lk, tid, THREADS);
+      load_tile<TD>(sm.k[buf ^ 1], kp, next * TILE, Lk, tid, THREADS);
+      load_tile<TD>(sm.v[buf ^ 1], vp, next * TILE, Lk, tid, THREADS);
       cp_async_commit();
     }
     pre = row_live(km, Lk, next + 1, tid);
@@ -152,7 +166,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-    mma_abt(s, qf, sm.k[buf], lane);
+    mma_abt<TD>(s, qf, sm.k[buf], lane);
 
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -179,8 +193,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         s[nb][e] = exp2_approx(s[nb][e] - m[e >> 1]);
         l[e >> 1] += s[nb][e];  // undropped: the denominator
-        o[nb][e] *= scale[e >> 1];
       }
+#pragma unroll
+    for (int nb = 0; nb < TD / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nb][e] *= scale[e >> 1];
     if (use_drop) {  // numerator only
       const uint32_t kb = keep_bits(seed, (uint32_t)bh, row,
                                     (uint32_t)(kt * TILE), thresh, t);
@@ -194,7 +211,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int ks = 0; ks < 4; ++ks) {
       uint32_t a[4];
       c_to_a(a, s, ks);
-      mma_ab_step(o, a, sm.v[buf], ks, lane);
+      mma_ab_step<TD>(o, a, sm.v[buf], ks, lane);
     }
     kt = next;
   }
@@ -208,7 +225,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float den = fmaxf(l[h], 1e-30f);
     const float inv = 1.f / den;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < TD / 8; ++nb)
       *reinterpret_cast<uint32_t*>(op + (int64_t)r * TD + nb * 8 + 2 * t) =
           pack(o[nb][2 * h] * inv, o[nb][2 * h + 1] * inv);
     if (t == 0)
@@ -216,13 +233,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int TD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* kv_mask, const void* q_mask, void* out,
                       void* lse, int B, int H, int Lq, int Lk, float inv_temp,
                       uint64_t seed, uint32_t thresh, float inv_keep,
                       int use_drop, cudaStream_t stream) {
   const dim3 grid((unsigned)((Lq + TILE - 1) / TILE), (unsigned)(B * H));
-  flash_fwd_tc_kernel<<<grid, THREADS, 0, stream>>>(
+  flash_fwd_tc_kernel<TD><<<grid, THREADS, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_mask),
       static_cast<const uint8_t*>(q_mask), static_cast<bf16*>(out),
@@ -234,8 +252,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, out: [B, H, L, D] contiguous, 16-byte aligned; kv_mask [B, Lk],
-// q_mask [B, Lq] bool bytes; lse [B, H, Lq] f32. D (dk == dv) is 64 (the
-// HRNet heads), 128 or 256 (the MID-FC heads).
+// q_mask [B, Lq] bool bytes; lse [B, H, Lq] f32. D (dk == dv) is 16, 32 or
+// 64 in bf16 (64: the HRNet heads), 64 in f32, or 128 or 256 (the MID-FC
+// heads).
 // use_drop != 0 applies dropout with keep threshold `thresh` (of 2^32) and
 // scale inv_keep = 1/keep, keyed by `seed`.
 extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
@@ -247,9 +266,15 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
                                   int use_drop, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == csn::kBF16 && D == csn_tc::TD)
-    return launch_tc(q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk,
-                     inv_temp, seed, thresh, inv_keep, use_drop, s);
+#define CSN_TC(DD)                                                         \
+  return launch_tc<DD>(q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk, \
+                       inv_temp, seed, thresh, inv_keep, use_drop, s)
+  if (dtype == csn::kBF16) {
+    if (D == 16) CSN_TC(16);
+    if (D == 32) CSN_TC(32);
+    if (D == 64) CSN_TC(64);
+  }
+#undef CSN_TC
   if (dtype == csn::kF32 && D == csn_tf32::D)
     return csn_tf32::launch_fwd_tf32<false, false>(
         q, k, v, kv_mask, q_mask, out, lse, csn_tf32::Carry{}, B, H, Lq, Lk,

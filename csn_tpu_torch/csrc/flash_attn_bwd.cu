@@ -31,11 +31,12 @@
 // dq recomputes s, p and dP that dkdv computed too: two of the seven tile
 // products are spent on not sharing dQ across blocks.
 //
-// bf16, D = 64 (the HRNet heads): every product on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, f32 accumulators), in the layout of the
-// forward (flash_attn.cu, flash_tc.cuh). Blocks of 4 warps; the streamed
-// tiles go global -> shared by cp.async, double-buffered, into [64][72]
-// tiles read by ldmatrix.
+// bf16, D = TD in {16, 32, 64} (64: the HRNet heads): every product on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulators), in the
+// layout of the forward (flash_attn.cu, flash_tc.cuh), one template over
+// TD. Blocks of 4 warps; the streamed tiles go global -> shared by
+// cp.async, double-buffered, into [64][TD + 8] tiles read by ldmatrix; the
+// score tiles are 64 keys wide at every TD.
 //  * dkdv: each warp computes S and dP for 16 queries of the tile against
 //    the block's 64 keys (Q and dO A fragments by ldmatrix, K and V as B).
 //    P, the dropout, and dS follow in f32 registers; m * P / keep and dS are
@@ -53,7 +54,9 @@
 // f32 at D = 256 (the MID-FC heads) runs on the tensor cores in split TF32
 // (three TF32 products per f32 product, f32-accurate): flash_tf32_bwd.cuh.
 // f32 at D = 64 / 128 and bf16 at D = 128 / 256 take the CUDA-core kernels
-// of flash_bwd_wide.cuh, in f32 arithmetic.
+// of flash_bwd_wide.cuh, in f32 arithmetic. Other head dims up to 256 come
+// zero-padded by the wrapper (ops/flash.py) to the next width built here:
+// the padded columns of dQ, dK and dV are cut off, delta is unchanged.
 
 #include "common.cuh"
 #include "flash_bwd_wide.cuh"
@@ -73,21 +76,23 @@ struct Drop {
   int on;
 };
 
+template <int TD>
 struct DkdvSmem {
-  bf16 k[TILE * LDS];
-  bf16 v[TILE * LDS];
-  bf16 q[2][TILE * LDS];
-  bf16 dout[2][TILE * LDS];
+  bf16 k[TILE * lds_of(TD)];
+  bf16 v[TILE * lds_of(TD)];
+  bf16 q[2][TILE * lds_of(TD)];
+  bf16 dout[2][TILE * lds_of(TD)];
   bf16 p[TILE * LDS];   // m * p / keep, [query][key]
   bf16 ds[TILE * LDS];  // dS, [query][key]
   float kval[TILE];
 };
 
+template <int TD>
 struct DqSmem {
-  bf16 q[TILE * LDS];
-  bf16 dout[TILE * LDS];
-  bf16 k[2][TILE * LDS];
-  bf16 v[2][TILE * LDS];
+  bf16 q[TILE * lds_of(TD)];
+  bf16 dout[TILE * lds_of(TD)];
+  bf16 k[2][TILE * lds_of(TD)];
+  bf16 v[2][TILE * lds_of(TD)];
   float kval[2][TILE];
 };
 
@@ -131,15 +136,18 @@ __device__ __forceinline__ void row_stats(float (&lse2)[2], float (&dl)[2],
   }
 }
 
-__device__ __forceinline__ void zero_acc(float (&x)[8][4]) {
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&x)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
 }
 
-// rows row0 + g (+ 8) of a [L, 64] matrix from a warp's accumulator, times f
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&x)[8][4],
+// rows row0 + g (+ 8) of a [L, TD] matrix from a warp's accumulator, times f
+template <int TD>
+__device__ __forceinline__ void store_rows(bf16* dst,
+                                           const float (&x)[TD / 8][4],
                                            int row0, int L, float f, int g,
                                            int t) {
 #pragma unroll
@@ -147,12 +155,13 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&x)[8][4],
     const int r = row0 + g + 8 * h;
     if (r >= L) continue;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < TD / 8; ++nb)
       *reinterpret_cast<uint32_t*>(dst + (int64_t)r * TD + nb * 8 + 2 * t) =
           pack(x[nb][2 * h] * f, x[nb][2 * h + 1] * f);
   }
 }
 
+template <int TD>
 __device__ __forceinline__ void zero_rows(bf16* dst, int row0, int L,
                                           int tid) {
   for (int i = tid; i < TILE * TD / 2; i += THREADS) {
@@ -164,8 +173,9 @@ __device__ __forceinline__ void zero_rows(bf16* dst, int row0, int L,
 
 // --- dK, dV: one block per (batch*head, key tile) ---------------------------
 
-// Both kernels are held to three blocks per SM (168 registers a thread, no
-// spills): faster than the two the compiler's own choice allows.
+// Both kernels are held to three blocks per SM (168 registers a thread at
+// TD = 64, no spills): faster than the two the compiler's own choice allows.
+template <int TD>
 __global__ void __launch_bounds__(THREADS, 3)
 flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -177,7 +187,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
                          int Lq, int Lk, float inv_temp, Drop drop) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  DkdvSmem& sm = *reinterpret_cast<DkdvSmem*>(smem_raw);
+  DkdvSmem<TD>& sm = *reinterpret_cast<DkdvSmem<TD>*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / H;
@@ -195,8 +205,8 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm.kval[tid] = live ? 1.f : 0.f;
   }
   if (!__syncthreads_or(live)) {  // no valid key: dK = dV = 0
-    zero_rows(dk + (int64_t)bh * Lk * TD, kv0, Lk, tid);
-    zero_rows(dv + (int64_t)bh * Lk * TD, kv0, Lk, tid);
+    zero_rows<TD>(dk + (int64_t)bh * Lk * TD, kv0, Lk, tid);
+    zero_rows<TD>(dv + (int64_t)bh * Lk * TD, kv0, Lk, tid);
     return;
   }
   // The query-tile loop, as the forward's key loop (flash_attn.cu): one
@@ -206,13 +216,13 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // barrier publishes P and dS. Mask bytes, lse and delta are loaded a tile
   // ahead.
   const int nt = (Lq + TILE - 1) / TILE;
-  load_tile(sm.k, k + (int64_t)bh * Lk * TD, kv0, Lk, tid, THREADS);
-  load_tile(sm.v, v + (int64_t)bh * Lk * TD, kv0, Lk, tid, THREADS);
+  load_tile<TD>(sm.k, k + (int64_t)bh * Lk * TD, kv0, Lk, tid, THREADS);
+  load_tile<TD>(sm.v, v + (int64_t)bh * Lk * TD, kv0, Lk, tid, THREADS);
   int pre = row_live(qm, Lq, 0, tid);
   int qt = find_live(0, nt, pre, qm, Lq, tid);
   if (qt < nt) {
-    load_tile(sm.q[0], qp, qt * TILE, Lq, tid, THREADS);
-    load_tile(sm.dout[0], dop, qt * TILE, Lq, tid, THREADS);
+    load_tile<TD>(sm.q[0], qp, qt * TILE, Lq, tid, THREADS);
+    load_tile<TD>(sm.dout[0], dop, qt * TILE, Lq, tid, THREADS);
   }
   cp_async_commit();
   pre = row_live(qm, Lq, qt + 1, tid);
@@ -220,15 +230,15 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   row_stats(lse2, dl, lp, dlp, qt * TILE + warp * 16 + g, Lq);
 
   const float sc = inv_temp * LOG2E;
-  float acc_k[8][4], acc_v[8][4];
+  float acc_k[TD / 8][4], acc_v[TD / 8][4];
   zero_acc(acc_k);
   zero_acc(acc_v);
   for (int buf = 0; qt < nt; buf ^= 1) {
     cp_async_wait<0>();
     const int next = find_live(qt + 1, nt, pre, qm, Lq, tid);
     if (next < nt) {
-      load_tile(sm.q[buf ^ 1], qp, next * TILE, Lq, tid, THREADS);
-      load_tile(sm.dout[buf ^ 1], dop, next * TILE, Lq, tid, THREADS);
+      load_tile<TD>(sm.q[buf ^ 1], qp, next * TILE, Lq, tid, THREADS);
+      load_tile<TD>(sm.dout[buf ^ 1], dop, next * TILE, Lq, tid, THREADS);
       cp_async_commit();
     }
     pre = row_live(qm, Lq, next + 1, tid);
@@ -241,11 +251,11 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     zero_acc(s);
     zero_acc(dp);
     {
-      uint32_t af[4][4];
-      load_a(af, sm.q[buf], warp * 16, lane);
-      mma_abt(s, af, sm.k, lane);
-      load_a(af, sm.dout[buf], warp * 16, lane);
-      mma_abt(dp, af, sm.v, lane);
+      uint32_t af[TD / 16][4];
+      load_a<TD>(af, sm.q[buf], warp * 16, lane);
+      mma_abt<TD>(s, af, sm.k, lane);
+      load_a<TD>(af, sm.dout[buf], warp * 16, lane);
+      mma_abt<TD>(dp, af, sm.v, lane);
     }
     const uint32_t kb = drop.on ? keep_bits(drop.seed, (uint32_t)bh,
                                             (uint32_t)row, (uint32_t)kv0,
@@ -269,9 +279,9 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int ks = 0; ks < 4; ++ks) {
       uint32_t a[4];
       load_a_t(a, sm.p, warp * 16, ks, lane);
-      mma_ab_step(acc_v, a, sm.dout[buf], ks, lane);
+      mma_ab_step<TD>(acc_v, a, sm.dout[buf], ks, lane);
       load_a_t(a, sm.ds, warp * 16, ks, lane);
-      mma_ab_step(acc_k, a, sm.q[buf], ks, lane);
+      mma_ab_step<TD>(acc_k, a, sm.q[buf], ks, lane);
     }
     qt = next;
 #pragma unroll
@@ -281,12 +291,13 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   const int r0 = kv0 + warp * 16;
-  store_rows(dk + (int64_t)bh * Lk * TD, acc_k, r0, Lk, inv_temp, g, t);
-  store_rows(dv + (int64_t)bh * Lk * TD, acc_v, r0, Lk, 1.f, g, t);
+  store_rows<TD>(dk + (int64_t)bh * Lk * TD, acc_k, r0, Lk, inv_temp, g, t);
+  store_rows<TD>(dv + (int64_t)bh * Lk * TD, acc_v, r0, Lk, 1.f, g, t);
 }
 
 // --- dQ: one block per (batch*head, query tile) -----------------------------
 
+template <int TD>
 __global__ void __launch_bounds__(THREADS, 3)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
@@ -298,7 +309,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        bf16* __restrict__ dq, int H, int Lq, int Lk,
                        float inv_temp, Drop drop) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  DqSmem& sm = *reinterpret_cast<DqSmem*>(smem_raw);
+  DqSmem<TD>& sm = *reinterpret_cast<DqSmem<TD>*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / H;
@@ -314,18 +325,18 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qlive = r < Lq && q_mask[(int64_t)b * Lq + r];
   }
   if (!__syncthreads_or(qlive)) {  // no valid query: dQ = 0
-    zero_rows(dqp, q0, Lq, tid);
+    zero_rows<TD>(dqp, q0, Lq, tid);
     return;
   }
   const int nt = (Lk + TILE - 1) / TILE;
-  load_tile(sm.q, q + (int64_t)bh * Lq * TD, q0, Lq, tid, THREADS);
-  load_tile(sm.dout, dout + (int64_t)bh * Lq * TD, q0, Lq, tid, THREADS);
+  load_tile<TD>(sm.q, q + (int64_t)bh * Lq * TD, q0, Lq, tid, THREADS);
+  load_tile<TD>(sm.dout, dout + (int64_t)bh * Lq * TD, q0, Lq, tid, THREADS);
   int live = row_live(km, Lk, 0, tid);
   int kt = find_live(0, nt, live, km, Lk, tid);
   if (kt < nt) {
     if (tid < TILE) sm.kval[0][tid] = live ? 1.f : 0.f;
-    load_tile(sm.k[0], kp, kt * TILE, Lk, tid, THREADS);
-    load_tile(sm.v[0], vp, kt * TILE, Lk, tid, THREADS);
+    load_tile<TD>(sm.k[0], kp, kt * TILE, Lk, tid, THREADS);
+    load_tile<TD>(sm.v[0], vp, kt * TILE, Lk, tid, THREADS);
   }
   cp_async_commit();
   int pre = row_live(km, Lk, kt + 1, tid);
@@ -335,20 +346,20 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             Lq);
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[4][4], gf[4][4];
-  load_a(qf, sm.q, warp * 16, lane);
-  load_a(gf, sm.dout, warp * 16, lane);
+  uint32_t qf[TD / 16][4], gf[TD / 16][4];
+  load_a<TD>(qf, sm.q, warp * 16, lane);
+  load_a<TD>(gf, sm.dout, warp * 16, lane);
 
   const float sc = inv_temp * LOG2E;
-  float acc[8][4];
+  float acc[TD / 8][4];
   zero_acc(acc);
   for (int buf = 0; kt < nt; buf ^= 1) {  // the forward's key loop
     cp_async_wait<0>();
     const int next = find_live(kt + 1, nt, pre, km, Lk, tid);
     if (next < nt) {
       if (tid < TILE) sm.kval[buf ^ 1][tid] = pre ? 1.f : 0.f;
-      load_tile(sm.k[buf ^ 1], kp, next * TILE, Lk, tid, THREADS);
-      load_tile(sm.v[buf ^ 1], vp, next * TILE, Lk, tid, THREADS);
+      load_tile<TD>(sm.k[buf ^ 1], kp, next * TILE, Lk, tid, THREADS);
+      load_tile<TD>(sm.v[buf ^ 1], vp, next * TILE, Lk, tid, THREADS);
       cp_async_commit();
     }
     pre = row_live(km, Lk, next + 1, tid);
@@ -356,8 +367,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[8][4], dp[8][4];
     zero_acc(s);
     zero_acc(dp);
-    mma_abt(s, qf, sm.k[buf], lane);
-    mma_abt(dp, gf, sm.v[buf], lane);
+    mma_abt<TD>(s, qf, sm.k[buf], lane);
+    mma_abt<TD>(dp, gf, sm.v[buf], lane);
     const uint32_t kb = drop.on ? keep_bits(drop.seed, (uint32_t)bh,
                                             (uint32_t)row,
                                             (uint32_t)(kt * TILE),
@@ -368,25 +379,26 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int ks = 0; ks < 4; ++ks) {  // dQ += dS . K
       uint32_t a[4];
       c_to_a(a, dp, ks);
-      mma_ab_step(acc, a, sm.k[buf], ks, lane);
+      mma_ab_step<TD>(acc, a, sm.k[buf], ks, lane);
     }
     kt = next;
   }
-  store_rows(dqp, acc, q0 + warp * 16, Lq, inv_temp, g, t);
+  store_rows<TD>(dqp, acc, q0 + warp * 16, Lq, inv_temp, g, t);
 }
 
+template <int TD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* kv_mask, const void* q_mask, void* dq,
                       void* dk, void* dv, int B, int H, int Lq, int Lk,
                       float inv_temp, Drop drop, cudaStream_t stream) {
-  constexpr int smem_kv = (int)sizeof(DkdvSmem);
-  constexpr int smem_q = (int)sizeof(DqSmem);
+  constexpr int smem_kv = (int)sizeof(DkdvSmem<TD>);
+  constexpr int smem_q = (int)sizeof(DqSmem<TD>);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_kv);
+      flash_bwd_dkdv_tc_kernel<TD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel,
+  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<TD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_q);
   if (err != cudaSuccess) return err;
@@ -400,14 +412,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   const uint8_t* qm = static_cast<const uint8_t*>(q_mask);
   if (Lk > 0) {
     const dim3 grid_kv((unsigned)((Lk + TILE - 1) / TILE), (unsigned)(B * H));
-    flash_bwd_dkdv_tc_kernel<<<grid_kv, THREADS, smem_kv, stream>>>(
+    flash_bwd_dkdv_tc_kernel<TD><<<grid_kv, THREADS, smem_kv, stream>>>(
         qt, kt, vt, gt, lt, dt, km, qm, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), H, Lq, Lk, inv_temp, drop);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const dim3 grid_q((unsigned)((Lq + TILE - 1) / TILE), (unsigned)(B * H));
-  flash_bwd_dq_tc_kernel<<<grid_q, THREADS, smem_q, stream>>>(
+  flash_bwd_dq_tc_kernel<TD><<<grid_q, THREADS, smem_q, stream>>>(
       qt, kt, vt, gt, lt, dt, km, qm, static_cast<bf16*>(dq), H, Lq, Lk,
       inv_temp, drop);
   return cudaGetLastError();
@@ -417,7 +429,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 
 // q, dout, dq: [B, H, Lq, D]; k, v, dk, dv: [B, H, Lk, D], all contiguous in
 // one type and 16-byte aligned; lse and delta [B, H, Lq] f32; kv_mask [B, Lk]
-// and q_mask [B, Lq] bool bytes. D is 64, 128 or 256. Dropout arguments as
+// and q_mask [B, Lq] bool bytes. D is 16, 32 or 64 in bf16, 64 in f32, or
+// 128 or 256. Dropout arguments as
 // csn_flash_attn_fwd's. ds_t: f32 scratch of B * H * ceil32(Lk) * ceil32(Lq)
 // for f32 at D = 256 (flash_tf32_bwd.cuh), unused otherwise.
 extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
@@ -431,10 +444,16 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                   int use_drop, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == csn::kBF16 && D == csn_tc::TD)
-    return launch_tc(q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, dv,
-                     B, H, Lq, Lk, inv_temp,
-                     Drop{seed, thresh, inv_keep, use_drop}, s);
+#define CSN_TC(DD)                                                          \
+  return launch_tc<DD>(q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, \
+                       dv, B, H, Lq, Lk, inv_temp,                          \
+                       Drop{seed, thresh, inv_keep, use_drop}, s)
+  if (dtype == csn::kBF16) {
+    if (D == 16) CSN_TC(16);
+    if (D == 32) CSN_TC(32);
+    if (D == 64) CSN_TC(64);
+  }
+#undef CSN_TC
   const csn_wide_bwd::Drop wd{seed, thresh, inv_keep, use_drop, 0, 0};
   if (dtype == csn::kF32 && D == csn_tf32::D)
     return csn_tf32::launch_bwd_tf32<float>(q, k, v, dout, lse, delta,

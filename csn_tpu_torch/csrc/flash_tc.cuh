@@ -1,14 +1,19 @@
-// Tensor-core building blocks of the bf16, head-dim-64 flash attention
-// kernels (flash_attn.cu forward, flash_attn_bwd.cu backward): asynchronous
-// global -> shared copies (cp.async), fragment loads from shared memory
-// (ldmatrix), the m16n8k16 bf16 product with f32 accumulation (mma.sync),
-// all as inline PTX for sm_80 and later, and the attention-dropout words of
-// one accumulator fragment.
+// Tensor-core building blocks of the bf16 flash attention kernels at head
+// dims TD = 16, 32 and 64 (flash_attn.cu forward, flash_attn_bwd.cu
+// backward): asynchronous global -> shared copies (cp.async), fragment loads
+// from shared memory (ldmatrix), the m16n8k16 bf16 product with f32
+// accumulation (mma.sync), all as inline PTX for sm_80 and later, and the
+// attention-dropout words of one accumulator fragment.
 //
-// Tiles. A 64-row x 64-column bf16 tile lives in shared memory with a row
-// stride of LDS = 72 elements (144 bytes): the eight 16-byte rows that one
-// ldmatrix phase reads start 16 bytes apart modulo 128, so they fall in
-// distinct banks.
+// Tiles. A 64-row x TD-column bf16 tile (Q, K, V, dO) lives in shared
+// memory with a row stride of lds_of(TD) = TD + 8 elements (48, 80 or 144
+// bytes); the 64 x 64 probability and dS tiles of the backward with LDS =
+// 72. Each stride is an odd multiple of 16 bytes (3, 5, 9), so the eight
+// 16-byte rows that one ldmatrix phase reads start at eight distinct
+// 16-byte offsets modulo 128: distinct banks. What changes with TD: the
+// 16-byte pieces a row copies (TD / 8), the k-steps of S = Q K^T (TD / 16)
+// and the 8-column n-tiles of O, dQ, dK and dV (TD / 8). A score tile is 64
+// keys wide at every TD.
 //
 // Fragments (PTX ISA, "Matrix Fragments for mma.m16n8k16"), lane = 4 g + t:
 //  * A (16 x 16, row): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g,
@@ -26,14 +31,16 @@
 
 namespace csn_tc {
 
-constexpr int TD = 64;        // head dim
 constexpr int TILE = 64;      // rows of a query or key tile
-constexpr int LDS = TD + 8;   // shared-memory row stride (elements)
+constexpr int LDS = TILE + 8; // row stride of a 64-column tile (elements)
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
+
+// row stride (elements) of a [64][TD] tile
+__host__ __device__ constexpr int lds_of(int td) { return td + 8; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -54,15 +61,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows r0 .. r0+63 of a [L, 64] bf16 matrix into a [64][LDS] tile; rows at
-// or past L are zeros. Every thread of the block (nthreads) takes part.
+// Rows r0 .. r0+63 of a [L, TD] bf16 matrix into a [64][lds_of(TD)] tile;
+// rows at or past L are zeros. Every thread of the block (nthreads) takes part.
+template <int TD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
                                           int L, int tid, int nthreads) {
   for (int i = tid; i < TILE * (TD / 8); i += nthreads) {
     const int r = i / (TD / 8), c = (i % (TD / 8)) * 8;
     const bool ok = r0 + r < L;
-    cp_async16(dst + r * LDS + c, src + (int64_t)(ok ? r0 + r : 0) * TD + c,
-               ok);
+    cp_async16(dst + r * lds_of(TD) + c,
+               src + (int64_t)(ok ? r0 + r : 0) * TD + c, ok);
   }
 }
 
@@ -95,13 +103,15 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// A fragments of the 16 rows of a warp from a [64][LDS] tile, rows row0 ..
-// row0+15, for the four 16-column k-steps: a[ks] = columns 16 ks .. 16 ks+15.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile,
-                                       int row0, int lane) {
+// A fragments of the 16 rows of a warp from a [64][lds_of(TD)] tile,
+// rows row0 .. row0+15, for the TD / 16 16-column k-steps: a[ks] = columns
+// 16 ks .. 16 ks+15.
+template <int TD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[TD / 16][4],
+                                       const bf16* tile, int row0, int lane) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    ldsm_x4(a[ks], tile + (row0 + (lane & 15)) * LDS + ks * 16 +
+  for (int ks = 0; ks < TD / 16; ++ks)
+    ldsm_x4(a[ks], tile + (row0 + (lane & 15)) * lds_of(TD) + ks * 16 +
                        (lane >> 4) * 8);
 }
 
@@ -114,34 +124,38 @@ __device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* tile,
                    ((lane >> 3) & 1) * 8);
 }
 
-// acc[16 x 64] += A (rows of the warp, 4 k-steps of 16 over the tile's
-// columns) . T^T, T a [64][LDS] tile whose rows are the 64 output columns:
-// S = Q K^T and dP = dO V^T. acc[nb] holds output columns 8 nb .. 8 nb+7.
+// acc[16 x 64] += A (rows of the warp, TD / 16 k-steps of 16 over the
+// tile's columns) . T^T, T a [64][lds_of(TD)] tile whose rows are the 64
+// output columns: S = Q K^T and dP = dO V^T. acc[nb] holds output columns
+// 8 nb .. 8 nb+7.
+template <int TD>
 __device__ __forceinline__ void mma_abt(float (&acc)[8][4],
-                                        const uint32_t (&a)[4][4],
+                                        const uint32_t (&a)[TD / 16][4],
                                         const bf16* t, int lane) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < TD / 16; ++ks)
 #pragma unroll
     for (int nb2 = 0; nb2 < 4; ++nb2) {
       uint32_t b[4];
-      ldsm_x4(b, t + (nb2 * 16 + (lane & 7) + (lane >> 4) * 8) * LDS +
-                     ks * 16 + ((lane >> 3) & 1) * 8);
+      ldsm_x4(b, t + (nb2 * 16 + (lane & 7) + (lane >> 4) * 8) *
+                         lds_of(TD) + ks * 16 + ((lane >> 3) & 1) * 8);
       mma(acc[2 * nb2], a[ks], b[0], b[1]);
       mma(acc[2 * nb2 + 1], a[ks], b[2], b[3]);
     }
 }
 
-// acc[16 x 64] += A(ks) . T[16 ks .. 16 ks+15][0..63] for one k-step: the
-// B operand is rows of a [64][LDS] tile (V, K, dO or Q), read transposed.
-__device__ __forceinline__ void mma_ab_step(float (&acc)[8][4],
+// acc[16 x TD] += A(ks) . T[16 ks .. 16 ks+15][0..TD-1] for one k-step:
+// the B operand is rows of a [64][lds_of(TD)] tile (V, K, dO or Q), read
+// transposed.
+template <int TD>
+__device__ __forceinline__ void mma_ab_step(float (&acc)[TD / 8][4],
                                             const uint32_t (&a)[4],
                                             const bf16* t, int ks, int lane) {
 #pragma unroll
-  for (int db2 = 0; db2 < 4; ++db2) {
+  for (int db2 = 0; db2 < TD / 16; ++db2) {
     uint32_t b[4];
-    ldsm_x4_t(b, t + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                     db2 * 16 + (lane >> 4) * 8);
+    ldsm_x4_t(b, t + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                           lds_of(TD) + db2 * 16 + (lane >> 4) * 8);
     mma(acc[2 * db2], a, b[0], b[1]);
     mma(acc[2 * db2 + 1], a, b[2], b[3]);
   }

@@ -90,7 +90,7 @@ class PartnetDataset:
 
     def __init__(
         self,
-        data_root: str,
+        data_root: Optional[str],
         category: str,
         phase: DatasetPhase | str = DatasetPhase.Train,
         normalize: bool = True,
@@ -109,27 +109,46 @@ class PartnetDataset:
         if self.input_feat != "xyz":
             raise ValueError(f"Unknown input features {self.input_feat}")
         self.augment = augment
+        self.coords: List[np.ndarray] = []
+        self.labels: List[np.ndarray] = []
         # kNN shape-graph slots (`lib/dataset.py:125-126`)
         self.neighbors: List[Tuple[int, List[int]]] = []
 
+        if data_root is None:   # no files: `from_arrays` adds the shapes
+            return
         root = os.path.join(data_root, category)
         files = read_txt(os.path.join(root, PHASE_FILES[phase]))
-        coords_all, labels_all = [], []
         import h5py
 
         for fn in files:
             with h5py.File(os.path.join(root, fn), "r") as f:
-                data = f["data"][:].astype(np.float32)      # [N, P, 3]
-                segs = f["label_seg"][:].astype(np.int32)   # [N, P]
-            for i in range(data.shape[0]):
-                c = data[i]
-                if normalize:
-                    c = T.normalize_coords(c, normalize_method)
-                coords_all.append(c.astype(np.float32))
-                labels_all.append(segs[i].reshape(-1))
-        self.coords = coords_all
-        self.labels = labels_all
-        self.neighbors = [(i, []) for i in range(len(self.coords))]
+                self._add_shapes(f["data"][:], f["label_seg"][:], normalize,
+                                 normalize_method)
+
+    def _add_shapes(self, data, segs, normalize: bool,
+                    normalize_method: str) -> None:
+        """Append the shapes of `data` [N, P, 3] and `label_seg` [N, P] (one
+        h5 file's arrays), normalized as the constructor says."""
+        data = np.asarray(data).astype(np.float32)
+        segs = np.asarray(segs).astype(np.int32)
+        for i in range(data.shape[0]):
+            c = data[i]
+            if normalize:
+                c = T.normalize_coords(c, normalize_method)
+            self.coords.append(c.astype(np.float32))
+            self.labels.append(segs[i].reshape(-1))
+            self.neighbors.append((len(self.coords) - 1, []))
+
+    @classmethod
+    def from_arrays(cls, data, label_seg, category: str,
+                    phase: DatasetPhase | str = DatasetPhase.Train
+                    ) -> "PartnetDataset":
+        """The split (default normalization, no augmentation) that an h5
+        file holding `data` [N, P, 3] and `label_seg` [N, P] would give,
+        built in memory (no h5py)."""
+        ds = cls(None, category, phase)
+        ds._add_shapes(data, label_seg, True, "sphere")
+        return ds
 
     def __len__(self) -> int:
         return len(self.coords)

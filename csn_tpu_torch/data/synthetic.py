@@ -1,10 +1,18 @@
 """Seeded synthetic shapes for smoke runs and tests (numpy only): the
 port's own copy of the shape generator of the JAX package's `bench.py`, so
-that both draw the same shapes from the same seed."""
+that both draw the same shapes from the same seed, and the synthetic
+PartNet category of `write_synthetic_partnet` built in memory, for a
+machine without h5py."""
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
 import numpy as np
+
+from csn_tpu_torch.data.partnet import NUM_SEG, PartnetDataset
+
+SPLITS = ("train", "val", "test")
 
 
 def make_surface_shape(rng, n_points=10000):
@@ -65,3 +73,42 @@ class SurfaceShapeDataset:
         coordinates, as in `PartnetDataset.get`."""
         coords = np.copy(self.coords[index])
         return coords, coords.copy(), np.copy(self.labels[index])
+
+
+def synthetic_partnet_arrays(category: str = "Chair", n_train: int = 8,
+                             n_val: int = 4, n_test: int = 4,
+                             num_points: int = 256,
+                             num_labels: Optional[int] = None, seed: int = 0
+                             ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """{split: (data [n, P, 3] f32, label_seg [n, P])}: the arrays that
+    `write_synthetic_partnet` (`data/partnet.py`, and the JAX package's) writes
+    for the same arguments, drawn in its order from one `default_rng(seed)`
+    (train, then val, then test): uniform points in [-1, 1]^3, labels from
+    the signs of x and y taken % (num_labels - 1) + 1, 5 % of them set to 0."""
+    rng = np.random.default_rng(seed)
+    num_labels = num_labels or NUM_SEG.get(category, 8)
+    out = {}
+    for phase, n in zip(SPLITS, (n_train, n_val, n_test)):
+        pts = rng.uniform(-1, 1, size=(n, num_points, 3)).astype(np.float32)
+        labs = (
+            (pts[..., 0] > 0).astype(np.int32)
+            + 2 * (pts[..., 1] > 0).astype(np.int32)
+        ) % max(num_labels - 1, 1) + 1
+        zero_mask = rng.random((n, num_points)) < 0.05
+        out[phase] = (pts, np.where(zero_mask, 0, labs))
+    return out
+
+
+def synthetic_partnet_splits(category: str = "Chair", n_train: int = 8,
+                             n_val: int = 4, n_test: int = 4,
+                             num_points: int = 256,
+                             num_labels: Optional[int] = None, seed: int = 0
+                             ) -> Dict[str, PartnetDataset]:
+    """{split: PartnetDataset}: what `PartnetDataset` reads back (normalized
+    to the unit sphere, no augmentation) from the files
+    `write_synthetic_partnet` writes for the same arguments, built in
+    memory."""
+    return {phase: PartnetDataset.from_arrays(data, labs, category, phase)
+            for phase, (data, labs) in synthetic_partnet_arrays(
+                category, n_train, n_val, n_test, num_points, num_labels,
+                seed).items()}

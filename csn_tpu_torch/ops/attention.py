@@ -30,8 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from csn_tpu_torch.ops.flash import (
-    NEG_INF, FlashAttentionFn, dropout_keep_mask, flash_block_backward,
-    flash_carry_finalize, flash_carry_init, flash_forward_carry,
+    NEG_INF, RING_HEAD_DIMS, FlashAttentionFn, dropout_keep_mask,
+    flash_block_backward, flash_carry_finalize, flash_carry_init,
+    flash_forward_carry, pad_head, padded_head_dim,
 )
 
 # f32 elements of one plain score block: the plain version walks the batch
@@ -231,16 +232,21 @@ class RingFlashAttentionFn(torch.autograd.Function):
     and `lse`. Backward: the blocks ring once more; each hop runs
     `flash_block_backward` against the global (lse, delta, dout); dQ adds
     up locally in f32, and each block's (dK, dV) cotangent travels with its
-    block and is home after the n-th hop. No forward recompute."""
+    block and is home after the n-th hop. No forward recompute. A head dim
+    outside `RING_HEAD_DIMS` (up to 256) is zero-padded once, here, to the
+    next: the blocks travel and the carry accumulates at that width, `out`
+    is cut after the finalize and the gradients after the last hop (the
+    caller's temperature is the true d_k's)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, group, temperature: float,
                 dropout: float, seed: Optional[int]):
         n = ring_size(group)
         me = dist.get_rank(group) if n > 1 else 0
-        b, h, lq, _ = q.shape
+        b, h, lq, d = q.shape
         lk = k.shape[2]
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        width = padded_head_dim(d, RING_HEAD_DIMS)
+        q, k, v = (pad_head(x.contiguous(), width) for x in (q, k, v))
         carry = flash_carry_init(b, h, lq, v.shape[-1], q.device)
         k_b, v_b, m_b = k, v, kv_mask
         for step in range(n):
@@ -252,17 +258,17 @@ class RingFlashAttentionFn(torch.autograd.Function):
         out, lse = flash_carry_finalize(carry)
         out = out.to(v.dtype)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
-        ctx.args = (group, temperature, dropout, seed)
-        return out
+        ctx.args = (group, temperature, dropout, seed, d)
+        return out[..., :d].contiguous() if width != d else out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        group, temperature, dropout, seed = ctx.args
+        group, temperature, dropout, seed, d = ctx.args
         n = ring_size(group)
         me = dist.get_rank(group) if n > 1 else 0
         lq, lk = q.shape[2], k.shape[2]
-        g = g.contiguous()
+        g = pad_head(g.contiguous(), q.shape[3])
         delta = (g.float() * out.float()).sum(dim=-1)
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dk_acc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
@@ -283,8 +289,8 @@ class RingFlashAttentionFn(torch.autograd.Function):
                     [k_b, v_b, m_b, dk_acc, dv_acc], group)
             else:
                 dk_acc, dv_acc = _ring_shift([dk_acc, dv_acc], group)
-        return (dq.to(q.dtype), dk_acc.to(k.dtype), dv_acc.to(v.dtype),
-                None, None, None, None, None)
+        return (dq[..., :d].to(q.dtype), dk_acc[..., :d].to(k.dtype),
+                dv_acc[..., :d].to(v.dtype), None, None, None, None, None)
 
 
 def ring_flash_attention(q, k, v, kv_mask, group, temperature=None, *,

@@ -15,15 +15,27 @@ scratch.
   v, dO, `lse` and `delta = rowsum(dO * O)` (plain torch, as the JAX package
   computes it in XLA), in two deterministic passes (dK/dV per key tile, dQ
   per query tile) that skip the forward's tiles.
-* Head dims 64 (the HRNet heads), 128 and 256 (the MID-FC heads, d_k = d_v =
-  256 per head). bf16 at D = 64 runs both directions on the tensor cores
-  (`mma.sync` with f32 accumulators, `cp.async` and `ldmatrix` tiles:
-  `csrc/flash_tc.cuh`); f32 at D = 256 runs the forward, the backward and
-  the block backward on them in split TF32, three TF32 products per f32
-  product (`csrc/flash_tf32_fwd.cuh`, `csrc/flash_tf32_bwd.cuh` over the
-  blocks of `csrc/flash_tf32.cuh`); every other case (f32 at 64 and 128,
-  bf16 at 128 and 256) takes the f32 CUDA-core kernels that walk D in
-  chunks of 64 (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
+* Head dims 1 to 256. The kernels are built at the widths of `K2_HEAD_DIMS`
+  (K2 and its backward: bf16 16, 32, 64, 128, 256; f32 64, 128, 256) and
+  `RING_HEAD_DIMS` (the carry and the block backward: 64, 128, 256 in both
+  dtypes); a head dim between them is zero-padded along D to the next
+  width (`pad_head`) and the outputs are cut back. The result is exact: a
+  zero column adds +0 to every score, a zero column of v gives an output
+  column of zeros, delta = rowsum(dO * O) is unchanged, and the padded
+  columns of dQ, dK and dV are cut off. The temperature is the caller's
+  (sqrt of the true d_k), and the dropout mask, keyed by (seed,
+  batch*head, row, column), does not depend on D. Above 256 the wrappers
+  refuse: no body is built wider than the MID-FC heads. bf16 at D = 16,
+  32 and 64 (64: the HRNet heads) runs both directions on the tensor cores
+  (`mma.sync` with f32 accumulators, `cp.async` and `ldmatrix` tiles, one
+  template over D: `csrc/flash_tc.cuh`); f32 at D = 256 (the MID-FC heads,
+  d_k = d_v = 256 per head) runs the forward, the backward and the block
+  backward on them in split TF32, three TF32 products per f32 product
+  (`csrc/flash_tf32_fwd.cuh`, `csrc/flash_tf32_bwd.cuh` over the blocks of
+  `csrc/flash_tf32.cuh`); every other case (f32 at 64 and 128, bf16 at 128
+  and 256, and the ring's bf16 at 64) takes the f32 CUDA-core kernels that
+  walk D in chunks of 64 (`csrc/flash_wide.cuh`,
+  `csrc/flash_bwd_wide.cuh`).
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
   loop over ONE key block with the running max, denominator and f32
   accumulator carried in and written back raw; `flash_carry_finalize`
@@ -60,12 +72,19 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from csn_tpu_torch import kernels
 
 NEG_INF = -1e30
-# 64: d_model 256 / 4 heads, the HRNet CSN heads; 256: the MID-FC heads
-HEAD_DIMS = (64, 128, 256)
+# the head dims the kernels are built for, by dtype; any other head dim up
+# to MAX_HEAD_DIM is zero-padded to the next (64: d_model 256 / 4 heads, the
+# HRNet CSN heads; 256: the MID-FC heads; 32 and 16 on the tensor cores in
+# bf16: d_model 64 or 32 in 2 heads, 256 in 8 or 16)
+K2_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
+                torch.float32: (64, 128, 256)}
+RING_HEAD_DIMS = (64, 128, 256)   # the carry and the block backward
+MAX_HEAD_DIM = 256
 # f32 at this head dim runs on the tensor cores in split TF32: the forward
 # (csrc/flash_tf32_fwd.cuh) and both backward forms (csrc/flash_tf32_bwd.cuh),
 # which pass dS from their dK/dV pass to their dQ pass through an f32
@@ -161,16 +180,41 @@ def _drop_args(dropout: float, seed: Optional[int]):
 
 def _check_qkv(what, q, k, v, kernel: bool = True):
     """Shapes and dtypes of q, k, v; with `kernel`, also that the head dim
-    is one the kernels are built for (the plain versions take any)."""
+    is one the kernels take, 1 to MAX_HEAD_DIM (the plain versions take
+    any)."""
     if q.dim() != 4 or k.shape[:2] != q.shape[:2] or v.shape != k.shape \
             or k.shape[3] != q.shape[3]:
         raise ValueError(f"{what}: want q [B, H, Lq, D], k and v [B, H, Lk, "
                          f"D]; got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if kernel and q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if kernel and not 1 <= q.shape[3] <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{what}: head dim {q.shape[3]} outside 1..{MAX_HEAD_DIM}: no "
+            f"kernel body is built wider than the MID-FC heads' "
+            f"{MAX_HEAD_DIM} (split q, k, v into more heads)")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{what}: q, k, v dtypes differ")
+
+
+def padded_head_dim(d: int, widths: Sequence[int]) -> int:
+    """The narrowest of `widths` that holds head dim `d` (`d` itself when
+    none does: the kernels' checks refuse it)."""
+    return next((w for w in widths if w >= d), d)
+
+
+def k2_head_dim(q: torch.Tensor) -> int:
+    """The head dim K2 and its backward run q's head dim at, in q's dtype."""
+    return padded_head_dim(q.shape[-1], K2_HEAD_DIMS.get(q.dtype,
+                                                         RING_HEAD_DIMS))
+
+
+def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x [..., D] zero-padded along its last dim to `width` (x itself when
+    D == width). Exact for attention at the caller's temperature: the zero
+    columns add +0 to every score of q . k and give zero output columns
+    from v, which the caller cuts off."""
+    d = x.shape[-1]
+    return x if d == width else F.pad(x, (0, width - d))
 
 
 def _masks(what, q, k, kv_mask, q_mask):
@@ -189,10 +233,11 @@ def _masks(what, q, k, kv_mask, q_mask):
 
 
 def _require_aligned(what, *tensors):
-    """The tensor-core bodies (bf16 at head dim 64, f32 at 256) copy their
-    tiles 16 bytes at a time with cp.async, and the carry kernels read the
-    accumulator in 8- and 16-byte words: a misaligned start would read the
-    wrong bytes rather than fail."""
+    """The tensor-core bodies (bf16 at head dims 16, 32 and 64, f32 at 256)
+    copy their tiles 16 bytes at a time with cp.async, and the carry
+    kernels read the accumulator in 8- and 16-byte words: a misaligned
+    start would read the wrong bytes rather than fail. A zero-padded head
+    is a fresh allocation, aligned."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: q, k, v (and dout, or the carry's acc) "
                          f"must start on a 16-byte boundary")
@@ -204,10 +249,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     temperature: float = 1.0, dropout: float = 0.0,
                     seed: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2: q [B, H, Lq, D], k and v [B, H, Lk, D], kv_mask [B, Lk]
-    and q_mask [B, Lq] bool -> (out [B, H, Lq, D] in q's dtype, lse
-    [B, H, Lq] f32). Rows whose q_mask is false are padding: junk by
-    contract (zeros where a whole 64-row tile is padding). With dropout > 0
+    """Launch K2: q [B, H, Lq, D], k and v [B, H, Lk, D] (D in 1..256; a D
+    the kernel is not built for runs zero-padded to the next,
+    `k2_head_dim`), kv_mask [B, Lk] and q_mask [B, Lq] bool -> (out
+    [B, H, Lq, D] in q's dtype, lse [B, H, Lq] f32). Rows whose q_mask is
+    false are padding: junk by contract (zeros where a whole 64-row tile
+    is padding). With dropout > 0
     the probabilities of the numerator are dropped by the mask of `seed`
     (`dropout_keep_mask`); `lse` stays undropped."""
     what = "flash_attn_fwd"
@@ -215,6 +262,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     drop = _drop_args(dropout, seed)
     kv_mask, q_mask = _masks(what, q, k, kv_mask, q_mask)
     kernels.require_cuda(what, q, k, v, kv_mask, q_mask)
+    d, width = q.shape[3], k2_head_dim(q)
+    if width != d:   # the next body up, on zero-padded heads
+        out, lse = flash_attention(
+            *(pad_head(x, width) for x in (q, k, v)), kv_mask, q_mask,
+            temperature, dropout, seed)
+        return out[..., :d].contiguous(), lse
     _require_aligned(what, q, k, v)
     B, H, Lq, D = q.shape
     out = torch.empty_like(q)
@@ -234,7 +287,8 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask=None, q_mask=None,
                         seed: Optional[int] = None):
     """Launch the K2 backward: q, k, v and dout [B, H, L, D] of one dtype,
     lse and delta = rowsum(dout * out) [B, H, Lq] f32 -> (dq, dk, dv) in
-    q's dtype. Same masks, temperature, dropout and seed as the forward."""
+    q's dtype. Same masks, temperature, dropout and seed as the forward;
+    a head dim the kernel is not built for runs zero-padded, as there."""
     what = "flash_attn_bwd"
     _check_qkv(what, q, k, v)
     drop = _drop_args(dropout, seed)
@@ -247,6 +301,12 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask=None, q_mask=None,
             or lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise ValueError(f"{what}: want f32 lse and delta [B, H, Lq]")
     kernels.require_cuda(what, q, k, v, dout, lse, delta, kv_mask, q_mask)
+    width = k2_head_dim(q)
+    if width != D:   # the next body up, on zero-padded heads
+        grads = flash_attention_bwd(
+            *(pad_head(x, width) for x in (q, k, v, dout)), lse, delta,
+            kv_mask, q_mask, temperature, dropout, seed)
+        return tuple(x[..., :D].contiguous() for x in grads)
     _require_aligned(what, q, k, v, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     Lk = k.shape[2]
@@ -264,26 +324,33 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask=None, q_mask=None,
 
 class FlashAttentionFn(torch.autograd.Function):
     """K2 forward and its backward kernel as one differentiable op (the
-    custom VJP of the JAX package's `flash_attention`). Saves `out` and
-    `lse`; the masks, temperature, dropout and seed are not differentiable."""
+    custom VJP of the JAX package's `flash_attention`). A head dim the
+    kernels are not built for is zero-padded once here (`k2_head_dim`):
+    the padded q, k, v and `out` are saved with `lse`, the backward pads
+    dout and cuts dq, dk, dv back. The masks, temperature, dropout and seed
+    are not differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, q_mask, temperature: float,
                 dropout: float = 0.0, seed: Optional[int] = None):
+        _check_qkv("flash_attn_fwd", q, k, v)
+        d, width = q.shape[3], k2_head_dim(q)
+        q, k, v = (pad_head(x, width) for x in (q, k, v))
         out, lse = flash_attention(q, k, v, kv_mask, q_mask, temperature,
                                    dropout, seed)
         ctx.save_for_backward(q, k, v, kv_mask, q_mask, out, lse)
-        ctx.args = (temperature, dropout, seed)
-        return out
+        ctx.args = (d, temperature, dropout, seed)
+        return out[..., :d].contiguous() if width != d else out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_mask, q_mask, out, lse = ctx.saved_tensors
-        temperature, dropout, seed = ctx.args
-        dout = dout.contiguous()
+        d, temperature, dropout, seed = ctx.args
+        dout = pad_head(dout.contiguous(), q.shape[3])
         delta = (dout.float() * out.float()).sum(dim=-1)
-        dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask,
-                                         q_mask, temperature, dropout, seed)
+        grads = flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask,
+                                    q_mask, temperature, dropout, seed)
+        dq, dk, dv = (x[..., :d] if q.shape[3] != d else x for x in grads)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -329,8 +396,10 @@ def flash_forward_carry(q, k, v, kv_mask, q_mask, carry, temperature: float,
     copy it through for a block with no valid key). `row_offset` /
     `col_offset` place q's rows and this block's columns in the global
     score matrix for the dropout mask. CUDA tensors launch the
-    carry kernel; CPU tensors take `ops.attention.online_block_update`. Not
-    differentiable on its own: `RingFlashAttentionFn` wraps the whole ring."""
+    carry kernel (a head dim outside `RING_HEAD_DIMS` zero-padded to the
+    next, acc too, and cut back); CPU tensors take
+    `ops.attention.online_block_update`. Not differentiable on its own:
+    `RingFlashAttentionFn` wraps the whole ring."""
     what = "flash_attn_carry"
     _check_qkv(what, q, k, v, kernel=q.is_cuda)
     _check_carry(what, q, carry)
@@ -349,8 +418,15 @@ def flash_forward_carry(q, k, v, kv_mask, q_mask, carry, temperature: float,
                 torch.where(live[..., None], new[2], carry[2]))
     carry = tuple(c.contiguous() for c in carry)
     kernels.require_cuda(what, q, k, v, kv_mask, q_mask, *carry)
-    _require_aligned(what, q, k, v, carry[2])
     B, H, Lq, D = q.shape
+    width = padded_head_dim(D, RING_HEAD_DIMS)
+    if width != D:   # the next body up, on zero-padded heads
+        m, l, acc = flash_forward_carry(
+            *(pad_head(x, width) for x in (q, k, v)), kv_mask, q_mask,
+            carry[:2] + (pad_head(carry[2], width),), temperature, dropout,
+            seed, row_offset, col_offset)
+        return m, l, acc[..., :D].contiguous()
+    _require_aligned(what, q, k, v, carry[2])
     out = tuple(torch.empty_like(c) for c in carry)
     code = kernels.library().csn_flash_attn_carry(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -404,8 +480,9 @@ def flash_block_backward(q, k, v, kv_mask, out, lse, g, temperature: float,
     dtype). Summing dq over the blocks and keeping dk, dv per block is the
     full flash backward split across the ring. `delta` = rowsum(g * out), if
     the caller already has it (it is the same for every block). CUDA tensors
-    launch the block-backward kernel; CPU tensors take
-    `block_backward_plain`."""
+    launch the block-backward kernel (a head dim outside `RING_HEAD_DIMS`
+    zero-padded to the next and cut back; delta is unchanged); CPU tensors
+    take `block_backward_plain`."""
     what = "flash_attn_block_bwd"
     _check_qkv(what, q, k, v, kernel=q.is_cuda)
     drop = _drop_args(dropout, seed)
@@ -425,6 +502,13 @@ def flash_block_backward(q, k, v, kv_mask, out, lse, g, temperature: float,
             row_offset, col_offset)
     g = g.contiguous()
     kernels.require_cuda(what, q, k, v, g, lse, delta, kv_mask, q_mask)
+    width = padded_head_dim(D, RING_HEAD_DIMS)
+    if width != D:   # the next body up, on zero-padded heads
+        grads = flash_block_backward(
+            *(pad_head(x, width) for x in (q, k, v)), kv_mask, None, lse,
+            pad_head(g, width), temperature, dropout, seed, row_offset,
+            col_offset, delta)
+        return tuple(x[..., :D].contiguous() for x in grads)
     _require_aligned(what, q, k, v, g)
     Lk = k.shape[2]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)

@@ -1,7 +1,8 @@
-"""Two checkouts' sparse conv and interpolation kernels side by side on one
-card.
+"""Two checkouts' sparse conv, interpolation and attention kernels side by
+side on one card.
 
-    python -m csn_tpu_torch.tools.conv_ab OTHER_ROOT [--kernels conv|interp]
+    python -m csn_tpu_torch.tools.conv_ab OTHER_ROOT \
+        [--kernels conv|interp|flash]
 
 OTHER_ROOT is another checkout of this repo, for example `git archive` of
 the parent commit unpacked into a git-ignored directory. Each checkout runs
@@ -15,13 +16,16 @@ shapes of 10000 points, built once by this checkout and handed to both) at
 39 and 256 channels in f32 and bf16 (CUDA-event medians per call over
 batches of calls; for the interpolation pair over replays of a CUDA graph
 of 20 calls, the device's time without the wrappers' host work, with a
-warm L2 and from device memory: `tools/timing.py`), and hashes every
-output. The script prints each run's
-times, whether each kernel's outputs are bitwise equal across the
-checkouts and between two launches in one run, and the registers ptxas
-reports for the kernels of `csrc/sparse_conv.cu`, `csrc/sparse_conv_bwd.cu`,
-`csrc/interp.cu` and `csrc/interp_bwd.cu` in each. `--kernels` runs one
-family only.
+warm L2 and from device memory: `tools/timing.py`), and the bf16 flash
+pair at head dim 64 (`flash_attn_fwd`, `flash_attn_bwd`) at the HRNet SSA
+call [16, 4, 5632, 64] with ragged masks, at dropout 0 and 0.1 (device
+time from CUDA graphs, warm L2), and hashes every output. The script
+prints each run's times, whether each kernel's outputs are bitwise equal
+across the checkouts and between two launches in one run, and the
+registers ptxas reports for the kernels of `csrc/sparse_conv.cu`,
+`csrc/sparse_conv_bwd.cu`, `csrc/interp.cu`, `csrc/interp_bwd.cu`,
+`csrc/flash_attn.cu` and `csrc/flash_attn_bwd.cu` in each. `--kernels`
+runs one family only.
 """
 
 from __future__ import annotations
@@ -46,8 +50,13 @@ SHAPES = ((90112, 27, 64, 64), (30208, 27, 128, 128), (10240, 27, 256, 256),
 LIVE = 0.35      # share of map entries that name a row
 SEED = 7
 REGISTER_SOURCES = {"conv": ("sparse_conv.cu", "sparse_conv_bwd.cu"),
-                    "interp": ("interp.cu", "interp_bwd.cu")}
+                    "interp": ("interp.cu", "interp_bwd.cu"),
+                    "flash": ("flash_attn.cu", "flash_attn_bwd.cu")}
+FAMILIES = tuple(REGISTER_SOURCES)
 INTERP_WIDTHS = (39, 256)   # the HRNet heads' classes, the extraction chain
+# the HRNet SSA call: (K + 1) B shapes, 4 heads of 64, the level-3 cap
+FLASH_SHAPE = (16, 4, 5632, 64)
+FLASH_DROPOUT, FLASH_SEED = 0.1, 0x5EED
 
 
 def _median_ms(fn, reps: int, batch: int = 10) -> float:
@@ -82,6 +91,9 @@ def graph_ms(fn, **kw) -> float:
 
 def _digest(t) -> str:
     import torch
+    if isinstance(t, (tuple, list)):
+        return hashlib.sha256("".join(map(_digest, t)).encode()).hexdigest()[
+            :16]
     t = t.contiguous()
     raw = t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
     return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
@@ -183,12 +195,47 @@ def interp_worker(reps: int, table: Path) -> dict:
     return res
 
 
+def flash_worker(reps: int) -> dict:
+    """The current checkout's bf16 flash pair at FLASH_SHAPE: {shape:
+    {kernel at dropout: entry}}. Each shape's valid rows are a prefix of
+    seeded length (as a padded point set), the same mask for queries and
+    keys."""
+    import torch
+    from csn_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    b, h, L, d = FLASH_SHAPE
+    q, k, v, dout = (torch.randn(b, h, L, d, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(4))
+    n = torch.randint(L // 2, L + 1, (b,), generator=gen)
+    mask = (torch.arange(L)[None, :] < n[:, None]).to(dev)
+    dout = dout * mask[:, None, :, None]
+    temp = float(d) ** 0.5
+    calls = {}
+    for drop in (0.0, FLASH_DROPOUT):
+        sd = FLASH_SEED if drop else None
+        out, lse = flash.flash_attention(q, k, v, mask, mask, temp, drop, sd)
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        calls[f"flash_attn_fwd dropout {drop}"] = (
+            lambda drop=drop, sd=sd: flash.flash_attention(
+                q, k, v, mask, mask, temp, drop, sd))
+        calls[f"flash_attn_bwd dropout {drop}"] = (
+            lambda drop=drop, sd=sd, lse=lse, delta=delta:
+            flash.flash_attention_bwd(q, k, v, dout, lse, delta, mask, mask,
+                                      temp, drop, sd))
+    return {f"flash [{b},{h},{L},{d}] bf16": {
+        name: _entry(fn, reps, graph_ms) for name, fn in calls.items()}}
+
+
 def worker(reps: int, families: tuple, table: Path) -> dict:
     res = {}
     if "conv" in families:
         res.update(conv_worker(reps))
     if "interp" in families:
         res.update(interp_worker(reps, table))
+    if "flash" in families:
+        res.update(flash_worker(reps))
     return res
 
 
@@ -230,12 +277,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="root of the other checkout")
     ap.add_argument("--reps", type=int, default=15)
-    ap.add_argument("--kernels", choices=("conv", "interp"),
-                    help="one family only (default: both)")
+    ap.add_argument("--kernels", choices=FAMILIES,
+                    help="one family only (default: all)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--table", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    families = (args.kernels,) if args.kernels else ("conv", "interp")
+    families = (args.kernels,) if args.kernels else FAMILIES
     if args.worker:
         print(json.dumps(worker(args.reps, families, args.table)))
         return 0

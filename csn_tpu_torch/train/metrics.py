@@ -1,5 +1,6 @@
-"""Segmentation metrics (numpy): the port's own copy of the host-side
-definitions of `csn_tpu/train/metrics.py`.
+"""Segmentation metrics: the port's own copy of `csn_tpu/train/metrics.py`,
+the host-side definitions in numpy and the batched I/U counts in torch on
+any device.
 
 The two branches define IoU slightly differently; each is reproduced
 faithfully:
@@ -19,9 +20,10 @@ faithfully:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +86,48 @@ def calculate_part_iou(ious: Dict, num_labels: int) -> float:
     for key in range(1, num_labels):
         part_iou[key] = (intersection[key] / union[key]) if union[key] > 0 else 0.0
     return float(np.sum(list(part_iou.values())) / float(num_labels - 1))
+
+
+# ---------------------------------------------------------------------------
+# Device-side batched I/U accumulation (for fast eval loops)
+# ---------------------------------------------------------------------------
+
+def batch_intersection_union(pred: torch.Tensor, target: torch.Tensor,
+                             mask: torch.Tensor, num_labels: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-shape intersection and union counts of labels 0..num_labels-1,
+    on the tensors' own device (plain torch: the JAX function is `jnp`, no
+    kernel), with the prediction forced to 0 where the target is 0 (Mink
+    convention) and only positions where `mask` [B, P] (valid and not
+    ignored) is true counted. pred, target [B, P] integer. Returns (inter
+    [B, num_labels], union [B, num_labels]) int64; `mink_metrics_from_iu`
+    reads labels 1..num_labels-1."""
+    pred = torch.where(target == 0, torch.zeros_like(pred), pred)
+    labels = torch.arange(num_labels, device=pred.device)
+    valid = mask.to(torch.bool)[..., None]
+    g = (target[..., None] == labels) & valid
+    p = (pred[..., None] == labels) & valid
+    return (g & p).sum(dim=1), (g | p).sum(dim=1)
+
+
+def mink_metrics_from_iu(inter: np.ndarray, union: np.ndarray,
+                         num_labels: int) -> Tuple[float, float]:
+    """(part IoU, shape IoU) of per-shape I/U counts [N_shapes, num_labels]
+    (`batch_intersection_union`'s, on the host) with the exact Mink-branch
+    semantics of `calculate_iou` / `calculate_part_iou` /
+    `calculate_shape_iou`: labels 1..num_labels-1 with a nonzero union."""
+    inter, union = np.asarray(inter), np.asarray(union)
+    ious = {}
+    for s in range(inter.shape[0]):
+        label_iou, inter_d, union_d = {}, {}, {}
+        for i in range(1, num_labels):
+            if union[s, i] > 0:
+                inter_d[i] = float(inter[s, i])
+                union_d[i] = float(union[s, i])
+                label_iou[i] = inter_d[i] / union_d[i]
+        ious[s] = {"label_iou": label_iou, "intersection": inter_d,
+                   "union": union_d}
+    return calculate_part_iou(ious, num_labels), calculate_shape_iou(ious)
 
 
 # ---------------------------------------------------------------------------

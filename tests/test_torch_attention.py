@@ -19,6 +19,8 @@
   does not depend on its chunking (exact), and seeds that decide the output.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -273,11 +275,12 @@ def test_k2_bwd_launcher_refuses_cpu_tensors():
         flash.flash_attention_bwd(q, q, q, q, lse, lse)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 96, 128, 256])
 def test_k2_wrappers_take_wide_heads_and_refuse_cpu_tensors(d):
-    """Head dims 64, 128 and 256 pass the wrappers' shape checks (forward and
-    backward) and then meet the CUDA-only refusal: a CPU tensor never
-    reaches a kernel, and nothing falls back."""
+    """Head dims 1..256 (the kernels' own 16, 32, 64, 128, 256 and padded
+    ones between) pass the wrappers' shape checks (forward and backward)
+    and then meet the CUDA-only refusal: a CPU tensor never reaches a
+    kernel, and nothing falls back."""
     q = torch.zeros(2, 2, 9, d)
     k = torch.zeros(2, 2, 11, d)
     lse = torch.zeros(2, 2, 9)
@@ -295,8 +298,10 @@ def test_k2_wrappers_take_wide_heads_and_refuse_cpu_tensors(d):
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("d", [32, 96, 512])
+@pytest.mark.parametrize("d", [257, 512])
 def test_k2_wrappers_refuse_other_head_dims(d):
+    """Above 256 no kernel body is built: the wrappers refuse with the
+    reason, before any device check."""
     q = torch.zeros(1, 1, 8, d)
     with pytest.raises(ValueError, match="head dim"):
         flash.flash_attention(q, q, q)
@@ -902,3 +907,195 @@ def test_block_backward_refuses_a_misaligned_view(monkeypatch):
         flash.flash_block_backward(aligned, k, k, kv, aligned, lse, aligned,
                                    16.0, delta=lse)
     assert kernels.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# head dims the kernels are not built for: zero-padded to the next width
+# ---------------------------------------------------------------------------
+
+PAD_DIMS = [8, 16, 24, 32, 40]
+
+
+def _pad_widths(d):
+    """Every width a kernel runs head dim d at: bf16 and f32 K2's, the
+    ring's."""
+    tables = list(flash.K2_HEAD_DIMS.values()) + [flash.RING_HEAD_DIMS]
+    return sorted({flash.padded_head_dim(d, t) for t in tables})
+
+
+@pytest.mark.parametrize("d", PAD_DIMS)
+def test_padded_heads_equal_unpadded_plain_attention_and_jax(d):
+    """`pad_head` to every width a kernel runs d at, the plain attention at
+    that width with the true d's temperature sqrt(d), cut back: the padded
+    output columns are exact zeros; the output (dropout 0 and 0.1: the mask
+    is keyed by row and column, not by D) and the gradients of q, k, v
+    through the padding are within 1e-6 of the unpadded plain version (only
+    summation orders differ), and at dropout 0 within 1e-5 of the JAX
+    package's `scaled_dot_product_attention` and its `jax.vjp`."""
+    rng = np.random.default_rng(40 + d)
+    q, k, v = _qkv(rng, 2, 3, 50, 70, d)
+    kv, _ = _masks(rng, 2, 50, 70)
+    g = torch.from_numpy(rng.normal(size=(2, 3, 50, d)).astype(np.float32))
+    temp = float(d) ** 0.5
+    jkv = jnp.asarray(kv)
+    ref_j, vjp = jax.vjp(lambda a, b, c: jattn.scaled_dot_product_attention(
+        a, b, c, jkv, temperature=temp), *map(jnp.asarray, (q, k, v)))
+    refs_j = [np.asarray(x) for x in (ref_j,) + vjp(jnp.asarray(g.numpy()))]
+    tkv = torch.from_numpy(kv)
+
+    def run(width, drop):
+        leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+        full = attention.scaled_dot_product_attention(
+            *(flash.pad_head(x, width) for x in leaves), tkv, temp,
+            dropout=drop, seed=11 if drop else None)
+        assert full.shape[-1] == width
+        assert torch.equal(full[..., d:], torch.zeros_like(full[..., d:]))
+        out = full[..., :d]
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, g))
+
+    assert _pad_widths(d)[-1] == 64
+    for drop in (0.0, 0.1):
+        ref = run(d, drop)
+        for width in _pad_widths(d):
+            for got, r in zip(run(width, drop), ref):
+                assert (got - r).abs().max() <= 1e-6
+            if not drop:
+                for got, r in zip(run(width, drop), refs_j):
+                    assert np.abs(got.numpy() - r).max() <= 1e-5
+
+
+@pytest.mark.parametrize("d", PAD_DIMS)
+def test_padded_heads_match_pallas_flash_interpret(d):
+    """The plain attention at the width the card's bf16 K2 runs d at (d
+    zero-padded, temperature sqrt(d)), cut back, against the Pallas
+    `_flash_forward` and `_flash_backward` at d in interpret mode, with
+    query and key masks, on valid query rows: out, lse, dq, dk, dv within
+    3e-2 (the TPU kernel rounds to bf16, as in
+    `test_plain_attention_matches_pallas_flash_interpret`)."""
+    rng = np.random.default_rng(60 + d)
+    b, h, lq, lk = 2, 2, 130, 150
+    q, k, v = _qkv(rng, b, h, lq, lk, d)
+    kv, qm = _masks(rng, b, lq, lk)
+    g = (rng.normal(size=(b, h, lq, d)) * qm[:, None, :, None]
+         ).astype(np.float32)
+    temp = float(d) ** 0.5
+    jq, jk, jv, jkv, jqm = map(jnp.asarray, (q, k, v, kv, qm))
+    with jflash.interpret_mode():
+        out, lse = jflash._flash_forward(jq, jk, jv, jkv, jqm, temp,
+                                         block_q=64, block_k=128)
+        refs = jflash._flash_backward(jq, jk, jv, jkv, jqm, out, lse,
+                                      jnp.asarray(g), temp, block_q=64,
+                                      block_k=128)
+    refs = [np.asarray(x) for x in (out, lse) + tuple(refs)]
+    width = flash.padded_head_dim(d, flash.K2_HEAD_DIMS[torch.bfloat16])
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    full, got_lse = attention.scaled_dot_product_attention(
+        *(flash.pad_head(x, width) for x in leaves), torch.from_numpy(kv),
+        temp, return_lse=True)
+    got = [full[..., :d]]
+    got += [got_lse] + list(torch.autograd.grad(got[0], leaves,
+                                                torch.from_numpy(g)))
+    valid = qm[:, None, :]
+    for nm, a, r in zip(("out", "lse", "dq", "dk", "dv"), got, refs):
+        a = a.detach().numpy()
+        if nm in ("out", "dq"):
+            a, r = (np.where(valid[..., None], x, 0.0) for x in (a, r))
+        elif nm == "lse":
+            a, r = (np.where(valid, x, 0.0) for x in (a, r))
+        assert np.abs(a - r).max() <= 3e-2, nm
+
+
+class _PlainLibrary:
+    """K2's C launchers (`csn_flash_attn_fwd`, `csn_flash_attn_bwd`) over
+    CPU memory, computed by the plain version at the head dim they are
+    handed, which they record: the wrappers' padding and cutting run as on
+    the card."""
+
+    def __init__(self, dropout):
+        self.dropout, self.calls = dropout, []
+
+    @staticmethod
+    def _view(ptr, dtype, shape):
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        buf = (ctypes.c_char * n).from_address(ptr)
+        return torch.frombuffer(buf, dtype=dtype).view(*shape)
+
+    def _inputs(self, code, ptrs, B, H, Lq, Lk, D):
+        dt = {0: torch.float32, 1: torch.bfloat16}[code]
+        q = self._view(ptrs[0], dt, (B, H, Lq, D))
+        k, v = (self._view(p, dt, (B, H, Lk, D)) for p in ptrs[1:3])
+        return dt, q, k, v
+
+    def csn_flash_attn_fwd(self, code, q, k, v, kvm, qm, out, lse, B, H,
+                           Lq, Lk, D, inv_temp, seed, thresh, inv_keep,
+                           use_drop, stream):
+        dt, qt, kt, vt = self._inputs(code, (q, k, v), B, H, Lq, Lk, D)
+        self.calls.append(("fwd", dt, D))
+        o, l = attention.scaled_dot_product_attention(
+            qt, kt, vt, self._view(kvm, torch.bool, (B, Lk)), 1 / inv_temp,
+            dropout=self.dropout if use_drop else 0.0, seed=seed,
+            return_lse=True)
+        self._view(out, dt, (B, H, Lq, D)).copy_(o)
+        self._view(lse, torch.float32, (B, H, Lq)).copy_(l)
+        return 0
+
+    def csn_flash_attn_bwd(self, code, q, k, v, dout, lse, delta, kvm, qm,
+                           dq, dk, dv, ds_t, B, H, Lq, Lk, D, inv_temp, seed,
+                           thresh, inv_keep, use_drop, stream):
+        dt, qt, kt, vt = self._inputs(code, (q, k, v), B, H, Lq, Lk, D)
+        self.calls.append(("bwd", dt, D))
+        leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
+        with torch.enable_grad():   # called from autograd's backward
+            o = attention.scaled_dot_product_attention(
+                *leaves, self._view(kvm, torch.bool, (B, Lk)), 1 / inv_temp,
+                dropout=self.dropout if use_drop else 0.0, seed=seed)
+            grads = torch.autograd.grad(o, leaves,
+                                        self._view(dout, dt, (B, H, Lq, D)))
+        for ptr, gr, L in zip((dq, dk, dv), grads, (Lq, Lk, Lk)):
+            self._view(ptr, dt, (B, H, L, D)).copy_(gr)
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", PAD_DIMS)
+def test_flash_fn_pads_heads_to_the_kernels_widths(monkeypatch, d, dtype):
+    """`FlashAttentionFn` at head dims 8-40, its launchers stood in for by
+    the plain version over the same memory (`_PlainLibrary`; the CUDA
+    check stubbed out): each launcher is handed the width of
+    `K2_HEAD_DIMS` for the dtype (bf16 16, 32, 64; f32 64), once forward
+    and once backward, the launch counts rise by one each, and the output
+    and the gradients, cut back to d, equal the unpadded plain version at
+    temperature sqrt(d) and dropout 0.1 (f32 within 1e-5; bf16 within
+    2e-2 x max|ref|, as the card's checks)."""
+    lib = _PlainLibrary(0.1)
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LAUNCHES,
+                                                           0))
+    rng = np.random.default_rng(80 + d)
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _qkv(rng, 2, 2, 40, 56, d))
+    kv = torch.from_numpy(_masks(rng, 2, 40, 56)[0])
+    g = torch.from_numpy(rng.normal(size=(2, 2, 40, d)).astype(np.float32)
+                         ).to(dtype)
+    temp = float(d) ** 0.5
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, g))
+
+    got = run(lambda a, b, c: flash.FlashAttentionFn.apply(
+        a, b, c, kv, None, temp, 0.1, 7))
+    ref = run(lambda a, b, c: attention.scaled_dot_product_attention(
+        a, b, c, kv, temp, dropout=0.1, seed=7))
+    width = flash.padded_head_dim(d, flash.K2_HEAD_DIMS[dtype])
+    assert lib.calls == [("fwd", dtype, width), ("bwd", dtype, width)]
+    assert kernels.LAUNCHES["flash_attn_fwd"] == 1
+    assert kernels.LAUNCHES["flash_attn_bwd"] == 1
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == dtype
+        err = (a.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        assert err <= (1e-5 if dtype == torch.float32 else 2e-2 * scale)
