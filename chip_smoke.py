@@ -94,10 +94,14 @@ Phases (each prints its lines; any failure exits nonzero):
      of ResUNet14 and ResNet14 (1-offset k1 maps, six
      levels, widths up to 768; checked only, B=2); the probe kernels:
      `probe_window_gather` in f32 and bf16, both layouts, W = 384 and 256,
-     matched and unmatched, with a row id outside the window;
-     `probe_gather_accum` in its three modes against the plain version and
-     against each other, bf16 and f32 windows, with row ids outside the
-     window; `probe_slot_load` in every variant;
+     matched and unmatched, and with row ids outside the window (zero rows,
+     the others bitwise); `probe_gather_accum` in its three modes (the
+     one-hot product on the tensor cores, the gathers in 16-byte vectors)
+     against the plain version, against each other, against a float64 sum
+     of the same window values and bitwise against a repeat, bf16 and f32
+     windows, with row ids outside the window; `probe_slot_load` in every
+     variant; the probes timed as device time from CUDA graphs beside
+     `index_select` and `F.embedding_bag`;
   4. eval slice: 3 eval requests (query batch + 1 key batch each) through
      `eval_step`, launch counts per kernel, ms/step, shapes/s, peak memory,
      and the f32 forward with kernels against the plain forward on the CPU;
@@ -186,10 +190,10 @@ learning-check trainings), its worst error
 over phase 3's checks, and four times summed over one train step's launches
 of every path the kernel is on (bf16 at the HRNet and Res16UNet34C shapes,
 f32 at the MID-FC shapes; the interpolation pair f32 at 39 classes, as the
-HRNet heads' f32 logits reach it; the probe kernels: one call of
-`probe_window_gather` at [384, 128] f32, the three modes of
-`probe_gather_accum` with the bf16 window at 352 tiles x 9 offsets, the seven
-variants of `probe_slot_load`):
+HRNet heads' f32 logits reach it; the probe kernels, as device time
+from CUDA graphs: one call of `probe_window_gather` at [384, 128] f32, the
+three modes of `probe_gather_accum` with the bf16 window at 352 tiles x 9
+offsets, the seven variants of `probe_slot_load`):
 the kernel's and the plain version's median ms, `bound_ms`, the least time
 the card could take (the larger of bytes / 3.35 TB/s and operations / the
 peak of the input type: 989 TFLOP/s bf16, 494.7 / 3 TFLOP/s f32 (split
@@ -274,6 +278,12 @@ K1_F64_TOL = 4e-3
 # float64 reduction of the same bf16 operands: x max|ref| (no output
 # rounding; the f32 sums over up to 90112 rows per offset)
 DW_F64_TOL = 1e-4
+# the probe gather_accum's bodies against a float64 sum of the same window
+# values: x max|ref|. The f32 sums of 9 offsets (27 products of the split
+# f32 window on the tensor cores) round at most 27 times by an ulp of a
+# running sum below 9 x max|win|, about 3.5 x max|ref| here: under 1.2e-5;
+# a window rounded to bf16 (2^-9 of each value) misses it many times over.
+PROBE_F64_TOL = 2e-5
 # gradients that vanish analytically (a bias right before train-mode
 # BatchNorm): held to GRAD_TOL x the largest gradient of the step
 VANISHING = {"fc1.linear.bias"}
@@ -548,25 +558,27 @@ def conv_f64(feats, kmap, weights):
     return out
 
 
-def check_f64(table, name, what, got, ref, tol, vs="float64"):
-    """One `vs float64` line of a tensor-core body: max|got - ref| within
-    tol x max|ref| (ref a float64 result of the same bf16 operands, or,
-    named by `vs`, another body's f32 sums of them). Returns the error's
-    share of max|ref|."""
+def check_f64(table, name, what, got, ref, tol, vs="float64",
+              body="bfloat16 (tensor cores)"):
+    """One `vs float64` line of a kernel body (by default a bf16
+    tensor-core body): max|got - ref| within tol x max|ref| (ref a float64
+    result of the same operands, or, named by `vs`, another body's f32 sums
+    of them). Returns the error's share of max|ref|."""
     err = (got.double() - ref.double()).abs().max().item()
     scale = ref.abs().max().item()
     ok = bool(torch.isfinite(got).all()) and err <= tol * scale
-    print(f"[check] {name} {what} bfloat16 (tensor cores) vs {vs}: "
+    print(f"[check] {name} {what} {body} vs {vs}: "
           f"max_abs_err {err:.3e} tol {tol * scale:.3e} (max|ref| "
           f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
-    require(ok, f"{name} {what}: bf16 tensor-core body vs {vs}")
+    require(ok, f"{name} {what}: {body} vs {vs}")
     table.err[name] = max(table.err[name], err)
     return err / scale if scale else 0.0
 
 
-def check_same(name, what, check, same):
-    """One exact line of a tensor-core body: `check` holds (`same`)."""
-    print(f"[check] {name} {what} bfloat16 (tensor cores) {check} "
+def check_same(name, what, check, same, body="bfloat16 (tensor cores)"):
+    """One exact line of a kernel body (by default a bf16 tensor-core
+    body): `check` holds (`same`)."""
+    print(f"[check] {name} {what} {body} {check} "
           f"{'ok' if same else 'FAIL'}")
     require(same, f"{name} {what}: {check}")
 
@@ -2406,14 +2418,17 @@ def _trainer_slice(dev, n_convs, log_dir, C, do_profile):
 
 
 def check_probes(dev, table):
-    """The three probe kernels against their plain versions, and their times
-    at the probe scripts' shapes."""
+    """The three probe kernels against their plain versions, and their
+    device times (CUDA graphs) at the probe scripts' shapes."""
     f32, bf16 = torch.float32, torch.bfloat16
     # probe_window_gather: both layouts, both types, W = 384 and 256, the
     # matched call, a row id outside the window (a zero row)
     for w, t in ((384, 256), (256, 256)):
         win_np, rel_np, want = dyngather.probe_inputs(w, t, dyngather.C)
         rel = torch.from_numpy(rel_np).to(dev)
+        bad = rel.clone()
+        bad[5] = w + 3
+        bad[9] = -1
         for dt in (f32, bf16):
             win = torch.from_numpy(win_np).to(device=dev, dtype=dt)
             plain = dyngather.window_gather_plain(win, rel)
@@ -2425,15 +2440,18 @@ def check_probes(dev, table):
                 table.check("probe_window_gather", what + " matched",
                             dyngather2.matched_gather(win, rel, layout),
                             plain, dt)
+                got = dyngather.window_gather(win, bad, layout)
+                keep = torch.ones(t, dtype=torch.bool, device=dev)
+                keep[[5, 9]] = False
+                check_same("probe_window_gather", what, "row ids w + 3 and "
+                           "-1 outside the window: zero rows, the other rows "
+                           "bitwise win[rel]",
+                           not got[~keep].any().item()
+                           and torch.equal(got[keep], plain[keep]),
+                           body=str(dt)[6:])
             if dt == f32:
                 require(np.array_equal(plain.cpu().numpy(), want),
                         "window_gather_plain != numpy's win[rel]")
-        bad = rel.clone()
-        bad[5] = w + 3
-        got = dyngather.window_gather(win, bad, 0)
-        require(float(got[5].float().abs().max()) == 0.0 and torch.equal(
-            got[6], plain[6]), "probe_window_gather: row id outside the "
-            "window must give a zero row")
     win_np, rel_np, _ = dyngather.probe_inputs()
     win = torch.from_numpy(win_np).to(dev)
     rel = torch.from_numpy(rel_np).to(dev)
@@ -2444,10 +2462,12 @@ def check_probes(dev, table):
                                                                 layout),
                    lambda: dyngather.window_gather_plain(win, rel),
                    count=1 - layout, nbytes=nb, flops=0, dtype=f32,
-                   fn_library=lambda: torch.index_select(win, 0, rel))
+                   fn_library=lambda: torch.index_select(win, 0, rel),
+                   graph=True)
 
-    # probe_gather_accum: the three modes against the plain version and
-    # against each other, at the scripts' timing geometry
+    # probe_gather_accum: the three modes against the plain version, against
+    # each other, against a float64 sum of the same window values, and
+    # against themselves, at the scripts' timing geometry
     k, n_tiles = 9, 352
     for dt, w in ((bf16, 384), (f32, 384), (f32, 256)):
         rows, win = dyngather.timing_inputs(w, dyngather.T, dyngather.C,
@@ -2456,19 +2476,26 @@ def check_probes(dev, table):
         rows[5, 100:140] = w
         rows[k + 2, ::7] = w + 1000
         plain = dyngather.gather_accum_plain(rows, win, k)
+        ref64 = dyngather.gather_accum_plain(rows, win.double(), k)
         outs = {}
         for mode in dyngather.MODES:
             outs[mode] = dyngather.gather_accum(rows, win, k, mode)
             # the accumulation itself is f32 in every mode and type
             table.check("probe_gather_accum", f"{mode} W={w} "
                         f"{str(dt)[6:]} window", outs[mode], plain, f32)
+            body = (f"{str(dt)[6:]} window, "
+                    f"{'tensor cores' if mode == 'onehot' else 'CUDA cores'}")
+            check_f64(table, "probe_gather_accum", f"{mode} W={w}",
+                      outs[mode], ref64, PROBE_F64_TOL, body=body)
+            check_same("probe_gather_accum", f"{mode} W={w}",
+                       "repeat: bitwise equal", torch.equal(
+                           dyngather.gather_accum(rows, win, k, mode),
+                           outs[mode]), body=body)
         for mode in ("onehot", "smem"):
             table.check("probe_gather_accum", f"{mode} vs global W={w} "
                         f"{str(dt)[6:]} window", outs[mode], outs["global"],
                         f32)
-        del outs, plain
-        if w != 384:
-            continue
+        del outs, plain, ref64
         es = win.element_size()
         gather_b = rows.numel() * 4 + w * dyngather.C * es \
             + n_tiles * dyngather.T * dyngather.C * 4
@@ -2487,9 +2514,12 @@ def check_probes(dev, table):
                        count=int(dt == bf16), reps=3, nbytes=gather_b,
                        flops=accum_f, dtype=f32,
                        fn_library=lambda: F.embedding_bag(bags, win32,
-                                                          mode="sum"))
+                                                          mode="sum"),
+                       graph=True)
         del bags, win32
     torch.cuda.empty_cache()
+
+    check_probe_edges(dev, table)
 
     # probe_slot_load: every variant
     for v, (name, shape, _) in iw_bwd.VARIANTS.items():
@@ -2500,7 +2530,50 @@ def check_probes(dev, table):
         require(float(plain.abs().max()) > 1.0, f"slot probe {v}: dead load")
         table.time("probe_slot_load", name, lambda: iw_bwd.slot_load(v, x),
                    lambda: iw_bwd.slot_load_plain(v, x),
-                   nbytes=x.numel() * 4 + 8 * 128 * 4, flops=0, dtype=f32)
+                   nbytes=x.numel() * 4 + 8 * 128 * 4, flops=0, dtype=f32,
+                   graph=True)
+
+
+def check_probe_edges(dev, table):
+    """The gather probes off the scripts' shapes: more offsets than a gather
+    lane holds at once (K = 27: the sums continue from the output), tiles
+    that split a 32-row group (T = 264), a window whose rows are no multiple
+    of 16 (the one-hot product's zero rows), channels that leave a part
+    one-hot item and a part slab (C = 48), a tiny call; each mode and both
+    window types against the plain version, row ids outside the window
+    mixed in."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(SEED)
+    for n_tiles, k, t, w, c in ((40, 27, 256, 384, 128), (37, 9, 264, 250, 48),
+                                (3, 5, 8, 20, 16)):
+        rows_np = rng.integers(-2, w + 3, size=(n_tiles * k, t))
+        win_np = rng.normal(size=(w, c))
+        rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
+        for dt in (f32, bf16):
+            win = torch.from_numpy(win_np.astype(np.float32)).to(dev, dt)
+            plain = dyngather.gather_accum_plain(rows, win, k)
+            for mode in dyngather.MODES:
+                table.check("probe_gather_accum", f"edges {mode} {n_tiles} "
+                            f"tiles x {k} offsets, T={t} W={w} C={c} "
+                            f"{str(dt)[6:]} window",
+                            dyngather.gather_accum(rows, win, k, mode), plain,
+                            f32)
+    for w, t, c in ((250, 100, 48), (255, 300, 16)):
+        rel = torch.from_numpy(rng.integers(-2, w + 3, size=t).astype(
+            np.int32)).to(dev)
+        valid = (rel >= 0) & (rel < w)
+        win_np = rng.normal(size=(w, c)).astype(np.float32)
+        for dt in (f32, bf16):
+            win = torch.from_numpy(win_np).to(dev, dt)
+            want = torch.where(valid[:, None], win[rel.clamp(0, w - 1).long()],
+                               torch.zeros((), dtype=dt, device=dev))
+            for layout in (0, 1):
+                got = dyngather.window_gather(win, rel, layout)
+                check_same("probe_window_gather", f"edges W={w} T={t} C={c} "
+                           f"layout {layout}", f"{int((~valid).sum())} row "
+                           f"ids outside the window: bitwise the plain "
+                           f"gather with zero rows", torch.equal(got, want),
+                           body=str(dt)[6:])
 
 
 def family_spec(name):

@@ -97,10 +97,11 @@ _SIGNATURES = {
     "csn_interp_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, g, ptr, ent, w, dflat, n_vox, c, vec, stream
     "csn_interp_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, layout, win, rel, out, W, T, C, stream
-    "csn_probe_window_gather": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, mode, rows, win, out, n_tiles, K, W, T, C, stream
-    "csn_probe_gather_accum": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, layout, win, rel, out, W, T, C, slab, stream
+    "csn_probe_window_gather": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, mode, rows, win, out, n_tiles, K, W, T, C, grid, stream
+    "csn_probe_gather_accum": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P],
     # variant, x, out, stream
     "csn_probe_slot_load": [_I, _P, _P, _P],
 }

@@ -1,8 +1,8 @@
-"""Two checkouts' sparse conv, interpolation and attention kernels side by
-side on one card.
+"""Two checkouts' sparse conv, interpolation, attention and gather-probe
+kernels side by side on one card.
 
     python -m csn_tpu_torch.tools.conv_ab OTHER_ROOT \
-        [--kernels conv|interp|flash]
+        [--kernels conv|interp|flash|probes]
 
 OTHER_ROOT is another checkout of this repo, for example `git archive` of
 the parent commit unpacked into a git-ignored directory. Each checkout runs
@@ -19,13 +19,19 @@ of 20 calls, the device's time without the wrappers' host work, with a
 warm L2 and from device memory: `tools/timing.py`), and the bf16 flash
 pair at head dim 64 (`flash_attn_fwd`, `flash_attn_bwd`) at the HRNet SSA
 call [16, 4, 5632, 64] with ragged masks, at dropout 0 and 0.1 (device
-time from CUDA graphs, warm L2), and hashes every output. The script
+time from CUDA graphs, warm L2), and the gather probes
+(`probe_gather_accum` in its three modes at the probe scripts' timing
+geometry, 352 tiles x 9 offsets x 256 rows x 128 channels, with the bf16
+window at W = 384 and the f32 window at W = 384 and 256, row ids outside
+the window mixed in; `probe_window_gather` at [384, 128] f32 and bf16 in
+both layouts; device time from CUDA graphs, warm L2 and from device
+memory), and hashes every output. The script
 prints each run's times, whether each kernel's outputs are bitwise equal
 across the checkouts and between two launches in one run, and the
 registers ptxas reports for the kernels of `csrc/sparse_conv.cu`,
 `csrc/sparse_conv_bwd.cu`, `csrc/interp.cu`, `csrc/interp_bwd.cu`,
-`csrc/flash_attn.cu` and `csrc/flash_attn_bwd.cu` in each. `--kernels`
-runs one family only.
+`csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu` and `csrc/probe_gather.cu`
+in each. `--kernels` runs one family only.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ LIVE = 0.35      # share of map entries that name a row
 SEED = 7
 REGISTER_SOURCES = {"conv": ("sparse_conv.cu", "sparse_conv_bwd.cu"),
                     "interp": ("interp.cu", "interp_bwd.cu"),
-                    "flash": ("flash_attn.cu", "flash_attn_bwd.cu")}
+                    "flash": ("flash_attn.cu", "flash_attn_bwd.cu"),
+                    "probes": ("probe_gather.cu",)}
 FAMILIES = tuple(REGISTER_SOURCES)
 INTERP_WIDTHS = (39, 256)   # the HRNet heads' classes, the extraction chain
 # the HRNet SSA call: (K + 1) B shapes, 4 heads of 64, the level-3 cap
@@ -228,6 +235,40 @@ def flash_worker(reps: int) -> dict:
         name: _entry(fn, reps, graph_ms) for name, fn in calls.items()}}
 
 
+def probe_worker(reps: int) -> dict:
+    """The current checkout's gather probes at the probe scripts' shapes:
+    {shape: {kernel: entry}}. Both checkouts' wrappers take the same
+    arguments."""
+    import torch
+    from csn_tpu_torch.probes import dyngather
+
+    dev = torch.device("cuda")
+    k, n_tiles, t, c = 9, 352, dyngather.T, dyngather.C
+    res = {}
+    for dt, w in ((torch.bfloat16, 384), (torch.float32, 384),
+                  (torch.float32, 256)):
+        rows, win = dyngather.timing_inputs(w, t, c, n_tiles, k, dt, dev)
+        rows[1, :9] = -1          # row ids outside the window
+        rows[5, 100:140] = w
+        rows[k + 2, ::7] = w + 1000
+        res[f"gather_accum {n_tiles}x{k}x{t} W={w} C={c} {str(dt)[6:]}"] = {
+            f"probe_gather_accum {mode}": _entry(
+                lambda mode=mode: dyngather.gather_accum(rows, win, k, mode),
+                reps, graph_ms, cold={"cold": True})
+            for mode in dyngather.MODES}
+    win_np, rel_np, _ = dyngather.probe_inputs()
+    rel = torch.from_numpy(rel_np).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        win = torch.from_numpy(win_np).to(dev, dt)
+        res[f"window_gather W={dyngather.W} T={t} C={c} {str(dt)[6:]}"] = {
+            f"probe_window_gather layout {layout}": _entry(
+                lambda layout=layout: dyngather.window_gather(win, rel,
+                                                              layout),
+                reps, graph_ms, cold={"cold": True})
+            for layout in (0, 1)}
+    return res
+
+
 def worker(reps: int, families: tuple, table: Path) -> dict:
     res = {}
     if "conv" in families:
@@ -236,6 +277,8 @@ def worker(reps: int, families: tuple, table: Path) -> dict:
         res.update(interp_worker(reps, table))
     if "flash" in families:
         res.update(flash_worker(reps))
+    if "probes" in families:
+        res.update(probe_worker(reps))
     return res
 
 
