@@ -26,22 +26,26 @@ Phases (each prints its lines; any failure exits nonzero):
      inputs, with median times of both (bf16, the main path's type):
      K1 (sparse conv) on every map and width of the model, and on every
      transpose map with the weights transposed (the backward's d_feats),
-     where its tensor-core body runs (bf16, Cout % 8 == 0, the stems'
-     Cin 3 included) also against a float64 conv of the same bf16 operands
-     (K1_F64_TOL), and at the stems (its flattened steps) a repeat that
-     must be bitwise equal and the densest offset made all sentinels
-     (bitwise equal to that offset's W zeroed; rows without a live offset
-     exact zeros); `sparse_conv_dw` (dW) at the same convs, random
-     asymmetric weights, against `conv_bwd_plain`, and where its
-     tensor-core bodies run (bf16, the same rule; the narrow body at the
-     stems) also against a float64 reduction of the same bf16 operands
-     (DW_F64_TOL), a repeat that must be bitwise equal, and the map with
-     its densest offset made all sentinels (exact zeros there, the other
-     offsets' bits unchanged), at the stems against the im2col `dw_only`
-     body (DW_F64_TOL), plus synthetic maps at the bodies' edges (rows not
-     a multiple of their steps, splits spanning two compaction chunks,
-     empty / full / one-row offsets, part channel tiles, the stems'
-     3 -> 32 and 24 -> 40 on the narrow body); on the same inputs
+     where its tensor-core bodies run (bf16 with Cout % 8 == 0, the stems'
+     Cin 3 included; f32 with Cin % 16 == 0 and Cout % 8 == 0 in split
+     TF32) also against a float64 conv of the same operands (K1_F64_TOL;
+     f32 TF32_F64_TOL), and at the stems (its flattened steps) and on the
+     split-TF32 body a repeat that must be bitwise equal and the densest
+     offset made all sentinels (bitwise equal to that offset's W zeroed;
+     rows without a live offset exact zeros); `sparse_conv_dw` (dW) at the
+     same convs, random asymmetric weights, against `conv_bwd_plain`, and
+     where its tensor-core bodies run (the same rule; the narrow body at
+     the bf16 stems) also against a float64 reduction of the same operands
+     (DW_F64_TOL; f32 TF32_F64_TOL), a repeat that must be bitwise equal,
+     and the map with its densest offset made all sentinels (exact zeros
+     there, the other offsets' bits unchanged), at the stems against the
+     im2col `dw_only` body (DW_F64_TOL), plus synthetic maps at the bodies'
+     edges (rows not a multiple of their steps, splits spanning two
+     compaction chunks, empty / full / one-row offsets, part channel
+     tiles, the stems' 3 -> 32 and 24 -> 40 on the narrow body, 48 -> 40
+     and 160 -> 200 on the split-TF32 body with a shorter last split); K1,
+     d_feats and dW timed in f32 at every conv of HRNetSimCSN3S and
+     Res16UNet34C as device time from CUDA graphs; on the same inputs
      `sparse_conv_im2col_fwd` against `conv_im2col_plain` and K1 (in bf16
      bitwise: one body), and `sparse_conv_im2col_bwd`
      (d_feats and dW; dW only for the stem) against `conv_im2col_bwd_plain`
@@ -111,6 +115,10 @@ Phases (each prints its lines; any failure exits nonzero):
      dropout 0 on B=2 shapes with the kernels on the GPU against the same
      step with the plain versions on the CPU (loss and every gradient),
      the CPU step taking the GPU step's ReLU decisions (`ReluDecisions`);
+     then the same protocol with f32 activations (`--compute_dtype
+     float32`): 3 eval and 3 train requests with exact launch counts per
+     kernel body (K1's and dW's split-TF32 bodies counted apart from their
+     CUDA-core stems), ms/step of the eval and the train step;
   6. MID-FC chunked, the JAX package's `bench.py` midfc protocol:
      `MidfcRunner(cfg, "csa")` with 8 heads of 256, K=4, B=4, P=10000,
      d_model 256, chunks of 500, 39 classes, f32, Adam(0.5, 0.999), seeded
@@ -181,15 +189,19 @@ Phases (each prints its lines; any failure exits nonzero):
      `batch_intersection_union` on the card, equal to the same call on
      the CPU and, through `mink_metrics_from_iu`, to the host's per-shape
      IoU.
-The line before the last is the kernel table as JSON: per kernel, its
-launches in the train requests of phases 5, 6, 7, 8, 9, 10 and 11 (each
+The line before the last is the kernel table as JSON: per kernel (K1 and
+`sparse_conv_dw` in two rows each: their split-TF32 bodies, the f32 form,
+as `sparse_conv_fwd_tf32` and `sparse_conv_dw_tf32`, and their other
+bodies), its launches in the train requests of phases 5 (bf16 and f32), 6,
+7, 8, 9, 10 and 11 (each
 phase sets the counts to 0 before and reads them after; phase 9 counts the
 Res16UNet34C train iterations, the chain and the probes' entry points;
 phase 10 the data-parallel trainer's iterations; phase 11 the three
 learning-check trainings), its worst error
 over phase 3's checks, and four times summed over one train step's launches
 of every path the kernel is on (bf16 at the HRNet and Res16UNet34C shapes,
-f32 at the MID-FC shapes; the interpolation pair f32 at 39 classes, as the
+the split-TF32 rows f32 there as device time from CUDA graphs, f32 at the
+MID-FC shapes; the interpolation pair f32 at 39 classes, as the
 HRNet heads' f32 logits reach it; the probe kernels, as device time
 from CUDA graphs: one call of `probe_window_gather` at [384, 128] f32, the
 three modes of `probe_gather_accum` with the bf16 window at 352 tiles x 9
@@ -278,6 +290,16 @@ K1_F64_TOL = 4e-3
 # float64 reduction of the same bf16 operands: x max|ref| (no output
 # rounding; the f32 sums over up to 90112 rows per offset)
 DW_F64_TOL = 1e-4
+# the split-TF32 bodies of K1 and dW (f32) against float64 sums of the same
+# f32 operands: x max|ref|, the f32 checks' tolerance (TOL). Three TF32
+# products per f32 product drop ~2^-22 of each (one TF32 product misses
+# the tolerance); what is left is the tensor cores' f32 accumulation, which
+# truncates the sum of every mma.sync. K1 adds each k-step's products to
+# its running sum in f32 (with one accumulator over the 5184 mma.sync of a
+# 512-channel, 27-offset output it came to 9.8e-5 in these checks on an
+# H100); dW keeps one accumulator over a split's live pairs (2.9e-5 at most
+# in these checks).
+TF32_F64_TOL = 1e-4
 # the probe gather_accum's bodies against a float64 sum of the same window
 # values: x max|ref|. The f32 sums of 9 offsets (27 products of the split
 # f32 window on the tensor cores) round at most 27 times by an ulp of a
@@ -308,6 +330,14 @@ KERNELS = {
                         "csn_tpu/core/window_conv.py:973"),
     "sparse_conv_dw": ("csn_tpu_torch/csrc/sparse_conv_bwd.cu",
                        "csn_tpu/core/window_conv.py:1067"),
+    # the f32 forms of K1 and sparse_conv_dw: their split-TF32 bodies on the
+    # tensor cores (f32 with Cin % 16 == 0 and Cout % 8 == 0), whose
+    # launches count apart; the f32 stems stay on the CUDA-core bodies of
+    # the two rows above
+    "sparse_conv_fwd_tf32": ("csn_tpu_torch/csrc/sparse_conv_tc.cuh",
+                             "csn_tpu/core/window_conv.py:973"),
+    "sparse_conv_dw_tf32": ("csn_tpu_torch/csrc/sparse_conv_bwd.cu",
+                            "csn_tpu/core/window_conv.py:1067"),
     "sparse_conv_im2col_fwd": ("csn_tpu_torch/csrc/sparse_conv_im2col.cu",
                                "csn_tpu/core/window_conv.py:1021"),
     "sparse_conv_im2col_bwd": ("csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu",
@@ -450,6 +480,12 @@ class Table:
         self.bound_ops_ms = {k: 0.0 for k in KERNELS}
         self.library_ms = {k: None for k in KERNELS}
         self.dw_f64 = []   # (error / max|ref|) of each dW float64 line
+        # (error / max|ref|) of the split-TF32 bodies' float64 lines
+        self.tf32_f64 = {"sparse_conv_fwd_tf32": [],
+                         "sparse_conv_dw_tf32": []}
+        # the im2col pair's f32 forward and backward ms over one train step
+        # of the timed families (single calls; not in the kernel line)
+        self.f32_im2col_ms = [0.0, 0.0]
         # (error / max|ref|) of the im2col pair's float64 lines: forward and
         # d_feats, dW
         self.im2col_f64 = {"out": [], "dW": []}
@@ -583,7 +619,8 @@ def check_same(name, what, check, same, body="bfloat16 (tensor cores)"):
     require(same, f"{name} {what}: {check}")
 
 
-def check_dead_offset(name, what, dw_call, kmap_t, n_g, dw):
+def check_dead_offset(name, what, dw_call, kmap_t, n_g, dw,
+                      body="bfloat16 (tensor cores)"):
     """The map `kmap_t` with its densest offset made all sentinels:
     `dw_call(map)` -> dW_t gives exact zeros at that offset and the bits of
     `dw` (the call on `kmap_t`) at every other."""
@@ -595,24 +632,48 @@ def check_dead_offset(name, what, dw_call, kmap_t, n_g, dw):
     rest = torch.equal(torch.cat([got[:k0], got[k0 + 1:]]),
                        torch.cat([dw[:k0], dw[k0 + 1:]]))
     check_same(name, what, f"offset {k0} without live rows: exact zeros "
-               f"{zero}, other offsets bitwise equal {rest}", zero and rest)
+               f"{zero}, other offsets bitwise equal {rest}", zero and rest,
+               body)
+
+
+def form_name(kernel, dtype, cin, cout):
+    """The row of the kernel line that a conv of K1 or `sparse_conv_dw`
+    (`kernel`) counts in: its split-TF32 form, or the kernel's other
+    bodies."""
+    tf32 = window_conv.k1_split_tf32(dtype, cin, cout)
+    return f"{kernel}_tf32" if tf32 else kernel
+
+
+def tc_body(dtype):
+    """The tensor-core body of a dtype, as the check lines name it."""
+    return ("float32 (split TF32)" if dtype == torch.float32
+            else "bfloat16 (tensor cores)")
 
 
 def check_k1_f64(table, what, got, feats, kmap, weights):
-    """K1's tensor-core body against `conv_f64` within K1_F64_TOL."""
-    check_f64(table, "sparse_conv_fwd", what, got,
-              conv_f64(feats, kmap, weights), K1_F64_TOL)
+    """K1's tensor-core body against `conv_f64`: bf16 within K1_F64_TOL,
+    f32 (split TF32) within TF32_F64_TOL."""
+    dt, cin, cout = feats.dtype, feats.shape[1], weights.shape[2]
+    name = form_name("sparse_conv_fwd", dt, cin, cout)
+    tf32 = dt == torch.float32
+    err = check_f64(table, name, what, got, conv_f64(feats, kmap, weights),
+                    TF32_F64_TOL if tf32 else K1_F64_TOL, body=tc_body(dt))
+    if tf32:
+        table.tf32_f64[name].append(err)
 
 
 def check_k1_flat(what, got, feats, kmap, weights):
-    """K1's flattened steps (Cin % 16 != 0, the stems), beside
-    `check_k1_f64`: a repeat bitwise equal, and the map with its densest
-    offset made all sentinels bitwise equal to the map as it is with that
-    offset's W zeroed (a dead offset adds exact zeros), its rows without a
-    live offset exact zeros."""
-    name = "sparse_conv_fwd"
+    """K1's tensor-core bodies where no other check pins their bits (the
+    flattened steps at Cin % 16 != 0, the stems; the split-TF32 body),
+    beside `check_k1_f64`: a repeat bitwise equal, and the map with its
+    densest offset made all sentinels bitwise equal to the map as it is
+    with that offset's W zeroed (a dead offset adds exact zeros), its rows
+    without a live offset exact zeros."""
+    dt = feats.dtype
+    name = form_name("sparse_conv_fwd", dt, feats.shape[1], weights.shape[2])
+    body = tc_body(dt)
     check_same(name, what, "repeat: bitwise equal", torch.equal(
-        got, window_conv.sparse_conv_fwd(feats, kmap, weights)))
+        got, window_conv.sparse_conv_fwd(feats, kmap, weights)), body)
     n_in = feats.shape[0]
     k0 = int((kmap < n_in).sum(1).argmax())
     dead = kmap.clone()
@@ -625,7 +686,7 @@ def check_k1_flat(what, got, feats, kmap, weights):
     zero = not out[rows].any().item()
     check_same(name, what, f"offset {k0} without live rows: bitwise equal "
                f"to W[{k0}] = 0 {same}, the {int(rows.sum())} rows without "
-               f"a live offset exact zeros {zero}", same and zero)
+               f"a live offset exact zeros {zero}", same and zero, body)
 
 
 def dw_f64(feats, g, kmap_t):
@@ -639,18 +700,24 @@ def dw_f64(feats, g, kmap_t):
 
 def check_dw_tc(table, what, feats, g, kmap_t):
     """`sparse_conv_dw` on its tensor-core body: against `dw_f64` within
-    DW_F64_TOL, a second call equal bit for bit, and the same map with one
-    offset made all sentinels (the densest one): exact zeros there and the
-    first call's bits at every other offset. Returns the first call."""
-    name = "sparse_conv_dw"
+    DW_F64_TOL (bf16) or TF32_F64_TOL (f32, split TF32), a second call
+    equal bit for bit, and the same map with one offset made all sentinels
+    (the densest one): exact zeros there and the first call's bits at every
+    other offset. Returns the first call."""
+    dt = feats.dtype
+    name = form_name("sparse_conv_dw", dt, feats.shape[1], g.shape[1])
+    body = tc_body(dt)
     got = window_conv.sparse_conv_dw(feats, g, kmap_t)
-    table.dw_f64.append(check_f64(table, name, what, got,
-                                  dw_f64(feats, g, kmap_t), DW_F64_TOL))
+    err = check_f64(table, name, what, got, dw_f64(feats, g, kmap_t),
+                    TF32_F64_TOL if dt == torch.float32 else DW_F64_TOL,
+                    body=body)
+    (table.tf32_f64[name] if dt == torch.float32 else table.dw_f64).append(
+        err)
     check_same(name, what, "repeat: bitwise equal", torch.equal(
-        got, window_conv.sparse_conv_dw(feats, g, kmap_t)))
+        got, window_conv.sparse_conv_dw(feats, g, kmap_t)), body)
     check_dead_offset(name, what,
                       lambda km: window_conv.sparse_conv_dw(feats, g, km),
-                      kmap_t, g.shape[0], got)
+                      kmap_t, g.shape[0], got, body)
     return got
 
 
@@ -664,8 +731,11 @@ def check_dw_edges(dev, table, g):
     40 (one warp row of 16 channels, a half 16-column block) and 160 and
     200 (a 32-channel Cin tile, one 256-column tile), the narrow body at 3
     and 32 (the stems' channels) and 24 and 40 (two 16-channel tiles, the
-    second half empty; a 64-column tile with a half 16-column block).
-    Against the plain version (TOL) and `check_dw_tc`."""
+    second half empty; a 64-column tile with a half 16-column block);
+    the wide body in f32 (split TF32) at 48 and 40 and 160 and 200, whose
+    rows and live pairs per split are no multiple of its 8-pair k-step and
+    whose last split is shorter than the others. Against the plain version
+    (TOL) and `check_dw_tc`."""
     n_in, n_g = 9 * window_conv.DW_TC_CHUNK + 77, 7000
     gen = torch.Generator().manual_seed(SEED + 7)
     pick = torch.randint(0, n_g, (5, n_in), generator=gen, dtype=torch.int32)
@@ -673,22 +743,27 @@ def check_dw_edges(dev, table, g):
         [0.3, 1.0, 0.0, 0.0, 0.05])[:, None]
     live[3, -1] = True
     kmap_t = torch.where(live, pick, n_g).to(dev)
-    for cin, cout in ((48, 40), (160, 200), (3, 32), (24, 40)):
-        step = (window_conv.DW_TC_STEP if cin % 16 == 0
+    bf, f32 = torch.bfloat16, torch.float32
+    for cin, cout, dt in ((48, 40, bf), (160, 200, bf), (3, 32, bf),
+                          (24, 40, bf), (48, 40, f32), (160, 200, f32)):
+        step = (8 if dt == f32 else window_conv.DW_TC_STEP if cin % 16 == 0
                 else window_conv.DW_NARROW_TILE)
-        s = window_conv.dw_splits(n_in, 5, cin, cout, tensor_cores=True)
+        s = window_conv.dw_splits(n_in, 5, cin, cout, tensor_cores=True,
+                                  dtype=dt)
         rows = -(-n_in // s)
         require(n_in % step and rows % step and rows > window_conv.DW_TC_CHUNK
-                and s > 1, f"dW edge case {cin}->{cout}: S={s} rows {rows}")
-        f = torch.randn(n_in, cin, generator=gen).to(dev, torch.bfloat16)
-        gd = torch.randn(n_g, cout, generator=gen).to(dev, torch.bfloat16)
+                and s > 1 and (dt == bf or n_in % rows),
+                f"dW edge case {cin}->{cout}: S={s} rows {rows}")
+        f = torch.randn(n_in, cin, generator=gen).to(dev, dt)
+        gd = torch.randn(n_g, cout, generator=gen).to(dev, dt)
         what = (f"edges {cin}->{cout} N_in={n_in} S={s} ({rows} rows per "
-                f"split, step {step})")
+                f"split, the last {n_in - (s - 1) * rows}; step {step})")
         got = check_dw_tc(table, what, f, gd, kmap_t)
         _, ref = conv.conv_bwd_plain(
             f, gd, kmap_t, torch.zeros(5, cin, cout, device=dev), False,
             False)
-        table.check("sparse_conv_dw", what, got, ref, torch.bfloat16)
+        table.check(form_name("sparse_conv_dw", dt, cin, cout), what, got,
+                    ref, dt)
         require(not got[2].any().item() and got[3].any().item(),
                 f"dW {what}: the empty offset and the one-row offset")
 
@@ -830,17 +905,73 @@ def check_im2col_edges(dev, table, g):
         check_im2col_bwd_tc(table, what, f, gd, kmap_t, w, False)
 
 
+def time_f32_convs(table, what, t_name, count, n_dfeats, f, gd, kmap,
+                   kmap_t, wt, w_t, mirror):
+    """K1, d_feats and dW of one conv in f32, timed as device time from
+    CUDA graphs (warm L2) beside one call of the plain version, with bytes
+    at 4 per element and the f32 rate (split TF32) for the bound: added
+    `count` times per train step to the split-TF32 rows, printed only where
+    the CUDA-core bodies run (the stems)."""
+    f32 = torch.float32
+    n_in, n_out = f.shape[0], kmap.shape[1]
+    cin, cout = wt.shape[1], wt.shape[2]
+
+    def rows(name, n):   # the split-TF32 rows take the time, the rest none
+        return n if name.endswith("_tf32") else 0
+
+    def tc_or_cuda(name):
+        return "split TF32" if name.endswith("_tf32") else "CUDA cores"
+
+    nb, fl = conv_work(kmap, n_in, cin, cout, 4, 4)
+    name = form_name("sparse_conv_fwd", f32, cin, cout)
+    table.time(name, f"{what} (f32 {tc_or_cuda(name)})",
+               lambda: window_conv.sparse_conv_fwd(f, kmap, wt),
+               lambda: conv.conv_plain(f, kmap, wt), rows(name, count),
+               reps=3, nbytes=nb, flops=fl, dtype=f32, graph=True)
+    if n_dfeats:
+        nb, fl = conv_work(kmap_t, n_out, cout, cin, 4, 4)
+        name = form_name("sparse_conv_fwd", f32, cout, cin)
+        table.time(name, f"d_feats over {t_name} (f32 {tc_or_cuda(name)})",
+                   lambda: window_conv.sparse_conv_fwd(gd, kmap_t, w_t),
+                   lambda: conv.conv_plain(gd, kmap_t, w_t),
+                   rows(name, n_dfeats), reps=3, nbytes=nb, flops=fl,
+                   dtype=f32, graph=True)
+    nb, fl = conv_work(kmap_t, n_out, cout, cin, 4, 4)
+    name = form_name("sparse_conv_dw", f32, cin, cout)
+    table.time(name, f"{what} (f32 {tc_or_cuda(name)})",
+               lambda: window_conv.sparse_conv_dw(f, gd, kmap_t),
+               lambda: conv.conv_bwd_plain(f, gd, kmap_t, wt, mirror, False),
+               rows(name, count), reps=3, nbytes=nb, flops=fl, dtype=f32,
+               graph=True)
+    # the im2col pair's f32 bodies (CUDA cores, `CSN_DYNG=2/3`), one call
+    # each as the autograd function makes it, summed over the train step
+    fwd_ms = median_ms(
+        lambda: window_conv.sparse_conv_im2col_fwd(f, kmap, wt), reps=3)
+    bwd_ms = median_ms(lambda: conv.conv_im2col_bwd_kernels(
+        f, gd, kmap_t, wt, mirror, n_dfeats > 0), reps=3)
+    table.f32_im2col_ms[0] += count * fwd_ms
+    table.f32_im2col_ms[1] += count * bwd_ms
+    print(f"[time] im2col pair {what} f32 (CUDA cores): forward "
+          f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms per call (x{count} "
+          f"per train step; not in the kernel line)")
+
+
+
 def check_convs(model, big, dev, table, g, timed=True):
     """K1 forward and on the transpose map, and `sparse_conv_dw`, at every
-    (map, Cin, Cout) the model runs; where K1 takes its tensor-core body
-    (bf16), also against a float64 conv of the same operands, and at the
-    stems (its flattened steps) `check_k1_flat`; on the same inputs the
-    im2col pair (`CSN_DYNG=2/3`) against its plain versions and against K1
-    (in bf16 bitwise: one body) / `sparse_conv_dw`; where `sparse_conv_dw`
-    takes its tensor-core bodies (bf16), also `check_dw_tc`, and at the
-    stems its narrow body against the im2col `dw_only` body within
-    DW_F64_TOL; with `timed`, each family's bf16 times are added to the
-    table. Returns the number of convs."""
+    (map, Cin, Cout) the model runs, in f32 and bf16; where K1 takes its
+    tensor-core bodies (bf16; f32 in split TF32 where Cin % 16 == 0), also
+    against a float64 conv of the same operands, and at the stems (its
+    flattened steps) and on the split-TF32 body `check_k1_flat`; on the
+    same inputs the im2col pair (`CSN_DYNG=2/3`) against its plain versions
+    and against K1 (in bf16 bitwise: one body) / `sparse_conv_dw`; where
+    `sparse_conv_dw` takes its tensor-core bodies (the same rule), also
+    `check_dw_tc`, and at the stems its narrow body against the im2col
+    `dw_only` body within DW_F64_TOL; with `timed`, each family's times
+    are added to the table: bf16 as single calls, and K1, d_feats and dW in
+    f32 as device time from CUDA graphs (warm L2; the split-TF32 bodies in
+    their own rows, the f32 stems printed only). Returns the number of
+    convs."""
     convs = {}
     for m in model.modules():
         if isinstance(m, SparseConv):
@@ -862,11 +993,11 @@ def check_convs(model, big, dev, table, g, timed=True):
             w_t = (wt.flip(0) if mirror else wt).transpose(1, 2).contiguous()
             what = f"{name} {cin}->{cout} N_out={kmap.shape[1]}"
             got = window_conv.sparse_conv_fwd(f, kmap, wt)
-            table.check("sparse_conv_fwd", what, got,
-                        conv.conv_plain(f, kmap, wt), dt)
+            table.check(form_name("sparse_conv_fwd", dt, cin, cout), what,
+                        got, conv.conv_plain(f, kmap, wt), dt)
             if window_conv.k1_tensor_cores(dt, cin, cout):
                 check_k1_f64(table, what, got, f, kmap, wt)
-                if cin % 16:
+                if cin % 16 or dt == torch.float32:
                     check_k1_flat(what, got, f, kmap, wt)
             ref_df, ref_dw = conv.conv_bwd_plain(f, gd, kmap_t, wt.float(),
                                                  mirror, n_dfeats > 0)
@@ -874,11 +1005,13 @@ def check_convs(model, big, dev, table, g, timed=True):
                                                    mirror, n_dfeats > 0)
             if n_dfeats:
                 dwhat = f"d_feats over {t_name} {cout}->{cin} N_out={n_in}"
-                table.check("sparse_conv_fwd", dwhat, got_df, ref_df, dt)
+                table.check(form_name("sparse_conv_fwd", dt, cout, cin),
+                            dwhat, got_df, ref_df, dt)
                 if window_conv.k1_tensor_cores(dt, cout, cin):
                     check_k1_f64(table, dwhat, got_df, gd, kmap_t, w_t)
-            table.check("sparse_conv_dw", f"{what} ({t_name}, mirror "
-                        f"{mirror})", got_dw, ref_dw, dt)
+            table.check(form_name("sparse_conv_dw", dt, cin, cout),
+                        f"{what} ({t_name}, mirror {mirror})", got_dw, ref_dw,
+                        dt)
             dw_tc = window_conv.dw_tensor_cores(dt, cin, cout)
             if dw_tc:
                 check_dw_tc(table, f"{what} ({t_name})", f, gd, kmap_t)
@@ -923,7 +1056,11 @@ def check_convs(model, big, dev, table, g, timed=True):
                                     f"{mirror})", f, gd, kmap_t,
                                     wt.flip(0) if mirror else wt,
                                     n_dfeats == 0)
-            if dt != torch.bfloat16 or not timed:
+            if not timed:
+                continue
+            if dt == torch.float32:
+                time_f32_convs(table, what, t_name, count, n_dfeats, f, gd,
+                               kmap, kmap_t, wt, w_t, mirror)
                 continue
             nb, fl = conv_work(kmap, n_in, cin, cout, 2, 2)
             k1_ms = table.time("sparse_conv_fwd", what,
@@ -1953,6 +2090,74 @@ def train_slice(cls, spec, reqs, dev, n_convs, n_stems, do_profile=False):
     torch.cuda.empty_cache()
 
     f32_step_check(cls, spec, dev, "train")
+    return launches
+
+
+def f32_conv_launches(model, train):
+    """Launches per request of the sparse conv kernels' rows in an f32 step
+    of `model`: per conv, K1's forward at (Cin, Cout), and in a train step
+    d_feats at (Cout, Cin) (not at the stem, which reads the raw features)
+    and dW at (Cin, Cout), each in its split-TF32 row where the rule holds
+    (`form_name`), else in the CUDA-core bodies' row."""
+    f32 = torch.float32
+    counts = collections.Counter()
+    for m in model.modules():
+        if isinstance(m, SparseConv):
+            cin, cout = m.kernel.shape[1:]
+            counts[form_name("sparse_conv_fwd", f32, cin, cout)] += 1
+            if train:
+                if m is not model.conv0:
+                    counts[form_name("sparse_conv_fwd", f32, cout,
+                                     cin)] += 1
+                counts[form_name("sparse_conv_dw", f32, cin, cout)] += 1
+    return dict(counts)
+
+
+def f32_slice(cls, reqs, dev, do_profile=False):
+    """Phase 5, f32: the HRNetSimCSN3S eval step and train step at the bench
+    protocol with f32 activations (`--compute_dtype float32`, the JAX
+    package's choice off the TPU): 3 eval requests and 3 train requests
+    (dropout 0.1, SGD) with exact launch counts per kernel body, ms/step
+    over 10 steps of each, and with `do_profile` their device time by
+    kernel. Returns the launch counts of the 3 train requests."""
+    what = f"B={B}, K={K_NEIGHBORS}, f32"
+    model = make_model(cls, "float32", ATTN_DROPOUT).to(dev)
+    kernels.reset_launches()
+    for r, (qb, keys) in enumerate(reqs):
+        loss, point_logits, pred = eval_step(model, qb, keys)
+        res = check_point_outputs(f"f32 eval {r}", loss, point_logits, pred,
+                                  qb)
+        print(f"[f32] eval request {r}: {res}")
+    torch.cuda.synchronize()
+    require_launches("f32 eval", dict(kernels.LAUNCHES), {
+        **f32_conv_launches(model, False), "flash_attn_fwd": 2,
+        "interp_fwd": 1})
+    qb, keys = reqs[0]
+    ms = time_steps("f32 eval", lambda: eval_step(model, qb, keys), what)
+    if do_profile:
+        profile_steps("f32 eval K=1", lambda: eval_step(model, qb, keys),
+                      step_ms=ms)
+    opt = optim.make_optimizer(model.parameters(), "SGD", lr=LR)
+    gen = torch.Generator().manual_seed(SEED)
+    kernels.reset_launches()
+    for r, (qb, keys) in enumerate(reqs):
+        loss, pred = train_step(model, opt, qb, keys, gen)
+        res = check_point_outputs(f"f32 train {r}", loss, None, pred, qb)
+        print(f"[f32] train request {r}: {res}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require_launches("f32 train", launches, {
+        **f32_conv_launches(model, True), "flash_attn_fwd": 2,
+        "flash_attn_bwd": 2, "interp_fwd": 1, "interp_bwd": 1})
+    qb, keys = reqs[0]
+    ms = time_steps("f32 train",
+                    lambda: train_step(model, opt, qb, keys, gen), what)
+    if do_profile:
+        profile_steps("f32 train K=1",
+                      lambda: train_step(model, opt, qb, keys, gen),
+                      step_ms=ms)
+    del model, opt
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3364,6 +3569,14 @@ def main() -> int:
     print(f"[check] sparse_conv_dw bfloat16 (tensor cores) vs float64: "
           f"worst {max(table.dw_f64):.3e} of max|ref| over "
           f"{len(table.dw_f64)} lines (tol {DW_F64_TOL:.0e}) ok")
+    print(f"[time] im2col pair f32 (CUDA cores) over one train step of "
+          f"HRNetSimCSN3S and one of Res16UNet34C: forward "
+          f"{table.f32_im2col_ms[0]:.3f} ms, backward "
+          f"{table.f32_im2col_ms[1]:.3f} ms (single calls)")
+    for name, errs in table.tf32_f64.items():
+        print(f"[check] {name} float32 (split TF32) vs float64: worst "
+              f"{max(errs):.3e} of max|ref| over {len(errs)} lines (tol "
+              f"{TF32_F64_TOL:.0e}) ok")
     for kind, tol in (("out", K1_F64_TOL), ("dW", DW_F64_TOL)):
         errs = table.im2col_f64[kind]
         print(f"[check] im2col pair bfloat16 (tensor cores) {kind} vs "
@@ -3381,6 +3594,8 @@ def main() -> int:
     phase("5 train slice")
     launches = train_slice(cls, spec, reqs, dev, n_convs, n_stems,
                            do_profile)
+    launches_f32 = f32_slice(cls, reqs, dev, do_profile)
+    launches = {k: n + launches_f32[k] for k, n in launches.items()}
     del reqs
     torch.cuda.empty_cache()
 

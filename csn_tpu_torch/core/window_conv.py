@@ -10,22 +10,25 @@ straight from the kernel map:
 
 * K1 (`csn_tpu_torch/csrc/sparse_conv.cu`): one block per tile of output
   rows x output channels, f32 accumulation over all offsets in registers,
-  one store in the activation dtype. bf16 with Cout % 8 == 0 runs on the
-  tensor cores (`mma.sync`, `k1_tensor_cores`): where Cin % 16 == 0 over
-  rows gathered by `cp.async` per (offset, 64 input channels), and at other
-  Cin (the k5 stems' Cin 3) over the im2col forward's flattened steps of
-  K*Cin, gathered element by element, so that K1's stem output is the
-  im2col forward's bit for bit. f32 runs f32 FMAs on the CUDA cores. Plain
-  version: `csn_tpu_torch.core.conv.conv_plain`.
+  one store in the activation dtype. By `k1_tensor_cores` it runs on the
+  tensor cores (`mma.sync`): bf16 with Cout % 8 == 0, where Cin % 16 == 0
+  over rows gathered by `cp.async` per (offset, 64 input channels), and at
+  other Cin (the k5 stems' Cin 3) over the im2col forward's flattened steps
+  of K*Cin, gathered element by element, so that K1's stem output is the
+  im2col forward's bit for bit; f32 with Cin % 16 == 0 and Cout % 8 == 0
+  on the same body in split TF32 (three TF32 products per f32 product,
+  per (offset, 32 input channels)). The f32 stems run f32 FMAs on the CUDA
+  cores. Plain version: `csn_tpu_torch.core.conv.conv_plain`.
 * `sparse_conv_dw` (`csn_tpu_torch/csrc/sparse_conv_bwd.cu`): one block per
   (channel tile, offset, row split), f32 partials per split summed by a
-  second kernel in a fixed order. bf16 by K1's rule runs on the tensor
-  cores (`mma.sync` over the split's live rows only, compacted into a list
-  by warp ballots, g rows gathered by `cp.async`, `dw_tensor_cores`): in
-  64-channel tiles where Cin % 16 == 0, in 16-channel tiles elsewhere (the
-  stems: each lane loads its A fragment of 6-byte feats rows element by
-  element). f32 runs f32 FMAs on the CUDA cores. Plain version: the dW
-  half of `csn_tpu_torch.core.conv.conv_bwd_plain`.
+  second kernel in a fixed order. By K1's rule (`dw_tensor_cores`) it runs
+  on the tensor cores (`mma.sync` over the split's live rows only,
+  compacted into a list by warp ballots, rows gathered by `cp.async`): bf16
+  in 64-channel tiles where Cin % 16 == 0, in 16-channel tiles elsewhere
+  (the stems: each lane loads its A fragment of 6-byte feats rows element
+  by element); f32 in 64-channel tiles in split TF32. The f32 stems run
+  f32 FMAs on the CUDA cores. Plain version: the dW half of
+  `csn_tpu_torch.core.conv.conv_bwd_plain`.
 * `sparse_conv_im2col_fwd` (`csn_tpu_torch/csrc/sparse_conv_im2col.cu`): the
   forward as one product per output tile over the flattened axis K*Cin,
   walked in steps of 64 columns. bf16 by K1's rule runs K1's tensor-core
@@ -84,25 +87,45 @@ def dyng(mode):
 
 
 def k1_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
-    """Whether the sparse conv kernels run their tensor-core bodies: bf16
-    with Cout a multiple of 8, whatever Cin (the k5 stems' Cin 3 included).
-    The C entries `csn_sparse_conv_fwd`, `csn_sparse_conv_dw`,
+    """Whether K1 and `sparse_conv_dw` run their tensor-core bodies: bf16
+    with Cout a multiple of 8, whatever Cin (the k5 stems' Cin 3 included),
+    or f32 with Cin a multiple of 16 and Cout a multiple of 8 (split TF32;
+    every f32 conv of the HRNet and U-Net families but the stems). The C
+    entries `csn_sparse_conv_fwd` and `csn_sparse_conv_dw` choose by this
+    rule; other convs run the CUDA-core bodies."""
+    return cout % 8 == 0 and (dtype == torch.bfloat16
+                              or dtype == torch.float32 and cin % 16 == 0)
+
+
+def k1_split_tf32(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether K1 and `sparse_conv_dw` run their split-TF32 bodies (f32 on
+    the tensor cores), whose launches count apart (`kernels.LAUNCHES`
+    `sparse_conv_fwd_tf32`, `sparse_conv_dw_tf32`)."""
+    return dtype == torch.float32 and k1_tensor_cores(dtype, cin, cout)
+
+
+# dW takes its tensor-core bodies by K1's rule
+dw_tensor_cores = k1_tensor_cores
+
+
+def im2col_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether the im2col pair runs its tensor-core bodies: bf16 with Cout a
+    multiple of 8, whatever Cin (K1's bf16 rule). The C entries
     `csn_sparse_conv_im2col_fwd` and `csn_sparse_conv_im2col_bwd` choose by
-    this rule; f32 runs the CUDA-core bodies."""
+    this rule; f32 runs their CUDA-core bodies."""
     return dtype == torch.bfloat16 and cout % 8 == 0
 
 
-# one rule for every sparse conv kernel (`k1_tensor_cores`)
-dw_tensor_cores = im2col_tensor_cores = k1_tensor_cores
-
-
-def _conv_fwd(what: str, entry: str, feats: torch.Tensor, kmap: torch.Tensor,
-              weights: torch.Tensor, max_offsets=None) -> torch.Tensor:
+def _conv_fwd(what: str, entry: str, tensor_cores, feats: torch.Tensor,
+              kmap: torch.Tensor, weights: torch.Tensor,
+              max_offsets=None) -> torch.Tensor:
     """Check the arguments of a forward conv launcher and launch C entry
     `entry` (`csn_sparse_conv_fwd` or `csn_sparse_conv_im2col_fwd`, one
-    contract). The tensor-core body copies the weights, and feats where
-    Cin % 16 == 0, 16 bytes at a time: it takes only such views that start
-    on a 16-byte boundary."""
+    contract), whose tensor-core bodies run where `tensor_cores(dtype, Cin,
+    Cout)` holds. They copy the weights, and feats where Cin % 16 == 0, 16
+    bytes at a time: they take only such views that start on a 16-byte
+    boundary. The launch counts under `what`, or `what + "_tf32"` where K1
+    runs its split-TF32 body."""
     kernels.require_cuda(what, feats, kmap, weights)
     if feats.dim() != 2 or kmap.dim() != 2 or weights.dim() != 3:
         raise ValueError(f"{what}: want feats [N, Cin], kmap [K, N_out], "
@@ -122,11 +145,12 @@ def _conv_fwd(what: str, entry: str, feats: torch.Tensor, kmap: torch.Tensor,
         raise ValueError(f"{what}: {n_off} offsets; the kernel stages at "
                          f"most {max_offsets}")
     cout = weights.shape[2]
-    if k1_tensor_cores(feats.dtype, cin, cout) and (
+    if tensor_cores(feats.dtype, cin, cout) and (
             weights.data_ptr() % 16 or (cin % 16 == 0
                                         and feats.data_ptr() % 16)):
-        raise ValueError(f"{what}: bf16 weights, and feats where Cin % 16 == "
-                         f"0, must start on a 16-byte boundary (cp.async "
+        raise ValueError(f"{what}: on the tensor cores (bf16, or f32 in "
+                         f"split TF32) the weights, and feats where Cin % 16 "
+                         f"== 0, must start on a 16-byte boundary (cp.async "
                          f"copies)")
     out = torch.empty((n_out, cout), dtype=feats.dtype, device=feats.device)
     code = getattr(kernels.library(), entry)(
@@ -134,7 +158,9 @@ def _conv_fwd(what: str, entry: str, feats: torch.Tensor, kmap: torch.Tensor,
         weights.data_ptr(), out.data_ptr(), n_in, n_out, n_off, cin, cout,
         kernels.stream())
     kernels.check(code, what)
-    kernels.LAUNCHES[what] += 1
+    tf32 = what == "sparse_conv_fwd" and k1_split_tf32(feats.dtype, cin,
+                                                       cout)
+    kernels.LAUNCHES[what + "_tf32" if tf32 else what] += 1
     return out
 
 
@@ -142,17 +168,19 @@ def sparse_conv_fwd(feats: torch.Tensor, kmap: torch.Tensor,
                     weights: torch.Tensor) -> torch.Tensor:
     """Launch K1: feats [N_in, Cin], kmap [K, N_out] int32 (sentinel N_in),
     weights [K, Cin, Cout] of the feats' dtype -> [N_out, Cout]. The
-    tensor-core body takes only bf16 weights, and feats where Cin % 16 ==
-    0, that start on a 16-byte boundary (`_conv_fwd`)."""
-    return _conv_fwd("sparse_conv_fwd", "csn_sparse_conv_fwd", feats, kmap,
-                     weights)
+    tensor-core bodies (`k1_tensor_cores`) take only weights, and feats
+    where Cin % 16 == 0, that start on a 16-byte boundary (`_conv_fwd`)."""
+    return _conv_fwd("sparse_conv_fwd", "csn_sparse_conv_fwd",
+                     k1_tensor_cores, feats, kmap, weights)
 
 
 SMS = 132            # streaming multiprocessors of the H100 SXM
 MIN_SPLIT_ROWS = 1024
 # the dW tensor-core bodies (csrc/sparse_conv_bwd.cu): map entries compacted
 # per refill of the list; the wide body's (Cin % 16 == 0) live rows per
-# product step and warps per SM it aims at; the narrow body's (other Cin)
+# product step and warps per SM it aims at, in bf16 and in f32 (split TF32:
+# its tiles take twice the shared memory, so an SM holds half the warps,
+# 2 blocks of 8 at Cout 256); the narrow body's (other Cin)
 # warps per block, input channels per tile, live rows gathered at once and
 # warps of its grid per SM (several waves: its blocks wait on latency, so
 # more and shorter splits keep the card busier; this gives the 26 splits
@@ -160,6 +188,7 @@ MIN_SPLIT_ROWS = 1024
 DW_TC_CHUNK = 1024
 DW_TC_STEP = 32
 DW_TC_WARPS_PER_SM = 32
+DW_TF32_WARPS_PER_SM = 16
 DW_NARROW_WARPS = 4
 DW_NARROW_CHANNELS = 16
 DW_NARROW_TILE = 256
@@ -183,19 +212,23 @@ def dw_narrow_tiles(cin: int, cout: int) -> int:
 
 
 def dw_splits(n_in: int, n_off: int, cin: int, cout: int,
-              tensor_cores: bool = False) -> int:
+              tensor_cores: bool = False,
+              dtype: torch.dtype = torch.bfloat16) -> int:
     """Row splits S of the dW kernel, with at least MIN_SPLIT_ROWS rows per
     split and at most 64 splits. The CUDA-core body: enough that the grid of
     (channel tiles x offsets x S) blocks puts about two on each SM. The
     tensor-core bodies (`tensor_cores`): the wide one (Cin % 16 == 0), whose
     blocks are 2 WN warps (input channels in tiles of 64, output channels in
-    `col_tiles`), about DW_TC_WARPS_PER_SM warps on each SM; the narrow one
-    (other Cin), blocks of DW_NARROW_WARPS warps per `dw_narrow_tiles`
-    tile, about DW_NARROW_WARPS_PER_SM."""
+    `col_tiles`), about DW_TC_WARPS_PER_SM warps on each SM in bf16 and
+    DW_TF32_WARPS_PER_SM in f32 (`dtype`); the narrow one (other Cin, bf16),
+    blocks of DW_NARROW_WARPS warps per `dw_narrow_tiles` tile, about
+    DW_NARROW_WARPS_PER_SM."""
     if tensor_cores and cin % 16 == 0:
         tiles, wn = col_tiles(cout)
         warps = -(-cin // 64) * tiles * n_off * 2 * wn
-        want = -(-DW_TC_WARPS_PER_SM * SMS // warps)
+        per_sm = (DW_TF32_WARPS_PER_SM if dtype == torch.float32
+                  else DW_TC_WARPS_PER_SM)
+        want = -(-per_sm * SMS // warps)
     elif tensor_cores:
         warps = dw_narrow_tiles(cin, cout) * n_off * DW_NARROW_WARPS
         want = -(-DW_NARROW_WARPS_PER_SM * SMS // warps)
@@ -212,7 +245,9 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
     dtype, kmap_t [K, N_in] int32 (sentinel N_g) -> dW_t [K, Cin, Cout] f32,
     dW_t[k] = feats^T . gather(g, kmap_t[k]). The tensor-core bodies copy
     g rows, and feats rows where Cin % 16 == 0, 16 bytes at a time: they
-    take only such views that start on a 16-byte boundary."""
+    take only such views that start on a 16-byte boundary. The launch
+    counts under `sparse_conv_dw`, or `sparse_conv_dw_tf32` where the
+    split-TF32 body runs."""
     what = "sparse_conv_dw"
     kernels.require_cuda(what, feats, g, kmap_t)
     if feats.dim() != 2 or g.dim() != 2 or kmap_t.dim() != 2 \
@@ -229,10 +264,10 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
     n_off = kmap_t.shape[0]
     tc = dw_tensor_cores(feats.dtype, cin, cout)
     if tc and (g.data_ptr() % 16 or cin % 16 == 0 and feats.data_ptr() % 16):
-        raise ValueError(f"{what}: bf16 g, and feats where Cin % 16 == 0, "
-                         f"must start on a 16-byte boundary (cp.async "
-                         f"copies)")
-    n_split = dw_splits(n_in, n_off, cin, cout, tc)
+        raise ValueError(f"{what}: on the tensor cores (bf16, or f32 in split "
+                         f"TF32) g, and feats where Cin % 16 == 0, must start "
+                         f"on a 16-byte boundary (cp.async copies)")
+    n_split = dw_splits(n_in, n_off, cin, cout, tc, feats.dtype)
     out = torch.empty((n_off, cin, cout), dtype=torch.float32,
                       device=feats.device)
     part = (torch.empty((n_split, n_off, cin, cout), dtype=torch.float32,
@@ -242,7 +277,8 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
         kmap_t.data_ptr(), part.data_ptr(), out.data_ptr(), n_in, n_g, n_off,
         cin, cout, n_split, kernels.stream())
     kernels.check(code, what)
-    kernels.LAUNCHES[what] += 1
+    tf32 = k1_split_tf32(feats.dtype, cin, cout)
+    kernels.LAUNCHES[what + "_tf32" if tf32 else what] += 1
     return out
 
 
@@ -261,10 +297,11 @@ def sparse_conv_im2col_fwd(feats: torch.Tensor, kmap: torch.Tensor,
     """Launch the im2col forward: feats [N_in, Cin], kmap [K, N_out] int32
     (sentinel N_in), weights [K, Cin, Cout] of the feats' dtype ->
     [N_out, Cout] = IC @ weights.reshape(K * Cin, Cout), at most
-    IM2COL_MAX_OFFSETS offsets. Its tensor-core body is K1's, with K1's
-    alignment rule (`_conv_fwd`)."""
+    IM2COL_MAX_OFFSETS offsets. Its tensor-core body is K1's bf16 body,
+    with K1's alignment rule (`_conv_fwd`)."""
     return _conv_fwd("sparse_conv_im2col_fwd", "csn_sparse_conv_im2col_fwd",
-                     feats, kmap, weights, IM2COL_MAX_OFFSETS)
+                     im2col_tensor_cores, feats, kmap, weights,
+                     IM2COL_MAX_OFFSETS)
 
 
 def im2col_bwd_splits(n_in: int, n_off: int, cin: int, cout: int) -> int:

@@ -11,21 +11,28 @@
 // The backward's d_feats is the same function over the transpose map with
 // the paired weights transposed (core/conv.py conv_bwd_kernels).
 //
-// Two bodies, chosen by dtype and shape (as flash_attn.cu chooses by dtype
-// and head dim; a failed launch of either returns its error, there is no
-// retry on the other):
+// Three bodies, chosen by dtype and shape (as flash_attn.cu chooses by
+// dtype and head dim; a failed launch of any returns its error, there is no
+// retry on another; window_conv.k1_tensor_cores is the rule of the first
+// two):
 //  * bf16 with Cout % 8 == 0, whatever Cin (every conv of the HRNet and
 //    U-Net families, the k5 stems' Cin 3 included): the tensor-core body of
 //    sparse_conv_tc.cuh, mma.sync m16n8k16 on bf16 operands with f32
 //    accumulators. Where Cin % 16 == 0 it walks K1's steps (offset, 64
 //    input channels); other Cin (the stems) take the flattened steps of
 //    K*Cin that the im2col forward runs, so K1's stem output is the im2col
-//    forward's bit for bit (window_conv.k1_tensor_cores is the rule);
-//  * f32, and bf16 with Cout % 8 != 0: the CUDA-core body (f32 FMAs) below.
+//    forward's bit for bit;
+//  * f32 with Cin % 16 == 0 and Cout % 8 == 0 (every f32 conv of the HRNet
+//    and U-Net families but the k5 stems): the same body on K1's steps of
+//    32 input channels, mma.sync m16n8k8 on TF32 operands in split TF32
+//    (three products per f32 product, the f32 checks' 1e-4 of max|ref|),
+//    W split in registers as its fragments are loaded;
+//  * f32 at other shapes (the stems' Cin 3), and bf16 with Cout % 8 != 0:
+//    the CUDA-core body (f32 FMAs) below.
 //
 // What bounds it on the H100: per output row and live offset one gathered
 // row of Cin values and 2*Cin*Cout operations; the bound counts each input
-// byte once (chip_smoke.py conv_work). Both bodies do more than that: the
+// byte once (chip_smoke.py conv_work). Every body does more than that: the
 // products run over every row of a tile at each offset where any of its
 // rows is live (a sentinel row is zero-filled: no read, but its products
 // run), and every row tile reads W[k] again (from L2: the W of one conv is
@@ -33,16 +40,17 @@
 // bytes; the flattened steps read it once per row tile into shared memory
 // and gather the 6-byte rows element by element.
 //
-// Tensor-core design: sparse_conv_tc.cuh (K1's steps, FLAT false; the
-// flattened steps, FLAT true), which the im2col forward
-// (sparse_conv_im2col.cu) shares.
+// Tensor-core design: sparse_conv_tc.cuh (K1's steps, FLAT false, bf16 or
+// f32; the flattened steps, FLAT true, bf16), which the im2col forward
+// (sparse_conv_im2col.cu) shares in bf16.
 //
-// CUDA-core design (f32). One block per tile of 64 output rows x 64
-// output channels. The block walks the offsets; per offset it stages the 64
-// source-row indices in shared memory and skips the offset when every one
-// is a sentinel, then walks Cin in chunks of 16: the gathered rows (zeros
-// for a sentinel) and the W[k] slice go to shared memory in f32, and each
-// of the 256 threads accumulates a 4 x 4 register tile.
+// CUDA-core design (the f32 stems; bf16 with Cout % 8 != 0). One block per
+// tile of 64 output rows x 64 output channels. The block walks the
+// offsets; per offset it stages the 64 source-row indices in shared memory
+// and skips the offset when every one is a sentinel, then walks Cin in
+// chunks of 16: the gathered rows (zeros for a sentinel) and the W[k]
+// slice go to shared memory in f32, and each of the 256 threads
+// accumulates a 4 x 4 register tile.
 
 #include "common.cuh"
 #include "sparse_conv_tc.cuh"
@@ -161,9 +169,9 @@ cudaError_t launch(const void* feats, const void* kmap, const void* w,
 }  // namespace
 
 // feats [n_in, cin] and w [n_off, cin, cout] in one type, kmap [n_off,
-// n_out] int32, out [n_out, cout]. The tensor-core body copies w, and feats
-// where Cin % 16 == 0, 16 bytes at a time: those start on a 16-byte
-// boundary.
+// n_out] int32, out [n_out, cout]. The tensor-core bodies copy w, and feats
+// where Cin % 16 == 0 (every f32 conv they take), 16 bytes at a time: those
+// start on a 16-byte boundary.
 extern "C" int csn_sparse_conv_fwd(int dtype, const void* feats,
                                    const void* kmap, const void* w, void* out,
                                    int64_t n_in, int64_t n_out, int n_off,
@@ -176,6 +184,9 @@ extern "C" int csn_sparse_conv_fwd(int dtype, const void* feats,
                                                n_out, n_off, cin, cout, s)
                : csn_conv_tc::launch_tc<true>(feats, kmap, w, out, n_in, n_out,
                                               n_off, cin, cout, s);
+  if (dtype == csn::kF32 && cin % 16 == 0 && cout % 8 == 0)
+    return csn_conv_tc::launch_tc<false, float>(feats, kmap, w, out, n_in,
+                                                n_out, n_off, cin, cout, s);
   if (dtype == csn::kF32)
     return launch<float>(feats, kmap, w, out, n_in, n_out, n_off, cin, cout, s);
   if (dtype == csn::kBF16)

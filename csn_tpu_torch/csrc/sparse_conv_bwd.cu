@@ -17,14 +17,20 @@
 // dW_t is stored in f32. The caller un-mirrors same-level maps (dW = dW_t
 // reversed over k).
 //
-// Two bodies, chosen by dtype and shape by the rule of K1 (sparse_conv.cu;
-// a failed launch returns its error, there is no retry on the other body):
+// Three kinds of body, chosen by dtype and shape by the rule of K1
+// (sparse_conv.cu; window_conv.dw_tensor_cores; a failed launch returns its
+// error, there is no retry on another body):
 //  * bf16 with Cout % 8 == 0, whatever Cin (every conv of the HRNet,
 //    Res16UNet, ResUNet and ResNet families, the k5 stems' Cin 3
 //    included): the tensor-core bodies, mma.sync m16n8k16 on bf16 operands
 //    with f32 accumulators, over the live rows only; the wide body where
 //    Cin % 16 == 0, the narrow one (16-channel tiles) elsewhere;
-//  * f32, and bf16 with Cout % 8 != 0: the CUDA-core body (f32 FMAs).
+//  * f32 with Cin % 16 == 0 and Cout % 8 == 0 (every f32 conv of those
+//    families but the stems): the wide body in split TF32, mma.sync m16n8k8
+//    on TF32 operands, three products per f32 product (flash_tf32.cuh),
+//    both operands split in registers as their fragments are loaded;
+//  * f32 at other shapes (the stems), and bf16 with Cout % 8 != 0: the
+//    CUDA-core body (f32 FMAs).
 //
 // What bounds it on the H100: the same 2*Cin*Cout operations per live (row,
 // offset) pair as the forward; the bound counts each input byte once
@@ -43,10 +49,10 @@
 // windows; here d_feats, an output-stationary conv, and dW, an
 // offset-stationary reduction, want different block shapes.
 //
-// Wide tensor-core design (Cin % 16 == 0). One block per (tile of 64 input
-// channels, tile of BN = 64 WN output channels, offset k, split s), WN =
-// ceil(Cout / 64) up to 4 as K1 picks it (a wider Cout takes several column
-// tiles of equal width).
+// Wide tensor-core design (Cin % 16 == 0, bf16 or f32). One block per
+// (tile of 64 input channels, tile of BN = 64 WN output channels, offset k,
+// split s), WN = ceil(Cout / 64) up to 4 as K1 picks it (a wider Cout takes
+// several column tiles of equal width).
 // Warps of 32 input x 64 output channels (2 x WN of them) hold 64 f32
 // accumulators a lane over the whole split. The rows are the reduction
 // axis, so dead rows are dropped and live ones packed densely:
@@ -55,19 +61,25 @@
 //     the live ones by a warp ballot, and appends their (feats row, g row)
 //     pairs to a list in shared memory at positions from a prefix over the
 //     warps' counts: row order, whatever the timing.
-//  2. It walks the list in steps of STEP pairs. A step gathers the pairs'
-//     feats rows (the tile's 64 channels) and g rows (BN channels) by
-//     cp.async, 16 bytes at a time, into [STEP][64 + 8] and [STEP][BN + 8]
-//     bf16 tiles (flash_tc.cuh's stride: ldmatrix without bank conflicts);
-//     entries past the list's end, and channels past Cin or Cout, are
-//     zero-filled. Two stages: the next step's copies are issued right
-//     after the barrier that publishes this step's, before its products.
+//  2. It walks the list in steps of STEP = 32 pairs. A step gathers the
+//     pairs' feats rows (the tile's 64 channels) and g rows (BN channels)
+//     by cp.async, 16 bytes at a time, into [STEP][64 + pad] and [STEP][BN
+//     + pad] tiles, rows padded by 16 bytes (bf16: flash_tc.cuh's stride,
+//     ldmatrix without bank conflicts; f32: strides of 4 words modulo 32,
+//     so the fragments' 4-byte loads at pairs 2t, 2t + 1 and channel g hit
+//     32 distinct banks); entries past the list's end, and channels past
+//     Cin or Cout, are zero-filled. Two stages: the next step's copies are
+//     issued right after the barrier that publishes this step's, before
+//     its products.
 //     Pairs short of a whole step wait for the next chunk (moved to the
 //     list's front); the split's last step runs with a zero-filled tail.
-//  3. Per 16-row k-step a warp loads A = feats^T (M = its 32 input
+//  3. bf16: per 16-row k-step a warp loads A = feats^T (M = its 32 input
 //     channels, K = rows) by ldmatrix.trans of the [rows][Cin] tile, B by
-//     ldmatrix.trans of the [rows][Cout] tile, and runs up to 16 mma.sync;
-//     channel blocks past Cin or Cout are skipped.
+//     ldmatrix.trans of the [rows][Cout] tile, and runs up to 16 mma.sync.
+//     f32: per 8-row k-step a warp loads and splits its two A fragments
+//     (four 4-byte loads each) and one B fragment at a time (two), and runs
+//     2 x 3 mma.sync per 8 output channels, the small products first.
+//     Channel blocks past Cin or Cout are skipped.
 // A split with no live row does no products and stores zeros. wgmma and TMA
 // are later work.
 //
@@ -103,16 +115,19 @@
 // wait on latency, not on a unit, so more and shorter splits fill the
 // card; 26 measured best at both stems.
 //
-// CUDA-core design (f32). One block per (tile of TM input channels x 64
-// output channels, offset, split) walks its rows in chunks of 16: it stages
-// the chunk's kmap_t entries, skips the chunk when all are sentinels, loads
-// the feats rows and the gathered g rows into shared memory in f32, and
-// each of the 256 threads accumulates a (TM/16) x 4 register tile. TM is
-// 16 for Cin <= 16 (so 3 of 16 rows of the tile, not 3 of 64, are padding)
-// and 64 otherwise.
+// CUDA-core design (the f32 stems; bf16 with Cout % 8 != 0). One block per
+// (tile of TM input channels x 64 output channels, offset, split) walks its
+// rows in chunks of 16: it stages the chunk's kmap_t entries, skips the
+// chunk when all are sentinels, loads the feats rows and the gathered g
+// rows into shared memory in f32, and each of the 256 threads accumulates
+// a (TM/16) x 4 register tile. TM is 16 for Cin <= 16 (so 3 of 16 rows of
+// the tile, not 3 of 64, are padding) and 64 otherwise.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -231,7 +246,8 @@ cudaError_t launch(const void* feats, const void* g, const void* kmap_t,
   return cudaGetLastError();
 }
 
-// --- the tensor-core bodies (bf16, Cout % 8 == 0) ---------------------------
+// --- the tensor-core bodies (bf16 with Cout % 8 == 0; f32 with Cin % 16
+// == 0 and Cout % 8 == 0) -------------------------------------------------
 
 using csn_tc::bf16;
 using csn_tc::cp_async16;
@@ -243,42 +259,54 @@ using csn_tc::mma;
 
 constexpr int CHUNK = 1024;     // map entries compacted per refill of the list
 
-// The wide body (Cin % 16 == 0): channel tiles of 64.
+// The wide body (Cin % 16 == 0): channel tiles of 64, bf16 or f32.
 
 constexpr int TBM = 64;         // input channels per tile
-constexpr int LDA = TBM + 8;    // feats tile row stride (flash_tc.cuh's LDS)
 constexpr int STEP = 32;        // live rows per step (the products' K)
-static_assert(LDA == csn_tc::LDS, "load_a_t reads rows LDS elements apart");
 
-template <int WN>
+template <typename T, int WN>
 struct DwTile {
+  static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int BN = 64 * WN;         // output channels
   static constexpr int THREADS = 64 * WN;    // 2 x WN warps of 32 x 64
   static constexpr int NWARPS = THREADS / 32;
   static constexpr int RPT = WN >= 4 ? 2 : 8 / WN;  // map entries per lane
   static constexpr int PASS = THREADS * RPT;        // per compaction pass
-  static constexpr int LDB = BN + 8;         // g tile row stride
+  static constexpr int VEC = 16 / sizeof(T);        // elements per copy
+  // row strides 16 bytes past the row: bf16 flash_tc.cuh's LDS (ldmatrix
+  // without bank conflicts); f32 4 words modulo 32 (the split-TF32
+  // fragments' 4-byte loads at rows 2t, 2t + 1 and column g, 32 banks)
+  static constexpr int LDA = TBM + VEC;      // feats tile row stride
+  static constexpr int LDB = BN + VEC;       // g tile row stride
   static constexpr int A_ELEMS = STEP * LDA;
   static constexpr int STAGE_ELEMS = A_ELEMS + STEP * LDB;
   static constexpr int LIST = CHUNK + STEP;  // a chunk + what a step left
   // two stages, the list's feats rows and g rows, the warps' counts
   static constexpr size_t SMEM =
-      sizeof(bf16) * 2 * STAGE_ELEMS + sizeof(int32_t) * (2 * LIST + NWARPS);
+      sizeof(T) * 2 * STAGE_ELEMS + sizeof(int32_t) * (2 * LIST + NWARPS);
+  // blocks per SM the registers are sized for: bf16 8 / WN (2 from WN 3);
+  // f32 what its shared memory lets in (about 43, 60, 76 and 92 KB a
+  // block), so that at WN 1-3 the split operands fit in registers (WN 4's
+  // two blocks of 256 threads cap it at 128 and spill a few bytes)
+  static constexpr int MIN_BLOCKS =
+      F32 ? (WN == 1 ? 4 : WN == 2 ? 3 : 2) : (WN >= 3 ? 2 : 8 / WN);
 };
+static_assert(DwTile<bf16, 1>::LDA == csn_tc::LDS,
+              "load_a_t reads rows LDS elements apart");
 
-template <int WN>
-__global__ void __launch_bounds__(64 * WN, WN >= 3 ? 2 : 8 / WN)
-sparse_conv_dw_tc_kernel(const bf16* __restrict__ feats,
-                         const bf16* __restrict__ g,
+template <typename T, int WN>
+__global__ void __launch_bounds__(64 * WN, DwTile<T, WN>::MIN_BLOCKS)
+sparse_conv_dw_tc_kernel(const T* __restrict__ feats,
+                         const T* __restrict__ g,
                          const int32_t* __restrict__ kmap_t,
                          float* __restrict__ part, int64_t n_in, int64_t n_g,
                          int n_off, int cin, int cout,
                          int64_t rows_per_split) {
-  using Tl = DwTile<WN>;
+  using Tl = DwTile<T, WN>;
   constexpr int BN = Tl::BN, THREADS = Tl::THREADS, NWARPS = Tl::NWARPS;
-  constexpr int RPT = Tl::RPT, LDB = Tl::LDB;
+  constexpr int RPT = Tl::RPT, VEC = Tl::VEC, LDA = Tl::LDA, LDB = Tl::LDB;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  T* stages = reinterpret_cast<T*>(smem_raw);
   int32_t* lf = reinterpret_cast<int32_t*>(stages + 2 * Tl::STAGE_ELEMS);
   int32_t* lg = lf + Tl::LIST;
   int32_t* wcnt = lg + Tl::LIST;
@@ -340,18 +368,18 @@ sparse_conv_dw_tc_kernel(const bf16* __restrict__ feats,
 
   // 2. the copies of the step at list entry e0 (of n) into stage st
   auto load = [&](int st, int e0, int n) {
-    bf16* as = stages + st * Tl::STAGE_ELEMS;
-    bf16* bs = as + Tl::A_ELEMS;
+    T* as = stages + st * Tl::STAGE_ELEMS;
+    T* bs = as + Tl::A_ELEMS;
 #pragma unroll
-    for (int i = tid; i < STEP * (TBM / 8); i += THREADS) {
-      const int r = i / (TBM / 8), c = (i % (TBM / 8)) * 8;
+    for (int i = tid; i < STEP * (TBM / VEC); i += THREADS) {
+      const int r = i / (TBM / VEC), c = (i % (TBM / VEC)) * VEC;
       const bool ok = e0 + r < n && c0 + c < cin;
       cp_async16(as + r * LDA + c,
                  feats + (ok ? (int64_t)lf[e0 + r] * cin + c0 + c : 0), ok);
     }
 #pragma unroll
-    for (int i = tid; i < STEP * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+    for (int i = tid; i < STEP * (BN / VEC); i += THREADS) {
+      const int r = i / (BN / VEC), c = (i % (BN / VEC)) * VEC;
       const bool ok = e0 + r < n && n0 + c < cout;
       cp_async16(bs + r * LDB + c,
                  g + (ok ? (int64_t)lg[e0 + r] * cout + n0 + c : 0), ok);
@@ -368,30 +396,68 @@ sparse_conv_dw_tc_kernel(const bf16* __restrict__ feats,
   const int cm = c0 + 32 * wm;   // the warp's first input channel
   const int wc = n0 + 64 * wn;   // and output channel
   const int mi = cm < cin ? min(2, (cin - cm) / 16) : 0;  // 16-channel blocks
+  const int gr = lane >> 2, t = lane & 3;
 
-  // 3. the products of the step in stage st
+  // 3. the products of the step in stage st: A = feats^T (M = the warp's
+  // input channels, K = the step's pairs), B = the gathered g rows
   auto compute = [&](int st) {
     if (mi == 0 || wc >= cout) return;
-    const bf16* as = stages + st * Tl::STAGE_ELEMS;
-    const bf16* bs = as + Tl::A_ELEMS;
+    const T* as = stages + st * Tl::STAGE_ELEMS;
+    const T* bs = as + Tl::A_ELEMS;
+    if constexpr (Tl::F32) {
+      // split TF32 (flash_tf32.cuh), k-steps of 8 pairs: A's fragment
+      // (channel g (+8), pair 2t (+1)) and B's (pair 2t (+1), channel g)
+      // are 4-byte loads of the [pairs][channels] tiles, split in registers
 #pragma unroll
-    for (int ks = 0; ks < STEP / 16; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (i < mi) load_a_t(a[i], as, 32 * wm + 16 * i, ks, lane);
-#pragma unroll
-      for (int nb2 = 0; nb2 < 4; ++nb2) {
-        if (wc + 16 * nb2 >= cout) break;
-        uint32_t b[4];
-        ldsm_x4_t(b, bs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                              LDB +
-                         64 * wn + nb2 * 16 + (lane >> 4) * 8);
+      for (int ks = 0; ks < STEP / 8; ++ks) {
+        csn_tf32::FragA a[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           if (i >= mi) break;
-          mma(acc[i][2 * nb2], a[i], b[0], b[1]);
-          mma(acc[i][2 * nb2 + 1], a[i], b[2], b[3]);
+          const float* p = as + (ks * 8 + 2 * t) * LDA + 32 * wm + 16 * i + gr;
+          csn_tf32::split(p[0], a[i].hi[0], a[i].lo[0]);
+          csn_tf32::split(p[8], a[i].hi[1], a[i].lo[1]);
+          csn_tf32::split(p[LDA], a[i].hi[2], a[i].lo[2]);
+          csn_tf32::split(p[LDA + 8], a[i].hi[3], a[i].lo[3]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          if (wc + 8 * nb >= cout) break;
+          const float* q = bs + (ks * 8 + 2 * t) * LDB + 64 * wn + 8 * nb + gr;
+          csn_tf32::FragB b;
+          csn_tf32::split(q[0], b.hi[0], b.lo[0]);
+          csn_tf32::split(q[LDB], b.hi[1], b.lo[1]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i < mi) csn_tf32::mma_tf32(acc[i][nb], a[i].lo, b.hi);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i < mi) csn_tf32::mma_tf32(acc[i][nb], a[i].hi, b.lo);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i < mi) csn_tf32::mma_tf32(acc[i][nb], a[i].hi, b.hi);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < STEP / 16; ++ks) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (i < mi) load_a_t(a[i], as, 32 * wm + 16 * i, ks, lane);
+#pragma unroll
+        for (int nb2 = 0; nb2 < 4; ++nb2) {
+          if (wc + 16 * nb2 >= cout) break;
+          uint32_t b[4];
+          ldsm_x4_t(b, bs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                LDB +
+                           64 * wn + nb2 * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (i >= mi) break;
+            mma(acc[i][2 * nb2], a[i], b[0], b[1]);
+            mma(acc[i][2 * nb2 + 1], a[i], b[2], b[3]);
+          }
         }
       }
     }
@@ -431,7 +497,6 @@ sparse_conv_dw_tc_kernel(const bf16* __restrict__ feats,
   }
 
   float* out = part + ((int64_t)s * n_off + k) * cin * cout;
-  const int gr = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -448,22 +513,22 @@ sparse_conv_dw_tc_kernel(const bf16* __restrict__ feats,
     }
 }
 
-template <int WN>
+template <typename T, int WN>
 cudaError_t launch_tc_body(const void* feats, const void* g,
                            const void* kmap_t, float* dst, int64_t n_in,
                            int64_t n_g, int n_off, int cin, int cout,
                            int n_split, int64_t rows_per_split,
                            cudaStream_t stream) {
-  using Tl = DwTile<WN>;
+  using Tl = DwTile<T, WN>;
   const cudaError_t err = cudaFuncSetAttribute(
-      sparse_conv_dw_tc_kernel<WN>,
+      sparse_conv_dw_tc_kernel<T, WN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::SMEM);
   if (err != cudaSuccess) return err;
   const unsigned tiles =
       (unsigned)(((cin + TBM - 1) / TBM) * ((cout + Tl::BN - 1) / Tl::BN));
   const dim3 grid(tiles, (unsigned)n_off, (unsigned)n_split);
-  sparse_conv_dw_tc_kernel<WN><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
-      static_cast<const bf16*>(feats), static_cast<const bf16*>(g),
+  sparse_conv_dw_tc_kernel<T, WN><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
+      static_cast<const T*>(feats), static_cast<const T*>(g),
       static_cast<const int32_t*>(kmap_t), dst, n_in, n_g, n_off, cin, cout,
       rows_per_split);
   return cudaGetLastError();
@@ -471,6 +536,7 @@ cudaError_t launch_tc_body(const void* feats, const void* g,
 
 // BN = 64 WN by K1's rule: one column tile up to Cout 256, else
 // ceil(Cout / 256) tiles of equal width
+template <typename T>
 cudaError_t launch_tc(const void* feats, const void* g, const void* kmap_t,
                       float* dst, int64_t n_in, int64_t n_g, int n_off,
                       int cin, int cout, int n_split, int64_t rows_per_split,
@@ -478,9 +544,9 @@ cudaError_t launch_tc(const void* feats, const void* g, const void* kmap_t,
   const int n64 = (cout + 63) / 64;
   const int tiles = (n64 + 3) / 4;
   const int wn = (n64 + tiles - 1) / tiles;
-#define CSN_TC(WN)                                                      \
-  return launch_tc_body<WN>(feats, g, kmap_t, dst, n_in, n_g, n_off, cin, \
-                            cout, n_split, rows_per_split, stream)
+#define CSN_TC(WN)                                                         \
+  return launch_tc_body<T, WN>(feats, g, kmap_t, dst, n_in, n_g, n_off, cin, \
+                               cout, n_split, rows_per_split, stream)
   if (wn == 1) CSN_TC(1);
   if (wn == 2) CSN_TC(2);
   if (wn == 3) CSN_TC(3);
@@ -763,8 +829,8 @@ cudaError_t launch_narrow(const void* feats, const void* g,
 // feats [n_in, cin] and g [n_g, cout] of one type, kmap_t [n_off, n_in]
 // int32 (sentinel n_g), part [n_split, n_off, cin, cout] f32 scratch
 // (unused when n_split == 1), out [n_off, cin, cout] f32. The tensor-core
-// bodies copy g, and feats where Cin % 16 == 0, 16 bytes at a time: those
-// start on a 16-byte boundary.
+// bodies copy g, and feats where Cin % 16 == 0 (every f32 conv they take),
+// 16 bytes at a time: those start on a 16-byte boundary.
 extern "C" int csn_sparse_conv_dw(int dtype, const void* feats, const void* g,
                                   const void* kmap_t, void* part, void* out,
                                   int64_t n_in, int64_t n_g, int n_off,
@@ -779,10 +845,14 @@ extern "C" int csn_sparse_conv_dw(int dtype, const void* feats, const void* g,
   const bool tm16 = cin <= 16;  // the CUDA-core body's channel tile
   cudaError_t err;
   if (dtype == csn::kBF16 && cout % 8 == 0)
-    err = cin % 16 == 0 ? launch_tc(feats, g, kmap_t, dst, n_in, n_g, n_off,
-                                    cin, cout, n_split, rows, s)
-                        : launch_narrow(feats, g, kmap_t, dst, n_in, n_g,
-                                        n_off, cin, cout, n_split, rows, s);
+    err = cin % 16 == 0
+              ? launch_tc<bf16>(feats, g, kmap_t, dst, n_in, n_g, n_off, cin,
+                                cout, n_split, rows, s)
+              : launch_narrow(feats, g, kmap_t, dst, n_in, n_g, n_off, cin,
+                              cout, n_split, rows, s);
+  else if (dtype == csn::kF32 && cin % 16 == 0 && cout % 8 == 0)
+    err = launch_tc<float>(feats, g, kmap_t, dst, n_in, n_g, n_off, cin, cout,
+                           n_split, rows, s);
   else if (dtype == csn::kF32)
     err = tm16 ? launch<float, 16>(feats, g, kmap_t, dst, n_in, n_g, n_off,
                                    cin, cout, n_split, rows, s)

@@ -1,7 +1,15 @@
 // The tensor-core body of the sparse conv forward, shared by K1
-// (sparse_conv.cu) and the im2col forward (sparse_conv_im2col.cu), both at
-// bf16 with Cout % 8 == 0 and any Cin: out = IC @ W.reshape(K*Cin, Cout) in
-// bf16 with f32 accumulation, mma.sync m16n8k16.
+// (sparse_conv.cu) and the im2col forward (sparse_conv_im2col.cu): out =
+// IC @ W.reshape(K*Cin, Cout) with f32 accumulation, in two element types.
+//  * bf16 with Cout % 8 == 0 and any Cin (K1 and the im2col forward):
+//    mma.sync m16n8k16 on bf16 operands;
+//  * f32 with Cin % 16 == 0 and Cout % 8 == 0 (K1 only): mma.sync m16n8k8
+//    on TF32 operands in split TF32 (flash_tf32.cuh): each f32 operand is
+//    split in registers, as its fragment is loaded, into hi = tf32(x) and lo
+//    = x - hi, and a . b ~= a_lo . b_hi + a_hi . b_lo + a_hi . b_hi, the
+//    small products first, into one f32 accumulator. W is split again by
+//    every row tile that loads it (two instructions per value, against
+//    three products per fragment pair), so no kernel splits it ahead.
 //
 // One block per tile of BM output rows x BN output channels, BN = 64 WN with
 // WN = ceil(Cout / 64) up to 4 (a wider Cout takes several column tiles,
@@ -10,42 +18,62 @@
 // warps and W[k] is read again by every 64 rows, else WM = 2, halved where
 // the kmap slab of many offsets would not fit (launch_tc_body). Warps of
 // 32 rows x 64 channels (WM x WN of them) hold 64 f32 accumulators a lane
-// over all steps; each output element is stored once in bf16, by exactly one
-// block (no atomics: the same result on every run). An output element's sum
-// does not depend on WM, so a smaller WM gives the same bits.
+// over all steps; each output element is stored once in the activation
+// type, by exactly one block (no atomics: the same result on every run).
+// An output element's sum does not depend on WM, so a smaller WM gives the
+// same bits.
 //  1. The block copies the tile's kmap rows of every offset into shared
 //     memory (cp.async, 4 bytes each, all in flight together), marks
 //     sentinels and rows past n_out, and finds the offsets with a live row
-//     (a warp vote per offset).
-//  2. It walks the steps of the contraction axis, 64 columns each, and
-//     skips the steps that hold no live offset:
-//     * K1's steps (FLAT false, Cin % 16 == 0): (live offset k, chunk of 64
-//       input channels). A step gathers its BM source rows straight from
-//       device memory / L2 by cp.async, 16 bytes at a time (a sentinel row
-//       zero-filled, no read);
-//     * flattened steps (FLAT true, Cin % 16 != 0: the k5 stem's Cin 3):
-//       the columns j0 .. j0+63 of the flattened axis K*Cin, which span
-//       offsets (the stem's 375 columns are 6 steps where a walk by offset
-//       would take 125 that are 3 deep). Rows of Cin bf16 values are not 16-byte pieces, so the
-//       step gathers element by element (2-byte loads; zero for a sentinel
-//       and for the padding past K*Cin).
+//     (a warp vote per offset; f32: per offset and m16 tile).
+//  2. It walks the steps of the contraction axis, TBK columns each (64
+//     bf16 or 32 f32: 128 bytes of a row), and skips the steps that hold no
+//     live offset:
+//     * K1's steps (FLAT false, Cin % 16 == 0): (live offset k, chunk of
+//       TBK input channels). A step gathers its BM source rows straight
+//       from device memory / L2 by cp.async, 16 bytes at a time (a sentinel
+//       row zero-filled, no read);
+//     * flattened steps (FLAT true, bf16 with Cin % 16 != 0: the k5 stem's
+//       Cin 3): the columns j0 .. j0+63 of the flattened axis K*Cin, which
+//       span offsets (the stem's 375 columns are 6 steps where a walk by
+//       offset would take 125 that are 3 deep). Rows of Cin bf16 values are
+//       not 16-byte pieces, so the step gathers element by element (2-byte
+//       loads; zero for a sentinel and for the padding past K*Cin).
 //     W's rows of the step (contiguous in W.reshape(K*Cin, Cout) either
-//     way) come by cp.async 16 bytes at a time. The tiles are [rows][64 + 8]
-//     and [64][BN + 8] bf16 (rows 16 bytes apart modulo 128: ldmatrix
-//     without bank conflicts, flash_tc.cuh's stride). Two stages: the next
-//     step's copies are issued right after the barrier that publishes this
-//     step's, before this step's products.
-//  3. Per 16-column k-step a warp loads its A fragments (ldmatrix) and the
-//     B fragments of its 64 channels (ldmatrix.trans of the W tile) and
-//     runs 16 mma.sync; channel blocks past Cout are skipped.
+//     way) come by cp.async 16 bytes at a time. Two stages: the next step's
+//     copies are issued right after the barrier that publishes this step's,
+//     before this step's products.
+//  3. The products of a step, per k-step of 16 (bf16) or 8 (f32) columns:
+//     * bf16: the tiles are [rows][64 + 8] and [64][BN + 8] (rows 16 bytes
+//       apart modulo 128: ldmatrix without bank conflicts, flash_tc.cuh's
+//       stride); a warp loads its A fragments (ldmatrix) and the B
+//       fragments of its 64 channels (ldmatrix.trans of the W tile) and
+//       runs 16 mma.sync;
+//     * f32: the tiles are [rows][32 + 8] and [32][BN + 4] words, so the
+//       fragments' loads (flash_tf32.cuh's layout: A two 8-byte loads at
+//       rows g, g + 8 and columns 2t, 2t + 1; B two 4-byte loads at rows
+//       2t, 2t + 1 and column g) hit 32 distinct banks, strides 8 and 4
+//       modulo 32 words; a warp splits its 2 A fragments and one B
+//       fragment at a time and runs 2 x 3 mma.sync per 8 channels into a
+//       fresh fragment, which an f32 add puts into the running sum (the
+//       tensor cores truncate the sum of every mma.sync). Three
+//       products make the tensor cores the limit, so a warp skips an m16
+//       tile whose 16 rows are all sentinels at the step's offset (step 1
+//       keeps a bit per m16 tile and offset): its products would add exact
+//       zeros. Live rows are sparse at most offsets (a quarter of the map
+//       entries at HRNet's same-level maps, under a tenth at its up maps).
+//     Channel blocks past Cout are skipped.
 // A product runs over every row of the tile at each step that holds a live
 // offset (a sentinel row is zero-filled: no read, but its products run).
 // The TPU kernel's windows, one-hot matmuls and job worklists are not
 // carried over: a GPU gathers rows directly. wgmma and TMA are later work.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32.cuh"
 
 // Internal linkage: each .cu that includes this header gets its own kernels.
 namespace csn_conv_tc {
@@ -61,9 +89,23 @@ using csn_tc::mma;
 using csn_tc::pack;
 using csn_tc::smem_addr;
 
-constexpr int TBK = 64;          // columns of the contraction axis per step
-constexpr int LDA = TBK + 8;     // A tile row stride (flash_tc.cuh's LDS)
 constexpr int MAX_SMEM = 232448; // dynamic shared memory a block may opt in
+
+// The tiles of one element type: TBK columns of the contraction axis per
+// step (128 bytes of a row), the A tile's row stride LDA and the W tile's
+// row padding PAD_B (bf16: flash_tc.cuh's LDS; f32: strides of 8 and 4
+// words modulo 32, see 3. above), elements per 16-byte copy VEC and per
+// k-step KS.
+template <typename T>
+struct TcType;
+template <>
+struct TcType<bf16> {
+  static constexpr int TBK = 64, LDA = TBK + 8, PAD_B = 8, VEC = 8, KS = 16;
+};
+template <>
+struct TcType<float> {
+  static constexpr int TBK = 32, LDA = TBK + 8, PAD_B = 4, VEC = 4, KS = 8;
+};
 
 // 4 bytes global -> shared, zero-filled when !ok (no global read then)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -73,33 +115,90 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(ok ? 4 : 0));
 }
 
-template <int WM, int WN>
+template <typename T, int WM, int WN>
 struct TcTile {
   static constexpr int BM = 32 * WM;  // output rows
   static constexpr int BN = 64 * WN;  // output channels
   static constexpr int THREADS = 32 * WM * WN;
-  static constexpr int LDB = BN + 8;  // W tile row stride
+  static constexpr int TBK = TcType<T>::TBK, LDA = TcType<T>::LDA;
+  static constexpr int LDB = BN + TcType<T>::PAD_B;  // W tile row stride
   static constexpr int A_ELEMS = BM * LDA;
   static constexpr int STAGE_ELEMS = A_ELEMS + TBK * LDB;
   // two stages, then the kmap slab [n_off][BM] and the live flags [n_off]
   static size_t smem_bytes(int n_off) {
-    return sizeof(bf16) * 2 * STAGE_ELEMS +
+    return sizeof(T) * 2 * STAGE_ELEMS +
            sizeof(int32_t) * ((size_t)n_off * BM + n_off);
   }
 };
 
-template <int WM, int WN, bool FLAT>
+// The f32 products of one step (nks k-steps of 8 columns, at most TBK / 8)
+// of a warp's 32 rows x 64 channels in split TF32, for the m16 tiles of
+// mask MT (bit i: rows 16 i .. 16 i + 15 of the warp; a tile of sentinel
+// rows would add exact zeros and is left out). One instantiation per mask
+// keeps every accumulator index a constant. The three products of a k-step
+// go into a fresh fragment, added to the running sum by an f32 add: the
+// tensor cores truncate each mma.sync's sum, which over the thousands of
+// k-steps of a 512-channel, 27-offset output (3 x 1728 mma.sync into one
+// accumulator) came within 3 % of the f32 checks' 1e-4 of max|ref|; added
+// once per k-step in round-to-nearest, the error stays near the CUDA-core
+// body's.
+template <int MT, int TBK, int LDA, int LDB>
+__device__ __forceinline__ void tf32_step(float (&acc)[2][8][4],
+                                          const float* as, const float* bs,
+                                          int nks, int wm, int wn, int wc,
+                                          int cout, int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < TBK / 8; ++ks) {
+    if (ks >= nks) break;
+    csn_tf32::FragA a[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!(MT >> i & 1)) continue;
+      const float* p = as + (32 * wm + 16 * i + g) * LDA + ks * 8 + 2 * t;
+      csn_tf32::split_a(a[i], csn_tf32::ld2(p), csn_tf32::ld2(p + 8 * LDA));
+    }
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      if (wc + 8 * nb >= cout) break;
+      const float* q = bs + (ks * 8 + 2 * t) * LDB + 64 * wn + 8 * nb + g;
+      csn_tf32::FragB b;
+      csn_tf32::split(q[0], b.hi[0], b.lo[0]);
+      csn_tf32::split(q[LDB], b.hi[1], b.lo[1]);
+      float part[2][4] = {};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (MT >> i & 1) csn_tf32::mma_tf32(part[i], a[i].lo, b.hi);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (MT >> i & 1) csn_tf32::mma_tf32(part[i], a[i].hi, b.lo);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (MT >> i & 1) csn_tf32::mma_tf32(part[i], a[i].hi, b.hi);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (MT >> i & 1)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][nb][e] += part[i][e];
+    }
+  }
+}
+
+template <typename T, int WM, int WN, bool FLAT>
 __global__ void __launch_bounds__(32 * WM * WN, 2)
-sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
+sparse_conv_fwd_tc_kernel(const T* __restrict__ feats,
                           const int32_t* __restrict__ kmap,
-                          const bf16* __restrict__ w, bf16* __restrict__ out,
+                          const T* __restrict__ w, T* __restrict__ out,
                           int64_t n_in, int64_t n_out, int n_off, int cin,
                           int cout) {
-  using Tl = TcTile<WM, WN>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  static_assert(!(F32 && FLAT), "the flattened steps are bf16 only");
+  using Tl = TcTile<T, WM, WN>;
   constexpr int BM = Tl::BM, BN = Tl::BN, THREADS = Tl::THREADS;
-  constexpr int LDB = Tl::LDB, NWARPS = THREADS / 32;
+  constexpr int TBK = Tl::TBK, LDA = Tl::LDA, LDB = Tl::LDB;
+  constexpr int VEC = TcType<T>::VEC, KS = TcType<T>::KS;
+  constexpr int NWARPS = THREADS / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  T* stages = reinterpret_cast<T*>(smem_raw);
   int32_t* src = reinterpret_cast<int32_t*>(stages + 2 * Tl::STAGE_ELEMS);
   int32_t* live = src + (size_t)n_off * BM;
 
@@ -125,9 +224,16 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
       const int v = src[k * BM + r];
       const bool ok = m0 + r < n_out && v >= 0 && v < n_in;
       src[k * BM + r] = ok ? v : -1;
-      any |= ok;
+      if constexpr (F32) {
+        // bit j: a live row among rows 16 j .. 16 j + 15 (the m16 tiles;
+        // rows r of this pass are 32 (r / 32) + lane)
+        const unsigned b = __ballot_sync(0xffffffffu, ok);
+        any |= ((b & 0xffffu ? 1 : 0) | (b >> 16 ? 2 : 0)) << (2 * (r / 32));
+      } else {
+        any |= ok;
+      }
     }
-    any = __any_sync(0xffffffffu, any);
+    if constexpr (!F32) any = __any_sync(0xffffffffu, any);
     if (lane == 0) live[k] = any;
   }
   __syncthreads();
@@ -143,8 +249,8 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
   // and the matching kk x BN rows of W (channels past Cout zero-filled)
   auto load = [&](int st, int k, int c0) {
     const int kk = depth(k, c0);
-    bf16* as = stages + st * Tl::STAGE_ELEMS;
-    bf16* bs = as + Tl::A_ELEMS;
+    T* as = stages + st * Tl::STAGE_ELEMS;
+    T* bs = as + Tl::A_ELEMS;
     if constexpr (FLAT) {
       // a thread keeps its columns (one (offset, channel) division each)
       // and walks rows, CT columns and RT rows per pass of the block; all
@@ -155,9 +261,9 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
         const int j = k + c;
         const int o = j < kc ? j / cin : n_off;  // n_off: padding, zeros
         const int32_t* rows = src + (size_t)min(o, n_off - 1) * BM;
-        const bf16* fc = feats + (j - o * cin);
+        const T* fc = feats + (j - o * cin);
         constexpr int NQ = (BM + RT - 1) / RT;
-        bf16 v[NQ];
+        T v[NQ];
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
           const int r = tid / CT + q * RT;
@@ -171,8 +277,8 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
     } else {
       const int32_t* rows = src + k * BM;
 #pragma unroll
-      for (int i = tid; i < BM * (TBK / 8); i += THREADS) {
-        const int r = i / (TBK / 8), c = (i % (TBK / 8)) * 8;
+      for (int i = tid; i < BM * (TBK / VEC); i += THREADS) {
+        const int r = i / (TBK / VEC), c = (i % (TBK / VEC)) * VEC;
         if (c < kk) {
           const int s = rows[r];
           cp_async16(as + r * LDA + c,
@@ -182,10 +288,10 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
       }
     }
     const int64_t w_row = FLAT ? (int64_t)k : (int64_t)k * cin + c0;
-    const bf16* wk = w + w_row * cout;
+    const T* wk = w + w_row * cout;
 #pragma unroll
-    for (int i = tid; i < TBK * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+    for (int i = tid; i < TBK * (BN / VEC); i += THREADS) {
+      const int r = i / (BN / VEC), c = (i % (BN / VEC)) * VEC;
       if (r < kk) {
         const bool ok = n0 + c < cout && (!FLAT || k + r < kc);
         cp_async16(bs + r * LDB + c,
@@ -220,6 +326,7 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
   const int wc = n0 + 64 * wn;  // the warp's first output channel
+  const int g = lane >> 2, t = lane & 3;
 
   // 2.-3. the steps: one barrier each, which publishes this step's tiles and
   // orders every warp's reads of the other stage before its next copy
@@ -237,12 +344,22 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
     __syncthreads();
     if (k2 < k_end) load(st ^ 1, k2, c2);
     cp_async_commit();
-    const bf16* as = stages + st * Tl::STAGE_ELEMS;
-    const bf16* bs = as + Tl::A_ELEMS;
-    const int nks = depth(k, c0) / 16;
-    if (wc < cout) {
+    const T* as = stages + st * Tl::STAGE_ELEMS;
+    const T* bs = as + Tl::A_ELEMS;
+    const int nks = depth(k, c0) / KS;
+    if constexpr (F32) {
+      // the warp's m16 tiles with a live row at offset k: a tile of
+      // sentinel rows (zero-filled A) would add exact zeros
+      const int mt = live[k] >> (2 * wm) & 3;
+      if (wc < cout && mt == 3)
+        tf32_step<3, TBK, LDA, LDB>(acc, as, bs, nks, wm, wn, wc, cout, g, t);
+      else if (wc < cout && mt == 1)
+        tf32_step<1, TBK, LDA, LDB>(acc, as, bs, nks, wm, wn, wc, cout, g, t);
+      else if (wc < cout && mt == 2)
+        tf32_step<2, TBK, LDA, LDB>(acc, as, bs, nks, wm, wn, wc, cout, g, t);
+    } else if (wc < cout) {
 #pragma unroll
-      for (int ks = 0; ks < TBK / 16; ++ks) {
+      for (int ks = 0; ks < TBK / KS; ++ks) {
         if (ks >= nks) break;
         uint32_t a[2][4];
 #pragma unroll
@@ -268,7 +385,6 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
   }
   cp_async_wait<0>();  // no copy outlives the block
 
-  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -278,7 +394,11 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const int col = wc + 8 * n + 2 * t;
-        if (col < cout)
+        if (col >= cout) continue;
+        if constexpr (F32)
+          *reinterpret_cast<float2*>(out + row * cout + col) =
+              make_float2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
+        else
           *reinterpret_cast<uint32_t*>(out + row * cout + col) =
               pack(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
       }
@@ -289,27 +409,28 @@ sparse_conv_fwd_tc_kernel(const bf16* __restrict__ feats,
 // offsets does not fit beside the stages (the im2col wrapper takes up to
 // 640 offsets; at the models' 125 or fewer every tile fits). An output
 // element's sum does not depend on WM, so the bits are the same either way.
-template <int WM, int WN, bool FLAT>
+template <typename T, int WM, int WN, bool FLAT>
 cudaError_t launch_tc_body(const void* feats, const void* kmap, const void* w,
                            void* out, int64_t n_in, int64_t n_out, int n_off,
                            int cin, int cout, cudaStream_t stream) {
-  using Tl = TcTile<WM, WN>;
+  using Tl = TcTile<T, WM, WN>;
   const size_t smem = Tl::smem_bytes(n_off);
   if constexpr (WM > (WN == 1 ? 2 : 1)) {
     if (smem > MAX_SMEM)
-      return launch_tc_body<WM / 2, WN, FLAT>(feats, kmap, w, out, n_in,
-                                              n_out, n_off, cin, cout, stream);
+      return launch_tc_body<T, WM / 2, WN, FLAT>(
+          feats, kmap, w, out, n_in, n_out, n_off, cin, cout, stream);
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      sparse_conv_fwd_tc_kernel<WM, WN, FLAT>,
+      sparse_conv_fwd_tc_kernel<T, WM, WN, FLAT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((n_out + Tl::BM - 1) / Tl::BM),
                   (unsigned)((cout + Tl::BN - 1) / Tl::BN));
-  sparse_conv_fwd_tc_kernel<WM, WN, FLAT><<<grid, Tl::THREADS, smem, stream>>>(
-      static_cast<const bf16*>(feats), static_cast<const int32_t*>(kmap),
-      static_cast<const bf16*>(w), static_cast<bf16*>(out), n_in, n_out,
-      n_off, cin, cout);
+  sparse_conv_fwd_tc_kernel<T, WM, WN, FLAT>
+      <<<grid, Tl::THREADS, smem, stream>>>(
+          static_cast<const T*>(feats), static_cast<const int32_t*>(kmap),
+          static_cast<const T*>(w), static_cast<T*>(out), n_in, n_out, n_off,
+          cin, cout);
   return cudaGetLastError();
 }
 
@@ -322,15 +443,16 @@ int tc_wn(int cout) {
 }
 
 // The tiles of both entries: BM = 128 at WN = 1, else 64 (fewer rows
-// where the kmap slab needs it, launch_tc_body)
-template <bool FLAT>
+// where the kmap slab needs it, launch_tc_body). T = float: K1's steps
+// only (FLAT false).
+template <bool FLAT, typename T = bf16>
 cudaError_t launch_tc(const void* feats, const void* kmap, const void* w,
                       void* out, int64_t n_in, int64_t n_out, int n_off,
                       int cin, int cout, cudaStream_t stream) {
   const int wn = tc_wn(cout);
-#define CSN_TC(WM, WN)                                                   \
-  return launch_tc_body<WM, WN, FLAT>(feats, kmap, w, out, n_in, n_out, \
-                                      n_off, cin, cout, stream)
+#define CSN_TC(WM, WN)                                                      \
+  return launch_tc_body<T, WM, WN, FLAT>(feats, kmap, w, out, n_in, n_out, \
+                                         n_off, cin, cout, stream)
   if (wn == 1) CSN_TC(4, 1);
   if (wn == 2) CSN_TC(2, 2);
   if (wn == 3) CSN_TC(2, 3);

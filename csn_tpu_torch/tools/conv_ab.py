@@ -2,7 +2,7 @@
 kernels side by side on one card.
 
     python -m csn_tpu_torch.tools.conv_ab OTHER_ROOT \
-        [--kernels conv|interp|flash|probes]
+        [--kernels conv|interp|flash|probes|steps]
 
 OTHER_ROOT is another checkout of this repo, for example `git archive` of
 the parent commit unpacked into a git-ignored directory. Each checkout runs
@@ -10,7 +10,10 @@ in its own process with its own kernel build, in the order other, this,
 this, other. A run times K1 (`sparse_conv_fwd`), `sparse_conv_dw` and the
 im2col pair (`sparse_conv_im2col_fwd`, and the backward through
 `conv_im2col_bwd_kernels`) on seeded bf16 inputs at conv shapes of
-HRNetSimCSN3S and Res16UNet34C, and the interpolation pair (`interp_fwd`,
+HRNetSimCSN3S and Res16UNet34C, and K1 and `sparse_conv_dw` again on the
+same inputs in f32 (device time from CUDA graphs, warm L2 and from device
+memory: the f32 form, split TF32 on the tensor cores where Cin % 16 == 0,
+whose bits are not another body's), and the interpolation pair (`interp_fwd`,
 `interp_bwd`) on the corner table of one HRNetSimCSN3S query batch (8
 shapes of 10000 points, built once by this checkout and handed to both) at
 39 and 256 channels in f32 and bf16 (CUDA-event medians per call over
@@ -25,7 +28,12 @@ geometry, 352 tiles x 9 offsets x 256 rows x 128 channels, with the bf16
 window at W = 384 and the f32 window at W = 384 and 256, row ids outside
 the window mixed in; `probe_window_gather` at [384, 128] f32 and bf16 in
 both layouts; device time from CUDA graphs, warm L2 and from device
-memory), and hashes every output. The script
+memory), and the HRNetSimCSN3S eval and train steps with f32 activations
+at the bench protocol (`--kernels steps`: 8 query shapes of 10000 points,
+K=1, voxel 0.05, level-0 cap 5632, k5 stem, d_model 256 in 4 heads, 39
+classes, dropout 0.1, SGD; ms per step on the host clock, and the device
+ms per step of K1, `sparse_conv_dw` and the rest from `torch.profiler`),
+and hashes every output. The script
 prints each run's times, whether each kernel's outputs are bitwise equal
 across the checkouts and between two launches in one run, and the
 registers ptxas reports for the kernels of `csrc/sparse_conv.cu`,
@@ -47,6 +55,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 # (rows, offsets, Cin, Cout): HRNetSimCSN3S's levels at 64, 128 and 256
@@ -58,7 +67,8 @@ SEED = 7
 REGISTER_SOURCES = {"conv": ("sparse_conv.cu", "sparse_conv_bwd.cu"),
                     "interp": ("interp.cu", "interp_bwd.cu"),
                     "flash": ("flash_attn.cu", "flash_attn_bwd.cu"),
-                    "probes": ("probe_gather.cu",)}
+                    "probes": ("probe_gather.cu",),
+                    "steps": ()}
 FAMILIES = tuple(REGISTER_SOURCES)
 INTERP_WIDTHS = (39, 256)   # the HRNet heads' classes, the extraction chain
 # the HRNet SSA call: (K + 1) B shapes, 4 heads of 64, the level-3 cap
@@ -147,6 +157,17 @@ def conv_worker(reps: int) -> dict:
         }
         res[f"{n}x{k} {cin}->{cout}"] = {
             name: _entry(fn, reps) for name, fn in calls.items()}
+        # the f32 form on the same values
+        f32, g32 = f.float(), gd.float()
+        calls = {
+            "sparse_conv_fwd": lambda: window_conv.sparse_conv_fwd(f32, kmap,
+                                                                   w32),
+            "sparse_conv_dw": lambda: window_conv.sparse_conv_dw(f32, g32,
+                                                                 kmap_t),
+        }
+        res[f"{n}x{k} {cin}->{cout} f32"] = {
+            name: _entry(fn, reps, graph_ms, cold={"cold": True})
+            for name, fn in calls.items()}
     return res
 
 
@@ -269,6 +290,77 @@ def probe_worker(reps: int) -> dict:
     return res
 
 
+# the f32 steps: chip_smoke.py's protocol (the JAX package's bench.py)
+STEP_SHAPES, STEP_POINTS, STEP_DROPOUT, STEP_LR = 8, 10000, 0.1, 0.05
+# device kernels of the sparse conv by name: K1's bodies, then dW's
+STEP_KERNELS = (("K1", ("sparse_conv_fwd",)),
+                ("sparse_conv_dw", ("sparse_conv_dw", "sum_splits")))
+
+
+def steps_worker(reps: int) -> dict:
+    """The current checkout's HRNetSimCSN3S eval and train steps with f32
+    activations at STEP_SHAPES query shapes of STEP_POINTS points, K=1:
+    {step: {"ms": [ms per step], device ms per step by STEP_KERNELS and
+    "rest": [ms]}}. The step time is the host clock over `reps` steps
+    ending in a synchronize, after 3 warm-up steps; the device times come
+    from one more step under torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from csn_tpu_torch.core.pyramid import to_torch
+    from csn_tpu_torch.data import pipeline
+    from csn_tpu_torch.data.synthetic import make_surface_shape
+    from csn_tpu_torch.models import load_model
+    from csn_tpu_torch.train import optim
+    from csn_tpu_torch.train.steps import eval_step, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cls = load_model("HRNetSimCSN3S")
+    spec = pipeline.pyramid_spec_for_model(
+        cls, num_points=STEP_POINTS, voxel_size=0.05, conv1_kernel_size=5,
+        level0_cap=5632, shrink=3.0)
+    rng = np.random.default_rng(SEED)
+    qb, kb = (to_torch(pipeline.collate_shapes(
+        [make_surface_shape(rng, STEP_POINTS) for _ in range(STEP_SHAPES)],
+        spec, rng=rng), dev) for _ in range(2))
+    model = cls(out_channels=39, conv1_kernel_size=5, compute_dtype="float32",
+                d_model=256, n_head=4, k_neighbors=1,
+                attn_dropout=STEP_DROPOUT)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    model.to(dev)
+    opt = optim.make_optimizer(model.parameters(), "SGD", lr=STEP_LR)
+    gen = torch.Generator().manual_seed(SEED)
+    steps = {"eval": lambda: eval_step(model, qb, (kb,))[0],
+             "train": lambda: train_step(model, opt, qb, (kb,), gen)[0]}
+    res = {}
+    for name, step in steps.items():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        dev_ms = {key: 0.0 for key, _ in STEP_KERNELS}
+        dev_ms["rest"] = 0.0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            key = next((k for k, pats in STEP_KERNELS
+                        if any(p in e.key for p in pats)), "rest")
+            dev_ms[key] += e.device_time_total / 1e3
+        res[f"HRNetSimCSN3S f32 {name} step B={STEP_SHAPES} K=1"] = {
+            "ms": [ms],
+            **{f"device {k}": [v] for k, v in dev_ms.items()}}
+    return res
+
+
 def worker(reps: int, families: tuple, table: Path) -> dict:
     res = {}
     if "conv" in families:
@@ -279,6 +371,8 @@ def worker(reps: int, families: tuple, table: Path) -> dict:
         res.update(flash_worker(reps))
     if "probes" in families:
         res.update(probe_worker(reps))
+    if "steps" in families:
+        res.update(steps_worker(reps))
     return res
 
 
@@ -356,12 +450,16 @@ def main(argv=None) -> int:
                     + (f" ({e[3]:.4f} from device memory)" if len(e) > 3
                        else "") for name, e in kern.items()))
     for shape, kern in runs["this"][0].items():
-        same = {name: all(r[shape][name][1] == digest
+        # entries with outputs: [ms, digest, repeat, ...]; [ms] times only
+        outs = [name for name, e in kern.items() if len(e) > 1]
+        if not outs:
+            continue
+        same = {name: all(r[shape][name][1] == kern[name][1]
                           for r in runs["this"] + runs["other"])
-                for name, (_, digest, *_) in kern.items()}
+                for name in outs}
         repeat = {name: all(r[shape][name][2]
                             for r in runs["this"] + runs["other"])
-                  for name in kern}
+                  for name in outs}
         print(f"[ab] {shape}: bitwise equal across the checkouts: "
               + ", ".join(f"{name} {v}" for name, v in same.items())
               + "; two launches bitwise equal in every run: "

@@ -102,32 +102,34 @@ def _meta_view(*shape, dtype, shift):
 
 
 def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
-    """K1's tensor-core body (bf16, Cout % 8 == 0) copies the weights, and
-    feats where Cin % 16 == 0, 16 bytes at a time with cp.async:
-    `sparse_conv_fwd` refuses such a view that does not start on a 16-byte
-    boundary before the launch (meta tensors through the wrapper's checks,
-    the CUDA-device check stubbed out). Aligned calls, and misaligned ones
-    that no 16-byte copy reads (the stem's feats, which the flattened steps
-    gather element by element; f32 on the CUDA-core body), get as far as
-    the library."""
+    """K1's tensor-core bodies (bf16 with Cout % 8 == 0; f32 with Cin % 16
+    == 0 and Cout % 8 == 0, in split TF32) copy the weights, and feats where
+    Cin % 16 == 0, 16 bytes at a time with cp.async: `sparse_conv_fwd`
+    refuses such a view that does not start on a 16-byte boundary before
+    the launch (meta tensors through the wrapper's checks, the CUDA-device
+    check stubbed out). Aligned calls, and misaligned ones that no 16-byte
+    copy reads (the stem's feats, which the flattened steps gather element
+    by element; an f32 stem on the CUDA-core body), get as far as the
+    library."""
     _stub_launch(monkeypatch)
     view = _meta_view
     n_in, n_out, k = 10, 7, 27
     kmap = torch.empty(k, n_out, dtype=torch.int32, device="meta")
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     assert window_conv.k1_tensor_cores(bf, 32, 64)
     assert window_conv.k1_tensor_cores(bf, 3, 32)
     assert window_conv.k1_tensor_cores(bf, 24, 64)
     assert not window_conv.k1_tensor_cores(bf, 32, 60)
-    assert not window_conv.k1_tensor_cores(torch.float32, 32, 64)
+    assert window_conv.k1_tensor_cores(f32, 32, 64)
     before = dict(kernels.LAUNCHES)
-    for cin, fs, ws in ((32, 1, 0), (32, 0, 1), (3, 0, 1)):
+    for cin, dt, fs, ws in ((32, bf, 1, 0), (32, bf, 0, 1), (3, bf, 0, 1),
+                            (32, f32, 1, 1)):
         with pytest.raises(ValueError, match="16-byte"):
             window_conv.sparse_conv_fwd(
-                view(n_in, cin, dtype=bf, shift=fs), kmap,
-                view(k, cin, 64, dtype=bf, shift=ws))
+                view(n_in, cin, dtype=dt, shift=fs), kmap,
+                view(k, cin, 64, dtype=dt, shift=ws))
     for cin, cout, dt, fs, ws in ((32, 64, bf, 0, 0), (3, 32, bf, 1, 0),
-                                  (32, 64, torch.float32, 1, 1)):
+                                  (3, 32, f32, 1, 1)):
         with pytest.raises(LookupError, match="reached the launch"):
             window_conv.sparse_conv_fwd(
                 view(n_in, cin, dtype=dt, shift=fs), kmap,
@@ -137,37 +139,43 @@ def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
 TC_RULE_CASES = [(torch.bfloat16, 32, 64, True), (torch.bfloat16, 3, 32, True),
                  (torch.bfloat16, 24, 64, True),
                  (torch.bfloat16, 32, 60, False),
-                 (torch.float32, 32, 64, False)]
+                 (torch.float32, 32, 64, True), (torch.float32, 3, 32, False),
+                 (torch.float32, 24, 64, False),
+                 (torch.float32, 32, 60, False)]
 
 
 @pytest.mark.parametrize("dtype,cin,cout,want", TC_RULE_CASES)
 def test_dw_tensor_cores_rule(dtype, cin, cout, want):
     """dW's tensor-core bodies take what K1's takes: bf16 with Cout % 8 ==
-    0, whatever Cin, the stems' Cin 3 included (the rule `csn_sparse_conv_dw`
-    and `csn_sparse_conv_fwd` apply)."""
+    0, whatever Cin, the stems' Cin 3 included, and f32 with Cin % 16 == 0
+    and Cout % 8 == 0 (split TF32; the rule `csn_sparse_conv_dw` and
+    `csn_sparse_conv_fwd` apply)."""
     assert window_conv.dw_tensor_cores(dtype, cin, cout) is want
     assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
+    assert window_conv.k1_split_tf32(dtype, cin, cout) is (
+        want and dtype == torch.float32)
 
 
 def test_dw_refuses_a_misaligned_bf16_view(monkeypatch):
-    """dW's tensor-core bodies copy g rows, and feats rows where Cin % 16 ==
-    0, 16 bytes at a time with cp.async: `sparse_conv_dw` refuses such a
-    view that does not start on a 16-byte boundary before the launch.
-    Aligned calls, and misaligned ones that no 16-byte copy reads (the
-    stem's feats, loaded element by element by the narrow body; f32 on the
-    CUDA-core body), get as far as the library."""
+    """dW's tensor-core bodies (K1's rule) copy g rows, and feats rows where
+    Cin % 16 == 0, 16 bytes at a time with cp.async: `sparse_conv_dw`
+    refuses such a view that does not start on a 16-byte boundary before
+    the launch. Aligned calls, and misaligned ones that no 16-byte copy
+    reads (the stem's feats, loaded element by element by the narrow body;
+    an f32 stem on the CUDA-core body), get as far as the library."""
     _stub_launch(monkeypatch)
     n_in, n_g, k = 10, 7, 27
     kmap_t = torch.empty(k, n_in, dtype=torch.int32, device="meta")
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     before = dict(kernels.LAUNCHES)
-    for cin, cout, fs, gs in ((32, 64, 1, 0), (32, 64, 0, 1), (3, 32, 0, 1)):
+    for cin, cout, dt, fs, gs in ((32, 64, bf, 1, 0), (32, 64, bf, 0, 1),
+                                  (3, 32, bf, 0, 1), (32, 64, f32, 1, 1)):
         with pytest.raises(ValueError, match="16-byte"):
             window_conv.sparse_conv_dw(
-                _meta_view(n_in, cin, dtype=bf, shift=fs),
-                _meta_view(n_g, cout, dtype=bf, shift=gs), kmap_t)
+                _meta_view(n_in, cin, dtype=dt, shift=fs),
+                _meta_view(n_g, cout, dtype=dt, shift=gs), kmap_t)
     for cin, cout, dt, fs, gs in ((32, 64, bf, 0, 0), (3, 32, bf, 1, 0),
-                                  (32, 64, torch.float32, 1, 1)):
+                                  (3, 32, f32, 1, 1)):
         with pytest.raises(LookupError, match="reached the launch"):
             window_conv.sparse_conv_dw(
                 _meta_view(n_in, cin, dtype=dt, shift=fs),
@@ -300,6 +308,150 @@ def test_dw_narrow_splits_fill_the_card(n_in, k, cin, cout, want):
     # not far more than it aims at either
     assert warps - tiles * k * window_conv.DW_NARROW_WARPS < (
         window_conv.DW_NARROW_WARPS_PER_SM * window_conv.SMS)
+
+
+@pytest.mark.parametrize("n_in,k,cin,cout,want", [
+    (90112, 27, 64, 64, 40), (30208, 27, 128, 128, 10),
+    (10240, 27, 256, 256, 3), (45056, 8, 96, 384, 11), (500, 27, 64, 64, 1)])
+def test_dw_tf32_splits_fill_the_card(n_in, k, cin, cout, want):
+    """The wide body's splits in f32 (split TF32, whose tiles take twice the
+    bf16 body's shared memory): about DW_TF32_WARPS_PER_SM warps on each SM,
+    half the bf16 body's aim, unless the rows run out or 64 splits are
+    reached."""
+    s = window_conv.dw_splits(n_in, k, cin, cout, tensor_cores=True,
+                              dtype=torch.float32)
+    assert s == want
+    assert window_conv.DW_TF32_WARPS_PER_SM * 2 == \
+        window_conv.DW_TC_WARPS_PER_SM
+    tiles, wn = window_conv.col_tiles(cout)
+    warps = -(-cin // 64) * tiles * k * 2 * wn * s
+    assert (warps >= window_conv.DW_TF32_WARPS_PER_SM * window_conv.SMS
+            or s == min(64, n_in // window_conv.MIN_SPLIT_ROWS) or s == 1)
+    assert s <= window_conv.dw_splits(n_in, k, cin, cout, tensor_cores=True)
+
+
+# -- split TF32 (the f32 bodies of K1 and dW on the tensor cores) -------------
+# A CPU model of the kernels' arithmetic: each f32 operand x is split into
+# hi = x rounded to TF32 (10 stored mantissa bits, round to nearest, ties to
+# even: PTX cvt.rn.tf32.f32) and lo = x - hi (exact in f32), of which the
+# tensor cores read the top 10 mantissa bits (the low 13 bits dropped);
+# a . b ~= a_lo . b_hi + a_hi . b_lo + a_hi . b_hi, each product in f32.
+# Held to the JAX package's f32 sparse conv and its VJP within the f32
+# checks' 1e-4 of max|ref| on the card, at HRNet's conv shapes.
+
+TF32_DROP = 13   # mantissa bits of f32 that TF32 does not keep
+
+
+def _tf32_round(x):
+    """f32 -> f32 values rounded to TF32, round to nearest, ties to even
+    (integer bit operations on the f32 bits; finite inputs)."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    half = np.uint32((1 << (TF32_DROP - 1)) - 1)
+    odd = (u >> np.uint32(TF32_DROP)) & np.uint32(1)
+    mask = np.uint32(~((1 << TF32_DROP) - 1) & 0xFFFFFFFF)
+    return ((u + half + odd) & mask).view(np.float32)
+
+
+def _tf32_truncate(x):
+    """The TF32 operand the tensor cores read from f32 bits: the low 13
+    mantissa bits dropped."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    mask = np.uint32(~((1 << TF32_DROP) - 1) & 0xFFFFFFFF)
+    return (u & mask).view(np.float32)
+
+
+def _split_tf32(x):
+    """(hi, lo) of the split: hi TF32, lo = x - hi as the product reads it."""
+    hi = _tf32_round(x)
+    return hi, _tf32_truncate(x - hi)
+
+
+def _tf32_product(a, b, terms=3):
+    """a @ b in f32 from split-TF32 operands: the three products, small
+    first (`terms` 3), or the one product hi . hi (`terms` 1)."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    if terms == 1:
+        return ah @ bh
+    return ((al @ bh).astype(np.float32) + (ah @ bl)).astype(np.float32) \
+        + (ah @ bh)
+
+
+def _partial_permutation_maps(rng, k, n_src, n_dst, live):
+    """kmap [K, n_dst] and its transpose kmap_t [K, n_src]: per offset a
+    `live` share of the destination rows gets a distinct source row (each
+    offset map a partial permutation, as the pyramid's maps are), the rest
+    the sentinel."""
+    kmap = np.full((k, n_dst), n_src, np.int32)
+    kmap_t = np.full((k, n_src), n_dst, np.int32)
+    m = int(live * min(n_src, n_dst))
+    for o in range(k):
+        dst = rng.choice(n_dst, m, replace=False)
+        src = rng.choice(n_src, m, replace=False)
+        kmap[o, dst] = src
+        kmap_t[o, src] = dst
+    return kmap, kmap_t
+
+
+def _gather_np(x, idx):
+    rows = np.zeros((idx.shape[0], x.shape[1]), np.float32)
+    ok = idx < x.shape[0]
+    rows[ok] = x[idx[ok]]
+    return rows
+
+
+@pytest.mark.parametrize("what", ["forward", "dW"])
+@pytest.mark.parametrize("cin,cout,k", [(32, 32, 27), (64, 128, 8),
+                                        (256, 256, 27)])
+def test_split_tf32_model_matches_jax(cin, cout, k, what):
+    """Three TF32 products per f32 product (the kernels' split TF32) give
+    the JAX package's f32 sparse conv (forward) and its VJP's weight
+    gradient (dW, over the transpose map) within 1e-4 of max|ref|, the
+    tolerance the f32 bodies are held to on the card; one TF32 product
+    (hi . hi alone) comes out further off."""
+    rng = np.random.default_rng(cin * 1000 + cout + k)
+    n_in, n_out = 300, 260
+    kmap, kmap_t = _partial_permutation_maps(rng, k, n_in, n_out, 0.25)
+    feats = rng.normal(size=(n_in, cin)).astype(np.float32)
+    w = (rng.uniform(-1, 1, size=(k, cin, cout)) / np.sqrt(cin * k)
+         ).astype(np.float32)
+    g = rng.normal(size=(n_out, cout)).astype(np.float32)
+
+    def jconv(f, ww):
+        return j_sparse_conv(f, jnp.asarray(kmap), ww,
+                             kmap_t=jnp.asarray(kmap_t), mirror=False,
+                             input_grad=False)
+
+    if what == "forward":
+        ref = np.asarray(jconv(jnp.asarray(feats), jnp.asarray(w)))
+        models = [sum(_tf32_product(_gather_np(feats, kmap[o]), w[o], terms)
+                      for o in range(k)) for terms in (3, 1)]
+    else:
+        _, vjp = jax.vjp(jconv, jnp.asarray(feats), jnp.asarray(w))
+        ref = np.asarray(vjp(jnp.asarray(g))[1])
+        models = [np.stack([_tf32_product(feats.T, _gather_np(g, kmap_t[o]),
+                                          terms) for o in range(k)])
+                  for terms in (3, 1)]
+    scale = np.abs(ref).max()
+    err3, err1 = (np.abs(m.astype(np.float32) - ref).max() for m in models)
+    assert models[0].shape == ref.shape
+    assert err3 <= 1e-4 * scale, (err3, scale)
+    assert err1 > err3, (err1, err3)
+
+
+def test_tf32_rounding_ties_to_even():
+    """`_tf32_round` keeps 10 mantissa bits, rounds to nearest with ties to
+    even, and `_split_tf32`'s hi + lo is x to within lo's dropped bits."""
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    x = np.array([one + ulp / 2, one + 1.5 * ulp, one + ulp / 4,
+                  one + 0.75 * ulp, -(one + 1.5 * ulp)], np.float32)
+    want = np.array([one, one + 2 * ulp, one, one + ulp, -(one + 2 * ulp)],
+                    np.float32)
+    np.testing.assert_array_equal(_tf32_round(x), want)
+    y = np.random.default_rng(0).normal(size=1000).astype(np.float32)
+    hi, lo = _split_tf32(y)
+    assert np.array_equal(_tf32_round(hi), hi)
+    assert np.abs((hi + lo) - y).max() <= 2.0 ** -21 * np.abs(y).max()
 
 
 def test_dw_launcher_refuses_cpu_tensors():
@@ -503,21 +655,26 @@ def test_im2col_tensor_cores_rule(dtype, cin, cout, want):
     """The im2col pair's tensor-core bodies take bf16 with Cout % 8 == 0
     whatever Cin (the rule `csn_sparse_conv_im2col_fwd` and `_bwd` apply):
     the stem's Cin of 3 and a Cin off the multiples of 16 included, as K1
-    and dW take them; f32 and a Cout off the multiples of 8 run the
-    CUDA-core bodies."""
+    and dW take them in bf16; f32 and a Cout off the multiples of 8 run the
+    CUDA-core bodies (K1 runs f32 in split TF32 where Cin % 16 == 0)."""
     assert window_conv.im2col_tensor_cores(dtype, cin, cout) is want
-    assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
+    if dtype == torch.bfloat16:
+        assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
 
 
 @pytest.mark.parametrize("dtype,cin,cout,want",
                          TC_RULE_CASES + IM2COL_TC_RULE_CASES)
 def test_k1_and_im2col_rules_agree(dtype, cin, cout, want):
-    """K1 and the im2col forward share one tensor-core body, so they take
-    it at the same convs; dW at the same again."""
-    got = window_conv.k1_tensor_cores(dtype, cin, cout)
-    assert got is want
-    assert window_conv.im2col_tensor_cores(dtype, cin, cout) is got
-    assert window_conv.dw_tensor_cores(dtype, cin, cout) is got
+    """K1 and dW take their tensor-core bodies at the same convs. K1 and
+    the im2col forward share one bf16 body, so in bf16 the im2col pair
+    takes it at the same convs again; in f32 it takes none (K1 and dW run
+    split TF32 bodies of their own)."""
+    k1 = window_conv.k1_tensor_cores(dtype, cin, cout)
+    if dtype == torch.bfloat16 or (dtype, cin, cout, want) in TC_RULE_CASES:
+        assert k1 is want
+    assert window_conv.dw_tensor_cores(dtype, cin, cout) is k1
+    assert window_conv.im2col_tensor_cores(dtype, cin, cout) is (
+        k1 and dtype == torch.bfloat16)
 
 
 @pytest.mark.parametrize("n_in,k,cin,cout,want", [
