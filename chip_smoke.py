@@ -66,7 +66,13 @@ Phases (each prints its lines; any failure exits nonzero):
      ragged key mask with one fully masked 64-key tile, one query tile all
      padding), at head dims 64 (4 heads) and 256 (8 heads), at dropout 0
      and 0.1 (same seed as the plain version); `flash_attn_bwd` at the same
-     cases against autograd of the plain version; both again at the head
+     cases against autograd of the plain version; the f32 D=64 bodies in
+     split TF32 (`check_f32_d64`) against float64 references (out, lse,
+     dq, dk, dv within 1e-4 x max|ref|, the f32 plain version's error
+     beside) at the ragged masks and the SSA masks cut to 2 shapes, at
+     dropout 0 and 0.1, every launch repeated bitwise, then their device
+     times (CUDA graphs) at the full SSA and CSA calls beside the bound,
+     the library call and the plain version; both again at the head
      dims the main path does not run (`check_head_dims`): 32 and 16 (bf16
      on their tensor-core bodies; d_model 256 in 8 and 16 heads) at the
      SSA masks cut to 8 and 4 shapes and at the ragged masks, and 24 on
@@ -105,7 +111,8 @@ Phases (each prints its lines; any failure exits nonzero):
      of the same window values and bitwise against a repeat, bf16 and f32
      windows, with row ids outside the window; `probe_slot_load` in every
      variant; the probes timed as device time from CUDA graphs beside
-     `index_select` and `F.embedding_bag`;
+     `index_select` and `F.embedding_bag`, and the launch floor (an empty
+     kernel's launch in a CUDA graph) beside `probe_slot_load`'s bound;
   4. eval slice: 3 eval requests (query batch + 1 key batch each) through
      `eval_step`, launch counts per kernel, ms/step, shapes/s, peak memory,
      and the f32 forward with kernels against the plain forward on the CPU;
@@ -118,7 +125,9 @@ Phases (each prints its lines; any failure exits nonzero):
      then the same protocol with f32 activations (`--compute_dtype
      float32`): 3 eval and 3 train requests with exact launch counts per
      kernel body (K1's and dW's split-TF32 bodies counted apart from their
-     CUDA-core stems), ms/step of the eval and the train step;
+     CUDA-core stems), ms/step of the eval and the train step (with
+     --profile: the attention kernels of each step named, none of them a
+     CUDA-core `flash_*_wide` body);
   6. MID-FC chunked, the JAX package's `bench.py` midfc protocol:
      `MidfcRunner(cfg, "csa")` with 8 heads of 256, K=4, B=4, P=10000,
      d_model 256, chunks of 500, 39 classes, f32, Adam(0.5, 0.999), seeded
@@ -192,7 +201,8 @@ Phases (each prints its lines; any failure exits nonzero):
 The line before the last is the kernel table as JSON: per kernel (K1 and
 `sparse_conv_dw` in two rows each: their split-TF32 bodies, the f32 form,
 as `sparse_conv_fwd_tf32` and `sparse_conv_dw_tf32`, and their other
-bodies), its launches in the train requests of phases 5 (bf16 and f32), 6,
+bodies; K2 and its backward likewise, their f32 D=64 split-TF32 bodies as
+`flash_attn_fwd_tf32_d64` and `flash_attn_bwd_tf32_d64`), its launches in the train requests of phases 5 (bf16 and f32), 6,
 7, 8, 9, 10 and 11 (each
 phase sets the counts to 0 before and reads them after; phase 9 counts the
 Res16UNet34C train iterations, the chain and the probes' entry points;
@@ -200,8 +210,9 @@ phase 10 the data-parallel trainer's iterations; phase 11 the three
 learning-check trainings), its worst error
 over phase 3's checks, and four times summed over one train step's launches
 of every path the kernel is on (bf16 at the HRNet and Res16UNet34C shapes,
-the split-TF32 rows f32 there as device time from CUDA graphs, f32 at the
-MID-FC shapes; the interpolation pair f32 at 39 classes, as the
+the split-TF32 rows f32 there as device time from CUDA graphs (the
+`_tf32_d64` rows: one SSA and one CSA call, the plain version one call),
+f32 at the MID-FC shapes; the interpolation pair f32 at 39 classes, as the
 HRNet heads' f32 logits reach it; the probe kernels, as device time
 from CUDA graphs: one call of `probe_window_gather` at [384, 128] f32, the
 three modes of `probe_gather_accum` with the bf16 window at 352 tiles x 9
@@ -351,6 +362,12 @@ KERNELS = {
                        "csn_tpu/ops/flash.py:262"),
     "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
                        "csn_tpu/ops/flash.py:600"),
+    # the f32 D=64 forms of K2 and its backward (the HRNet heads with f32
+    # activations): their split-TF32 bodies, whose launches count apart
+    "flash_attn_fwd_tf32_d64": ("csn_tpu_torch/csrc/flash_tf32_d64_fwd.cuh",
+                                "csn_tpu/ops/flash.py:262"),
+    "flash_attn_bwd_tf32_d64": ("csn_tpu_torch/csrc/flash_tf32_d64_bwd.cuh",
+                                "csn_tpu/ops/flash.py:600"),
     "flash_attn_carry": ("csn_tpu_torch/csrc/flash_tf32_fwd.cuh",
                          "csn_tpu/ops/flash.py:412"),
     "flash_attn_block_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
@@ -532,21 +549,28 @@ class Table:
                 f"bound {max(b_ms, o_ms):.4f} ms "
                 f"({'bytes' if b_ms >= o_ms else 'operations'}: "
                 f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        lms = None
         if fn_library is not None:
             lms = graph_ms(fn_library) if graph \
                 else median_ms(fn_library, warmup=1, reps=reps)
             line += f", library {lms:.4f} ms{' (device)' if graph else ''}"
-            if count:
-                self.library_ms[name] = (self.library_ms[name] or 0.0) \
-                    + count * lms
         print(f"{line} (x{count} per train step)" if count
               else f"{line} (not in the kernel line)")
-        self.ms[name] += count * ms
-        self.plain_ms[name] += count * pms
-        self.bound_ms[name] += count * max(b_ms, o_ms)
-        self.bound_bytes_ms[name] += count * b_ms
-        self.bound_ops_ms[name] += count * o_ms
+        self.add(name, count, ms, pms, b_ms, o_ms, lms)
         return ms
+
+    def add(self, name, count, ms, plain_ms, bytes_ms, ops_ms,
+            library_ms=None):
+        """One call's kernel, plain, bound (bytes and operations) and
+        library ms, added `count` times to the train step's totals."""
+        self.ms[name] += count * ms
+        self.plain_ms[name] += count * plain_ms
+        self.bound_ms[name] += count * max(bytes_ms, ops_ms)
+        self.bound_bytes_ms[name] += count * bytes_ms
+        self.bound_ops_ms[name] += count * ops_ms
+        if library_ms is not None and count:
+            self.library_ms[name] = (self.library_ms[name] or 0.0) \
+                + count * library_ms
 
     def bound(self, name):
         """(bound_ms, bound_by) of the kernel's launches of one train step:
@@ -642,6 +666,14 @@ def form_name(kernel, dtype, cin, cout):
     bodies."""
     tf32 = window_conv.k1_split_tf32(dtype, cin, cout)
     return f"{kernel}_tf32" if tf32 else kernel
+
+
+def k2_row(name, dtype, dk):
+    """The row of the kernel line that a call of K2 or its backward
+    (`name`) at head dim `dk` in `dtype` counts in: the f32 D=64
+    split-TF32 bodies' row, or the kernel's other bodies."""
+    return f"{name}_tf32_d64" if flash.k2_split_tf32_d64(dtype, dk) \
+        else name
 
 
 def tc_body(dtype):
@@ -1221,6 +1253,8 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
         shape += f" Lk={km.shape[1]}"
     for dt in (torch.float32, torch.bfloat16):
         qd, kd, vd, dod = (x.to(dt) for x in (q, k, v, dout))
+        fname, bname = (k2_row(n, dt, dk)
+                        for n in ("flash_attn_fwd", "flash_attn_bwd"))
         for drop in (0.0, ATTN_DROPOUT):
             sd = seed if drop else None
             tag = f"{shape} dropout {drop}"
@@ -1229,8 +1263,8 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
             ref, ref_lse = attention.scaled_dot_product_attention(
                 qd, kd, vd, km, temp, dropout=drop, seed=sd,
                 return_lse=True)
-            table.check("flash_attn_fwd", tag, out, ref, dt, valid)
-            table.check("flash_attn_fwd", tag + " lse", lse, ref_lse, dt,
+            table.check(fname, tag, out, ref, dt, valid)
+            table.check(fname, tag + " lse", lse, ref_lse, dt,
                         valid[..., 0])
             if ref64 and dt == torch.float32 and drop:
                 r64 = attention_fwd_f64(qd, kd, vd, km, temp, drop, sd)
@@ -1244,15 +1278,14 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
                     perr = (gr - rr).abs().max().item()
                     scale = rr.abs().max().item()
                     ok = err <= TOL[dt] * scale
-                    print(f"[check] flash_attn_fwd {tag} {nm} vs float64: "
+                    print(f"[check] {fname} {tag} {nm} vs float64: "
                           f"kernel {err:.3e} ({err / scale:.2e} of max|ref|)"
                           f", f32 plain {perr:.3e} ({perr / scale:.2e}), tol "
                           f"{TOL[dt] * scale:.3e} (max|ref| {scale:.3e}) "
                           f"{'ok' if ok else 'FAIL'}")
-                    require(ok, f"flash_attn_fwd {tag} {nm}: float64 "
+                    require(ok, f"{fname} {tag} {nm}: float64 "
                             f"reference")
-                    table.err["flash_attn_fwd"] = max(
-                        table.err["flash_attn_fwd"], err)
+                    table.err[fname] = max(table.err[fname], err)
                 del r64
             del ref, ref_lse
             delta = (dod.float() * out.float()).sum(dim=-1)
@@ -1266,7 +1299,7 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
                                        retain_graph=True)
             for nm, gk, gr, vm in zip(("dq", "dk", "dv"), got, refs,
                                       (valid, None, None)):
-                table.check("flash_attn_bwd", f"{tag} {nm}", gk, gr, dt,
+                table.check(bname, f"{tag} {nm}", gk, gr, dt,
                             vm)
             if ref64 and dt == torch.float32 and drop:
                 r64 = attention_bwd_f64(qd, kd, vd, km, dod, temp, drop, sd)
@@ -1280,14 +1313,13 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
                     perr = (gr.double() - rr).abs().max().item()
                     scale = rr.abs().max().item()
                     ok = err <= TOL[dt] * scale
-                    print(f"[check] flash_attn_bwd {tag} {nm} vs float64: "
+                    print(f"[check] {bname} {tag} {nm} vs float64: "
                           f"kernel {err:.3e}, f32 plain {perr:.3e}, tol "
                           f"{TOL[dt] * scale:.3e} (max|ref| {scale:.3e}) "
                           f"{'ok' if ok else 'FAIL'}")
-                    require(ok, f"flash_attn_bwd {tag} {nm}: float64 "
+                    require(ok, f"{bname} {tag} {nm}: float64 "
                             f"reference")
-                    table.err["flash_attn_bwd"] = max(
-                        table.err["flash_attn_bwd"], err)
+                    table.err[bname] = max(table.err[bname], err)
                 del r64
             del got, refs
             if dt == time_dt:
@@ -1316,7 +1348,7 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
                 fb, bb, ff, bf = attention_work(qm, km, n_head, dk,
                                                 qd.element_size())
                 table.time(
-                    "flash_attn_fwd", tag,
+                    fname, tag,
                     lambda: flash.flash_attention(qd, kd, vd, km, qm,
                                                   temp, drop, sd),
                     lambda: attention.scaled_dot_product_attention(
@@ -1326,7 +1358,7 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
                         qd, kd, vd, attn_mask=km[:, None, None, :],
                         scale=1.0 / temp, dropout_p=drop))
                 table.time(
-                    "flash_attn_bwd", tag,
+                    bname, tag,
                     lambda: flash.flash_attention_bwd(
                         qd, kd, vd, dod, lse, delta, km, qm, temp, drop,
                         sd),
@@ -1342,7 +1374,8 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
 
 def check_attention(qb, kb, big, dev, table, g):
     """K2 and its backward at the HRNet SSA (combined pass) and CSA (query
-    against key) shapes, and at the MID-FC chunk shape (80 chunks of 500
+    against key) shapes, their f32 D=64 bodies against float64 and timed
+    (`check_f32_d64`), and at the MID-FC chunk shape (80 chunks of 500
     points, 8 heads of 256, 9 calls per CSA train step)."""
     dk = D_MODEL // N_HEAD
     bmask, qmask, kmask = big.masks[0], qb.masks[0], kb.masks[0]
@@ -1359,6 +1392,7 @@ def check_attention(qb, kb, big, dev, table, g):
     rq[:, 128:192] = False
     check_flash(table, dev, g, "ragged", rq.to(dev), rk.to(dev), N_HEAD, dk,
                 None, 0)
+    check_f32_d64(qb, kb, big, dev, table)
     # the same edges at the MID-FC heads (8 of 256; the f32 backward's
     # split-TF32 body walks 32-row tiles, which these masks also cut)
     rq = torch.rand(2, RAGGED_LQ, generator=g) < 0.8
@@ -1371,6 +1405,153 @@ def check_attention(qb, kb, big, dev, table, g):
                       device=dev)
     check_flash(table, dev, g, "MID-FC chunks", ones, ones, MF_HEADS, MF_D,
                 torch.float32, 2 * MF_K + 1, ref64=True)
+
+
+def check_f32_d64(qb, kb, big, dev, table):
+    """The split-TF32 bodies of K2 and its backward at f32 D=64
+    (`csrc/flash_tf32_d64_fwd.cuh`, `csrc/flash_tf32_d64_bwd.cuh`: the
+    HRNet heads with f32 activations) against float64 references of the
+    same operands (`attention_fwd_f64`, `attention_bwd_f64`) within
+    TOL[f32] x max|ref|, the f32 plain version's error beside: out, lse,
+    dq, dk, dv at dropout 0 and ATTN_DROPOUT, at the ragged masks
+    (RAGGED_LQ / RAGGED_LK, a fully masked 64-key tile, a query tile all
+    padding) and at the SSA masks cut to 2 shapes; every launch repeated
+    and bitwise equal. Then `time_f32_d64`."""
+    g = torch.Generator().manual_seed(SEED + 29)
+    rq = torch.rand(2, RAGGED_LQ, generator=g) < 0.8
+    rk = torch.rand(2, RAGGED_LK, generator=g) < 0.7
+    rk[:, 64:128] = False
+    rq[:, 128:192] = False
+    bmask = big.masks[0][:2]
+    body = "float32 (split TF32, D=64)"
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    for tag, qm, km in (("ragged", rq.to(dev), rk.to(dev)),
+                        ("SSA", bmask, bmask)):
+        b, lq = qm.shape
+        lk = km.shape[1]
+        q, dout = (torch.randn(b, N_HEAD, lq, 64, generator=g).to(dev)
+                   for _ in range(2))
+        k, v = (torch.randn(b, N_HEAD, lk, 64, generator=g).to(dev)
+                for _ in range(2))
+        valid = qm[:, None, :, None]
+        dout = dout * valid
+        temp = 8.0
+        for drop in (0.0, ATTN_DROPOUT):
+            sd = 0x5EED_0F_C5A if drop else None
+            what = f"{tag} [{b},{N_HEAD},{lq},64] Lk={lk} dropout {drop}"
+            out, lse = flash.flash_attention(q, k, v, km, qm, temp, drop, sd)
+            delta = (dout * out).sum(dim=-1)
+            grads = flash.flash_attention_bwd(q, k, v, dout, lse, delta, km,
+                                              qm, temp, drop, sd)
+            again = flash.flash_attention(q, k, v, km, qm, temp, drop, sd)
+            check_same("flash_attn_fwd_tf32_d64", what, "repeat: out and "
+                       "lse bitwise equal", all(torch.equal(a, c) for a, c in
+                                    zip(again, (out, lse))), body)
+            again = flash.flash_attention_bwd(q, k, v, dout, lse, delta, km,
+                                              qm, temp, drop, sd)
+            check_same("flash_attn_bwd_tf32_d64", what, "repeat: dq, dk, "
+                       "dv bitwise equal", all(torch.equal(a, c) for a, c in
+                                    zip(again, grads)), body)
+            del again
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            ref, ref_lse = attention.scaled_dot_product_attention(
+                *leaves, km, temp, dropout=drop, seed=sd, return_lse=True)
+            plain = [ref.detach(), ref_lse.detach()] + list(
+                torch.autograd.grad(ref, leaves, dout))
+            del ref, ref_lse, leaves
+            r64 = list(attention_fwd_f64(q, k, v, km, temp, drop, sd)) + list(
+                attention_bwd_f64(q, k, v, km, dout, temp, drop, sd))
+            for nm, got, pl, rr, vm in zip(
+                    ("out", "lse", "dq", "dk", "dv"), (out, lse) + grads,
+                    plain, r64, (valid, valid[..., 0], valid, None, None)):
+                if vm is not None:
+                    got, pl, rr = (torch.where(vm, x.double(), zero)
+                                   for x in (got, pl, rr))
+                perr = (pl.double() - rr).abs().max().item()
+                name = "flash_attn_fwd_tf32_d64" if nm in ("out", "lse") \
+                    else "flash_attn_bwd_tf32_d64"
+                check_f64(table, name, f"{what} {nm}", got, rr,
+                          TOL[torch.float32], body=body,
+                          vs=f"float64 (f32 plain {perr:.3e})")
+            del out, lse, grads, plain, r64
+            torch.cuda.empty_cache()
+    time_f32_d64(qb, kb, big, dev, table)
+
+
+def time_f32_d64(qb, kb, big, dev, table):
+    """Device ms (CUDA graphs, warm L2) of K2 and its backward in f32 at
+    D=64 at the HRNet SSA call [16, 4, 5632, 64] and the CSA call
+    [8, 4, 5632, 64] against 5632 keys under their masks, at dropout
+    ATTN_DROPOUT (the f32 train step's call) and 0 (the eval request's),
+    beside the call's bound (`attention_work` over PEAK_FLOPS[f32]: three
+    TF32 products per f32 product) and the library call
+    `F.scaled_dot_product_attention` with the key mask at the same dropout
+    in f32 (its backward: a graph of forward and backward less the
+    forward's), and the plain version's one call at dropout ATTN_DROPOUT.
+    The calls at ATTN_DROPOUT go into the `_tf32_d64` rows of the kernel
+    line once each, as the f32 train step makes them (one SSA and one CSA
+    call of each kernel)."""
+    gd = torch.Generator(device=dev).manual_seed(SEED + 31)
+    f32 = torch.float32
+    for tag, qm, km in (("SSA", big.masks[0], big.masks[0]),
+                        ("CSA", qb.masks[0], kb.masks[0])):
+        b, L = qm.shape
+        temp = 8.0
+        q, dout = (torch.randn(b, N_HEAD, L, 64, generator=gd, device=dev)
+                   for _ in range(2))
+        k, v = (torch.randn(b, N_HEAD, km.shape[1], 64, generator=gd,
+                            device=dev) for _ in range(2))
+        dout = dout * qm[:, None, :, None]
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        fb, bb, ff, bf = attention_work(qm, km, N_HEAD, 64, 4)
+        # (bytes ms, operations ms) of each call's bound
+        parts_f = (fb / HBM_BYTES_S * 1e3, ff / PEAK_FLOPS[f32] * 1e3)
+        parts_b = (bb / HBM_BYTES_S * 1e3, bf / PEAK_FLOPS[f32] * 1e3)
+        bound_f, bound_b = max(parts_f), max(parts_b)
+        for drop in (ATTN_DROPOUT, 0.0):
+            sd = 0x5EED_0F_C5A if drop else None
+            out, lse = flash.flash_attention(q, k, v, km, qm, temp, drop, sd)
+            delta = (dout * out).sum(dim=-1)
+            kf = graph_ms(lambda: flash.flash_attention(
+                q, k, v, km, qm, temp, drop, sd), calls=10)
+            kb_ = graph_ms(lambda: flash.flash_attention_bwd(
+                q, k, v, dout, lse, delta, km, qm, temp, drop, sd),
+                calls=10)
+
+            def lib(x, y, z):
+                return F.scaled_dot_product_attention(
+                    x, y, z, attn_mask=km[:, None, None, :],
+                    scale=1.0 / temp, dropout_p=drop)
+
+            lf = graph_ms(lambda: lib(q, k, v), calls=10)
+            lfb = graph_ms(lambda: torch.autograd.grad(
+                lib(*leaves), leaves, dout), calls=10)
+            plain = ""
+            if drop:   # one call of the plain version, host work included
+                pf = median_ms(lambda: attention.scaled_dot_product_attention(
+                    q, k, v, km, temp, dropout=drop, seed=sd), warmup=1,
+                    reps=3)
+                pfb = median_ms(lambda: torch.autograd.grad(
+                    attention.scaled_dot_product_attention(
+                        *leaves, km, temp, dropout=drop, seed=sd), leaves,
+                    dout), warmup=1, reps=3)
+                plain = (f"; plain (one call) forward {pf:.4f} ms, backward "
+                         f"{pfb - pf:.4f} ms")
+                table.add("flash_attn_fwd_tf32_d64", 1, kf, pf, *parts_f, lf)
+                table.add("flash_attn_bwd_tf32_d64", 1, kb_, pfb - pf,
+                          *parts_b, lfb - lf)
+            print(f"[time] flash_attn_fwd / flash_attn_bwd {tag} "
+                  f"[{b},{N_HEAD},{L},64] Lk={km.shape[1]} dropout {drop} "
+                  f"float32 (split TF32, D=64; device, CUDA graphs, warm L2):"
+                  f" forward kernel {kf:.4f} ms, library {lf:.4f} ms, bound "
+                  f"{bound_f:.4f} ms; backward kernel {kb_:.4f} ms, library "
+                  f"{lfb - lf:.4f} ms (forward and backward {lfb:.4f} less "
+                  f"the forward), bound {bound_b:.4f} ms{plain} "
+                  + ("(x1 per f32 train step)" if drop
+                     else "(not in the kernel line)"))
+            del out, lse, delta
+        del q, k, v, dout, leaves
+        torch.cuda.empty_cache()
 
 
 def check_head_dims(big, dev, table):
@@ -1947,7 +2128,8 @@ def profile_steps(tag, step, n_steps=3, step_ms=None):
     `step()`, by torch.profiler (the wall time from the profiler's start,
     so its set-up is not counted); with `step_ms`, the unprofiled ms/step,
     also the device time's share of that, and the host's operators with the
-    most CPU time of their own (under the profiler, which inflates them)."""
+    most CPU time of their own (under the profiler, which inflates them).
+    Returns the device rows (ms per step, launches per step, name)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -1981,6 +2163,7 @@ def profile_steps(tag, step, n_steps=3, step_ms=None):
         for ms, n, key in host[:6]:
             print(f"[profile] {tag} host: {ms:9.3f} ms/step self CPU "
                   f"x{n:<5d} {key[:80]}")
+    return rows
 
 
 def eval_slice(cls, reqs, dev, n_convs, do_profile=False):
@@ -2130,13 +2313,13 @@ def f32_slice(cls, reqs, dev, do_profile=False):
         print(f"[f32] eval request {r}: {res}")
     torch.cuda.synchronize()
     require_launches("f32 eval", dict(kernels.LAUNCHES), {
-        **f32_conv_launches(model, False), "flash_attn_fwd": 2,
+        **f32_conv_launches(model, False), "flash_attn_fwd_tf32_d64": 2,
         "interp_fwd": 1})
     qb, keys = reqs[0]
     ms = time_steps("f32 eval", lambda: eval_step(model, qb, keys), what)
     if do_profile:
-        profile_steps("f32 eval K=1", lambda: eval_step(model, qb, keys),
-                      step_ms=ms)
+        f32_attention_kernels("f32 eval", profile_steps(
+            "f32 eval K=1", lambda: eval_step(model, qb, keys), step_ms=ms))
     opt = optim.make_optimizer(model.parameters(), "SGD", lr=LR)
     gen = torch.Generator().manual_seed(SEED)
     kernels.reset_launches()
@@ -2147,18 +2330,31 @@ def f32_slice(cls, reqs, dev, do_profile=False):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     require_launches("f32 train", launches, {
-        **f32_conv_launches(model, True), "flash_attn_fwd": 2,
-        "flash_attn_bwd": 2, "interp_fwd": 1, "interp_bwd": 1})
+        **f32_conv_launches(model, True), "flash_attn_fwd_tf32_d64": 2,
+        "flash_attn_bwd_tf32_d64": 2, "interp_fwd": 1, "interp_bwd": 1})
     qb, keys = reqs[0]
     ms = time_steps("f32 train",
                     lambda: train_step(model, opt, qb, keys, gen), what)
     if do_profile:
-        profile_steps("f32 train K=1",
-                      lambda: train_step(model, opt, qb, keys, gen),
-                      step_ms=ms)
+        f32_attention_kernels("f32 train", profile_steps(
+            "f32 train K=1", lambda: train_step(model, opt, qb, keys, gen),
+            step_ms=ms))
     del model, opt
     torch.cuda.empty_cache()
     return launches
+
+
+def f32_attention_kernels(tag, rows):
+    """The attention kernels of a profiled f32 HRNet step (K2 and its
+    backward at D=64, f32): named with their device ms, and none of them a
+    CUDA-core body (`flash_fwd_wide`, `flash_bwd_wide_*`)."""
+    attn = [(ms, n, key.replace("(anonymous namespace)::", "").split("(")[0])
+            for ms, n, key in rows if "flash_" in key]
+    print(f"[f32] {tag} attention kernels: " + ", ".join(
+        f"{name} x{n} {ms:.3f} ms/step" for ms, n, name in attn)
+        + f"; {sum(r[0] for r in attn):.3f} ms/step in all")
+    require(attn and not any("_wide" in name for _, _, name in attn),
+            f"{tag}: a CUDA-core attention body ran in the f32 D=64 step")
 
 
 def midfc_data(n_shapes, seed):
@@ -2737,6 +2933,14 @@ def check_probes(dev, table):
                    lambda: iw_bwd.slot_load_plain(v, x),
                    nbytes=x.numel() * 4 + 8 * 128 * 4, flops=0, dtype=f32,
                    graph=True)
+    # the launch floor: the slot loads' byte bound (0.0001 ms) lies below
+    # the device time of any launch
+    floor = graph_ms(kernels.empty_launch)
+    print(f"[time] launch floor: an empty kernel (1 block of 32 threads) "
+          f"{floor:.4f} ms a launch (device, CUDA graph of 20 launches); "
+          f"probe_slot_load's bound per variant "
+          f"{(8 * 512 + 8 * 128) * 4 / HBM_BYTES_S * 1e3:.5f} ms (bytes) "
+          f"(not in the kernel line)")
 
 
 def check_probe_edges(dev, table):

@@ -51,12 +51,13 @@
 // 4 entries, as the mask has. The next step for this kernel is wgmma with
 // TMA (ROADMAP B2).
 //
-// f32 at D = 256 (the MID-FC heads): the tensor cores in split TF32, three
-// TF32 products per f32 product (flash_tf32_fwd.cuh): one TF32 product would
-// miss the f32 checks' 1e-4, three hold it.
+// f32 at D = 256 (the MID-FC heads) and at D = 64 (the HRNet heads with f32
+// activations): the tensor cores in split TF32, three TF32 products per f32
+// product (flash_tf32_fwd.cuh, flash_tf32_d64_fwd.cuh): one TF32 product
+// would miss the f32 checks' 1e-4, three hold it.
 //
-// f32 at D = 64 / 128, and bf16 at D = 128 / 256, take the CUDA-core kernel
-// of flash_wide.cuh: it keeps only the query tile whole in shared memory and
+// f32 at D = 128, and bf16 at D = 128 / 256, take the CUDA-core kernel of
+// flash_wide.cuh: it keeps only the query tile whole in shared memory and
 // walks D in chunks of 64, in f32 arithmetic.
 //
 // Any other head dim up to 256 reaches this file zero-padded by its wrapper
@@ -66,6 +67,7 @@
 
 #include "common.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32_d64_fwd.cuh"
 #include "flash_tf32_fwd.cuh"
 #include "flash_wide.cuh"
 
@@ -253,8 +255,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 
 // q, k, v, out: [B, H, L, D] contiguous, 16-byte aligned; kv_mask [B, Lk],
 // q_mask [B, Lq] bool bytes; lse [B, H, Lq] f32. D (dk == dv) is 16, 32 or
-// 64 in bf16 (64: the HRNet heads), 64 in f32, or 128 or 256 (the MID-FC
-// heads).
+// 64 in bf16 (64: the HRNet heads), 64 in f32 (the HRNet heads with f32
+// activations), or 128 or 256 (the MID-FC heads).
 // use_drop != 0 applies dropout with keep threshold `thresh` (of 2^32) and
 // scale inv_keep = 1/keep, keyed by `seed`.
 extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
@@ -275,6 +277,10 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
     if (D == 64) CSN_TC(64);
   }
 #undef CSN_TC
+  if (dtype == csn::kF32 && D == csn_tf32_d64::D)
+    return csn_tf32_d64::launch_fwd(
+        q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk, inv_temp,
+        csn_tf32::Drop{seed, thresh, inv_keep, use_drop, 0, 0}, s);
   if (dtype == csn::kF32 && D == csn_tf32::D)
     return csn_tf32::launch_fwd_tf32<false, false>(
         q, k, v, kv_mask, q_mask, out, lse, csn_tf32::Carry{}, B, H, Lq, Lk,
@@ -284,10 +290,7 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
       q, k, v, kv_mask, q_mask, out, lse, nullptr, nullptr, nullptr, nullptr, \
       nullptr, nullptr, B, H, Lq, Lk, inv_temp, seed, thresh, inv_keep,       \
       use_drop, 0, 0, s)
-  if (dtype == csn::kF32) {
-    if (D == 64) CSN_WIDE(float, 64);
-    if (D == 128) CSN_WIDE(float, 128);
-  }
+  if (dtype == csn::kF32 && D == 128) CSN_WIDE(float, 128);
   if (dtype == csn::kBF16) {
     if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
     if (D == 256) CSN_WIDE(__nv_bfloat16, 256);

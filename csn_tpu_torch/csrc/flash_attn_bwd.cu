@@ -51,10 +51,11 @@
 //    dS . K (K as B by ldmatrix.trans). dQ takes 1/T at the end.
 // Dropout words as the forward draws them (flash_tc.cuh drop_words).
 //
-// f32 at D = 256 (the MID-FC heads) runs on the tensor cores in split TF32
-// (three TF32 products per f32 product, f32-accurate): flash_tf32_bwd.cuh.
-// f32 at D = 64 / 128 and bf16 at D = 128 / 256 take the CUDA-core kernels
-// of flash_bwd_wide.cuh, in f32 arithmetic. Other head dims up to 256 come
+// f32 at D = 256 (the MID-FC heads) and at D = 64 (the HRNet heads with f32
+// activations) run on the tensor cores in split TF32 (three TF32 products
+// per f32 product, f32-accurate): flash_tf32_bwd.cuh, flash_tf32_d64_bwd.cuh.
+// f32 at D = 128 and bf16 at D = 128 / 256 take the CUDA-core kernels of
+// flash_bwd_wide.cuh, in f32 arithmetic. Other head dims up to 256 come
 // zero-padded by the wrapper (ops/flash.py) to the next width built here:
 // the padded columns of dQ, dK and dV are cut off, delta is unchanged.
 
@@ -62,6 +63,7 @@
 #include "flash_bwd_wide.cuh"
 #include "flash_tc.cuh"
 #include "flash_tf32_bwd.cuh"
+#include "flash_tf32_d64_bwd.cuh"
 
 namespace {
 
@@ -455,6 +457,10 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
   }
 #undef CSN_TC
   const csn_wide_bwd::Drop wd{seed, thresh, inv_keep, use_drop, 0, 0};
+  if (dtype == csn::kF32 && D == csn_tf32_d64::D)
+    return csn_tf32_d64::launch_bwd(q, k, v, dout, lse, delta, kv_mask,
+                                    q_mask, dq, dk, dv, B, H, Lq, Lk,
+                                    inv_temp, wd, s);
   if (dtype == csn::kF32 && D == csn_tf32::D)
     return csn_tf32::launch_bwd_tf32<float>(q, k, v, dout, lse, delta,
                                             kv_mask, q_mask, dq, dk, dv,
@@ -465,10 +471,7 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                                  kv_mask, q_mask, dq, dk,  \
                                                  dv, B, H, Lq, Lk,         \
                                                  inv_temp, wd, s)
-  if (dtype == csn::kF32) {
-    if (D == 64) CSN_WIDE(float, 64);
-    if (D == 128) CSN_WIDE(float, 128);
-  }
+  if (dtype == csn::kF32 && D == 128) CSN_WIDE(float, 128);
   if (dtype == csn::kBF16) {
     if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
     if (D == 256) CSN_WIDE(__nv_bfloat16, 256);

@@ -45,11 +45,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # sparse_conv_fwd counts the forward convs and the backward d_feats convs
 # (the same kernel over the transpose map); K1 and sparse_conv_dw count the
 # launches of their split-TF32 bodies (f32 on the tensor cores) apart, under
-# "_tf32"
+# "_tf32", and K2 and its backward those of their f32 D=64 split-TF32
+# bodies, under "_tf32_d64"
 LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0,
             "sparse_conv_fwd_tf32": 0, "sparse_conv_dw_tf32": 0,
-            "flash_attn_fwd": 0,
-            "flash_attn_bwd": 0, "flash_attn_carry": 0,
+            "flash_attn_fwd": 0, "flash_attn_bwd": 0,
+            "flash_attn_fwd_tf32_d64": 0, "flash_attn_bwd_tf32_d64": 0,
+            "flash_attn_carry": 0,
             "flash_attn_block_bwd": 0, "interp_fwd": 0, "interp_bwd": 0,
             "sparse_conv_im2col_fwd": 0, "sparse_conv_im2col_bwd": 0,
             "probe_window_gather": 0, "probe_gather_accum": 0,
@@ -108,6 +110,8 @@ _SIGNATURES = {
                                _P],
     # variant, x, out, stream
     "csn_probe_slot_load": [_I, _P, _P, _P],
+    # stream: one launch of an empty kernel (the launch floor)
+    "csn_empty_launch": [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -205,6 +209,13 @@ def dtype_code(t: torch.Tensor) -> int:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def empty_launch() -> None:
+    """One launch of an empty kernel on the current stream: the launch
+    floor a kernel's time is read against (`tools/timing.py` `graph_ms`).
+    Not in `LAUNCHES`: it computes nothing of any path."""
+    check(library().csn_empty_launch(stream()), "empty_launch")
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:

@@ -32,10 +32,12 @@ scratch.
   d_k = d_v = 256 per head) runs the forward, the backward and the block
   backward on them in split TF32, three TF32 products per f32 product
   (`csrc/flash_tf32_fwd.cuh`, `csrc/flash_tf32_bwd.cuh` over the blocks of
-  `csrc/flash_tf32.cuh`); every other case (f32 at 64 and 128, bf16 at 128
-  and 256, and the ring's bf16 at 64) takes the f32 CUDA-core kernels that
-  walk D in chunks of 64 (`csrc/flash_wide.cuh`,
-  `csrc/flash_bwd_wide.cuh`).
+  `csrc/flash_tf32.cuh`), and so does f32 at D = 64 (the HRNet heads with
+  f32 activations) in K2 and its backward (`csrc/flash_tf32_d64_fwd.cuh`,
+  `csrc/flash_tf32_d64_bwd.cuh`). Every other
+  case (f32 at 128, bf16 at 128 and 256, and the ring's forms but f32 at
+  256) takes the f32 CUDA-core kernels that walk D in chunks of 64
+  (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
   loop over ONE key block with the running max, denominator and f32
   accumulator carried in and written back raw; `flash_carry_finalize`
@@ -85,11 +87,11 @@ K2_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
                 torch.float32: (64, 128, 256)}
 RING_HEAD_DIMS = (64, 128, 256)   # the carry and the block backward
 MAX_HEAD_DIM = 256
-# f32 at this head dim runs on the tensor cores in split TF32: the forward
-# (csrc/flash_tf32_fwd.cuh) and both backward forms (csrc/flash_tf32_bwd.cuh),
+# f32 at this head dim runs both backward forms (csrc/flash_tf32_bwd.cuh),
 # which pass dS from their dK/dV pass to their dQ pass through an f32
-# scratch of B * H * ceil32(Lk) * ceil32(Lq)
-TF32_HEAD_DIM = 256
+# scratch of B * H * ceil32(Lk) * ceil32(Lq); the D = 64 body recomputes
+# dS in its dQ pass instead (8.1 GB of scratch at the HRNet SSA call)
+DS_SCRATCH_HEAD_DIM = 256
 
 
 def _ceil32(n: int) -> int:
@@ -97,10 +99,10 @@ def _ceil32(n: int) -> int:
 
 
 def _ds_scratch(q, B, H, Lq, Lk, D) -> Optional[torch.Tensor]:
-    """The f32 scratch through which the split-TF32 backward hands dS^T
-    from its dK/dV pass to its dQ pass (f32 at TF32_HEAD_DIM only; None
-    for the other bodies)."""
-    if q.dtype != torch.float32 or D != TF32_HEAD_DIM:
+    """The f32 scratch through which the split-TF32 backward at head dim
+    256 hands dS^T from its dK/dV pass to its dQ pass (f32 at
+    DS_SCRATCH_HEAD_DIM only; None for the other bodies, which read none)."""
+    if q.dtype != torch.float32 or D != DS_SCRATCH_HEAD_DIM:
         return None
     return torch.empty(B * H * _ceil32(Lk) * _ceil32(Lq),
                        dtype=torch.float32, device=q.device)
@@ -208,6 +210,22 @@ def k2_head_dim(q: torch.Tensor) -> int:
                                                          RING_HEAD_DIMS))
 
 
+def k2_split_tf32_d64(dtype: torch.dtype, d: int) -> bool:
+    """Whether K2 and its backward run head dim `d` in `dtype` on the f32
+    D=64 split-TF32 bodies (`csrc/flash_tf32_d64_*.cuh`; f32 head dims
+    below 64 run there zero-padded), whose launches count apart under
+    `"_tf32_d64"`."""
+    return dtype == torch.float32 and padded_head_dim(
+        d, K2_HEAD_DIMS[dtype]) == 64
+
+
+def _k2_row(what: str, q: torch.Tensor) -> str:
+    """The `kernels.LAUNCHES` row of a K2 launch on q: `what`, or `what +
+    "_tf32_d64"` on the f32 D=64 bodies."""
+    return what + "_tf32_d64" if k2_split_tf32_d64(q.dtype, q.shape[-1]) \
+        else what
+
+
 def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
     """x [..., D] zero-padded along its last dim to `width` (x itself when
     D == width). Exact for attention at the caller's temperature: the zero
@@ -233,14 +251,16 @@ def _masks(what, q, k, kv_mask, q_mask):
 
 
 def _require_aligned(what, *tensors):
-    """The tensor-core bodies (bf16 at head dims 16, 32 and 64, f32 at 256)
-    copy their tiles 16 bytes at a time with cp.async, and the carry
-    kernels read the accumulator in 8- and 16-byte words: a misaligned
-    start would read the wrong bytes rather than fail. A zero-padded head
-    is a fresh allocation, aligned."""
+    """The tensor-core bodies (bf16 at head dims 16, 32 and 64, f32 at 64
+    and 256) copy their tiles 16 bytes at a time
+    with cp.async, and the carry kernels read the accumulator in 8- and
+    16-byte words: a misaligned start would read the wrong bytes rather
+    than fail. A zero-padded head is a fresh allocation, aligned."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: q, k, v (and dout, or the carry's acc) "
-                         f"must start on a 16-byte boundary")
+                         f"must start on a 16-byte boundary: the tensor-core "
+                         f"bodies (bf16 at head dims 16-64, f32 at 64 and "
+                         f"256) copy them 16 bytes at a time")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -278,7 +298,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), B, H, Lq, k.shape[2], D, 1.0 / float(temperature),
         *drop, kernels.stream())
     kernels.check(code, what)
-    kernels.LAUNCHES[what] += 1
+    kernels.LAUNCHES[_k2_row(what, q)] += 1
     return out, lse
 
 
@@ -318,7 +338,7 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask=None, q_mask=None,
         dv.data_ptr(), 0 if ds_t is None else ds_t.data_ptr(), B, H, Lq, Lk,
         D, 1.0 / float(temperature), *drop, kernels.stream())
     kernels.check(code, what)
-    kernels.LAUNCHES[what] += 1
+    kernels.LAUNCHES[_k2_row(what, q)] += 1
     return dq, dk, dv
 
 

@@ -19,10 +19,12 @@ shapes of 10000 points, built once by this checkout and handed to both) at
 39 and 256 channels in f32 and bf16 (CUDA-event medians per call over
 batches of calls; for the interpolation pair over replays of a CUDA graph
 of 20 calls, the device's time without the wrappers' host work, with a
-warm L2 and from device memory: `tools/timing.py`), and the bf16 flash
-pair at head dim 64 (`flash_attn_fwd`, `flash_attn_bwd`) at the HRNet SSA
-call [16, 4, 5632, 64] with ragged masks, at dropout 0 and 0.1 (device
-time from CUDA graphs, warm L2), and the gather probes
+warm L2 and from device memory: `tools/timing.py`), and the flash pair
+(`flash_attn_fwd`, `flash_attn_bwd`) at the HRNet SSA call [16, 4, 5632,
+64] in bf16 and f32, at the f32 CSA call [8, 4, 5632, 64] against 5632
+keys, with ragged masks, and at the MID-FC chunk shape [80, 8, 500, 256] in
+f32, at dropout 0 and 0.1 (device time from CUDA graphs, warm L2), and the
+gather probes
 (`probe_gather_accum` in its three modes at the probe scripts' timing
 geometry, 352 tiles x 9 offsets x 256 rows x 128 channels, with the bf16
 window at W = 384 and the f32 window at W = 384 and 256, row ids outside
@@ -31,15 +33,17 @@ both layouts; device time from CUDA graphs, warm L2 and from device
 memory), and the HRNetSimCSN3S eval and train steps with f32 activations
 at the bench protocol (`--kernels steps`: 8 query shapes of 10000 points,
 K=1, voxel 0.05, level-0 cap 5632, k5 stem, d_model 256 in 4 heads, 39
-classes, dropout 0.1, SGD; ms per step on the host clock, and the device
-ms per step of K1, `sparse_conv_dw` and the rest from `torch.profiler`),
+classes, dropout 0.1, SGD; ms per step on the host clock, the peak
+device memory of those steps, and the device ms per step of K1,
+`sparse_conv_dw`, K2 with its backward and the rest from
+`torch.profiler`),
 and hashes every output. The script
 prints each run's times, whether each kernel's outputs are bitwise equal
 across the checkouts and between two launches in one run, and the
-registers ptxas reports for the kernels of `csrc/sparse_conv.cu`,
-`csrc/sparse_conv_bwd.cu`, `csrc/interp.cu`, `csrc/interp_bwd.cu`,
-`csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu` and `csrc/probe_gather.cu`
-in each. `--kernels` runs one family only.
+registers and spill bytes ptxas reports for the kernels of
+`csrc/sparse_conv.cu`, `csrc/sparse_conv_bwd.cu`, `csrc/interp.cu`,
+`csrc/interp_bwd.cu`, `csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu` and
+`csrc/probe_gather.cu` in each. `--kernels` runs one family only.
 """
 
 from __future__ import annotations
@@ -73,6 +77,9 @@ FAMILIES = tuple(REGISTER_SOURCES)
 INTERP_WIDTHS = (39, 256)   # the HRNet heads' classes, the extraction chain
 # the HRNet SSA call: (K + 1) B shapes, 4 heads of 64, the level-3 cap
 FLASH_SHAPE = (16, 4, 5632, 64)
+# the MID-FC CSA chunks: 4 shapes x 10000 points in chunks of 500, 8 heads of
+# 256
+MIDFC_SHAPE = (80, 8, 500, 256)
 FLASH_DROPOUT, FLASH_SEED = 0.1, 0x5EED
 
 
@@ -223,37 +230,66 @@ def interp_worker(reps: int, table: Path) -> dict:
     return res
 
 
-def flash_worker(reps: int) -> dict:
-    """The current checkout's bf16 flash pair at FLASH_SHAPE: {shape:
-    {kernel at dropout: entry}}. Each shape's valid rows are a prefix of
-    seeded length (as a padded point set), the same mask for queries and
-    keys."""
-    import torch
+def _flash_calls(q, k, v, dout, qmask, kmask, reps: int) -> dict:
+    """{kernel at dropout: entry} of the flash pair on these inputs at
+    dropout 0 and FLASH_DROPOUT (device time from CUDA graphs, warm L2)."""
     from csn_tpu_torch.ops import flash
 
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(SEED)
-    b, h, L, d = FLASH_SHAPE
-    q, k, v, dout = (torch.randn(b, h, L, d, generator=gen).to(
-        dev, torch.bfloat16) for _ in range(4))
-    n = torch.randint(L // 2, L + 1, (b,), generator=gen)
-    mask = (torch.arange(L)[None, :] < n[:, None]).to(dev)
-    dout = dout * mask[:, None, :, None]
-    temp = float(d) ** 0.5
+    temp = float(q.shape[-1]) ** 0.5
     calls = {}
     for drop in (0.0, FLASH_DROPOUT):
         sd = FLASH_SEED if drop else None
-        out, lse = flash.flash_attention(q, k, v, mask, mask, temp, drop, sd)
+        out, lse = flash.flash_attention(q, k, v, kmask, qmask, temp, drop,
+                                         sd)
         delta = (dout.float() * out.float()).sum(dim=-1)
         calls[f"flash_attn_fwd dropout {drop}"] = (
             lambda drop=drop, sd=sd: flash.flash_attention(
-                q, k, v, mask, mask, temp, drop, sd))
+                q, k, v, kmask, qmask, temp, drop, sd))
         calls[f"flash_attn_bwd dropout {drop}"] = (
             lambda drop=drop, sd=sd, lse=lse, delta=delta:
-            flash.flash_attention_bwd(q, k, v, dout, lse, delta, mask, mask,
-                                      temp, drop, sd))
-    return {f"flash [{b},{h},{L},{d}] bf16": {
-        name: _entry(fn, reps, graph_ms) for name, fn in calls.items()}}
+            flash.flash_attention_bwd(q, k, v, dout, lse, delta, kmask,
+                                      qmask, temp, drop, sd))
+    return {name: _entry(fn, reps, graph_ms) for name, fn in calls.items()}
+
+
+def flash_worker(reps: int) -> dict:
+    """The current checkout's flash pair: {shape: {kernel at dropout:
+    entry}}, at FLASH_SHAPE (the HRNet SSA call) in bf16 and in f32 (the
+    f32 HRNet step's call), at the CSA call (8 query shapes against 8 key
+    shapes, the same sizes) in f32, and at the MID-FC chunk shape
+    MIDFC_SHAPE in f32 (head dim 256). Each shape's valid rows are a prefix
+    of seeded length (as a padded point set); the SSA call takes one mask
+    for queries and keys."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+
+    def inputs(b, h, L, d, dt):
+        x = [torch.randn(b, h, L, d, generator=gen).to(dev, dt)
+             for _ in range(4)]
+        n = torch.randint(L // 2, L + 1, (b,), generator=gen)
+        mask = (torch.arange(L)[None, :] < n[:, None]).to(dev)
+        x[3] = x[3] * mask[:, None, :, None]
+        return x, mask
+
+    res = {}
+    b, h, L, d = FLASH_SHAPE
+    for dt in (torch.bfloat16, torch.float32):
+        x, mask = inputs(b, h, L, d, dt)
+        res[f"flash SSA [{b},{h},{L},{d}] {str(dt)[6:]}"] = _flash_calls(
+            *x, mask, mask, reps)
+    x, qmask = inputs(b // 2, h, L, d, torch.float32)
+    n = torch.randint(L // 2, L + 1, (b // 2,), generator=gen)
+    kmask = (torch.arange(L)[None, :] < n[:, None]).to(dev)
+    res[f"flash CSA [{b // 2},{h},{L},{d}] float32"] = _flash_calls(
+        *x, qmask, kmask, reps)
+    b, h, L, d = MIDFC_SHAPE
+    x, _ = inputs(b, h, L, d, torch.float32)
+    ones = torch.ones(b, L, dtype=torch.bool, device=dev)
+    res[f"flash MID-FC chunks [{b},{h},{L},{d}] float32"] = _flash_calls(
+        *x, ones, ones, reps)
+    return res
 
 
 def probe_worker(reps: int) -> dict:
@@ -292,17 +328,19 @@ def probe_worker(reps: int) -> dict:
 
 # the f32 steps: chip_smoke.py's protocol (the JAX package's bench.py)
 STEP_SHAPES, STEP_POINTS, STEP_DROPOUT, STEP_LR = 8, 10000, 0.1, 0.05
-# device kernels of the sparse conv by name: K1's bodies, then dW's
+# device kernels by name: K1's bodies, dW's, then K2's and its backward's
 STEP_KERNELS = (("K1", ("sparse_conv_fwd",)),
-                ("sparse_conv_dw", ("sparse_conv_dw", "sum_splits")))
+                ("sparse_conv_dw", ("sparse_conv_dw", "sum_splits")),
+                ("attention", ("flash_",)))
 
 
 def steps_worker(reps: int) -> dict:
     """The current checkout's HRNetSimCSN3S eval and train steps with f32
     activations at STEP_SHAPES query shapes of STEP_POINTS points, K=1:
     {step: {"ms": [ms per step], device ms per step by STEP_KERNELS and
-    "rest": [ms]}}. The step time is the host clock over `reps` steps
-    ending in a synchronize, after 3 warm-up steps; the device times come
+    "rest": [ms], "peak GiB": [peak device memory]}}. The step time is the
+    host clock over `reps` steps ending in a synchronize, after 3 warm-up
+    steps, and the peak memory that of those steps; the device times come
     from one more step under torch.profiler."""
     import numpy as np
     import torch
@@ -339,11 +377,13 @@ def steps_worker(reps: int) -> dict:
         for _ in range(3):
             step()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / reps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step()
             torch.cuda.synchronize()
@@ -357,7 +397,8 @@ def steps_worker(reps: int) -> dict:
             dev_ms[key] += e.device_time_total / 1e3
         res[f"HRNetSimCSN3S f32 {name} step B={STEP_SHAPES} K=1"] = {
             "ms": [ms],
-            **{f"device {k}": [v] for k, v in dev_ms.items()}}
+            **{f"device {k}": [v] for k, v in dev_ms.items()},
+            "peak GiB": [peak]}
     return res
 
 
@@ -377,8 +418,9 @@ def worker(reps: int, families: tuple, table: Path) -> dict:
 
 
 def registers(root: Path, families: tuple) -> list:
-    """(kernel, registers) of every kernel ptxas compiles in the
-    REGISTER_SOURCES of `families` in the checkout at `root`."""
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    kernel ptxas compiles in the REGISTER_SOURCES of `families` in the
+    checkout at `root`."""
     from csn_tpu_torch import kernels
     filt = shutil.which("cu++filt", path=str(Path(kernels.nvcc()).parent))
     out = []
@@ -390,11 +432,11 @@ def registers(root: Path, families: tuple) -> list:
                  str(Path(tmp) / "k.o")], capture_output=True, text=True)
             if res.returncode:
                 raise RuntimeError(f"nvcc {src} in {root}:\n{res.stderr}")
-            name = None
+            name, spill = None, (0, 0)
             for line in res.stderr.splitlines():
                 m = re.search(r"Compiling entry function '(\w+)'", line)
                 if m:
-                    name = m.group(1)
+                    name, spill = m.group(1), (0, 0)
                     if filt:
                         name = subprocess.run([filt, name], capture_output=True,
                                               text=True).stdout.strip()
@@ -403,10 +445,14 @@ def registers(root: Path, families: tuple) -> list:
                         name = re.sub(r"\((?:int|bool|anonymous namespace)\)",
                                       "", name)
                         name = name.split("(")[0].split("::")[-1]
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m:
+                    spill = (int(m.group(1)), int(m.group(2)))
                 m = re.search(r"Used (\d+) registers", line)
                 if m and name:
-                    out.append((f"{src} {name}", int(m.group(1))))
-                    name = None
+                    out.append((f"{src} {name}", int(m.group(1)), *spill))
+                    name, spill = None, (0, 0)
     return sorted(out)
 
 
@@ -446,7 +492,8 @@ def main(argv=None) -> int:
             runs.setdefault(tag, []).append(run)
             for shape, kern in run.items():
                 print(f"[ab {tag}{len(runs[tag])}] {shape}: " + ", ".join(
-                    f"{name} {e[0]:.4f} ms"
+                    (f"{name} {e[0]:.4f}" if "GiB" in name
+                     else f"{name} {e[0]:.4f} ms")
                     + (f" ({e[3]:.4f} from device memory)" if len(e) > 3
                        else "") for name, e in kern.items()))
     for shape, kern in runs["this"][0].items():
@@ -465,8 +512,9 @@ def main(argv=None) -> int:
               + "; two launches bitwise equal in every run: "
               + ", ".join(f"{name} {v}" for name, v in repeat.items()))
     for tag, root in (("other", other), ("this", this)):
-        for name, regs in registers(root, families):
-            print(f"[ab registers {tag}] {name}: {regs}")
+        for name, regs, st, ld in registers(root, families):
+            print(f"[ab registers {tag}] {name}: {regs} registers, {st} "
+                  f"bytes spill stores, {ld} bytes spill loads")
     return 0
 
 

@@ -20,6 +20,7 @@
 """
 
 import ctypes
+import re
 
 import jax
 import jax.numpy as jnp
@@ -493,33 +494,95 @@ def _split_tf32_block_backward(q, k, v, dout, kv_mask, lse, delta, temp,
     return dq, dk, dv
 
 
+def _split_tf32_probs(q, k, v, dout, kv_mask, lse, delta, temp, dropout,
+                      seed, col_offset=0):
+    """m p / keep and dS of the f32 D=64 backward's passes on keys
+    col_offset .. (k's rows): S = Q K^T and dP = dO V^T as three TF32
+    products each, p = exp(S / T - lse), dS = p (m dP / keep - delta)."""
+    s = _mm3(q, k.transpose(-1, -2))
+    s = s.masked_fill(~kv_mask[:, None, None, :], flash.NEG_INF)
+    p = torch.exp(s / temp - lse[..., None])
+    dp = _mm3(dout, v.transpose(-1, -2))
+    pd = p
+    if dropout:
+        keep = flash.dropout_keep_mask(seed, dropout, tuple(p.shape),
+                                       col_offset=col_offset)
+        dp = torch.where(keep, dp / (1.0 - dropout), 0.0)
+        pd = torch.where(keep, p / (1.0 - dropout), 0.0)
+    return pd, p * (dp - delta[..., None])
+
+
+def _split_tf32_d64_backward(q, k, v, dout, kv_mask, lse, delta, temp,
+                             dropout, seed):
+    """The f32 head-dim-64 backward passes (`csrc/flash_tf32_d64_bwd.cuh`)
+    in plain torch. dkdv: over 32-query tiles, each tile's dV = (m P /
+    keep)^T dO and dK = dS^T Q as three TF32 products summed from zero and
+    added to the running sums in f32. dq: over 64-key tiles, S, dP and dS
+    recomputed from Q, K, V, dO (no scratch), each tile's dS K summed from
+    zero and added in f32. dK and dQ times 1/T at the end."""
+    pd, ds = _split_tf32_probs(q, k, v, dout, kv_mask, lse, delta, temp,
+                               dropout, seed)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for r0 in range(0, q.shape[2], 32):
+        rows = slice(r0, r0 + 32)
+        dv = dv + _mm3(pd[:, :, rows].transpose(-1, -2), dout[:, :, rows])
+        dk = dk + _mm3(ds[:, :, rows].transpose(-1, -2), q[:, :, rows])
+    dq = torch.zeros_like(q)
+    for c0 in range(0, k.shape[2], 64):
+        cols = slice(c0, c0 + 64)
+        _, ds_t = _split_tf32_probs(q, k[:, :, cols], v[:, :, cols], dout,
+                                    kv_mask[:, cols], lse, delta, temp,
+                                    dropout, seed, col_offset=c0)
+        dq = dq + _mm3(ds_t, k[:, :, cols])
+    return dq / temp, dk / temp, dv
+
+
 def _split_tf32_backward(q, k, v, dout, kv_mask, temp, dropout, seed):
-    """The f32 head-dim-256 backward over all keys, from the f32 forward's
-    lse and delta = rowsum(dO o O)."""
+    """The f32 backward of the split-TF32 body of q's head dim (64 or 256)
+    over all keys, from the f32 forward's lse and delta = rowsum(dO o O)."""
     out, lse = attention.scaled_dot_product_attention(
         q, k, v, kv_mask, temp, dropout=dropout, seed=seed, return_lse=True)
     delta = (dout * out).sum(dim=-1)
-    return _split_tf32_block_backward(q, k, v, dout, kv_mask, lse, delta,
-                                      temp, dropout, seed)
+    body = (_split_tf32_d64_backward if q.shape[-1] == 64
+            else _split_tf32_block_backward)
+    return body(q, k, v, dout, kv_mask, lse, delta, temp, dropout, seed)
 
 
-@pytest.mark.parametrize("dropout", [0.0, 0.1])
-def test_split_tf32_backward_holds_the_f32_tolerance(dropout):
-    """Before the card: the split-TF32 arithmetic of the f32 D=256 backward,
-    emulated, stays within chip_smoke's f32 tolerance, 1e-4 x max|ref|, at a
-    ragged masked shape: at dropout 0 of `jax.vjp` of the JAX package's
-    dense attention (not the Pallas body, which rounds to bf16); at 0.1 of
-    autograd of the port's plain attention (the TPU's random bits have no
-    CPU lowering)."""
+# the split-TF32 bodies' cases: (b, h, Lq, Lk) by head dim, each with a fully
+# masked key tile and a query tile all padding of its body's tiles (D=256: 32
+# keys, 32 queries in the backward; D=64: 64 keys, 64 queries)
+TF32_SHAPES = {256: (1, 2, 100, 77), 64: (1, 2, 150, 170)}
+TF32_DEAD_KEYS = {256: slice(32, 64), 64: slice(64, 128)}
+TF32_PAD_QUERIES = {256: slice(64, 96), 64: slice(64, 128)}
+
+
+def _bwd_inputs(d):
+    """f32 inputs of the split-TF32 backward cases at head dim d: q, k, v,
+    the key mask, dO (zero on padding rows)."""
     rng = np.random.default_rng(13)
-    b, h, lq, lk, d = 1, 2, 100, 77, 256
+    b, h, lq, lk = TF32_SHAPES[d]
     q, k, v = _qkv(rng, b, h, lq, lk, d)
     kv = rng.random((b, lk)) > 0.3
-    kv[0, 32:64] = False                      # a fully masked 32-key tile
+    kv[0, TF32_DEAD_KEYS[d]] = False          # a fully masked key tile
     qm = rng.random((b, lq)) > 0.2
-    qm[0, 64:96] = False                      # a 32-query tile all padding
+    qm[0, TF32_PAD_QUERIES[d]] = False        # a query tile all padding
     g = (rng.normal(size=(b, h, lq, d)) * qm[:, None, :, None]
          ).astype(np.float32)
+    return q, k, v, kv, g
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_split_tf32_backward_holds_the_f32_tolerance(dropout, d):
+    """Before the card: the split-TF32 arithmetic of the f32 backward at
+    D=256 and at D=64 (each body's own rounding points: D=64 adds each
+    tile's dK, dV and dQ in f32 and recomputes dS in its dQ pass), emulated,
+    stays within chip_smoke's f32 tolerance, 1e-4 x max|ref|, at a ragged
+    masked shape with a fully masked key tile and a query tile all padding:
+    at dropout 0 of `jax.vjp` of the JAX package's dense attention (not the
+    Pallas body, which rounds to bf16); at 0.1 of autograd of the port's
+    plain attention (the TPU's random bits have no CPU lowering)."""
+    q, k, v, kv, g = _bwd_inputs(d)
     temp, seed = float(d) ** 0.5, 0x5EED
     tq, tk, tv, tg, tkv = map(torch.from_numpy, (q, k, v, g, kv))
     got = _split_tf32_backward(tq, tk, tv, tg, tkv, temp, dropout,
@@ -540,12 +603,14 @@ def test_split_tf32_backward_holds_the_f32_tolerance(dropout):
         assert (gk - ref).abs().max().item() <= 1e-4 * scale
 
 
-def test_single_tf32_pass_misses_the_f32_tolerance(monkeypatch):
-    """Why three products: the same backward with one TF32 product per
-    product (both operands rounded once) misses 1e-4 x max|ref| of the
-    float64 gradient on the inputs where the split version holds it."""
+@pytest.mark.parametrize("d", [64, 256])
+def test_single_tf32_pass_misses_the_f32_tolerance(monkeypatch, d):
+    """Why three products: the same backward (D=256's, D=64's) with one
+    TF32 product per product (both operands rounded once) misses 1e-4 x
+    max|ref| of the float64 gradient on the inputs where the split version
+    holds it."""
     rng = np.random.default_rng(13)
-    b, h, lq, lk, d = 1, 2, 100, 77, 256
+    b, h, lq, lk = TF32_SHAPES[d]
     q, k, v = map(torch.from_numpy, _qkv(rng, b, h, lq, lk, d))
     kv = torch.from_numpy(rng.random((b, lk)) > 0.3)
     g = torch.from_numpy(rng.normal(size=(b, h, lq, d)).astype(np.float32))
@@ -572,12 +637,14 @@ LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 
 def _split_tf32_forward(q, k, v, kv_mask, temp, dropout, seed, carry=None,
                         q_mask=None, row_offset=0, col_offset=0):
-    """The f32 head-dim-256 forward (`csrc/flash_tf32_fwd.cuh`) in plain
-    torch, over 32-key tiles from the block's first key: S = Q K^T as three
-    TF32 products (hi and lo of Q and K), scores in log2 units (S / T times
-    log2 e), p = 2^(s - m) (masked keys 0), the undropped p into the
-    denominator, the dropped p and V split again for P V, which each tile
-    sums from zero and adds to O in f32 (O <- O alpha + P V).
+    """The f32 forward of the split-TF32 body of q's head dim in plain
+    torch (D=256: `csrc/flash_tf32_fwd.cuh`, 32-key tiles; D=64:
+    `csrc/flash_tf32_d64_fwd.cuh`, 64-key tiles), over key tiles from the
+    block's first key: S = Q K^T as three TF32 products (hi and lo of Q and
+    K), scores in log2 units (S / T times log2 e), p = 2^(s - m) (masked
+    keys 0), the undropped p into the denominator, the dropped p and V
+    split again for P V, which each tile sums from zero and adds to O in
+    f32 (O <- O alpha + P V).
 
     Without `carry` it starts from (NEG_INF, 0, 0) and returns (out, lse),
     K2's form. With `carry` = (m, l, acc) in the port's units (m natural, as
@@ -598,8 +665,9 @@ def _split_tf32_forward(q, k, v, kv_mask, temp, dropout, seed, carry=None,
     else:
         m, l, o = carry[0][..., None] * LOG2E, carry[1][..., None], carry[2]
     sc = LOG2E / temp
-    for c0 in range(0, lk, 32):
-        c1 = min(c0 + 32, lk)
+    tile = 64 if d == 64 else 32
+    for c0 in range(0, lk, tile):
+        c1 = min(c0 + tile, lk)
         ok = kv_mask[:, None, None, c0:c1]
         s = _mm3(q, k[:, :, c0:c1].transpose(-1, -2)) * sc
         s = s.masked_fill(~ok, flash.NEG_INF)
@@ -622,28 +690,31 @@ def _split_tf32_forward(q, k, v, kv_mask, temp, dropout, seed, carry=None,
                  for n, c in zip(new, carry))
 
 
-def _fwd_inputs(seed=14):
-    """f32 inputs at the MID-FC head dim: a ragged shape with a fully
-    masked 32-key tile and a 64-query tile all padding."""
+def _fwd_inputs(seed=14, d=256):
+    """f32 inputs at head dim d (256: the MID-FC heads; 64: the HRNet
+    heads): a ragged shape with a fully masked key tile of the body
+    (TF32_DEAD_KEYS) and a 64-query tile all padding."""
     rng = np.random.default_rng(seed)
-    b, h, lq, lk, d = 1, 2, 100, 77, 256
+    b, h, lq, lk = TF32_SHAPES[d]
     q, k, v = _qkv(rng, b, h, lq, lk, d)
     kv = rng.random((b, lk)) > 0.3
-    kv[0, 32:64] = False
+    kv[0, TF32_DEAD_KEYS[d]] = False
     qm = rng.random((b, lq)) > 0.2
-    qm[0, 64:] = False
+    qm[0, 64:128] = False
     return q, k, v, kv, qm, float(d) ** 0.5
 
 
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
-def test_split_tf32_forward_holds_the_f32_tolerance(dropout):
-    """Before the card: the rounding points of the f32 D=256 forward,
-    emulated, hold chip_smoke's f32 tolerance, 1e-4 x max|ref| on the valid
-    query rows: at dropout 0 the output against the JAX package's dense
-    attention (not the Pallas body, which rounds to bf16) and lse against
-    the port's plain version; at 0.1 both against the port's plain version
-    (the TPU's random bits have no CPU lowering)."""
-    q, k, v, kv, qm, temp = _fwd_inputs()
+def test_split_tf32_forward_holds_the_f32_tolerance(dropout, d):
+    """Before the card: the rounding points of the f32 forward at D=256 and
+    at D=64 (each with its own key tiles), emulated, hold chip_smoke's f32
+    tolerance, 1e-4 x max|ref| on the valid query rows: at dropout 0 the
+    output against the JAX package's dense attention (not the Pallas body,
+    which rounds to bf16) and lse against the port's plain version; at 0.1
+    both against the port's plain version (the TPU's random bits have no
+    CPU lowering)."""
+    q, k, v, kv, qm, temp = _fwd_inputs(d=d)
     tq, tk, tv, tkv = map(torch.from_numpy, (q, k, v, kv))
     seed = 0x5EED if dropout else None
     out, lse = _split_tf32_forward(tq, tk, tv, tkv, temp, dropout, seed)
@@ -662,11 +733,13 @@ def test_split_tf32_forward_holds_the_f32_tolerance(dropout):
         assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
-def test_single_tf32_pass_misses_the_f32_tolerance_forward(monkeypatch):
-    """Why three products in the forward too: with one TF32 product per
-    product the emulated output misses 1e-4 x max|ref| of the float64
-    attention on the inputs where the split version holds it."""
-    q, k, v, kv, qm, temp = _fwd_inputs()
+@pytest.mark.parametrize("d", [64, 256])
+def test_single_tf32_pass_misses_the_f32_tolerance_forward(monkeypatch, d):
+    """Why three products in the forward too (D=256's, D=64's): with one
+    TF32 product per product the emulated output misses 1e-4 x max|ref| of
+    the float64 attention on the inputs where the split version holds
+    it."""
+    q, k, v, kv, qm, temp = _fwd_inputs(d=d)
     tq, tk, tv, tkv = map(torch.from_numpy, (q, k, v, kv))
     s = torch.matmul(tq.double() / temp, tk.double().transpose(-1, -2))
     s = s.masked_fill(~tkv[:, None, None, :], flash.NEG_INF)
@@ -910,6 +983,104 @@ def test_block_backward_refuses_a_misaligned_view(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# which body K2 and its backward run, by dtype and head dim
+# ---------------------------------------------------------------------------
+
+# the widths of `K2_HEAD_DIMS` whose K2 and backward run on the tensor
+# cores: bf16 in one template over D (csrc/flash_tc.cuh), f32 in split TF32
+# (64: csrc/flash_tf32_d64_*.cuh; 256: csrc/flash_tf32_*.cuh)
+TENSOR_CORE_HEAD_DIMS = {torch.bfloat16: (16, 32, 64),
+                         torch.float32: (64, 256)}
+
+
+@pytest.mark.parametrize("source", ["flash_attn.cu", "flash_attn_bwd.cu"])
+def test_k2_tensor_core_bodies_match_the_dispatch(source):
+    """The C launcher's dispatch: of the (dtype, width) pairs of
+    `K2_HEAD_DIMS` it sends exactly those off `TENSOR_CORE_HEAD_DIMS` (f32
+    128, bf16 128 and 256) to the CUDA-core bodies (`CSN_WIDE`), and f32
+    at 64 to the split-TF32 D=64 body."""
+    text = (kernels.CSRC / source).read_text()
+    body = text[text.index('extern "C" int csn_flash_attn'):]
+    names = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16}
+    wide = {(names[t], int(d)) for t, d in
+            re.findall(r"CSN_WIDE\((float|__nv_bfloat16), (\d+)\)", body)}
+    assert wide == {(dt, w) for dt, widths in flash.K2_HEAD_DIMS.items()
+                    for w in widths
+                    if w not in TENSOR_CORE_HEAD_DIMS[dt]}
+    assert "dtype == csn::kF32 && D == csn_tf32_d64::D" in body
+    assert "csn_tf32_d64::launch_" in body
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_f32_d64_bodies_count_in_rows_of_their_own(dtype):
+    """`k2_split_tf32_d64`, which names the launch rows: every f32 head dim
+    that K2 runs at width 64 (1-64, zero-padded below 64) is on the
+    split-TF32 D=64 bodies, and no other (f32 65-256, bf16 at any)."""
+    for d in range(1, flash.MAX_HEAD_DIM + 1):
+        want = dtype == torch.float32 and d <= 64
+        assert flash.k2_split_tf32_d64(dtype, d) == want, d
+    assert {k for k in kernels.LAUNCHES if k.endswith("_tf32_d64")} == {
+        "flash_attn_fwd_tf32_d64", "flash_attn_bwd_tf32_d64"}
+
+
+def test_ds_scratch_only_for_the_bodies_that_read_it():
+    """The dS^T scratch is allocated for the f32 D=256 backward alone
+    (B H ceil32(Lk) ceil32(Lq) f32); the f32 D=64 body recomputes dS in its
+    dQ pass and gets none (it would be 8.1 GB at the HRNet SSA call), nor
+    do the bf16 and f32 D=128 bodies."""
+    B, H, Lq, Lk = 2, 3, 70, 45
+    for dtype, d in ((torch.float32, 64), (torch.float32, 128),
+                     (torch.bfloat16, 64), (torch.bfloat16, 256)):
+        q = torch.empty(B, H, Lq, d, dtype=dtype, device="meta")
+        assert flash._ds_scratch(q, B, H, Lq, Lk, d) is None
+    q = torch.empty(B, H, Lq, 256, device="meta")
+    ds_t = flash._ds_scratch(q, B, H, Lq, Lk, 256)
+    assert ds_t.dtype == torch.float32 and ds_t.numel() == B * H * 64 * 96
+    # the SSA call's scratch at D=64, had the body kept it
+    assert 16 * 4 * 5632 * 5632 * 4 / 1e9 > 8.1
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_f32_d64_refuses_a_misaligned_view(monkeypatch, direction):
+    """The split-TF32 D=64 bodies copy q, k, v and dO 16 bytes at a time
+    with cp.async: `flash_attention` and `flash_attention_bwd` refuse an f32
+    D=64 view that does not start on a 16-byte boundary with ValueError
+    before any launch (meta tensors through the wrappers' checks, the
+    CUDA-device check stubbed out); an aligned call gets as far as the
+    library."""
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+
+    def no_library():
+        raise LookupError("reached the launch")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    b, h, lq, lk, d = 1, 2, 9, 11, 64
+    meta = dict(device="meta")
+    aligned = torch.empty(b, h, lq, d, **meta)
+    shifted = torch.empty(b * h * lq * d + 1, **meta)[1:].view(b, h, lq, d)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    k = torch.empty(b, h, lk, d, **meta)
+    lse = torch.empty(b, h, lq, **meta)
+
+    def call(q, kk, g):
+        if direction == "fwd":
+            return flash.flash_attention(q, kk, kk)
+        return flash.flash_attention_bwd(q, kk, kk, g, lse, lse)
+
+    k_shifted = torch.empty(b * h * lk * d + 1, **meta)[1:].view(b, h, lk, d)
+    before = dict(kernels.LAUNCHES)
+    cases = [(shifted, k, aligned), (aligned, k_shifted, aligned)]
+    if direction == "bwd":
+        cases.append((aligned, k, shifted))
+    for q, kk, g in cases:
+        with pytest.raises(ValueError, match="16-byte"):
+            call(q, kk, g)
+    with pytest.raises(LookupError, match="reached the launch"):
+        call(aligned, k, aligned)
+    assert kernels.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
 # head dims the kernels are not built for: zero-padded to the next width
 # ---------------------------------------------------------------------------
 
@@ -1063,7 +1234,8 @@ def test_flash_fn_pads_heads_to_the_kernels_widths(monkeypatch, d, dtype):
     the plain version over the same memory (`_PlainLibrary`; the CUDA
     check stubbed out): each launcher is handed the width of
     `K2_HEAD_DIMS` for the dtype (bf16 16, 32, 64; f32 64), once forward
-    and once backward, the launch counts rise by one each, and the output
+    and once backward, the launch counts rise by one each (f32: in the
+    rows of the D=64 split-TF32 bodies, `"_tf32_d64"`), and the output
     and the gradients, cut back to d, equal the unpadded plain version at
     temperature sqrt(d) and dropout 0.1 (f32 within 1e-5; bf16 within
     2e-2 x max|ref|, as the card's checks)."""
@@ -1092,8 +1264,10 @@ def test_flash_fn_pads_heads_to_the_kernels_widths(monkeypatch, d, dtype):
         a, b, c, kv, temp, dropout=0.1, seed=7))
     width = flash.padded_head_dim(d, flash.K2_HEAD_DIMS[dtype])
     assert lib.calls == [("fwd", dtype, width), ("bwd", dtype, width)]
-    assert kernels.LAUNCHES["flash_attn_fwd"] == 1
-    assert kernels.LAUNCHES["flash_attn_bwd"] == 1
+    row = "_tf32_d64" if dtype == torch.float32 else ""
+    assert kernels.LAUNCHES["flash_attn_fwd" + row] == 1
+    assert kernels.LAUNCHES["flash_attn_bwd" + row] == 1
+    assert sum(kernels.LAUNCHES.values()) == 2
     for a, r in zip(got, ref):
         assert a.shape == r.shape and a.dtype == dtype
         err = (a.float() - r.float()).abs().max().item()
