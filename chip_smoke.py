@@ -26,11 +26,11 @@ Phases (each prints its lines; any failure exits nonzero):
      inputs, with median times of both (bf16, the main path's type):
      K1 (sparse conv) on every map and width of the model, and on every
      transpose map with the weights transposed (the backward's d_feats),
-     where its tensor-core bodies run (bf16 with Cout % 8 == 0, the stems'
-     Cin 3 included; f32 with Cin % 16 == 0 and Cout % 8 == 0 in split
-     TF32) also against a float64 conv of the same operands (K1_F64_TOL;
-     f32 TF32_F64_TOL), and at the stems (its flattened steps) and on the
-     split-TF32 body a repeat that must be bitwise equal and the densest
+     where its tensor-core bodies run (bf16, and f32 in split TF32, with
+     Cout % 8 == 0, the stems' Cin 3 included) also against a float64 conv
+     of the same operands (K1_F64_TOL; f32 TF32_F64_TOL), and at the stems
+     (its flattened steps) and on the split-TF32 bodies a repeat that must
+     be bitwise equal and the densest
      offset made all sentinels (bitwise equal to that offset's W zeroed;
      rows without a live offset exact zeros); `sparse_conv_dw` (dW) at the
      same convs, random asymmetric weights, against `conv_bwd_plain`, and
@@ -38,14 +38,18 @@ Phases (each prints its lines; any failure exits nonzero):
      the bf16 stems) also against a float64 reduction of the same operands
      (DW_F64_TOL; f32 TF32_F64_TOL), a repeat that must be bitwise equal,
      and the map with its densest offset made all sentinels (exact zeros
-     there, the other offsets' bits unchanged), at the stems against the
-     im2col `dw_only` body (DW_F64_TOL), plus synthetic maps at the bodies'
-     edges (rows not a multiple of their steps, splits spanning two
-     compaction chunks, empty / full / one-row offsets, part channel
-     tiles, the stems' 3 -> 32 and 24 -> 40 on the narrow body, 48 -> 40
-     and 160 -> 200 on the split-TF32 body with a shorter last split); K1,
-     d_feats and dW timed in f32 at every conv of HRNetSimCSN3S and
-     Res16UNet34C as device time from CUDA graphs; on the same inputs
+     there, the other offsets' bits unchanged), at the stems (the narrow
+     body, bf16 and f32) against the im2col `dw_only` body (DW_F64_TOL;
+     f32 TF32_F64_TOL), plus synthetic maps at the bodies' edges (rows not
+     a multiple of their steps, splits spanning two compaction chunks,
+     empty / full / one-row offsets, part channel tiles, the stems' 3 -> 32
+     and 24 -> 40 on the narrow body in bf16 and f32, 48 -> 40 and 160 ->
+     200 on the wide split-TF32 body, the f32 ones with a shorter last
+     split), and K1's f32 flattened steps at 40 -> 64 over 27 offsets,
+     24 -> 40 and 3 -> 40 over 5 (K*Cin no multiple of the step or the
+     k-step); K1, d_feats and dW timed in f32 at every conv of
+     HRNetSimCSN3S and Res16UNet34C as device time from CUDA graphs, and
+     the im2col pair's f32 bodies beside them; on the same inputs
      `sparse_conv_im2col_fwd` against `conv_im2col_plain` and K1 (in bf16
      bitwise: one body), and `sparse_conv_im2col_bwd`
      (d_feats and dW; dW only for the stem) against `conv_im2col_bwd_plain`
@@ -342,9 +346,9 @@ KERNELS = {
     "sparse_conv_dw": ("csn_tpu_torch/csrc/sparse_conv_bwd.cu",
                        "csn_tpu/core/window_conv.py:1067"),
     # the f32 forms of K1 and sparse_conv_dw: their split-TF32 bodies on the
-    # tensor cores (f32 with Cin % 16 == 0 and Cout % 8 == 0), whose
-    # launches count apart; the f32 stems stay on the CUDA-core bodies of
-    # the two rows above
+    # tensor cores (f32 with Cout % 8 == 0, the stems' flattened steps and
+    # narrow body included), whose launches count apart; the two rows above
+    # are the bf16 bodies and the CUDA-core ones (Cout % 8 != 0)
     "sparse_conv_fwd_tf32": ("csn_tpu_torch/csrc/sparse_conv_tc.cuh",
                              "csn_tpu/core/window_conv.py:973"),
     "sparse_conv_dw_tf32": ("csn_tpu_torch/csrc/sparse_conv_bwd.cu",
@@ -357,7 +361,7 @@ KERNELS = {
     # flash_attn.cu, flash_attn_bwd.cu, flash_attn_carry.cu and
     # flash_attn_block_bwd.cu hold the dispatch (and the bf16 head-dim-64
     # bodies); sparse_conv.cu holds K1's dispatch to the tensor-core body
-    # of sparse_conv_tc.cuh (bf16) and its CUDA-core body (f32)
+    # of sparse_conv_tc.cuh and its CUDA-core body
     "flash_attn_fwd": ("csn_tpu_torch/csrc/flash_tf32_fwd.cuh",
                        "csn_tpu/ops/flash.py:262"),
     "flash_attn_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
@@ -500,9 +504,13 @@ class Table:
         # (error / max|ref|) of the split-TF32 bodies' float64 lines
         self.tf32_f64 = {"sparse_conv_fwd_tf32": [],
                          "sparse_conv_dw_tf32": []}
-        # the im2col pair's f32 forward and backward ms over one train step
-        # of the timed families (single calls; not in the kernel line)
+        # the im2col pair's f32 forward and backward device ms over one
+        # train step of the timed families (CUDA graphs), their plain
+        # versions' (one call each) and their bounds (not in the kernel
+        # line)
         self.f32_im2col_ms = [0.0, 0.0]
+        self.f32_im2col_plain_ms = [0.0, 0.0]
+        self.f32_im2col_bound_ms = [0.0, 0.0]
         # (error / max|ref|) of the im2col pair's float64 lines: forward and
         # d_feats, dW
         self.im2col_f64 = {"out": [], "dW": []}
@@ -765,9 +773,10 @@ def check_dw_edges(dev, table, g):
     and 32 (the stems' channels) and 24 and 40 (two 16-channel tiles, the
     second half empty; a 64-column tile with a half 16-column block);
     the wide body in f32 (split TF32) at 48 and 40 and 160 and 200, whose
-    rows and live pairs per split are no multiple of its 8-pair k-step and
-    whose last split is shorter than the others. Against the plain version
-    (TOL) and `check_dw_tc`."""
+    rows and live pairs per split are no multiple of its 8-pair k-step, and
+    the narrow body in f32 at 3 and 32 and 24 and 40, the f32 ones with a
+    last split shorter than the others. Against the plain version (TOL) and
+    `check_dw_tc`."""
     n_in, n_g = 9 * window_conv.DW_TC_CHUNK + 77, 7000
     gen = torch.Generator().manual_seed(SEED + 7)
     pick = torch.randint(0, n_g, (5, n_in), generator=gen, dtype=torch.int32)
@@ -777,9 +786,10 @@ def check_dw_edges(dev, table, g):
     kmap_t = torch.where(live, pick, n_g).to(dev)
     bf, f32 = torch.bfloat16, torch.float32
     for cin, cout, dt in ((48, 40, bf), (160, 200, bf), (3, 32, bf),
-                          (24, 40, bf), (48, 40, f32), (160, 200, f32)):
-        step = (8 if dt == f32 else window_conv.DW_TC_STEP if cin % 16 == 0
-                else window_conv.DW_NARROW_TILE)
+                          (24, 40, bf), (48, 40, f32), (160, 200, f32),
+                          (3, 32, f32), (24, 40, f32)):
+        step = (window_conv.DW_NARROW_TILE if cin % 16
+                else 8 if dt == f32 else window_conv.DW_TC_STEP)
         s = window_conv.dw_splits(n_in, 5, cin, cout, tensor_cores=True,
                                   dtype=dt)
         rows = -(-n_in // s)
@@ -798,6 +808,36 @@ def check_dw_edges(dev, table, g):
                     ref, dt)
         require(not got[2].any().item() and got[3].any().item(),
                 f"dW {what}: the empty offset and the one-row offset")
+
+
+def check_k1_edges(dev, table):
+    """K1's flattened steps in f32 (split TF32, Cin % 16 != 0) on synthetic
+    maps cut to their edges: N_out = 7000 rows (no multiple of the 128- or
+    64-row tile), K*Cin no multiple of the 32-column step (1080 at Cin 40 x
+    27 offsets, 120 at 24 x 5) or of the 8-column k-step (15 at 3 x 5), Cout
+    40 (a part column block) and 64; an offset without a live row, one with
+    only the last row, sparse ones. Against the plain version (TOL),
+    float64 (`check_k1_f64`) and `check_k1_flat`."""
+    n_in, n_out = 9000, 7000
+    gen = torch.Generator().manual_seed(SEED + 9)
+    for cin, cout, n_off in ((40, 64, 27), (24, 40, 5), (3, 40, 5)):
+        live = torch.rand(n_off, n_out, generator=gen) < 0.5 * torch.rand(
+            n_off, 1, generator=gen)
+        live[2] = False
+        live[3] = False
+        live[3, -1] = True
+        kmap = torch.where(live, torch.randint(
+            0, n_in, (n_off, n_out), generator=gen, dtype=torch.int32),
+            n_in).to(dev)
+        f = torch.randn(n_in, cin, generator=gen).to(dev)
+        w = ((torch.rand(n_off, cin, cout, generator=gen) * 2 - 1)
+             / (cin * n_off) ** 0.5).to(dev)
+        what = f"edges {cin}->{cout} K={n_off} N_out={n_out}"
+        got = window_conv.sparse_conv_fwd(f, kmap, w)
+        table.check(form_name("sparse_conv_fwd", torch.float32, cin, cout),
+                    what, got, conv.conv_plain(f, kmap, w), torch.float32)
+        check_k1_f64(table, what, got, f, kmap, w)
+        check_k1_flat(what, got, f, kmap, w)
 
 
 def check_im2col_fwd_tc(table, what, feats, kmap, weights):
@@ -942,8 +982,15 @@ def time_f32_convs(table, what, t_name, count, n_dfeats, f, gd, kmap,
     """K1, d_feats and dW of one conv in f32, timed as device time from
     CUDA graphs (warm L2) beside one call of the plain version, with bytes
     at 4 per element and the f32 rate (split TF32) for the bound: added
-    `count` times per train step to the split-TF32 rows, printed only where
-    the CUDA-core bodies run (the stems)."""
+    `count` times per train step to the split-TF32 rows (the stems' too),
+    printed only where a CUDA-core body runs (Cout % 8 != 0: no conv of
+    HRNetSimCSN3S or Res16UNet34C). Then the im2col pair's f32 bodies (CUDA
+    cores, `CSN_DYNG=2/3`) on the same inputs, the forward and the backward
+    as the autograd function calls it, as device time from CUDA graphs
+    (warm L2) beside one call of their plain versions and their bound,
+    summed over the train step into `table.f32_im2col_ms`,
+    `f32_im2col_plain_ms` and `f32_im2col_bound_ms` (not in the kernel
+    line)."""
     f32 = torch.float32
     n_in, n_out = f.shape[0], kmap.shape[1]
     cin, cout = wt.shape[1], wt.shape[2]
@@ -960,6 +1007,7 @@ def time_f32_convs(table, what, t_name, count, n_dfeats, f, gd, kmap,
                lambda: window_conv.sparse_conv_fwd(f, kmap, wt),
                lambda: conv.conv_plain(f, kmap, wt), rows(name, count),
                reps=3, nbytes=nb, flops=fl, dtype=f32, graph=True)
+    fwd_bound = max(nb / HBM_BYTES_S, fl / PEAK_FLOPS[f32]) * 1e3
     if n_dfeats:
         nb, fl = conv_work(kmap_t, n_out, cout, cin, 4, 4)
         name = form_name("sparse_conv_fwd", f32, cout, cin)
@@ -975,35 +1023,48 @@ def time_f32_convs(table, what, t_name, count, n_dfeats, f, gd, kmap,
                lambda: conv.conv_bwd_plain(f, gd, kmap_t, wt, mirror, False),
                rows(name, count), reps=3, nbytes=nb, flops=fl, dtype=f32,
                graph=True)
-    # the im2col pair's f32 bodies (CUDA cores, `CSN_DYNG=2/3`), one call
-    # each as the autograd function makes it, summed over the train step
-    fwd_ms = median_ms(
-        lambda: window_conv.sparse_conv_im2col_fwd(f, kmap, wt), reps=3)
-    bwd_ms = median_ms(lambda: conv.conv_im2col_bwd_kernels(
-        f, gd, kmap_t, wt, mirror, n_dfeats > 0), reps=3)
-    table.f32_im2col_ms[0] += count * fwd_ms
-    table.f32_im2col_ms[1] += count * bwd_ms
+    # the im2col pair's f32 bodies: device ms per call (a CUDA graph of 5
+    # calls; the backward's per-split partials are several MB a call)
+    fwd_ms = graph_ms(
+        lambda: window_conv.sparse_conv_im2col_fwd(f, kmap, wt), calls=5,
+        reps=3)
+    bwd_ms = graph_ms(lambda: conv.conv_im2col_bwd_kernels(
+        f, gd, kmap_t, wt, mirror, n_dfeats > 0), calls=5, reps=3)
+    nb, fl = conv_bwd_work(kmap_t, n_out, cin, cout, 4, n_dfeats > 0)
+    bwd_bound = max(nb / HBM_BYTES_S, fl / PEAK_FLOPS[f32]) * 1e3
+    # the plain versions, one call each
+    fwd_plain = median_ms(lambda: conv.conv_im2col_plain(f, kmap, wt),
+                          warmup=1, reps=1)
+    bwd_plain = median_ms(lambda: conv.conv_im2col_bwd_plain(
+        f, gd, kmap_t, wt, mirror, n_dfeats > 0), warmup=1, reps=1)
+    for i, (ms, pms, bms) in enumerate(((fwd_ms, fwd_plain, fwd_bound),
+                                        (bwd_ms, bwd_plain, bwd_bound))):
+        table.f32_im2col_ms[i] += count * ms
+        table.f32_im2col_plain_ms[i] += count * pms
+        table.f32_im2col_bound_ms[i] += count * bms
     print(f"[time] im2col pair {what} f32 (CUDA cores): forward "
-          f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms per call (x{count} "
-          f"per train step; not in the kernel line)")
-
+          f"{fwd_ms:.4f} ms (device, CUDA graph, warm L2; plain "
+          f"{fwd_plain:.4f}, one call; bound {fwd_bound:.4f}), backward "
+          f"dw_only {n_dfeats == 0} {bwd_ms:.4f} ms (plain {bwd_plain:.4f}; "
+          f"bound {bwd_bound:.4f}) per call (x{count} per train step; not "
+          f"in the kernel line)")
 
 
 def check_convs(model, big, dev, table, g, timed=True):
     """K1 forward and on the transpose map, and `sparse_conv_dw`, at every
     (map, Cin, Cout) the model runs, in f32 and bf16; where K1 takes its
-    tensor-core bodies (bf16; f32 in split TF32 where Cin % 16 == 0), also
+    tensor-core bodies (bf16, and f32 in split TF32, at Cout % 8 == 0), also
     against a float64 conv of the same operands, and at the stems (its
-    flattened steps) and on the split-TF32 body `check_k1_flat`; on the
+    flattened steps) and on the split-TF32 bodies `check_k1_flat`; on the
     same inputs the im2col pair (`CSN_DYNG=2/3`) against its plain versions
     and against K1 (in bf16 bitwise: one body) / `sparse_conv_dw`; where
     `sparse_conv_dw` takes its tensor-core bodies (the same rule), also
     `check_dw_tc`, and at the stems its narrow body against the im2col
-    `dw_only` body within DW_F64_TOL; with `timed`, each family's times
-    are added to the table: bf16 as single calls, and K1, d_feats and dW in
-    f32 as device time from CUDA graphs (warm L2; the split-TF32 bodies in
-    their own rows, the f32 stems printed only). Returns the number of
-    convs."""
+    `dw_only` body within DW_F64_TOL (f32 TF32_F64_TOL); with `timed`, each
+    family's times are added to the table: bf16 as single calls, and K1,
+    d_feats and dW in f32 as device time from CUDA graphs (warm L2; the
+    split-TF32 bodies in their own rows), the im2col pair's f32 bodies
+    beside them (`time_f32_convs`). Returns the number of convs."""
     convs = {}
     for m in model.modules():
         if isinstance(m, SparseConv):
@@ -1077,9 +1138,11 @@ def check_convs(model, big, dev, table, g, timed=True):
             table.check(bwd, f"{btag} dW vs sparse_conv_dw", im_dw, got_dw,
                         dt)
             if dw_tc and cin % 16:   # the narrow body: the stems
-                check_f64(table, "sparse_conv_dw", f"{what} ({t_name})",
-                          got_dw, im_dw, DW_F64_TOL,
-                          vs="the im2col dw_only body")
+                check_f64(table, form_name("sparse_conv_dw", dt, cin, cout),
+                          f"{what} ({t_name})", got_dw, im_dw,
+                          TF32_F64_TOL if dt == torch.float32
+                          else DW_F64_TOL, vs="the im2col dw_only body",
+                          body=tc_body(dt))
             del ref_df, ref_dw, got_df, got_dw, got, pl_df, pl_dw, im_df, \
                 im_dw
             if im_tc:
@@ -2228,6 +2291,8 @@ def f32_step_check(cls, spec, dev, tag, mode=None):
               f"{None if replay else mode}): loss {float(loss):.6f} "
               f"({time.perf_counter() - t0:.1f} s), launches "
               f"{ {k: n for k, n in kernels.LAUNCHES.items() if n} }")
+        if not replay and mode in (None, 0, 1):
+            require_no_cuda_core_f32(tag, m32, kernels.LAUNCHES, True)
     (lg, gg), (lc, gc) = res
     print(f"[{tag}] ReLU decisions of the GPU step replayed on the CPU: "
           f"{relus.flips} of {relus.inputs} would have differed")
@@ -2294,6 +2359,17 @@ def f32_conv_launches(model, train):
                                      cin)] += 1
                 counts[form_name("sparse_conv_dw", f32, cin, cout)] += 1
     return dict(counts)
+
+
+def require_no_cuda_core_f32(tag, model, launches, train):
+    """An f32 run of `model` in the K1 form launched the CUDA-core rows of
+    K1 and `sparse_conv_dw` only for convs the split-TF32 rule leaves there
+    (Cout % 8 != 0: none in the four families)."""
+    want = f32_conv_launches(model, train)
+    for name in ("sparse_conv_fwd", "sparse_conv_dw"):
+        require(name in want or not launches.get(name, 0),
+                f"{tag}: an f32 conv ran a CUDA-core body ({name} "
+                f"{launches.get(name, 0)} launches)")
 
 
 def f32_slice(cls, reqs, dev, do_profile=False):
@@ -3036,6 +3112,7 @@ def forward_vs_cpu(name, dev):
     with torch.no_grad():
         got = model(tb).cpu()
         launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        require_no_cuda_core_f32(name, model, launched, False)
         t0 = time.perf_counter()
         ref = model.cpu()(tb.to("cpu"))
     err = (got - ref).abs().max().item()
@@ -3762,6 +3839,7 @@ def main() -> int:
     n_convs = check_convs(model, big, dev, table, g)
     n_stems = 1   # conv0 reads the raw voxel features: no d_feats
     check_dw_edges(dev, table, g)
+    check_k1_edges(dev, table)
     check_im2col_edges(dev, table, g)
     check_attention(qb, kb, big, dev, table, g)
     check_head_dims(big, dev, table)
@@ -3774,9 +3852,14 @@ def main() -> int:
           f"worst {max(table.dw_f64):.3e} of max|ref| over "
           f"{len(table.dw_f64)} lines (tol {DW_F64_TOL:.0e}) ok")
     print(f"[time] im2col pair f32 (CUDA cores) over one train step of "
-          f"HRNetSimCSN3S and one of Res16UNet34C: forward "
-          f"{table.f32_im2col_ms[0]:.3f} ms, backward "
-          f"{table.f32_im2col_ms[1]:.3f} ms (single calls)")
+          f"HRNetSimCSN3S and one of Res16UNet34C (device, CUDA graphs, "
+          f"warm L2 / plain, one call each / bound): forward "
+          + " / ".join(f"{x[0]:.3f}" for x in (
+              table.f32_im2col_ms, table.f32_im2col_plain_ms,
+              table.f32_im2col_bound_ms)) + " ms, backward "
+          + " / ".join(f"{x[1]:.3f}" for x in (
+              table.f32_im2col_ms, table.f32_im2col_plain_ms,
+              table.f32_im2col_bound_ms)) + " ms")
     for name, errs in table.tf32_f64.items():
         print(f"[check] {name} float32 (split TF32) vs float64: worst "
               f"{max(errs):.3e} of max|ref| over {len(errs)} lines (tol "

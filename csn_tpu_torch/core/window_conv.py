@@ -11,23 +11,23 @@ straight from the kernel map:
 * K1 (`csn_tpu_torch/csrc/sparse_conv.cu`): one block per tile of output
   rows x output channels, f32 accumulation over all offsets in registers,
   one store in the activation dtype. By `k1_tensor_cores` it runs on the
-  tensor cores (`mma.sync`): bf16 with Cout % 8 == 0, where Cin % 16 == 0
-  over rows gathered by `cp.async` per (offset, 64 input channels), and at
-  other Cin (the k5 stems' Cin 3) over the im2col forward's flattened steps
-  of K*Cin, gathered element by element, so that K1's stem output is the
-  im2col forward's bit for bit; f32 with Cin % 16 == 0 and Cout % 8 == 0
-  on the same body in split TF32 (three TF32 products per f32 product,
-  per (offset, 32 input channels)). The f32 stems run f32 FMAs on the CUDA
-  cores. Plain version: `csn_tpu_torch.core.conv.conv_plain`.
+  tensor cores (`mma.sync`) at Cout % 8 == 0: bf16, and f32 in split TF32
+  (three TF32 products per f32 product). Where Cin % 16 == 0 it walks rows
+  gathered by `cp.async` per (offset, 64 bf16 or 32 f32 input channels);
+  at other Cin (the k5 stems' Cin 3) the im2col forward's flattened steps
+  of K*Cin (64 or 32 columns), gathered element by element, so that K1's
+  bf16 stem output is the im2col forward's bit for bit. Cout % 8 != 0
+  runs f32 FMAs on the CUDA cores. Plain version:
+  `csn_tpu_torch.core.conv.conv_plain`.
 * `sparse_conv_dw` (`csn_tpu_torch/csrc/sparse_conv_bwd.cu`): one block per
   (channel tile, offset, row split), f32 partials per split summed by a
   second kernel in a fixed order. By K1's rule (`dw_tensor_cores`) it runs
   on the tensor cores (`mma.sync` over the split's live rows only,
-  compacted into a list by warp ballots, rows gathered by `cp.async`): bf16
-  in 64-channel tiles where Cin % 16 == 0, in 16-channel tiles elsewhere
-  (the stems: each lane loads its A fragment of 6-byte feats rows element
-  by element); f32 in 64-channel tiles in split TF32. The f32 stems run
-  f32 FMAs on the CUDA cores. Plain version: the dW half of
+  compacted into a list by warp ballots, rows gathered by `cp.async`), bf16
+  or f32 in split TF32: in 64-channel tiles where Cin % 16 == 0, in
+  16-channel tiles elsewhere (the narrow body at the stems: each lane loads
+  its A fragment of 6- or 12-byte feats rows element by element). Cout % 8
+  != 0 runs f32 FMAs on the CUDA cores. Plain version: the dW half of
   `csn_tpu_torch.core.conv.conv_bwd_plain`.
 * `sparse_conv_im2col_fwd` (`csn_tpu_torch/csrc/sparse_conv_im2col.cu`): the
   forward as one product per output tile over the flattened axis K*Cin,
@@ -87,14 +87,13 @@ def dyng(mode):
 
 
 def k1_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
-    """Whether K1 and `sparse_conv_dw` run their tensor-core bodies: bf16
-    with Cout a multiple of 8, whatever Cin (the k5 stems' Cin 3 included),
-    or f32 with Cin a multiple of 16 and Cout a multiple of 8 (split TF32;
-    every f32 conv of the HRNet and U-Net families but the stems). The C
+    """Whether K1 and `sparse_conv_dw` run their tensor-core bodies: bf16,
+    or f32 in split TF32, with Cout a multiple of 8, whatever Cin (every
+    conv of the HRNet and U-Net families, the k5 stems' Cin 3 included: K1's
+    flattened steps and dW's narrow body where Cin % 16 != 0). The C
     entries `csn_sparse_conv_fwd` and `csn_sparse_conv_dw` choose by this
     rule; other convs run the CUDA-core bodies."""
-    return cout % 8 == 0 and (dtype == torch.bfloat16
-                              or dtype == torch.float32 and cin % 16 == 0)
+    return cout % 8 == 0 and dtype in (torch.bfloat16, torch.float32)
 
 
 def k1_split_tf32(dtype: torch.dtype, cin: int, cout: int) -> bool:
@@ -110,7 +109,8 @@ dw_tensor_cores = k1_tensor_cores
 
 def im2col_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
     """Whether the im2col pair runs its tensor-core bodies: bf16 with Cout a
-    multiple of 8, whatever Cin (K1's bf16 rule). The C entries
+    multiple of 8, whatever Cin (K1's bf16 rule; K1 and dW also take f32
+    there, the im2col pair does not). The C entries
     `csn_sparse_conv_im2col_fwd` and `csn_sparse_conv_im2col_bwd` choose by
     this rule; f32 runs their CUDA-core bodies."""
     return dtype == torch.bfloat16 and cout % 8 == 0
@@ -124,8 +124,8 @@ def _conv_fwd(what: str, entry: str, tensor_cores, feats: torch.Tensor,
     contract), whose tensor-core bodies run where `tensor_cores(dtype, Cin,
     Cout)` holds. They copy the weights, and feats where Cin % 16 == 0, 16
     bytes at a time: they take only such views that start on a 16-byte
-    boundary. The launch counts under `what`, or `what + "_tf32"` where K1
-    runs its split-TF32 body."""
+    boundary (the f32 stems' weights too). The launch counts under `what`,
+    or `what + "_tf32"` where K1 runs its split-TF32 bodies."""
     kernels.require_cuda(what, feats, kmap, weights)
     if feats.dim() != 2 or kmap.dim() != 2 or weights.dim() != 3:
         raise ValueError(f"{what}: want feats [N, Cin], kmap [K, N_out], "
@@ -180,11 +180,12 @@ MIN_SPLIT_ROWS = 1024
 # per refill of the list; the wide body's (Cin % 16 == 0) live rows per
 # product step and warps per SM it aims at, in bf16 and in f32 (split TF32:
 # its tiles take twice the shared memory, so an SM holds half the warps,
-# 2 blocks of 8 at Cout 256); the narrow body's (other Cin)
+# 2 blocks of 8 at Cout 256); the narrow body's (other Cin, bf16 or f32)
 # warps per block, input channels per tile, live rows gathered at once and
 # warps of its grid per SM (several waves: its blocks wait on latency, so
 # more and shorter splits keep the card busier; this gives the 26 splits
-# that measured best at both stems)
+# that measured best at both stems, in bf16 and in f32:
+# tools/stem_splits.py)
 DW_TC_CHUNK = 1024
 DW_TC_STEP = 32
 DW_TC_WARPS_PER_SM = 32
@@ -220,9 +221,9 @@ def dw_splits(n_in: int, n_off: int, cin: int, cout: int,
     tensor-core bodies (`tensor_cores`): the wide one (Cin % 16 == 0), whose
     blocks are 2 WN warps (input channels in tiles of 64, output channels in
     `col_tiles`), about DW_TC_WARPS_PER_SM warps on each SM in bf16 and
-    DW_TF32_WARPS_PER_SM in f32 (`dtype`); the narrow one (other Cin, bf16),
-    blocks of DW_NARROW_WARPS warps per `dw_narrow_tiles` tile, about
-    DW_NARROW_WARPS_PER_SM."""
+    DW_TF32_WARPS_PER_SM in f32 (`dtype`); the narrow one (other Cin, bf16
+    or f32: one tile of live pairs in both), blocks of DW_NARROW_WARPS
+    warps per `dw_narrow_tiles` tile, about DW_NARROW_WARPS_PER_SM."""
     if tensor_cores and cin % 16 == 0:
         tiles, wn = col_tiles(cout)
         warps = -(-cin // 64) * tiles * n_off * 2 * wn
@@ -245,9 +246,9 @@ def sparse_conv_dw(feats: torch.Tensor, g: torch.Tensor,
     dtype, kmap_t [K, N_in] int32 (sentinel N_g) -> dW_t [K, Cin, Cout] f32,
     dW_t[k] = feats^T . gather(g, kmap_t[k]). The tensor-core bodies copy
     g rows, and feats rows where Cin % 16 == 0, 16 bytes at a time: they
-    take only such views that start on a 16-byte boundary. The launch
-    counts under `sparse_conv_dw`, or `sparse_conv_dw_tf32` where the
-    split-TF32 body runs."""
+    take only such views that start on a 16-byte boundary (the f32 stems'
+    g too). The launch counts under `sparse_conv_dw`, or
+    `sparse_conv_dw_tf32` where the split-TF32 bodies run."""
     what = "sparse_conv_dw"
     kernels.require_cuda(what, feats, g, kmap_t)
     if feats.dim() != 2 or g.dim() != 2 or kmap_t.dim() != 2 \

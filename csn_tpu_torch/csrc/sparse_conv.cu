@@ -11,24 +11,20 @@
 // The backward's d_feats is the same function over the transpose map with
 // the paired weights transposed (core/conv.py conv_bwd_kernels).
 //
-// Three bodies, chosen by dtype and shape (as flash_attn.cu chooses by
+// Two kinds of body, chosen by dtype and shape (as flash_attn.cu chooses by
 // dtype and head dim; a failed launch of any returns its error, there is no
-// retry on another; window_conv.k1_tensor_cores is the rule of the first
-// two):
-//  * bf16 with Cout % 8 == 0, whatever Cin (every conv of the HRNet and
-//    U-Net families, the k5 stems' Cin 3 included): the tensor-core body of
-//    sparse_conv_tc.cuh, mma.sync m16n8k16 on bf16 operands with f32
-//    accumulators. Where Cin % 16 == 0 it walks K1's steps (offset, 64
-//    input channels); other Cin (the stems) take the flattened steps of
-//    K*Cin that the im2col forward runs, so K1's stem output is the im2col
-//    forward's bit for bit;
-//  * f32 with Cin % 16 == 0 and Cout % 8 == 0 (every f32 conv of the HRNet
-//    and U-Net families but the k5 stems): the same body on K1's steps of
-//    32 input channels, mma.sync m16n8k8 on TF32 operands in split TF32
-//    (three products per f32 product, the f32 checks' 1e-4 of max|ref|),
-//    W split in registers as its fragments are loaded;
-//  * f32 at other shapes (the stems' Cin 3), and bf16 with Cout % 8 != 0:
-//    the CUDA-core body (f32 FMAs) below.
+// retry on another; window_conv.k1_tensor_cores is the rule):
+//  * Cout % 8 == 0, whatever Cin (every conv of the HRNet and U-Net
+//    families, the k5 stems' Cin 3 included): the tensor-core body of
+//    sparse_conv_tc.cuh, with f32 accumulators. bf16 runs mma.sync
+//    m16n8k16 on bf16 operands; f32 runs mma.sync m16n8k8 on TF32 operands
+//    in split TF32 (three products per f32 product, the f32 checks' 1e-4
+//    of max|ref|), W split in registers as its fragments are loaded. Where
+//    Cin % 16 == 0 it walks K1's steps (offset, 64 bf16 or 32 f32 input
+//    channels); other Cin (the stems) take the flattened steps of K*Cin
+//    (64 or 32 columns) that the im2col forward runs, so K1's bf16 stem
+//    output is the im2col forward's bit for bit;
+//  * Cout % 8 != 0, either type: the CUDA-core body (f32 FMAs) below.
 //
 // What bounds it on the H100: per output row and live offset one gathered
 // row of Cin values and 2*Cin*Cout operations; the bound counts each input
@@ -38,13 +34,13 @@
 // run), and every row tile reads W[k] again (from L2: the W of one conv is
 // at most a few MB). At the stem the [125, N] int32 map is most of the
 // bytes; the flattened steps read it once per row tile into shared memory
-// and gather the 6-byte rows element by element.
+// and gather the 6- or 12-byte rows element by element.
 //
-// Tensor-core design: sparse_conv_tc.cuh (K1's steps, FLAT false, bf16 or
-// f32; the flattened steps, FLAT true, bf16), which the im2col forward
+// Tensor-core design: sparse_conv_tc.cuh (K1's steps, FLAT false; the
+// flattened steps, FLAT true; bf16 or f32), which the im2col forward
 // (sparse_conv_im2col.cu) shares in bf16.
 //
-// CUDA-core design (the f32 stems; bf16 with Cout % 8 != 0). One block per
+// CUDA-core design (Cout % 8 != 0). One block per
 // tile of 64 output rows x 64 output channels. The block walks the
 // offsets; per offset it stages the 64 source-row indices in shared memory
 // and skips the offset when every one is a sentinel, then walks Cin in
@@ -170,23 +166,25 @@ cudaError_t launch(const void* feats, const void* kmap, const void* w,
 
 // feats [n_in, cin] and w [n_off, cin, cout] in one type, kmap [n_off,
 // n_out] int32, out [n_out, cout]. The tensor-core bodies copy w, and feats
-// where Cin % 16 == 0 (every f32 conv they take), 16 bytes at a time: those
-// start on a 16-byte boundary.
+// where Cin % 16 == 0, 16 bytes at a time: those start on a 16-byte
+// boundary.
 extern "C" int csn_sparse_conv_fwd(int dtype, const void* feats,
                                    const void* kmap, const void* w, void* out,
                                    int64_t n_in, int64_t n_out, int n_off,
                                    int cin, int cout, void* stream) {
   if (n_out == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool flat = cin % 16 != 0;
   if (dtype == csn::kBF16 && cout % 8 == 0)
-    return cin % 16 == 0
-               ? csn_conv_tc::launch_tc<false>(feats, kmap, w, out, n_in,
+    return flat ? csn_conv_tc::launch_tc<true>(feats, kmap, w, out, n_in,
                                                n_out, n_off, cin, cout, s)
-               : csn_conv_tc::launch_tc<true>(feats, kmap, w, out, n_in, n_out,
-                                              n_off, cin, cout, s);
-  if (dtype == csn::kF32 && cin % 16 == 0 && cout % 8 == 0)
-    return csn_conv_tc::launch_tc<false, float>(feats, kmap, w, out, n_in,
+                : csn_conv_tc::launch_tc<false>(feats, kmap, w, out, n_in,
                                                 n_out, n_off, cin, cout, s);
+  if (dtype == csn::kF32 && cout % 8 == 0)
+    return flat ? csn_conv_tc::launch_tc<true, float>(
+                      feats, kmap, w, out, n_in, n_out, n_off, cin, cout, s)
+                : csn_conv_tc::launch_tc<false, float>(
+                      feats, kmap, w, out, n_in, n_out, n_off, cin, cout, s);
   if (dtype == csn::kF32)
     return launch<float>(feats, kmap, w, out, n_in, n_out, n_off, cin, cout, s);
   if (dtype == csn::kBF16)

@@ -17,20 +17,18 @@
 // dW_t is stored in f32. The caller un-mirrors same-level maps (dW = dW_t
 // reversed over k).
 //
-// Three kinds of body, chosen by dtype and shape by the rule of K1
+// Two kinds of body, chosen by dtype and shape by the rule of K1
 // (sparse_conv.cu; window_conv.dw_tensor_cores; a failed launch returns its
 // error, there is no retry on another body):
-//  * bf16 with Cout % 8 == 0, whatever Cin (every conv of the HRNet,
-//    Res16UNet, ResUNet and ResNet families, the k5 stems' Cin 3
-//    included): the tensor-core bodies, mma.sync m16n8k16 on bf16 operands
-//    with f32 accumulators, over the live rows only; the wide body where
-//    Cin % 16 == 0, the narrow one (16-channel tiles) elsewhere;
-//  * f32 with Cin % 16 == 0 and Cout % 8 == 0 (every f32 conv of those
-//    families but the stems): the wide body in split TF32, mma.sync m16n8k8
-//    on TF32 operands, three products per f32 product (flash_tf32.cuh),
-//    both operands split in registers as their fragments are loaded;
-//  * f32 at other shapes (the stems), and bf16 with Cout % 8 != 0: the
-//    CUDA-core body (f32 FMAs).
+//  * Cout % 8 == 0, whatever Cin (every conv of the HRNet, Res16UNet,
+//    ResUNet and ResNet families, the k5 stems' Cin 3 included): the
+//    tensor-core bodies, over the live rows only, with f32 accumulators;
+//    the wide body where Cin % 16 == 0, the narrow one (16-channel tiles)
+//    elsewhere. bf16 runs mma.sync m16n8k16 on bf16 operands; f32 runs
+//    mma.sync m16n8k8 on TF32 operands in split TF32, three products per
+//    f32 product (flash_tf32.cuh), both operands split in registers as
+//    their fragments are loaded;
+//  * Cout % 8 != 0, either type: the CUDA-core body (f32 FMAs).
 //
 // What bounds it on the H100: the same 2*Cin*Cout operations per live (row,
 // offset) pair as the forward; the bound counts each input byte once
@@ -84,38 +82,47 @@
 // are later work.
 //
 // Narrow tensor-core design (Cin % 16 != 0: the stems, 3 -> 32 over 125
-// offsets). What bounds it is not the products (0.36 GFLOP at HRNet's
-// stem) but the bytes and their latency: the [125, N] int32 map read once
-// (45 MB at 90112 rows, the floor), and per live pair a 64-byte g row
-// gathered (from L2: g is 5.8 MB) and a 6-byte feats row. The body keeps
-// the wide one's scheme and cuts what a 3-channel tile does not need. One
-// block of 4 warps per (tile of 16 input channels, tile of 32 output
-// channels, or 64 past Cout 32, offset k, split s):
+// offsets; bf16, or f32 in split TF32). What bounds it is not the products
+// (0.36 GFLOP at HRNet's stem) but the bytes and their latency: the [125,
+// N] int32 map read once (45 MB at 90112 rows, the floor), and per live
+// pair a 64- or 128-byte g row gathered (from L2: g is 5.8 or 11.5 MB) and
+// a 6- or 12-byte feats row. The body keeps the wide one's scheme and cuts
+// what a 3-channel tile does not need. One block of 4 warps per (tile of
+// 16 input channels, tile of 32 output channels, or 64 past Cout 32,
+// offset k, split s):
 //  1. Chunks of CHUNK map entries, one compaction pass each (8 per lane,
 //     the wide body's ballots and prefix). The next chunk's entries are
 //     read into registers right after a chunk's compaction and looked at
 //     only in the next one, so their latency hides behind the chunk's
 //     gathers.
 //  2. Tiles of NTILE = 256 live pairs, gathered at once: every g row by
-//     cp.async into one [256][BN + 8] tile, and beside it each lane's A
-//     fragments (A = feats^T, M = one m16 tile of channels, 13 of its 16
-//     rows zero at Cin 3): feats rows of Cin 3 are 6 bytes, too short for a
-//     16-byte copy, so each lane loads its own values element by element
-//     into registers, zero past Cin and past the list's end. No feats
-//     tile, no ldmatrix for A; at Cin <= 8 the registers of channels 8-15
-//     are known zeros, neither loaded nor kept (C8). One wait and two
-//     barriers per tile; each warp runs 4 k16 steps of it. Pairs short of
-//     a tile wait for the next chunk, as in the wide body. (Measured no
-//     faster: two 64-pair stages; a ring that keeps a tile in flight
-//     across the next compaction; chunks of 2048 or 4096 entries.)
+//     cp.async into one [256][BN + pad] tile (rows 16 bytes past BN), and
+//     beside it each lane's A fragments (A = feats^T, M = one m16 tile of
+//     channels, 13 of its 16 rows zero at Cin 3): feats rows of Cin 3 are
+//     6 or 12 bytes, too short for a 16-byte copy, so each lane loads its
+//     own values element by element into registers, zero past Cin and past
+//     the list's end. No feats tile, no ldmatrix for A; at Cin <= 8 the
+//     registers of channels 8-15 are known zeros, neither loaded nor kept
+//     (C8). One wait and two barriers per tile; each warp runs 4 k16 steps
+//     (bf16) or 8 k8 steps (f32) of it. f32: per k8 step a warp splits its
+//     A fragment in registers and each B fragment (two 4-byte loads of the
+//     [256][BN + 4]-word tile at pairs 2t, 2t + 1 and channel g, 32
+//     distinct banks) as it is loaded, runs 3 mma.sync per 8 output
+//     channels, the small products first, into a fragment that starts at
+//     zero every tile and is added to the running sum in f32 (the tensor
+//     cores truncate every mma.sync's sum). Pairs short of a tile wait for
+//     the next chunk, as in the wide body. (Measured no faster in bf16:
+//     two 64-pair stages; a ring that keeps a tile in flight across the
+//     next compaction; chunks of 2048 or 4096 entries.)
 //  3. Each warp holds a 16 x BN partial over its pairs; at the split's end
 //     the four are added in warp order through shared memory and stored
 //     once: the same bits on every run.
 // The splits (window_conv.dw_splits) matter more than the tile: the blocks
 // wait on latency, not on a unit, so more and shorter splits fill the
-// card; 26 measured best at both stems.
+// card; 26 measured best at both stems, in bf16 and in f32
+// (csn_tpu_torch/tools/stem_splits.py).
 //
-// CUDA-core design (the f32 stems; bf16 with Cout % 8 != 0). One block per
+// CUDA-core design (Cout % 8 != 0). One block per
 // (tile of TM input channels x 64 output channels, offset, split) walks its
 // rows in chunks of 16: it stages the chunk's kmap_t entries, skips the
 // chunk when all are sentinels, loads the feats rows and the gathered g
@@ -246,8 +253,7 @@ cudaError_t launch(const void* feats, const void* g, const void* kmap_t,
   return cudaGetLastError();
 }
 
-// --- the tensor-core bodies (bf16 with Cout % 8 == 0; f32 with Cin % 16
-// == 0 and Cout % 8 == 0) -------------------------------------------------
+// --- the tensor-core bodies (bf16 or f32 with Cout % 8 == 0) ---------------
 
 using csn_tc::bf16;
 using csn_tc::cp_async16;
@@ -554,15 +560,32 @@ cudaError_t launch_tc(const void* feats, const void* g, const void* kmap_t,
 #undef CSN_TC
 }
 
-// The narrow body (Cin % 16 != 0: the k5 stems' Cin 3): channel tiles of 16.
+// The narrow body (Cin % 16 != 0: the k5 stems' Cin 3): channel tiles of 16,
+// bf16 or f32.
 
 constexpr int NW = 4;                   // warps of a block
 constexpr int NTHREADS = 32 * NW;
-constexpr int NKS = 4;                  // k16 steps of a warp per tile
-constexpr int NTILE = 16 * NKS * NW;    // live pairs gathered at once
+constexpr int NTILE = 256;              // live pairs gathered at once
 constexpr int NRPT = CHUNK / NTHREADS;  // map entries per lane: a chunk a pass
 constexpr int NLIST = CHUNK + NTILE;    // a chunk + what a tile left
 static_assert(NRPT * NTHREADS == CHUNK, "one compaction pass per chunk");
+
+// The narrow body's k-steps: KS pairs each (bf16 m16n8k16, f32 m16n8k8 in
+// split TF32), NKS of them per warp and tile; elements per 16-byte copy VEC
+// (also the g tile's row padding: rows 16 bytes past BN, bf16 flash_tc.cuh's
+// stride for ldmatrix; f32 4 words modulo 32, so the B fragments' 4-byte
+// loads at pairs 2t, 2t + 1 and channel g hit 32 distinct banks); H values
+// of a pair per A register (bf16 two pairs, f32 one).
+template <typename T>
+struct NarrowType;
+template <>
+struct NarrowType<bf16> {
+  static constexpr int KS = 16, VEC = 8, H = 2;
+};
+template <>
+struct NarrowType<float> {
+  static constexpr int KS = 8, VEC = 4, H = 1;
+};
 
 // The narrow body's compaction: the wide body's (its step 1), split in two
 // so that a chunk's map loads are in flight during the previous chunk's
@@ -626,30 +649,37 @@ __device__ __forceinline__ int append_live(const int32_t (&v)[NRPT],
   return n;
 }
 
-template <int NB>  // 8-column blocks of the block's output channels
+// NB: 8-column blocks of the block's output channels
+template <typename T, int NB>
 struct NarrowTile {
-  static constexpr int BN = 8 * NB, LDB = BN + 8;
+  static constexpr int KS = NarrowType<T>::KS, VEC = NarrowType<T>::VEC;
+  static constexpr int NKS = NTILE / (KS * NW);  // k-steps of a warp per tile
+  static constexpr int BN = 8 * NB, LDB = BN + VEC;
   // the g tile [NTILE][LDB] (at the end the warps' sums), the list's feats
   // rows and g rows, the warps' counts
-  static constexpr size_t SMEM = sizeof(bf16) * NTILE * LDB +
+  static constexpr size_t SMEM = sizeof(T) * NTILE * LDB +
                                  sizeof(int32_t) * (2 * NLIST + NW);
-  static_assert(NW * 16 * BN * sizeof(float) <= NTILE * LDB * sizeof(bf16),
+  static_assert(NKS * KS * NW == NTILE, "whole k-steps per tile");
+  static_assert(NW * 16 * BN * sizeof(float) <= NTILE * LDB * sizeof(T),
                 "the warps' sums fit in the g tile");
 };
 
 // C8: Cin <= 8, so the A fragments' registers of channels 8-15 (a1, a3)
 // are zeros the body neither loads nor keeps
-template <int NB, bool C8>
+template <typename T, int NB, bool C8>
 __global__ void __launch_bounds__(NTHREADS)
-sparse_conv_dw_narrow_kernel(const bf16* __restrict__ feats,
-                             const bf16* __restrict__ g,
+sparse_conv_dw_narrow_kernel(const T* __restrict__ feats,
+                             const T* __restrict__ g,
                              const int32_t* __restrict__ kmap_t,
                              float* __restrict__ part, int64_t n_in,
                              int64_t n_g, int n_off, int cin, int cout,
                              int64_t rows_per_split) {
-  constexpr int BN = NarrowTile<NB>::BN, LDB = NarrowTile<NB>::LDB;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  using Tl = NarrowTile<T, NB>;
+  constexpr int BN = Tl::BN, LDB = Tl::LDB, VEC = Tl::VEC, KS = Tl::KS;
+  constexpr int NKS = Tl::NKS, H = NarrowType<T>::H;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* gs = reinterpret_cast<bf16*>(smem_raw);  // g rows [NTILE][LDB]
+  T* gs = reinterpret_cast<T*>(smem_raw);  // g rows [NTILE][LDB]
   int32_t* lf = reinterpret_cast<int32_t*>(gs + NTILE * LDB);
   int32_t* lg = lf + NLIST;
   int32_t* wcnt = lg + NLIST;
@@ -668,29 +698,34 @@ sparse_conv_dw_narrow_kernel(const bf16* __restrict__ feats,
   // the g rows of the tile at list entry e0 (of n)
   auto load_g = [&](int e0, int n) {
 #pragma unroll
-    for (int i = tid; i < NTILE * NB; i += NTHREADS) {
-      const int r = i / NB, c = (i % NB) * 8;
+    for (int i = tid; i < NTILE * (BN / VEC); i += NTHREADS) {
+      const int r = i / (BN / VEC), c = (i % (BN / VEC)) * VEC;
       const bool ok = e0 + r < n && n0 + c < cout;
       cp_async16(gs + r * LDB + c,
                  g + (ok ? (int64_t)lg[e0 + r] * cout + n0 + c : 0), ok);
     }
   };
   // the feats values of the warp's A fragments (A = feats^T: M the tile's 16
-  // channels, K the pairs of k16 step ks, e0 + 16 (NW ks + warp) .. +15):
-  // x[ks][i][h] is half h of register i, channel c0 + gr + 8 (i & 1) of pair
-  // 2t + h + 8 (i >> 1); zero past Cin and past the list's end. Loaded beside
-  // the tile's g copies, used after its barrier.
-  bf16 x[NKS][4][2];
+  // channels, K the pairs of k-step ks, e0 + KS (NW ks + warp) .. + KS - 1):
+  // x[ks][i][h] is channel c0 + gr + 8 (i & 1) of pair 2t + h + 8 (i >> 1)
+  // (bf16: half h of register i) or of pair 2t + (i >> 1) (f32,
+  // flash_tf32.cuh's layout); zero past Cin and past the list's end. Loaded
+  // beside the tile's g copies, used after its barrier.
+  T x[NKS][4][H];
   auto load_feats = [&](int e0, int n) {
 #pragma unroll
     for (int ks = 0; ks < NKS; ++ks)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < H; ++h) {
           const int c = c0 + gr + 8 * (i & 1);
-          const int q = e0 + 16 * (NW * ks + warp) + 2 * t + 8 * (i >> 1) + h;
-          x[ks][i][h] = __float2bfloat16(0.f);
+          const int q = e0 + KS * (NW * ks + warp) + 2 * t +
+                        (F32 ? i >> 1 : 8 * (i >> 1) + h);
+          if constexpr (F32)
+            x[ks][i][h] = 0.f;
+          else
+            x[ks][i][h] = __float2bfloat16(0.f);
           if ((!C8 || (i & 1) == 0) && c < cin && q < n)
             x[ks][i][h] = feats[(int64_t)lf[q] * cin + c];
         }
@@ -701,25 +736,60 @@ sparse_conv_dw_narrow_kernel(const bf16* __restrict__ feats,
   for (int j = 0; j < NB; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  // the products of the warp's k16 steps of the tile
+  // the products of the warp's k-steps of the tile
   auto compute = [&]() {
+    if constexpr (F32) {
+      // split TF32: the tile's 3 NKS products per 8 output channels go into
+      // a fresh fragment, added to the running sum in f32 (the tensor cores
+      // truncate each mma.sync's sum)
+      float tile[NB][4] = {};
 #pragma unroll
-    for (int ks = 0; ks < NKS; ++ks) {
-      uint32_t a[4];
+      for (int ks = 0; ks < NKS; ++ks) {
+        csn_tf32::FragA a;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat162 p = __halves2bfloat162(x[ks][i][0], x[ks][i][1]);
-        a[i] = *reinterpret_cast<const uint32_t*>(&p);
+        for (int i = 0; i < 4; ++i) {
+          if (C8 && (i & 1)) {
+            a.hi[i] = a.lo[i] = 0u;
+            continue;
+          }
+          csn_tf32::split(x[ks][i][0], a.hi[i], a.lo[i]);
+        }
+        const float* q = gs + (KS * (NW * ks + warp) + 2 * t) * LDB + gr;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          if (n0 + 8 * j >= cout) break;
+          csn_tf32::FragB b;
+          csn_tf32::split(q[8 * j], b.hi[0], b.lo[0]);
+          csn_tf32::split(q[LDB + 8 * j], b.hi[1], b.lo[1]);
+          csn_tf32::mma_tf32(tile[j], a.lo, b.hi);
+          csn_tf32::mma_tf32(tile[j], a.hi, b.lo);
+          csn_tf32::mma_tf32(tile[j], a.hi, b.hi);
+        }
       }
-      const int r0 = 16 * (NW * ks + warp);
 #pragma unroll
-      for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
-        if (n0 + 16 * nb2 >= cout) break;
-        uint32_t b[4];
-        ldsm_x4_t(b, gs + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB +
-                         nb2 * 16 + (lane >> 4) * 8);
-        mma(acc[2 * nb2], a, b[0], b[1]);
-        mma(acc[2 * nb2 + 1], a, b[2], b[3]);
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += tile[j][e];
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < NKS; ++ks) {
+        uint32_t a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 p =
+              __halves2bfloat162(x[ks][i][0], x[ks][i][1]);
+          a[i] = *reinterpret_cast<const uint32_t*>(&p);
+        }
+        const int r0 = KS * (NW * ks + warp);
+#pragma unroll
+        for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+          if (n0 + 16 * nb2 >= cout) break;
+          uint32_t b[4];
+          ldsm_x4_t(b, gs + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB +
+                           nb2 * 16 + (lane >> 4) * 8);
+          mma(acc[2 * nb2], a, b[0], b[1]);
+          mma(acc[2 * nb2 + 1], a, b[2], b[3]);
+        }
       }
     }
   };
@@ -784,37 +854,39 @@ sparse_conv_dw_narrow_kernel(const bf16* __restrict__ feats,
   }
 }
 
-template <int NB, bool C8>
+template <typename T, int NB, bool C8>
 cudaError_t launch_narrow_body(const void* feats, const void* g,
                                const void* kmap_t, float* dst, int64_t n_in,
                                int64_t n_g, int n_off, int cin, int cout,
                                int n_split, int64_t rows_per_split,
                                cudaStream_t stream) {
-  using Tl = NarrowTile<NB>;
+  using Tl = NarrowTile<T, NB>;
   const cudaError_t err = cudaFuncSetAttribute(
-      sparse_conv_dw_narrow_kernel<NB, C8>,
+      sparse_conv_dw_narrow_kernel<T, NB, C8>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::SMEM);
   if (err != cudaSuccess) return err;
   const unsigned tiles =
       (unsigned)(((cin + 15) / 16) * ((cout + Tl::BN - 1) / Tl::BN));
   const dim3 grid(tiles, (unsigned)n_off, (unsigned)n_split);
-  sparse_conv_dw_narrow_kernel<NB, C8><<<grid, NTHREADS, Tl::SMEM, stream>>>(
-      static_cast<const bf16*>(feats), static_cast<const bf16*>(g),
-      static_cast<const int32_t*>(kmap_t), dst, n_in, n_g, n_off, cin, cout,
-      rows_per_split);
+  sparse_conv_dw_narrow_kernel<T, NB, C8>
+      <<<grid, NTHREADS, Tl::SMEM, stream>>>(
+          static_cast<const T*>(feats), static_cast<const T*>(g),
+          static_cast<const int32_t*>(kmap_t), dst, n_in, n_g, n_off, cin,
+          cout, rows_per_split);
   return cudaGetLastError();
 }
 
 // 32 output channels per block up to Cout 32 (the stems), else 64
+template <typename T>
 cudaError_t launch_narrow(const void* feats, const void* g,
                           const void* kmap_t, float* dst, int64_t n_in,
                           int64_t n_g, int n_off, int cin, int cout,
                           int n_split, int64_t rows_per_split,
                           cudaStream_t stream) {
-#define CSN_NARROW(NB, C8)                                             \
-  return launch_narrow_body<NB, C8>(feats, g, kmap_t, dst, n_in, n_g, \
-                                    n_off, cin, cout, n_split,         \
-                                    rows_per_split, stream)
+#define CSN_NARROW(NB, C8)                                                \
+  return launch_narrow_body<T, NB, C8>(feats, g, kmap_t, dst, n_in, n_g, \
+                                       n_off, cin, cout, n_split,         \
+                                       rows_per_split, stream)
   if (cout <= 32) {
     if (cin <= 8) CSN_NARROW(4, true);
     CSN_NARROW(4, false);
@@ -829,8 +901,8 @@ cudaError_t launch_narrow(const void* feats, const void* g,
 // feats [n_in, cin] and g [n_g, cout] of one type, kmap_t [n_off, n_in]
 // int32 (sentinel n_g), part [n_split, n_off, cin, cout] f32 scratch
 // (unused when n_split == 1), out [n_off, cin, cout] f32. The tensor-core
-// bodies copy g, and feats where Cin % 16 == 0 (every f32 conv they take),
-// 16 bytes at a time: those start on a 16-byte boundary.
+// bodies copy g, and feats where Cin % 16 == 0, 16 bytes at a time: those
+// start on a 16-byte boundary.
 extern "C" int csn_sparse_conv_dw(int dtype, const void* feats, const void* g,
                                   const void* kmap_t, void* part, void* out,
                                   int64_t n_in, int64_t n_g, int n_off,
@@ -843,16 +915,18 @@ extern "C" int csn_sparse_conv_dw(int dtype, const void* feats, const void* g,
   // one split writes the result directly
   float* dst = static_cast<float*>(n_split == 1 ? out : part);
   const bool tm16 = cin <= 16;  // the CUDA-core body's channel tile
+  const bool wide = cin % 16 == 0;
   cudaError_t err;
   if (dtype == csn::kBF16 && cout % 8 == 0)
-    err = cin % 16 == 0
-              ? launch_tc<bf16>(feats, g, kmap_t, dst, n_in, n_g, n_off, cin,
-                                cout, n_split, rows, s)
-              : launch_narrow(feats, g, kmap_t, dst, n_in, n_g, n_off, cin,
-                              cout, n_split, rows, s);
-  else if (dtype == csn::kF32 && cin % 16 == 0 && cout % 8 == 0)
-    err = launch_tc<float>(feats, g, kmap_t, dst, n_in, n_g, n_off, cin, cout,
-                           n_split, rows, s);
+    err = wide ? launch_tc<bf16>(feats, g, kmap_t, dst, n_in, n_g, n_off, cin,
+                                 cout, n_split, rows, s)
+               : launch_narrow<bf16>(feats, g, kmap_t, dst, n_in, n_g, n_off,
+                                     cin, cout, n_split, rows, s);
+  else if (dtype == csn::kF32 && cout % 8 == 0)
+    err = wide ? launch_tc<float>(feats, g, kmap_t, dst, n_in, n_g, n_off,
+                                  cin, cout, n_split, rows, s)
+               : launch_narrow<float>(feats, g, kmap_t, dst, n_in, n_g,
+                                      n_off, cin, cout, n_split, rows, s);
   else if (dtype == csn::kF32)
     err = tm16 ? launch<float, 16>(feats, g, kmap_t, dst, n_in, n_g, n_off,
                                    cin, cout, n_split, rows, s)

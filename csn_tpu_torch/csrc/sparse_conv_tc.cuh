@@ -3,13 +3,14 @@
 // IC @ W.reshape(K*Cin, Cout) with f32 accumulation, in two element types.
 //  * bf16 with Cout % 8 == 0 and any Cin (K1 and the im2col forward):
 //    mma.sync m16n8k16 on bf16 operands;
-//  * f32 with Cin % 16 == 0 and Cout % 8 == 0 (K1 only): mma.sync m16n8k8
-//    on TF32 operands in split TF32 (flash_tf32.cuh): each f32 operand is
-//    split in registers, as its fragment is loaded, into hi = tf32(x) and lo
-//    = x - hi, and a . b ~= a_lo . b_hi + a_hi . b_lo + a_hi . b_hi, the
-//    small products first, into one f32 accumulator. W is split again by
-//    every row tile that loads it (two instructions per value, against
-//    three products per fragment pair), so no kernel splits it ahead.
+//  * f32 with Cout % 8 == 0 and any Cin (K1 only): mma.sync m16n8k8 on TF32
+//    operands in split TF32 (flash_tf32.cuh): each f32 operand is split in
+//    registers, as its fragment is loaded, into hi = tf32(x) and lo = x -
+//    hi, and a . b ~= a_lo . b_hi + a_hi . b_lo + a_hi . b_hi, the small
+//    products first, into a fresh fragment per k-step that an f32 add puts
+//    into the running sum. W is split again by every row tile that loads it
+//    (two instructions per value, against three products per fragment
+//    pair), so no kernel splits it ahead.
 //
 // One block per tile of BM output rows x BN output channels, BN = 64 WN with
 // WN = ceil(Cout / 64) up to 4 (a wider Cout takes several column tiles,
@@ -33,12 +34,13 @@
 //       TBK input channels). A step gathers its BM source rows straight
 //       from device memory / L2 by cp.async, 16 bytes at a time (a sentinel
 //       row zero-filled, no read);
-//     * flattened steps (FLAT true, bf16 with Cin % 16 != 0: the k5 stem's
-//       Cin 3): the columns j0 .. j0+63 of the flattened axis K*Cin, which
-//       span offsets (the stem's 375 columns are 6 steps where a walk by
-//       offset would take 125 that are 3 deep). Rows of Cin bf16 values are
-//       not 16-byte pieces, so the step gathers element by element (2-byte
-//       loads; zero for a sentinel and for the padding past K*Cin).
+//     * flattened steps (FLAT true, Cin % 16 != 0: the k5 stem's Cin 3):
+//       the columns j0 .. j0+TBK-1 of the flattened axis K*Cin, which span
+//       offsets (the stem's 375 columns are 6 steps in bf16 and 12 in f32
+//       where a walk by offset would take 125 that are 3 deep). Rows of Cin
+//       values (6 or 12 bytes at the stem) are not 16-byte pieces, so the
+//       step gathers element by element (2- or 4-byte loads; zero for a
+//       sentinel and for the padding past K*Cin, up to the next k-step).
 //     W's rows of the step (contiguous in W.reshape(K*Cin, Cout) either
 //     way) come by cp.async 16 bytes at a time. Two stages: the next step's
 //     copies are issued right after the barrier that publishes this step's,
@@ -58,10 +60,11 @@
 //       fresh fragment, which an f32 add puts into the running sum (the
 //       tensor cores truncate the sum of every mma.sync). Three
 //       products make the tensor cores the limit, so a warp skips an m16
-//       tile whose 16 rows are all sentinels at the step's offset (step 1
-//       keeps a bit per m16 tile and offset): its products would add exact
-//       zeros. Live rows are sparse at most offsets (a quarter of the map
-//       entries at HRNet's same-level maps, under a tenth at its up maps).
+//       tile whose 16 rows are all sentinels at the k-step's offsets (step
+//       1 keeps a bit per m16 tile and offset; a flattened k-step spans up
+//       to 4 offsets at the stem): its products would add exact zeros.
+//       Live rows are sparse at most offsets (a quarter of the map entries
+//       at HRNet's same-level maps, under a tenth at its up maps).
 //     Channel blocks past Cout are skipped.
 // A product runs over every row of the tile at each step that holds a live
 // offset (a sentinel row is zero-filled: no read, but its products run).
@@ -131,17 +134,55 @@ struct TcTile {
   }
 };
 
-// The f32 products of one step (nks k-steps of 8 columns, at most TBK / 8)
-// of a warp's 32 rows x 64 channels in split TF32, for the m16 tiles of
-// mask MT (bit i: rows 16 i .. 16 i + 15 of the warp; a tile of sentinel
-// rows would add exact zeros and is left out). One instantiation per mask
-// keeps every accumulator index a constant. The three products of a k-step
-// go into a fresh fragment, added to the running sum by an f32 add: the
-// tensor cores truncate each mma.sync's sum, which over the thousands of
-// k-steps of a 512-channel, 27-offset output (3 x 1728 mma.sync into one
-// accumulator) came within 3 % of the f32 checks' 1e-4 of max|ref|; added
-// once per k-step in round-to-nearest, the error stays near the CUDA-core
-// body's.
+// The f32 products of k-step ks (8 columns of the step's tiles) of a warp's
+// 32 rows x 64 channels in split TF32, for the m16 tiles of mask MT (bit i:
+// rows 16 i .. 16 i + 15 of the warp; a tile of sentinel rows would add
+// exact zeros and is left out). One instantiation per mask keeps every
+// accumulator index a constant. The three products go into a fresh
+// fragment, added to the running sum by an f32 add: the tensor cores
+// truncate each mma.sync's sum, which over the thousands of k-steps of a
+// 512-channel, 27-offset output (3 x 1728 mma.sync into one accumulator)
+// came within 3 % of the f32 checks' 1e-4 of max|ref|; added once per
+// k-step in round-to-nearest, the error stays near the CUDA-core body's.
+template <int MT, int LDA, int LDB>
+__device__ __forceinline__ void tf32_kstep(float (&acc)[2][8][4],
+                                           const float* as, const float* bs,
+                                           int ks, int wm, int wn, int wc,
+                                           int cout, int g, int t) {
+  csn_tf32::FragA a[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!(MT >> i & 1)) continue;
+    const float* p = as + (32 * wm + 16 * i + g) * LDA + ks * 8 + 2 * t;
+    csn_tf32::split_a(a[i], csn_tf32::ld2(p), csn_tf32::ld2(p + 8 * LDA));
+  }
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    if (wc + 8 * nb >= cout) break;
+    const float* q = bs + (ks * 8 + 2 * t) * LDB + 64 * wn + 8 * nb + g;
+    csn_tf32::FragB b;
+    csn_tf32::split(q[0], b.hi[0], b.lo[0]);
+    csn_tf32::split(q[LDB], b.hi[1], b.lo[1]);
+    float part[2][4] = {};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (MT >> i & 1) csn_tf32::mma_tf32(part[i], a[i].lo, b.hi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (MT >> i & 1) csn_tf32::mma_tf32(part[i], a[i].hi, b.lo);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (MT >> i & 1) csn_tf32::mma_tf32(part[i], a[i].hi, b.hi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (MT >> i & 1)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][nb][e] += part[i][e];
+  }
+}
+
+// The f32 products of one of K1's steps (nks k-steps, at most TBK / 8, all
+// at one offset): one mask MT for the whole step.
 template <int MT, int TBK, int LDA, int LDB>
 __device__ __forceinline__ void tf32_step(float (&acc)[2][8][4],
                                           const float* as, const float* bs,
@@ -150,36 +191,7 @@ __device__ __forceinline__ void tf32_step(float (&acc)[2][8][4],
 #pragma unroll
   for (int ks = 0; ks < TBK / 8; ++ks) {
     if (ks >= nks) break;
-    csn_tf32::FragA a[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (!(MT >> i & 1)) continue;
-      const float* p = as + (32 * wm + 16 * i + g) * LDA + ks * 8 + 2 * t;
-      csn_tf32::split_a(a[i], csn_tf32::ld2(p), csn_tf32::ld2(p + 8 * LDA));
-    }
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      if (wc + 8 * nb >= cout) break;
-      const float* q = bs + (ks * 8 + 2 * t) * LDB + 64 * wn + 8 * nb + g;
-      csn_tf32::FragB b;
-      csn_tf32::split(q[0], b.hi[0], b.lo[0]);
-      csn_tf32::split(q[LDB], b.hi[1], b.lo[1]);
-      float part[2][4] = {};
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (MT >> i & 1) csn_tf32::mma_tf32(part[i], a[i].lo, b.hi);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (MT >> i & 1) csn_tf32::mma_tf32(part[i], a[i].hi, b.lo);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (MT >> i & 1) csn_tf32::mma_tf32(part[i], a[i].hi, b.hi);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (MT >> i & 1)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][nb][e] += part[i][e];
-    }
+    tf32_kstep<MT, LDA, LDB>(acc, as, bs, ks, wm, wn, wc, cout, g, t);
   }
 }
 
@@ -191,7 +203,6 @@ sparse_conv_fwd_tc_kernel(const T* __restrict__ feats,
                           int64_t n_in, int64_t n_out, int n_off, int cin,
                           int cout) {
   constexpr bool F32 = std::is_same<T, float>::value;
-  static_assert(!(F32 && FLAT), "the flattened steps are bf16 only");
   using Tl = TcTile<T, WM, WN>;
   constexpr int BM = Tl::BM, BN = Tl::BN, THREADS = Tl::THREADS;
   constexpr int TBK = Tl::TBK, LDA = Tl::LDA, LDB = Tl::LDB;
@@ -240,9 +251,9 @@ sparse_conv_fwd_tc_kernel(const T* __restrict__ feats,
 
   // A step is (k, c0): K1's (offset, first input channel), or for FLAT
   // (first column of the flattened axis, unused). Its depth kk is a multiple
-  // of 16 (FLAT: zero-padded past K*Cin).
+  // of the k-step KS (FLAT: zero-padded past K*Cin).
   auto depth = [&](int k, int c0) {
-    if constexpr (FLAT) return (min(TBK, kc - k) + 15) / 16 * 16;
+    if constexpr (FLAT) return (min(TBK, kc - k) + KS - 1) / KS * KS;
     return min(TBK, cin - c0);
   };
   // the copies of step (k, c0) into stage st: BM rows x kk columns of IC,
@@ -268,7 +279,10 @@ sparse_conv_fwd_tc_kernel(const T* __restrict__ feats,
         for (int q = 0; q < NQ; ++q) {
           const int r = tid / CT + q * RT;
           const int s = o < n_off && r < BM ? rows[r] : -1;
-          v[q] = s >= 0 ? fc[(int64_t)s * cin] : __float2bfloat16(0.f);
+          if constexpr (F32)
+            v[q] = s >= 0 ? fc[(int64_t)s * cin] : 0.f;
+          else
+            v[q] = s >= 0 ? fc[(int64_t)s * cin] : __float2bfloat16(0.f);
         }
 #pragma unroll
         for (int q = 0; q < NQ; ++q)
@@ -347,7 +361,24 @@ sparse_conv_fwd_tc_kernel(const T* __restrict__ feats,
     const T* as = stages + st * Tl::STAGE_ELEMS;
     const T* bs = as + Tl::A_ELEMS;
     const int nks = depth(k, c0) / KS;
-    if constexpr (F32) {
+    if constexpr (F32 && FLAT) {
+      // per k-step, the warp's m16 tiles with a live row at one of the
+      // offsets its 8 columns span (up to 4 at Cin 3)
+      if (wc < cout)
+#pragma unroll 1
+        for (int ks = 0; ks < nks; ++ks) {
+          const int j = k + 8 * ks, j_hi = min(j + 8, kc) - 1;
+          int any = 0;
+          for (int o = j / cin; o <= j_hi / cin; ++o) any |= live[o];
+          const int mt = any >> (2 * wm) & 3;
+          if (mt == 3)
+            tf32_kstep<3, LDA, LDB>(acc, as, bs, ks, wm, wn, wc, cout, g, t);
+          else if (mt == 1)
+            tf32_kstep<1, LDA, LDB>(acc, as, bs, ks, wm, wn, wc, cout, g, t);
+          else if (mt == 2)
+            tf32_kstep<2, LDA, LDB>(acc, as, bs, ks, wm, wn, wc, cout, g, t);
+        }
+    } else if constexpr (F32) {
       // the warp's m16 tiles with a live row at offset k: a tile of
       // sentinel rows (zero-filled A) would add exact zeros
       const int mt = live[k] >> (2 * wm) & 3;
@@ -443,8 +474,7 @@ int tc_wn(int cout) {
 }
 
 // The tiles of both entries: BM = 128 at WN = 1, else 64 (fewer rows
-// where the kmap slab needs it, launch_tc_body). T = float: K1's steps
-// only (FLAT false).
+// where the kmap slab needs it, launch_tc_body). T = float: K1 only.
 template <bool FLAT, typename T = bf16>
 cudaError_t launch_tc(const void* feats, const void* kmap, const void* w,
                       void* out, int64_t n_in, int64_t n_out, int n_off,

@@ -12,8 +12,9 @@ im2col pair (`sparse_conv_im2col_fwd`, and the backward through
 `conv_im2col_bwd_kernels`) on seeded bf16 inputs at conv shapes of
 HRNetSimCSN3S and Res16UNet34C, and K1 and `sparse_conv_dw` again on the
 same inputs in f32 (device time from CUDA graphs, warm L2 and from device
-memory: the f32 form, split TF32 on the tensor cores where Cin % 16 == 0,
-whose bits are not another body's), and the interpolation pair (`interp_fwd`,
+memory: the f32 form, split TF32 on the tensor cores at Cout % 8 == 0, the
+stem included, whose bits are not another body's), and the interpolation
+pair (`interp_fwd`,
 `interp_bwd`) on the corner table of one HRNetSimCSN3S query batch (8
 shapes of 10000 points, built once by this checkout and handed to both) at
 39 and 256 channels in f32 and bf16 (CUDA-event medians per call over

@@ -102,15 +102,15 @@ def _meta_view(*shape, dtype, shift):
 
 
 def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
-    """K1's tensor-core bodies (bf16 with Cout % 8 == 0; f32 with Cin % 16
-    == 0 and Cout % 8 == 0, in split TF32) copy the weights, and feats where
-    Cin % 16 == 0, 16 bytes at a time with cp.async: `sparse_conv_fwd`
-    refuses such a view that does not start on a 16-byte boundary before
-    the launch (meta tensors through the wrapper's checks, the CUDA-device
-    check stubbed out). Aligned calls, and misaligned ones that no 16-byte
-    copy reads (the stem's feats, which the flattened steps gather element
-    by element; an f32 stem on the CUDA-core body), get as far as the
-    library."""
+    """K1's tensor-core bodies (bf16, and f32 in split TF32, with Cout % 8
+    == 0) copy the weights, and feats where Cin % 16 == 0, 16 bytes at a
+    time with cp.async: `sparse_conv_fwd` refuses such a view that does not
+    start on a 16-byte boundary before the launch (meta tensors through the
+    wrapper's checks, the CUDA-device check stubbed out), the weights of an
+    f32 stem included. Aligned calls, and misaligned ones that no 16-byte
+    copy reads (the stems' feats, which the flattened steps gather element
+    by element, in bf16 and f32; a Cout off the multiples of 8, on the
+    CUDA-core body), get as far as the library."""
     _stub_launch(monkeypatch)
     view = _meta_view
     n_in, n_out, k = 10, 7, 27
@@ -121,15 +121,16 @@ def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
     assert window_conv.k1_tensor_cores(bf, 24, 64)
     assert not window_conv.k1_tensor_cores(bf, 32, 60)
     assert window_conv.k1_tensor_cores(f32, 32, 64)
+    assert window_conv.k1_tensor_cores(f32, 3, 32)
     before = dict(kernels.LAUNCHES)
     for cin, dt, fs, ws in ((32, bf, 1, 0), (32, bf, 0, 1), (3, bf, 0, 1),
-                            (32, f32, 1, 1)):
+                            (32, f32, 1, 1), (3, f32, 0, 1), (3, f32, 1, 1)):
         with pytest.raises(ValueError, match="16-byte"):
             window_conv.sparse_conv_fwd(
                 view(n_in, cin, dtype=dt, shift=fs), kmap,
                 view(k, cin, 64, dtype=dt, shift=ws))
     for cin, cout, dt, fs, ws in ((32, 64, bf, 0, 0), (3, 32, bf, 1, 0),
-                                  (3, 32, f32, 1, 1)):
+                                  (3, 32, f32, 1, 0), (3, 30, f32, 1, 1)):
         with pytest.raises(LookupError, match="reached the launch"):
             window_conv.sparse_conv_fwd(
                 view(n_in, cin, dtype=dt, shift=fs), kmap,
@@ -139,17 +140,16 @@ def test_k1_refuses_a_misaligned_bf16_view(monkeypatch):
 TC_RULE_CASES = [(torch.bfloat16, 32, 64, True), (torch.bfloat16, 3, 32, True),
                  (torch.bfloat16, 24, 64, True),
                  (torch.bfloat16, 32, 60, False),
-                 (torch.float32, 32, 64, True), (torch.float32, 3, 32, False),
-                 (torch.float32, 24, 64, False),
+                 (torch.float32, 32, 64, True), (torch.float32, 3, 32, True),
+                 (torch.float32, 24, 64, True),
                  (torch.float32, 32, 60, False)]
 
 
 @pytest.mark.parametrize("dtype,cin,cout,want", TC_RULE_CASES)
 def test_dw_tensor_cores_rule(dtype, cin, cout, want):
-    """dW's tensor-core bodies take what K1's takes: bf16 with Cout % 8 ==
-    0, whatever Cin, the stems' Cin 3 included, and f32 with Cin % 16 == 0
-    and Cout % 8 == 0 (split TF32; the rule `csn_sparse_conv_dw` and
-    `csn_sparse_conv_fwd` apply)."""
+    """dW's tensor-core bodies take what K1's takes: bf16, and f32 in split
+    TF32, with Cout % 8 == 0, whatever Cin, the stems' Cin 3 included (the
+    rule `csn_sparse_conv_dw` and `csn_sparse_conv_fwd` apply)."""
     assert window_conv.dw_tensor_cores(dtype, cin, cout) is want
     assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
     assert window_conv.k1_split_tf32(dtype, cin, cout) is (
@@ -160,22 +160,24 @@ def test_dw_refuses_a_misaligned_bf16_view(monkeypatch):
     """dW's tensor-core bodies (K1's rule) copy g rows, and feats rows where
     Cin % 16 == 0, 16 bytes at a time with cp.async: `sparse_conv_dw`
     refuses such a view that does not start on a 16-byte boundary before
-    the launch. Aligned calls, and misaligned ones that no 16-byte copy
-    reads (the stem's feats, loaded element by element by the narrow body;
-    an f32 stem on the CUDA-core body), get as far as the library."""
+    the launch, the g of an f32 stem included. Aligned calls, and
+    misaligned ones that no 16-byte copy reads (the stems' feats, loaded
+    element by element by the narrow body in bf16 and f32; a Cout off the
+    multiples of 8, on the CUDA-core body), get as far as the library."""
     _stub_launch(monkeypatch)
     n_in, n_g, k = 10, 7, 27
     kmap_t = torch.empty(k, n_in, dtype=torch.int32, device="meta")
     bf, f32 = torch.bfloat16, torch.float32
     before = dict(kernels.LAUNCHES)
     for cin, cout, dt, fs, gs in ((32, 64, bf, 1, 0), (32, 64, bf, 0, 1),
-                                  (3, 32, bf, 0, 1), (32, 64, f32, 1, 1)):
+                                  (3, 32, bf, 0, 1), (32, 64, f32, 1, 1),
+                                  (3, 32, f32, 0, 1), (3, 32, f32, 1, 1)):
         with pytest.raises(ValueError, match="16-byte"):
             window_conv.sparse_conv_dw(
                 _meta_view(n_in, cin, dtype=dt, shift=fs),
                 _meta_view(n_g, cout, dtype=dt, shift=gs), kmap_t)
     for cin, cout, dt, fs, gs in ((32, 64, bf, 0, 0), (3, 32, bf, 1, 0),
-                                  (3, 32, f32, 1, 1)):
+                                  (3, 32, f32, 1, 0), (3, 30, f32, 1, 1)):
         with pytest.raises(LookupError, match="reached the launch"):
             window_conv.sparse_conv_dw(
                 _meta_view(n_in, cin, dtype=dt, shift=fs),
@@ -310,6 +312,18 @@ def test_dw_narrow_splits_fill_the_card(n_in, k, cin, cout, want):
         window_conv.DW_NARROW_WARPS_PER_SM * window_conv.SMS)
 
 
+@pytest.mark.parametrize("n_in,k,cin,cout", [
+    (90112, 125, 3, 32), (45056, 125, 3, 32), (9293, 5, 24, 40),
+    (9293, 5, 3, 32)])
+def test_dw_narrow_splits_f32_match_bf16(n_in, k, cin, cout):
+    """The narrow body in f32 (split TF32) takes the bf16 body's splits: its
+    tiles hold the same 256 live pairs, and 26 splits measured best at
+    both stems in either type (`tools/stem_splits.py`)."""
+    assert window_conv.dw_splits(n_in, k, cin, cout, tensor_cores=True,
+                                 dtype=torch.float32) == \
+        window_conv.dw_splits(n_in, k, cin, cout, tensor_cores=True)
+
+
 @pytest.mark.parametrize("n_in,k,cin,cout,want", [
     (90112, 27, 64, 64, 40), (30208, 27, 128, 128, 10),
     (10240, 27, 256, 256, 3), (45056, 8, 96, 384, 11), (500, 27, 64, 64, 1)])
@@ -399,15 +413,34 @@ def _gather_np(x, idx):
     return rows
 
 
+def _flat_steps_model(feats, kmap, w, terms):
+    """K1's flattened steps (Cin % 16 != 0, the stems) in split TF32: the
+    gathered rows of every offset side by side, IC [N_out, K*Cin], against
+    W.reshape(K*Cin, Cout), in k-steps of 8 columns (zero-padded past
+    K*Cin), each step's product summed into the output in f32."""
+    k, cin, cout = w.shape
+    ic = np.concatenate([_gather_np(feats, kmap[o]) for o in range(k)], 1)
+    wf = w.reshape(k * cin, cout)
+    pad = -(k * cin) % 8
+    ic = np.pad(ic, ((0, 0), (0, pad)))
+    wf = np.pad(wf, ((0, pad), (0, 0)))
+    out = np.zeros((ic.shape[0], cout), np.float32)
+    for j in range(0, ic.shape[1], 8):
+        out = (out + _tf32_product(ic[:, j:j + 8], wf[j:j + 8], terms)
+               ).astype(np.float32)
+    return out
+
+
 @pytest.mark.parametrize("what", ["forward", "dW"])
 @pytest.mark.parametrize("cin,cout,k", [(32, 32, 27), (64, 128, 8),
-                                        (256, 256, 27)])
+                                        (256, 256, 27), (3, 32, 125)])
 def test_split_tf32_model_matches_jax(cin, cout, k, what):
     """Three TF32 products per f32 product (the kernels' split TF32) give
     the JAX package's f32 sparse conv (forward) and its VJP's weight
     gradient (dW, over the transpose map) within 1e-4 of max|ref|, the
     tolerance the f32 bodies are held to on the card; one TF32 product
-    (hi . hi alone) comes out further off."""
+    (hi . hi alone) comes out further off. At the k5 stem (Cin 3, 125
+    offsets) the forward is K1's flattened steps (`_flat_steps_model`)."""
     rng = np.random.default_rng(cin * 1000 + cout + k)
     n_in, n_out = 300, 260
     kmap, kmap_t = _partial_permutation_maps(rng, k, n_in, n_out, 0.25)
@@ -423,8 +456,13 @@ def test_split_tf32_model_matches_jax(cin, cout, k, what):
 
     if what == "forward":
         ref = np.asarray(jconv(jnp.asarray(feats), jnp.asarray(w)))
-        models = [sum(_tf32_product(_gather_np(feats, kmap[o]), w[o], terms)
-                      for o in range(k)) for terms in (3, 1)]
+        if cin % 16:
+            models = [_flat_steps_model(feats, kmap, w, terms)
+                      for terms in (3, 1)]
+        else:
+            models = [sum(_tf32_product(_gather_np(feats, kmap[o]), w[o],
+                                        terms) for o in range(k))
+                      for terms in (3, 1)]
     else:
         _, vjp = jax.vjp(jconv, jnp.asarray(feats), jnp.asarray(w))
         ref = np.asarray(vjp(jnp.asarray(g))[1])
@@ -656,7 +694,8 @@ def test_im2col_tensor_cores_rule(dtype, cin, cout, want):
     whatever Cin (the rule `csn_sparse_conv_im2col_fwd` and `_bwd` apply):
     the stem's Cin of 3 and a Cin off the multiples of 16 included, as K1
     and dW take them in bf16; f32 and a Cout off the multiples of 8 run the
-    CUDA-core bodies (K1 runs f32 in split TF32 where Cin % 16 == 0)."""
+    CUDA-core bodies (K1 and dW run f32 in split TF32 at Cout % 8 ==
+    0)."""
     assert window_conv.im2col_tensor_cores(dtype, cin, cout) is want
     if dtype == torch.bfloat16:
         assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
