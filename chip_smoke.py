@@ -47,22 +47,24 @@ Phases (each prints its lines; any failure exits nonzero):
      200 on the wide split-TF32 body, the f32 ones with a shorter last
      split), and K1's f32 flattened steps at 40 -> 64 over 27 offsets,
      24 -> 40 and 3 -> 40 over 5 (K*Cin no multiple of the step or the
-     k-step); K1, d_feats and dW timed in f32 at every conv of
-     HRNetSimCSN3S and Res16UNet34C as device time from CUDA graphs, and
-     the im2col pair's f32 bodies beside them; on the same inputs
-     `sparse_conv_im2col_fwd` against `conv_im2col_plain` and K1 (in bf16
-     bitwise: one body), and `sparse_conv_im2col_bwd`
+     k-step); K1, d_feats, dW and the im2col pair timed in f32 at every
+     conv of HRNetSimCSN3S and Res16UNet34C as device time from CUDA
+     graphs; on the same inputs
+     `sparse_conv_im2col_fwd` against `conv_im2col_plain` and K1 (bitwise
+     where it runs K1's tensor-core body), and `sparse_conv_im2col_bwd`
      (d_feats and dW; dW only for the stem) against `conv_im2col_bwd_plain`
      and K1 / `sparse_conv_dw`, and where their tensor-core bodies run
-     (bf16, Cout % 8 == 0, the stem included: `im2col_tensor_cores`) the
-     forward, d_feats (K1_F64_TOL) and dW (DW_F64_TOL) against float64
-     references of the same bf16 operands, repeats that must be bitwise
+     (bf16, and f32 in split TF32, Cout % 8 == 0, the stem included:
+     `im2col_tensor_cores`, K1's rule) the forward, d_feats (K1_F64_TOL;
+     f32 TF32_F64_TOL) and dW (DW_F64_TOL; f32 TF32_F64_TOL) against
+     float64 references of the same operands, repeats that must be bitwise
      equal, the densest transpose-map offset made all sentinels (exact
      zeros there, the other offsets' bits unchanged), and the forward
      bitwise equal to K1, plus
-     synthetic maps at the bodies' edges (rows not a multiple of the row
-     tile or the 256-row super-tile, splits with a remainder, Cin/Cout
-     48/40 and 160/200, the stem with a dead and a one-row offset) and a
+     synthetic maps at the bodies' edges in bf16 and f32 (rows not a
+     multiple of the row tile or the 256-row super-tile, splits with a
+     remainder, Cin/Cout 48/40 and 160/200, the stem with a dead and a
+     one-row offset, 640 offsets) and a
      `[perconv]` line per timed conv (per call, the im2col forward
      against K1 and each form's backward function as the autograd function
      calls it); K2 (flash attention) at the SSA and CSA
@@ -128,10 +130,12 @@ Phases (each prints its lines; any failure exits nonzero):
      the CPU step taking the GPU step's ReLU decisions (`ReluDecisions`);
      then the same protocol with f32 activations (`--compute_dtype
      float32`): 3 eval and 3 train requests with exact launch counts per
-     kernel body (K1's and dW's split-TF32 bodies counted apart from their
-     CUDA-core stems), ms/step of the eval and the train step (with
-     --profile: the attention kernels of each step named, none of them a
-     CUDA-core `flash_*_wide` body);
+     kernel body (the split-TF32 bodies counted apart), ms/step of the eval
+     and the train step (with --profile: the attention and conv kernels of
+     each step named, none of them a CUDA-core body), and all of it again
+     under CSN_DYNG=2, the im2col pair's split-TF32 bodies once per conv
+     (47 forwards, and 47 backwards per train request; K1 and
+     `sparse_conv_dw` never), its ms/step beside the K1 form's;
   6. MID-FC chunked, the JAX package's `bench.py` midfc protocol:
      `MidfcRunner(cfg, "csa")` with 8 heads of 256, K=4, B=4, P=10000,
      d_model 256, chunks of 500, 39 classes, f32, Adam(0.5, 0.999), seeded
@@ -202,11 +206,14 @@ Phases (each prints its lines; any failure exits nonzero):
      `batch_intersection_union` on the card, equal to the same call on
      the CPU and, through `mink_metrics_from_iu`, to the host's per-shape
      IoU.
-The line before the last is the kernel table as JSON: per kernel (K1 and
-`sparse_conv_dw` in two rows each: their split-TF32 bodies, the f32 form,
-as `sparse_conv_fwd_tf32` and `sparse_conv_dw_tf32`, and their other
-bodies; K2 and its backward likewise, their f32 D=64 split-TF32 bodies as
-`flash_attn_fwd_tf32_d64` and `flash_attn_bwd_tf32_d64`), its launches in the train requests of phases 5 (bf16 and f32), 6,
+The line before the last is the kernel table as JSON: per kernel (K1,
+`sparse_conv_dw` and the im2col pair in two rows each: their split-TF32
+bodies, the f32 form, as `sparse_conv_fwd_tf32`, `sparse_conv_dw_tf32`,
+`sparse_conv_im2col_fwd_tf32` and `sparse_conv_im2col_bwd_tf32`, and their
+other bodies; K2 and its backward likewise, their f32 D=64 split-TF32
+bodies as `flash_attn_fwd_tf32_d64` and `flash_attn_bwd_tf32_d64`), its
+launches in the train requests of phases 5 (bf16, f32 and f32 under
+CSN_DYNG=2), 6,
 7, 8, 9, 10 and 11 (each
 phase sets the counts to 0 before and reads them after; phase 9 counts the
 Res16UNet34C train iterations, the chain and the probes' entry points;
@@ -357,6 +364,14 @@ KERNELS = {
                                "csn_tpu/core/window_conv.py:1021"),
     "sparse_conv_im2col_bwd": ("csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu",
                                "csn_tpu/core/window_conv.py:1135"),
+    # the f32 forms of the im2col pair (CSN_DYNG=2/3): the forward on K1's
+    # split-TF32 body, the backward's split-TF32 body, whose launches count
+    # apart; the two rows above are the bf16 bodies and the CUDA-core ones
+    "sparse_conv_im2col_fwd_tf32": ("csn_tpu_torch/csrc/sparse_conv_tc.cuh",
+                                    "csn_tpu/core/window_conv.py:1021"),
+    "sparse_conv_im2col_bwd_tf32": (
+        "csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu",
+        "csn_tpu/core/window_conv.py:1135"),
     # the MID-FC bodies (f32, head dim 256, split TF32 on the tensor cores);
     # flash_attn.cu, flash_attn_bwd.cu, flash_attn_carry.cu and
     # flash_attn_block_bwd.cu hold the dispatch (and the bf16 head-dim-64
@@ -503,16 +518,11 @@ class Table:
         self.dw_f64 = []   # (error / max|ref|) of each dW float64 line
         # (error / max|ref|) of the split-TF32 bodies' float64 lines
         self.tf32_f64 = {"sparse_conv_fwd_tf32": [],
-                         "sparse_conv_dw_tf32": []}
-        # the im2col pair's f32 forward and backward device ms over one
-        # train step of the timed families (CUDA graphs), their plain
-        # versions' (one call each) and their bounds (not in the kernel
-        # line)
-        self.f32_im2col_ms = [0.0, 0.0]
-        self.f32_im2col_plain_ms = [0.0, 0.0]
-        self.f32_im2col_bound_ms = [0.0, 0.0]
-        # (error / max|ref|) of the im2col pair's float64 lines: forward and
-        # d_feats, dW
+                         "sparse_conv_dw_tf32": [],
+                         "sparse_conv_im2col_fwd_tf32": [],
+                         "sparse_conv_im2col_bwd_tf32": []}
+        # (error / max|ref|) of the im2col pair's bf16 float64 lines:
+        # forward and d_feats, dW
         self.im2col_f64 = {"out": [], "dW": []}
 
     def check(self, name, what, got, ref, dtype, valid=None):
@@ -532,26 +542,28 @@ class Table:
 
     def time(self, name, what, fn_kernel, fn_plain, count=1, reps=7, *,
              nbytes, flops, dtype=torch.bfloat16, peak_flops=None,
-             fn_library=None, graph=False):
+             fn_library=None, graph=False, graph_calls=20):
         """Median ms of the kernel and its plain version, the call's bound
         (`nbytes` moved once over the memory rate, `flops` over
         `peak_flops`, by default the peak of `dtype`) and, with
         `fn_library`, the median ms of the one PyTorch call that computes
         the same function; all added `count` times to the train step's
         totals (count 0: printed only). With `graph`, the kernel's and the
-        library call's ms are device times from CUDA graphs of calls with a
-        warm L2 (`graph_ms`), the line also shows the kernel's time from
-        device memory and one call timed with its wrapper, and the plain
-        version (not capturable: it synchronises with the host) stays one
-        call with its host work. Returns the kernel's median ms."""
-        ms = graph_ms(fn_kernel) if graph else median_ms(fn_kernel)
+        library call's ms are device times from CUDA graphs of
+        `graph_calls` calls with a warm L2 (`graph_ms`), the line also
+        shows the kernel's time from device memory and one call timed with
+        its wrapper, and the plain version (not capturable: it synchronises
+        with the host) stays one call with its host work. Returns the
+        kernel's median ms."""
+        gkw = dict(calls=graph_calls, reps=7 if graph_calls >= 20 else 3)
+        ms = graph_ms(fn_kernel, **gkw) if graph else median_ms(fn_kernel)
         pms = median_ms(fn_plain, warmup=1, reps=reps)
         b_ms = nbytes / HBM_BYTES_S * 1e3
         o_ms = flops / (peak_flops or PEAK_FLOPS[dtype]) * 1e3
         kern = (f"kernel {ms:.4f} ms (device, CUDA graph, warm L2; from "
-                f"device memory {graph_ms(fn_kernel, cold=True):.4f} ms; one "
-                f"call with its wrapper {median_ms(fn_kernel):.4f} ms)"
-                if graph else f"kernel {ms:.4f} ms")
+                f"device memory {graph_ms(fn_kernel, cold=True, **gkw):.4f} "
+                f"ms; one call with its wrapper {median_ms(fn_kernel):.4f} "
+                f"ms)" if graph else f"kernel {ms:.4f} ms")
         line = (f"[time] {name} {what} {str(dtype)[6:]}: {kern}, "
                 f"plain {pms:.4f} ms{' (one call)' if graph else ''}, "
                 f"bound {max(b_ms, o_ms):.4f} ms "
@@ -559,7 +571,7 @@ class Table:
                 f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         lms = None
         if fn_library is not None:
-            lms = graph_ms(fn_library) if graph \
+            lms = graph_ms(fn_library, **gkw) if graph \
                 else median_ms(fn_library, warmup=1, reps=reps)
             line += f", library {lms:.4f} ms{' (device)' if graph else ''}"
         print(f"{line} (x{count} per train step)" if count
@@ -841,33 +853,45 @@ def check_k1_edges(dev, table):
 
 
 def check_im2col_fwd_tc(table, what, feats, kmap, weights):
-    """`sparse_conv_im2col_fwd` on its tensor-core body (bf16,
-    `im2col_tensor_cores`): against `conv_f64` (K1_F64_TOL), a repeat
-    bitwise equal, and bitwise equal to K1 (one body: K1's loop where Cin %
-    16 == 0, the flattened steps elsewhere). Returns the first call."""
-    name = "sparse_conv_im2col_fwd"
+    """`sparse_conv_im2col_fwd` on its tensor-core bodies (K1's: bf16, and
+    f32 in split TF32, `im2col_tensor_cores`): against `conv_f64`
+    (K1_F64_TOL; f32 TF32_F64_TOL), a repeat bitwise equal, and bitwise
+    equal to K1 (one body: K1's loop where Cin % 16 == 0, the flattened
+    steps elsewhere). Returns the first call."""
+    dt = feats.dtype
+    name = form_name("sparse_conv_im2col_fwd", dt, feats.shape[1],
+                     weights.shape[2])
+    body = tc_body(dt)
     out = window_conv.sparse_conv_im2col_fwd(feats, kmap, weights)
-    table.im2col_f64["out"].append(check_f64(
-        table, name, what, out, conv_f64(feats, kmap, weights), K1_F64_TOL))
+    err = check_f64(table, name, what, out, conv_f64(feats, kmap, weights),
+                    TF32_F64_TOL if dt == torch.float32 else K1_F64_TOL,
+                    body=body)
+    (table.tf32_f64[name] if dt == torch.float32
+     else table.im2col_f64["out"]).append(err)
     check_same(name, what, "repeat: bitwise equal", torch.equal(
-        out, window_conv.sparse_conv_im2col_fwd(feats, kmap, weights)))
+        out, window_conv.sparse_conv_im2col_fwd(feats, kmap, weights)), body)
     loop = ("K1's loop" if feats.shape[1] % 16 == 0
             else "the flattened steps")
     check_same(name, what, f"vs K1 ({loop}): bitwise equal",
                torch.equal(out, window_conv.sparse_conv_fwd(feats, kmap,
-                                                            weights)))
+                                                            weights)), body)
     return out
 
 
 def check_im2col_bwd_tc(table, what, feats, g, kmap_t, w_pair, dw_only):
-    """`sparse_conv_im2col_bwd` on its tensor-core body: d_feats (unless
-    `dw_only`) against `conv_f64` over the transpose map with the paired
-    weights `w_pair` [K, Cin, Cout] transposed (K1_F64_TOL), dW against
-    `dw_f64` (DW_F64_TOL), a repeat bitwise equal in both, and the same map
-    with its densest offset made all sentinels: exact zeros in that
+    """`sparse_conv_im2col_bwd` on its tensor-core bodies (bf16, and f32 in
+    split TF32): d_feats (unless `dw_only`) against `conv_f64` over the
+    transpose map with the paired weights `w_pair` [K, Cin, Cout]
+    transposed (K1_F64_TOL; f32 TF32_F64_TOL), dW against `dw_f64`
+    (DW_F64_TOL; f32 TF32_F64_TOL), a repeat bitwise equal in both, and the
+    same map with its densest offset made all sentinels: exact zeros in that
     offset's dW, the first call's bits at every other offset. Returns the
     first call's dW_t [K, Cin, Cout]."""
-    name = "sparse_conv_im2col_bwd"
+    dt = feats.dtype
+    tf32 = dt == torch.float32
+    name = form_name("sparse_conv_im2col_bwd", dt, feats.shape[1],
+                     g.shape[1])
+    body = tc_body(dt)
     n_off = kmap_t.shape[0]
     wt_flat = None if dw_only else conv.stack_pair_transposed(
         w_pair).contiguous()
@@ -877,32 +901,38 @@ def check_im2col_bwd_tc(table, what, feats, g, kmap_t, w_pair, dw_only):
                                                    dw_only)
         return d, conv.unstack_dw(dw, n_off)
 
+    def f64_line(part, got, ref, tol):
+        err = check_f64(table, name, f"{what} {part}", got, ref,
+                        TF32_F64_TOL if tf32 else tol, body=body)
+        (table.tf32_f64[name] if tf32
+         else table.im2col_f64["out" if part == "d_feats" else part]
+         ).append(err)
+
     what = f"{what} dw_only {dw_only}"
     d_feats, dw = call(kmap_t)
     if not dw_only:
-        table.im2col_f64["out"].append(check_f64(
-            table, name, f"{what} d_feats", d_feats,
-            conv_f64(g, kmap_t, w_pair.transpose(1, 2)), K1_F64_TOL))
-    table.im2col_f64["dW"].append(check_f64(
-        table, name, f"{what} dW", dw, dw_f64(feats, g, kmap_t), DW_F64_TOL))
+        f64_line("d_feats", d_feats,
+                 conv_f64(g, kmap_t, w_pair.transpose(1, 2)), K1_F64_TOL)
+    f64_line("dW", dw, dw_f64(feats, g, kmap_t), DW_F64_TOL)
     d2, dw2 = call(kmap_t)
     check_same(name, what, "repeat: bitwise equal", torch.equal(dw, dw2)
-               and (dw_only or torch.equal(d_feats, d2)))
+               and (dw_only or torch.equal(d_feats, d2)), body)
     check_dead_offset(name, what, lambda km: call(km)[1], kmap_t, g.shape[0],
-                      dw)
+                      dw, body)
     return dw
 
 
 def check_im2col_edges(dev, table, g):
-    """The im2col pair's tensor-core bodies on synthetic maps cut to their
-    edges: a conv from N_in = 141 super-tiles - 179 rows (not a multiple of
-    the backward's 256-row super-tile) to 7000 rows (not a multiple of the
-    forward's 64- or 128-row tile), with splits of whole super-tiles that
-    leave a remainder; offsets fully live, without a live row, with only
-    the last row, sparse ones; Cin and Cout 48 and 40 (a part channel tile,
-    64-column chunks that span offsets) and 160 and 200 (three channel
-    tiles, one 256-column tile); the k5 stem (Cin 3, 125 offsets: the
-    forward's flattened steps, the backward's 16-channel tile) with and
+    """The im2col pair's tensor-core bodies, bf16 and f32 (split TF32), on
+    synthetic maps cut to their edges: a conv from N_in = 141 super-tiles -
+    179 rows (not a multiple of the backward's 256-row super-tile) to 7000
+    rows (not a multiple of the forward's 64- or 128-row tile), with splits
+    of whole super-tiles that leave a remainder; offsets fully live, without
+    a live row, with only the last row, sparse ones; Cin and Cout 48 and 40
+    (a part channel tile, chunks of 64 bf16 or 32 f32 columns that span
+    offsets, in f32 a part last chunk of 8 columns) and 160 and 200 (three
+    channel tiles, one 256-column tile); the k5 stem (Cin 3, 125 offsets:
+    the forward's flattened steps, the backward's 16-channel tile) with and
     without d_feats; IM2COL_MAX_OFFSETS offsets (the forward's shorter row
     tiles). Against the plain versions (TOL), `check_im2col_fwd_tc` and
     `check_im2col_bwd_tc`."""
@@ -910,6 +940,7 @@ def check_im2col_edges(dev, table, g):
     rows = lib.csn_sparse_conv_im2col_bwd_tc_rows()
     n_in, n_out = 141 * rows - 179, 7000
     gen = torch.Generator().manual_seed(SEED + 8)
+    bf, f32 = torch.bfloat16, torch.float32
     for cin, cout, n_off, dense in ((48, 40, 5, None), (160, 200, 5, None),
                                     (3, 32, 125, 0.1)):
         fill = (torch.tensor([0.3, 1.0, 0.0, 0.0, 0.05]) if dense is None
@@ -931,30 +962,34 @@ def check_im2col_edges(dev, table, g):
         per = -(-n_st // s)
         require(n_in % rows and n_out % 64 and s > 1 and n_st % per,
                 f"im2col edge case {cin}->{cout}: S={s}, {n_st} super-tiles")
-        f = torch.randn(n_in, cin, generator=gen).to(dev, torch.bfloat16)
+        f = torch.randn(n_in, cin, generator=gen).to(dev)
         w = ((torch.rand(n_off, cin, cout, generator=gen) * 2 - 1)
-             / (cin * n_off) ** 0.5).to(dev, torch.bfloat16)
-        gd = torch.randn(n_out, cout, generator=gen).to(dev, torch.bfloat16)
+             / (cin * n_off) ** 0.5).to(dev)
+        gd = torch.randn(n_out, cout, generator=gen).to(dev)
         what = (f"edges {cin}->{cout} K={n_off} N_in={n_in} N_out={n_out} "
                 f"S={s} ({per} super-tiles of {rows} per split, {n_st} in "
                 f"all)")
-        out = check_im2col_fwd_tc(table, what, f, kmap, w)
-        table.check("sparse_conv_im2col_fwd", what, out,
-                    conv.conv_im2col_plain(f, kmap, w), torch.bfloat16)
-        for dw_only in ((True, False) if cin == 3 else (False,)):
-            dw = check_im2col_bwd_tc(table, what, f, gd, kmap_t, w, dw_only)
-            pl_df, pl_dw = conv.conv_im2col_bwd_plain(
-                f, gd, kmap_t, w.float(), False, not dw_only)
-            im_df, im_dw = conv.conv_im2col_bwd_kernels(
-                f, gd, kmap_t, w.float(), False, not dw_only)
-            if not dw_only:
-                table.check("sparse_conv_im2col_bwd", f"{what} d_feats",
-                            im_df, pl_df, torch.bfloat16)
-            table.check("sparse_conv_im2col_bwd", f"{what} dw_only {dw_only} "
-                        f"dW", im_dw, pl_dw, torch.bfloat16)
-            require(not dw[2].any().item() and dw[3].any().item(),
-                    f"im2col dW {what}: the empty offset and the one-row "
-                    f"offset")
+        for dt in (bf, f32):
+            fd, wd, gdd = f.to(dt), w.to(dt), gd.to(dt)
+            fwd = form_name("sparse_conv_im2col_fwd", dt, cin, cout)
+            bwd = form_name("sparse_conv_im2col_bwd", dt, cin, cout)
+            out = check_im2col_fwd_tc(table, what, fd, kmap, wd)
+            table.check(fwd, what, out, conv.conv_im2col_plain(fd, kmap, wd),
+                        dt)
+            for dw_only in ((True, False) if cin == 3 else (False,)):
+                dw = check_im2col_bwd_tc(table, what, fd, gdd, kmap_t, wd,
+                                         dw_only)
+                pl_df, pl_dw = conv.conv_im2col_bwd_plain(
+                    fd, gdd, kmap_t, wd.float(), False, not dw_only)
+                im_df, im_dw = conv.conv_im2col_bwd_kernels(
+                    fd, gdd, kmap_t, wd.float(), False, not dw_only)
+                if not dw_only:
+                    table.check(bwd, f"{what} d_feats", im_df, pl_df, dt)
+                table.check(bwd, f"{what} dw_only {dw_only} dW", im_dw,
+                            pl_dw, dt)
+                require(not dw[2].any().item() and dw[3].any().item(),
+                        f"im2col dW {what} {dt}: the empty offset and the "
+                        f"one-row offset")
     # the most offsets the wrappers take: the kmap slab does not fit beside
     # the full tiles, so the shared launcher gives fewer rows per tile (K1's
     # loop at Cin 32, still bitwise equal to K1; the flattened steps at Cin
@@ -966,31 +1001,31 @@ def check_im2col_edges(dev, table, g):
             torch.randint(0, n_src, (n_off, n_dst), generator=gen,
                           dtype=torch.int32), n_src).to(dev)
             for n_dst, n_src in ((n_out, n_in), (n_in, n_out)))
-        f = torch.randn(n_in, cin, generator=gen).to(dev, torch.bfloat16)
+        f = torch.randn(n_in, cin, generator=gen).to(dev)
         w = ((torch.rand(n_off, cin, cout, generator=gen) * 2 - 1)
-             / (cin * n_off) ** 0.5).to(dev, torch.bfloat16)
-        gd = torch.randn(n_out, cout, generator=gen).to(dev, torch.bfloat16)
+             / (cin * n_off) ** 0.5).to(dev)
+        gd = torch.randn(n_out, cout, generator=gen).to(dev)
         what = f"edges {cin}->{cout} K={n_off} N_in={n_in} N_out={n_out}"
-        out = check_im2col_fwd_tc(table, what, f, kmap, w)
-        table.check("sparse_conv_im2col_fwd", what, out,
-                    conv.conv_im2col_plain(f, kmap, w), torch.bfloat16)
-        check_im2col_bwd_tc(table, what, f, gd, kmap_t, w, False)
+        for dt in (bf, f32):
+            fd, wd, gdd = f.to(dt), w.to(dt), gd.to(dt)
+            out = check_im2col_fwd_tc(table, what, fd, kmap, wd)
+            table.check(form_name("sparse_conv_im2col_fwd", dt, cin, cout),
+                        what, out, conv.conv_im2col_plain(fd, kmap, wd), dt)
+            check_im2col_bwd_tc(table, what, fd, gdd, kmap_t, wd, False)
 
 
 def time_f32_convs(table, what, t_name, count, n_dfeats, f, gd, kmap,
                    kmap_t, wt, w_t, mirror):
-    """K1, d_feats and dW of one conv in f32, timed as device time from
-    CUDA graphs (warm L2) beside one call of the plain version, with bytes
-    at 4 per element and the f32 rate (split TF32) for the bound: added
-    `count` times per train step to the split-TF32 rows (the stems' too),
-    printed only where a CUDA-core body runs (Cout % 8 != 0: no conv of
-    HRNetSimCSN3S or Res16UNet34C). Then the im2col pair's f32 bodies (CUDA
-    cores, `CSN_DYNG=2/3`) on the same inputs, the forward and the backward
-    as the autograd function calls it, as device time from CUDA graphs
-    (warm L2) beside one call of their plain versions and their bound,
-    summed over the train step into `table.f32_im2col_ms`,
-    `f32_im2col_plain_ms` and `f32_im2col_bound_ms` (not in the kernel
-    line)."""
+    """K1, d_feats and dW of one conv in f32, and the im2col pair
+    (`CSN_DYNG=2/3`) on the same inputs, timed as device time from CUDA
+    graphs (warm L2) beside one call of the plain version, with bytes at 4
+    per element and the f32 rate (split TF32) for the bound: added `count`
+    times per train step to the split-TF32 rows (the stems' too), printed
+    only where a CUDA-core body runs (Cout % 8 != 0: no conv of
+    HRNetSimCSN3S or Res16UNet34C). The im2col backward is timed as the
+    autograd function calls it (`conv_im2col_bwd_kernels`: the weights'
+    flip, stack and cast, the kernel and the splits' sum), in graphs of 5
+    calls (its per-split partials are several MB a call)."""
     f32 = torch.float32
     n_in, n_out = f.shape[0], kmap.shape[1]
     cin, cout = wt.shape[1], wt.shape[2]
@@ -1007,7 +1042,12 @@ def time_f32_convs(table, what, t_name, count, n_dfeats, f, gd, kmap,
                lambda: window_conv.sparse_conv_fwd(f, kmap, wt),
                lambda: conv.conv_plain(f, kmap, wt), rows(name, count),
                reps=3, nbytes=nb, flops=fl, dtype=f32, graph=True)
-    fwd_bound = max(nb / HBM_BYTES_S, fl / PEAK_FLOPS[f32]) * 1e3
+    name = form_name("sparse_conv_im2col_fwd", f32, cin, cout)
+    table.time(name, f"{what} (f32 {tc_or_cuda(name)})",
+               lambda: window_conv.sparse_conv_im2col_fwd(f, kmap, wt),
+               lambda: conv.conv_im2col_plain(f, kmap, wt), rows(name, count),
+               reps=1, nbytes=nb, flops=fl, dtype=f32, graph=True,
+               graph_calls=5)
     if n_dfeats:
         nb, fl = conv_work(kmap_t, n_out, cout, cin, 4, 4)
         name = form_name("sparse_conv_fwd", f32, cout, cin)
@@ -1023,31 +1063,16 @@ def time_f32_convs(table, what, t_name, count, n_dfeats, f, gd, kmap,
                lambda: conv.conv_bwd_plain(f, gd, kmap_t, wt, mirror, False),
                rows(name, count), reps=3, nbytes=nb, flops=fl, dtype=f32,
                graph=True)
-    # the im2col pair's f32 bodies: device ms per call (a CUDA graph of 5
-    # calls; the backward's per-split partials are several MB a call)
-    fwd_ms = graph_ms(
-        lambda: window_conv.sparse_conv_im2col_fwd(f, kmap, wt), calls=5,
-        reps=3)
-    bwd_ms = graph_ms(lambda: conv.conv_im2col_bwd_kernels(
-        f, gd, kmap_t, wt, mirror, n_dfeats > 0), calls=5, reps=3)
     nb, fl = conv_bwd_work(kmap_t, n_out, cin, cout, 4, n_dfeats > 0)
-    bwd_bound = max(nb / HBM_BYTES_S, fl / PEAK_FLOPS[f32]) * 1e3
-    # the plain versions, one call each
-    fwd_plain = median_ms(lambda: conv.conv_im2col_plain(f, kmap, wt),
-                          warmup=1, reps=1)
-    bwd_plain = median_ms(lambda: conv.conv_im2col_bwd_plain(
-        f, gd, kmap_t, wt, mirror, n_dfeats > 0), warmup=1, reps=1)
-    for i, (ms, pms, bms) in enumerate(((fwd_ms, fwd_plain, fwd_bound),
-                                        (bwd_ms, bwd_plain, bwd_bound))):
-        table.f32_im2col_ms[i] += count * ms
-        table.f32_im2col_plain_ms[i] += count * pms
-        table.f32_im2col_bound_ms[i] += count * bms
-    print(f"[time] im2col pair {what} f32 (CUDA cores): forward "
-          f"{fwd_ms:.4f} ms (device, CUDA graph, warm L2; plain "
-          f"{fwd_plain:.4f}, one call; bound {fwd_bound:.4f}), backward "
-          f"dw_only {n_dfeats == 0} {bwd_ms:.4f} ms (plain {bwd_plain:.4f}; "
-          f"bound {bwd_bound:.4f}) per call (x{count} per train step; not "
-          f"in the kernel line)")
+    name = form_name("sparse_conv_im2col_bwd", f32, cin, cout)
+    table.time(name, f"{what} dw_only {n_dfeats == 0} (f32 "
+               f"{tc_or_cuda(name)})",
+               lambda: conv.conv_im2col_bwd_kernels(
+                   f, gd, kmap_t, wt, mirror, n_dfeats > 0),
+               lambda: conv.conv_im2col_bwd_plain(
+                   f, gd, kmap_t, wt, mirror, n_dfeats > 0),
+               rows(name, count), reps=1, nbytes=nb, flops=fl, dtype=f32,
+               graph=True, graph_calls=5)
 
 
 def check_convs(model, big, dev, table, g, timed=True):
@@ -1060,11 +1085,13 @@ def check_convs(model, big, dev, table, g, timed=True):
     and against K1 (in bf16 bitwise: one body) / `sparse_conv_dw`; where
     `sparse_conv_dw` takes its tensor-core bodies (the same rule), also
     `check_dw_tc`, and at the stems its narrow body against the im2col
-    `dw_only` body within DW_F64_TOL (f32 TF32_F64_TOL); with `timed`, each
+    `dw_only` body within DW_F64_TOL (f32 TF32_F64_TOL); where the im2col
+    pair takes its tensor-core bodies (the same rule, bf16 and f32),
+    `check_im2col_fwd_tc` and `check_im2col_bwd_tc`; with `timed`, each
     family's times are added to the table: bf16 as single calls, and K1,
-    d_feats and dW in f32 as device time from CUDA graphs (warm L2; the
-    split-TF32 bodies in their own rows), the im2col pair's f32 bodies
-    beside them (`time_f32_convs`). Returns the number of convs."""
+    d_feats, dW and the im2col pair in f32 as device time from CUDA graphs
+    (warm L2; the split-TF32 bodies in their own rows, `time_f32_convs`).
+    Returns the number of convs."""
     convs = {}
     for m in model.modules():
         if isinstance(m, SparseConv):
@@ -1110,8 +1137,8 @@ def check_convs(model, big, dev, table, g, timed=True):
                 check_dw_tc(table, f"{what} ({t_name})", f, gd, kmap_t)
             # the im2col pair on the same inputs: against its plain versions
             # and against K1 / sparse_conv_dw (another order of the same sum)
-            fwd = "sparse_conv_im2col_fwd"
-            bwd = "sparse_conv_im2col_bwd"
+            fwd = form_name("sparse_conv_im2col_fwd", dt, cin, cout)
+            bwd = form_name("sparse_conv_im2col_bwd", dt, cin, cout)
             got = window_conv.sparse_conv_im2col_fwd(f, kmap, wt)
             table.check(fwd, what, got, conv.conv_im2col_plain(f, kmap, wt),
                         dt)
@@ -1119,7 +1146,7 @@ def check_convs(model, big, dev, table, g, timed=True):
             k1_out = window_conv.sparse_conv_fwd(f, kmap, wt)
             if im_tc:   # K1's tensor-core body: the same bits
                 check_same(fwd, what, "vs K1: bitwise equal",
-                           torch.equal(got, k1_out))
+                           torch.equal(got, k1_out), tc_body(dt))
             else:
                 table.check(fwd, f"{what} vs K1", got, k1_out, dt)
             del k1_out
@@ -2291,8 +2318,9 @@ def f32_step_check(cls, spec, dev, tag, mode=None):
               f"{None if replay else mode}): loss {float(loss):.6f} "
               f"({time.perf_counter() - t0:.1f} s), launches "
               f"{ {k: n for k, n in kernels.LAUNCHES.items() if n} }")
-        if not replay and mode in (None, 0, 1):
-            require_no_cuda_core_f32(tag, m32, kernels.LAUNCHES, True)
+        if not replay:
+            require_no_cuda_core_f32(tag, m32, kernels.LAUNCHES, True,
+                                     im2col=mode in (2, 3))
     (lg, gg), (lc, gc) = res
     print(f"[{tag}] ReLU decisions of the GPU step replayed on the CPU: "
           f"{relus.flips} of {relus.inputs} would have differed")
@@ -2341,17 +2369,26 @@ def train_slice(cls, spec, reqs, dev, n_convs, n_stems, do_profile=False):
     return launches
 
 
-def f32_conv_launches(model, train):
+def f32_conv_launches(model, train, im2col=False):
     """Launches per request of the sparse conv kernels' rows in an f32 step
-    of `model`: per conv, K1's forward at (Cin, Cout), and in a train step
-    d_feats at (Cout, Cin) (not at the stem, which reads the raw features)
-    and dW at (Cin, Cout), each in its split-TF32 row where the rule holds
-    (`form_name`), else in the CUDA-core bodies' row."""
+    of `model`: per conv, in the K1 form K1's forward at (Cin, Cout), and in
+    a train step d_feats at (Cout, Cin) (not at the stem, which reads the
+    raw features) and dW at (Cin, Cout); in the im2col form (`im2col`) the
+    im2col forward, and in a train step the fused backward, each at (Cin,
+    Cout); each in its split-TF32 row where the rule holds (`form_name`),
+    else in the CUDA-core bodies' row."""
     f32 = torch.float32
     counts = collections.Counter()
     for m in model.modules():
         if isinstance(m, SparseConv):
             cin, cout = m.kernel.shape[1:]
+            if im2col:
+                counts[form_name("sparse_conv_im2col_fwd", f32, cin,
+                                 cout)] += 1
+                if train:
+                    counts[form_name("sparse_conv_im2col_bwd", f32, cin,
+                                     cout)] += 1
+                continue
             counts[form_name("sparse_conv_fwd", f32, cin, cout)] += 1
             if train:
                 if m is not model.conv0:
@@ -2361,63 +2398,102 @@ def f32_conv_launches(model, train):
     return dict(counts)
 
 
-def require_no_cuda_core_f32(tag, model, launches, train):
-    """An f32 run of `model` in the K1 form launched the CUDA-core rows of
-    K1 and `sparse_conv_dw` only for convs the split-TF32 rule leaves there
-    (Cout % 8 != 0: none in the four families)."""
-    want = f32_conv_launches(model, train)
-    for name in ("sparse_conv_fwd", "sparse_conv_dw"):
+def require_no_cuda_core_f32(tag, model, launches, train, im2col=False):
+    """An f32 run of `model` in the K1 form (or the im2col form, `im2col`)
+    launched the CUDA-core rows of its conv kernels only for convs the
+    split-TF32 rule leaves there (Cout % 8 != 0: none in the four
+    families)."""
+    want = f32_conv_launches(model, train, im2col)
+    names = (("sparse_conv_im2col_fwd", "sparse_conv_im2col_bwd") if im2col
+             else ("sparse_conv_fwd", "sparse_conv_dw"))
+    for name in names:
         require(name in want or not launches.get(name, 0),
                 f"{tag}: an f32 conv ran a CUDA-core body ({name} "
                 f"{launches.get(name, 0)} launches)")
 
 
-def f32_slice(cls, reqs, dev, do_profile=False):
+# the CUDA-core conv bodies in f32, as the profiler names them
+CUDA_CORE_F32_CONVS = ("sparse_conv_fwd_kernel<float>",
+                       "sparse_conv_dw_kernel<float", "im2col_fwd_kernel<float>",
+                       "im2col_bwd_kernel<float")
+
+
+def f32_conv_kernels(tag, rows):
+    """The conv kernels of a profiled f32 HRNet step: named with their
+    device ms, and none of them a CUDA-core body (CUDA_CORE_F32_CONVS)."""
+    convs = [(ms, n, key.replace("(anonymous namespace)::", "").split("(")[0])
+             for ms, n, key in rows
+             if "conv" in key or "im2col" in key or "sum_splits" in key]
+    print(f"[f32] {tag} conv kernels: " + ", ".join(
+        f"{name.replace('void ', '')} x{n} {ms:.3f} ms/step"
+        for ms, n, name in convs)
+        + f"; {sum(r[0] for r in convs):.3f} ms/step in all")
+    require(convs and not any(c in name for _, _, name in convs
+                              for c in CUDA_CORE_F32_CONVS),
+            f"{tag}: a CUDA-core conv body ran in the f32 step")
+
+
+def f32_slice(cls, reqs, dev, do_profile=False, mode=None):
     """Phase 5, f32: the HRNetSimCSN3S eval step and train step at the bench
     protocol with f32 activations (`--compute_dtype float32`, the JAX
-    package's choice off the TPU): 3 eval requests and 3 train requests
+    package's choice off the TPU), under `CSN_DYNG=mode` (None: the K1
+    form; 2: the im2col pair): 3 eval requests and 3 train requests
     (dropout 0.1, SGD) with exact launch counts per kernel body, ms/step
     over 10 steps of each, and with `do_profile` their device time by
-    kernel. Returns the launch counts of the 3 train requests."""
-    what = f"B={B}, K={K_NEIGHBORS}, f32"
+    kernel, naming the attention and the conv kernels (none of them a
+    CUDA-core body). Returns the launch counts of the 3 train requests and
+    the two ms/step."""
+    im2col = mode in (2, 3)
+    what = f"B={B}, K={K_NEIGHBORS}, f32, CSN_DYNG={mode}"
+    tag = "f32" if mode is None else f"f32 CSN_DYNG={mode}"
     model = make_model(cls, "float32", ATTN_DROPOUT).to(dev)
-    kernels.reset_launches()
-    for r, (qb, keys) in enumerate(reqs):
-        loss, point_logits, pred = eval_step(model, qb, keys)
-        res = check_point_outputs(f"f32 eval {r}", loss, point_logits, pred,
-                                  qb)
-        print(f"[f32] eval request {r}: {res}")
-    torch.cuda.synchronize()
-    require_launches("f32 eval", dict(kernels.LAUNCHES), {
-        **f32_conv_launches(model, False), "flash_attn_fwd_tf32_d64": 2,
-        "interp_fwd": 1})
-    qb, keys = reqs[0]
-    ms = time_steps("f32 eval", lambda: eval_step(model, qb, keys), what)
-    if do_profile:
-        f32_attention_kernels("f32 eval", profile_steps(
-            "f32 eval K=1", lambda: eval_step(model, qb, keys), step_ms=ms))
-    opt = optim.make_optimizer(model.parameters(), "SGD", lr=LR)
-    gen = torch.Generator().manual_seed(SEED)
-    kernels.reset_launches()
-    for r, (qb, keys) in enumerate(reqs):
-        loss, pred = train_step(model, opt, qb, keys, gen)
-        res = check_point_outputs(f"f32 train {r}", loss, None, pred, qb)
-        print(f"[f32] train request {r}: {res}")
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    require_launches("f32 train", launches, {
-        **f32_conv_launches(model, True), "flash_attn_fwd_tf32_d64": 2,
-        "flash_attn_bwd_tf32_d64": 2, "interp_fwd": 1, "interp_bwd": 1})
-    qb, keys = reqs[0]
-    ms = time_steps("f32 train",
-                    lambda: train_step(model, opt, qb, keys, gen), what)
-    if do_profile:
-        f32_attention_kernels("f32 train", profile_steps(
-            "f32 train K=1", lambda: train_step(model, opt, qb, keys, gen),
-            step_ms=ms))
+    with window_conv.dyng(mode):
+        kernels.reset_launches()
+        for r, (qb, keys) in enumerate(reqs):
+            loss, point_logits, pred = eval_step(model, qb, keys)
+            res = check_point_outputs(f"{tag} eval {r}", loss, point_logits,
+                                      pred, qb)
+            print(f"[{tag}] eval request {r}: {res}")
+        torch.cuda.synchronize()
+        require_launches(f"{tag} eval", dict(kernels.LAUNCHES), {
+            **f32_conv_launches(model, False, im2col),
+            "flash_attn_fwd_tf32_d64": 2, "interp_fwd": 1})
+        qb, keys = reqs[0]
+        eval_ms = time_steps(f"{tag} eval",
+                             lambda: eval_step(model, qb, keys), what)
+        if do_profile:
+            rows = profile_steps(f"{tag} eval K=1",
+                                 lambda: eval_step(model, qb, keys),
+                                 step_ms=eval_ms)
+            f32_attention_kernels(f"{tag} eval", rows)
+            f32_conv_kernels(f"{tag} eval", rows)
+        opt = optim.make_optimizer(model.parameters(), "SGD", lr=LR)
+        gen = torch.Generator().manual_seed(SEED)
+        kernels.reset_launches()
+        for r, (qb, keys) in enumerate(reqs):
+            loss, pred = train_step(model, opt, qb, keys, gen)
+            res = check_point_outputs(f"{tag} train {r}", loss, None, pred,
+                                      qb)
+            print(f"[{tag}] train request {r}: {res}")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        require_launches(f"{tag} train", launches, {
+            **f32_conv_launches(model, True, im2col),
+            "flash_attn_fwd_tf32_d64": 2, "flash_attn_bwd_tf32_d64": 2,
+            "interp_fwd": 1, "interp_bwd": 1})
+        qb, keys = reqs[0]
+        train_ms = time_steps(f"{tag} train",
+                              lambda: train_step(model, opt, qb, keys, gen),
+                              what)
+        if do_profile:
+            rows = profile_steps(f"{tag} train K=1",
+                                 lambda: train_step(model, opt, qb, keys,
+                                                    gen), step_ms=train_ms)
+            f32_attention_kernels(f"{tag} train", rows)
+            f32_conv_kernels(f"{tag} train", rows)
     del model, opt
     torch.cuda.empty_cache()
-    return launches
+    return launches, eval_ms, train_ms
 
 
 def f32_attention_kernels(tag, rows):
@@ -3851,15 +3927,13 @@ def main() -> int:
     print(f"[check] sparse_conv_dw bfloat16 (tensor cores) vs float64: "
           f"worst {max(table.dw_f64):.3e} of max|ref| over "
           f"{len(table.dw_f64)} lines (tol {DW_F64_TOL:.0e}) ok")
-    print(f"[time] im2col pair f32 (CUDA cores) over one train step of "
-          f"HRNetSimCSN3S and one of Res16UNet34C (device, CUDA graphs, "
-          f"warm L2 / plain, one call each / bound): forward "
-          + " / ".join(f"{x[0]:.3f}" for x in (
-              table.f32_im2col_ms, table.f32_im2col_plain_ms,
-              table.f32_im2col_bound_ms)) + " ms, backward "
-          + " / ".join(f"{x[1]:.3f}" for x in (
-              table.f32_im2col_ms, table.f32_im2col_plain_ms,
-              table.f32_im2col_bound_ms)) + " ms")
+    print("[time] im2col pair f32 (split TF32) over one train step of "
+          "HRNetSimCSN3S and one of Res16UNet34C (device, CUDA graphs, warm "
+          "L2 / plain, one call each / bound): " + ", ".join(
+              f"{d} {table.ms[n]:.3f} / {table.plain_ms[n]:.3f} / "
+              f"{table.bound_ms[n]:.3f} ms" for d, n in (
+                  ("forward", "sparse_conv_im2col_fwd_tf32"),
+                  ("backward", "sparse_conv_im2col_bwd_tf32"))))
     for name, errs in table.tf32_f64.items():
         print(f"[check] {name} float32 (split TF32) vs float64: worst "
               f"{max(errs):.3e} of max|ref| over {len(errs)} lines (tol "
@@ -3881,8 +3955,15 @@ def main() -> int:
     phase("5 train slice")
     launches = train_slice(cls, spec, reqs, dev, n_convs, n_stems,
                            do_profile)
-    launches_f32 = f32_slice(cls, reqs, dev, do_profile)
-    launches = {k: n + launches_f32[k] for k, n in launches.items()}
+    # f32, in the K1 form and in the im2col form (CSN_DYNG=2)
+    f32_ms = {}
+    for mode in (None, 2):
+        launches_f32, *ms = f32_slice(cls, reqs, dev, do_profile, mode)
+        f32_ms[mode] = ms
+        launches = {k: n + launches_f32[k] for k, n in launches.items()}
+    print(f"[f32] ms/step, eval / train (B={B}, K={K_NEIGHBORS}, f32): K1 "
+          f"form {f32_ms[None][0]:.3f} / {f32_ms[None][1]:.3f}, im2col form "
+          f"(CSN_DYNG=2) {f32_ms[2][0]:.3f} / {f32_ms[2][1]:.3f}")
     del reqs
     torch.cuda.empty_cache()
 

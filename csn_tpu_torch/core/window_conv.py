@@ -31,18 +31,20 @@ straight from the kernel map:
   `csn_tpu_torch.core.conv.conv_bwd_plain`.
 * `sparse_conv_im2col_fwd` (`csn_tpu_torch/csrc/sparse_conv_im2col.cu`): the
   forward as one product per output tile over the flattened axis K*Cin,
-  walked in steps of 64 columns. bf16 by K1's rule runs K1's tensor-core
-  body (`csrc/sparse_conv_tc.cuh`, K1's bits at every Cin). f32 runs f32
-  FMAs on the CUDA cores. Plain version:
+  walked in steps of 128 bytes of a row. By K1's rule (bf16, or f32 in
+  split TF32, at Cout % 8 == 0) it runs K1's tensor-core body
+  (`csrc/sparse_conv_tc.cuh`, K1's bits at every Cin in both types).
+  Cout % 8 != 0 runs f32 FMAs on the CUDA cores. Plain version:
   `csn_tpu_torch.core.conv.conv_im2col_plain`.
 * `sparse_conv_im2col_bwd` (`csn_tpu_torch/csrc/sparse_conv_im2col_bwd.cu`):
   the fused backward, one gather of the output gradient per (row tile,
-  chunk of K*Cout) feeding d_feats and the whole dW. bf16 by the same rule
-  runs on the tensor cores (`mma.sync`; super-tiles of 256 rows keep
-  d_feats in registers over all chunks, and dW goes to the split's partial
-  once per super-tile and chunk, stored first and added after, so the
-  partials need no zero fill); f32 runs f32 FMAs on the CUDA cores. Plain
-  version: `csn_tpu_torch.core.conv.conv_im2col_bwd_plain`.
+  chunk of K*Cout) feeding d_feats and the whole dW. By the same rule it
+  runs on the tensor cores (`mma.sync`, bf16 or f32 in split TF32;
+  super-tiles of 256 rows keep d_feats in registers over all chunks, and
+  dW goes to the split's partial once per super-tile and chunk, stored
+  first and added after, so the partials need no zero fill); Cout % 8 != 0
+  runs f32 FMAs on the CUDA cores. Plain version:
+  `csn_tpu_torch.core.conv.conv_im2col_bwd_plain`.
 
 `dyng_mode()` reads `CSN_DYNG` at call time, as the JAX package's function
 does: `0` and `1` take K1 + `sparse_conv_dw` (mode 1's per-offset row gather
@@ -97,23 +99,17 @@ def k1_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
 
 
 def k1_split_tf32(dtype: torch.dtype, cin: int, cout: int) -> bool:
-    """Whether K1 and `sparse_conv_dw` run their split-TF32 bodies (f32 on
-    the tensor cores), whose launches count apart (`kernels.LAUNCHES`
-    `sparse_conv_fwd_tf32`, `sparse_conv_dw_tf32`)."""
+    """Whether K1, `sparse_conv_dw` and the im2col pair run their split-TF32
+    bodies (f32 on the tensor cores), whose launches count apart
+    (`kernels.LAUNCHES` `sparse_conv_fwd_tf32`, `sparse_conv_dw_tf32`,
+    `sparse_conv_im2col_fwd_tf32`, `sparse_conv_im2col_bwd_tf32`)."""
     return dtype == torch.float32 and k1_tensor_cores(dtype, cin, cout)
 
 
-# dW takes its tensor-core bodies by K1's rule
+# dW and the im2col pair (`csn_sparse_conv_im2col_fwd`, `_bwd`) take their
+# tensor-core bodies by K1's rule
 dw_tensor_cores = k1_tensor_cores
-
-
-def im2col_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
-    """Whether the im2col pair runs its tensor-core bodies: bf16 with Cout a
-    multiple of 8, whatever Cin (K1's bf16 rule; K1 and dW also take f32
-    there, the im2col pair does not). The C entries
-    `csn_sparse_conv_im2col_fwd` and `csn_sparse_conv_im2col_bwd` choose by
-    this rule; f32 runs their CUDA-core bodies."""
-    return dtype == torch.bfloat16 and cout % 8 == 0
+im2col_tensor_cores = k1_tensor_cores
 
 
 def _conv_fwd(what: str, entry: str, tensor_cores, feats: torch.Tensor,
@@ -125,7 +121,7 @@ def _conv_fwd(what: str, entry: str, tensor_cores, feats: torch.Tensor,
     Cout)` holds. They copy the weights, and feats where Cin % 16 == 0, 16
     bytes at a time: they take only such views that start on a 16-byte
     boundary (the f32 stems' weights too). The launch counts under `what`,
-    or `what + "_tf32"` where K1 runs its split-TF32 bodies."""
+    or `what + "_tf32"` where the split-TF32 bodies run."""
     kernels.require_cuda(what, feats, kmap, weights)
     if feats.dim() != 2 or kmap.dim() != 2 or weights.dim() != 3:
         raise ValueError(f"{what}: want feats [N, Cin], kmap [K, N_out], "
@@ -158,8 +154,7 @@ def _conv_fwd(what: str, entry: str, tensor_cores, feats: torch.Tensor,
         weights.data_ptr(), out.data_ptr(), n_in, n_out, n_off, cin, cout,
         kernels.stream())
     kernels.check(code, what)
-    tf32 = what == "sparse_conv_fwd" and k1_split_tf32(feats.dtype, cin,
-                                                       cout)
+    tf32 = k1_split_tf32(feats.dtype, cin, cout)
     kernels.LAUNCHES[what + "_tf32" if tf32 else what] += 1
     return out
 
@@ -298,8 +293,10 @@ def sparse_conv_im2col_fwd(feats: torch.Tensor, kmap: torch.Tensor,
     """Launch the im2col forward: feats [N_in, Cin], kmap [K, N_out] int32
     (sentinel N_in), weights [K, Cin, Cout] of the feats' dtype ->
     [N_out, Cout] = IC @ weights.reshape(K * Cin, Cout), at most
-    IM2COL_MAX_OFFSETS offsets. Its tensor-core body is K1's bf16 body,
-    with K1's alignment rule (`_conv_fwd`)."""
+    IM2COL_MAX_OFFSETS offsets. Its tensor-core bodies are K1's (bf16, and
+    f32 in split TF32), with K1's alignment rule (`_conv_fwd`); the launch
+    counts under `sparse_conv_im2col_fwd_tf32` where the split-TF32 body
+    runs."""
     return _conv_fwd("sparse_conv_im2col_fwd", "csn_sparse_conv_im2col_fwd",
                      im2col_tensor_cores, feats, kmap, weights,
                      IM2COL_MAX_OFFSETS)
@@ -320,8 +317,9 @@ def im2col_bwd_splits(n_in: int, n_off: int, cin: int, cout: int) -> int:
 
 def im2col_bwd_tc_splits(n_in: int, n_off: int, cin: int, cout: int,
                          rows: int, bc: int) -> int:
-    """Row splits S of the tensor-core im2col backward, whose blocks of 8
-    warps (split x tile of `bc` input channels) fill an SM each: about one
+    """Row splits S of the tensor-core im2col backward (bf16, and f32 in
+    split TF32: one set of tiles), whose blocks of 8 warps (split x tile of
+    `bc` input channels) fill an SM each: about one
     block per SM, whole super-tiles of `rows` rows per split spread evenly
     (no split without one), and partials [S, Cin, K * Cout] f32 within
     IM2COL_PART_BYTES. The partial traffic is one write of dW per
@@ -343,9 +341,11 @@ def sparse_conv_im2col_bwd(feats: torch.Tensor, g: torch.Tensor,
     [K * Cout, Cin] of that dtype (the paired weights transposed and
     stacked; None with `dw_only`) -> (d_feats [N_in, Cin] in that dtype, or
     None with `dw_only`; dW_flat [Cin, K * Cout] f32 = feats^T @ GG). The
-    tensor-core body copies g, and feats and wt_flat where Cin % 8 == 0, 16
-    bytes at a time: it takes only such views that start on a 16-byte
-    boundary."""
+    tensor-core bodies (`im2col_tensor_cores`: bf16, or f32 in split TF32)
+    copy g, and feats and wt_flat where their rows are 16-byte pieces (Cin %
+    8 == 0 in bf16, Cin % 4 == 0 in f32), 16 bytes at a time: they take only
+    such views that start on a 16-byte boundary. The launch counts under
+    `sparse_conv_im2col_bwd_tf32` where the split-TF32 body runs."""
     what = "sparse_conv_im2col_bwd"
     tensors = (feats, g, kmap_t) if dw_only else (feats, g, kmap_t, wt_flat)
     kernels.require_cuda(what, *tensors)
@@ -372,11 +372,14 @@ def sparse_conv_im2col_bwd(feats: torch.Tensor, g: torch.Tensor,
                              f"{wt_flat.dtype}")
         d_feats = torch.empty_like(feats)
     tc = im2col_tensor_cores(feats.dtype, cin, cout)
-    if tc and (g.data_ptr() % 16 or cin % 8 == 0 and (
+    pieces = cin % (16 // feats.element_size()) == 0
+    if tc and (g.data_ptr() % 16 or pieces and (
             feats.data_ptr() % 16
             or not dw_only and wt_flat.data_ptr() % 16)):
-        raise ValueError(f"{what}: bf16 g, and feats and wt_flat where Cin % "
-                         f"8 == 0, must start on a 16-byte boundary "
+        raise ValueError(f"{what}: on the tensor cores (bf16, or f32 in split "
+                         f"TF32) g, and feats and wt_flat where their rows "
+                         f"are 16-byte pieces (Cin % 8 == 0 in bf16, Cin % 4 "
+                         f"== 0 in f32), must start on a 16-byte boundary "
                          f"(cp.async copies)")
     lib = kernels.library()
     n_split = im2col_bwd_tc_splits(
@@ -395,5 +398,6 @@ def sparse_conv_im2col_bwd(feats: torch.Tensor, g: torch.Tensor,
         out.data_ptr(), n_in, n_g, n_off, cin, cout, n_split, int(dw_only),
         kernels.stream())
     kernels.check(code, what)
-    kernels.LAUNCHES[what] += 1
+    tf32 = k1_split_tf32(feats.dtype, cin, cout)
+    kernels.LAUNCHES[what + "_tf32" if tf32 else what] += 1
     return d_feats, out

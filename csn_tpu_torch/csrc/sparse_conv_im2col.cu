@@ -14,19 +14,21 @@
 // each output element is stored once in the activation type.
 //
 // Two bodies, chosen by dtype and shape (window_conv.im2col_tensor_cores is
-// the same rule; a failed launch returns its error, there is no retry on the
-// other body):
-//  * bf16 with Cout % 8 == 0, any Cin (every conv of the HRNet, Res16UNet,
-//    ResUNet and ResNet families, the k5 stem included): the tensor-core
-//    body of sparse_conv_tc.cuh, mma.sync m16n8k16 on bf16 operands with f32
-//    accumulators. Where Cin % 16 == 0 a walk of the flattened axis in
-//    steps of 64 columns is K1's walk over (offset, 64 input channels), so
-//    it runs K1's loop (FLAT false) through K1's launcher and gives K1's
-//    bits. Other Cin (the stem's 3) take its flattened steps (FLAT true):
-//    64 columns of K*Cin that span offsets, gathered element by element, so
-//    the stem's 375 columns are 24 k16 products per tile; K1 runs the same
-//    steps there, so the two forms agree bit for bit at every bf16 conv;
-//  * f32 (and bf16 with Cout % 8 != 0): the CUDA-core body below, f32 FMAs.
+// the same rule, K1's; a failed launch returns its error, there is no retry
+// on the other body):
+//  * bf16, or f32 in split TF32, with Cout % 8 == 0, any Cin (every conv of
+//    the HRNet, Res16UNet, ResUNet and ResNet families, the k5 stem
+//    included): K1's tensor-core body of sparse_conv_tc.cuh through K1's
+//    launcher, mma.sync m16n8k16 on bf16 operands, or m16n8k8 on TF32
+//    operands with three products per f32 product, f32 accumulators. Where
+//    Cin % 16 == 0 a walk of the flattened axis in steps of 128 bytes of a
+//    row (64 bf16 or 32 f32 columns) is K1's walk over (offset, chunk of
+//    input channels), so it runs K1's loop (FLAT false). Other Cin (the
+//    stem's 3) take its flattened steps (FLAT true): 64 (bf16) or 32 (f32)
+//    columns of K*Cin that span offsets, gathered element by element; K1
+//    runs the same steps there. So the two forms agree bit for bit at every
+//    conv in both types;
+//  * Cout % 8 != 0, either type: the CUDA-core body below, f32 FMAs.
 //
 // What bounds it on the H100: the same bytes and 2*Cin*Cout operations per
 // valid (row, offset) as K1 (chip_smoke.py conv_work). Both bodies run the
@@ -183,7 +185,7 @@ cudaError_t launch(const void* feats, const void* kmap, const void* w,
 
 // feats [n_in, cin], kmap [n_off, n_out] int32 (sentinel n_in), w
 // [n_off * cin, cout] of the feats' type, out [n_out, cout]. The
-// tensor-core body copies w, and feats where Cin % 16 == 0, 16 bytes at a
+// tensor-core bodies copy w, and feats where Cin % 16 == 0, 16 bytes at a
 // time: those start on a 16-byte boundary.
 extern "C" int csn_sparse_conv_im2col_fwd(int dtype, const void* feats,
                                           const void* kmap, const void* w,
@@ -192,12 +194,17 @@ extern "C" int csn_sparse_conv_im2col_fwd(int dtype, const void* feats,
                                           int cout, void* stream) {
   if (n_out == 0 || cout == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool flat = cin % 16 != 0;
   if (dtype == csn::kBF16 && cout % 8 == 0)
-    return cin % 16 == 0
-               ? csn_conv_tc::launch_tc<false>(feats, kmap, w, out, n_in,
+    return flat ? csn_conv_tc::launch_tc<true>(feats, kmap, w, out, n_in,
                                                n_out, n_off, cin, cout, s)
-               : csn_conv_tc::launch_tc<true>(feats, kmap, w, out, n_in, n_out,
-                                              n_off, cin, cout, s);
+                : csn_conv_tc::launch_tc<false>(feats, kmap, w, out, n_in,
+                                                n_out, n_off, cin, cout, s);
+  if (dtype == csn::kF32 && cout % 8 == 0)
+    return flat ? csn_conv_tc::launch_tc<true, float>(
+                      feats, kmap, w, out, n_in, n_out, n_off, cin, cout, s)
+                : csn_conv_tc::launch_tc<false, float>(
+                      feats, kmap, w, out, n_in, n_out, n_off, cin, cout, s);
   if (dtype == csn::kF32)
     return launch<float>(feats, kmap, w, out, n_in, n_out, n_off, cin, cout, s);
   if (dtype == csn::kBF16)

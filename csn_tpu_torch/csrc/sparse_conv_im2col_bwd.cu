@@ -15,19 +15,22 @@
 // unstacks dW_flat [Cin, K, Cout] -> dW_t [K, Cin, Cout] and un-mirrors
 // same-level maps.
 //
-// Two bodies, chosen by dtype and shape (window_conv.im2col_tensor_cores is
-// the same rule; a failed launch returns its error, there is no retry on the
-// other body):
+// Three bodies, chosen by dtype and shape (window_conv.im2col_tensor_cores
+// is the same rule, K1's; a failed launch returns its error, there is no
+// retry on another body):
 //  * bf16 with Cout % 8 == 0, any Cin (every conv of the HRNet, Res16UNet,
 //    ResUNet and ResNet families, the k5 stem included): the tensor-core
 //    body, mma.sync m16n8k16 on bf16 operands with f32 accumulators;
-//  * f32 (and bf16 with Cout % 8 != 0): the CUDA-core body, f32 FMAs.
+//  * f32 with Cout % 8 == 0, any Cin: the same design in split TF32
+//    (below), mma.sync m16n8k8 on TF32 operands, three products per f32
+//    product (flash_tf32.cuh);
+//  * Cout % 8 != 0, either type: the CUDA-core body, f32 FMAs.
 //
 // What bounds it on the H100: 4*Cin*Cout operations per valid (row,
 // offset), the sum of K1 over the transpose map and sparse_conv_dw; what
-// the form saves is the second gather of g. Both bodies run the products
+// the form saves is the second gather of g. Every body runs the products
 // over every row of a tile: the CUDA-core body at each chunk of K*Cout that
-// holds a live offset, the tensor-core body at every chunk (below).
+// holds a live offset, the tensor-core bodies at every chunk (below).
 //
 // The TPU grid is sequential and adds every tile's product into one
 // resident dW block. Here the row tiles run in parallel, so each block
@@ -77,8 +80,52 @@
 // zeros) rather than swapping the product's operands, and sums its 16
 // k-steps in two halves so that its products do not wait on one another.
 //
-// CUDA-core design (f32). For each of its 64-row tiles the block stages
-// the tile's transpose-map columns and its feats rows in shared memory,
+// Split-TF32 design (f32). The bf16 body's blocks, super-tiles of SR = 256
+// rows, 8 warps, splits and partials (stored in the first super-tile,
+// added after; no atomics, the same bits on every run), with f32 tiles:
+//  * Chunks of BJ = 32 columns (128 bytes of a g row, as in bf16): warp w
+//    gathers the 16-byte piece of columns 4w .. 4w+3 for all SR rows
+//    (Cout % 8 == 0, so a piece lies in one offset).
+//  * Shared memory: NST = 3 stages of GG [256][32 + 8] and WT [32][BC + 4]
+//    words (48.5 KiB each at BC 64) and ONE feats tile [256][BC + 8] words
+//    (72 KiB), 217.5 KiB in all of the 227 KiB a block can opt into: two
+//    feats tiles do not fit beside three stages. The next super-tile's feats
+//    therefore load after the last chunk's dW products, at the barrier of
+//    its first chunk, while that chunk's d_feats products run; its dW
+//    products wait for them (once per super-tile of K*Cout / 32 chunks).
+//  * d_feats += GG @ WT in K1's split-TF32 fragment layout (A: rows g, g +
+//    8 and columns 2t, 2t + 1 of GG, two 8-byte loads; B: rows 2t, 2t + 1
+//    and column g of WT): the row strides, 40 and BC + 4 words, are 8 and 4
+//    modulo 32, so the loads hit 32 distinct banks. Warp w keeps rows 32w
+//    .. 32w+31 x BC channels (64 f32 a lane at BC 64) over the super-tile's
+//    chunks and stores them once, in f32.
+//  * dW = feats_tile^T @ GG: A is the feats tile read transposed and B is
+//    GG read down its rows, both with scalar loads (no ldmatrix for 32-bit
+//    elements). Their k (a row of the super-tile) runs in the order t, t +
+//    4 of the fragments (A: channels g, g + 8 at rows t, t + 4; B: rows t, t
+//    + 4 at column g), where the bank of a load is 8t + g at row strides of
+//    BC + 8 and 40 words: 32 distinct banks for both. (K1's order, rows 2t,
+//    2t + 1, would put GG's rows 2t at one bank pair: 2 x 40 = 16 mod 32.)
+//    Warp (wm, wn) owns 16 channels x 16 columns of the chunk; at the stem
+//    (BC 16) warps 0-3 own one 8-column block each and warps 4-7 only
+//    gather.
+//  * Every chunk runs over every row of the super-tile, as in bf16. Leaving
+//    out the products that would add exact zeros (an m16 tile of d_feats
+//    rows, or a k-step of 8 dW rows, without a live row at the offset, from
+//    warp ballots of the gathered map entries) ran slower at HRNet's maps
+//    (tools/im2col_bwd_designs.py): the products' count does not bound
+//    this body.
+//  * Each k-step's three products (lo.hi, hi.lo, hi.hi) go into a fresh
+//    fragment that an f32 add puts into the running sum, in both products:
+//    the tensor cores truncate the sum of every mma.sync, and one
+//    accumulator over a long run misses the f32 checks' 1e-4 (as in K1's
+//    split-TF32 body).
+//    dW's sum over a super-tile's 32 k-steps goes into the partial once.
+//  * The f32 rows are 16-byte pieces at Cin % 4 == 0 (feats, WT); the
+//    stem's 12-byte feats rows are loaded element by element.
+//
+// CUDA-core design (Cout % 8 != 0). For each of its 64-row tiles the block
+// stages the tile's transpose-map columns and its feats rows in shared memory,
 // then walks K*Cout in chunks of 64 columns: it gathers GG[:, chunk] into
 // shared memory once, adds GG[:, chunk] @ WT[chunk] to the d_feats tile it
 // keeps in registers, forms feats_tile^T @ GG[:, chunk] in registers and
@@ -88,8 +135,11 @@
 // by the caller so that the partials stay within a fixed memory budget. BC
 // is 16 for the 3-channel stem and 64 otherwise.
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -650,26 +700,366 @@ im2col_bwd_tc_kernel(const bf16* __restrict__ feats,
 // else 64 (MC 4)
 bool tc_narrow(int cin) { return cin <= 16; }
 
+// --- the split-TF32 body (f32, Cout % 8 == 0) -------------------------------
+
+using csn_tf32::FragA;
+using csn_tf32::FragB;
+using csn_tf32::mma_tf32;
+using csn_tf32::split;
+
+constexpr int TBJ = 32;          // columns per chunk: 128 bytes of a g row
+constexpr int LDT = TBJ + 8;     // GG tile row stride, words
+static_assert(TBJ == 4 * NWARPS, "a warp gathers one 4-column piece");
+
 template <int MC>
+struct Tf32Tile {
+  static constexpr int BC = 16 * MC;   // input channels per block
+  static constexpr int LDW = BC + 4;   // WT tile row stride, words
+  static constexpr int LDF = BC + 8;   // feats tile row stride, words
+  static constexpr int G_ELEMS = SR * LDT;
+  static constexpr int STAGE_ELEMS = G_ELEMS + TBJ * LDW;
+  static constexpr int F_ELEMS = SR * LDF;
+  // NST stages (GG, WT), one feats tile
+  static constexpr size_t SMEM =
+      sizeof(float) * (NST * STAGE_ELEMS + F_ELEMS);
+};
+
+template <int MC>
+__global__ void __launch_bounds__(THREADS, 1)
+im2col_bwd_tf32_kernel(const float* __restrict__ feats,
+                       const float* __restrict__ g,
+                       const int32_t* __restrict__ kmap_t,
+                       const float* __restrict__ wt,
+                       float* __restrict__ dfeats, float* __restrict__ part,
+                       int64_t n_in, int64_t n_g, int n_off, int cin, int cout,
+                       int64_t n_st, int64_t st_per_split, int dw_only) {
+  using Tl = Tf32Tile<MC>;
+  constexpr int BC = Tl::BC, LDW = Tl::LDW, LDF = Tl::LDF;
+  constexpr int NB = 2 * MC;              // d_feats: n8 blocks of a warp
+  constexpr int DW_NB = MC == 1 ? 1 : 2;  // dW: n8 blocks of a warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* stages = reinterpret_cast<float*>(smem_raw);
+  float* fs = stages + NST * Tl::STAGE_ELEMS;  // [SR][LDF]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int c0 = blockIdx.y * BC;
+  const int kj = n_off * cout;  // length of the flattened axis
+  const int n_chunks = (kj + TBJ - 1) / TBJ;
+  float* my = part + (int64_t)blockIdx.x * cin * kj;
+  const bool vec = cin % 4 == 0;  // feats and WT rows in 16-byte pieces
+  const int64_t t_begin = (int64_t)blockIdx.x * st_per_split;
+  const int64_t t_end =
+      t_begin + st_per_split < n_st ? t_begin + st_per_split : n_st;
+  // dW: warp (wm, wn) owns input channels c0 + 16 wm .. +15 and columns
+  // colw .. colw + 8 DW_NB - 1 of a chunk (MC 1: warps 0-3, one n8 block
+  // each; warps 4-7 only gather)
+  const int wm = MC == 1 ? 0 : warp % 4;
+  const int colw = MC == 1 ? 8 * warp : 16 * (warp / 4);
+  const bool dw_warp = colw < TBJ && c0 + 16 * wm < cin;
+
+  if (t_begin >= t_end) {  // a split without rows: its dW is zero
+    for (int e = tid; e < BC * kj; e += THREADS) {
+      const int c = c0 + e / kj;
+      if (c < cin) my[(int64_t)c * kj + e % kj] = 0.f;
+    }
+    return;
+  }
+  struct Step {
+    int64_t t;
+    int c;
+  };
+  auto advance = [&](Step& p) {
+    if (++p.c == n_chunks) p.c = 0, ++p.t;
+  };
+  // the feats tile of super-tile t (rows past n_in, channels past Cin zero)
+  auto load_feats = [&](int64_t t) {
+    const int64_t m0 = t * SR;
+    if (vec) {
+      for (int e = tid; e < SR * (BC / 4); e += THREADS) {
+        const int r = e / (BC / 4), q = (e % (BC / 4)) * 4;
+        const bool ok = m0 + r < n_in && c0 + q < cin;
+        cp_async16(fs + r * LDF + q,
+                   feats + (ok ? (m0 + r) * cin + c0 + q : 0), ok);
+      }
+    } else {
+      for (int e = tid; e < SR * BC; e += THREADS) {
+        const int r = e / BC, q = e % BC;
+        fs[r * LDF + q] = m0 + r < n_in && c0 + q < cin
+                              ? feats[(m0 + r) * cin + c0 + q]
+                              : 0.f;
+      }
+    }
+  };
+  // the transpose-map entries of this lane's piece of step p: column
+  // c*TBJ + 4 warp, rows m0 + lane + 32 q (-1 past the end)
+  int32_t mv[RPL];
+  auto load_map = [&](const Step& p) {
+    if (p.t >= t_end) return;
+    const int64_t m0 = p.t * SR;
+    const int j = p.c * TBJ + 4 * warp;
+    const bool ok = j < kj;
+    const int32_t* km = kmap_t + (int64_t)(ok ? j / cout : 0) * n_in + m0;
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      const int r = lane + 32 * q;
+      mv[q] = ok && m0 + r < n_in ? __ldg(km + r) : -1;
+    }
+  };
+  // the copies of step p into stage st: GG [SR][TBJ] and WT [TBJ][BC]
+  auto issue = [&](int st, const Step& p) {
+    float* gs = stages + st * Tl::STAGE_ELEMS;
+    float* ws = gs + Tl::G_ELEMS;
+    const int jb = p.c * TBJ;
+    const int j = jb + 4 * warp;
+    const int d = j < kj ? j % cout : 0;
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      const int32_t v = mv[q];
+      const bool ok = v >= 0 && v < n_g;
+      cp_async16(gs + (lane + 32 * q) * LDT + 4 * warp,
+                 g + (ok ? (int64_t)v * cout + d : 0), ok);
+    }
+    if (dw_only) return;
+    if (vec) {
+      for (int e = tid; e < TBJ * (BC / 4); e += THREADS) {
+        const int r = e / (BC / 4), q = (e % (BC / 4)) * 4;
+        const bool ok = jb + r < kj && c0 + q < cin;
+        cp_async16(ws + r * LDW + q,
+                   wt + (ok ? (int64_t)(jb + r) * cin + c0 + q : 0), ok);
+      }
+    } else {
+      for (int e = tid; e < TBJ * BC; e += THREADS) {
+        const int r = e / BC, q = e % BC;
+        ws[r * LDW + q] = jb + r < kj && c0 + q < cin
+                              ? wt[(int64_t)(jb + r) * cin + c0 + q]
+                              : 0.f;
+      }
+    }
+  };
+
+  float dacc[2][NB][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dacc[i][n][e] = 0.f;
+
+  // One pipeline of NST stages over all super-tiles of the split, as the
+  // bf16 body's, with one barrier per step. The one feats tile is
+  // refilled at the first chunk of each later super-tile, right after the
+  // barrier that ends the last chunk's reads of it, in a group of its own
+  // ahead of the step's stage copies; the d_feats products run while it
+  // lands, the dW products after a wait and a second barrier.
+  load_feats(t_begin);
+  cp_async_commit();
+  Step ahead{t_begin, 0};  // the step whose copies go out next
+  load_map(ahead);
+  issue(0, ahead);
+  cp_async_commit();
+  advance(ahead);
+  load_map(ahead);
+  if (ahead.t < t_end) issue(1, ahead);
+  cp_async_commit();
+  advance(ahead);
+  load_map(ahead);
+  int64_t t = t_begin;  // this step's super-tile and chunk
+  int c = 0;
+  for (int st = 0; t < t_end; st = st == NST - 1 ? 0 : st + 1) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const bool refill = c == 0 && t != t_begin;
+    if (refill) {
+      load_feats(t);
+      cp_async_commit();
+    }
+    if (ahead.t < t_end) issue((st + 2) % NST, ahead);
+    cp_async_commit();
+    advance(ahead);
+    load_map(ahead);
+    const bool first = t == t_begin;
+    const int64_t m0 = t * SR;
+    const float* gs = stages + st * Tl::STAGE_ELEMS;
+    const float* ws = gs + Tl::G_ELEMS;
+    // this chunk's dW so far (later super-tiles add to it): loaded now,
+    // added after the products
+    float2 old[DW_NB][2];
+    if (!first && dw_warp) {
+#pragma unroll
+      for (int n = 0; n < DW_NB; ++n) {
+        const int col = c * TBJ + colw + 8 * n + 2 * t4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ch = c0 + 16 * wm + gq + 8 * h;
+          old[n][h] = col < kj && ch < cin
+                          ? *reinterpret_cast<const float2*>(
+                                my + (int64_t)ch * kj + col)
+                          : make_float2(0.f, 0.f);
+        }
+      }
+    }
+    if (!dw_only) {
+      // d_feats += GG @ WT over the chunk's k-steps of 8 columns (none past
+      // K*Cout): warp w's rows 32w .. 32w+31, K1's fragment layout
+      // (sparse_conv_tc.cuh tf32_kstep: A at rows g, g + 8 and columns 2t,
+      // 2t + 1; B at rows 2t, 2t + 1 and column g), the step's three
+      // products into a fresh fragment added in f32
+      const int nks = min(TBJ, kj - c * TBJ) / 8;
+#pragma unroll
+      for (int ks = 0; ks < TBJ / 8; ++ks) {
+        if (ks >= nks) break;
+        FragA a[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float* p = gs + (32 * warp + 16 * i + gq) * LDT + ks * 8 +
+                           2 * t4;
+          csn_tf32::split_a(a[i], csn_tf32::ld2(p),
+                            csn_tf32::ld2(p + 8 * LDT));
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          if (c0 + 8 * nb >= cin) break;
+          const float* q = ws + (ks * 8 + 2 * t4) * LDW + 8 * nb + gq;
+          FragB b;
+          split(q[0], b.hi[0], b.lo[0]);
+          split(q[LDW], b.hi[1], b.lo[1]);
+          float p[2][4] = {};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma_tf32(p[i], a[i].lo, b.hi);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma_tf32(p[i], a[i].hi, b.lo);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma_tf32(p[i], a[i].hi, b.hi);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dacc[i][nb][e] += p[i][e];
+        }
+      }
+    }
+    if (refill) {  // the super-tile's feats tile has landed
+      cp_async_wait<1>();
+      __syncthreads();
+    }
+    if (dw_warp) {
+      // dW = feats_tile^T @ GG over the super-tile's k-steps of 8 rows, in
+      // the k order t, t + 4 (A: channels g, g + 8 at rows t, t + 4 of the
+      // feats tile; B: rows t, t + 4 and column g of GG), scalar loads on
+      // 32 distinct banks at these strides; each k-step's three products
+      // into a fresh fragment added in f32
+      float wacc[DW_NB][4];
+#pragma unroll
+      for (int n = 0; n < DW_NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wacc[n][e] = 0.f;
+#pragma unroll 8
+      for (int ks = 0; ks < SR / 8; ++ks) {
+        const float* fa = fs + (ks * 8 + t4) * LDF + 16 * wm + gq;
+        FragA a;
+        split(fa[0], a.hi[0], a.lo[0]);
+        split(fa[8], a.hi[1], a.lo[1]);
+        split(fa[4 * LDF], a.hi[2], a.lo[2]);
+        split(fa[4 * LDF + 8], a.hi[3], a.lo[3]);
+        const float* gb = gs + (ks * 8 + t4) * LDT + colw + gq;
+#pragma unroll
+        for (int n = 0; n < DW_NB; ++n) {
+          FragB b;
+          split(gb[8 * n], b.hi[0], b.lo[0]);
+          split(gb[4 * LDT + 8 * n], b.hi[1], b.lo[1]);
+          float p[4] = {};
+          mma_tf32(p, a.lo, b.hi);
+          mma_tf32(p, a.hi, b.lo);
+          mma_tf32(p, a.hi, b.hi);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) wacc[n][e] += p[e];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < DW_NB; ++n) {
+        const int col = c * TBJ + colw + 8 * n + 2 * t4;
+        if (col >= kj) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ch = c0 + 16 * wm + gq + 8 * h;
+          if (ch >= cin) continue;
+          float2 v = make_float2(wacc[n][2 * h], wacc[n][2 * h + 1]);
+          if (!first) {
+            v.x += old[n][h].x;
+            v.y += old[n][h].y;
+          }
+          *reinterpret_cast<float2*>(my + (int64_t)ch * kj + col) = v;
+        }
+      }
+    }
+    if (c == n_chunks - 1) {  // the super-tile's d_feats, stored once
+      if (!dw_only) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int64_t row = m0 + 32 * warp + 16 * i + gq + 8 * h;
+            if (row >= n_in) continue;
+            float* dst = dfeats + row * cin;
+#pragma unroll
+            for (int n = 0; n < NB; ++n) {
+              const int ch = c0 + 8 * n + 2 * t4;
+              const float lo = dacc[i][n][2 * h], hi = dacc[i][n][2 * h + 1];
+              if (ch + 1 < cin && cin % 2 == 0) {
+                *reinterpret_cast<float2*>(dst + ch) = make_float2(lo, hi);
+              } else {
+                if (ch < cin) dst[ch] = lo;
+                if (ch + 1 < cin) dst[ch + 1] = hi;
+              }
+            }
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < NB; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dacc[i][n][e] = 0.f;
+      }
+      ++t, c = 0;
+    } else {
+      ++c;
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+// the tensor-core body of an element type: bf16, or f32 in split TF32
+template <int MC>
+auto tc_kernel(const bf16*) {
+  return im2col_bwd_tc_kernel<MC>;
+}
+template <int MC>
+auto tc_kernel(const float*) {
+  return im2col_bwd_tf32_kernel<MC>;
+}
+
+// the tensor-core bodies' launch, the same grid and splits in both types
+template <typename T, int MC>
 cudaError_t launch_tc(const void* feats, const void* g, const void* kmap_t,
                       const void* wt, void* dfeats, void* part, void* out,
                       int64_t n_in, int64_t n_g, int n_off, int cin, int cout,
                       int n_split, int dw_only, cudaStream_t stream) {
-  using Tl = BwdTile<MC>;
-  const size_t bytes = Tl::SMEM;
+  constexpr int BC = 16 * MC;
+  const size_t bytes = std::is_same<T, float>::value ? Tf32Tile<MC>::SMEM
+                                                      : BwdTile<MC>::SMEM;
+  const auto kernel = tc_kernel<MC>(static_cast<const T*>(nullptr));
   cudaError_t err = cudaFuncSetAttribute(
-      im2col_bwd_tc_kernel<MC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int64_t n_st = (n_in + SR - 1) / SR;
   const int64_t st_per_split = (n_st + n_split - 1) / n_split;
-  const dim3 grid((unsigned)n_split, (unsigned)((cin + Tl::BC - 1) / Tl::BC));
+  const dim3 grid((unsigned)n_split, (unsigned)((cin + BC - 1) / BC));
   // one split writes the result directly
   float* dst = static_cast<float*>(n_split == 1 ? out : part);
-  im2col_bwd_tc_kernel<MC><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(feats), static_cast<const bf16*>(g),
-      static_cast<const int32_t*>(kmap_t), static_cast<const bf16*>(wt),
-      static_cast<bf16*>(dfeats), dst, n_in, n_g, n_off, cin, cout, n_st,
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const T*>(feats), static_cast<const T*>(g),
+      static_cast<const int32_t*>(kmap_t), static_cast<const T*>(wt),
+      static_cast<T*>(dfeats), dst, n_in, n_g, n_off, cin, cout, n_st,
       st_per_split, dw_only);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
@@ -701,13 +1091,19 @@ extern "C" int csn_sparse_conv_im2col_bwd(int dtype, const void* feats,
   if (n_off == 0 || cin == 0 || cout == 0) return cudaSuccess;
   if (n_split < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // with no rows the tensor-core body's blocks store dW's zeros
-  if (dtype == csn::kBF16 && cout % 8 == 0)
-    return tc_narrow(cin)
-               ? launch_tc<1>(feats, g, kmap_t, wt, dfeats, part, out, n_in,
-                              n_g, n_off, cin, cout, n_split, dw_only, s)
-               : launch_tc<4>(feats, g, kmap_t, wt, dfeats, part, out, n_in,
-                              n_g, n_off, cin, cout, n_split, dw_only, s);
+  // with no rows the tensor-core bodies' blocks store dW's zeros
+#define CSN_TC(T, MC)                                                     \
+  return launch_tc<T, MC>(feats, g, kmap_t, wt, dfeats, part, out, n_in, \
+                          n_g, n_off, cin, cout, n_split, dw_only, s)
+  if (dtype == csn::kBF16 && cout % 8 == 0) {
+    if (tc_narrow(cin)) CSN_TC(bf16, 1);
+    CSN_TC(bf16, 4);
+  }
+  if (dtype == csn::kF32 && cout % 8 == 0) {
+    if (tc_narrow(cin)) CSN_TC(float, 1);
+    CSN_TC(float, 4);
+  }
+#undef CSN_TC
   if (n_in == 0) return cudaSuccess;
   const bool narrow = cin <= 16;
   if (dtype == csn::kF32)
@@ -727,11 +1123,14 @@ extern "C" int csn_sparse_conv_im2col_bwd(int dtype, const void* feats,
   return cudaErrorInvalidValue;
 }
 
-// The tensor-core body's tiles, from which the wrapper sizes its splits
+// The tensor-core bodies' tiles, from which the wrapper sizes its splits
 // (window_conv.im2col_bwd_tc_splits): rows per super-tile, and input
-// channels per block at this Cin.
+// channels per block at this Cin; the same in bf16 and in split TF32.
 extern "C" int csn_sparse_conv_im2col_bwd_tc_rows() { return SR; }
 
 extern "C" int csn_sparse_conv_im2col_bwd_tc_channels(int cin) {
   return tc_narrow(cin) ? BwdTile<1>::BC : BwdTile<4>::BC;
 }
+static_assert(BwdTile<1>::BC == Tf32Tile<1>::BC &&
+                  BwdTile<4>::BC == Tf32Tile<4>::BC,
+              "one channel tile in both types");

@@ -1,9 +1,10 @@
 // The tensor-core body of the sparse conv forward, shared by K1
 // (sparse_conv.cu) and the im2col forward (sparse_conv_im2col.cu): out =
-// IC @ W.reshape(K*Cin, Cout) with f32 accumulation, in two element types.
-//  * bf16 with Cout % 8 == 0 and any Cin (K1 and the im2col forward):
-//    mma.sync m16n8k16 on bf16 operands;
-//  * f32 with Cout % 8 == 0 and any Cin (K1 only): mma.sync m16n8k8 on TF32
+// IC @ W.reshape(K*Cin, Cout) with f32 accumulation, in two element types,
+// each for both entries:
+//  * bf16 with Cout % 8 == 0 and any Cin: mma.sync m16n8k16 on bf16
+//    operands;
+//  * f32 with Cout % 8 == 0 and any Cin: mma.sync m16n8k8 on TF32
 //    operands in split TF32 (flash_tf32.cuh): each f32 operand is split in
 //    registers, as its fragment is loaded, into hi = tf32(x) and lo = x -
 //    hi, and a . b ~= a_lo . b_hi + a_hi . b_lo + a_hi . b_hi, the small
@@ -474,7 +475,7 @@ int tc_wn(int cout) {
 }
 
 // The tiles of both entries: BM = 128 at WN = 1, else 64 (fewer rows
-// where the kmap slab needs it, launch_tc_body). T = float: K1 only.
+// where the kmap slab needs it, launch_tc_body), in both element types.
 template <bool FLAT, typename T = bf16>
 cudaError_t launch_tc(const void* feats, const void* kmap, const void* w,
                       void* out, int64_t n_in, int64_t n_out, int n_off,

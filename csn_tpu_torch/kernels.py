@@ -43,10 +43,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # sparse_conv_fwd counts the forward convs and the backward d_feats convs
-# (the same kernel over the transpose map); K1 and sparse_conv_dw count the
-# launches of their split-TF32 bodies (f32 on the tensor cores) apart, under
-# "_tf32", and K2 and its backward those of their f32 D=64 split-TF32
-# bodies, under "_tf32_d64"
+# (the same kernel over the transpose map); K1, sparse_conv_dw and the im2col
+# pair count the launches of their split-TF32 bodies (f32 on the tensor
+# cores) apart, under "_tf32", and K2 and its backward those of their f32
+# D=64 split-TF32 bodies, under "_tf32_d64"
 LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0,
             "sparse_conv_fwd_tf32": 0, "sparse_conv_dw_tf32": 0,
             "flash_attn_fwd": 0, "flash_attn_bwd": 0,
@@ -54,6 +54,8 @@ LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0,
             "flash_attn_carry": 0,
             "flash_attn_block_bwd": 0, "interp_fwd": 0, "interp_bwd": 0,
             "sparse_conv_im2col_fwd": 0, "sparse_conv_im2col_bwd": 0,
+            "sparse_conv_im2col_fwd_tf32": 0,
+            "sparse_conv_im2col_bwd_tf32": 0,
             "probe_window_gather": 0, "probe_gather_accum": 0,
             "probe_slot_load": 0}
 

@@ -10,10 +10,10 @@ in its own process with its own kernel build, in the order other, this,
 this, other. A run times K1 (`sparse_conv_fwd`), `sparse_conv_dw` and the
 im2col pair (`sparse_conv_im2col_fwd`, and the backward through
 `conv_im2col_bwd_kernels`) on seeded bf16 inputs at conv shapes of
-HRNetSimCSN3S and Res16UNet34C, and K1 and `sparse_conv_dw` again on the
-same inputs in f32 (device time from CUDA graphs, warm L2 and from device
-memory: the f32 form, split TF32 on the tensor cores at Cout % 8 == 0, the
-stem included, whose bits are not another body's), and the interpolation
+HRNetSimCSN3S and Res16UNet34C, and all four again on the same inputs in
+f32 (device time from CUDA graphs, warm L2 and from device memory: the f32
+form, split TF32 on the tensor cores at Cout % 8 == 0, the stem included,
+whose bits are not another body's), and the interpolation
 pair (`interp_fwd`,
 `interp_bwd`) on the corner table of one HRNetSimCSN3S query batch (8
 shapes of 10000 points, built once by this checkout and handed to both) at
@@ -42,7 +42,9 @@ and hashes every output. The script
 prints each run's times, whether each kernel's outputs are bitwise equal
 across the checkouts and between two launches in one run, and the
 registers and spill bytes ptxas reports for the kernels of
-`csrc/sparse_conv.cu`, `csrc/sparse_conv_bwd.cu`, `csrc/interp.cu`,
+`csrc/sparse_conv.cu`, `csrc/sparse_conv_bwd.cu`,
+`csrc/sparse_conv_im2col.cu`, `csrc/sparse_conv_im2col_bwd.cu`,
+`csrc/interp.cu`,
 `csrc/interp_bwd.cu`, `csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu` and
 `csrc/probe_gather.cu` in each. `--kernels` runs one family only.
 """
@@ -69,7 +71,9 @@ SHAPES = ((90112, 27, 64, 64), (30208, 27, 128, 128), (10240, 27, 256, 256),
           (90112, 125, 3, 32), (5000, 8, 96, 384))
 LIVE = 0.35      # share of map entries that name a row
 SEED = 7
-REGISTER_SOURCES = {"conv": ("sparse_conv.cu", "sparse_conv_bwd.cu"),
+REGISTER_SOURCES = {"conv": ("sparse_conv.cu", "sparse_conv_bwd.cu",
+                             "sparse_conv_im2col.cu",
+                             "sparse_conv_im2col_bwd.cu"),
                     "interp": ("interp.cu", "interp_bwd.cu"),
                     "flash": ("flash_attn.cu", "flash_attn_bwd.cu"),
                     "probes": ("probe_gather.cu",),
@@ -172,9 +176,17 @@ def conv_worker(reps: int) -> dict:
                                                                    w32),
             "sparse_conv_dw": lambda: window_conv.sparse_conv_dw(f32, g32,
                                                                  kmap_t),
+            "sparse_conv_im2col_fwd": lambda: window_conv
+            .sparse_conv_im2col_fwd(f32, kmap, w32),
+            "sparse_conv_im2col_bwd": lambda: conv.conv_im2col_bwd_kernels(
+                f32, g32, kmap_t, w32, False, cin != 3)[1],
         }
+        # the im2col backward's partials are several MB a call: graphs of 5
         res[f"{n}x{k} {cin}->{cout} f32"] = {
             name: _entry(fn, reps, graph_ms, cold={"cold": True})
+            if "im2col" not in name else
+            _entry(fn, 3, lambda f, **kw: graph_ms(f, calls=5, **kw),
+                   cold={"cold": True})
             for name, fn in calls.items()}
     return res
 

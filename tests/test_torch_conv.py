@@ -5,8 +5,9 @@ against `jax.vjp` of the JAX `sparse_conv` with the transpose map, with
 random asymmetric weights so that a missed mirror shows. Also the dtypes of
 the gradients, the dW kernel's split choice (its CUDA-core body and both
 tensor-core bodies) and the launchers' refusal of CPU tensors and of
-misaligned bf16 views; the one tensor-core rule of K1, dW and the im2col
-pair and the im2col backward's splits; `sparse_conv_with_bias` and
+misaligned views; the one tensor-core rule of K1, dW and the im2col pair
+(bf16, and f32 in split TF32) and the im2col backward's splits; CPU models
+of the split-TF32 bodies' arithmetic against the JAX package; `sparse_conv_with_bias` and
 `masked_fill` against the JAX functions. Tolerance: max abs <= 1e-5 * max|ref| (f32 on both sides; the
 two sum in different orders)."""
 
@@ -476,6 +477,103 @@ def test_split_tf32_model_matches_jax(cin, cout, k, what):
     assert err1 > err3, (err1, err3)
 
 
+IM2COL_SUPER_TILE = 256   # rows of the im2col backward's super-tile
+
+
+def _im2col_bwd_model(feats, g, kmap_t, w, terms, input_grad):
+    """The split-TF32 im2col backward's summation order: GG [N_in, K*Cout]
+    gathered once, d_feats = GG @ WT (WT [K*Cout, Cin] the stacked
+    transposed weights) in k-steps of 8 columns of K*Cout, each step's
+    product added in f32; dW_flat = feats^T @ GG in k-steps of 8 rows within
+    a super-tile of IM2COL_SUPER_TILE rows, each step's product added in f32
+    to the super-tile's sum, which is added once to the running dW.
+    Returns (d_feats or None, dW_t [K, Cin, Cout])."""
+    k, cin, cout = w.shape
+    n_in = feats.shape[0]
+    gg = np.concatenate([_gather_np(g, kmap_t[o]) for o in range(k)], 1)
+    d_feats = None
+    if input_grad:
+        wt = np.ascontiguousarray(w.transpose(0, 2, 1).reshape(k * cout, cin))
+        d_feats = np.zeros((n_in, cin), np.float32)
+        for j in range(0, k * cout, 8):
+            d_feats = (d_feats + _tf32_product(gg[:, j:j + 8], wt[j:j + 8],
+                                               terms)).astype(np.float32)
+    dw = np.zeros((cin, k * cout), np.float32)
+    for m0 in range(0, n_in, IM2COL_SUPER_TILE):
+        tile = np.zeros_like(dw)
+        for r in range(m0, min(m0 + IM2COL_SUPER_TILE, n_in), 8):
+            tile = (tile + _tf32_product(feats[r:r + 8].T, gg[r:r + 8], terms)
+                    ).astype(np.float32)
+        dw = (dw + tile).astype(np.float32)
+    return d_feats, dw.reshape(cin, k, cout).transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("cin,cout,k,input_grad", [
+    (32, 32, 27, True), (256, 256, 27, True), (48, 40, 5, True),
+    (3, 32, 125, False)])
+def test_split_tf32_im2col_bwd_model_matches_jax(cin, cout, k, input_grad):
+    """The split-TF32 im2col backward's arithmetic (`_im2col_bwd_model`:
+    three TF32 products per f32 product, each k-step of 8 columns (d_feats)
+    or 8 rows (dW) added in f32, dW summed per 256-row super-tile) gives the
+    JAX package's f32 sparse conv VJP, d_feats and dW over the transpose
+    map, within 1e-4 of max|ref|, the tolerance the f32 body is held to on
+    the card; one TF32 product (hi . hi alone) comes out further off. The
+    k5 stem (Cin 3, 125 offsets) takes dW only, as the model's stem does;
+    48 -> 40 leaves part k-steps and chunks of K*Cout."""
+    rng = np.random.default_rng(cin * 1000 + cout + k + 7)
+    n_in, n_out = 300, 260
+    kmap, kmap_t = _partial_permutation_maps(rng, k, n_in, n_out, 0.25)
+    feats = rng.normal(size=(n_in, cin)).astype(np.float32)
+    w = (rng.uniform(-1, 1, size=(k, cin, cout)) / np.sqrt(cin * k)
+         ).astype(np.float32)
+    g = rng.normal(size=(n_out, cout)).astype(np.float32)
+
+    def jconv(f, ww):
+        return j_sparse_conv(f, jnp.asarray(kmap), ww,
+                             kmap_t=jnp.asarray(kmap_t), mirror=False,
+                             input_grad=input_grad)
+
+    _, vjp = jax.vjp(jconv, jnp.asarray(feats), jnp.asarray(w))
+    ref_df, ref_dw = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    models = [_im2col_bwd_model(feats, g, kmap_t, w, terms, input_grad)
+              for terms in (3, 1)]
+    pairs = [(1, ref_dw)] + ([(0, ref_df)] if input_grad else [])
+    for i, ref in pairs:
+        scale = np.abs(ref).max()
+        assert models[0][i].shape == ref.shape
+        err3, err1 = (np.abs(m[i].astype(np.float32) - ref).max()
+                      for m in models)
+        assert err3 <= 1e-4 * scale, (i, err3, scale)
+        assert err1 > err3, (i, err1, err3)
+
+
+@pytest.mark.parametrize("name", ["dw_unroll_4", "skip_dfeats",
+                                  "skip_dw_ksteps", "skip_dw_groups",
+                                  "skip_both"])
+def test_im2col_bwd_designs_apply_to_the_shipped_source(name):
+    """`tools/im2col_bwd_designs.py` builds its designs as text variants of
+    the shipped split-TF32 backward: each substitution finds its text in
+    `csrc/sparse_conv_im2col_bwd.cu` (the tool raises when the source has
+    moved on), changes only the split-TF32 body, and the skip designs record
+    the live masks and read them."""
+    from csn_tpu_torch.tools import im2col_bwd_designs as designs
+
+    shipped = designs.SOURCE.read_text()
+    text = designs.variant(name, shipped)
+    assert text != shipped
+    head = shipped.index("// --- the split-TF32 body")
+    assert text[:head] == shipped[:head]
+    if name.startswith("skip"):
+        assert "__ballot_sync" in text and "masks[" in text
+        assert "mk[" in text or "lv[" in text
+    with pytest.raises(RuntimeError, match="changed"):
+        designs.variant(name, shipped.replace("#pragma unroll 8\n      for "
+                                              "(int ks = 0; ks < SR / 8",
+                                              "for (int ks = 0; ks < SR / 8")
+                        .replace("  // NST stages (GG, WT), one feats tile\n",
+                                 ""))
+
+
 def test_tf32_rounding_ties_to_even():
     """`_tf32_round` keeps 10 mantissa bits, rounds to nearest with ties to
     even, and `_split_tf32`'s hi + lo is x to within lo's dropped bits."""
@@ -684,36 +782,35 @@ IM2COL_TC_RULE_CASES = [
     (torch.bfloat16, 32, 64, True), (torch.bfloat16, 3, 32, True),
     (torch.bfloat16, 24, 64, True), (torch.bfloat16, 48, 40, True),
     (torch.bfloat16, 160, 200, True), (torch.bfloat16, 32, 60, False),
-    (torch.bfloat16, 3, 30, False), (torch.float32, 32, 64, False),
-    (torch.float32, 3, 32, False)]
+    (torch.bfloat16, 3, 30, False), (torch.float32, 32, 64, True),
+    (torch.float32, 3, 32, True)]
 
 
 @pytest.mark.parametrize("dtype,cin,cout,want", IM2COL_TC_RULE_CASES)
 def test_im2col_tensor_cores_rule(dtype, cin, cout, want):
-    """The im2col pair's tensor-core bodies take bf16 with Cout % 8 == 0
-    whatever Cin (the rule `csn_sparse_conv_im2col_fwd` and `_bwd` apply):
-    the stem's Cin of 3 and a Cin off the multiples of 16 included, as K1
-    and dW take them in bf16; f32 and a Cout off the multiples of 8 run the
-    CUDA-core bodies (K1 and dW run f32 in split TF32 at Cout % 8 ==
-    0)."""
+    """The im2col pair's tensor-core bodies take bf16, and f32 in split
+    TF32, with Cout % 8 == 0 whatever Cin (the rule
+    `csn_sparse_conv_im2col_fwd` and `_bwd` apply, K1's): the stem's Cin of
+    3 and a Cin off the multiples of 16 included; a Cout off the multiples
+    of 8 runs the CUDA-core bodies in either type. The split-TF32 launches
+    count apart (`k1_split_tf32`)."""
     assert window_conv.im2col_tensor_cores(dtype, cin, cout) is want
-    if dtype == torch.bfloat16:
-        assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
+    assert window_conv.k1_tensor_cores(dtype, cin, cout) is want
+    assert window_conv.k1_split_tf32(dtype, cin, cout) is (
+        want and dtype == torch.float32)
 
 
 @pytest.mark.parametrize("dtype,cin,cout,want",
                          TC_RULE_CASES + IM2COL_TC_RULE_CASES)
 def test_k1_and_im2col_rules_agree(dtype, cin, cout, want):
-    """K1 and dW take their tensor-core bodies at the same convs. K1 and
-    the im2col forward share one bf16 body, so in bf16 the im2col pair
-    takes it at the same convs again; in f32 it takes none (K1 and dW run
-    split TF32 bodies of their own)."""
+    """K1, dW and the im2col pair take their tensor-core bodies at the same
+    convs, in both types: K1 and the im2col forward share one body (bf16,
+    and f32 in split TF32), and the im2col backward's bodies follow the same
+    rule."""
     k1 = window_conv.k1_tensor_cores(dtype, cin, cout)
-    if dtype == torch.bfloat16 or (dtype, cin, cout, want) in TC_RULE_CASES:
-        assert k1 is want
+    assert k1 is want
     assert window_conv.dw_tensor_cores(dtype, cin, cout) is k1
-    assert window_conv.im2col_tensor_cores(dtype, cin, cout) is (
-        k1 and dtype == torch.bfloat16)
+    assert window_conv.im2col_tensor_cores(dtype, cin, cout) is k1
 
 
 @pytest.mark.parametrize("n_in,k,cin,cout,want", [
@@ -746,27 +843,30 @@ def test_im2col_bwd_tc_splits(n_in, k, cin, cout, want):
 
 
 def test_im2col_fwd_refuses_a_misaligned_bf16_view(monkeypatch):
-    """The im2col forward's tensor-core body copies the weights, and feats
-    where Cin % 16 == 0 (K1's loop), 16 bytes at a time with cp.async:
+    """The im2col forward's tensor-core bodies (K1's: bf16, and f32 in split
+    TF32, with Cout % 8 == 0) copy the weights, and feats where Cin % 16 ==
+    0 (K1's loop), 16 bytes at a time with cp.async:
     `sparse_conv_im2col_fwd` refuses such a view that does not start on a
-    16-byte boundary before the launch. Aligned calls, and misaligned ones
-    that no 16-byte copy reads (the stem's feats, which the flattened steps
-    gather element by element; f32 and a Cout off the multiples of 8, on
-    the CUDA-core body), get as far as the library."""
+    16-byte boundary before the launch, in both types. Aligned calls, and
+    misaligned ones that no 16-byte copy reads (the stem's feats, which the
+    flattened steps gather element by element, in bf16 and f32; a Cout off
+    the multiples of 8, on the CUDA-core body in either type), get as far
+    as the library."""
     _stub_launch(monkeypatch)
     view = _meta_view
     n_in, n_out, k = 10, 7, 27
     kmap = torch.empty(k, n_out, dtype=torch.int32, device="meta")
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     before = dict(kernels.LAUNCHES)
-    for cin, fs, ws in ((32, 1, 0), (32, 0, 1), (3, 0, 1)):
+    for cin, dt, fs, ws in ((32, bf, 1, 0), (32, bf, 0, 1), (3, bf, 0, 1),
+                            (32, f32, 1, 1), (32, f32, 1, 0), (3, f32, 0, 1)):
         with pytest.raises(ValueError, match="16-byte"):
             window_conv.sparse_conv_im2col_fwd(
-                view(n_in, cin, dtype=bf, shift=fs), kmap,
-                view(k, cin, 64, dtype=bf, shift=ws))
+                view(n_in, cin, dtype=dt, shift=fs), kmap,
+                view(k, cin, 64, dtype=dt, shift=ws))
     for cin, cout, dt, fs, ws in ((32, 64, bf, 0, 0), (3, 32, bf, 1, 0),
-                                  (32, 60, bf, 1, 1),
-                                  (32, 64, torch.float32, 1, 1)):
+                                  (32, 60, bf, 1, 1), (32, 64, f32, 0, 0),
+                                  (3, 32, f32, 1, 0), (32, 60, f32, 1, 1)):
         with pytest.raises(LookupError, match="reached the launch"):
             window_conv.sparse_conv_im2col_fwd(
                 view(n_in, cin, dtype=dt, shift=fs), kmap,
@@ -775,33 +875,40 @@ def test_im2col_fwd_refuses_a_misaligned_bf16_view(monkeypatch):
 
 
 def test_im2col_bwd_refuses_a_misaligned_bf16_view(monkeypatch):
-    """The im2col backward's tensor-core body copies g, and feats and
-    wt_flat where Cin % 8 == 0, 16 bytes at a time with cp.async:
-    `sparse_conv_im2col_bwd` refuses such a view that does not start on a
-    16-byte boundary before the launch. Aligned calls, and misaligned ones
-    that no 16-byte copy reads (the stem's feats and wt_flat, element by
-    element; f32 and a Cout off the multiples of 8, on the CUDA-core body),
-    get as far as the library."""
+    """The im2col backward's tensor-core bodies (bf16, and f32 in split
+    TF32, with Cout % 8 == 0) copy g, and feats and wt_flat where their rows
+    are 16-byte pieces (Cin % 8 == 0 in bf16, Cin % 4 == 0 in f32), 16
+    bytes at a time with cp.async: `sparse_conv_im2col_bwd` refuses such a
+    view that does not start on a 16-byte boundary before the launch.
+    Aligned calls, and misaligned ones that no 16-byte copy reads (the
+    stem's feats and wt_flat, element by element; bf16 feats at Cin 12; a
+    Cout off the multiples of 8, on the CUDA-core body in either type), get
+    as far as the library."""
     _stub_launch(monkeypatch)
     view = _meta_view
     n_in, n_g, k = 10, 7, 27
     kmap_t = torch.empty(k, n_in, dtype=torch.int32, device="meta")
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     before = dict(kernels.LAUNCHES)
-    for cin, fs, gs, ws, dw_only in ((32, 1, 0, 0, False),
-                                     (32, 0, 1, 0, False),
-                                     (32, 0, 0, 1, False),
-                                     (32, 1, 0, 0, True), (3, 0, 1, 0, True)):
+    for cin, dt, fs, gs, ws, dw_only in (
+            (32, bf, 1, 0, 0, False), (32, bf, 0, 1, 0, False),
+            (32, bf, 0, 0, 1, False), (32, bf, 1, 0, 0, True),
+            (3, bf, 0, 1, 0, True), (32, f32, 1, 1, 1, False),
+            (32, f32, 0, 0, 1, False), (12, f32, 1, 0, 0, True),
+            (3, f32, 0, 1, 0, True)):
         with pytest.raises(ValueError, match="16-byte"):
             window_conv.sparse_conv_im2col_bwd(
-                view(n_in, cin, dtype=bf, shift=fs),
-                view(n_g, 64, dtype=bf, shift=gs), kmap_t,
-                None if dw_only else view(k * 64, cin, dtype=bf, shift=ws),
+                view(n_in, cin, dtype=dt, shift=fs),
+                view(n_g, 64, dtype=dt, shift=gs), kmap_t,
+                None if dw_only else view(k * 64, cin, dtype=dt, shift=ws),
                 dw_only=dw_only)
     for cin, cout, dt, fs, gs, ws in ((32, 64, bf, 0, 0, 0),
                                       (3, 32, bf, 1, 0, 1),
+                                      (12, 32, bf, 1, 0, 1),
                                       (32, 60, bf, 1, 1, 1),
-                                      (32, 64, torch.float32, 1, 1, 1)):
+                                      (32, 64, f32, 0, 0, 0),
+                                      (3, 32, f32, 1, 0, 1),
+                                      (32, 60, f32, 1, 1, 1)):
         for dw_only in (False, True):
             with pytest.raises(LookupError, match="reached the launch"):
                 window_conv.sparse_conv_im2col_bwd(
