@@ -83,9 +83,13 @@ Phases (each prints its lines; any failure exits nonzero):
      on their tensor-core bodies; d_model 256 in 8 and 16 heads) at the
      SSA masks cut to 8 and 4 shapes and at the ragged masks, and 24 on
      the ragged masks, f32 and bf16, the ones without a body of their own
-     zero-padded to the next, at the D=64 tolerances; then the bf16 pair's
-     device times (CUDA graphs) at the full SSA call for D = 64, 32 and 16
-     beside the library call, outside the kernel line; K3 (voxel -> point
+     zero-padded to the next, at the D=64 tolerances, and the bf16 widths
+     128 and 256 (d_model 256 in 2 heads and 1, the bf16 bodies of the
+     `_bf16_wide` rows) at the SSA masks (16 shapes) and the ragged masks;
+     then the bf16 pair's device times (CUDA graphs) at the full SSA call
+     for D = 64, 32, 16, 128 and 256, at the CSA call at D=128 and at the
+     MID-FC chunk shape beside the bound and the library call, the calls of
+     the `_bf16_wide` rows' paths in the kernel line; K3 (voxel -> point
      interpolation) and `interp_bwd` against their plain versions on the
      query batch's corner table, at 39 classes in f32 (the main path's
      form, timed for the kernel line) and bf16, and at the extraction
@@ -135,14 +139,20 @@ Phases (each prints its lines; any failure exits nonzero):
      each step named, none of them a CUDA-core body), and all of it again
      under CSN_DYNG=2, the im2col pair's split-TF32 bodies once per conv
      (47 forwards, and 47 backwards per train request; K1 and
-     `sparse_conv_dw` never), its ms/step beside the K1 form's;
+     `sparse_conv_dw` never), its ms/step beside the K1 form's; then the
+     bf16 protocol again at d_model 256 in 2 heads of 128: 3 eval and 3
+     train requests with exact launch counts (K2 and its backward in the
+     `_bf16_wide` rows), ms/step of both;
   6. MID-FC chunked, the JAX package's `bench.py` midfc protocol:
      `MidfcRunner(cfg, "csa")` with 8 heads of 256, K=4, B=4, P=10000,
      d_model 256, chunks of 500, 39 classes, f32, Adam(0.5, 0.999), seeded
      numpy features: 3 eval requests and 3 train steps through the runner's
      own `_eval` / `_grad` / `_apply`, launch counts per step, ms/step,
      shapes/s, peak memory; then one f32 B=1 step at dropout 0 with the
-     kernels on the GPU against the plain step on the CPU;
+     kernels on the GPU against the plain step on the CPU; then all of it
+     again with `compute_dtype="bfloat16"` (K2 and its backward at head dim
+     256 on the bf16 bodies of the `_bf16_wide` rows), the B=1 step against
+     the CPU's bf16 step within GRAD_TOL_BF16 / LOSS_TOL_BF16;
   7. MID-FC full attention through the ring (a ring of one: what one card
      can run): `CrossShapeAt("ssa", chunk_size=None)` sharded over a
      `torch.distributed` group of one rank, through the `parallel/midfc.py`
@@ -211,9 +221,11 @@ The line before the last is the kernel table as JSON: per kernel (K1,
 bodies, the f32 form, as `sparse_conv_fwd_tf32`, `sparse_conv_dw_tf32`,
 `sparse_conv_im2col_fwd_tf32` and `sparse_conv_im2col_bwd_tf32`, and their
 other bodies; K2 and its backward likewise, their f32 D=64 split-TF32
-bodies as `flash_attn_fwd_tf32_d64` and `flash_attn_bwd_tf32_d64`), its
-launches in the train requests of phases 5 (bf16, f32 and f32 under
-CSN_DYNG=2), 6,
+bodies as `flash_attn_fwd_tf32_d64` and `flash_attn_bwd_tf32_d64`, their
+bf16 bodies at head dims 128 and 256 as `flash_attn_fwd_bf16_wide` and
+`flash_attn_bwd_bf16_wide`), its
+launches in the train requests of phases 5 (bf16, f32, f32 under
+CSN_DYNG=2 and bf16 in heads of 128), 6 (f32 and bf16),
 7, 8, 9, 10 and 11 (each
 phase sets the counts to 0 before and reads them after; phase 9 counts the
 Res16UNet34C train iterations, the chain and the probes' entry points;
@@ -222,7 +234,9 @@ learning-check trainings), its worst error
 over phase 3's checks, and four times summed over one train step's launches
 of every path the kernel is on (bf16 at the HRNet and Res16UNet34C shapes,
 the split-TF32 rows f32 there as device time from CUDA graphs (the
-`_tf32_d64` rows: one SSA and one CSA call, the plain version one call),
+`_tf32_d64` rows: one SSA and one CSA call, the plain version one call;
+the `_bf16_wide` rows likewise: one SSA and one CSA call at D=128 and 9
+MID-FC chunk calls at D=256, bf16),
 f32 at the MID-FC shapes; the interpolation pair f32 at 39 classes, as the
 HRNet heads' f32 logits reach it; the probe kernels, as device time
 from CUDA graphs: one call of `probe_window_gather` at [384, 128] f32, the
@@ -299,6 +313,7 @@ from csn_tpu_torch.train.trainer import build_batch_from_dataset
 B, P, VOXEL, K_NEIGHBORS = 8, 10000, 0.05, 1
 LEVEL0_CAP, SHRINK, STEM_K = 5632, 3.0, 5
 D_MODEL, N_HEAD, NUM_CLASSES = 256, 4, 39
+WIDE_HEADS = 2   # phase 5's bf16 requests again at d_model 256 in heads of 128
 N_REQUESTS, TIMED_STEPS, SEED = 3, 10, 0
 ATTN_DROPOUT, LR = 0.1, 0.05
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max|ref|
@@ -328,6 +343,12 @@ TF32_F64_TOL = 1e-4
 # running sum below 9 x max|win|, about 3.5 x max|ref| here: under 1.2e-5;
 # a window rounded to bf16 (2^-9 of each value) misses it many times over.
 PROBE_F64_TOL = 2e-5
+# the bf16 MID-FC step, kernels on the GPU vs plain on the CPU, both in
+# bf16: x max|ref| per gradient tensor (TOL's bf16 tolerance: a few bf16
+# roundings, which the kernels and the plain version place differently),
+# and x |ref| for the loss (the f32 logit head reads bf16 attention outputs,
+# each rounded to 2^-9 of itself)
+GRAD_TOL_BF16, LOSS_TOL_BF16 = 2e-2, 2e-3
 # gradients that vanish analytically (a bias right before train-mode
 # BatchNorm): held to GRAD_TOL x the largest gradient of the step
 VANISHING = {"fc1.linear.bias"}
@@ -387,6 +408,14 @@ KERNELS = {
                                 "csn_tpu/ops/flash.py:262"),
     "flash_attn_bwd_tf32_d64": ("csn_tpu_torch/csrc/flash_tf32_d64_bwd.cuh",
                                 "csn_tpu/ops/flash.py:600"),
+    # the bf16 forms of K2 and its backward at head dims 128 and 256 (d_model
+    # 256 in 2 heads or 1, the MID-FC heads in bf16): their tensor-core
+    # bodies, whose launches count apart (the forward at 128 runs
+    # flash_tc.cuh's template, which flash_attn.cu instantiates)
+    "flash_attn_fwd_bf16_wide": ("csn_tpu_torch/csrc/flash_bf16_wide_fwd.cuh",
+                                 "csn_tpu/ops/flash.py:262"),
+    "flash_attn_bwd_bf16_wide": ("csn_tpu_torch/csrc/flash_bf16_wide_bwd.cuh",
+                                 "csn_tpu/ops/flash.py:600"),
     "flash_attn_carry": ("csn_tpu_torch/csrc/flash_tf32_fwd.cuh",
                          "csn_tpu/ops/flash.py:412"),
     "flash_attn_block_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
@@ -493,10 +522,10 @@ class ReluDecisions:
                 m.relu_masked = f
 
 
-def make_model(cls, dtype: str, attn_dropout: float):
+def make_model(cls, dtype: str, attn_dropout: float, n_head: int = N_HEAD):
     kw = {}
     if issubclass(cls, hrnet.HRNetSimCSN):
-        kw = dict(d_model=D_MODEL, n_head=N_HEAD, k_neighbors=K_NEIGHBORS,
+        kw = dict(d_model=D_MODEL, n_head=n_head, k_neighbors=K_NEIGHBORS,
                   attn_dropout=attn_dropout)
     model = cls(out_channels=NUM_CLASSES, conv1_kernel_size=STEM_K,
                 compute_dtype=dtype, **kw)
@@ -686,14 +715,6 @@ def form_name(kernel, dtype, cin, cout):
     bodies."""
     tf32 = window_conv.k1_split_tf32(dtype, cin, cout)
     return f"{kernel}_tf32" if tf32 else kernel
-
-
-def k2_row(name, dtype, dk):
-    """The row of the kernel line that a call of K2 or its backward
-    (`name`) at head dim `dk` in `dtype` counts in: the f32 D=64
-    split-TF32 bodies' row, or the kernel's other bodies."""
-    return f"{name}_tf32_d64" if flash.k2_split_tf32_d64(dtype, dk) \
-        else name
 
 
 def tc_body(dtype):
@@ -1343,7 +1364,7 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
         shape += f" Lk={km.shape[1]}"
     for dt in (torch.float32, torch.bfloat16):
         qd, kd, vd, dod = (x.to(dt) for x in (q, k, v, dout))
-        fname, bname = (k2_row(n, dt, dk)
+        fname, bname = (flash.k2_row(n, dt, dk)
                         for n in ("flash_attn_fwd", "flash_attn_bwd"))
         for drop in (0.0, ATTN_DROPOUT):
             sd = seed if drop else None
@@ -1644,18 +1665,24 @@ def time_f32_d64(qb, kb, big, dev, table):
         torch.cuda.empty_cache()
 
 
-def check_head_dims(big, dev, table):
+def check_head_dims(qb, kb, big, dev, table):
     """K2 and its backward at the head dims the JAX package also runs and
-    the main path does not: bf16 at 32 and 16 on their tensor-core bodies
-    (d_model 256 in 8 and 16 heads, at the SSA call's masks, cut to 8 and 4
-    shapes so that the plain version's f32 score matrices stay within the
-    card: the same batch * heads as the D=64 check), and on the ragged
+    the HRNet main path does not: bf16 at 32 and 16 on their tensor-core
+    bodies (d_model 256 in 8 and 16 heads, at the SSA call's masks, cut to 8
+    and 4 shapes so that the plain version's f32 score matrices stay within
+    the card: the same batch * heads as the D=64 check), and on the ragged
     masks (RAGGED_LQ / RAGGED_LK) at 32, 16 and 24 (8 heads), in f32 and
     bf16, dropout 0 and ATTN_DROPOUT, held to the plain version at the D=64
     tolerances (TOL). f32 at 16, 24 and 32 and bf16 at 24 run zero-padded
-    to the next body (`ops/flash.py` `k2_head_dim`). Then the device times
-    of the bf16 pair at the full SSA call for D = 64, 32 and 16
-    (`time_head_dims`). A generator of its own keeps the inputs of the
+    to the next body (`ops/flash.py` `k2_head_dim`). Then the bf16 widths
+    128 and 256 (d_model 256 in 2 heads and 1: the bf16 bodies of
+    `"_bf16_wide"`; f32 at 128 on its CUDA-core body, at 256 in split TF32)
+    at the SSA call's masks, all 16 shapes (batch * heads 32 and 16, under
+    the D=64 check's 64), at 128 also at the CSA call's masks (query batch
+    against key batch, as phase 5b runs it), and on the ragged masks, the
+    same way (the MID-FC chunk shape is `check_attention`'s). Then the
+    device times
+    (`time_head_dims`). Generators of their own keep the inputs of the
     other checks those of the D=64 runs."""
     g = torch.Generator().manual_seed(SEED + 17)
     bmask = big.masks[0]
@@ -1669,56 +1696,105 @@ def check_head_dims(big, dev, table):
     for dk, heads in ((32, 8), (16, 16), (24, 8)):
         check_flash(table, dev, g, "ragged", rq.to(dev), rk.to(dev), heads,
                     dk, None, 0)
-    time_head_dims(bmask, dev)
+    gw = torch.Generator().manual_seed(SEED + 37)
+    for dk in (128, 256):
+        check_flash(table, dev, gw, "SSA", bmask, bmask, D_MODEL // dk, dk,
+                    None, 0)
+    check_flash(table, dev, gw, "CSA", qb.masks[0], kb.masks[0], WIDE_HEADS,
+                D_MODEL // WIDE_HEADS, None, 0)
+    rq = torch.rand(2, RAGGED_LQ, generator=gw) < 0.8
+    rk = torch.rand(2, RAGGED_LK, generator=gw) < 0.7
+    rk[:, 64:128] = False
+    rq[:, 128:192] = False
+    for dk in (128, 256):
+        check_flash(table, dev, gw, "ragged", rq.to(dev), rk.to(dev),
+                    D_MODEL // dk, dk, None, 0)
+    time_head_dims(qb, kb, big, dev, table)
 
 
-def time_head_dims(bmask, dev):
+def time_head_dims(qb, kb, big, dev, table):
     """Device ms (CUDA graphs, warm L2: `tools/timing.py`) of the bf16 K2
     and its backward at the HRNet SSA call [16, H, 5632, D] with d_model
-    256 split into heads of D = 64, 32 and 16, at dropout ATTN_DROPOUT (the
-    train path's call) and 0, beside the call's bound and the library call
+    256 split into heads of D = 64, 32, 16, 128 and 256, at the CSA call
+    [8, 2, 5632, 128] against 5632 keys, and at the MID-FC chunk shape
+    [80, 8, 500, 256], at dropout ATTN_DROPOUT (the train path's call) and
+    0, beside the call's bound and the library call
     `F.scaled_dot_product_attention` with the key mask at the same dropout
     (its backward: a graph of forward and backward less the forward's).
-    Not in the kernel line: the main path runs D = 64."""
+    The calls at ATTN_DROPOUT of the paths that run the `"_bf16_wide"`
+    bodies go into those rows of the kernel line, with the plain version's
+    one call beside them, as their train steps make them: the SSA and the
+    CSA call at D=128 once per train step at d_model 256 in 2 heads
+    (`train_slice` at WIDE_HEADS), the MID-FC chunks 2 K + 1 times per bf16 MID-FC
+    CSA train step (`midfc_chunked_slice`). The others are printed only:
+    the main path runs D = 64."""
     gd = torch.Generator(device=dev).manual_seed(SEED + 23)
-    b, L = bmask.shape
-    for dk in (64, 32, 16):
-        h = D_MODEL // dk
+    bmask = big.masks[0]
+    ones = torch.ones(MF_B * MF_P // MF_CHUNK, MF_CHUNK, dtype=torch.bool,
+                      device=dev)
+    # (tag, q mask, k mask, heads, D, calls per train step of its path)
+    cases = [("SSA", bmask, bmask, D_MODEL // dk, dk, 0)
+             for dk in (64, 32, 16)]
+    cases += [("SSA", bmask, bmask, WIDE_HEADS, 128, 1),
+              ("CSA", qb.masks[0], kb.masks[0], WIDE_HEADS, 128, 1),
+              ("SSA", bmask, bmask, 1, 256, 0),
+              ("MID-FC chunks", ones, ones, MF_HEADS, MF_D, 2 * MF_K + 1)]
+    bf16 = torch.bfloat16
+    for tag, qm, km, h, dk, count in cases:
+        b, L = qm.shape
         temp = float(dk) ** 0.5
-        q, k, v, dout = (torch.randn(b, h, L, dk, generator=gd, device=dev)
-                         .to(torch.bfloat16) for _ in range(4))
-        dout = dout * bmask[:, None, :, None]
+        q, dout = (torch.randn(b, h, L, dk, generator=gd, device=dev)
+                   .to(bf16) for _ in range(2))
+        k, v = (torch.randn(b, h, km.shape[1], dk, generator=gd, device=dev)
+                .to(bf16) for _ in range(2))
+        dout = dout * qm[:, None, :, None]
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-        fb, bb, ff, bf = attention_work(bmask, bmask, h, dk, 2)
-        bound_f = max(fb / HBM_BYTES_S, ff / PEAK_FLOPS[torch.bfloat16]) * 1e3
-        bound_b = max(bb / HBM_BYTES_S, bf / PEAK_FLOPS[torch.bfloat16]) * 1e3
+        fb, bb, ff, bf = attention_work(qm, km, h, dk, 2)
+        parts_f = (fb / HBM_BYTES_S * 1e3, ff / PEAK_FLOPS[bf16] * 1e3)
+        parts_b = (bb / HBM_BYTES_S * 1e3, bf / PEAK_FLOPS[bf16] * 1e3)
+        bound_f, bound_b = max(parts_f), max(parts_b)
+        fname, bname = (flash.k2_row(n, bf16, dk)
+                        for n in ("flash_attn_fwd", "flash_attn_bwd"))
         for drop in (ATTN_DROPOUT, 0.0):
             sd = 0x5EED_0F_C5A if drop else None
-            out, lse = flash.flash_attention(q, k, v, bmask, bmask, temp,
-                                             drop, sd)
+            out, lse = flash.flash_attention(q, k, v, km, qm, temp, drop, sd)
             delta = (dout.float() * out.float()).sum(dim=-1)
             kf = graph_ms(lambda: flash.flash_attention(
-                q, k, v, bmask, bmask, temp, drop, sd), calls=10)
+                q, k, v, km, qm, temp, drop, sd), calls=10)
             kb_ = graph_ms(lambda: flash.flash_attention_bwd(
-                q, k, v, dout, lse, delta, bmask, bmask, temp, drop, sd),
+                q, k, v, dout, lse, delta, km, qm, temp, drop, sd),
                 calls=10)
 
             def lib(x, y, z):
                 return F.scaled_dot_product_attention(
-                    x, y, z, attn_mask=bmask[:, None, None, :],
+                    x, y, z, attn_mask=km[:, None, None, :],
                     scale=1.0 / temp, dropout_p=drop)
 
             lf = graph_ms(lambda: lib(q, k, v), calls=10)
             lfb = graph_ms(lambda: torch.autograd.grad(
                 lib(*leaves), leaves, dout), calls=10)
-            print(f"[time] flash_attn_fwd / flash_attn_bwd SSA "
-                  f"[{b},{h},{L},{dk}] dropout {drop} bfloat16 (d_model "
-                  f"{D_MODEL} in {h} heads of {dk}; device, CUDA graphs, "
-                  f"warm L2): forward kernel {kf:.4f} ms, library {lf:.4f} "
-                  f"ms, bound {bound_f:.4f} ms; backward kernel {kb_:.4f} "
-                  f"ms, library {lfb - lf:.4f} ms (forward and backward "
-                  f"{lfb:.4f} less the forward), bound {bound_b:.4f} ms "
-                  f"(not in the kernel line)")
+            plain, where = "", "(not in the kernel line)"
+            if drop and count:   # one call of the plain version
+                pf = median_ms(lambda: attention.scaled_dot_product_attention(
+                    q, k, v, km, temp, dropout=drop, seed=sd), warmup=1,
+                    reps=3)
+                pfb = median_ms(lambda: torch.autograd.grad(
+                    attention.scaled_dot_product_attention(
+                        *leaves, km, temp, dropout=drop, seed=sd), leaves,
+                    dout), warmup=1, reps=3)
+                plain = (f"; plain (one call) forward {pf:.4f} ms, backward "
+                         f"{pfb - pf:.4f} ms")
+                where = f"(x{count} per train step, rows {fname}, {bname})"
+                table.add(fname, count, kf, pf, *parts_f, lf)
+                table.add(bname, count, kb_, pfb - pf, *parts_b, lfb - lf)
+            print(f"[time] flash_attn_fwd / flash_attn_bwd {tag} "
+                  f"[{b},{h},{L},{dk}] Lk={km.shape[1]} dropout {drop} "
+                  f"bfloat16 (d_model {h * dk} in {h} heads of {dk}; device, "
+                  f"CUDA graphs, warm L2): forward kernel {kf:.4f} ms, "
+                  f"library {lf:.4f} ms, bound {bound_f:.4f} ms; backward "
+                  f"kernel {kb_:.4f} ms, library {lfb - lf:.4f} ms (forward "
+                  f"and backward {lfb:.4f} less the forward), bound "
+                  f"{bound_b:.4f} ms{plain} {where}")
             del out, lse, delta
         del q, k, v, dout, leaves
         torch.cuda.empty_cache()
@@ -2256,22 +2332,44 @@ def profile_steps(tag, step, n_steps=3, step_ms=None):
     return rows
 
 
-def eval_slice(cls, reqs, dev, n_convs, do_profile=False):
-    model = make_model(cls, "bfloat16", ATTN_DROPOUT).eval().to(dev)
+def heads_names(n_head):
+    """(K2 forward row, K2 backward row, label prefix, what of the step
+    times) of the bf16 eval and train slices at d_model D_MODEL in `n_head`
+    heads: phase 4 and 5 at N_HEAD, phase 5b at WIDE_HEADS."""
+    dk = D_MODEL // n_head
+    fwd, bwd = (flash.k2_row(n, torch.bfloat16, dk)
+                for n in ("flash_attn_fwd", "flash_attn_bwd"))
+    if n_head == N_HEAD:
+        return fwd, bwd, "", f"B={B}, K={K_NEIGHBORS}, bf16"
+    return (fwd, bwd, f"heads of {dk} ",
+            f"B={B}, K={K_NEIGHBORS}, bf16, {n_head} heads of {dk}")
+
+
+def eval_slice(cls, reqs, dev, n_convs, do_profile=False, n_head=N_HEAD):
+    """Phase 4 (at WIDE_HEADS, phase 5b's eval): 3 bf16 eval requests in
+    `n_head` heads with exact launch counts per kernel, the ms/step (with
+    --profile, also under the profiler); at N_HEAD, then the f32 forward
+    through the kernels against the plain forward on the CPU."""
+    fwd, _, pre, what = heads_names(n_head)
+    tag = f"{pre}eval" if pre else "slice"
+    model = make_model(cls, "bfloat16", ATTN_DROPOUT, n_head).eval().to(dev)
     kernels.reset_launches()
     for r, (qb, keys) in enumerate(reqs):
         loss, point_logits, pred = eval_step(model, qb, keys)
-        print(f"[slice] request {r}: "
-              f"{check_point_outputs(f'eval {r}', loss, point_logits, pred, qb)}")
+        print(f"[{tag}] request {r}: " + check_point_outputs(
+            f"{pre}eval {r}", loss, point_logits, pred, qb))
     torch.cuda.synchronize()
-    require_launches("slice", dict(kernels.LAUNCHES),
-                     {"sparse_conv_fwd": n_convs, "flash_attn_fwd": 2,
-                      "interp_fwd": 1})
+    require_launches(tag, dict(kernels.LAUNCHES),
+                     {"sparse_conv_fwd": n_convs, fwd: 2, "interp_fwd": 1})
     qb, keys = reqs[0]
-    ms = time_steps("slice", lambda: eval_step(model, qb, keys))
+    ms = time_steps(tag, lambda: eval_step(model, qb, keys), what)
     if do_profile:
-        profile_steps("eval K=1", lambda: eval_step(model, qb, keys),
-                      step_ms=ms)
+        profile_steps(f"eval K=1{', ' + pre.strip() if pre else ''}",
+                      lambda: eval_step(model, qb, keys), step_ms=ms)
+    del model
+    torch.cuda.empty_cache()
+    if n_head != N_HEAD:
+        return
 
     # the f32 forward through the kernels against the plain forward (CPU)
     m32 = make_model(cls, "float32", ATTN_DROPOUT).eval().to(dev)
@@ -2340,32 +2438,39 @@ def f32_step_check(cls, spec, dev, tag, mode=None):
           f"({worst[1]}), tol {GRAD_TOL:.0e}; loss {lg:.6f} vs {lc:.6f}")
 
 
-def train_slice(cls, spec, reqs, dev, n_convs, n_stems, do_profile=False):
-    """Phase 5. Returns the launch counts of the 3 train requests."""
-    model = make_model(cls, "bfloat16", ATTN_DROPOUT).to(dev)
+def train_slice(cls, spec, reqs, dev, n_convs, n_stems, do_profile=False,
+                n_head=N_HEAD):
+    """Phase 5 (at WIDE_HEADS, phase 5b's train): 3 bf16 train requests in
+    `n_head` heads with exact launch counts per kernel, the ms/step (with
+    --profile, also under the profiler); at N_HEAD, then the f32 train step
+    through the kernels against the plain step on the CPU
+    (`f32_step_check`). Returns the launch counts of the 3 requests."""
+    fwd, bwd, pre, what = heads_names(n_head)
+    tag = f"{pre}train"
+    model = make_model(cls, "bfloat16", ATTN_DROPOUT, n_head).to(dev)
     opt = optim.make_optimizer(model.parameters(), "SGD", lr=LR)
     gen = torch.Generator().manual_seed(SEED)
     kernels.reset_launches()
     for r, (qb, keys) in enumerate(reqs):
         loss, pred = train_step(model, opt, qb, keys, gen)
-        print(f"[train] request {r}: "
-              f"{check_point_outputs(f'train {r}', loss, None, pred, qb)}")
+        print(f"[{tag}] request {r}: " + check_point_outputs(
+            f"{tag} {r}", loss, None, pred, qb))
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    require_launches("train", launches, {
+    require_launches(tag, launches, {
         "sparse_conv_fwd": 2 * n_convs - n_stems, "sparse_conv_dw": n_convs,
-        "flash_attn_fwd": 2, "flash_attn_bwd": 2, "interp_fwd": 1,
-        "interp_bwd": 1})
+        fwd: 2, bwd: 2, "interp_fwd": 1, "interp_bwd": 1})
     qb, keys = reqs[0]
-    ms = time_steps("train", lambda: train_step(model, opt, qb, keys, gen))
+    ms = time_steps(tag, lambda: train_step(model, opt, qb, keys, gen), what)
     if do_profile:
-        profile_steps("train K=1",
+        profile_steps(f"train K=1{', ' + pre.strip() if pre else ''}",
                       lambda: train_step(model, opt, qb, keys, gen),
                       step_ms=ms)
     del model, opt
     torch.cuda.empty_cache()
 
-    f32_step_check(cls, spec, dev, "train")
+    if n_head == N_HEAD:
+        f32_step_check(cls, spec, dev, "train")
     return launches
 
 
@@ -2537,10 +2642,11 @@ def check_midfc_outputs(tag, logits, n_shapes):
             f"[{int(pred.min())}, {int(pred.max())}]")
 
 
-def compare_grads(tag, got, ref, loss_got, loss_ref):
-    """Loss and every gradient of `got` (kernels, GPU) within GRAD_TOL x
-    max|ref| of the same tensor of `ref` (plain, CPU)."""
-    require(abs(loss_got - loss_ref) <= GRAD_TOL * abs(loss_ref),
+def compare_grads(tag, got, ref, loss_got, loss_ref, tol=GRAD_TOL,
+                  loss_tol=GRAD_TOL):
+    """Loss within `loss_tol` x |ref| and every gradient of `got` (kernels,
+    GPU) within `tol` x max|ref| of the same tensor of `ref` (plain, CPU)."""
+    require(abs(loss_got - loss_ref) <= loss_tol * abs(loss_ref),
             f"{tag}: loss {loss_got} on the GPU, {loss_ref} on the CPU")
     top = max(float(r.abs().max()) for r in ref.values())
     worst = (0.0, "")
@@ -2550,38 +2656,46 @@ def compare_grads(tag, got, ref, loss_got, loss_ref):
         print(f"[{tag}] gradient of {name}: max|ref| {scale:.3e} "
               f"({scale / top:.1e} of the step's largest), max_abs_err "
               f"{err:.3e} = {err / max(scale, 1e-30):.3e} x max|ref|")
-        require(scale > 0.0 and err <= GRAD_TOL * scale,
+        require(scale > 0.0 and err <= tol * scale,
                 f"{tag}: gradient of {name} off by {err:.3e} (tol "
-                f"{GRAD_TOL * scale:.3e})")
+                f"{tol * scale:.3e})")
         worst = max(worst, (err / scale, name))
-    print(f"[{tag}] f32 gradients, kernels on the GPU vs plain on the CPU: "
-          f"{len(ref)} tensors, worst max_abs_err / max|ref| {worst[0]:.3e} "
-          f"({worst[1]}), tol {GRAD_TOL:.0e}; loss {loss_got:.6f} vs "
-          f"{loss_ref:.6f}")
+    kind = "f32" if tol == GRAD_TOL else "bf16"
+    print(f"[{tag}] {kind} gradients, kernels on the GPU vs plain on the CPU:"
+          f" {len(ref)} tensors, worst max_abs_err / max|ref| {worst[0]:.3e} "
+          f"({worst[1]}), tol {tol:.0e}; loss {loss_got:.6f} vs "
+          f"{loss_ref:.6f} (tol {loss_tol:.0e} x |ref|)")
 
 
-def midfc_config(batch_size, chunk_size):
+def midfc_config(batch_size, chunk_size, compute_dtype="float32"):
     return MidfcConfig(num_classes=NUM_CLASSES, n_heads=MF_HEADS, K=MF_K,
                        batch_size=batch_size, d_model=MF_D,
                        chunk_size=chunk_size, num_points=MF_P,
-                       weight_decay=5e-4, compute_dtype="float32",
+                       weight_decay=5e-4, compute_dtype=compute_dtype,
                        seed=SEED)
 
 
-def midfc_chunked_slice(dev, profile=False):
-    """Phase 6. Returns the launch counts of the 3 train steps."""
+def midfc_chunked_slice(dev, profile=False, compute_dtype="float32"):
+    """Phase 6 at `compute_dtype` (f32; bf16 runs K2 and its backward at
+    head dim 256 on the bf16 bodies, `"_bf16_wide"`). Returns the launch
+    counts of the 3 train steps."""
     n_mha = 2 * MF_K + 1   # SSA of the query and of K neighbors, K cross
-    runner = MidfcRunner(midfc_config(MF_B, MF_CHUNK), "csa", device=dev)
+    dt = getattr(torch, compute_dtype)
+    bf16 = dt == torch.bfloat16
+    tag = "midfc bf16" if bf16 else "midfc"
+    fwd, bwd = (flash.k2_row(n, dt, MF_D)
+                for n in ("flash_attn_fwd", "flash_attn_bwd"))
+    runner = MidfcRunner(midfc_config(MF_B, MF_CHUNK, compute_dtype), "csa",
+                         device=dev)
     runner.initialize()
     data = [midfc_data(MF_B, SEED + 100 * r) for r in range(N_REQUESTS)]
     kernels.reset_launches()
     for r, (feats, _labels, neighbors) in enumerate(data):
         logits = runner._eval(feats, neighbors)
-        print(f"[midfc] eval request {r}: "
-              f"{check_midfc_outputs(f'midfc eval {r}', logits, MF_B)}")
+        print(f"[{tag}] eval request {r}: "
+              f"{check_midfc_outputs(f'{tag} eval {r}', logits, MF_B)}")
     torch.cuda.synchronize()
-    require_launches("midfc eval", dict(kernels.LAUNCHES),
-                     {"flash_attn_fwd": n_mha})
+    require_launches(f"{tag} eval", dict(kernels.LAUNCHES), {fwd: n_mha})
     kernels.reset_launches()
     for r, (feats, labels, neighbors) in enumerate(data):
         loss, grads = runner._grad(feats, labels, neighbors,
@@ -2589,17 +2703,16 @@ def midfc_chunked_slice(dev, profile=False):
         runner._apply(grads)
         require(bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(g).all()) for g in grads.values()),
-            f"midfc train {r}: loss {loss} or a gradient not finite")
-        print(f"[midfc] train step {r}: loss {float(loss):.6f}, "
+            f"{tag} train {r}: loss {loss} or a gradient not finite")
+        print(f"[{tag}] train step {r}: loss {float(loss):.6f}, "
               f"{len(grads)} finite gradients")
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    require_launches("midfc train", launches,
-                     {"flash_attn_fwd": n_mha, "flash_attn_bwd": n_mha})
+    require_launches(f"{tag} train", launches, {fwd: n_mha, bwd: n_mha})
     feats, labels, neighbors = data[0]
     what = (f"CSA, B={MF_B}, K={MF_K}, P={MF_P}, chunks of {MF_CHUNK}, "
-            f"{MF_HEADS} heads of {MF_D}, f32")
-    time_steps("midfc eval", lambda: runner._eval(feats, neighbors), what,
+            f"{MF_HEADS} heads of {MF_D}, {'bf16' if bf16 else 'f32'}")
+    time_steps(f"{tag} eval", lambda: runner._eval(feats, neighbors), what,
                MF_B)
 
     def step():
@@ -2607,18 +2720,20 @@ def midfc_chunked_slice(dev, profile=False):
                                 runner.draw_step_seed())
         runner._apply(grads)
 
-    ms = time_steps("midfc train", step, what + ", dropout 0.1, Adam", MF_B)
+    ms = time_steps(f"{tag} train", step, what + ", dropout 0.1, Adam", MF_B)
     if profile:
-        profile_steps("midfc train", step, step_ms=ms)
+        profile_steps(f"{tag} train", step, step_ms=ms)
     del runner
     torch.cuda.empty_cache()
 
-    # one f32 B=1 step at dropout 0: kernels (GPU) vs plain (CPU)
+    # one B=1 step at dropout 0: kernels (GPU) vs plain (CPU), in the same
+    # compute dtype
     feats, labels, neighbors = midfc_data(1, SEED + 7)
     res = []
     init = None
     for where in (dev, "cpu"):
-        r1 = MidfcRunner(midfc_config(1, MF_CHUNK), "csa", device=where)
+        r1 = MidfcRunner(midfc_config(1, MF_CHUNK, compute_dtype), "csa",
+                         device=where)
         r1.initialize()
         r1.model.attention.mha.dropout = 0.0
         if init is None:
@@ -2627,10 +2742,11 @@ def midfc_chunked_slice(dev, profile=False):
         t0 = time.perf_counter()
         loss, grads = r1._grad(feats, labels, neighbors, 0)
         res.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
-        print(f"[midfc] f32 B=1 step on {where}: loss {float(loss):.6f} "
-              f"({time.perf_counter() - t0:.1f} s)")
+        print(f"[{tag}] {'bf16' if bf16 else 'f32'} B=1 step on {where}: "
+              f"loss {float(loss):.6f} ({time.perf_counter() - t0:.1f} s)")
     (lg, gg), (lc, gc) = res
-    compare_grads("midfc", gg, gc, lg, lc)
+    compare_grads(tag, gg, gc, lg, lc,
+                  *((GRAD_TOL_BF16, LOSS_TOL_BF16) if bf16 else ()))
     return launches
 
 
@@ -3918,7 +4034,7 @@ def main() -> int:
     check_k1_edges(dev, table)
     check_im2col_edges(dev, table, g)
     check_attention(qb, kb, big, dev, table, g)
-    check_head_dims(big, dev, table)
+    check_head_dims(qb, kb, big, dev, table)
     check_interp(qb, dev, table, g)
     del big
     check_ring_kernels(dev, table, g)
@@ -3964,12 +4080,21 @@ def main() -> int:
     print(f"[f32] ms/step, eval / train (B={B}, K={K_NEIGHBORS}, f32): K1 "
           f"form {f32_ms[None][0]:.3f} / {f32_ms[None][1]:.3f}, im2col form "
           f"(CSN_DYNG=2) {f32_ms[2][0]:.3f} / {f32_ms[2][1]:.3f}")
+    # bf16 at d_model 256 in heads of 128
+    phase("5b train slice, heads of 128")
+    eval_slice(cls, reqs, dev, n_convs, do_profile, WIDE_HEADS)
+    launches_w = train_slice(cls, spec, reqs, dev, n_convs, n_stems,
+                             do_profile, WIDE_HEADS)
+    launches = {k: n + launches_w[k] for k, n in launches.items()}
     del reqs
     torch.cuda.empty_cache()
 
     # 6. MID-FC, chunked attention
     phase("6 MID-FC chunked")
     launches_6 = midfc_chunked_slice(dev, do_profile)
+    phase("6b MID-FC chunked, bf16")
+    launches_6b = midfc_chunked_slice(dev, do_profile, "bfloat16")
+    launches_6 = {k: n + launches_6b[k] for k, n in launches_6.items()}
 
     # 7. MID-FC, full attention through the ring
     phase("7 MID-FC ring")

@@ -27,11 +27,12 @@
 // or 4x the score entries, and the per-entry work (exp2, the running max,
 // the Philox mask) rather than the tensor cores sets their time.
 //
-// bf16, D = TD in {16, 32, 64} (64: the HRNet heads, d_model 256 in 4
-// heads; 32: d_model 64 in 2 heads, as the learning check runs it, or 256
-// in 8; 16: d_model 32 in 2): both products on the tensor cores, the
-// FlashAttention-2 shape, one template over TD (flash_tc.cuh: TD / 16
-// k-steps of S, TD / 8 n-tiles of O). One block of 4 warps per
+// bf16, D = TD in {16, 32, 64, 128} (64: the HRNet heads, d_model 256 in
+// 4 heads; 128: d_model 256 in 2; 32: d_model 64 in 2 heads, as the
+// learning check runs it, or 256 in 8; 16: d_model 32 in 2): both products
+// on the tensor cores, the FlashAttention-2 shape, one template over TD
+// (flash_tc.cuh: TD / 16 k-steps of S, TD / 8 n-tiles of O). One block of
+// 4 warps per
 // (batch*head, 64-query tile); each warp owns 16 query rows. Q, K and V
 // tiles go global -> shared by cp.async into [64][TD + 8] tiles (padded
 // rows: ldmatrix without bank conflicts), K and V double-buffered, so the
@@ -40,7 +41,9 @@
 // once (ldmatrix) and kept in registers. S = Q K^T runs on mma.sync
 // m16n8k16 (bf16 in, f32 accumulate); 1/temperature multiplies the f32
 // scores (not Q before rounding), folded with log2(e) so the softmax runs
-// on exp2. The running
+// on exp2. At TD = 128 a lane holds 64 f32 accumulators of O and the
+// tiles take 87 KB of (dynamic) shared memory: two blocks per SM. The
+// running
 // max and denominator of a row live in the four lanes that hold it (quad
 // shuffles), the denominator summed per lane and reduced once at the end.
 // P is rounded to bf16 only as the A operand of O += P V (ldmatrix.trans of
@@ -56,7 +59,12 @@
 // product (flash_tf32_fwd.cuh, flash_tf32_d64_fwd.cuh): one TF32 product
 // would miss the f32 checks' 1e-4, three hold it.
 //
-// f32 at D = 128, and bf16 at D = 128 / 256, take the CUDA-core kernel of
+// bf16 at D = 256 (the MID-FC heads in bf16, d_model 256 in one head): the
+// tensor cores in the layout of flash_tf32_fwd.cuh, 8 warps that split D
+// in quarters (flash_bf16_wide_fwd.cuh), since 16 rows x 256 dims of O
+// would take 128 registers a lane.
+//
+// f32 at D = 128 is the one K2 case left on the CUDA-core kernel of
 // flash_wide.cuh: it keeps only the query tile whole in shared memory and
 // walks D in chunks of 64, in f32 arithmetic.
 //
@@ -66,6 +74,7 @@
 // which the wrapper cuts off.
 
 #include "common.cuh"
+#include "flash_bf16_wide_fwd.cuh"
 #include "flash_tc.cuh"
 #include "flash_tf32_d64_fwd.cuh"
 #include "flash_tf32_fwd.cuh"
@@ -85,10 +94,29 @@ struct FwdSmem {
   float kval[2][TILE];  // key flags of the tile in each buffer
 };
 
-// four blocks per SM (128 registers a thread at TD = 64): faster than three
-// with the registers the compiler would take otherwise
+// The tiles of TD <= 64 in static shared memory (46 KB at 64); TD = 128's
+// 87 KB only fit as dynamic shared memory.
 template <int TD>
-__global__ void __launch_bounds__(THREADS, 4)
+__host__ __device__ constexpr int fwd_dyn_smem() {
+  return sizeof(FwdSmem<TD>) <= 48 * 1024 ? 0 : (int)sizeof(FwdSmem<TD>);
+}
+
+template <int TD>
+__device__ __forceinline__ FwdSmem<TD>& fwd_smem() {
+  if constexpr (fwd_dyn_smem<TD>() == 0) {
+    __shared__ __align__(128) FwdSmem<TD> sm;
+    return sm;
+  } else {
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    return *reinterpret_cast<FwdSmem<TD>*>(smem_raw);
+  }
+}
+
+// four blocks per SM up to TD = 64 (128 registers a thread at TD = 64):
+// faster than three with the registers the compiler would take otherwise;
+// two at TD = 128, as many as its shared memory allows
+template <int TD>
+__global__ void __launch_bounds__(THREADS, TD <= 64 ? 4 : 2)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
                     const uint8_t* __restrict__ kv_mask,
@@ -96,7 +124,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     float* __restrict__ lse, int H, int Lq, int Lk,
                     float inv_temp, uint64_t seed, uint32_t thresh,
                     float inv_keep, int use_drop) {
-  __shared__ __align__(128) FwdSmem<TD> sm;
+  FwdSmem<TD>& sm = fwd_smem<TD>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / H;
@@ -241,8 +269,15 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       void* lse, int B, int H, int Lq, int Lk, float inv_temp,
                       uint64_t seed, uint32_t thresh, float inv_keep,
                       int use_drop, cudaStream_t stream) {
+  constexpr int smem = fwd_dyn_smem<TD>();
+  if (smem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<TD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid((unsigned)((Lq + TILE - 1) / TILE), (unsigned)(B * H));
-  flash_fwd_tc_kernel<TD><<<grid, THREADS, 0, stream>>>(
+  flash_fwd_tc_kernel<TD><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_mask),
       static_cast<const uint8_t*>(q_mask), static_cast<bf16*>(out),
@@ -254,9 +289,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, out: [B, H, L, D] contiguous, 16-byte aligned; kv_mask [B, Lk],
-// q_mask [B, Lq] bool bytes; lse [B, H, Lq] f32. D (dk == dv) is 16, 32 or
-// 64 in bf16 (64: the HRNet heads), 64 in f32 (the HRNet heads with f32
-// activations), or 128 or 256 (the MID-FC heads).
+// q_mask [B, Lq] bool bytes; lse [B, H, Lq] f32. D (dk == dv) is 16, 32,
+// 64, 128 or 256 in bf16 (64: the HRNet heads; 256: the MID-FC heads), 64
+// in f32 (the HRNet heads with f32 activations), 128 or 256 in f32 (256:
+// the MID-FC heads).
 // use_drop != 0 applies dropout with keep threshold `thresh` (of 2^32) and
 // scale inv_keep = 1/keep, keyed by `seed`.
 extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
@@ -275,6 +311,11 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
     if (D == 16) CSN_TC(16);
     if (D == 32) CSN_TC(32);
     if (D == 64) CSN_TC(64);
+    if (D == 128) CSN_TC(128);
+    if (D == 256)
+      return csn_tcw::launch_fwd_split<256>(q, k, v, kv_mask, q_mask, out,
+                                            lse, B, H, Lq, Lk, inv_temp, seed,
+                                            thresh, inv_keep, use_drop, s);
   }
 #undef CSN_TC
   if (dtype == csn::kF32 && D == csn_tf32_d64::D)
@@ -291,10 +332,6 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
       nullptr, nullptr, B, H, Lq, Lk, inv_temp, seed, thresh, inv_keep,       \
       use_drop, 0, 0, s)
   if (dtype == csn::kF32 && D == 128) CSN_WIDE(float, 128);
-  if (dtype == csn::kBF16) {
-    if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
-    if (D == 256) CSN_WIDE(__nv_bfloat16, 256);
-  }
 #undef CSN_WIDE
   return cudaErrorInvalidValue;
 }

@@ -51,15 +51,23 @@
 //    dS . K (K as B by ldmatrix.trans). dQ takes 1/T at the end.
 // Dropout words as the forward draws them (flash_tc.cuh drop_words).
 //
+// bf16 at D = 128 and 256 (d_model 256 in 2 heads or 1; the MID-FC heads
+// in bf16) run on the tensor cores in the layout of flash_tf32_bwd.cuh:
+// warps that split D in quarters for S and dP and in eighths for dK, dV
+// and dQ, dS^T handed to the dQ pass through a bf16 scratch
+// (flash_bf16_wide_bwd.cuh): at 16 keys a warp, dK and dV over 128 dims
+// would take 128 accumulator registers.
+//
 // f32 at D = 256 (the MID-FC heads) and at D = 64 (the HRNet heads with f32
 // activations) run on the tensor cores in split TF32 (three TF32 products
 // per f32 product, f32-accurate): flash_tf32_bwd.cuh, flash_tf32_d64_bwd.cuh.
-// f32 at D = 128 and bf16 at D = 128 / 256 take the CUDA-core kernels of
+// f32 at D = 128 is the one case left on the CUDA-core kernels of
 // flash_bwd_wide.cuh, in f32 arithmetic. Other head dims up to 256 come
 // zero-padded by the wrapper (ops/flash.py) to the next width built here:
 // the padded columns of dQ, dK and dV are cut off, delta is unchanged.
 
 #include "common.cuh"
+#include "flash_bf16_wide_bwd.cuh"
 #include "flash_bwd_wide.cuh"
 #include "flash_tc.cuh"
 #include "flash_tf32_bwd.cuh"
@@ -431,10 +439,12 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 
 // q, dout, dq: [B, H, Lq, D]; k, v, dk, dv: [B, H, Lk, D], all contiguous in
 // one type and 16-byte aligned; lse and delta [B, H, Lq] f32; kv_mask [B, Lk]
-// and q_mask [B, Lq] bool bytes. D is 16, 32 or 64 in bf16, 64 in f32, or
-// 128 or 256. Dropout arguments as
-// csn_flash_attn_fwd's. ds_t: f32 scratch of B * H * ceil32(Lk) * ceil32(Lq)
-// for f32 at D = 256 (flash_tf32_bwd.cuh), unused otherwise.
+// and q_mask [B, Lq] bool bytes. D is 16, 32, 64, 128 or 256 in bf16, 64,
+// 128 or 256 in f32. Dropout arguments as
+// csn_flash_attn_fwd's. ds_t: scratch of B * H * ceil32(Lk) * ceil32(Lq)
+// elements in the type of q, through which the dK/dV pass hands dS^T to
+// the dQ pass: f32 at D = 256 (flash_tf32_bwd.cuh), bf16 at D = 128 and 256
+// (flash_bf16_wide_bwd.cuh); unused otherwise.
 extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
@@ -457,6 +467,13 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
   }
 #undef CSN_TC
   const csn_wide_bwd::Drop wd{seed, thresh, inv_keep, use_drop, 0, 0};
+  if (dtype == csn::kBF16 && (D == 128 || D == 256))
+    return D == 128 ? csn_tcw::launch_bwd_split<128>(
+                          q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk,
+                          dv, ds_t, B, H, Lq, Lk, inv_temp, wd, s)
+                    : csn_tcw::launch_bwd_split<256>(
+                          q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk,
+                          dv, ds_t, B, H, Lq, Lk, inv_temp, wd, s);
   if (dtype == csn::kF32 && D == csn_tf32_d64::D)
     return csn_tf32_d64::launch_bwd(q, k, v, dout, lse, delta, kv_mask,
                                     q_mask, dq, dk, dv, B, H, Lq, Lk,
@@ -472,10 +489,6 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                                  dv, B, H, Lq, Lk,         \
                                                  inv_temp, wd, s)
   if (dtype == csn::kF32 && D == 128) CSN_WIDE(float, 128);
-  if (dtype == csn::kBF16) {
-    if (D == 128) CSN_WIDE(__nv_bfloat16, 128);
-    if (D == 256) CSN_WIDE(__nv_bfloat16, 256);
-  }
 #undef CSN_WIDE
   return cudaErrorInvalidValue;
 }

@@ -61,12 +61,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows r0 .. r0+63 of a [L, TD] bf16 matrix into a [64][lds_of(TD)] tile;
-// rows at or past L are zeros. Every thread of the block (nthreads) takes part.
-template <int TD>
+// Rows r0 .. r0+ROWS-1 of a [L, TD] bf16 matrix into a [ROWS][lds_of(TD)]
+// tile; rows at or past L are zeros. Every thread of the block (nthreads)
+// takes part.
+template <int TD, int ROWS = TILE>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
                                           int L, int tid, int nthreads) {
-  for (int i = tid; i < TILE * (TD / 8); i += nthreads) {
+  for (int i = tid; i < ROWS * (TD / 8); i += nthreads) {
     const int r = i / (TD / 8), c = (i % (TD / 8)) * 8;
     const bool ok = r0 + r < L;
     cp_async16(dst + r * lds_of(TD) + c,
@@ -234,6 +235,12 @@ __device__ __forceinline__ int find_live(int t, int nt, int& live,
     if (t >= nt || any) return t;
     live = row_live<ROWS>(mask, L, ++t, tid);
   }
+}
+
+// The 4 warps of a 32-row strip meet (named barrier 1 + strip; barrier 0 is
+// __syncthreads'): the bodies whose warps split D in quarters.
+__device__ __forceinline__ void strip_sync(int strip) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + strip));
 }
 
 // 2^x, flushing results below 2^-126 to zero (probabilities that small

@@ -87,6 +87,7 @@ namespace {
 using csn_tc::drop_words;
 using csn_tc::LN2;
 using csn_tc::NEG_INF;
+using csn_tc::strip_sync;
 
 constexpr int FQ = 64;                     // queries per block
 constexpr int FK = 32;                     // keys per tile
@@ -172,10 +173,7 @@ __device__ __forceinline__ void load_qk(QkOps& o, const float* qs,
   for (int n = 0; n < FNB; ++n) o.b[n] = ld2(ks + sw(8 * n + g, c0 + 2 * t));
 }
 
-// the warps of a strip meet; barrier 0 is __syncthreads'
-__device__ __forceinline__ void strip_sync(int strip) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + strip), "n"(32 * FSPLIT));
-}
+static_assert(32 * FSPLIT == 128, "csn_tc::strip_sync meets 4 warps");
 
 // CARRY: the carry form (out and lse unused; cy read and written); ANY_COL:
 // the dropout words at a column offset that is no multiple of 4

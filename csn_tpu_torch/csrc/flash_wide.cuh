@@ -1,8 +1,8 @@
 // Masked flash attention forward in f32 arithmetic on the CUDA cores for D a
-// multiple of 64 up to 256, shared by K2 in f32 at D = 64 / 128 and in bf16
-// at D = 128 / 256 (flash_attn.cu; f32 at D = 256 runs flash_tf32_fwd.cuh)
-// and by the carry kernel of the ring at every (dtype, D) but f32 at 256
-// (flash_attn_carry.cu; that one runs flash_tf32_fwd.cuh's carry form).
+// multiple of 64 up to 256, shared by K2 in f32 at D = 128 (flash_attn.cu:
+// K2's every other case runs on the tensor cores) and by the carry kernel
+// of the ring at every (dtype, D) but f32 at 256 (flash_attn_carry.cu;
+// that one runs flash_tf32_fwd.cuh's carry form).
 //
 // Same function as flash_attn.cu's tensor-core kernel: online softmax over
 // key tiles, masked keys at NEG_INF, the denominator floored at 1e-30,

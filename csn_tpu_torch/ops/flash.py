@@ -25,19 +25,26 @@ scratch.
   columns of dQ, dK and dV are cut off. The temperature is the caller's
   (sqrt of the true d_k), and the dropout mask, keyed by (seed,
   batch*head, row, column), does not depend on D. Above 256 the wrappers
-  refuse: no body is built wider than the MID-FC heads. bf16 at D = 16,
-  32 and 64 (64: the HRNet heads) runs both directions on the tensor cores
-  (`mma.sync` with f32 accumulators, `cp.async` and `ldmatrix` tiles, one
-  template over D: `csrc/flash_tc.cuh`); f32 at D = 256 (the MID-FC heads,
-  d_k = d_v = 256 per head) runs the forward, the backward and the block
-  backward on them in split TF32, three TF32 products per f32 product
-  (`csrc/flash_tf32_fwd.cuh`, `csrc/flash_tf32_bwd.cuh` over the blocks of
-  `csrc/flash_tf32.cuh`), and so does f32 at D = 64 (the HRNet heads with
-  f32 activations) in K2 and its backward (`csrc/flash_tf32_d64_fwd.cuh`,
-  `csrc/flash_tf32_d64_bwd.cuh`). Every other
-  case (f32 at 128, bf16 at 128 and 256, and the ring's forms but f32 at
-  256) takes the f32 CUDA-core kernels that walk D in chunks of 64
-  (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
+  refuse: no body is built wider than the MID-FC heads. bf16 runs K2 and
+  its backward on the tensor cores at every width (`mma.sync` with f32
+  accumulators, `cp.async` and `ldmatrix` tiles): at D = 16, 32 and 64 (64:
+  the HRNet heads) both directions in one template over D
+  (`csrc/flash_tc.cuh`), and so the forward at D = 128; the forward at
+  D = 256 and the backward at 128 and 256 (d_model 256 in 2 heads or 1, the
+  MID-FC heads in bf16) in a layout of 8 warps that split D among them
+  (`csrc/flash_bf16_wide_fwd.cuh`, `csrc/flash_bf16_wide_bwd.cuh`; the
+  backward hands dS^T to its dQ pass through a bf16 scratch,
+  `_ds_scratch`), whose launches count apart under `"_bf16_wide"`. f32 at
+  D = 256 (the MID-FC heads, d_k = d_v = 256 per head) runs the forward,
+  the backward and the block backward on them in split TF32, three TF32
+  products per f32 product (`csrc/flash_tf32_fwd.cuh`,
+  `csrc/flash_tf32_bwd.cuh` over the blocks of `csrc/flash_tf32.cuh`), and
+  so does f32 at D = 64 (the HRNet heads with f32 activations) in K2 and
+  its backward (`csrc/flash_tf32_d64_fwd.cuh`,
+  `csrc/flash_tf32_d64_bwd.cuh`). f32 K2
+  and its backward at 128, and the ring's forms but f32 at 256, take the
+  f32 CUDA-core kernels that walk D in chunks of 64 (`csrc/flash_wide.cuh`,
+  `csrc/flash_bwd_wide.cuh`).
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
   loop over ONE key block with the running max, denominator and f32
   accumulator carried in and written back raw; `flash_carry_finalize`
@@ -87,25 +94,30 @@ K2_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
                 torch.float32: (64, 128, 256)}
 RING_HEAD_DIMS = (64, 128, 256)   # the carry and the block backward
 MAX_HEAD_DIM = 256
-# f32 at this head dim runs both backward forms (csrc/flash_tf32_bwd.cuh),
-# which pass dS from their dK/dV pass to their dQ pass through an f32
-# scratch of B * H * ceil32(Lk) * ceil32(Lq); the D = 64 body recomputes
-# dS in its dQ pass instead (8.1 GB of scratch at the HRNet SSA call)
-DS_SCRATCH_HEAD_DIM = 256
+# The backward bodies that pass dS from their dK/dV pass to their dQ pass
+# through a scratch of B * H * ceil32(Lk) * ceil32(Lq) elements in q's
+# dtype, by form ("k2": K2's backward, "block": the ring's block backward)
+# and dtype: f32 at 256 in both forms (csrc/flash_tf32_bwd.cuh), bf16 at 128
+# and 256 in K2's (csrc/flash_bf16_wide_bwd.cuh). The f32 D = 64 body
+# recomputes dS in its dQ pass instead (8.1 GB of scratch at the HRNet SSA
+# call).
+DS_SCRATCH = {"k2": {torch.float32: (256,), torch.bfloat16: (128, 256)},
+              "block": {torch.float32: (256,)}}
 
 
 def _ceil32(n: int) -> int:
     return -(-n // 32) * 32
 
 
-def _ds_scratch(q, B, H, Lq, Lk, D) -> Optional[torch.Tensor]:
-    """The f32 scratch through which the split-TF32 backward at head dim
-    256 hands dS^T from its dK/dV pass to its dQ pass (f32 at
-    DS_SCRATCH_HEAD_DIM only; None for the other bodies, which read none)."""
-    if q.dtype != torch.float32 or D != DS_SCRATCH_HEAD_DIM:
+def _ds_scratch(q, B, H, Lq, Lk, D, form: str = "k2"
+                ) -> Optional[torch.Tensor]:
+    """The scratch through which the backward body of `form` at (q's dtype,
+    D) hands dS^T from its dK/dV pass to its dQ pass (`DS_SCRATCH`), in q's
+    dtype; None for the other bodies, which read none."""
+    if D not in DS_SCRATCH[form].get(q.dtype, ()):
         return None
-    return torch.empty(B * H * _ceil32(Lk) * _ceil32(Lq),
-                       dtype=torch.float32, device=q.device)
+    return torch.empty(B * H * _ceil32(Lk) * _ceil32(Lq), dtype=q.dtype,
+                       device=q.device)
 
 
 _MASK32 = 0xFFFFFFFF
@@ -219,11 +231,24 @@ def k2_split_tf32_d64(dtype: torch.dtype, d: int) -> bool:
         d, K2_HEAD_DIMS[dtype]) == 64
 
 
-def _k2_row(what: str, q: torch.Tensor) -> str:
-    """The `kernels.LAUNCHES` row of a K2 launch on q: `what`, or `what +
-    "_tf32_d64"` on the f32 D=64 bodies."""
-    return what + "_tf32_d64" if k2_split_tf32_d64(q.dtype, q.shape[-1]) \
-        else what
+def k2_bf16_wide(dtype: torch.dtype, d: int) -> bool:
+    """Whether K2 and its backward run head dim `d` in `dtype` at the bf16
+    widths 128 and 256 (bf16 head dims 65-256, zero-padded up to those
+    widths), whose launches count apart under `"_bf16_wide"`: the forward
+    at 128 on `csrc/flash_tc.cuh`'s template, the forward at 256 and the
+    backward at both on `csrc/flash_bf16_wide_*.cuh`."""
+    return dtype == torch.bfloat16 and padded_head_dim(
+        d, K2_HEAD_DIMS[dtype]) in (128, 256)
+
+
+def k2_row(what: str, dtype: torch.dtype, d: int) -> str:
+    """The `kernels.LAUNCHES` row of a K2 launch (`what`: "flash_attn_fwd"
+    or "flash_attn_bwd") at head dim `d` in `dtype`: `what + "_tf32_d64"`
+    on the f32 D=64 bodies, `what + "_bf16_wide"` at the bf16 widths 128
+    and 256, else `what`."""
+    if k2_split_tf32_d64(dtype, d):
+        return what + "_tf32_d64"
+    return what + "_bf16_wide" if k2_bf16_wide(dtype, d) else what
 
 
 def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -251,15 +276,15 @@ def _masks(what, q, k, kv_mask, q_mask):
 
 
 def _require_aligned(what, *tensors):
-    """The tensor-core bodies (bf16 at head dims 16, 32 and 64, f32 at 64
-    and 256) copy their tiles 16 bytes at a time
+    """The tensor-core bodies (bf16 at every head dim, f32 at 64 and 256)
+    copy their tiles 16 bytes at a time
     with cp.async, and the carry kernels read the accumulator in 8- and
     16-byte words: a misaligned start would read the wrong bytes rather
     than fail. A zero-padded head is a fresh allocation, aligned."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: q, k, v (and dout, or the carry's acc) "
                          f"must start on a 16-byte boundary: the tensor-core "
-                         f"bodies (bf16 at head dims 16-64, f32 at 64 and "
+                         f"bodies (bf16 at every head dim, f32 at 64 and "
                          f"256) copy them 16 bytes at a time")
 
 
@@ -298,7 +323,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), B, H, Lq, k.shape[2], D, 1.0 / float(temperature),
         *drop, kernels.stream())
     kernels.check(code, what)
-    kernels.LAUNCHES[_k2_row(what, q)] += 1
+    kernels.LAUNCHES[k2_row(what, q.dtype, D)] += 1
     return out, lse
 
 
@@ -338,7 +363,7 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, kv_mask=None, q_mask=None,
         dv.data_ptr(), 0 if ds_t is None else ds_t.data_ptr(), B, H, Lq, Lk,
         D, 1.0 / float(temperature), *drop, kernels.stream())
     kernels.check(code, what)
-    kernels.LAUNCHES[_k2_row(what, q)] += 1
+    kernels.LAUNCHES[k2_row(what, q.dtype, D)] += 1
     return dq, dk, dv
 
 
@@ -533,7 +558,7 @@ def flash_block_backward(q, k, v, kv_mask, out, lse, g, temperature: float,
     Lk = k.shape[2]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ds_t = _ds_scratch(q, B, H, Lq, Lk, D)
+    ds_t = _ds_scratch(q, B, H, Lq, Lk, D, "block")
     code = kernels.library().csn_flash_attn_block_bwd(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(), kv_mask.data_ptr(),

@@ -23,9 +23,13 @@ of 20 calls, the device's time without the wrappers' host work, with a
 warm L2 and from device memory: `tools/timing.py`), and the flash pair
 (`flash_attn_fwd`, `flash_attn_bwd`) at the HRNet SSA call [16, 4, 5632,
 64] in bf16 and f32, at the f32 CSA call [8, 4, 5632, 64] against 5632
-keys, with ragged masks, and at the MID-FC chunk shape [80, 8, 500, 256] in
-f32, at dropout 0 and 0.1 (device time from CUDA graphs, warm L2), and the
-gather probes
+keys, with ragged masks, at the MID-FC chunk shape [80, 8, 500, 256] in
+f32 and bf16, and at the SSA call with d_model 256 in 2 heads of 128 and 1
+of 256 in bf16, at dropout 0 and 0.1 (device time from CUDA graphs, warm
+L2), with the other bodies' outputs for the bitwise comparison (bf16 D=32
+and 16, f32 D=128, at the SSA call cut to 4 shapes; the ring's carry and
+block backward on one 2500-key block in f32 and bf16 at D=256 and in f32
+at D=64), and the gather probes
 (`probe_gather_accum` in its three modes at the probe scripts' timing
 geometry, 352 tiles x 9 offsets x 256 rows x 128 channels, with the bf16
 window at W = 384 and the f32 window at W = 384 and 256, row ids outside
@@ -86,6 +90,7 @@ FLASH_SHAPE = (16, 4, 5632, 64)
 # 256
 MIDFC_SHAPE = (80, 8, 500, 256)
 FLASH_DROPOUT, FLASH_SEED = 0.1, 0x5EED
+RING_BLOCK = 2500   # keys of one ring hop at phase 7's shape (10000 / 4)
 
 
 def _median_ms(fn, reps: int, batch: int = 10) -> float:
@@ -269,8 +274,11 @@ def flash_worker(reps: int) -> dict:
     """The current checkout's flash pair: {shape: {kernel at dropout:
     entry}}, at FLASH_SHAPE (the HRNet SSA call) in bf16 and in f32 (the
     f32 HRNet step's call), at the CSA call (8 query shapes against 8 key
-    shapes, the same sizes) in f32, and at the MID-FC chunk shape
-    MIDFC_SHAPE in f32 (head dim 256). Each shape's valid rows are a prefix
+    shapes, the same sizes) in f32, at the MID-FC chunk shape MIDFC_SHAPE
+    in f32 and bf16 (head dim 256), and at the SSA call with d_model 256 in
+    2 heads of 128 and 1 of 256 in bf16; then, for their bits, bf16 D=32
+    and 16 and f32 D=128 at the SSA call cut to 4 shapes and the ring's
+    per-block kernels (`_ring_calls`). Each shape's valid rows are a prefix
     of seeded length (as a padded point set); the SSA call takes one mask
     for queries and keys."""
     import torch
@@ -302,7 +310,54 @@ def flash_worker(reps: int) -> dict:
     ones = torch.ones(b, L, dtype=torch.bool, device=dev)
     res[f"flash MID-FC chunks [{b},{h},{L},{d}] float32"] = _flash_calls(
         *x, ones, ones, reps)
+    # bf16 at the widths 128 and 256: the MID-FC chunks, and the SSA call
+    # with d_model 256 in 2 heads of 128 and 1 of 256
+    xb = [t.to(torch.bfloat16) for t in x]
+    res[f"flash MID-FC chunks [{b},{h},{L},{d}] bfloat16"] = _flash_calls(
+        *xb, ones, ones, reps)
+    b, h, L, d = FLASH_SHAPE
+    for d in (128, 256):
+        x, mask = inputs(b, h * FLASH_SHAPE[3] // d, L, d, torch.bfloat16)
+        res[f"flash SSA [{b},{x[0].shape[1]},{L},{d}] bfloat16"] = \
+            _flash_calls(*x, mask, mask, reps)
+    # the other bodies' bits, at the SSA call cut to 4 shapes
+    for d, dt in ((32, torch.bfloat16), (16, torch.bfloat16),
+                  (128, torch.float32)):
+        x, mask = inputs(4, h * FLASH_SHAPE[3] // d, L, d, dt)
+        res[f"flash SSA [4,{x[0].shape[1]},{L},{d}] {str(dt)[6:]}"] = \
+            _flash_calls(*x, mask, mask, reps)
+    for d, dt in ((256, torch.float32), (256, torch.bfloat16),
+                  (64, torch.float32)):
+        x, mask = inputs(2, 8, RING_BLOCK, d, dt)
+        res[f"ring block [2,8,{RING_BLOCK},{d}] {str(dt)[6:]}"] = \
+            _ring_calls(*x, mask, reps)
     return res
+
+
+def _ring_calls(q, k, v, dout, kmask, reps: int) -> dict:
+    """{kernel at dropout: entry} of the ring's per-block kernels on one
+    key block at column offset RING_BLOCK (`flash_forward_carry` from a
+    fresh carry, `flash_block_backward` against that block's own lse), at
+    dropout 0 and FLASH_DROPOUT."""
+    from csn_tpu_torch.ops import flash
+
+    temp = float(q.shape[-1]) ** 0.5
+    b, h, lq, d = q.shape
+    carry = flash.flash_carry_init(b, h, lq, d, q.device)
+    calls = {}
+    for drop in (0.0, FLASH_DROPOUT):
+        sd = FLASH_SEED if drop else None
+        out, lse = flash.flash_carry_finalize(flash.flash_forward_carry(
+            q, k, v, kmask, None, carry, temp, drop, sd, 0, RING_BLOCK))
+        out = out.to(q.dtype)
+        calls[f"flash_attn_carry dropout {drop}"] = (
+            lambda drop=drop, sd=sd: flash.flash_forward_carry(
+                q, k, v, kmask, None, carry, temp, drop, sd, 0, RING_BLOCK))
+        calls[f"flash_attn_block_bwd dropout {drop}"] = (
+            lambda drop=drop, sd=sd, out=out, lse=lse:
+            flash.flash_block_backward(q, k, v, kmask, out, lse, dout, temp,
+                                       drop, sd, 0, RING_BLOCK))
+    return {name: _entry(fn, reps, graph_ms) for name, fn in calls.items()}
 
 
 def probe_worker(reps: int) -> dict:

@@ -11,7 +11,8 @@
 * the plain attention's backward (autograd) at dropout 0 against `jax.vjp`
   of JAX `scaled_dot_product_attention`: max abs <= 1e-5, and against the
   Pallas `_flash_backward` in interpret mode with masks: max abs <= 3e-2
-  (bf16 rounding inside the TPU kernel);
+  (bf16 rounding inside the TPU kernel); the same in bf16 at head dims 128
+  and 256, forward and backward, max abs <= 3e-2;
 * dropout, which cannot be compared with the TPU's own random bits (its
   PRNG has no CPU lowering): the torch Philox4x32-10 against an independent
   pure-Python-int version and the Random123 known-answer vectors (exact),
@@ -252,6 +253,54 @@ def test_plain_attention_backward_matches_pallas_flash_interpret():
         assert err <= 3e-2, err
 
 
+@pytest.mark.parametrize("d", [128, 256])
+def test_plain_bf16_attention_matches_pallas_flash_interpret_wide(d):
+    """The port's plain attention in bf16 (what the card's checks hold the
+    bf16 kernels at head dims 128 and 256 to) and its autograd against the
+    Pallas `_flash_forward` and `_flash_backward` run in interpret mode at
+    those head dims, with query and key masks, on the same bf16 values:
+    out and lse on valid query rows, dq on valid rows, dk and dv, each
+    within a share of its reference's max abs on those entries: 2e-2 for
+    out, dq, dk and dv (the bf16 tolerance of the card's checks; measured
+    below 5e-3 of max|ref| here), 1e-5 for lse, an f32 log-sum-exp of the
+    same bf16 scores in both (measured about 1e-7). The TPU kernel rounds
+    q, k, v and the probabilities to bf16; the port rounds q / T, the
+    probabilities and its bf16 outputs."""
+    rng = np.random.default_rng(20 + d)
+    b, h, lq, lk = 2, 1, 150, 130
+    bf = torch.bfloat16
+    q, k, v = (torch.from_numpy(x).to(bf) for x in _qkv(rng, b, h, lq, lk, d))
+    kv, qm = _masks(rng, b, lq, lk)
+    g = (torch.from_numpy(rng.normal(size=(b, h, lq, d)).astype(np.float32))
+         * torch.from_numpy(qm)[:, None, :, None]).to(bf)
+    temp = float(d) ** 0.5
+    jq, jk, jv, jg = (jnp.asarray(x.float().numpy()) for x in (q, k, v, g))
+    jkv, jqm = jnp.asarray(kv), jnp.asarray(qm)
+    with jflash.interpret_mode():
+        ref, ref_lse = jflash._flash_forward(jq, jk, jv, jkv, jqm, temp,
+                                             block_q=64, block_k=128)
+        refs = jflash._flash_backward(jq, jk, jv, jkv, jqm, ref, ref_lse, jg,
+                                      temp, block_q=64, block_k=128)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got, got_lse = attention.scaled_dot_product_attention(
+        *leaves, torch.from_numpy(kv), temp, return_lse=True)
+    grads = torch.autograd.grad(got, leaves, g)
+    valid = qm[:, None, :]
+    for name, a, r, vm in (
+            ("out", got, ref, valid[..., None]),
+            ("lse", got_lse, ref_lse, valid),
+            ("dq", grads[0], refs[0], valid[..., None]),
+            ("dk", grads[1], refs[1], None), ("dv", grads[2], refs[2], None)):
+        r = np.asarray(r, dtype=np.float32)
+        diff = a.detach().float().numpy() - r
+        if vm is not None:
+            diff, r = np.where(vm, diff, 0.0), np.where(vm, r, 0.0)
+        err, scale = float(np.abs(diff).max()), float(np.abs(r).max())
+        tol = (1e-5 if name == "lse" else 2e-2) * scale
+        assert err <= tol, f"{name} at D={d}: max abs err {err:.3e}, " \
+            f"tol {tol:.3e} (max|ref| {scale:.3e})"
+
+
 def test_mha_train_mode_dropout_needs_generator_and_is_deterministic():
     rng = np.random.default_rng(10)
     b, lq, dm, nh = 2, 24, 32, 2
@@ -352,15 +401,31 @@ def test_mha_use_flash_asks_for_the_kernels():
     assert tm(x, x, x).shape == (1, 8, 16)
 
 
-def _tc_rounding(q, k, v, dout, kv_mask, temp, dropout, seed):
-    """The bf16 head-dim-64 kernels' arithmetic in plain torch: bf16
+def _parts_product(a, b, parts):
+    """a @ b^T in f32 as the split bodies sum it: `parts` partial products
+    over equal slices of the last dim (a warp's quarter of D), added from
+    zero in slice order."""
+    w = a.shape[-1] // parts
+    out = torch.zeros(a.shape[:-1] + b.shape[-2:-1])
+    for j in range(parts):
+        sl = slice(j * w, (j + 1) * w)
+        out = out + a[..., sl] @ b[..., sl].transpose(-1, -2)
+    return out
+
+
+def _tc_rounding(q, k, v, dout, kv_mask, temp, dropout, seed, fwd_parts=1,
+                 bwd_parts=1):
+    """The bf16 tensor-core kernels' arithmetic in plain torch: bf16
     operands, f32 scores times 1/temperature, f32 softmax statistics; the
     forward rounds the (dropped) unnormalized probabilities to bf16 before
     P V and divides by the f32 denominator at the end; the backward rounds
     m P / keep and dS to bf16 before dV, dK and dQ, every product
-    accumulated in f32. Returns (out bf16, dq, dk, dv f32)."""
+    accumulated in f32. The split bodies (D = 256 forward, D = 128 and 256
+    backward) sum S, and in the backward dP, over D's quarters in one
+    fixed order (`fwd_parts`, `bwd_parts` = 4; 1: one product over all of
+    D). Returns (out bf16, dq, dk, dv f32)."""
     qf, kf, vf, gf = (x.float() for x in (q, k, v, dout))
-    s = (qf @ kf.transpose(-1, -2)) / temp
+    s = _parts_product(qf, kf, fwd_parts) / temp
     s = s.masked_fill(~kv_mask[:, None, None, :], flash.NEG_INF)
     mx = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - mx)
@@ -375,8 +440,11 @@ def _tc_rounding(q, k, v, dout, kv_mask, temp, dropout, seed):
     num = torch.where(keep, e * inv_keep, 0.0).to(bf).float()
     out = ((num @ vf) / den).to(bf)
     delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    if bwd_parts != fwd_parts:
+        s = _parts_product(qf, kf, bwd_parts) / temp
+        s = s.masked_fill(~kv_mask[:, None, None, :], flash.NEG_INF)
     p = torch.exp(s - lse)
-    dp = torch.where(keep, (gf @ vf.transpose(-1, -2)) * inv_keep, 0.0)
+    dp = torch.where(keep, _parts_product(gf, vf, bwd_parts) * inv_keep, 0.0)
     ds = (p * (dp - delta)).to(bf).float()
     pd = torch.where(keep, p * inv_keep, 0.0).to(bf).float()
     dv = pd.transpose(-1, -2) @ gf
@@ -385,23 +453,33 @@ def _tc_rounding(q, k, v, dout, kv_mask, temp, dropout, seed):
     return out, dq, dk, dv
 
 
+# the partial products whose f32 sums S (forward, backward) the bf16 bodies
+# add up, by head dim: one product over D (`csrc/flash_tc.cuh`), or D's four
+# quarters (`csrc/flash_bf16_wide_*.cuh`)
+TC_PARTS = {64: (1, 1), 128: (1, 4), 256: (4, 4)}
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
-def test_tensor_core_rounding_points_hold_the_bf16_tolerance(dropout):
-    """Before the card: the rounding points of the bf16 D=64 kernels
-    (`csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu`) emulated in plain
-    torch stay within chip_smoke's bf16 tolerance, 2e-2 x max|ref|, of the
-    plain attention and its autograd (which round only the normalized
-    probabilities before P V), at a ragged shape with masks."""
+def test_tensor_core_rounding_points_hold_the_bf16_tolerance(dropout, d):
+    """Before the card: the rounding points of the bf16 tensor-core kernels
+    (`csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu`) at D = 64, 128 and
+    256, with the split bodies' sums over D's quarters (`TC_PARTS`),
+    emulated in plain torch, stay within chip_smoke's bf16 tolerance,
+    2e-2 x max|ref|, of the plain attention and its autograd (which round
+    only the normalized probabilities before P V), at a ragged shape with
+    masks."""
     rng = np.random.default_rng(11)
-    b, h, lq, lk, d = 2, 2, 100, 77, 64
+    b, h, lq, lk = 2, 2, 100, 77
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
                for x in _qkv(rng, b, h, lq, lk, d))
     kv, qm = _masks(rng, b, lq, lk)
     kv, qm = torch.from_numpy(kv), torch.from_numpy(qm)
     dout = (torch.from_numpy(rng.normal(size=(b, h, lq, d)))
             * qm[:, None, :, None]).to(torch.bfloat16)
-    temp, seed = 8.0, 0x5EED
-    out, dq, dk, dv = _tc_rounding(q, k, v, dout, kv, temp, dropout, seed)
+    temp, seed = float(d) ** 0.5, 0x5EED
+    out, dq, dk, dv = _tc_rounding(q, k, v, dout, kv, temp, dropout, seed,
+                                   *TC_PARTS[d])
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     ref = attention.scaled_dot_product_attention(
         *leaves, kv, temp, dropout=dropout, seed=seed if dropout else None)
@@ -987,9 +1065,11 @@ def test_block_backward_refuses_a_misaligned_view(monkeypatch):
 # ---------------------------------------------------------------------------
 
 # the widths of `K2_HEAD_DIMS` whose K2 and backward run on the tensor
-# cores: bf16 in one template over D (csrc/flash_tc.cuh), f32 in split TF32
-# (64: csrc/flash_tf32_d64_*.cuh; 256: csrc/flash_tf32_*.cuh)
-TENSOR_CORE_HEAD_DIMS = {torch.bfloat16: (16, 32, 64),
+# cores: bf16 at every width (16-64 and the forward at 128:
+# csrc/flash_tc.cuh; the forward at 256, the backward at 128 and 256:
+# csrc/flash_bf16_wide_*.cuh), f32 in split TF32 (64:
+# csrc/flash_tf32_d64_*.cuh; 256: csrc/flash_tf32_*.cuh)
+TENSOR_CORE_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
                          torch.float32: (64, 256)}
 
 
@@ -997,8 +1077,9 @@ TENSOR_CORE_HEAD_DIMS = {torch.bfloat16: (16, 32, 64),
 def test_k2_tensor_core_bodies_match_the_dispatch(source):
     """The C launcher's dispatch: of the (dtype, width) pairs of
     `K2_HEAD_DIMS` it sends exactly those off `TENSOR_CORE_HEAD_DIMS` (f32
-    128, bf16 128 and 256) to the CUDA-core bodies (`CSN_WIDE`), and f32
-    at 64 to the split-TF32 D=64 body."""
+    128 alone) to the CUDA-core bodies (`CSN_WIDE`), f32 at 64 to the
+    split-TF32 D=64 body, and bf16 at 256 (and in the backward at 128) to
+    the split bf16 bodies."""
     text = (kernels.CSRC / source).read_text()
     body = text[text.index('extern "C" int csn_flash_attn'):]
     names = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16}
@@ -1009,6 +1090,28 @@ def test_k2_tensor_core_bodies_match_the_dispatch(source):
                     if w not in TENSOR_CORE_HEAD_DIMS[dt]}
     assert "dtype == csn::kF32 && D == csn_tf32_d64::D" in body
     assert "csn_tf32_d64::launch_" in body
+    split = "launch_fwd_split<256>" if source == "flash_attn.cu" \
+        else "launch_bwd_split<128>"
+    assert f"csn_tcw::{split}" in body
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_wide_bodies_count_in_rows_of_their_own(dtype):
+    """`k2_bf16_wide`, which names the launch rows: every bf16 head dim that
+    K2 runs at width 128 or 256 (65-256, zero-padded up to them) counts in
+    the `"_bf16_wide"` rows, and no other (bf16 1-64, f32 at any); `k2_row`
+    names each head dim's row."""
+    for d in range(1, flash.MAX_HEAD_DIM + 1):
+        want = dtype == torch.bfloat16 and d > 64
+        assert flash.k2_bf16_wide(dtype, d) == want, d
+        for what in ("flash_attn_fwd", "flash_attn_bwd"):
+            row = flash.k2_row(what, dtype, d)
+            assert row in kernels.LAUNCHES
+            assert row.endswith("_bf16_wide") == want, (d, row)
+            assert row.endswith("_tf32_d64") == (
+                dtype == torch.float32 and d <= 64), (d, row)
+    assert {k for k in kernels.LAUNCHES if k.endswith("_bf16_wide")} == {
+        "flash_attn_fwd_bf16_wide", "flash_attn_bwd_bf16_wide"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1024,20 +1127,30 @@ def test_f32_d64_bodies_count_in_rows_of_their_own(dtype):
 
 
 def test_ds_scratch_only_for_the_bodies_that_read_it():
-    """The dS^T scratch is allocated for the f32 D=256 backward alone
-    (B H ceil32(Lk) ceil32(Lq) f32); the f32 D=64 body recomputes dS in its
-    dQ pass and gets none (it would be 8.1 GB at the HRNet SSA call), nor
-    do the bf16 and f32 D=128 bodies."""
+    """The dS^T scratch (B H ceil32(Lk) ceil32(Lq) elements in q's dtype)
+    is allocated for the bodies that hand dS^T from their dK/dV pass to
+    their dQ pass: the f32 D=256 backward (f32; its ring form too) and the
+    bf16 D=128 and 256 backward (bf16; K2's only: the ring's bf16 block
+    backward reads none). The f32 D=64 body recomputes dS in its dQ pass
+    and gets none (it would be 8.1 GB at the HRNet SSA call), nor do f32
+    D=128 and bf16 D <= 64."""
     B, H, Lq, Lk = 2, 3, 70, 45
     for dtype, d in ((torch.float32, 64), (torch.float32, 128),
-                     (torch.bfloat16, 64), (torch.bfloat16, 256)):
+                     (torch.bfloat16, 64), (torch.bfloat16, 32)):
         q = torch.empty(B, H, Lq, d, dtype=dtype, device="meta")
         assert flash._ds_scratch(q, B, H, Lq, Lk, d) is None
-    q = torch.empty(B, H, Lq, 256, device="meta")
-    ds_t = flash._ds_scratch(q, B, H, Lq, Lk, 256)
-    assert ds_t.dtype == torch.float32 and ds_t.numel() == B * H * 64 * 96
-    # the SSA call's scratch at D=64, had the body kept it
+        assert flash._ds_scratch(q, B, H, Lq, Lk, d, "block") is None
+    for dtype, d in ((torch.float32, 256), (torch.bfloat16, 128),
+                     (torch.bfloat16, 256)):
+        q = torch.empty(B, H, Lq, d, dtype=dtype, device="meta")
+        ds_t = flash._ds_scratch(q, B, H, Lq, Lk, d)
+        assert ds_t.dtype == dtype and ds_t.numel() == B * H * 64 * 96
+        ring = flash._ds_scratch(q, B, H, Lq, Lk, d, "block")
+        assert (ring is None) == (dtype == torch.bfloat16)
+    # the SSA call's scratch at D=64, had the body kept it; the bf16 one at
+    # d_model 256 in 2 heads of 128
     assert 16 * 4 * 5632 * 5632 * 4 / 1e9 > 8.1
+    assert 16 * 2 * 5632 * 5632 * 2 / 1e9 < 2.1
 
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
@@ -1273,3 +1386,45 @@ def test_flash_fn_pads_heads_to_the_kernels_widths(monkeypatch, d, dtype):
         err = (a.float() - r.float()).abs().max().item()
         scale = r.float().abs().max().item()
         assert err <= (1e-5 if dtype == torch.float32 else 2e-2 * scale)
+
+
+@pytest.mark.parametrize("d", [65, 96, 128, 200, 256])
+def test_flash_fn_counts_wide_bf16_heads_in_their_rows(monkeypatch, d):
+    """`FlashAttentionFn` at bf16 head dims 65-256, its launchers stood in
+    for by the plain version (`_PlainLibrary`): each launcher is handed
+    width 128 or 256, the launches count once forward and once backward in
+    the `"_bf16_wide"` rows and nowhere else, and the output and gradients,
+    cut back to d, equal the unpadded plain version within 2e-2 x
+    max|ref| (the card's bf16 tolerance) at dropout 0.1."""
+    lib = _PlainLibrary(0.1)
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LAUNCHES,
+                                                           0))
+    rng = np.random.default_rng(90 + d)
+    bf = torch.bfloat16
+    q, k, v = (torch.from_numpy(x).to(bf) for x in _qkv(rng, 2, 1, 40, 56, d))
+    kv = torch.from_numpy(_masks(rng, 2, 40, 56)[0])
+    g = torch.from_numpy(rng.normal(size=(2, 1, 40, d)).astype(np.float32)
+                         ).to(bf)
+    temp = float(d) ** 0.5
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, g))
+
+    got = run(lambda a, b, c: flash.FlashAttentionFn.apply(
+        a, b, c, kv, None, temp, 0.1, 7))
+    ref = run(lambda a, b, c: attention.scaled_dot_product_attention(
+        a, b, c, kv, temp, dropout=0.1, seed=7))
+    width = 128 if d <= 128 else 256
+    assert lib.calls == [("fwd", bf, width), ("bwd", bf, width)]
+    assert kernels.LAUNCHES["flash_attn_fwd_bf16_wide"] == 1
+    assert kernels.LAUNCHES["flash_attn_bwd_bf16_wide"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 2
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == bf
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * r.float().abs().max().item()

@@ -9,7 +9,9 @@ Tolerances (f32 both sides, different summation orders): eval logits max abs
 <= 1e-5 (after_fc=False, whose fc_1 + BatchNorm widen the range: 1e-4·max|ref|);
 loss rel <= 1e-5; every gradient <= 1e-4·max|ref| of its tensor; parameters
 after two Adam steps <= 1e-5 wherever the step's direction is defined (see
-`_assert_params_close`); retrieval measure <= 1e-5, kNN graphs equal.
+`_assert_params_close`); retrieval measure <= 1e-5, kNN graphs equal. One
+CSA train step in bf16 at heads of 128 (both packages in bf16): loss rel
+<= 2e-3, every gradient <= 2e-2·max|ref|.
 """
 
 import os
@@ -165,6 +167,40 @@ def test_runner_two_adam_steps_match_jax(attention_type):
         tr._apply(tg)
     _assert_params_close(tr.params, flax_to_torch_midfc(_np(jr.params)),
                          smallest, tr.lr)
+
+
+def test_bf16_csa_train_step_matches_jax_bf16_step():
+    """The slice in bf16: one MID-FC CSA train step (dropout 0) with
+    compute_dtype "bfloat16" in both packages, at heads of 128 (d_model 128
+    in 2 heads: the width of the bf16 D=128 kernels; the plain attention on
+    the CPU), on the same numpy inputs and converted weights. Tolerances:
+    the loss within 2e-3 relative (the f32 logit head reads bf16 attention
+    outputs, each rounded to 2^-9 of itself), every gradient within 2e-2 x
+    max|ref| of its tensor (the card's bf16 tolerance: a few bf16 roundings,
+    which the two packages place differently)."""
+    d, heads = 128, 2
+    kw = dict(num_classes=C, n_heads=heads, K=K, batch_size=B, d_model=d,
+              chunk_size=20, num_points=P, use_flash=False,
+              weight_decay=5e-4, compute_dtype="bfloat16")
+    jr = JMidfcRunner(JMidfcConfig(**kw), "csa")
+    jr.model = jr.model.clone(dropout=0.0)
+    jr._grad = jax.jit(jr._make_grad())
+    feats, labels, neighbors = _inputs(3, d=d)
+    jr.initialize(feats, neighbors)
+    tr = MidfcRunner(MidfcConfig(**kw), "csa", device="cpu")
+    tr.initialize()
+    tr.model.attention.mha.dropout = 0.0
+    tr.load_state(flax_to_torch_midfc(_np(jr.params)))
+    assert tr.model.compute_dtype == torch.bfloat16
+    jl, jg = jr._grad(jr.params, jnp.asarray(feats), jnp.asarray(labels),
+                      jnp.asarray(neighbors), jax.random.PRNGKey(0))
+    tl, tg = tr._grad(feats, labels, neighbors, 0)
+    assert abs(float(tl) - float(jl)) <= 2e-3 * abs(float(jl))
+    ref_g = flax_to_torch_midfc(_np(jg))
+    assert set(tg) == set(ref_g)
+    for name, r in ref_g.items():
+        err = float((tg[name].float() - r).abs().max())
+        assert err <= 2e-2 * float(r.abs().max()), (name, err)
 
 
 def test_nan_loss_zeroes_loss_and_gradients():
