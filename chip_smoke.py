@@ -100,11 +100,18 @@ Phases (each prints its lines; any failure exits nonzero):
      over 4 key blocks of 2500 at [2, 8, 10000, 256] against
      `online_block_update` chained the same way and against one K2 pass
      over all 10000 keys, and `flash_attn_block_bwd` summed over the 4
-     blocks against one `flash_attn_bwd` call; in the chain cut unevenly
-     (blocks at columns 1, 3, 2 mod 4, f32, dropout 0.1) the carry also
-     against a float64 reference with a wrong-offset run that must
-     disagree, and a block with padding query rows (scattered, and one
-     padding 64-row tile) whose carry must pass through bit for bit; the
+     blocks against one `flash_attn_bwd` call, in f32 and in bf16 (the
+     `_bf16_wide` rows: the carry and block forms of K2's bf16 split
+     bodies) at dropout 0 and 0.1, each launch repeated bitwise; in the
+     chains cut unevenly (blocks at columns 1, 3, 2 mod 4, f32 and bf16,
+     dropout 0.1) the carry and the block backward also against a float64
+     reference beside the f32 plain version, with a wrong-offset run that
+     must disagree, a slice of the query rows at its row offset, and a
+     block with padding query rows (scattered, and one padding 64-row
+     tile) whose carry must pass through bit for bit; both timed at the
+     ring of one (f32: one call with its host work; bf16: device time from
+     CUDA graphs at dropout 0.1 and 0) beside the bound, the plain chain
+     and the library call; the
      carry chain and the block backward zero-padded by their wrappers (D=32
      f32, D=24 bf16, masked, dropout 0.1, `check_ring_padded`) against the
      same plain chains, and a ring of one at D=24 bf16 (padded once at its
@@ -158,7 +165,11 @@ Phases (each prints its lines; any failure exits nonzero):
      `torch.distributed` group of one rank, through the `parallel/midfc.py`
      steps at B=2: one eval request and one train step on
      `flash_attn_carry` and `flash_attn_block_bwd`, the logits held against
-     the same model without the group (K2);
+     the same model without the group (K2), ms per eval and train step,
+     one f32 B=1 step against the CPU's; 7b: the same with
+     `compute_dtype="bfloat16"` on the `_bf16_wide` rows (no launch of the
+     CUDA-core or f32 ring rows), the B=1 step against the CPU's bf16 step
+     within GRAD_TOL_BF16 / LOSS_TOL_BF16;
   8. the trainer, inside CSN_DYNG=2: `tasks/main_csn.build_trainer` and
      `CSNTrainer.train()` on HRNetSimCSN3S at the protocol below (SGD, bf16)
      over an in-memory synthetic collection (16 train, 8 val, 8 test shapes
@@ -317,6 +328,11 @@ WIDE_HEADS = 2   # phase 5's bf16 requests again at d_model 256 in heads of 128
 N_REQUESTS, TIMED_STEPS, SEED = 3, 10, 0
 ATTN_DROPOUT, LR = 0.1, 0.05
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max|ref|
+# the ring's per-block kernels given a column offset one off must disagree
+# with the plain version at the right offset by more than this x max|ref|
+# (the shifted dropout mask differs in about a fifth of its entries): 100x
+# TOL in f32, 5x in bf16
+WRONG_OFFSET = {torch.float32: 1e-2, torch.bfloat16: 1e-1}
 # f32 train step, kernels on the GPU vs plain on the CPU: x max|ref| per
 # gradient tensor
 GRAD_TOL = 1e-3
@@ -420,6 +436,17 @@ KERNELS = {
                          "csn_tpu/ops/flash.py:412"),
     "flash_attn_block_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
                              "csn_tpu/ops/flash.py:488"),
+    # the bf16 forms of the ring's carry and block backward at head dim 256
+    # (the MID-FC full attention in bf16, phase 7b): the carry and block
+    # forms of K2's bf16 split bodies, whose launches count apart; the two
+    # rows above are the f32 D=256 forms and the CUDA-core ones (D = 64 and
+    # 128, either dtype)
+    "flash_attn_carry_bf16_wide": (
+        "csn_tpu_torch/csrc/flash_bf16_wide_fwd.cuh",
+        "csn_tpu/ops/flash.py:412"),
+    "flash_attn_block_bwd_bf16_wide": (
+        "csn_tpu_torch/csrc/flash_bf16_wide_bwd.cuh",
+        "csn_tpu/ops/flash.py:488"),
     "interp_fwd": ("csn_tpu_torch/csrc/interp.cu",
                    "csn_tpu/core/interp_window.py:288"),
     "interp_bwd": ("csn_tpu_torch/csrc/interp_bwd.cu",
@@ -1847,15 +1874,22 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
     the wrappers) against `online_block_update` chained the same way and
     against one K2 pass over all keys; `flash_attn_block_bwd` on every block
     against `block_backward_plain` on that block, and summed over the
-    blocks against one `flash_attn_bwd` call. The backward's inputs (out,
-    lse) are the plain chain's, so no kernel's output feeds a check of
-    another. One chain cuts the keys unevenly, at columns that are no
-    multiple of 4 (a block then starts inside a 4-column Philox group), and
-    checks a slice of the query rows at its row offset. The one call over
-    all keys that phase 7 makes (a ring of one) is held against the plain
-    chains too, and timed in f32 at dropout ATTN_DROPOUT (at dk = MF_D).
-    `cases`: (dtype, dropout, masked, uneven) of each chain; by default
-    the four at MF_D."""
+    blocks against one `flash_attn_bwd` call. bf16 at 256 runs the
+    `_bf16_wide` rows (`flash.ring_row`). The backward's inputs (out, lse)
+    are the plain chain's, so no kernel's output feeds a check of another.
+    Every case repeats one launch of each kernel and wants the same bits.
+    A chain cut unevenly, at columns that are no multiple of 4 (a block then
+    starts inside a 4-column Philox group), also checks a slice of the query
+    rows at its row offset, both kernels against a float64 reference beside
+    the f32 plain version with a wrong-offset run that must disagree, and
+    padding query rows that keep their carry bit for bit. The one call over
+    all keys that phase 7 (7b in bf16) makes, a ring of one, is held
+    against the plain chains too, and timed at dk = MF_D: f32 at dropout
+    ATTN_DROPOUT (one call with its host work; at dropout 0 beside the
+    line), bf16 at ATTN_DROPOUT and 0 (device time from CUDA graphs; 0
+    beside the line), beside the bound, the plain chain (one call) and the
+    library call. `cases`: (dtype, dropout, masked, uneven) of each chain;
+    by default the six at MF_D."""
     b, h, L = MF_RING_B, MF_HEADS, MF_P
     temp = float(dk) ** 0.5
     seed = 0x5EED_0F_C5A + 1
@@ -1872,8 +1906,12 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
         cases = ((torch.float32, 0.0, False, False),
                  (torch.float32, ATTN_DROPOUT, True, False),
                  (torch.bfloat16, ATTN_DROPOUT, True, False),
-                 (torch.float32, ATTN_DROPOUT, True, True))
+                 (torch.bfloat16, 0.0, True, False),
+                 (torch.float32, ATTN_DROPOUT, True, True),
+                 (torch.bfloat16, ATTN_DROPOUT, True, True))
     for dt, drop, masked, cut_unevenly in cases:
+        cname, bname = (flash.ring_row(n, dt, dk) for n in (
+            "flash_attn_carry", "flash_attn_block_bwd"))
         km, mtag = (ragged, "masked") if masked else (full, "unmasked")
         cuts = uneven if cut_unevenly else even
         qd, kd, vd, dod = (x.to(dt) for x in (q, k, v, dout))
@@ -1887,17 +1925,15 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
         carry = flash.flash_carry_init(b, h, L, dk, dev)
         plain = flash.flash_carry_init(b, h, L, dk, dev)
         qt = (qd / temp).float()
-        hop_in = {}   # the uneven chain: the kernel's carry into each block
+        hop_in = {}   # the kernel's carry into each block
         for c0, kb_, vb_, mb_ in blocks_:
-            if cuts is uneven:
-                hop_in[c0] = carry
+            hop_in[c0] = carry
             carry = flash.flash_forward_carry(qd, kb_, vb_, mb_, None, carry,
                                               temp, drop, sd, col_offset=c0)
             plain = attention.online_block_update(plain, qt, kb_, vb_, mb_,
                                                   drop, sd, col_offset=c0)
         for nm, a, r in zip(("m", "l", "acc"), carry, plain):
-            table.check("flash_attn_carry", f"{tag} carry {nm} vs plain "
-                        f"chain", a, r, dt)
+            table.check(cname, f"{tag} carry {nm} vs plain chain", a, r, dt)
         out_c, lse_c = flash.flash_carry_finalize(carry)
         out_p, lse = flash.flash_carry_finalize(plain)
         out = out_p.to(dt)
@@ -1905,10 +1941,9 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
         del carry, out_p
         out_k2, lse_k2 = flash.flash_attention(qd, kd, vd, km, full, temp,
                                                drop, sd)
-        table.check("flash_attn_carry", f"{tag} out vs one K2 pass",
-                    out_c.to(dt), out_k2, dt)
-        table.check("flash_attn_carry", f"{tag} lse vs one K2 pass", lse_c,
-                    lse_k2, dt)
+        table.check(cname, f"{tag} out vs one K2 pass", out_c.to(dt), out_k2,
+                    dt)
+        table.check(cname, f"{tag} lse vs one K2 pass", lse_c, lse_k2, dt)
         del out_c, lse_c, out_k2, lse_k2
         delta = (dod.float() * out.float()).sum(dim=-1)
         ref = flash.flash_attention_bwd(qd, kd, vd, dod, lse, delta, km,
@@ -1924,8 +1959,8 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
                 qd, kb_, vb_, mb_, lse, delta, dod, temp, drop, sd,
                 col_offset=c0)
             for nm, a, r in zip(("dq", "dk", "dv"), got, want):
-                table.check("flash_attn_block_bwd", f"{tag} block {i} at "
-                            f"column {c0} {nm} vs plain", a, r, dt)
+                table.check(bname, f"{tag} block {i} at column {c0} {nm} vs "
+                            f"plain", a, r, dt)
             dq += got[0]
             dq_p += want[0]
             dks.append(got[1])
@@ -1936,9 +1971,25 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
         sums = (dq, torch.cat(dks, 2), torch.cat(dvs, 2))
         sums_p = (dq_p, torch.cat(dks_p, 2), torch.cat(dvs_p, 2))
         for nm, a, r in zip(("dq", "dk", "dv"), sums, ref):
-            table.check("flash_attn_block_bwd", f"{tag} {nm} vs one "
-                        f"flash_attn_bwd call", a, r, dt)
+            table.check(bname, f"{tag} {nm} vs one "
+                        f"{flash.k2_row('flash_attn_bwd', dt, dk)} call", a,
+                        r, dt)
         del dq, dks, dvs, dq_p, dks_p, dvs_p, ref, sums
+        # one launch of each kernel again, on the block at column c0 from
+        # the chain's carry into it: the same bits
+        c0, kb_, vb_, mb_ = blocks_[1]
+        same = all(torch.equal(a, r) for a, r in zip(*(
+            flash.flash_forward_carry(qd, kb_, vb_, mb_, None, hop_in[c0],
+                                      temp, drop, sd, col_offset=c0)
+            for _ in range(2))))
+        same_b = all(torch.equal(a, r) for a, r in zip(*(
+            flash.flash_block_backward(qd, kb_, vb_, mb_, out, lse, dod, temp,
+                                       drop, sd, col_offset=c0, delta=delta)
+            for _ in range(2))))
+        print(f"[check] {cname}, {bname} {tag} block at column {c0} repeat: "
+              f"bitwise equal {'ok' if same and same_b else 'FAIL'}")
+        require(same and same_b, f"{cname} / {bname}: a repeated launch gave "
+                f"other bits")
         if cuts is uneven:
             # a slice of the query rows against one key block, both at
             # their offsets in the global score matrix
@@ -1955,8 +2006,7 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
                 init, (qs / temp).float(), kb_, vb_, mb_, drop, sd,
                 row_offset=r0, col_offset=c0)
             for nm, a, r in zip(("m", "l", "acc"), got, want):
-                table.check("flash_attn_carry", f"{otag} carry {nm} vs "
-                            f"plain", a, r, dt)
+                table.check(cname, f"{otag} carry {nm} vs plain", a, r, dt)
             lse_s = lse[:, :, r0:r1].contiguous()
             delta_s = delta[:, :, r0:r1].contiguous()
             got = flash.flash_block_backward(
@@ -1966,14 +2016,14 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
                 qs, kb_, vb_, mb_, lse_s, delta_s, dos, temp, drop, sd,
                 row_offset=r0, col_offset=c0)
             for nm, a, r in zip(("dq", "dk", "dv"), got, want):
-                table.check("flash_attn_block_bwd", f"{otag} {nm} vs plain",
-                            a, r, dt)
+                table.check(bname, f"{otag} {nm} vs plain", a, r, dt)
             del got, want, init, qs, dos
-            # The kernel (split TF32 on the tensor cores) and the f32 plain
-            # version round at different places. A float64 reference on
-            # batch row 0, heads 0-1 bounds both, and the kernel given a
-            # wrong column offset must disagree.
+            # The kernel (split TF32 or bf16 on the tensor cores) and the
+            # f32 plain version round at different places. A float64
+            # reference on batch row 0, heads 0-1 bounds both, and the
+            # kernel given a wrong column offset must disagree.
             hs = (slice(0, 1), slice(0, 2))
+            wrong = WRONG_OFFSET[dt]
             got = flash.flash_block_backward(
                 qd, kb_, vb_, mb_, out, lse, dod, temp, drop, sd,
                 col_offset=c0, delta=delta)
@@ -1991,20 +2041,19 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
                                         off):
                 err = (a[hs].double() - r64).abs().max().item()
                 perr = (r[hs].double() - r64).abs().max().item()
-                oerr = (o - r).abs().max().item()
+                oerr = (o.float() - r.float()).abs().max().item()
                 scale = r64.abs().max().item()
-                ok = err <= TOL[dt] * scale and oerr > 100 * TOL[dt] * scale
-                print(f"[check] flash_attn_block_bwd block at column {c0} "
-                      f"{nm} vs float64 (batch row 0, heads 0-1): kernel "
-                      f"{err:.3e}, plain {perr:.3e}, tol "
+                ok = err <= TOL[dt] * scale and oerr > wrong * scale
+                print(f"[check] {bname} block at column {c0} {nm} "
+                      f"{str(dt)[6:]} vs float64 (batch row 0, heads 0-1): "
+                      f"kernel {err:.3e}, f32 plain {perr:.3e}, tol "
                       f"{TOL[dt] * scale:.3e} (max|ref| {scale:.3e}); kernel "
                       f"at column offset {c0 + 1} vs plain at {c0}: "
-                      f"{oerr:.3e}, must exceed {100 * TOL[dt] * scale:.3e} "
+                      f"{oerr:.3e}, must exceed {wrong * scale:.3e} "
                       f"{'ok' if ok else 'FAIL'}")
-                require(ok, f"flash_attn_block_bwd {nm}: float64 reference "
-                        f"or wrong-offset check failed")
-                table.err["flash_attn_block_bwd"] = max(
-                    table.err["flash_attn_block_bwd"], err)
+                require(ok, f"{bname} {nm}: float64 reference or "
+                        f"wrong-offset check failed")
+                table.err[bname] = max(table.err[bname], err)
             del got, want, ref64, off
             # The carry chain against float64 on the same rows (its final
             # state does not depend on the blocks); the kernel on the block
@@ -2021,22 +2070,21 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
                 perr = (r[hs].double() - r64).abs().max().item()
                 scale = r64.abs().max().item()
                 ok = err <= TOL[dt] * scale
-                line = (f"[check] flash_attn_carry chain at cuts "
-                        f"{cuts[1:-1]} {mtag} dropout {drop} {nm} vs float64 "
-                        f"(batch row 0, heads 0-1): kernel {err:.3e}, plain "
-                        f"{perr:.3e}, tol {TOL[dt] * scale:.3e} (max|ref| "
-                        f"{scale:.3e})")
+                line = (f"[check] {cname} chain at cuts {cuts[1:-1]} {mtag} "
+                        f"dropout {drop} {nm} {str(dt)[6:]} vs float64 "
+                        f"(batch row 0, heads 0-1): kernel {err:.3e}, f32 "
+                        f"plain {perr:.3e}, tol {TOL[dt] * scale:.3e} "
+                        f"(max|ref| {scale:.3e})")
                 if nm == "acc":
                     oerr = (off - want).abs().max().item()
-                    ok = ok and oerr > 100 * TOL[dt] * scale
+                    ok = ok and oerr > wrong * scale
                     line += (f"; kernel on the block at column {c0} given "
                              f"offset {c0 + 1} vs plain at {c0}: {oerr:.3e}, "
-                             f"must exceed {100 * TOL[dt] * scale:.3e}")
+                             f"must exceed {wrong * scale:.3e}")
                 print(f"{line} {'ok' if ok else 'FAIL'}")
-                require(ok, f"flash_attn_carry {nm}: float64 reference or "
+                require(ok, f"{cname} {nm}: float64 reference or "
                         f"wrong-offset check failed")
-                table.err["flash_attn_carry"] = max(
-                    table.err["flash_attn_carry"], err)
+                table.err[cname] = max(table.err[cname], err)
             del ref64, off, want
             # padding query rows scattered through live 64-row tiles, and
             # one padding tile (rows 128-191): the kernel keeps their carry
@@ -2056,31 +2104,35 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
             for nm, a, n_, c in zip(("m", "l", "acc"), got, new, c_in):
                 lv = qmask[:, None, :] if a.dim() == 3 else \
                     qmask[:, None, :, None]
-                table.check("flash_attn_carry", f"{ptag} carry {nm} vs "
-                            f"plain", a, torch.where(lv, n_, c), dt)
+                table.check(cname, f"{ptag} carry {nm} vs plain", a,
+                            torch.where(lv, n_, c), dt)
                 pad = ~lv.expand_as(a)
                 same = same and torch.equal(a[pad], c[pad])
-            print(f"[check] flash_attn_carry {ptag}: the padding rows keep "
-                  f"the carry bit for bit {'ok' if same else 'FAIL'}")
-            require(same, "flash_attn_carry: a padding row changed the carry")
+            print(f"[check] {cname} {ptag} {str(dt)[6:]}: the padding rows "
+                  f"keep the carry bit for bit {'ok' if same else 'FAIL'}")
+            require(same, f"{cname}: a padding row changed the carry")
             del got, new, c_in, final
         hop_in.clear()
-        if dt == torch.float32 and drop and cuts is even and dk == MF_D:
-            # phase 7's calls
-            fb, bb, ff, bf = attention_work(full, km, h, dk, 4)
+        if cuts is even and dk == MF_D and (drop or dt == torch.bfloat16):
+            # phase 7's calls (7b's in bf16)
+            es = torch.finfo(dt).bits // 8
+            fb, bb, ff, bf = attention_work(full, km, h, dk, es)
             cin = flash.flash_carry_init(b, h, L, dk, dev)
             c_bytes = 2 * sum(c.numel() * 4 for c in cin)  # carry in, out
+            # q, k, v and the masks in; the carry in and out; no out, lse
+            fb += c_bytes - b * h * L * (dk * es + 4)
+            bb += b * h * L * dk * (4 - es)   # dq is f32
             atag = f"[{b},{h},{L},{dk}] all keys {mtag} dropout {drop}"
             got = flash.flash_forward_carry(qd, kd, vd, km, None, cin, temp,
                                             drop, sd)
             for nm, a, r in zip(("m", "l", "acc"), got, plain):
-                table.check("flash_attn_carry", f"{atag} one call, carry "
-                            f"{nm} vs plain chain", a, r, dt)
+                table.check(cname, f"{atag} one call, carry {nm} vs plain "
+                            f"chain", a, r, dt)
             got = flash.flash_block_backward(qd, kd, vd, km, out, lse, dod,
                                              temp, drop, sd, delta=delta)
             for nm, a, r in zip(("dq", "dk", "dv"), got, sums_p):
-                table.check("flash_attn_block_bwd", f"{atag} one call, {nm} "
-                            f"vs plain chain", a, r, dt)
+                table.check(bname, f"{atag} one call, {nm} vs plain chain",
+                            a, r, dt)
             del got
 
             def plain_chain():
@@ -2095,53 +2147,72 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
                     qd, kb_, vb_, mb_, lse, delta, dod, temp, drop, sd,
                     col_offset=c0) for c0, kb_, vb_, mb_ in blocks_]
 
-            table.time(
-                "flash_attn_carry", atag,
-                lambda: flash.flash_forward_carry(qd, kd, vd, km, None, cin,
-                                                  temp, drop, sd),
-                plain_chain, reps=3,
-                # q, k, v and the masks in; the carry in and out; no out, lse
-                nbytes=fb - b * h * L * 4 * (dk + 1) + c_bytes,
-                flops=ff, dtype=dt,
-                fn_library=lambda: F.scaled_dot_product_attention(
-                    qd, kd, vd, attn_mask=km[:, None, None, :],
-                    scale=1.0 / temp, dropout_p=drop))
-            print(f"[time] flash_attn_carry, flash_attn_block_bwd: the plain "
-                  f"versions walk the keys in {MF_BLOCKS} blocks (all keys "
-                  f"at once would hold a [{b},{h},{L},{L}] f32 score matrix); "
-                  f"the library call runs at the kernels' dropout and draws "
-                  f"its own mask")
+            def carry_call(p=drop):
+                return flash.flash_forward_carry(qd, kd, vd, km, None, cin,
+                                                 temp, p, sd if p else None)
+
+            def bwd_call(p=drop):
+                return flash.flash_block_backward(
+                    qd, kd, vd, km, out, lse, dod, temp, p,
+                    sd if p else None, delta=delta)
+
+            def lib(x, y, z, p=drop):
+                return F.scaled_dot_product_attention(
+                    x, y, z, attn_mask=km[:, None, None, :],
+                    scale=1.0 / temp, dropout_p=p)
+
             leaves = [x.detach().clone().requires_grad_(True)
                       for x in (qd, kd, vd)]
-            lib, lib0 = (F.scaled_dot_product_attention(
-                *leaves, attn_mask=km[:, None, None, :], scale=1.0 / temp,
-                dropout_p=p) for p in (drop, 0.0))
-            table.time(
-                "flash_attn_block_bwd", atag,
-                lambda: flash.flash_block_backward(
-                    qd, kd, vd, km, out, lse, dod, temp, drop, sd,
-                    delta=delta),
-                plain_bwd_chain, reps=3, nbytes=bb, flops=bf, dtype=dt,
-                fn_library=lambda: torch.autograd.grad(
-                    lib, leaves, dod, retain_graph=True))
-            # the same calls at dropout 0, outside the kernel line
-            ms0 = [median_ms(fn, warmup=1, reps=3) for fn in (
-                lambda: flash.flash_forward_carry(qd, kd, vd, km, None, cin,
-                                                  temp),
-                lambda: F.scaled_dot_product_attention(
-                    qd, kd, vd, attn_mask=km[:, None, None, :],
-                    scale=1.0 / temp),
-                lambda: flash.flash_block_backward(
-                    qd, kd, vd, km, out, lse, dod, temp, delta=delta),
-                lambda: torch.autograd.grad(lib0, leaves, dod,
-                                            retain_graph=True))]
-            print(f"[time] flash_attn_carry [{b},{h},{L},{dk}] all keys "
-                  f"{mtag} dropout 0.0 {str(dt)[6:]}: kernel "
-                  f"{ms0[0]:.4f} ms, library "
-                  f"{ms0[1]:.4f} ms; flash_attn_block_bwd kernel "
-                  f"{ms0[2]:.4f} ms, library {ms0[3]:.4f} ms (not in the "
-                  f"kernel line)")
-            del lib, lib0, leaves, cin
+            print(f"[time] {cname}, {bname}: the plain versions walk the "
+                  f"keys in {MF_BLOCKS} blocks (all keys at once would hold "
+                  f"a [{b},{h},{L},{L}] f32 score matrix); the library call "
+                  f"runs at the kernels' dropout and draws its own mask")
+            if dt == torch.bfloat16:
+                # device times from CUDA graphs; the library's backward is
+                # its forward and backward less the forward
+                count = 1 if drop else 0
+                kf, kb2, lf, lfb = (graph_ms(fn, calls=5, reps=3) for fn in (
+                    carry_call, bwd_call, lambda: lib(qd, kd, vd),
+                    lambda: torch.autograd.grad(lib(*leaves), leaves, dod)))
+                pf, pb = (median_ms(fn, warmup=1, reps=3)
+                          for fn in (plain_chain, plain_bwd_chain))
+                parts_f = (fb / HBM_BYTES_S * 1e3, ff / PEAK_FLOPS[dt] * 1e3)
+                parts_b = (bb / HBM_BYTES_S * 1e3, bf / PEAK_FLOPS[dt] * 1e3)
+                table.add(cname, count, kf, pf, *parts_f, lf)
+                table.add(bname, count, kb2, pb, *parts_b, lfb - lf)
+                print(f"[time] {cname} / {bname} {atag} bfloat16 (device, "
+                      f"CUDA graphs, warm L2): carry kernel {kf:.4f} ms, "
+                      f"plain chain {pf:.4f} ms (one call), bound "
+                      f"{max(parts_f):.4f} ms, library {lf:.4f} ms; block "
+                      f"backward kernel {kb2:.4f} ms, plain chain {pb:.4f} "
+                      f"ms (one call), bound {max(parts_b):.4f} ms, library "
+                      f"{lfb - lf:.4f} ms (forward and backward {lfb:.4f} "
+                      f"less the forward) "
+                      + (f"(x{count} per train step)" if count
+                         else "(not in the kernel line)"))
+            else:
+                table.time(cname, atag, carry_call, plain_chain, reps=3,
+                           nbytes=fb, flops=ff, dtype=dt,
+                           fn_library=lambda: lib(qd, kd, vd))
+                lib_out, lib0 = (lib(*leaves, p=p) for p in (drop, 0.0))
+                table.time(bname, atag, bwd_call, plain_bwd_chain, reps=3,
+                           nbytes=bb, flops=bf, dtype=dt,
+                           fn_library=lambda: torch.autograd.grad(
+                               lib_out, leaves, dod, retain_graph=True))
+                # the same calls at dropout 0, outside the kernel line
+                ms0 = [median_ms(fn, warmup=1, reps=3) for fn in (
+                    lambda: carry_call(0.0),
+                    lambda: lib(qd, kd, vd, p=0.0),
+                    lambda: bwd_call(0.0),
+                    lambda: torch.autograd.grad(lib0, leaves, dod,
+                                                retain_graph=True))]
+                print(f"[time] {cname} [{b},{h},{L},{dk}] all keys {mtag} "
+                      f"dropout 0.0 {str(dt)[6:]}: kernel {ms0[0]:.4f} ms, "
+                      f"library {ms0[1]:.4f} ms; {bname} kernel "
+                      f"{ms0[2]:.4f} ms, library {ms0[3]:.4f} ms (not in the "
+                      f"kernel line)")
+                del lib_out, lib0
+            del leaves, cin
         del out, lse, delta, blocks_, plain, sums_p
         torch.cuda.empty_cache()
 
@@ -2757,40 +2828,52 @@ def free_tcp_addr():
         return f"tcp://localhost:{s.getsockname()[1]}"
 
 
-def midfc_ring_slice(dev, profile=False):
-    """Phase 7. Returns the launch counts of the train step."""
+def midfc_ring_slice(dev, profile=False, compute_dtype="float32"):
+    """Phase 7 at `compute_dtype` (f32; bf16, phase 7b, runs the carry and
+    the block backward at head dim 256 on the `_bf16_wide` rows, and the
+    reference model without the group K2 on `flash_attn_fwd_bf16_wide`).
+    Returns the launch counts of the train step."""
+    dt = getattr(torch, compute_dtype)
+    bf16 = dt == torch.bfloat16
+    tag, kind = ("ring bf16", "bf16") if bf16 else ("ring", "f32")
+    carry, block = (flash.ring_row(n, dt, MF_D) for n in (
+        "flash_attn_carry", "flash_attn_block_bwd"))
+    k2 = flash.k2_row("flash_attn_fwd", dt, MF_D)
+    grad_tols = (GRAD_TOL_BF16, LOSS_TOL_BF16) if bf16 else ()
     dist.init_process_group("gloo", init_method=free_tcp_addr(),
                             world_size=1, rank=0)
     try:
         feats, labels, _ = midfc_data(MF_RING_B, SEED + 11)
-        ring = MidfcRunner(midfc_config(MF_RING_B, None), "ssa", device=dev)
+        ring = MidfcRunner(midfc_config(MF_RING_B, None, compute_dtype),
+                           "ssa", device=dev)
         ring.initialize()
         # full attention through the sharded steps is a ring over the seq
         # group, here of one rank
         steps = make_midfc_steps(ring, 1, 1)
         kernels.reset_launches()
         logits = steps.eval(feats, None)
-        print(f"[ring] eval request: "
-              f"{check_midfc_outputs('ring eval', logits, MF_RING_B)}")
+        print(f"[{tag}] eval request: "
+              f"{check_midfc_outputs(f'{tag} eval', logits, MF_RING_B)}")
         torch.cuda.synchronize()
-        require_launches("ring eval", dict(kernels.LAUNCHES),
-                         {"flash_attn_carry": 1}, n_requests=1)
+        require_launches(f"{tag} eval", dict(kernels.LAUNCHES), {carry: 1},
+                         n_requests=1)
 
-        plain = MidfcRunner(midfc_config(MF_RING_B, None), "ssa", device=dev)
+        plain = MidfcRunner(midfc_config(MF_RING_B, None, compute_dtype),
+                            "ssa", device=dev)
         plain.initialize()
         plain.load_state(ring.params)
         kernels.reset_launches()
         ref = plain._eval(feats, None)
-        require_launches("ring eval, same model without the group",
-                         dict(kernels.LAUNCHES), {"flash_attn_fwd": 1},
-                         n_requests=1)
+        require_launches(f"{tag} eval, same model without the group",
+                         dict(kernels.LAUNCHES), {k2: 1}, n_requests=1)
         err = (logits - ref).abs().max().item()
         scale = ref.abs().max().item()
-        print(f"[ring] f32 logits, ring of one (carry kernel) vs the same "
-              f"model without the group (K2): max_abs_err {err:.3e} tol "
-              f"{TOL[torch.float32] * scale:.3e} (max|ref| {scale:.3e})")
-        require(err <= TOL[torch.float32] * scale,
-                "ring logits disagree with the unsharded model")
+        print(f"[{tag}] {kind} logits, ring of one (carry kernel {carry}) "
+              f"vs the same model without the group (K2, {k2}): "
+              f"max_abs_err {err:.3e} tol {TOL[dt] * scale:.3e} (max|ref| "
+              f"{scale:.3e})")
+        require(err <= TOL[dt] * scale,
+                f"{tag} logits disagree with the unsharded model")
         del plain, ref
 
         kernels.reset_launches()
@@ -2800,35 +2883,35 @@ def midfc_ring_slice(dev, profile=False):
         launches = dict(kernels.LAUNCHES)
         require(bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(g).all()) for g in grads.values()),
-            f"ring train: loss {loss} or a gradient not finite")
-        print(f"[ring] train step: loss {float(loss):.6f}, {len(grads)} "
+            f"{tag} train: loss {loss} or a gradient not finite")
+        print(f"[{tag}] train step: loss {float(loss):.6f}, {len(grads)} "
               f"finite gradients")
-        require_launches("ring train", launches,
-                         {"flash_attn_carry": 1, "flash_attn_block_bwd": 1},
+        require_launches(f"{tag} train", launches, {carry: 1, block: 1},
                          n_requests=1)
         what = (f"SSA, full attention, ring of one, B={MF_RING_B}, "
-                f"P={MF_P}, {MF_HEADS} heads of {MF_D}, f32")
-        time_steps("ring eval", lambda: steps.eval(feats, None), what,
+                f"P={MF_P}, {MF_HEADS} heads of {MF_D}, {kind}")
+        time_steps(f"{tag} eval", lambda: steps.eval(feats, None), what,
                    MF_RING_B, timed_steps=3)
 
         def step():
             _, grads = steps.grad(feats, labels, None, ring.draw_step_seed())
             ring._apply(grads)
 
-        ms = time_steps("ring train", step, what + ", dropout 0.1, Adam",
+        ms = time_steps(f"{tag} train", step, what + ", dropout 0.1, Adam",
                         MF_RING_B, timed_steps=3)
         if profile:
-            profile_steps("ring train", step, step_ms=ms)
+            profile_steps(f"{tag} train", step, step_ms=ms)
         del ring, steps
         torch.cuda.empty_cache()
 
-        # one f32 B=1 step at dropout 0: the ring's kernels (GPU) vs the
-        # plain blocked attention without a group (CPU)
+        # one B=1 step at dropout 0: the ring's kernels (GPU) vs the plain
+        # blocked attention without a group (CPU), in the same compute dtype
         feats, labels, _ = midfc_data(1, SEED + 13)
         res = []
         init = None
         for where in (dev, "cpu"):
-            r1 = MidfcRunner(midfc_config(1, None), "ssa", device=where)
+            r1 = MidfcRunner(midfc_config(1, None, compute_dtype), "ssa",
+                             device=where)
             r1.initialize()
             r1.model.attention.mha.dropout = 0.0
             if init is None:
@@ -2840,17 +2923,16 @@ def midfc_ring_slice(dev, profile=False):
             kernels.reset_launches()
             loss, grads = grad(feats, labels, None, 0)
             res.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
-            print(f"[ring] f32 B=1 step on {where}: loss {float(loss):.6f} "
-                  f"({time.perf_counter() - t0:.1f} s), launches "
+            print(f"[{tag}] {kind} B=1 step on {where}: loss "
+                  f"{float(loss):.6f} ({time.perf_counter() - t0:.1f} s), "
+                  f"launches "
                   f"{ {k: n for k, n in kernels.LAUNCHES.items() if n} }")
             if where == dev:
-                require_launches(
-                    "ring B=1 step", dict(kernels.LAUNCHES),
-                    {"flash_attn_carry": 1, "flash_attn_block_bwd": 1},
-                    n_requests=1)
+                require_launches(f"{tag} B=1 step", dict(kernels.LAUNCHES),
+                                 {carry: 1, block: 1}, n_requests=1)
             del r1
         (lg, gg), (lc, gc) = res
-        compare_grads("ring", gg, gc, lg, lc)
+        compare_grads(tag, gg, gc, lg, lc, *grad_tols)
     finally:
         dist.destroy_process_group()
     return launches
@@ -4096,9 +4178,12 @@ def main() -> int:
     launches_6b = midfc_chunked_slice(dev, do_profile, "bfloat16")
     launches_6 = {k: n + launches_6b[k] for k, n in launches_6.items()}
 
-    # 7. MID-FC, full attention through the ring
+    # 7. MID-FC, full attention through the ring, in f32 and bf16
     phase("7 MID-FC ring")
     launches_7 = midfc_ring_slice(dev, do_profile)
+    phase("7b MID-FC ring, bf16")
+    launches_7b = midfc_ring_slice(dev, do_profile, "bfloat16")
+    launches_7 = {k: n + launches_7b[k] for k, n in launches_7.items()}
 
     # 8. the trainer and the eval CLI's path under CSN_DYNG=2
     phase("8 trainer")

@@ -313,9 +313,10 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
     if (D == 64) CSN_TC(64);
     if (D == 128) CSN_TC(128);
     if (D == 256)
-      return csn_tcw::launch_fwd_split<256>(q, k, v, kv_mask, q_mask, out,
-                                            lse, B, H, Lq, Lk, inv_temp, seed,
-                                            thresh, inv_keep, use_drop, s);
+      return csn_tcw::launch_fwd_split<256>(
+          q, k, v, kv_mask, q_mask, out, lse, csn_tf32::Carry{}, B, H, Lq,
+          Lk, inv_temp, csn_tf32::Drop{seed, thresh, inv_keep, use_drop, 0, 0},
+          s);
   }
 #undef CSN_TC
   if (dtype == csn::kF32 && D == csn_tf32_d64::D)

@@ -22,22 +22,31 @@
 // for one hop over all 10000 keys at B = 2, 8 heads; a ring of N ranks has
 // Lk / N keys per hop). What bounds it: products, five 256-long ones per
 // (query, key) pair, three TF32 products each.
-// f32 at D = 64 / 128 and bf16 at every D: the two deterministic passes of
-// flash_bwd_wide.cuh in f32 arithmetic on the CUDA cores, with the dQ type
-// set to float.
+// bf16 at D = 256 (the MID-FC heads with compute_dtype "bfloat16"): the two
+// passes of flash_bf16_wide_bwd.cuh on the tensor cores (mma.sync
+// m16n8k16, f32 accumulators) with the block's offsets and the dQ type set
+// to float; the dK/dV pass hands dS^T, rounded to bf16, to the dQ pass
+// through the caller's bf16 scratch of ceil32(Lk) x ceil32(Lq) per
+// (batch*head) (3.2 GB for one hop over all 10000 keys at B = 2, 8 heads;
+// its round trip, about 1.9 ms at 3.35 TB/s, is stated in that header).
+// f32 and bf16 at D = 64 / 128 (a ring at d_k <= 128, zero-padded up to
+// them): the two deterministic passes of flash_bwd_wide.cuh in f32
+// arithmetic on the CUDA cores, with the dQ type set to float.
 // The TPU kernel accumulates dQ over its whole sequential grid in a VMEM
 // plane; across hops the sum is the caller's (ops/attention.py
 // RingFlashAttentionFn adds the blocks' f32 terms), so the dQ pass stores
 // the block's term and adds nothing itself.
 
 #include "common.cuh"
+#include "flash_bf16_wide_bwd.cuh"
 #include "flash_bwd_wide.cuh"
 #include "flash_tf32_bwd.cuh"
 
 // q, dout [B, H, Lq, D]; k, v, dk, dv [B, H, Lk, D] contiguous in one type
 // and 16-byte aligned; dq [B, H, Lq, D] f32; lse and delta [B, H, Lq] f32;
 // kv_mask [B, Lk] and q_mask [B, Lq] bool bytes. D is 64, 128 or 256. ds_t:
-// f32 scratch of B * H * ceil32(Lk) * ceil32(Lq) for f32 at D = 256, unused
+// scratch of B * H * ceil32(Lk) * ceil32(Lq) elements in the type of q at
+// D = 256 (f32: flash_tf32_bwd.cuh, bf16: flash_bf16_wide_bwd.cuh), unused
 // otherwise.
 extern "C" int csn_flash_attn_block_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
@@ -55,6 +64,11 @@ extern "C" int csn_flash_attn_block_bwd(
                                             kv_mask, q_mask, dq, dk, dv,
                                             ds_t, B, H, Lq, Lk, inv_temp,
                                             drop, s);
+  if (dtype == csn::kBF16 && D == 256)
+    return csn_tcw::launch_bwd_split<256, float>(q, k, v, dout, lse, delta,
+                                                 kv_mask, q_mask, dq, dk, dv,
+                                                 ds_t, B, H, Lq, Lk, inv_temp,
+                                                 drop, s);
 #define CSN_BLOCK(T, DD)                                                     \
   return csn_wide_bwd::launch_bwd_wide<T, float, DD>(                        \
       q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, dv, B, H, Lq, Lk, \
@@ -66,7 +80,6 @@ extern "C" int csn_flash_attn_block_bwd(
   if (dtype == csn::kBF16) {
     if (D == 64) CSN_BLOCK(__nv_bfloat16, 64);
     if (D == 128) CSN_BLOCK(__nv_bfloat16, 128);
-    if (D == 256) CSN_BLOCK(__nv_bfloat16, 256);
   }
 #undef CSN_BLOCK
   return cudaErrorInvalidValue;

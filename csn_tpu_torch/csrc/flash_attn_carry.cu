@@ -21,17 +21,21 @@
 // out): compute-bound at the ring's shapes (Lq = Lk = 10000 / ranks,
 // D = 256).
 //
-// f32 at D = 256 (the MID-FC heads, the ring's shape): the split-TF32 body
-// of flash_tf32_fwd.cuh on the tensor cores with CARRY set (three TF32
-// products per f32 product; its header states the carry's units, the
-// pass-through and the dropout words at any column offset). The other
-// dtypes and head dims take the f32 CUDA-core kernel of flash_wide.cuh with
-// CARRY set. Both keep the accumulator in the registers of the block that
-// owns the query tile for the whole key loop, where the TPU kernel keeps it
-// in VMEM scratch across its sequential kv grid axis, and touch the carry in
-// device memory once on the way in and once on the way out.
+// At D = 256 (the MID-FC heads, the ring's shape) on the tensor cores, in
+// the carry form of K2's body of each dtype: f32 the split-TF32 body of
+// flash_tf32_fwd.cuh (three TF32 products per f32 product), bf16 the split
+// body of flash_bf16_wide_fwd.cuh (mma.sync m16n8k16, P rounded to bf16
+// once as the A operand of P V); their headers state the carry's units,
+// the pass-through and the dropout words at any column offset. Both keep
+// the accumulator in the registers of the block that owns the query tile
+// for the whole key loop, where the TPU kernel keeps it in VMEM scratch
+// across its sequential kv grid axis, and touch the carry in device memory
+// once on the way in and once on the way out. The other head dims, 64 and
+// 128 in either dtype (a ring at d_k <= 128, zero-padded up to them), take
+// the f32 CUDA-core kernel of flash_wide.cuh with CARRY set.
 
 #include "common.cuh"
+#include "flash_bf16_wide_fwd.cuh"
 #include "flash_tf32_fwd.cuh"
 #include "flash_wide.cuh"
 
@@ -49,7 +53,7 @@ extern "C" int csn_flash_attn_carry(
     int col_off, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == csn::kF32 && D == csn_tf32::D) {
+  if (D == csn_tf32::D && (dtype == csn::kF32 || dtype == csn::kBF16)) {
     const csn_tf32::Carry cy{static_cast<const float*>(m_in),
                              static_cast<const float*>(l_in),
                              static_cast<const float*>(acc_in),
@@ -59,13 +63,20 @@ extern "C" int csn_flash_attn_carry(
     const csn_tf32::Drop drop{seed, thresh, inv_keep, use_drop, row_off,
                               col_off};
     // the dropout words of drop_words need a key tile on a multiple of 4
-    if (use_drop && col_off % 4 != 0)
-      return csn_tf32::launch_fwd_tf32<true, true>(
-          q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H, Lq, Lk,
-          inv_temp, drop, s);
-    return csn_tf32::launch_fwd_tf32<true, false>(
-        q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H, Lq, Lk, inv_temp,
-        drop, s);
+    const bool any_col = use_drop && col_off % 4 != 0;
+    if (dtype == csn::kBF16)
+      return any_col ? csn_tcw::launch_fwd_split<256, true, true>(
+                           q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B,
+                           H, Lq, Lk, inv_temp, drop, s)
+                     : csn_tcw::launch_fwd_split<256, true, false>(
+                           q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B,
+                           H, Lq, Lk, inv_temp, drop, s);
+    return any_col ? csn_tf32::launch_fwd_tf32<true, true>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s)
+                   : csn_tf32::launch_fwd_tf32<true, false>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s);
   }
 #define CSN_CARRY(T, DD)                                                     \
   return csn_wide::launch_fwd_wide<T, DD, true>(                             \
@@ -79,7 +90,6 @@ extern "C" int csn_flash_attn_carry(
   if (dtype == csn::kBF16) {
     if (D == 64) CSN_CARRY(__nv_bfloat16, 64);
     if (D == 128) CSN_CARRY(__nv_bfloat16, 128);
-    if (D == 256) CSN_CARRY(__nv_bfloat16, 256);
   }
 #undef CSN_CARRY
   return cudaErrorInvalidValue;

@@ -5,7 +5,9 @@
 // Replaces: csn_tpu/ops/flash.py _flash_backward (Pallas body
 // _bwd_fused_kernel) at heads of 128 and 256 in bf16: HRNetSimCSN at
 // d_model 256 in 2 heads or 1, the MID-FC heads with compute_dtype
-// "bfloat16".
+// "bfloat16"; and, at 256, flash_block_backward (the same Pallas body on one
+// kv block), the ring's per-hop backward of the MID-FC full attention in
+// bf16 (flash_attn_block_bwd.cu).
 //
 // Same function and outputs as flash_attn_bwd.cu states, in its two
 // deterministic passes without atomics (dK and dV per key tile, dQ per query
@@ -66,6 +68,17 @@
 // tiles, K and the dS^T tile streamed double-buffered (one barrier a
 // tile), a warp owning 32 queries x D / 8 dims of dQ += dS K (dS as A by
 // ldmatrix.trans off the [key][query] tile, K as B by ldmatrix.trans).
+//
+// The block form (flash_attn_block_bwd.cu) runs the same two passes on one
+// key block of a ring, given the GLOBAL lse, delta and dO: the dropout words
+// are keyed by absolute (batch*head, row_off + row, col_off + column) at any
+// alignment (keep4 draws csn::dropout_words<4>), and the dQ pass stores the
+// block's term in DQ_T = float, which the caller adds over the hops in f32
+// (ops/attention.py RingFlashAttentionFn); dK and dV stay bf16. At the ring
+// of one [2, 8, 10000, 256] the bf16 dS^T scratch is 2 * 8 * 10016^2 * 2 B =
+// 3.2 GB: written once and read once, 6.4 GB of traffic, about 1.9 ms at
+// 3.35 TB/s, beside the products' bound of about 4.1 ms (10 * 2 * 8 *
+// 10000^2 * 256 operations at 989 TFLOP/s).
 
 #pragma once
 
@@ -114,10 +127,19 @@ struct WideDqSmem {
 static_assert(WB == csn_tf32::BR, "the dS^T scratch is [B*H][padded(Lk)]"
               "[padded(Lq)], flash_tf32_bwd.cuh's");
 
-// rows r0 + 16 i + g (+ 8) of a [L, D] bf16 matrix, dims d0 + 8 n + 2 t
+// two adjacent outputs a, b at p: one bf16 pair, or (the block form's f32
+// dQ term) one float2
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// rows r0 + 16 i + g (+ 8) of a [L, D] matrix of T, dims d0 + 8 n + 2 t
 // (+ 1), from a warp's accumulators, times f
-template <int D, int NT>
-__device__ __forceinline__ void store_acc(bf16* dst, const float (&x)[2][NT][4],
+template <int D, int NT, typename T>
+__device__ __forceinline__ void store_acc(T* dst, const float (&x)[2][NT][4],
                                           int r0, int d0, int L, float f,
                                           int g, int t) {
 #pragma unroll
@@ -128,19 +150,17 @@ __device__ __forceinline__ void store_acc(bf16* dst, const float (&x)[2][NT][4],
       if (r >= L) continue;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
-        *reinterpret_cast<uint32_t*>(dst + (int64_t)r * D + d0 + 8 * n +
-                                     2 * t) =
-            pack(x[i][n][2 * h] * f, x[i][n][2 * h + 1] * f);
+        store2(dst + (int64_t)r * D + d0 + 8 * n + 2 * t,
+               x[i][n][2 * h] * f, x[i][n][2 * h + 1] * f);
     }
 }
 
-template <int D, int ROWS, int NTHREADS>
-__device__ __forceinline__ void zero_tile_rows(bf16* dst, int r0, int L,
+template <int D, int ROWS, int NTHREADS, typename T>
+__device__ __forceinline__ void zero_tile_rows(T* dst, int r0, int L,
                                                int tid) {
   for (int i = tid; i < ROWS * D / 2; i += NTHREADS) {
     const int r = r0 + i / (D / 2);
-    if (r < L)
-      reinterpret_cast<uint32_t*>(dst + (int64_t)r * D)[i % (D / 2)] = 0u;
+    if (r < L) store2(dst + (int64_t)r * D + 2 * (i % (D / 2)), 0.f, 0.f);
   }
 }
 
@@ -384,13 +404,13 @@ __device__ __forceinline__ void load_dq_tile(WideDqSmem<D>& sm, int buf,
   }
 }
 
-template <int D>
+template <int D, typename DQ_T>
 __global__ void __launch_bounds__(WBWD_THREADS, 2)
 flash_bwd_tc_split_dq_kernel(const bf16* __restrict__ k,
                              const bf16* __restrict__ ds_t,
                              const uint8_t* __restrict__ kv_mask,
                              const uint8_t* __restrict__ q_mask,
-                             bf16* __restrict__ dq, int H, int Lq, int Lk,
+                             DQ_T* __restrict__ dq, int H, int Lq, int Lk,
                              float inv_temp) {
   constexpr int NT = D / 64;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -401,7 +421,7 @@ flash_bwd_tc_split_dq_kernel(const bf16* __restrict__ k,
   const bf16* kp = k + (int64_t)bh * Lk * D;
   const int lq_pad = padded(Lq);
   const bf16* dsp = ds_t + (int64_t)bh * padded(Lk) * lq_pad + q0;
-  bf16* dqp = dq + (int64_t)bh * Lq * D;
+  DQ_T* dqp = dq + (int64_t)bh * Lq * D;
   const uint8_t* km = kv_mask + (int64_t)b * Lk;
 
   int qlive = 0;
@@ -444,11 +464,15 @@ flash_bwd_tc_split_dq_kernel(const bf16* __restrict__ k,
   store_acc<D, NT>(dqp, acc, q0, d0, Lq, inv_temp, lane >> 2, lane & 3);
 }
 
-// Both passes on bf16 q, k, v, dout [B, H, L, D] (16-byte aligned): dq, dk,
-// dv bf16; ds_t the bf16 scratch the dkdv pass hands dS^T to the dq pass
-// through, padded(Lk) * padded(Lq) per (batch*head). Returns the first CUDA
-// error; never another kernel.
-template <int D>
+// Both passes on bf16 q, k, v, dout [B, H, L, D] (16-byte aligned): dk, dv
+// bf16, dq in DQ_T (bf16 for K2, float for the ring's block form); ds_t the
+// bf16 scratch the dkdv pass hands dS^T to the dq pass through, padded(Lk)
+// * padded(Lq) per (batch*head); drop.row_off / col_off place the rows and
+// the keys in the global score matrix (0 for K2). Returns the first CUDA
+// error; never another kernel. Each entry point instantiates only the forms
+// it launches (flash_attn_bwd.cu K2's, flash_attn_block_bwd.cu the block
+// form).
+template <int D, typename DQ_T = bf16>
 cudaError_t launch_bwd_split(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, const void* kv_mask,
@@ -462,7 +486,7 @@ cudaError_t launch_bwd_split(const void* q, const void* k, const void* v,
       flash_bwd_tc_split_dkdv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_tc_split_dq_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_tc_split_dq_kernel<D, DQ_T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_q);
   if (err != cudaSuccess) return err;
@@ -483,8 +507,9 @@ cudaError_t launch_bwd_split(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
   }
   const dim3 grid_q((unsigned)((Lq + WB - 1) / WB), (unsigned)(B * H));
-  flash_bwd_tc_split_dq_kernel<D><<<grid_q, WBWD_THREADS, smem_q, stream>>>(
-      kt, dsg, km, qm, static_cast<bf16*>(dq), H, Lq, Lk, inv_temp);
+  flash_bwd_tc_split_dq_kernel<D, DQ_T>
+      <<<grid_q, WBWD_THREADS, smem_q, stream>>>(
+          kt, dsg, km, qm, static_cast<DQ_T*>(dq), H, Lq, Lk, inv_temp);
   return cudaGetLastError();
 }
 

@@ -6,7 +6,10 @@
 //
 // Replaces: csn_tpu/ops/flash.py _flash_forward (Pallas body _fwd_kernel,
 // dropout mask _drop_mask) at heads of 256 in bf16: the MID-FC heads with
-// compute_dtype "bfloat16", and HRNetSimCSN at d_model 256 in one head.
+// compute_dtype "bfloat16", and HRNetSimCSN at d_model 256 in one head; in
+// its carry form, flash_forward_carry (Pallas body _fwd_carry_kernel) at the
+// same heads: the ring's per-hop kernel of the MID-FC full attention in
+// bf16 (flash_attn_carry.cu).
 //
 // Same function as flash_attn.cu states: online softmax over the key tiles,
 // masked keys at NEG_INF, the denominator floored at 1e-30, lse in f32,
@@ -45,10 +48,43 @@
 // Q lands in the exchange slots' memory, which its A fragments leave before
 // the first exchange: K, V (132 KB), the slots (64 KB) and the keep bits
 // take 199 KB of shared memory, one block per SM.
+//
+// The carry form (CARRY, D = 256; flash_attn_carry.cu, the ring's per-hop
+// kernel in bf16 at the MID-FC heads) runs the same body over one key block
+// with the online-softmax state carried in and out raw, by the contract of
+// flash_tf32_fwd.cuh's carry form:
+//  * in: m_in (natural units) enters as m_in log2 e, the body's units; l_in
+//    on lane t = 0 of the row's quad (0 on the others: the denominator is
+//    summed per lane and reduced over the quad at the end, so alpha
+//    rescales each lane's partial sum); acc_in at the lane's C-fragment
+//    positions of O, rows r0 + 16 i + g (+ 8), dims d0 + 8 n + 2 t (+ 1);
+//  * out: m ln 2, the quad-reduced l and O without the division; no lse
+//    (the caller finalizes, ops/flash.py flash_carry_finalize);
+//  * pass-through, bit for bit: a query tile with no valid row, a block
+//    with no live key tile (copied from the input, not through the log2
+//    round trip), and a row whose q_mask is false inside a live tile (the
+//    body computes it with whatever q holds, then stores the carry in).
+// The dropout words are keyed by absolute (batch*head, row_off + row,
+// col_off + column), in K2 too (offsets 0 there). drop_words assumes a key
+// run that starts on a multiple of 4 columns; a ring hop's block may start
+// anywhere (col_off = origin * Lk), so ANY_COL draws them with
+// csn::dropout_words (per fragment two runs of two columns a lane, one or
+// two Philox calls each: up to four times drop_words' one call);
+// flash_attn_carry.cu picks it when dropout is on and col_off % 4 != 0.
+// Memory and registers: the carry touches device memory once on the way in
+// (before the key loop: the 64 accumulators it fills are the body's O,
+// which exist in registers either way) and once on the way out (the
+// epilogue's stores, plus a reload of acc_in for the rows that pass
+// through); nothing of it lives across the loop but two offsets, so the key
+// loop's register demand is K2's. `conv_ab --kernels flash` prints ptxas's
+// registers and spills of both forms (flash_attn.cu, flash_attn_carry.cu).
+// The kernels and their launcher have internal linkage: both entry points
+// (flash_attn.cu, flash_attn_carry.cu) include this file.
 
 #pragma once
 
 #include "flash_tc.cuh"
+#include "flash_tf32_fwd.cuh"
 
 namespace csn_tcw {
 namespace {
@@ -78,8 +114,16 @@ struct WideFwdSmem {
 };
 
 static_assert(32 * WSPLIT == 128, "csn_tc::strip_sync meets 4 warps");
+// the carry form's pass-through of a padding tile is flash_tf32_fwd.cuh's
+static_assert(WQ == csn_tf32::FQ && WFWD_THREADS == csn_tf32::FWD_THREADS,
+              "csn_tf32::carry_through copies this body's query tile");
 
-template <int D>
+using Carry = csn_tf32::Carry;
+using Drop = csn_wide_bwd::Drop;
+
+// CARRY: the carry form (out and lse unused; cy read and written); ANY_COL:
+// the dropout words at a column offset that is no multiple of 4
+template <int D, bool CARRY, bool ANY_COL>
 __global__ void __launch_bounds__(WFWD_THREADS, 1)
 flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -87,9 +131,9 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
                           const uint8_t* __restrict__ kv_mask,
                           const uint8_t* __restrict__ q_mask,
                           bf16* __restrict__ out, float* __restrict__ lse,
-                          int H, int Lq, int Lk, float inv_temp,
-                          uint64_t seed, uint32_t thresh, float inv_keep,
-                          int use_drop) {
+                          int H, int Lq, int Lk, float inv_temp, Drop drop,
+                          Carry cy) {
+  static_assert(!CARRY || D == csn_tf32::D, "the carry form is built at 256");
   constexpr int LD = lds_of(D);
   constexpr int DW = D / WSPLIT;  // head dims of a warp
   constexpr int KS = DW / 16;     // k-steps of S over them
@@ -109,19 +153,24 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
   bf16* op = out + (int64_t)bh * Lq * D;
   float* lp = lse + (int64_t)bh * Lq;
   const uint8_t* km = kv_mask + (int64_t)b * Lk;
+  const int64_t row_base = (int64_t)bh * Lq;
 
   int qlive = 0;
   if (tid < WQ) {
     const int r = q0 + tid;
     qlive = r < Lq && q_mask[(int64_t)b * Lq + r];
   }
-  if (!__syncthreads_or(qlive)) {  // padding tile: zeros
-    for (int i = tid; i < WQ * D / 2; i += WFWD_THREADS) {
-      const int r = q0 + i / (D / 2);
-      if (r < Lq)
-        reinterpret_cast<uint32_t*>(op + (int64_t)r * D)[i % (D / 2)] = 0u;
+  if (!__syncthreads_or(qlive)) {  // padding tile: zeros, or the carry
+    if constexpr (CARRY) {
+      csn_tf32::carry_through(cy, row_base, q0, Lq, tid);
+    } else {
+      for (int i = tid; i < WQ * D / 2; i += WFWD_THREADS) {
+        const int r = q0 + i / (D / 2);
+        if (r < Lq)
+          reinterpret_cast<uint32_t*>(op + (int64_t)r * D)[i % (D / 2)] = 0u;
+      }
+      if (tid < WQ && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
     }
-    if (tid < WQ && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
     return;
   }
 
@@ -133,6 +182,7 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
   load_tile<D, WQ>(sm.x.q, qp, q0, Lq, tid, WFWD_THREADS);
   int live = row_live<WK>(km, Lk, 0, tid);
   int kt = find_live<WK>(0, nt, live, km, Lk, tid);
+  const bool any_key = kt < nt;  // else the carry passes through
   if (kt < nt) {
     if (tid < WK) sm.kval[0][tid] = live ? 1.f : 0.f;
     load_tile<D, WK>(sm.k[0], kp, kt * WK, Lk, tid, WFWD_THREADS);
@@ -161,6 +211,24 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
     for (int n = 0; n < NO; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[i][n][e] = 0.f;
+  }
+  if (CARRY && any_key) {  // the carry in, in the body's units
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = q0 + r0 + 16 * i + g + 8 * h;
+        if (r >= Lq) continue;
+        m[i][h] = cy.m_in[row_base + r] * LOG2E;
+        l[i][h] = t == 0 ? cy.l_in[row_base + r] : 0.f;
+        const float* ai = cy.acc_in + (row_base + r) * D + d0 + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const float2 a = csn_tf32::ld2(ai + 8 * n);
+          o[i][n][2 * h] = a.x;
+          o[i][n][2 * h + 1] = a.y;
+        }
+      }
   }
 
   for (int buf = 0; kt < nt; buf ^= 1) {
@@ -199,18 +267,29 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
         }
       }
     uint32_t keep[2] = {0u, 0u};
-    if (use_drop) {  // keys 16 quarter .. + 15 of the tile, for both m-blocks
+    if (drop.on) {  // keys 16 quarter .. + 15 of the tile, for both m-blocks
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int n = 2 * quarter + j;
+          const uint32_t row =
+              (uint32_t)(drop.row_off + q0 + r0 + 16 * i + g);
+          const uint32_t col = (uint32_t)(drop.col_off + kt * WK + 8 * n);
           uint32_t w[4];
-          drop_words(w, seed, (uint32_t)bh, (uint32_t)(q0 + r0 + 16 * i + g),
-                     (uint32_t)(kt * WK + 8 * n), t);
+          if (ANY_COL) {  // rows g and g + 8, columns col + 2t, + 1
+            uint32_t w0[2], w1[2];
+            csn::dropout_words<2>(drop.seed, (uint32_t)bh, row, col + 2 * t,
+                                  w0);
+            csn::dropout_words<2>(drop.seed, (uint32_t)bh, row + 8u,
+                                  col + 2 * t, w1);
+            w[0] = w0[0], w[1] = w0[1], w[2] = w1[0], w[3] = w1[1];
+          } else {
+            drop_words(w, drop.seed, (uint32_t)bh, row, col, t);
+          }
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            keep[i] |= (w[e] < thresh ? 1u : 0u) << (4 * n + e);
+            keep[i] |= (w[e] < drop.thresh ? 1u : 0u) << (4 * n + e);
         }
     }
 
@@ -229,7 +308,7 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       keep[i] = 0xFFFFFFFFu;
-      if (use_drop) {
+      if (drop.on) {
         keep[i] = 0u;
 #pragma unroll
         for (int j = 0; j < WSPLIT; ++j)
@@ -267,8 +346,8 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           float p = exp2_approx(s[i][n][e] - m[i][e >> 1]);
           l[i][e >> 1] += p;  // undropped: the denominator
-          if (use_drop)       // numerator only
-            p = (keep[i] >> (4 * n + e)) & 1u ? p * inv_keep : 0.f;
+          if (drop.on)        // numerator only
+            p = (keep[i] >> (4 * n + e)) & 1u ? p * drop.inv_keep : 0.f;
           s[i][n][e] = p;
         }
 #pragma unroll
@@ -308,6 +387,27 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
       ll += __shfl_xor_sync(0xffffffffu, ll, 2);
       const int r = q0 + r0 + 16 * i + g + 8 * h;
       if (r >= Lq) continue;
+      if constexpr (CARRY) {  // raw, or the carry in where the row passes
+        const int64_t rr = row_base + r;
+        float* ao = cy.acc_out + rr * D + d0 + 2 * t;
+        const bool through = !any_key || !q_mask[(int64_t)b * Lq + r];
+        if (through) {
+          const float* ai = cy.acc_in + rr * D + d0 + 2 * t;
+#pragma unroll
+          for (int n = 0; n < NO; ++n)
+            *reinterpret_cast<float2*>(ao + 8 * n) = csn_tf32::ld2(ai + 8 * n);
+        } else {
+#pragma unroll
+          for (int n = 0; n < NO; ++n)
+            *reinterpret_cast<float2*>(ao + 8 * n) =
+                make_float2(o[i][n][2 * h], o[i][n][2 * h + 1]);
+        }
+        if (quarter == 0 && t == 0) {
+          cy.m_out[rr] = through ? cy.m_in[rr] : m[i][h] * LN2;
+          cy.l_out[rr] = through ? cy.l_in[rr] : ll;
+        }
+        continue;
+      }
       const float den = fmaxf(ll, 1e-30f);
       const float inv = 1.f / den;
 #pragma unroll
@@ -320,28 +420,32 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
     }
 }
 
-// Launches the body on bf16 q, k, v [B, H, L, D] (16-byte aligned): out
-// [B, H, Lq, D] bf16 and lse [B, H, Lq] f32. Returns the first CUDA error;
-// never another kernel.
-template <int D>
+// Launches one body on bf16 q, k, v [B, H, L, D] (16-byte aligned): K2
+// (CARRY false: out [B, H, Lq, D] bf16 and lse [B, H, Lq] f32 written;
+// drop.col_off a multiple of 4) or, at D = 256, the carry form (cy read and
+// written, f32, acc 16-byte aligned; ANY_COL when drop.col_off % 4 != 0).
+// drop.row_off / col_off place the query rows and the keys in the global
+// score matrix. Returns the first CUDA error; never another kernel. Each
+// entry point instantiates only the forms it launches (flash_attn.cu K2,
+// flash_attn_carry.cu the carry).
+template <int D, bool CARRY = false, bool ANY_COL = false>
 cudaError_t launch_fwd_split(const void* q, const void* k, const void* v,
                              const void* kv_mask, const void* q_mask,
-                             void* out, void* lse, int B, int H, int Lq,
-                             int Lk, float inv_temp, uint64_t seed,
-                             uint32_t thresh, float inv_keep, int use_drop,
-                             cudaStream_t stream) {
+                             void* out, void* lse, const Carry& cy, int B,
+                             int H, int Lq, int Lk, float inv_temp,
+                             const Drop& drop, cudaStream_t stream) {
   constexpr int smem = (int)sizeof(WideFwdSmem<D>);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_split_kernel<D>,
+      flash_fwd_tc_split_kernel<D, CARRY, ANY_COL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((Lq + WQ - 1) / WQ), (unsigned)(B * H));
-  flash_fwd_tc_split_kernel<D><<<grid, WFWD_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_mask),
-      static_cast<const uint8_t*>(q_mask), static_cast<bf16*>(out),
-      static_cast<float*>(lse), H, Lq, Lk, inv_temp, seed, thresh, inv_keep,
-      use_drop);
+  flash_fwd_tc_split_kernel<D, CARRY, ANY_COL>
+      <<<grid, WFWD_THREADS, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_mask),
+          static_cast<const uint8_t*>(q_mask), static_cast<bf16*>(out),
+          static_cast<float*>(lse), H, Lq, Lk, inv_temp, drop, cy);
   return cudaGetLastError();
 }
 

@@ -47,14 +47,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # pair count the launches of their split-TF32 bodies (f32 on the tensor
 # cores) apart, under "_tf32", and K2 and its backward those of their f32
 # D=64 split-TF32 bodies, under "_tf32_d64", and of their bf16 bodies at
-# widths 128 and 256, under "_bf16_wide"
+# widths 128 and 256, under "_bf16_wide", as the ring's carry and block
+# backward do of their bf16 bodies at width 256
 LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0,
             "sparse_conv_fwd_tf32": 0, "sparse_conv_dw_tf32": 0,
             "flash_attn_fwd": 0, "flash_attn_bwd": 0,
             "flash_attn_fwd_tf32_d64": 0, "flash_attn_bwd_tf32_d64": 0,
             "flash_attn_fwd_bf16_wide": 0, "flash_attn_bwd_bf16_wide": 0,
-            "flash_attn_carry": 0,
-            "flash_attn_block_bwd": 0, "interp_fwd": 0, "interp_bwd": 0,
+            "flash_attn_carry": 0, "flash_attn_block_bwd": 0,
+            "flash_attn_carry_bf16_wide": 0,
+            "flash_attn_block_bwd_bf16_wide": 0,
+            "interp_fwd": 0, "interp_bwd": 0,
             "sparse_conv_im2col_fwd": 0, "sparse_conv_im2col_bwd": 0,
             "sparse_conv_im2col_fwd_tf32": 0,
             "sparse_conv_im2col_bwd_tf32": 0,
@@ -99,8 +102,8 @@ _SIGNATURES = {
     "csn_flash_attn_carry": [_I] + [_P] * 11 + [_I] * 5 + [
         _F, _U64, _U32, _F, _I, _I, _I, _P],
     # dtype, q, k, v, dout, lse, delta, kv_mask, q_mask, dq (f32), dk, dv,
-    # ds_t (f32 scratch), B, H, Lq, Lk, D, inv_temp, seed, thresh, inv_keep,
-    # use_drop, row_off, col_off, stream
+    # ds_t (scratch in q's dtype), B, H, Lq, Lk, D, inv_temp, seed, thresh,
+    # inv_keep, use_drop, row_off, col_off, stream
     "csn_flash_attn_block_bwd": [_I] + [_P] * 12 + [_I] * 5 + [
         _F, _U64, _U32, _F, _I, _I, _I, _P],
     # dtype, flat, idx, w, out, n_vox, n_pts, c, vec, stream

@@ -41,22 +41,29 @@ scratch.
   `csrc/flash_tf32_bwd.cuh` over the blocks of `csrc/flash_tf32.cuh`), and
   so does f32 at D = 64 (the HRNet heads with f32 activations) in K2 and
   its backward (`csrc/flash_tf32_d64_fwd.cuh`,
-  `csrc/flash_tf32_d64_bwd.cuh`). f32 K2
-  and its backward at 128, and the ring's forms but f32 at 256, take the
-  f32 CUDA-core kernels that walk D in chunks of 64 (`csrc/flash_wide.cuh`,
-  `csrc/flash_bwd_wide.cuh`).
+  `csrc/flash_tf32_d64_bwd.cuh`). f32 K2 and its backward at 128, and the
+  ring's forms at 64 and 128 in both dtypes (a ring at d_k <= 128), take
+  the f32 CUDA-core kernels that walk D in chunks of 64
+  (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
   loop over ONE key block with the running max, denominator and f32
   accumulator carried in and written back raw; `flash_carry_finalize`
   divides once. A chain over disjoint key blocks equals one K2 pass over
-  their union. f32 at D = 256 (the ring's shape) runs the split-TF32
-  forward body with the carry (`csrc/flash_tf32_fwd.cuh`), the other
-  dtypes and head dims the CUDA-core kernel of `csrc/flash_wide.cuh`. Its
-  plain version is `ops.attention.online_block_update`.
+  their union. At D = 256 (the ring's shape, the MID-FC heads) it runs the
+  carry form of K2's tensor-core body of its dtype: f32 in split TF32
+  (`csrc/flash_tf32_fwd.cuh`), bf16 the split body
+  (`csrc/flash_bf16_wide_fwd.cuh`, launches counted apart under
+  `"_bf16_wide"`, `ring_row`); at 64 and 128 the CUDA-core kernel of
+  `csrc/flash_wide.cuh`. Its plain version is
+  `ops.attention.online_block_update`.
 * Block backward (`csrc/flash_attn_block_bwd.cu`, `flash_block_backward`):
   the two backward passes on one key block given the GLOBAL `lse`, `delta`
-  and `dout`; returns that block's dK, dV and its f32 term of dQ. Its plain
-  version is `block_backward_plain`.
+  and `dout`; returns that block's dK, dV and its f32 term of dQ. At D = 256
+  the passes of K2's backward body of its dtype with an f32 dQ term (f32
+  `csrc/flash_tf32_bwd.cuh`, bf16 `csrc/flash_bf16_wide_bwd.cuh`, counted
+  apart under `"_bf16_wide"`), both handing dS^T through a scratch
+  (`DS_SCRATCH["block"]`); at 64 and 128 `csrc/flash_bwd_wide.cuh`. Its
+  plain version is `block_backward_plain`.
 * Dropout: the mask is a function of (seed, batch*head, query row, key
   column) only, through the counter-based generator Philox4x32-10, written
   twice bit for bit: `philox4x32` here (torch int64 ops, the plain
@@ -98,11 +105,12 @@ MAX_HEAD_DIM = 256
 # through a scratch of B * H * ceil32(Lk) * ceil32(Lq) elements in q's
 # dtype, by form ("k2": K2's backward, "block": the ring's block backward)
 # and dtype: f32 at 256 in both forms (csrc/flash_tf32_bwd.cuh), bf16 at 128
-# and 256 in K2's (csrc/flash_bf16_wide_bwd.cuh). The f32 D = 64 body
+# and 256 in K2's and at 256 in the block form (csrc/flash_bf16_wide_bwd.cuh;
+# 3.2 GB at the ring of one [2, 8, 10000, 256]). The f32 D = 64 body
 # recomputes dS in its dQ pass instead (8.1 GB of scratch at the HRNet SSA
 # call).
 DS_SCRATCH = {"k2": {torch.float32: (256,), torch.bfloat16: (128, 256)},
-              "block": {torch.float32: (256,)}}
+              "block": {torch.float32: (256,), torch.bfloat16: (256,)}}
 
 
 def _ceil32(n: int) -> int:
@@ -249,6 +257,17 @@ def k2_row(what: str, dtype: torch.dtype, d: int) -> str:
     if k2_split_tf32_d64(dtype, d):
         return what + "_tf32_d64"
     return what + "_bf16_wide" if k2_bf16_wide(dtype, d) else what
+
+
+def ring_row(what: str, dtype: torch.dtype, d: int) -> str:
+    """The `kernels.LAUNCHES` row of a launch of the ring's per-block
+    kernels (`what`: "flash_attn_carry" or "flash_attn_block_bwd") at head
+    dim `d` in `dtype`: `what + "_bf16_wide"` where bf16 runs at the width
+    256 (bf16 head dims 129-256, on `csrc/flash_bf16_wide_*.cuh`), else
+    `what`."""
+    wide = dtype == torch.bfloat16 and padded_head_dim(
+        d, RING_HEAD_DIMS) == 256
+    return what + "_bf16_wide" if wide else what
 
 
 def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -480,7 +499,7 @@ def flash_forward_carry(q, k, v, kv_mask, q_mask, carry, temperature: float,
         1.0 / float(temperature), *drop, int(row_offset), int(col_offset),
         kernels.stream())
     kernels.check(code, what)
-    kernels.LAUNCHES[what] += 1
+    kernels.LAUNCHES[ring_row(what, q.dtype, D)] += 1
     return out
 
 
@@ -567,5 +586,5 @@ def flash_block_backward(q, k, v, kv_mask, out, lse, g, temperature: float,
         1.0 / float(temperature), *drop, int(row_offset), int(col_offset),
         kernels.stream())
     kernels.check(code, what)
-    kernels.LAUNCHES[what] += 1
+    kernels.LAUNCHES[ring_row(what, q.dtype, D)] += 1
     return dq, dk, dv

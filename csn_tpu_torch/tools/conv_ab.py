@@ -29,7 +29,9 @@ of 256 in bf16, at dropout 0 and 0.1 (device time from CUDA graphs, warm
 L2), with the other bodies' outputs for the bitwise comparison (bf16 D=32
 and 16, f32 D=128, at the SSA call cut to 4 shapes; the ring's carry and
 block backward on one 2500-key block in f32 and bf16 at D=256 and in f32
-at D=64), and the gather probes
+at D=64, timed too; the bf16 D=256 pair's outputs are also held against
+the other checkout's by value, as max|this - other| / max|other|, for a
+body of another design), and the gather probes
 (`probe_gather_accum` in its three modes at the probe scripts' timing
 geometry, 352 tiles x 9 offsets x 256 rows x 128 channels, with the bf16
 window at W = 384 and the f32 window at W = 384 and 256, row ids outside
@@ -49,7 +51,8 @@ registers and spill bytes ptxas reports for the kernels of
 `csrc/sparse_conv.cu`, `csrc/sparse_conv_bwd.cu`,
 `csrc/sparse_conv_im2col.cu`, `csrc/sparse_conv_im2col_bwd.cu`,
 `csrc/interp.cu`,
-`csrc/interp_bwd.cu`, `csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu` and
+`csrc/interp_bwd.cu`, `csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu`,
+`csrc/flash_attn_carry.cu`, `csrc/flash_attn_block_bwd.cu` and
 `csrc/probe_gather.cu` in each. `--kernels` runs one family only.
 """
 
@@ -79,7 +82,9 @@ REGISTER_SOURCES = {"conv": ("sparse_conv.cu", "sparse_conv_bwd.cu",
                              "sparse_conv_im2col.cu",
                              "sparse_conv_im2col_bwd.cu"),
                     "interp": ("interp.cu", "interp_bwd.cu"),
-                    "flash": ("flash_attn.cu", "flash_attn_bwd.cu"),
+                    "flash": ("flash_attn.cu", "flash_attn_bwd.cu",
+                              "flash_attn_carry.cu",
+                              "flash_attn_block_bwd.cu"),
                     "probes": ("probe_gather.cu",),
                     "steps": ()}
 FAMILIES = tuple(REGISTER_SOURCES)
@@ -91,6 +96,8 @@ FLASH_SHAPE = (16, 4, 5632, 64)
 MIDFC_SHAPE = (80, 8, 500, 256)
 FLASH_DROPOUT, FLASH_SEED = 0.1, 0x5EED
 RING_BLOCK = 2500   # keys of one ring hop at phase 7's shape (10000 / 4)
+# the ring block whose outputs are compared across checkouts by value
+RING_BY_VALUE = "ring block [2,8,2500,256] bfloat16"
 
 
 def _median_ms(fn, reps: int, batch: int = 10) -> float:
@@ -270,7 +277,7 @@ def _flash_calls(q, k, v, dout, qmask, kmask, reps: int) -> dict:
     return {name: _entry(fn, reps, graph_ms) for name, fn in calls.items()}
 
 
-def flash_worker(reps: int) -> dict:
+def flash_worker(reps: int, keep: dict) -> dict:
     """The current checkout's flash pair: {shape: {kernel at dropout:
     entry}}, at FLASH_SHAPE (the HRNet SSA call) in bf16 and in f32 (the
     f32 HRNet step's call), at the CSA call (8 query shapes against 8 key
@@ -278,9 +285,9 @@ def flash_worker(reps: int) -> dict:
     in f32 and bf16 (head dim 256), and at the SSA call with d_model 256 in
     2 heads of 128 and 1 of 256 in bf16; then, for their bits, bf16 D=32
     and 16 and f32 D=128 at the SSA call cut to 4 shapes and the ring's
-    per-block kernels (`_ring_calls`). Each shape's valid rows are a prefix
-    of seeded length (as a padded point set); the SSA call takes one mask
-    for queries and keys."""
+    per-block kernels (`_ring_calls`; the outputs of RING_BY_VALUE's into
+    `keep`). Each shape's valid rows are a prefix of seeded length (as a
+    padded point set); the SSA call takes one mask for queries and keys."""
     import torch
 
     dev = torch.device("cuda")
@@ -329,16 +336,18 @@ def flash_worker(reps: int) -> dict:
     for d, dt in ((256, torch.float32), (256, torch.bfloat16),
                   (64, torch.float32)):
         x, mask = inputs(2, 8, RING_BLOCK, d, dt)
-        res[f"ring block [2,8,{RING_BLOCK},{d}] {str(dt)[6:]}"] = \
-            _ring_calls(*x, mask, reps)
+        shape = f"ring block [2,8,{RING_BLOCK},{d}] {str(dt)[6:]}"
+        res[shape] = _ring_calls(*x, mask, reps,
+                                 keep if shape == RING_BY_VALUE else None)
     return res
 
 
-def _ring_calls(q, k, v, dout, kmask, reps: int) -> dict:
+def _ring_calls(q, k, v, dout, kmask, reps: int, keep=None) -> dict:
     """{kernel at dropout: entry} of the ring's per-block kernels on one
     key block at column offset RING_BLOCK (`flash_forward_carry` from a
     fresh carry, `flash_block_backward` against that block's own lse), at
-    dropout 0 and FLASH_DROPOUT."""
+    dropout 0 and FLASH_DROPOUT; with `keep`, each call's outputs (f32, on
+    the host) into it by the entry's name."""
     from csn_tpu_torch.ops import flash
 
     temp = float(q.shape[-1]) ** 0.5
@@ -357,6 +366,9 @@ def _ring_calls(q, k, v, dout, kmask, reps: int) -> dict:
             lambda drop=drop, sd=sd, out=out, lse=lse:
             flash.flash_block_backward(q, k, v, kmask, out, lse, dout, temp,
                                        drop, sd, 0, RING_BLOCK))
+    if keep is not None:
+        for name, fn in calls.items():
+            keep[name] = [t.float().cpu() for t in fn()]
     return {name: _entry(fn, reps, graph_ms) for name, fn in calls.items()}
 
 
@@ -470,19 +482,36 @@ def steps_worker(reps: int) -> dict:
     return res
 
 
-def worker(reps: int, families: tuple, table: Path) -> dict:
+def worker(reps: int, families: tuple, table: Path, keep: dict) -> dict:
     res = {}
     if "conv" in families:
         res.update(conv_worker(reps))
     if "interp" in families:
         res.update(interp_worker(reps, table))
     if "flash" in families:
-        res.update(flash_worker(reps))
+        res.update(flash_worker(reps, keep))
     if "probes" in families:
         res.update(probe_worker(reps))
     if "steps" in families:
         res.update(steps_worker(reps))
     return res
+
+
+def by_value(tmp: Path) -> None:
+    """Print, for each output of RING_BY_VALUE's calls, max|this - other|
+    / max|other| of the first run of each checkout (`tmp` holds the
+    workers' outputs)."""
+    import torch
+    this, other = (torch.load(tmp / f"{tag}1.pt") for tag in ("this",
+                                                                "other"))
+    for name, outs in this.items():
+        errs = [float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                for a, r in zip(outs, other[name])]
+        print(f"[ab] {RING_BY_VALUE}: {name} this vs other, max_abs_err / "
+              f"max|other| per output: "
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (bf16 tolerance 2e-2: "
+              f"{'within' if max(errs) <= 2e-2 else 'OUTSIDE'})")
 
 
 def registers(root: Path, families: tuple) -> list:
@@ -532,10 +561,15 @@ def main(argv=None) -> int:
                     help="one family only (default: all)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--table", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--outputs", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     families = (args.kernels,) if args.kernels else FAMILIES
     if args.worker:
-        print(json.dumps(worker(args.reps, families, args.table)))
+        import torch
+        keep = {}
+        print(json.dumps(worker(args.reps, families, args.table, keep)))
+        if keep:
+            torch.save(keep, args.outputs)
         return 0
     this = Path(__file__).resolve().parents[2]
     other = args.other.resolve()
@@ -548,9 +582,11 @@ def main(argv=None) -> int:
                           ("other", other)):
             # the worker imports the package of `root`; this file drives it
             env = dict(os.environ, PYTHONPATH=str(root))
+            outputs = Path(tmp) / f"{tag}{len(runs.get(tag, [])) + 1}.pt"
             res = subprocess.run(
                 [sys.executable, __file__, str(other), "--worker", "--reps",
-                 str(args.reps), "--table", str(table)]
+                 str(args.reps), "--table", str(table), "--outputs",
+                 str(outputs)]
                 + (["--kernels", args.kernels] if args.kernels else []),
                 cwd=root, env=env, capture_output=True, text=True)
             if res.returncode:
@@ -564,6 +600,8 @@ def main(argv=None) -> int:
                      else f"{name} {e[0]:.4f} ms")
                     + (f" ({e[3]:.4f} from device memory)" if len(e) > 3
                        else "") for name, e in kern.items()))
+        if "flash" in families:
+            by_value(Path(tmp))
     for shape, kern in runs["this"][0].items():
         # entries with outputs: [ms, digest, repeat, ...]; [ms] times only
         outs = [name for name, e in kern.items() if len(e) > 1]

@@ -1100,7 +1100,8 @@ def test_bf16_wide_bodies_count_in_rows_of_their_own(dtype):
     """`k2_bf16_wide`, which names the launch rows: every bf16 head dim that
     K2 runs at width 128 or 256 (65-256, zero-padded up to them) counts in
     the `"_bf16_wide"` rows, and no other (bf16 1-64, f32 at any); `k2_row`
-    names each head dim's row."""
+    names each head dim's row. The other `"_bf16_wide"` rows are the
+    ring's carry and block backward at 256 (`ring_row`)."""
     for d in range(1, flash.MAX_HEAD_DIM + 1):
         want = dtype == torch.bfloat16 and d > 64
         assert flash.k2_bf16_wide(dtype, d) == want, d
@@ -1111,7 +1112,8 @@ def test_bf16_wide_bodies_count_in_rows_of_their_own(dtype):
             assert row.endswith("_tf32_d64") == (
                 dtype == torch.float32 and d <= 64), (d, row)
     assert {k for k in kernels.LAUNCHES if k.endswith("_bf16_wide")} == {
-        "flash_attn_fwd_bf16_wide", "flash_attn_bwd_bf16_wide"}
+        "flash_attn_fwd_bf16_wide", "flash_attn_bwd_bf16_wide",
+        "flash_attn_carry_bf16_wide", "flash_attn_block_bwd_bf16_wide"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1130,10 +1132,10 @@ def test_ds_scratch_only_for_the_bodies_that_read_it():
     """The dS^T scratch (B H ceil32(Lk) ceil32(Lq) elements in q's dtype)
     is allocated for the bodies that hand dS^T from their dK/dV pass to
     their dQ pass: the f32 D=256 backward (f32; its ring form too) and the
-    bf16 D=128 and 256 backward (bf16; K2's only: the ring's bf16 block
-    backward reads none). The f32 D=64 body recomputes dS in its dQ pass
-    and gets none (it would be 8.1 GB at the HRNet SSA call), nor do f32
-    D=128 and bf16 D <= 64."""
+    bf16 D=128 and 256 backward (bf16; the ring's block form at 256 too,
+    at 128 it runs the CUDA-core body, which reads none). The f32 D=64 body
+    recomputes dS in its dQ pass and gets none (it would be 8.1 GB at the
+    HRNet SSA call), nor do f32 D=128 and bf16 D <= 64."""
     B, H, Lq, Lk = 2, 3, 70, 45
     for dtype, d in ((torch.float32, 64), (torch.float32, 128),
                      (torch.bfloat16, 64), (torch.bfloat16, 32)):
@@ -1146,7 +1148,9 @@ def test_ds_scratch_only_for_the_bodies_that_read_it():
         ds_t = flash._ds_scratch(q, B, H, Lq, Lk, d)
         assert ds_t.dtype == dtype and ds_t.numel() == B * H * 64 * 96
         ring = flash._ds_scratch(q, B, H, Lq, Lk, d, "block")
-        assert (ring is None) == (dtype == torch.bfloat16)
+        assert (ring is None) == (dtype == torch.bfloat16 and d == 128)
+        if ring is not None:
+            assert ring.dtype == dtype and ring.numel() == B * H * 64 * 96
     # the SSA call's scratch at D=64, had the body kept it; the bf16 one at
     # d_model 256 in 2 heads of 128
     assert 16 * 4 * 5632 * 5632 * 4 / 1e9 > 8.1

@@ -10,9 +10,15 @@ their own time limit); every rank writes what it computed to a file and the
 test compares. Tolerances: f32 against f32 <= 1e-5 abs (values of order 1);
 against the Pallas kernels in interpret mode, which take bf16 operands,
 2e-2; sharded against single-process gradients <= 1e-4·max|ref| + 1e-6.
+In bf16 at head dim 256 (the ring's `_bf16_wide` rows on the card): the
+carry chain against the Pallas carry <= 3e-2·max|ref|, and one MID-FC
+full-attention train step through a ring of one against the JAX step, loss
+<= 2e-3 relative and every gradient <= 2e-2·max|ref|; the wrappers' launch
+rows, the bf16 dS^T scratch and their refusals are pinned without a card.
 """
 
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -24,13 +30,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import PartitionSpec as PS
 
+from csn_tpu.midfc.training import MidfcConfig as JMidfcConfig
+from csn_tpu.midfc.training import MidfcRunner as JMidfcRunner
 from csn_tpu.ops import attention as j_attention
 from csn_tpu.ops import flash as j_flash
 from csn_tpu.parallel.midfc import make_midfc_mesh
+from csn_tpu_torch import kernels
+from csn_tpu_torch.midfc.convert import flax_to_torch_midfc
 from csn_tpu_torch.midfc.training import MidfcConfig, MidfcRunner
 from csn_tpu_torch.ops import attention, flash
+from csn_tpu_torch.parallel.midfc import make_midfc_steps
 
 torch.set_num_threads(1)
 
@@ -399,3 +411,283 @@ def test_parallel_shape_guards():
         from csn_tpu_torch.midfc.model import ChunkedMHA
 
         ChunkedMHA(2, 8, 8, 8, chunk_size=20, ring_group=object())
+
+
+# ---------------------------------------------------------------------------
+# bf16 at head dim 256: the ring's `_bf16_wide` rows
+# ---------------------------------------------------------------------------
+
+UNEVEN = (0, 13, 27, 50, 64)   # blocks start at columns 1, 3 and 2 mod 4
+
+
+def _bf16(x):
+    """A numpy f32 array rounded to bf16 (to nearest even), as f32."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def test_bf16_carry_chain_matches_jax_pallas_carry():
+    """The bf16 chain at head dim 256 through `flash_forward_carry` (its
+    plain version on the CPU) over blocks cut at columns 1, 3 and 2 mod 4,
+    dropout 0, against the JAX package's `flash_forward_carry` in interpret
+    mode chained over the same blocks, both on the same numpy inputs
+    rounded to bf16 and held in bf16. m, l and acc each within
+    3e-2·max|ref| of the JAX carry's: the Pallas kernel rounds the
+    probabilities to bf16 for P V, the plain version keeps them in f32."""
+    rng = np.random.default_rng(21)
+    b, h, d = 2, 2, 256
+    q, k, v = (_bf16(rng.normal(size=(b, h, L, d)).astype(np.float32))
+               for _ in range(3))
+    mask = rng.random((b, L)) > 0.3
+    mask[:, :8] = True
+    temp = d ** 0.5
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    tm = torch.from_numpy(mask)
+    carry = flash.flash_carry_init(b, h, L, d)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    j_carry = j_flash.flash_carry_init(b, h, L, d)
+    with j_flash.interpret_mode():
+        for a, c in zip(UNEVEN[:-1], UNEVEN[1:]):
+            carry = flash.flash_forward_carry(
+                tq, tk[:, :, a:c], tv[:, :, a:c], tm[:, a:c], None, carry,
+                temp, col_offset=a)
+            j_carry = j_flash.flash_forward_carry(
+                jq, jk[:, :, a:c], jv[:, :, a:c], jnp.asarray(mask[:, a:c]),
+                None, j_carry, temp)
+    for nm, got, ref in zip(("m", "l", "acc"), carry, j_carry):
+        ref = np.asarray(ref)
+        err = float(np.abs(got.numpy() - ref).max())
+        scale = float(np.abs(ref).max())
+        assert err <= 3e-2 * scale, (
+            f"{nm}: max_abs_err {err:.3e} above 3e-2 x max|ref| "
+            f"{3e-2 * scale:.3e}")
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def test_bf16_full_attention_step_through_a_ring_of_one_matches_jax(
+        monkeypatch):
+    """One MID-FC SSA full-attention train step (chunk_size None) in bf16
+    at dropout 0, through `make_midfc_steps(runner, 1, 1)` in a gloo world
+    of one in this process: the attention is `RingFlashAttentionFn` over a
+    ring of one (the carry and the block backward, their plain versions on
+    the CPU; on the card the `_bf16_wide` rows at heads of 256). Against
+    the JAX `MidfcRunner` step in compute_dtype "bfloat16" (plain
+    attention), on weights carried across by `flax_to_torch_midfc`: the
+    loss within 2e-3 relative (the f32 logit head reads bf16 attention
+    outputs, each rounded to 2^-9 of itself) and every gradient within
+    2e-2·max|ref| of its tensor (a few bf16 roundings that the packages
+    place differently). The ring hands the per-block wrappers bf16 q, k, v
+    and adds their f32 dQ terms."""
+    d, heads = 256, 2
+    kw = dict(num_classes=MF_C, n_heads=heads, K=2, batch_size=MF_B,
+              d_model=d, chunk_size=None, num_points=MF_P, weight_decay=5e-4,
+              compute_dtype="bfloat16")
+    rng = np.random.default_rng(13)
+    feats = rng.normal(size=(MF_B, MF_P, d)).astype(np.float32)
+    labels = rng.integers(0, MF_C, size=(MF_B, MF_P)).astype(np.int32)
+    jr = JMidfcRunner(JMidfcConfig(use_flash=False, **kw), "ssa")
+    jr.model = jr.model.clone(dropout=0.0)
+    jr._grad = jax.jit(jr._make_grad())
+    jr.initialize(feats, None)
+    tr = MidfcRunner(MidfcConfig(use_flash=True, **kw), "ssa", device="cpu")
+    tr.initialize()
+    tr.model.attention.mha.dropout = 0.0
+    tr.load_state(flax_to_torch_midfc(_np_tree(jr.params)))
+    seen = []
+
+    def spy(fn, what):
+        def call(q, *a, **k):
+            res = fn(q, *a, **k)
+            seen.append((what, q.dtype, res[0].dtype))
+            return res
+        return call
+
+    monkeypatch.setattr(attention, "flash_forward_carry",
+                        spy(flash.flash_forward_carry, "carry"))
+    monkeypatch.setattr(attention, "flash_block_backward",
+                        spy(flash.flash_block_backward, "block"))
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        steps = make_midfc_steps(tr, 1, 1)
+        assert tr.model.compute_dtype == torch.bfloat16
+        tl, tg = steps.grad(feats, labels, None, 0)
+    finally:
+        dist.destroy_process_group()
+    assert seen == [("carry", torch.bfloat16, torch.float32),
+                    ("block", torch.bfloat16, torch.float32)], seen
+    jl, jg = jr._grad(jr.params, jnp.asarray(feats), jnp.asarray(labels),
+                      None, jax.random.PRNGKey(0))
+    rel = abs(float(tl) - float(jl)) / abs(float(jl))
+    assert rel <= 2e-3, f"loss {float(tl)} vs {float(jl)}: {rel:.3e} relative"
+    ref_g = flax_to_torch_midfc(_np_tree(jg))
+    assert set(tg) == set(ref_g)
+    for name, r in ref_g.items():
+        err = float((tg[name].float() - r).abs().max())
+        scale = float(r.abs().max())
+        assert err <= 2e-2 * scale, (
+            f"{name}: max_abs_err {err:.3e} above 2e-2 x max|ref| "
+            f"{2e-2 * scale:.3e}")
+
+
+def _meta(*shape, dtype=torch.bfloat16, shift=0):
+    """A contiguous meta tensor, `shift` elements past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    t = torch.empty(n + shift, dtype=dtype, device="meta")[shift:]
+    return t.view(*shape)
+
+
+class _Launcher:
+    """Stands in for the kernel library: records the block backward's
+    scratch pointer and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def csn_flash_attn_carry(self, *args):
+        self.calls.append(("carry", args))
+        return 0
+
+    def csn_flash_attn_block_bwd(self, *args):
+        self.calls.append(("block", args))
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", flash.RING_HEAD_DIMS)
+def test_ring_wrappers_count_rows_and_ask_for_the_ds_scratch(monkeypatch,
+                                                              dtype, d):
+    """Without a card (meta tensors through the wrappers, the CUDA-device
+    check and the library stubbed): at every (dtype, D) of
+    `RING_HEAD_DIMS`, `flash_forward_carry` and `flash_block_backward`
+    count their launch in `ring_row`'s row (bf16 at 256: the
+    `"_bf16_wide"` rows; every other pair the base rows), and the block
+    backward asks for a dS^T scratch of B·H·ceil32(Lk)·ceil32(Lq) elements
+    in q's dtype at 256 (f32 and bf16) and none at 64 and 128."""
+    lib = _Launcher()
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LAUNCHES,
+                                                           0))
+    scratch = []
+
+    def ds_scratch(*a, **k):
+        scratch.append(real(*a, **k))
+        return scratch[-1]
+
+    real = flash._ds_scratch
+    monkeypatch.setattr(flash, "_ds_scratch", ds_scratch)
+    b, h, lq, lk = 2, 3, 70, 45
+    q = _meta(b, h, lq, d, dtype=dtype)
+    k = _meta(b, h, lk, d, dtype=dtype)
+    kv = torch.ones(b, lk, dtype=torch.bool, device="meta")
+    carry = (_meta(b, h, lq, dtype=torch.float32),
+             _meta(b, h, lq, dtype=torch.float32),
+             _meta(b, h, lq, d, dtype=torch.float32))
+    lse = _meta(b, h, lq, dtype=torch.float32)
+    flash.flash_forward_carry(q, k, k, kv, None, carry, 16.0)
+    flash.flash_block_backward(q, k, k, kv, q, lse, q, 16.0, delta=lse)
+    wide = dtype == torch.bfloat16 and d == 256
+    rows = {n: n + ("_bf16_wide" if wide else "") for n in (
+        "flash_attn_carry", "flash_attn_block_bwd")}
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
+        r: 1 for r in rows.values()}
+    assert [c[0] for c in lib.calls] == ["carry", "block"]
+    ds_t, = scratch
+    if d == 256:
+        assert ds_t.dtype == dtype
+        assert ds_t.numel() == b * h * 64 * 96   # ceil32(45), ceil32(70)
+    else:
+        assert ds_t is None
+
+
+def test_ring_row_names_every_ring_width():
+    """`ring_row` at every head dim 1-256 in both dtypes: bf16 dims that the
+    ring runs at the width 256 (129-256, zero-padded up to it) count in
+    the `"_bf16_wide"` rows, every other in the base rows; each name is a
+    row of `kernels.LAUNCHES`; and the ring's `_bf16_wide` rows are these
+    two."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in range(1, flash.MAX_HEAD_DIM + 1):
+            wide = dtype == torch.bfloat16 and d > 128
+            for what in ("flash_attn_carry", "flash_attn_block_bwd"):
+                row = flash.ring_row(what, dtype, d)
+                assert row == what + ("_bf16_wide" if wide else ""), (d, row)
+                assert row in kernels.LAUNCHES
+    assert {flash.ring_row(w, torch.bfloat16, 256) for w in (
+        "flash_attn_carry", "flash_attn_block_bwd")} == {
+        "flash_attn_carry_bf16_wide", "flash_attn_block_bwd_bf16_wide"}
+
+
+@pytest.mark.parametrize("source,launch", [
+    ("flash_attn_carry.cu", r"csn_tcw::launch_fwd_split<256, true, (true|"
+     r"false)>"),
+    ("flash_attn_block_bwd.cu", r"csn_tcw::launch_bwd_split<256, float>")])
+def test_ring_dispatch_sends_bf16_256_to_the_tensor_cores(source, launch):
+    """The C launchers of the ring: bf16 at 256 goes to the carry form of
+    `csrc/flash_bf16_wide_fwd.cuh` (both dropout-word paths) and to the
+    block form of `csrc/flash_bf16_wide_bwd.cuh` with an f32 dQ; the
+    CUDA-core bodies (`CSN_CARRY` / `CSN_BLOCK`) keep exactly f32 and bf16
+    at 64 and 128."""
+    text = (kernels.CSRC / source).read_text()
+    body = text[text.index('extern "C" int csn_flash_attn'):]
+    carry = "carry" in source
+    macro = "CSN_CARRY" if carry else "CSN_BLOCK"
+    names = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16}
+    core = {(names[t], int(d)) for t, d in re.findall(
+        macro + r"\((float|__nv_bfloat16), (\d+)\)", body)}
+    assert core == {(dt, d) for dt in names.values() for d in (64, 128)}
+    assert len(re.findall(launch, body)) == (2 if carry else 1)
+    header = "flash_bf16_wide_fwd.cuh" if carry else "flash_bf16_wide_bwd.cuh"
+    assert f'#include "{header}"' in text
+
+
+@pytest.mark.parametrize("what", ["carry", "block"])
+def test_ring_wrappers_refuse_other_devices_and_misaligned_views(
+        monkeypatch, what):
+    """The bf16 D=256 forms on the card copy q, k, v (and dO, or the
+    carry's acc) 16 bytes at a time: with the library stubbed, a tensor
+    that is not on the CUDA device (meta here; the CPU takes the plain
+    version) is refused by the device check, and with that check stubbed
+    too, a view that does not start on a 16-byte boundary is refused;
+    neither reaches the launcher nor counts a launch. An aligned call gets
+    as far as the library."""
+    def no_library():
+        raise LookupError("reached the launch")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    b, h, lq, lk, d = 1, 2, 9, 11, 256
+    q = _meta(b, h, lq, d)
+    k = _meta(b, h, lk, d)
+    kv = torch.ones(b, lk, dtype=torch.bool, device="meta")
+    f32 = dict(dtype=torch.float32)
+    carry = (_meta(b, h, lq, **f32), _meta(b, h, lq, **f32),
+             _meta(b, h, lq, d, **f32))
+    lse = _meta(b, h, lq, **f32)
+
+    def call(qq, kk, gg, acc):
+        if what == "carry":
+            return flash.flash_forward_carry(qq, kk, kk, kv, None,
+                                             carry[:2] + (acc,), 16.0)
+        return flash.flash_block_backward(qq, kk, kk, kv, qq, lse, gg, 16.0,
+                                          delta=lse)
+
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(q, k, q, carry[2])
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+    shifted = [(_meta(b, h, lq, d, shift=1), k, q, carry[2]),
+               (q, _meta(b, h, lk, d, shift=3), q, carry[2])]
+    shifted.append((q, k, q, _meta(b, h, lq, d, shift=2, **f32))
+                   if what == "carry" else
+                   (q, k, _meta(b, h, lq, d, shift=5), carry[2]))
+    for args in shifted:
+        with pytest.raises(ValueError, match="16-byte"):
+            call(*args)
+    with pytest.raises(LookupError, match="reached the launch"):
+        call(q, k, q, carry[2])
+    assert kernels.LAUNCHES == before
