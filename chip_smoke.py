@@ -72,20 +72,22 @@ Phases (each prints its lines; any failure exits nonzero):
      ragged key mask with one fully masked 64-key tile, one query tile all
      padding), at head dims 64 (4 heads) and 256 (8 heads), at dropout 0
      and 0.1 (same seed as the plain version); `flash_attn_bwd` at the same
-     cases against autograd of the plain version; the f32 D=64 bodies in
-     split TF32 (`check_f32_d64`) against float64 references (out, lse,
-     dq, dk, dv within 1e-4 x max|ref|, the f32 plain version's error
-     beside) at the ragged masks and the SSA masks cut to 2 shapes, at
-     dropout 0 and 0.1, every launch repeated bitwise, then their device
-     times (CUDA graphs) at the full SSA and CSA calls beside the bound,
-     the library call and the plain version; both again at the head
+     cases against autograd of the plain version; the f32 bodies in split
+     TF32 at D=64 and D=128 (`check_f32_split`: d_model 256 in 4 heads and
+     2) against float64 references (out, lse, dq, dk, dv within 1e-4 x
+     max|ref|, the f32 plain version's error beside) at the ragged masks
+     and the SSA masks cut to 2 shapes, at dropout 0 and 0.1, every launch
+     repeated bitwise, then their device times (CUDA graphs) at the full
+     SSA and CSA calls beside the bound, the library call and the plain
+     version; both again at the head
      dims the main path does not run (`check_head_dims`): 32 and 16 (bf16
      on their tensor-core bodies; d_model 256 in 8 and 16 heads) at the
      SSA masks cut to 8 and 4 shapes and at the ragged masks, and 24 on
      the ragged masks, f32 and bf16, the ones without a body of their own
-     zero-padded to the next, at the D=64 tolerances, and the bf16 widths
-     128 and 256 (d_model 256 in 2 heads and 1, the bf16 bodies of the
-     `_bf16_wide` rows) at the SSA masks (16 shapes) and the ragged masks;
+     zero-padded to the next, at the D=64 tolerances, and the widths 128
+     and 256 (d_model 256 in 2 heads and 1: the bf16 bodies of the
+     `_bf16_wide` rows, f32 in split TF32, at 128 the `_tf32_d128` rows) at
+     the SSA masks (16 shapes) and the ragged masks;
      then the bf16 pair's device times (CUDA graphs) at the full SSA call
      for D = 64, 32, 16, 128 and 256, at the CSA call at D=128 and at the
      MID-FC chunk shape beside the bound and the library call, the calls of
@@ -149,7 +151,11 @@ Phases (each prints its lines; any failure exits nonzero):
      `sparse_conv_dw` never), its ms/step beside the K1 form's; then the
      bf16 protocol again at d_model 256 in 2 heads of 128: 3 eval and 3
      train requests with exact launch counts (K2 and its backward in the
-     `_bf16_wide` rows), ms/step of both;
+     `_bf16_wide` rows), ms/step of both; 5c: the f32 protocol in the K1
+     form again in 2 heads of 128 (K2 and its backward in the `_tf32_d128`
+     rows, the split-TF32 bodies at D=128; with --profile the attention
+     kernels named, none a CUDA-core body), and one f32 B=2 train step
+     at dropout 0 in those heads against the plain step on the CPU;
   6. MID-FC chunked, the JAX package's `bench.py` midfc protocol:
      `MidfcRunner(cfg, "csa")` with 8 heads of 256, K=4, B=4, P=10000,
      d_model 256, chunks of 500, 39 classes, f32, Adam(0.5, 0.999), seeded
@@ -231,12 +237,14 @@ The line before the last is the kernel table as JSON: per kernel (K1,
 `sparse_conv_dw` and the im2col pair in two rows each: their split-TF32
 bodies, the f32 form, as `sparse_conv_fwd_tf32`, `sparse_conv_dw_tf32`,
 `sparse_conv_im2col_fwd_tf32` and `sparse_conv_im2col_bwd_tf32`, and their
-other bodies; K2 and its backward likewise, their f32 D=64 split-TF32
-bodies as `flash_attn_fwd_tf32_d64` and `flash_attn_bwd_tf32_d64`, their
+other bodies; K2 and its backward likewise, their f32 split-TF32 bodies
+at D=64 as `flash_attn_fwd_tf32_d64` and `flash_attn_bwd_tf32_d64` and at
+D=128 as `flash_attn_fwd_tf32_d128` and `flash_attn_bwd_tf32_d128`, their
 bf16 bodies at head dims 128 and 256 as `flash_attn_fwd_bf16_wide` and
 `flash_attn_bwd_bf16_wide`), its
 launches in the train requests of phases 5 (bf16, f32, f32 under
-CSN_DYNG=2 and bf16 in heads of 128), 6 (f32 and bf16),
+CSN_DYNG=2, bf16 in heads of 128 and f32 in heads of 128), 6 (f32 and
+bf16),
 7, 8, 9, 10 and 11 (each
 phase sets the counts to 0 before and reads them after; phase 9 counts the
 Res16UNet34C train iterations, the chain and the probes' entry points;
@@ -245,7 +253,8 @@ learning-check trainings), its worst error
 over phase 3's checks, and four times summed over one train step's launches
 of every path the kernel is on (bf16 at the HRNet and Res16UNet34C shapes,
 the split-TF32 rows f32 there as device time from CUDA graphs (the
-`_tf32_d64` rows: one SSA and one CSA call, the plain version one call;
+`_tf32_d64` and `_tf32_d128` rows: one SSA and one CSA call each, the
+plain version one call;
 the `_bf16_wide` rows likewise: one SSA and one CSA call at D=128 and 9
 MID-FC chunk calls at D=256, bf16),
 f32 at the MID-FC shapes; the interpolation pair f32 at 39 classes, as the
@@ -324,7 +333,7 @@ from csn_tpu_torch.train.trainer import build_batch_from_dataset
 B, P, VOXEL, K_NEIGHBORS = 8, 10000, 0.05, 1
 LEVEL0_CAP, SHRINK, STEM_K = 5632, 3.0, 5
 D_MODEL, N_HEAD, NUM_CLASSES = 256, 4, 39
-WIDE_HEADS = 2   # phase 5's bf16 requests again at d_model 256 in heads of 128
+WIDE_HEADS = 2   # phase 5's requests again at d_model 256 in heads of 128
 N_REQUESTS, TIMED_STEPS, SEED = 3, 10, 0
 ATTN_DROPOUT, LR = 0.1, 0.05
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max|ref|
@@ -424,6 +433,13 @@ KERNELS = {
                                 "csn_tpu/ops/flash.py:262"),
     "flash_attn_bwd_tf32_d64": ("csn_tpu_torch/csrc/flash_tf32_d64_bwd.cuh",
                                 "csn_tpu/ops/flash.py:600"),
+    # the f32 D=128 forms (the HRNet heads with f32 activations at d_model
+    # 256 in 2 heads): their split-TF32 bodies (the backward's passes are
+    # flash_tf32_bwd.cuh's at head dim 128), whose launches count apart
+    "flash_attn_fwd_tf32_d128": ("csn_tpu_torch/csrc/flash_tf32_d128_fwd.cuh",
+                                 "csn_tpu/ops/flash.py:262"),
+    "flash_attn_bwd_tf32_d128": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
+                                 "csn_tpu/ops/flash.py:600"),
     # the bf16 forms of K2 and its backward at head dims 128 and 256 (d_model
     # 256 in 2 heads or 1, the MID-FC heads in bf16): their tensor-core
     # bodies, whose launches count apart (the forward at 128 runs
@@ -1512,9 +1528,9 @@ def check_flash(table, dev, g, what, qm, km, n_head, dk, time_dt, count,
 
 def check_attention(qb, kb, big, dev, table, g):
     """K2 and its backward at the HRNet SSA (combined pass) and CSA (query
-    against key) shapes, their f32 D=64 bodies against float64 and timed
-    (`check_f32_d64`), and at the MID-FC chunk shape (80 chunks of 500
-    points, 8 heads of 256, 9 calls per CSA train step)."""
+    against key) shapes, their f32 D=64 and D=128 bodies against float64
+    and timed (`check_f32_split`), and at the MID-FC chunk shape (80 chunks
+    of 500 points, 8 heads of 256, 9 calls per CSA train step)."""
     dk = D_MODEL // N_HEAD
     bmask, qmask, kmask = big.masks[0], qb.masks[0], kb.masks[0]
     check_flash(table, dev, g, "SSA", bmask, bmask, N_HEAD, dk,
@@ -1530,7 +1546,8 @@ def check_attention(qb, kb, big, dev, table, g):
     rq[:, 128:192] = False
     check_flash(table, dev, g, "ragged", rq.to(dev), rk.to(dev), N_HEAD, dk,
                 None, 0)
-    check_f32_d64(qb, kb, big, dev, table)
+    for split_dk in (64, 128):
+        check_f32_split(qb, kb, big, dev, table, split_dk)
     # the same edges at the MID-FC heads (8 of 256; the f32 backward's
     # split-TF32 body walks 32-row tiles, which these masks also cut)
     rq = torch.rand(2, RAGGED_LQ, generator=g) < 0.8
@@ -1545,51 +1562,56 @@ def check_attention(qb, kb, big, dev, table, g):
                 torch.float32, 2 * MF_K + 1, ref64=True)
 
 
-def check_f32_d64(qb, kb, big, dev, table):
-    """The split-TF32 bodies of K2 and its backward at f32 D=64
-    (`csrc/flash_tf32_d64_fwd.cuh`, `csrc/flash_tf32_d64_bwd.cuh`: the
-    HRNet heads with f32 activations) against float64 references of the
-    same operands (`attention_fwd_f64`, `attention_bwd_f64`) within
-    TOL[f32] x max|ref|, the f32 plain version's error beside: out, lse,
-    dq, dk, dv at dropout 0 and ATTN_DROPOUT, at the ragged masks
-    (RAGGED_LQ / RAGGED_LK, a fully masked 64-key tile, a query tile all
-    padding) and at the SSA masks cut to 2 shapes; every launch repeated
-    and bitwise equal. Then `time_f32_d64`."""
-    g = torch.Generator().manual_seed(SEED + 29)
+def check_f32_split(qb, kb, big, dev, table, dk):
+    """The split-TF32 bodies of K2 and its backward at f32 head dim `dk`:
+    64 (`csrc/flash_tf32_d64_fwd.cuh`, `csrc/flash_tf32_d64_bwd.cuh`) or
+    128 (`csrc/flash_tf32_d128_fwd.cuh`, `csrc/flash_tf32_bwd.cuh` at half
+    the MID-FC width), the HRNet heads with f32 activations at d_model 256
+    in 4 heads or 2, against float64 references of the same operands
+    (`attention_fwd_f64`, `attention_bwd_f64`) within TOL[f32] x max|ref|,
+    the f32 plain version's error beside: out, lse, dq, dk, dv at dropout
+    0 and ATTN_DROPOUT, at the ragged masks (RAGGED_LQ / RAGGED_LK, a
+    fully masked 64-key tile, a query tile all padding) and at the SSA
+    masks cut to 2 shapes; every launch repeated and bitwise equal. Then
+    `time_f32_split`."""
+    g = torch.Generator().manual_seed(SEED + 29 + dk - 64)
     rq = torch.rand(2, RAGGED_LQ, generator=g) < 0.8
     rk = torch.rand(2, RAGGED_LK, generator=g) < 0.7
     rk[:, 64:128] = False
     rq[:, 128:192] = False
     bmask = big.masks[0][:2]
-    body = "float32 (split TF32, D=64)"
+    heads = D_MODEL // dk
+    body = f"float32 (split TF32, D={dk})"
+    fname, bname = (flash.k2_row(n, torch.float32, dk)
+                    for n in ("flash_attn_fwd", "flash_attn_bwd"))
     zero = torch.zeros((), dtype=torch.float64, device=dev)
     for tag, qm, km in (("ragged", rq.to(dev), rk.to(dev)),
                         ("SSA", bmask, bmask)):
         b, lq = qm.shape
         lk = km.shape[1]
-        q, dout = (torch.randn(b, N_HEAD, lq, 64, generator=g).to(dev)
+        q, dout = (torch.randn(b, heads, lq, dk, generator=g).to(dev)
                    for _ in range(2))
-        k, v = (torch.randn(b, N_HEAD, lk, 64, generator=g).to(dev)
+        k, v = (torch.randn(b, heads, lk, dk, generator=g).to(dev)
                 for _ in range(2))
         valid = qm[:, None, :, None]
         dout = dout * valid
-        temp = 8.0
+        temp = float(dk) ** 0.5
         for drop in (0.0, ATTN_DROPOUT):
             sd = 0x5EED_0F_C5A if drop else None
-            what = f"{tag} [{b},{N_HEAD},{lq},64] Lk={lk} dropout {drop}"
+            what = f"{tag} [{b},{heads},{lq},{dk}] Lk={lk} dropout {drop}"
             out, lse = flash.flash_attention(q, k, v, km, qm, temp, drop, sd)
             delta = (dout * out).sum(dim=-1)
             grads = flash.flash_attention_bwd(q, k, v, dout, lse, delta, km,
                                               qm, temp, drop, sd)
             again = flash.flash_attention(q, k, v, km, qm, temp, drop, sd)
-            check_same("flash_attn_fwd_tf32_d64", what, "repeat: out and "
-                       "lse bitwise equal", all(torch.equal(a, c) for a, c in
-                                    zip(again, (out, lse))), body)
+            check_same(fname, what, "repeat: out and lse bitwise equal",
+                       all(torch.equal(a, c) for a, c in
+                           zip(again, (out, lse))), body)
             again = flash.flash_attention_bwd(q, k, v, dout, lse, delta, km,
                                               qm, temp, drop, sd)
-            check_same("flash_attn_bwd_tf32_d64", what, "repeat: dq, dk, "
-                       "dv bitwise equal", all(torch.equal(a, c) for a, c in
-                                    zip(again, grads)), body)
+            check_same(bname, what, "repeat: dq, dk, dv bitwise equal",
+                       all(torch.equal(a, c) for a, c in zip(again, grads)),
+                       body)
             del again
             leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
             ref, ref_lse = attention.scaled_dot_product_attention(
@@ -1606,42 +1628,45 @@ def check_f32_d64(qb, kb, big, dev, table):
                     got, pl, rr = (torch.where(vm, x.double(), zero)
                                    for x in (got, pl, rr))
                 perr = (pl.double() - rr).abs().max().item()
-                name = "flash_attn_fwd_tf32_d64" if nm in ("out", "lse") \
-                    else "flash_attn_bwd_tf32_d64"
+                name = fname if nm in ("out", "lse") else bname
                 check_f64(table, name, f"{what} {nm}", got, rr,
                           TOL[torch.float32], body=body,
                           vs=f"float64 (f32 plain {perr:.3e})")
             del out, lse, grads, plain, r64
             torch.cuda.empty_cache()
-    time_f32_d64(qb, kb, big, dev, table)
+    time_f32_split(qb, kb, big, dev, table, dk)
 
 
-def time_f32_d64(qb, kb, big, dev, table):
+def time_f32_split(qb, kb, big, dev, table, dk):
     """Device ms (CUDA graphs, warm L2) of K2 and its backward in f32 at
-    D=64 at the HRNet SSA call [16, 4, 5632, 64] and the CSA call
-    [8, 4, 5632, 64] against 5632 keys under their masks, at dropout
-    ATTN_DROPOUT (the f32 train step's call) and 0 (the eval request's),
-    beside the call's bound (`attention_work` over PEAK_FLOPS[f32]: three
-    TF32 products per f32 product) and the library call
-    `F.scaled_dot_product_attention` with the key mask at the same dropout
-    in f32 (its backward: a graph of forward and backward less the
-    forward's), and the plain version's one call at dropout ATTN_DROPOUT.
-    The calls at ATTN_DROPOUT go into the `_tf32_d64` rows of the kernel
-    line once each, as the f32 train step makes them (one SSA and one CSA
-    call of each kernel)."""
-    gd = torch.Generator(device=dev).manual_seed(SEED + 31)
+    head dim `dk` (64 or 128: d_model 256 in 4 heads or 2) at the HRNet SSA
+    call [16, H, 5632, dk] and the CSA call [8, H, 5632, dk] against 5632
+    keys under their masks, at dropout ATTN_DROPOUT (the f32 train step's
+    call) and 0 (the eval request's), beside the call's bound
+    (`attention_work` over PEAK_FLOPS[f32]: three TF32 products per f32
+    product) and the library call `F.scaled_dot_product_attention` with the
+    key mask at the same dropout in f32 (its backward: a graph of forward
+    and backward less the forward's), and the plain version's one call at
+    dropout ATTN_DROPOUT. The calls at ATTN_DROPOUT go into the `_tf32_d64`
+    or `_tf32_d128` rows of the kernel line once each, as the f32 train
+    step in those heads makes them (one SSA and one CSA call of each
+    kernel)."""
+    gd = torch.Generator(device=dev).manual_seed(SEED + 31 + dk - 64)
     f32 = torch.float32
+    heads = D_MODEL // dk
+    fname, bname = (flash.k2_row(n, f32, dk)
+                    for n in ("flash_attn_fwd", "flash_attn_bwd"))
     for tag, qm, km in (("SSA", big.masks[0], big.masks[0]),
                         ("CSA", qb.masks[0], kb.masks[0])):
         b, L = qm.shape
-        temp = 8.0
-        q, dout = (torch.randn(b, N_HEAD, L, 64, generator=gd, device=dev)
+        temp = float(dk) ** 0.5
+        q, dout = (torch.randn(b, heads, L, dk, generator=gd, device=dev)
                    for _ in range(2))
-        k, v = (torch.randn(b, N_HEAD, km.shape[1], 64, generator=gd,
+        k, v = (torch.randn(b, heads, km.shape[1], dk, generator=gd,
                             device=dev) for _ in range(2))
         dout = dout * qm[:, None, :, None]
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-        fb, bb, ff, bf = attention_work(qm, km, N_HEAD, 64, 4)
+        fb, bb, ff, bf = attention_work(qm, km, heads, dk, 4)
         # (bytes ms, operations ms) of each call's bound
         parts_f = (fb / HBM_BYTES_S * 1e3, ff / PEAK_FLOPS[f32] * 1e3)
         parts_b = (bb / HBM_BYTES_S * 1e3, bf / PEAK_FLOPS[f32] * 1e3)
@@ -1675,16 +1700,16 @@ def time_f32_d64(qb, kb, big, dev, table):
                     dout), warmup=1, reps=3)
                 plain = (f"; plain (one call) forward {pf:.4f} ms, backward "
                          f"{pfb - pf:.4f} ms")
-                table.add("flash_attn_fwd_tf32_d64", 1, kf, pf, *parts_f, lf)
-                table.add("flash_attn_bwd_tf32_d64", 1, kb_, pfb - pf,
-                          *parts_b, lfb - lf)
+                table.add(fname, 1, kf, pf, *parts_f, lf)
+                table.add(bname, 1, kb_, pfb - pf, *parts_b, lfb - lf)
             print(f"[time] flash_attn_fwd / flash_attn_bwd {tag} "
-                  f"[{b},{N_HEAD},{L},64] Lk={km.shape[1]} dropout {drop} "
-                  f"float32 (split TF32, D=64; device, CUDA graphs, warm L2):"
-                  f" forward kernel {kf:.4f} ms, library {lf:.4f} ms, bound "
-                  f"{bound_f:.4f} ms; backward kernel {kb_:.4f} ms, library "
-                  f"{lfb - lf:.4f} ms (forward and backward {lfb:.4f} less "
-                  f"the forward), bound {bound_b:.4f} ms{plain} "
+                  f"[{b},{heads},{L},{dk}] Lk={km.shape[1]} dropout {drop} "
+                  f"float32 (split TF32, D={dk}; device, CUDA graphs, warm "
+                  f"L2): forward kernel {kf:.4f} ms, library {lf:.4f} ms, "
+                  f"bound {bound_f:.4f} ms; backward kernel {kb_:.4f} ms, "
+                  f"library {lfb - lf:.4f} ms (forward and backward "
+                  f"{lfb:.4f} less the forward), bound {bound_b:.4f} ms"
+                  f"{plain} "
                   + ("(x1 per f32 train step)" if drop
                      else "(not in the kernel line)"))
             del out, lse, delta
@@ -1703,7 +1728,7 @@ def check_head_dims(qb, kb, big, dev, table):
     tolerances (TOL). f32 at 16, 24 and 32 and bf16 at 24 run zero-padded
     to the next body (`ops/flash.py` `k2_head_dim`). Then the bf16 widths
     128 and 256 (d_model 256 in 2 heads and 1: the bf16 bodies of
-    `"_bf16_wide"`; f32 at 128 on its CUDA-core body, at 256 in split TF32)
+    `"_bf16_wide"`; f32 in split TF32, at 128 the bodies of `"_tf32_d128"`)
     at the SSA call's masks, all 16 shapes (batch * heads 32 and 16, under
     the D=64 check's 64), at 128 also at the CSA call's masks (query batch
     against key batch, as phase 5b runs it), and on the ragged masks, the
@@ -2457,20 +2482,21 @@ def eval_slice(cls, reqs, dev, n_convs, do_profile=False, n_head=N_HEAD):
     require(err <= 1e-3 * scale, "f32 forward: kernels disagree with plain")
 
 
-def f32_step_check(cls, spec, dev, tag, mode=None):
-    """One f32 train step at dropout 0 on B=2 shapes with the kernels on
-    the GPU (under `CSN_DYNG=mode`) against the same step with the plain
-    versions on the CPU (`CSN_DYNG` unset): loss and every gradient, the
-    CPU step taking the GPU step's ReLU decisions (`ReluDecisions`)."""
+def f32_step_check(cls, spec, dev, tag, mode=None, n_head=N_HEAD):
+    """One f32 train step at dropout 0 on B=2 shapes, d_model D_MODEL in
+    `n_head` heads, with the kernels on the GPU (under `CSN_DYNG=mode`)
+    against the same step with the plain versions on the CPU (`CSN_DYNG`
+    unset): loss and every gradient, the CPU step taking the GPU step's
+    ReLU decisions (`ReluDecisions`)."""
     (qh, kh), = build_requests(spec, "cpu", n_shapes=2, n_requests=1,
                                seed=SEED + 7)
     if not issubclass(cls, hrnet.HRNetSimCSN):
         kh = ()   # a plain segmentation model takes no key batches
-    init = make_model(cls, "float32", 0.0).state_dict()
+    init = make_model(cls, "float32", 0.0, n_head).state_dict()
     relus = ReluDecisions()
     res = []
     for replay, where in enumerate((dev, "cpu")):
-        m32 = make_model(cls, "float32", 0.0)
+        m32 = make_model(cls, "float32", 0.0, n_head)
         m32.load_state_dict(init)
         m32.to(where)
         opt = optim.make_optimizer(m32.parameters(), "SGD", lr=LR)
@@ -2609,20 +2635,27 @@ def f32_conv_kernels(tag, rows):
             f"{tag}: a CUDA-core conv body ran in the f32 step")
 
 
-def f32_slice(cls, reqs, dev, do_profile=False, mode=None):
-    """Phase 5, f32: the HRNetSimCSN3S eval step and train step at the bench
-    protocol with f32 activations (`--compute_dtype float32`, the JAX
-    package's choice off the TPU), under `CSN_DYNG=mode` (None: the K1
-    form; 2: the im2col pair): 3 eval requests and 3 train requests
-    (dropout 0.1, SGD) with exact launch counts per kernel body, ms/step
-    over 10 steps of each, and with `do_profile` their device time by
-    kernel, naming the attention and the conv kernels (none of them a
-    CUDA-core body). Returns the launch counts of the 3 train requests and
-    the two ms/step."""
+def f32_slice(cls, reqs, dev, do_profile=False, mode=None, n_head=N_HEAD):
+    """Phase 5, f32 (at WIDE_HEADS, phase 5c): the HRNetSimCSN3S eval step
+    and train step at the bench protocol with f32 activations
+    (`--compute_dtype float32`, the JAX package's choice off the TPU) in
+    `n_head` heads, under `CSN_DYNG=mode` (None: the K1 form; 2: the
+    im2col pair): 3 eval requests and 3 train requests (dropout 0.1, SGD)
+    with exact launch counts per kernel body (K2 and its backward in the
+    split-TF32 rows of the head dim, `flash.k2_row`), ms/step over 10 steps
+    of each, and with `do_profile` their device time by kernel, naming the
+    attention and the conv kernels (none of them a CUDA-core body). Returns
+    the launch counts of the 3 train requests and the two ms/step."""
     im2col = mode in (2, 3)
+    dk = D_MODEL // n_head
+    fwd, bwd = (flash.k2_row(n, torch.float32, dk)
+                for n in ("flash_attn_fwd", "flash_attn_bwd"))
     what = f"B={B}, K={K_NEIGHBORS}, f32, CSN_DYNG={mode}"
     tag = "f32" if mode is None else f"f32 CSN_DYNG={mode}"
-    model = make_model(cls, "float32", ATTN_DROPOUT).to(dev)
+    if n_head != N_HEAD:
+        what += f", {n_head} heads of {dk}"
+        tag += f" heads of {dk}"
+    model = make_model(cls, "float32", ATTN_DROPOUT, n_head).to(dev)
     with window_conv.dyng(mode):
         kernels.reset_launches()
         for r, (qb, keys) in enumerate(reqs):
@@ -2632,8 +2665,8 @@ def f32_slice(cls, reqs, dev, do_profile=False, mode=None):
             print(f"[{tag}] eval request {r}: {res}")
         torch.cuda.synchronize()
         require_launches(f"{tag} eval", dict(kernels.LAUNCHES), {
-            **f32_conv_launches(model, False, im2col),
-            "flash_attn_fwd_tf32_d64": 2, "interp_fwd": 1})
+            **f32_conv_launches(model, False, im2col), fwd: 2,
+            "interp_fwd": 1})
         qb, keys = reqs[0]
         eval_ms = time_steps(f"{tag} eval",
                              lambda: eval_step(model, qb, keys), what)
@@ -2654,8 +2687,7 @@ def f32_slice(cls, reqs, dev, do_profile=False, mode=None):
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         require_launches(f"{tag} train", launches, {
-            **f32_conv_launches(model, True, im2col),
-            "flash_attn_fwd_tf32_d64": 2, "flash_attn_bwd_tf32_d64": 2,
+            **f32_conv_launches(model, True, im2col), fwd: 2, bwd: 2,
             "interp_fwd": 1, "interp_bwd": 1})
         qb, keys = reqs[0]
         train_ms = time_steps(f"{tag} train",
@@ -2674,15 +2706,15 @@ def f32_slice(cls, reqs, dev, do_profile=False, mode=None):
 
 def f32_attention_kernels(tag, rows):
     """The attention kernels of a profiled f32 HRNet step (K2 and its
-    backward at D=64, f32): named with their device ms, and none of them a
-    CUDA-core body (`flash_fwd_wide`, `flash_bwd_wide_*`)."""
+    backward at D=64 or D=128, f32): named with their device ms, and none
+    of them a CUDA-core body (`flash_fwd_wide`, `flash_bwd_wide_*`)."""
     attn = [(ms, n, key.replace("(anonymous namespace)::", "").split("(")[0])
             for ms, n, key in rows if "flash_" in key]
     print(f"[f32] {tag} attention kernels: " + ", ".join(
         f"{name} x{n} {ms:.3f} ms/step" for ms, n, name in attn)
         + f"; {sum(r[0] for r in attn):.3f} ms/step in all")
     require(attn and not any("_wide" in name for _, _, name in attn),
-            f"{tag}: a CUDA-core attention body ran in the f32 D=64 step")
+            f"{tag}: a CUDA-core attention body ran in the f32 step")
 
 
 def midfc_data(n_shapes, seed):
@@ -4168,6 +4200,11 @@ def main() -> int:
     launches_w = train_slice(cls, spec, reqs, dev, n_convs, n_stems,
                              do_profile, WIDE_HEADS)
     launches = {k: n + launches_w[k] for k, n in launches.items()}
+    # f32 at d_model 256 in heads of 128
+    phase("5c f32 slice, heads of 128")
+    launches_w = f32_slice(cls, reqs, dev, do_profile, None, WIDE_HEADS)[0]
+    launches = {k: n + launches_w[k] for k, n in launches.items()}
+    f32_step_check(cls, spec, dev, "f32 heads of 128", n_head=WIDE_HEADS)
     del reqs
     torch.cuda.empty_cache()
 

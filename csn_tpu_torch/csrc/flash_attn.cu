@@ -54,19 +54,17 @@
 // 4 entries, as the mask has. The next step for this kernel is wgmma with
 // TMA (ROADMAP B2).
 //
-// f32 at D = 256 (the MID-FC heads) and at D = 64 (the HRNet heads with f32
-// activations): the tensor cores in split TF32, three TF32 products per f32
-// product (flash_tf32_fwd.cuh, flash_tf32_d64_fwd.cuh): one TF32 product
-// would miss the f32 checks' 1e-4, three hold it.
+// f32 at D = 256 (the MID-FC heads), at D = 128 (the HRNet heads with f32
+// activations at d_model 256 in 2 heads) and at D = 64 (in 4 heads): the
+// tensor cores in split TF32, three TF32 products per f32 product
+// (flash_tf32_fwd.cuh, flash_tf32_d128_fwd.cuh, flash_tf32_d64_fwd.cuh):
+// one TF32 product would miss the f32 checks' 1e-4, three hold it. No K2
+// case is left on the CUDA-core kernel of flash_wide.cuh.
 //
 // bf16 at D = 256 (the MID-FC heads in bf16, d_model 256 in one head): the
 // tensor cores in the layout of flash_tf32_fwd.cuh, 8 warps that split D
 // in quarters (flash_bf16_wide_fwd.cuh), since 16 rows x 256 dims of O
 // would take 128 registers a lane.
-//
-// f32 at D = 128 is the one K2 case left on the CUDA-core kernel of
-// flash_wide.cuh: it keeps only the query tile whole in shared memory and
-// walks D in chunks of 64, in f32 arithmetic.
 //
 // Any other head dim up to 256 reaches this file zero-padded by its wrapper
 // (ops/flash.py) to the next width built here for its dtype: a zero column
@@ -76,9 +74,9 @@
 #include "common.cuh"
 #include "flash_bf16_wide_fwd.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32_d128_fwd.cuh"
 #include "flash_tf32_d64_fwd.cuh"
 #include "flash_tf32_fwd.cuh"
-#include "flash_wide.cuh"
 
 namespace {
 
@@ -291,8 +289,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // q, k, v, out: [B, H, L, D] contiguous, 16-byte aligned; kv_mask [B, Lk],
 // q_mask [B, Lq] bool bytes; lse [B, H, Lq] f32. D (dk == dv) is 16, 32,
 // 64, 128 or 256 in bf16 (64: the HRNet heads; 256: the MID-FC heads), 64
-// in f32 (the HRNet heads with f32 activations), 128 or 256 in f32 (256:
-// the MID-FC heads).
+// or 128 in f32 (the HRNet heads with f32 activations, in 4 heads or 2),
+// or 256 in f32 (the MID-FC heads).
 // use_drop != 0 applies dropout with keep threshold `thresh` (of 2^32) and
 // scale inv_keep = 1/keep, keyed by `seed`.
 extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
@@ -323,16 +321,13 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
     return csn_tf32_d64::launch_fwd(
         q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk, inv_temp,
         csn_tf32::Drop{seed, thresh, inv_keep, use_drop, 0, 0}, s);
+  if (dtype == csn::kF32 && D == csn_tf32_d128::D)
+    return csn_tf32_d128::launch_fwd(
+        q, k, v, kv_mask, q_mask, out, lse, B, H, Lq, Lk, inv_temp,
+        csn_tf32::Drop{seed, thresh, inv_keep, use_drop, 0, 0}, s);
   if (dtype == csn::kF32 && D == csn_tf32::D)
     return csn_tf32::launch_fwd_tf32<false, false>(
         q, k, v, kv_mask, q_mask, out, lse, csn_tf32::Carry{}, B, H, Lq, Lk,
         inv_temp, csn_tf32::Drop{seed, thresh, inv_keep, use_drop, 0, 0}, s);
-#define CSN_WIDE(T, DD)                                                       \
-  return csn_wide::launch_fwd_wide<T, DD, false>(                             \
-      q, k, v, kv_mask, q_mask, out, lse, nullptr, nullptr, nullptr, nullptr, \
-      nullptr, nullptr, B, H, Lq, Lk, inv_temp, seed, thresh, inv_keep,       \
-      use_drop, 0, 0, s)
-  if (dtype == csn::kF32 && D == 128) CSN_WIDE(float, 128);
-#undef CSN_WIDE
   return cudaErrorInvalidValue;
 }

@@ -58,11 +58,13 @@
 // (flash_bf16_wide_bwd.cuh): at 16 keys a warp, dK and dV over 128 dims
 // would take 128 accumulator registers.
 //
-// f32 at D = 256 (the MID-FC heads) and at D = 64 (the HRNet heads with f32
-// activations) run on the tensor cores in split TF32 (three TF32 products
-// per f32 product, f32-accurate): flash_tf32_bwd.cuh, flash_tf32_d64_bwd.cuh.
-// f32 at D = 128 is the one case left on the CUDA-core kernels of
-// flash_bwd_wide.cuh, in f32 arithmetic. Other head dims up to 256 come
+// f32 at D = 256 (the MID-FC heads), at D = 128 and at D = 64 (the HRNet
+// heads with f32 activations at d_model 256 in 2 heads or 4) run on the
+// tensor cores in split TF32 (three TF32 products per f32 product,
+// f32-accurate): flash_tf32_bwd.cuh at 256 and 128 (dS^T handed to the dQ
+// pass through an f32 scratch), flash_tf32_d64_bwd.cuh (dS recomputed in
+// the dQ pass). No K2 case is left on the CUDA-core kernels of
+// flash_bwd_wide.cuh. Other head dims up to 256 come
 // zero-padded by the wrapper (ops/flash.py) to the next width built here:
 // the padded columns of dQ, dK and dV are cut off, delta is unchanged.
 
@@ -443,8 +445,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // 128 or 256 in f32. Dropout arguments as
 // csn_flash_attn_fwd's. ds_t: scratch of B * H * ceil32(Lk) * ceil32(Lq)
 // elements in the type of q, through which the dK/dV pass hands dS^T to
-// the dQ pass: f32 at D = 256 (flash_tf32_bwd.cuh), bf16 at D = 128 and 256
-// (flash_bf16_wide_bwd.cuh); unused otherwise.
+// the dQ pass: f32 at D = 128 and 256 (flash_tf32_bwd.cuh), bf16 at D = 128
+// and 256 (flash_bf16_wide_bwd.cuh); unused otherwise.
 extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
@@ -483,12 +485,10 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
                                             kv_mask, q_mask, dq, dk, dv,
                                             ds_t, B, H, Lq, Lk, inv_temp,
                                             wd, s);
-#define CSN_WIDE(T, DD)                                                    \
-  return csn_wide_bwd::launch_bwd_wide<T, T, DD>(q, k, v, dout, lse, delta, \
-                                                 kv_mask, q_mask, dq, dk,  \
-                                                 dv, B, H, Lq, Lk,         \
-                                                 inv_temp, wd, s)
-  if (dtype == csn::kF32 && D == 128) CSN_WIDE(float, 128);
-#undef CSN_WIDE
+  if (dtype == csn::kF32 && D == 128)
+    return csn_tf32::launch_bwd_tf32<float, 128>(q, k, v, dout, lse, delta,
+                                                 kv_mask, q_mask, dq, dk, dv,
+                                                 ds_t, B, H, Lq, Lk,
+                                                 inv_temp, wd, s);
   return cudaErrorInvalidValue;
 }

@@ -1,9 +1,9 @@
 // Masked flash attention backward in f32 arithmetic on the CUDA cores for D
-// a multiple of 64 up to 256, and for one key block of a ring, shared by
-// flash_attn_bwd.cu (f32 at D = 128 alone: the backward's every other case
-// runs on the tensor cores) and flash_attn_block_bwd.cu (the ring's
-// per-hop backward at D = 64 and 128 in f32 and bf16; at D = 256 it runs
-// flash_tf32_bwd.cuh in f32 and flash_bf16_wide_bwd.cuh in bf16).
+// a multiple of 64 up to 256, for one key block of a ring:
+// flash_attn_block_bwd.cu (the ring's per-hop backward at D = 64 and 128 in
+// f32 and bf16; at D = 256 it runs flash_tf32_bwd.cuh in f32 and
+// flash_bf16_wide_bwd.cuh in bf16). K2's backward runs on the tensor cores
+// at every head dim (flash_attn_bwd.cu).
 //
 // Same function as flash_attn_bwd.cu's tensor-core kernels, in the same two
 // deterministic passes (dK/dV per key tile, dQ per query tile), from the

@@ -1,6 +1,7 @@
-// Split-TF32 building blocks of the f32 head-dim-256 attention kernels on
-// the tensor cores: the backward (flash_tf32_bwd.cuh) and the forward
-// (flash_tf32_fwd.cuh).
+// Split-TF32 building blocks of the f32 attention kernels on the tensor
+// cores: the backward at head dims 256 and 128 (flash_tf32_bwd.cuh), the
+// forwards at 256 (flash_tf32_fwd.cuh), 128 (flash_tf32_d128_fwd.cuh) and
+// 64 (flash_tf32_d64_fwd.cuh).
 //
 // Split TF32. A TF32 operand keeps 10 stored mantissa bits, too few for the
 // f32 checks' 1e-4 over a 256-long sum. Each f32 operand x is split, in
@@ -24,7 +25,7 @@
 //    in the backward; V of the forward's P V);
 //  * C (16 x 8, f32): c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1).
 //
-// Tiles. Q, dO, K and V tiles are [rows][256] f32, copied by cp.async (rows
+// Tiles. Q, dO, K and V tiles are [rows][D] f32, copied by cp.async (rows
 // past L zero-filled), with the columns of row r XOR-swizzled by
 // ((r ^ r >> 1) & 3) << 3 (bits 3-4, so 16-byte groups stay whole). Both
 // access patterns then hit 32 distinct banks: rows g, columns 2t (the A and
@@ -123,11 +124,14 @@ __device__ __forceinline__ void mma3s(float (&sm)[N][4], float (&bg)[N][4],
 
 // --- tiles ------------------------------------------------------------------
 
-constexpr int D = 256;        // head dim
+constexpr int D = 256;        // head dim (the MID-FC heads)
 
-// element (r, c) of a swizzled [rows][D] tile
+// element (r, c) of a swizzled [rows][TD] tile (TD = 256, or 128: K2 at
+// d_model 256 in 2 heads; either row stride is a multiple of 32 banks, so
+// one swizzle serves both)
+template <int TD = D>
 __device__ __forceinline__ int sw(int r, int c) {
-  return r * D + (c ^ (((r ^ (r >> 1)) & 3) << 3));
+  return r * TD + (c ^ (((r ^ (r >> 1)) & 3) << 3));
 }
 
 __device__ __forceinline__ float2 ld2(const float* p) {
@@ -150,11 +154,12 @@ __device__ __forceinline__ void split_b(FragB& f, float2 x) {
 }
 
 // B[k][n] = T[k0 + k][n0 + n] (B's rows are rows of the tile: dO, Q, K,
-// V)
+// V) of a swizzled [rows][TD] tile
+template <int TD = D>
 __device__ __forceinline__ void load_b_cols(FragB& f, const float* tile,
                                             int k0, int n0, int g, int t) {
-  split(tile[sw(k0 + 2 * t, n0 + g)], f.hi[0], f.lo[0]);
-  split(tile[sw(k0 + 2 * t + 1, n0 + g)], f.hi[1], f.lo[1]);
+  split(tile[sw<TD>(k0 + 2 * t, n0 + g)], f.hi[0], f.lo[0]);
+  split(tile[sw<TD>(k0 + 2 * t + 1, n0 + g)], f.hi[1], f.lo[1]);
 }
 
 }  // namespace csn_tf32

@@ -63,8 +63,6 @@
 namespace csn_tf32_d64 {
 namespace {
 
-using csn_tc::drop_words;
-
 constexpr int BQ = 32;  // queries per streamed tile of the dkdv pass
 constexpr int NH = D / 16;  // 8-dim n-tiles of half the head
 
@@ -97,24 +95,6 @@ __device__ __forceinline__ void probs_and_ds(float (&s)[N][4],
       s[n][e] = pd;
       dp[n][e] = p * (dpd - dl[h]);
     }
-}
-
-// The keep bits of N 8-key fragments from column col0 (a multiple of 8)
-// for rows `row` and row + 8 (flash_tc.cuh keep_bits over N fragments)
-template <int N>
-__device__ __forceinline__ uint32_t keep_bits_n(const Drop& drop, uint32_t bh,
-                                                uint32_t row, uint32_t col0,
-                                                int t) {
-  uint32_t bits = 0u;
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    uint32_t w[4];
-    drop_words(w, drop.seed, bh, row, col0 + 8 * n, t);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      bits |= (w[e] < drop.thresh ? 1u : 0u) << (4 * n + e);
-  }
-  return bits;
 }
 
 // lse (in log2 units) and delta of rows row and row + 8; 0 past L (those

@@ -63,6 +63,7 @@ namespace {
 using csn_tc::cp_async16;
 using csn_tc::cp_async_commit;
 using csn_tc::cp_async_wait;
+using csn_tc::drop_words;
 using csn_tc::exp2_approx;
 using csn_tc::find_live;
 using csn_tc::keep_bits;
@@ -165,6 +166,24 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N][4], LoadA a,
 // keys, split: with the permuted k order c0 = a0, c2 = a1, c1 = a2, c3 = a3
 __device__ __forceinline__ void c_to_a(FragA& f, const float (&x)[4]) {
   split_a(f, make_float2(x[0], x[1]), make_float2(x[2], x[3]));
+}
+
+// The keep bits of N 8-key fragments from column col0 (a multiple of 8)
+// for rows `row` and row + 8 (flash_tc.cuh keep_bits over N fragments)
+template <int N>
+__device__ __forceinline__ uint32_t keep_bits_n(const Drop& drop, uint32_t bh,
+                                                uint32_t row, uint32_t col0,
+                                                int t) {
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    uint32_t w[4];
+    drop_words(w, drop.seed, bh, row, col0 + 8 * n, t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      bits |= (w[e] < drop.thresh ? 1u : 0u) << (4 * n + e);
+  }
+  return bits;
 }
 
 struct FwdSmem {

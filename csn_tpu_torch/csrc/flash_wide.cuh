@@ -1,9 +1,10 @@
 // Masked flash attention forward in f32 arithmetic on the CUDA cores for D a
-// multiple of 64 up to 256, shared by K2 in f32 at D = 128 (flash_attn.cu:
-// K2's every other case runs on the tensor cores) and by the carry kernel
-// of the ring at D = 64 and 128 in f32 and bf16 (flash_attn_carry.cu; at
-// D = 256 it runs the carry forms of flash_tf32_fwd.cuh in f32 and of
-// flash_bf16_wide_fwd.cuh in bf16).
+// multiple of 64 up to 256: the carry kernel of the ring at D = 64 and 128
+// in f32 and bf16 (flash_attn_carry.cu; at D = 256 it runs the carry forms
+// of flash_tf32_fwd.cuh in f32 and of flash_bf16_wide_fwd.cuh in bf16).
+// Its K2 form (CARRY false: out and lse) is launched by no entry point
+// since every K2 case runs on the tensor cores (flash_attn.cu); it goes with
+// these ring forms' move to the tensor cores.
 //
 // Same function as flash_attn.cu's tensor-core kernel: online softmax over
 // key tiles, masked keys at NEG_INF, the denominator floored at 1e-30,

@@ -39,11 +39,13 @@ scratch.
   the backward and the block backward on them in split TF32, three TF32
   products per f32 product (`csrc/flash_tf32_fwd.cuh`,
   `csrc/flash_tf32_bwd.cuh` over the blocks of `csrc/flash_tf32.cuh`), and
-  so does f32 at D = 64 (the HRNet heads with f32 activations) in K2 and
-  its backward (`csrc/flash_tf32_d64_fwd.cuh`,
-  `csrc/flash_tf32_d64_bwd.cuh`). f32 K2 and its backward at 128, and the
-  ring's forms at 64 and 128 in both dtypes (a ring at d_k <= 128), take
-  the f32 CUDA-core kernels that walk D in chunks of 64
+  so do f32 K2 and its backward at D = 128 (the HRNet heads with f32
+  activations at d_model 256 in 2 heads; `csrc/flash_tf32_d128_fwd.cuh`
+  and the passes of `csrc/flash_tf32_bwd.cuh` at half the width, handing
+  dS^T to the dQ pass through an f32 scratch; launches counted apart under
+  `"_tf32_d128"`) and at D = 64 (in 4 heads; `csrc/flash_tf32_d64_fwd.cuh`,
+  `csrc/flash_tf32_d64_bwd.cuh`, under `"_tf32_d64"`). The ring's forms at 64 and 128 in both dtypes (a ring at
+  d_k <= 128) take the f32 CUDA-core kernels that walk D in chunks of 64
   (`csrc/flash_wide.cuh`, `csrc/flash_bwd_wide.cuh`).
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
   loop over ONE key block with the running max, denominator and f32
@@ -104,12 +106,14 @@ MAX_HEAD_DIM = 256
 # The backward bodies that pass dS from their dK/dV pass to their dQ pass
 # through a scratch of B * H * ceil32(Lk) * ceil32(Lq) elements in q's
 # dtype, by form ("k2": K2's backward, "block": the ring's block backward)
-# and dtype: f32 at 256 in both forms (csrc/flash_tf32_bwd.cuh), bf16 at 128
-# and 256 in K2's and at 256 in the block form (csrc/flash_bf16_wide_bwd.cuh;
-# 3.2 GB at the ring of one [2, 8, 10000, 256]). The f32 D = 64 body
-# recomputes dS in its dQ pass instead (8.1 GB of scratch at the HRNet SSA
-# call).
-DS_SCRATCH = {"k2": {torch.float32: (256,), torch.bfloat16: (128, 256)},
+# and dtype: f32 at 128 and 256 in K2's and at 256 in the block form
+# (csrc/flash_tf32_bwd.cuh; 4.1 GB at the HRNet SSA call in 2 heads of 128
+# [16, 2, 5632, 128]), bf16 at 128 and 256 in K2's and at 256 in the block
+# form (csrc/flash_bf16_wide_bwd.cuh; 3.2 GB at the ring of one
+# [2, 8, 10000, 256]). The f32 D = 64 body recomputes dS in its dQ pass
+# instead (8.1 GB of scratch at the HRNet SSA call in 4 heads of 64).
+DS_SCRATCH = {"k2": {torch.float32: (128, 256),
+                     torch.bfloat16: (128, 256)},
               "block": {torch.float32: (256,), torch.bfloat16: (256,)}}
 
 
@@ -239,6 +243,15 @@ def k2_split_tf32_d64(dtype: torch.dtype, d: int) -> bool:
         d, K2_HEAD_DIMS[dtype]) == 64
 
 
+def k2_split_tf32_d128(dtype: torch.dtype, d: int) -> bool:
+    """Whether K2 and its backward run head dim `d` in `dtype` on the f32
+    D=128 split-TF32 bodies (`csrc/flash_tf32_d128_fwd.cuh`, and
+    `csrc/flash_tf32_bwd.cuh` at head dim 128; f32 head dims 65-127 run
+    there zero-padded), whose launches count apart under `"_tf32_d128"`."""
+    return dtype == torch.float32 and padded_head_dim(
+        d, K2_HEAD_DIMS[dtype]) == 128
+
+
 def k2_bf16_wide(dtype: torch.dtype, d: int) -> bool:
     """Whether K2 and its backward run head dim `d` in `dtype` at the bf16
     widths 128 and 256 (bf16 head dims 65-256, zero-padded up to those
@@ -252,10 +265,12 @@ def k2_bf16_wide(dtype: torch.dtype, d: int) -> bool:
 def k2_row(what: str, dtype: torch.dtype, d: int) -> str:
     """The `kernels.LAUNCHES` row of a K2 launch (`what`: "flash_attn_fwd"
     or "flash_attn_bwd") at head dim `d` in `dtype`: `what + "_tf32_d64"`
-    on the f32 D=64 bodies, `what + "_bf16_wide"` at the bf16 widths 128
-    and 256, else `what`."""
+    and `what + "_tf32_d128"` on the f32 D=64 and D=128 bodies,
+    `what + "_bf16_wide"` at the bf16 widths 128 and 256, else `what`."""
     if k2_split_tf32_d64(dtype, d):
         return what + "_tf32_d64"
+    if k2_split_tf32_d128(dtype, d):
+        return what + "_tf32_d128"
     return what + "_bf16_wide" if k2_bf16_wide(dtype, d) else what
 
 
@@ -295,16 +310,15 @@ def _masks(what, q, k, kv_mask, q_mask):
 
 
 def _require_aligned(what, *tensors):
-    """The tensor-core bodies (bf16 at every head dim, f32 at 64 and 256)
-    copy their tiles 16 bytes at a time
-    with cp.async, and the carry kernels read the accumulator in 8- and
-    16-byte words: a misaligned start would read the wrong bytes rather
-    than fail. A zero-padded head is a fresh allocation, aligned."""
+    """The tensor-core bodies (K2's and its backward's at every dtype and
+    head dim, the ring's at 256) copy their tiles 16 bytes at a time with
+    cp.async, and the carry kernels read the accumulator in 8- and 16-byte
+    words: a misaligned start would read the wrong bytes rather than fail.
+    A zero-padded head is a fresh allocation, aligned."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: q, k, v (and dout, or the carry's acc) "
                          f"must start on a 16-byte boundary: the tensor-core "
-                         f"bodies (bf16 at every head dim, f32 at 64 and "
-                         f"256) copy them 16 bytes at a time")
+                         f"bodies copy them 16 bytes at a time")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -25,13 +25,14 @@ warm L2 and from device memory: `tools/timing.py`), and the flash pair
 64] in bf16 and f32, at the f32 CSA call [8, 4, 5632, 64] against 5632
 keys, with ragged masks, at the MID-FC chunk shape [80, 8, 500, 256] in
 f32 and bf16, and at the SSA call with d_model 256 in 2 heads of 128 and 1
-of 256 in bf16, at dropout 0 and 0.1 (device time from CUDA graphs, warm
-L2), with the other bodies' outputs for the bitwise comparison (bf16 D=32
-and 16, f32 D=128, at the SSA call cut to 4 shapes; the ring's carry and
-block backward on one 2500-key block in f32 and bf16 at D=256 and in f32
-at D=64, timed too; the bf16 D=256 pair's outputs are also held against
-the other checkout's by value, as max|this - other| / max|other|, for a
-body of another design), and the gather probes
+of 256 in bf16 and in 2 heads of 128 in f32, at dropout 0 and 0.1 (device
+time from CUDA graphs, warm L2), with the other bodies' outputs for the
+bitwise comparison (bf16 D=32 and 16 at the SSA call cut to 4 shapes; the
+ring's carry and block backward on one 2500-key block in f32 and bf16 at
+D=256 and in f32 at D=64, timed too; the f32 pair at D=128 and the ring's
+bf16 D=256 pair are also held against the other checkout's outputs by
+value, as max|this - other| / max|other| within the tolerance of their
+type, for bodies of another design), and the gather probes
 (`probe_gather_accum` in its three modes at the probe scripts' timing
 geometry, 352 tiles x 9 offsets x 256 rows x 128 channels, with the bf16
 window at W = 384 and the f32 window at W = 384 and 256, row ids outside
@@ -96,8 +97,10 @@ FLASH_SHAPE = (16, 4, 5632, 64)
 MIDFC_SHAPE = (80, 8, 500, 256)
 FLASH_DROPOUT, FLASH_SEED = 0.1, 0x5EED
 RING_BLOCK = 2500   # keys of one ring hop at phase 7's shape (10000 / 4)
-# the ring block whose outputs are compared across checkouts by value
-RING_BY_VALUE = "ring block [2,8,2500,256] bfloat16"
+# the shapes whose outputs are compared across checkouts by value, with the
+# tolerance of their type (x max|other|)
+BY_VALUE = {"ring block [2,8,2500,256] bfloat16": 2e-2,
+            "flash SSA [16,2,5632,128] float32": 1e-4}
 
 
 def _median_ms(fn, reps: int, batch: int = 10) -> float:
@@ -255,9 +258,11 @@ def interp_worker(reps: int, table: Path) -> dict:
     return res
 
 
-def _flash_calls(q, k, v, dout, qmask, kmask, reps: int) -> dict:
+def _flash_calls(q, k, v, dout, qmask, kmask, reps: int, keep=None) -> dict:
     """{kernel at dropout: entry} of the flash pair on these inputs at
-    dropout 0 and FLASH_DROPOUT (device time from CUDA graphs, warm L2)."""
+    dropout 0 and FLASH_DROPOUT (device time from CUDA graphs, warm L2);
+    with `keep`, each call's outputs (f32, on the host) into it by the
+    entry's name."""
     from csn_tpu_torch.ops import flash
 
     temp = float(q.shape[-1]) ** 0.5
@@ -274,6 +279,9 @@ def _flash_calls(q, k, v, dout, qmask, kmask, reps: int) -> dict:
             lambda drop=drop, sd=sd, lse=lse, delta=delta:
             flash.flash_attention_bwd(q, k, v, dout, lse, delta, kmask,
                                       qmask, temp, drop, sd))
+    if keep is not None:
+        for name, fn in calls.items():
+            keep[name] = [t.float().cpu() for t in fn()]
     return {name: _entry(fn, reps, graph_ms) for name, fn in calls.items()}
 
 
@@ -283,11 +291,12 @@ def flash_worker(reps: int, keep: dict) -> dict:
     f32 HRNet step's call), at the CSA call (8 query shapes against 8 key
     shapes, the same sizes) in f32, at the MID-FC chunk shape MIDFC_SHAPE
     in f32 and bf16 (head dim 256), and at the SSA call with d_model 256 in
-    2 heads of 128 and 1 of 256 in bf16; then, for their bits, bf16 D=32
-    and 16 and f32 D=128 at the SSA call cut to 4 shapes and the ring's
-    per-block kernels (`_ring_calls`; the outputs of RING_BY_VALUE's into
-    `keep`). Each shape's valid rows are a prefix of seeded length (as a
-    padded point set); the SSA call takes one mask for queries and keys."""
+    2 heads of 128 and 1 of 256 in bf16 and in 2 heads of 128 in f32; then,
+    for their bits, bf16 D=32 and 16 at the SSA call cut to 4 shapes and the
+    ring's per-block kernels (`_ring_calls`). The outputs of the BY_VALUE
+    shapes go into `keep`, by shape. Each shape's valid rows are a prefix of
+    seeded length (as a padded point set); the SSA call takes one mask for
+    queries and keys."""
     import torch
 
     dev = torch.device("cuda")
@@ -327,9 +336,14 @@ def flash_worker(reps: int, keep: dict) -> dict:
         x, mask = inputs(b, h * FLASH_SHAPE[3] // d, L, d, torch.bfloat16)
         res[f"flash SSA [{b},{x[0].shape[1]},{L},{d}] bfloat16"] = \
             _flash_calls(*x, mask, mask, reps)
+    # f32 at d_model 256 in 2 heads of 128 (the inputs of the bf16 call at
+    # 128 in f32 would draw other numbers: drawn anew)
+    x, mask = inputs(b, h * FLASH_SHAPE[3] // 128, L, 128, torch.float32)
+    shape = f"flash SSA [{b},{x[0].shape[1]},{L},128] float32"
+    res[shape] = _flash_calls(*x, mask, mask, reps,
+                              keep.setdefault(shape, {}))
     # the other bodies' bits, at the SSA call cut to 4 shapes
-    for d, dt in ((32, torch.bfloat16), (16, torch.bfloat16),
-                  (128, torch.float32)):
+    for d, dt in ((32, torch.bfloat16), (16, torch.bfloat16)):
         x, mask = inputs(4, h * FLASH_SHAPE[3] // d, L, d, dt)
         res[f"flash SSA [4,{x[0].shape[1]},{L},{d}] {str(dt)[6:]}"] = \
             _flash_calls(*x, mask, mask, reps)
@@ -337,8 +351,9 @@ def flash_worker(reps: int, keep: dict) -> dict:
                   (64, torch.float32)):
         x, mask = inputs(2, 8, RING_BLOCK, d, dt)
         shape = f"ring block [2,8,{RING_BLOCK},{d}] {str(dt)[6:]}"
-        res[shape] = _ring_calls(*x, mask, reps,
-                                 keep if shape == RING_BY_VALUE else None)
+        res[shape] = _ring_calls(
+            *x, mask, reps,
+            keep.setdefault(shape, {}) if shape in BY_VALUE else None)
     return res
 
 
@@ -498,20 +513,22 @@ def worker(reps: int, families: tuple, table: Path, keep: dict) -> dict:
 
 
 def by_value(tmp: Path) -> None:
-    """Print, for each output of RING_BY_VALUE's calls, max|this - other|
-    / max|other| of the first run of each checkout (`tmp` holds the
-    workers' outputs)."""
+    """Print, for each output of the BY_VALUE shapes' calls, max|this -
+    other| / max|other| of the first run of each checkout (`tmp` holds the
+    workers' outputs) against the shape's tolerance."""
     import torch
     this, other = (torch.load(tmp / f"{tag}1.pt") for tag in ("this",
                                                                 "other"))
-    for name, outs in this.items():
-        errs = [float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
-                for a, r in zip(outs, other[name])]
-        print(f"[ab] {RING_BY_VALUE}: {name} this vs other, max_abs_err / "
-              f"max|other| per output: "
-              + ", ".join(f"{e:.3e}" for e in errs)
-              + f" (bf16 tolerance 2e-2: "
-              f"{'within' if max(errs) <= 2e-2 else 'OUTSIDE'})")
+    for shape, tol in BY_VALUE.items():
+        for name, outs in this.get(shape, {}).items():
+            errs = [float((a - r).abs().max())
+                    / max(float(r.abs().max()), 1e-30)
+                    for a, r in zip(outs, other[shape][name])]
+            print(f"[ab] {shape}: {name} this vs other, max_abs_err / "
+                  f"max|other| per output: "
+                  + ", ".join(f"{e:.3e}" for e in errs)
+                  + f" (tolerance {tol:.0e}: "
+                  f"{'within' if max(errs) <= tol else 'OUTSIDE'})")
 
 
 def registers(root: Path, families: tuple) -> list:

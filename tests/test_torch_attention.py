@@ -615,23 +615,67 @@ def _split_tf32_d64_backward(q, k, v, dout, kv_mask, lse, delta, temp,
     return dq / temp, dk / temp, dv
 
 
+def _mm3_quarters(a, b):
+    """a @ b^T over a 128-long last dim as the f32 D=128 backward's phase 1
+    and 2 sum it: four warps' three TF32 products over 32 dims each, added
+    in f32 in a fixed order (dims 0-31 first)."""
+    return sum(_mm3(a[..., 32 * j:32 * j + 32],
+                    b[..., 32 * j:32 * j + 32].transpose(-1, -2))
+               for j in range(4))
+
+
+def _split_tf32_d128_backward(q, k, v, dout, kv_mask, lse, delta, temp,
+                              dropout, seed):
+    """The f32 head-dim-128 backward passes (`csrc/flash_tf32_bwd.cuh` at
+    128) in plain torch. dkdv: S = Q K^T and dP = dO V^T as the sums of
+    four 32-dim quarters (`_mm3_quarters`), p = exp(S / T - lse), dS = p
+    (m dP / keep - delta) in f32 (into the dS^T scratch), then over 32-query
+    tiles each tile's dV = (m P / keep)^T dO and dK = dS^T Q summed from
+    zero and added to the running sums in f32. dq: over 32-key tiles, each
+    tile's dS K from the scratch's dS, summed from zero and added in f32.
+    dK and dQ times 1/T at the end."""
+    s = _mm3_quarters(q, k)
+    s = s.masked_fill(~kv_mask[:, None, None, :], flash.NEG_INF)
+    p = torch.exp(s / temp - lse[..., None])
+    dp = _mm3_quarters(dout, v)
+    pd = p
+    if dropout:
+        keep = flash.dropout_keep_mask(seed, dropout, tuple(p.shape))
+        dp = torch.where(keep, dp / (1.0 - dropout), 0.0)
+        pd = torch.where(keep, p / (1.0 - dropout), 0.0)
+    ds = p * (dp - delta[..., None])
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for r0 in range(0, q.shape[2], 32):
+        rows = slice(r0, r0 + 32)
+        dv = dv + _mm3(pd[:, :, rows].transpose(-1, -2), dout[:, :, rows])
+        dk = dk + _mm3(ds[:, :, rows].transpose(-1, -2), q[:, :, rows])
+    dq = torch.zeros_like(q)
+    for c0 in range(0, k.shape[2], 32):
+        cols = slice(c0, c0 + 32)
+        dq = dq + _mm3(ds[..., cols], k[:, :, cols])
+    return dq / temp, dk / temp, dv
+
+
 def _split_tf32_backward(q, k, v, dout, kv_mask, temp, dropout, seed):
-    """The f32 backward of the split-TF32 body of q's head dim (64 or 256)
-    over all keys, from the f32 forward's lse and delta = rowsum(dO o O)."""
+    """The f32 backward of the split-TF32 body of q's head dim (64, 128 or
+    256) over all keys, from the f32 forward's lse and delta = rowsum(dO o
+    O)."""
     out, lse = attention.scaled_dot_product_attention(
         q, k, v, kv_mask, temp, dropout=dropout, seed=seed, return_lse=True)
     delta = (dout * out).sum(dim=-1)
-    body = (_split_tf32_d64_backward if q.shape[-1] == 64
-            else _split_tf32_block_backward)
+    body = {64: _split_tf32_d64_backward, 128: _split_tf32_d128_backward,
+            256: _split_tf32_block_backward}[q.shape[-1]]
     return body(q, k, v, dout, kv_mask, lse, delta, temp, dropout, seed)
 
 
 # the split-TF32 bodies' cases: (b, h, Lq, Lk) by head dim, each with a fully
-# masked key tile and a query tile all padding of its body's tiles (D=256: 32
-# keys, 32 queries in the backward; D=64: 64 keys, 64 queries)
-TF32_SHAPES = {256: (1, 2, 100, 77), 64: (1, 2, 150, 170)}
-TF32_DEAD_KEYS = {256: slice(32, 64), 64: slice(64, 128)}
-TF32_PAD_QUERIES = {256: slice(64, 96), 64: slice(64, 128)}
+# masked key tile and a query tile all padding of its body's tiles (D=256
+# and 128: 32 keys, 32 queries in the backward; D=64: 64 keys, 64 queries)
+TF32_SHAPES = {256: (1, 2, 100, 77), 128: (1, 2, 100, 77),
+               64: (1, 2, 150, 170)}
+TF32_DEAD_KEYS = {256: slice(32, 64), 128: slice(32, 64), 64: slice(64, 128)}
+TF32_PAD_QUERIES = {256: slice(64, 96), 128: slice(64, 96),
+                    64: slice(64, 128)}
 
 
 def _bwd_inputs(d):
@@ -649,12 +693,13 @@ def _bwd_inputs(d):
     return q, k, v, kv, g
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_split_tf32_backward_holds_the_f32_tolerance(dropout, d):
     """Before the card: the split-TF32 arithmetic of the f32 backward at
-    D=256 and at D=64 (each body's own rounding points: D=64 adds each
-    tile's dK, dV and dQ in f32 and recomputes dS in its dQ pass), emulated,
+    D=256, 128 and 64 (each body's own rounding points: D=64 and 128 add
+    each tile's dK, dV and dQ in f32, D=64 recomputes dS in its dQ pass,
+    D=128 sums S and dP over four quarters of D), emulated,
     stays within chip_smoke's f32 tolerance, 1e-4 x max|ref|, at a ragged
     masked shape with a fully masked key tile and a query tile all padding:
     at dropout 0 of `jax.vjp` of the JAX package's dense attention (not the
@@ -681,9 +726,9 @@ def test_split_tf32_backward_holds_the_f32_tolerance(dropout, d):
         assert (gk - ref).abs().max().item() <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_single_tf32_pass_misses_the_f32_tolerance(monkeypatch, d):
-    """Why three products: the same backward (D=256's, D=64's) with one
+    """Why three products: the same backward (D=256's, 128's, 64's) with one
     TF32 product per product (both operands rounded once) misses 1e-4 x
     max|ref| of the float64 gradient on the inputs where the split version
     holds it."""
@@ -716,7 +761,8 @@ LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 def _split_tf32_forward(q, k, v, kv_mask, temp, dropout, seed, carry=None,
                         q_mask=None, row_offset=0, col_offset=0):
     """The f32 forward of the split-TF32 body of q's head dim in plain
-    torch (D=256: `csrc/flash_tf32_fwd.cuh`, 32-key tiles; D=64:
+    torch (D=256: `csrc/flash_tf32_fwd.cuh`, 32-key tiles; D=128:
+    `csrc/flash_tf32_d128_fwd.cuh`, 32-key tiles; D=64:
     `csrc/flash_tf32_d64_fwd.cuh`, 64-key tiles), over key tiles from the
     block's first key: S = Q K^T as three TF32 products (hi and lo of Q and
     K), scores in log2 units (S / T times log2 e), p = 2^(s - m) (masked
@@ -769,8 +815,9 @@ def _split_tf32_forward(q, k, v, kv_mask, temp, dropout, seed, carry=None,
 
 
 def _fwd_inputs(seed=14, d=256):
-    """f32 inputs at head dim d (256: the MID-FC heads; 64: the HRNet
-    heads): a ragged shape with a fully masked key tile of the body
+    """f32 inputs at head dim d (256: the MID-FC heads; 64 and 128: the
+    HRNet heads in 4 and 2): a ragged shape with a fully masked key tile of
+    the body
     (TF32_DEAD_KEYS) and a 64-query tile all padding."""
     rng = np.random.default_rng(seed)
     b, h, lq, lk = TF32_SHAPES[d]
@@ -782,12 +829,13 @@ def _fwd_inputs(seed=14, d=256):
     return q, k, v, kv, qm, float(d) ** 0.5
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_split_tf32_forward_holds_the_f32_tolerance(dropout, d):
-    """Before the card: the rounding points of the f32 forward at D=256 and
-    at D=64 (each with its own key tiles), emulated, hold chip_smoke's f32
-    tolerance, 1e-4 x max|ref| on the valid query rows: at dropout 0 the
+    """Before the card: the rounding points of the f32 forward at D=256,
+    128 and 64 (each with its own key tiles), emulated, hold chip_smoke's
+    f32 tolerance, 1e-4 x max|ref| on the valid query rows: at dropout 0
+    the
     output against the JAX package's dense attention (not the Pallas body,
     which rounds to bf16) and lse against the port's plain version; at 0.1
     both against the port's plain version (the TPU's random bits have no
@@ -811,9 +859,9 @@ def test_split_tf32_forward_holds_the_f32_tolerance(dropout, d):
         assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_single_tf32_pass_misses_the_f32_tolerance_forward(monkeypatch, d):
-    """Why three products in the forward too (D=256's, D=64's): with one
+    """Why three products in the forward too (D=256's, 128's, 64's): with one
     TF32 product per product the emulated output misses 1e-4 x max|ref| of
     the float64 attention on the inputs where the split version holds
     it."""
@@ -1067,19 +1115,20 @@ def test_block_backward_refuses_a_misaligned_view(monkeypatch):
 # the widths of `K2_HEAD_DIMS` whose K2 and backward run on the tensor
 # cores: bf16 at every width (16-64 and the forward at 128:
 # csrc/flash_tc.cuh; the forward at 256, the backward at 128 and 256:
-# csrc/flash_bf16_wide_*.cuh), f32 in split TF32 (64:
-# csrc/flash_tf32_d64_*.cuh; 256: csrc/flash_tf32_*.cuh)
+# csrc/flash_bf16_wide_*.cuh), f32 in split TF32 at every width (64:
+# csrc/flash_tf32_d64_*.cuh; 128 and 256: csrc/flash_tf32_*.cuh)
 TENSOR_CORE_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
-                         torch.float32: (64, 256)}
+                         torch.float32: (64, 128, 256)}
 
 
 @pytest.mark.parametrize("source", ["flash_attn.cu", "flash_attn_bwd.cu"])
 def test_k2_tensor_core_bodies_match_the_dispatch(source):
     """The C launcher's dispatch: of the (dtype, width) pairs of
-    `K2_HEAD_DIMS` it sends exactly those off `TENSOR_CORE_HEAD_DIMS` (f32
-    128 alone) to the CUDA-core bodies (`CSN_WIDE`), f32 at 64 to the
-    split-TF32 D=64 body, and bf16 at 256 (and in the backward at 128) to
-    the split bf16 bodies."""
+    `K2_HEAD_DIMS` it sends exactly those off `TENSOR_CORE_HEAD_DIMS` (none
+    left) to the CUDA-core bodies (`CSN_WIDE`), f32 at 64 to the split-TF32
+    D=64 body, f32 at 128 to the split-TF32 D=128 forward and to the D=256
+    backward's passes at 128, and bf16 at 256 (and in the backward at 128)
+    to the split bf16 bodies."""
     text = (kernels.CSRC / source).read_text()
     body = text[text.index('extern "C" int csn_flash_attn'):]
     names = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16}
@@ -1093,6 +1142,9 @@ def test_k2_tensor_core_bodies_match_the_dispatch(source):
     split = "launch_fwd_split<256>" if source == "flash_attn.cu" \
         else "launch_bwd_split<128>"
     assert f"csn_tcw::{split}" in body
+    tf32 = "csn_tf32_d128::launch_fwd" if source == "flash_attn.cu" \
+        else "csn_tf32::launch_bwd_tf32<float, 128>"
+    assert tf32 in body
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1117,6 +1169,23 @@ def test_bf16_wide_bodies_count_in_rows_of_their_own(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_f32_d128_bodies_count_in_rows_of_their_own(dtype):
+    """`k2_split_tf32_d128`, which names the launch rows: every f32 head dim
+    that K2 runs at width 128 (65-128, zero-padded below 128) is on the
+    split-TF32 D=128 bodies and counts in the `"_tf32_d128"` rows, and no
+    other (f32 1-64 and 129-256, bf16 at any)."""
+    for d in range(1, flash.MAX_HEAD_DIM + 1):
+        want = dtype == torch.float32 and 64 < d <= 128
+        assert flash.k2_split_tf32_d128(dtype, d) == want, d
+        for what in ("flash_attn_fwd", "flash_attn_bwd"):
+            row = flash.k2_row(what, dtype, d)
+            assert row in kernels.LAUNCHES
+            assert row.endswith("_tf32_d128") == want, (d, row)
+    assert {k for k in kernels.LAUNCHES if k.endswith("_tf32_d128")} == {
+        "flash_attn_fwd_tf32_d128", "flash_attn_bwd_tf32_d128"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_f32_d64_bodies_count_in_rows_of_their_own(dtype):
     """`k2_split_tf32_d64`, which names the launch rows: every f32 head dim
     that K2 runs at width 64 (1-64, zero-padded below 64) is on the
@@ -1131,47 +1200,45 @@ def test_f32_d64_bodies_count_in_rows_of_their_own(dtype):
 def test_ds_scratch_only_for_the_bodies_that_read_it():
     """The dS^T scratch (B H ceil32(Lk) ceil32(Lq) elements in q's dtype)
     is allocated for the bodies that hand dS^T from their dK/dV pass to
-    their dQ pass: the f32 D=256 backward (f32; its ring form too) and the
-    bf16 D=128 and 256 backward (bf16; the ring's block form at 256 too,
-    at 128 it runs the CUDA-core body, which reads none). The f32 D=64 body
-    recomputes dS in its dQ pass and gets none (it would be 8.1 GB at the
-    HRNet SSA call), nor do f32 D=128 and bf16 D <= 64."""
+    their dQ pass: the f32 D=256 and D=128 backward (f32; the ring's block
+    form at 256 too, at 128 it runs the CUDA-core body, which reads none)
+    and the bf16 D=128 and 256 backward (bf16; the block form likewise).
+    The f32 D=64 body recomputes dS in its dQ pass and gets none (it would
+    be 8.1 GB at the HRNet SSA call), nor do bf16 D <= 64."""
     B, H, Lq, Lk = 2, 3, 70, 45
-    for dtype, d in ((torch.float32, 64), (torch.float32, 128),
-                     (torch.bfloat16, 64), (torch.bfloat16, 32)):
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 64),
+                     (torch.bfloat16, 32)):
         q = torch.empty(B, H, Lq, d, dtype=dtype, device="meta")
         assert flash._ds_scratch(q, B, H, Lq, Lk, d) is None
         assert flash._ds_scratch(q, B, H, Lq, Lk, d, "block") is None
-    for dtype, d in ((torch.float32, 256), (torch.bfloat16, 128),
-                     (torch.bfloat16, 256)):
+    for dtype, d in ((torch.float32, 256), (torch.float32, 128),
+                     (torch.bfloat16, 128), (torch.bfloat16, 256)):
         q = torch.empty(B, H, Lq, d, dtype=dtype, device="meta")
         ds_t = flash._ds_scratch(q, B, H, Lq, Lk, d)
         assert ds_t.dtype == dtype and ds_t.numel() == B * H * 64 * 96
         ring = flash._ds_scratch(q, B, H, Lq, Lk, d, "block")
-        assert (ring is None) == (dtype == torch.bfloat16 and d == 128)
+        assert (ring is None) == (d == 128)
         if ring is not None:
             assert ring.dtype == dtype and ring.numel() == B * H * 64 * 96
-    # the SSA call's scratch at D=64, had the body kept it; the bf16 one at
-    # d_model 256 in 2 heads of 128
+    # the SSA call's scratch at D=64, had the body kept it; the f32 and
+    # bf16 ones at d_model 256 in 2 heads of 128
     assert 16 * 4 * 5632 * 5632 * 4 / 1e9 > 8.1
+    assert 4.0 < 16 * 2 * 5632 * 5632 * 4 / 1e9 < 4.1
     assert 16 * 2 * 5632 * 5632 * 2 / 1e9 < 2.1
 
 
-@pytest.mark.parametrize("direction", ["fwd", "bwd"])
-def test_f32_d64_refuses_a_misaligned_view(monkeypatch, direction):
-    """The split-TF32 D=64 bodies copy q, k, v and dO 16 bytes at a time
-    with cp.async: `flash_attention` and `flash_attention_bwd` refuse an f32
-    D=64 view that does not start on a 16-byte boundary with ValueError
-    before any launch (meta tensors through the wrappers' checks, the
-    CUDA-device check stubbed out); an aligned call gets as far as the
-    library."""
+def _refuses_a_misaligned_view(monkeypatch, direction, d):
+    """`flash_attention` (direction "fwd") or `flash_attention_bwd` ("bwd")
+    on f32 meta tensors at head dim d, the CUDA-device check stubbed out:
+    a q, k (or dO) view off a 16-byte boundary raises ValueError before any
+    launch; an aligned call gets as far as the library."""
     monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
 
     def no_library():
         raise LookupError("reached the launch")
 
     monkeypatch.setattr(kernels, "library", no_library)
-    b, h, lq, lk, d = 1, 2, 9, 11, 64
+    b, h, lq, lk = 1, 2, 9, 11
     meta = dict(device="meta")
     aligned = torch.empty(b, h, lq, d, **meta)
     shifted = torch.empty(b * h * lq * d + 1, **meta)[1:].view(b, h, lq, d)
@@ -1195,6 +1262,22 @@ def test_f32_d64_refuses_a_misaligned_view(monkeypatch, direction):
     with pytest.raises(LookupError, match="reached the launch"):
         call(aligned, k, aligned)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_f32_d64_refuses_a_misaligned_view(monkeypatch, direction):
+    """The split-TF32 D=64 bodies copy q, k, v and dO 16 bytes at a time
+    with cp.async: their wrappers refuse an f32 D=64 view that does not
+    start on a 16-byte boundary before any launch."""
+    _refuses_a_misaligned_view(monkeypatch, direction, 64)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_f32_d128_refuses_a_misaligned_view(monkeypatch, direction):
+    """The split-TF32 D=128 bodies copy q, k, v and dO 16 bytes at a time
+    with cp.async as well: their wrappers refuse an f32 D=128 view that
+    does not start on a 16-byte boundary before any launch."""
+    _refuses_a_misaligned_view(monkeypatch, direction, 128)
 
 
 # ---------------------------------------------------------------------------

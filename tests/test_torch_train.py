@@ -35,6 +35,11 @@ schedules and both optimizers against the JAX package. The port's steps run
 twice, with the sparse conv in its K1 form and in its im2col form
 (`CSN_DYNG=2`: `conv_im2col_plain` / `conv_im2col_bwd_plain` on the CPU),
 against the same JAX steps and within the same tolerances.
+
+Again at d_model 256 in 2 heads of 128 (the heads the f32 D=128 split-TF32
+attention bodies serve on the card; the plain attention here): the eval
+logits of the initial weights within 1e-4 x max|ref|, and one SGD step's
+loss (rel 1e-5) and gradients (1e-4 x max|ref| per tensor) as above.
 """
 
 import functools
@@ -73,6 +78,8 @@ torch.set_num_threads(1)
 NAME = "HRNetSimCSN3S"
 CFG = dict(out_channels=5, conv1_kernel_size=3, d_model=32, n_head=2,
            k_neighbors=1)
+# d_model 256 in 2 heads of 128
+WIDE_CFG = dict(CFG, d_model=256)
 STEPS = 2
 LR = 0.05
 
@@ -126,8 +133,11 @@ class _JaxRelus:
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_steps():
-    """The JAX package's STEPS steps: (ref, keeps, relus, init, qh, kh)."""
+def _jax_steps(wide=False):
+    """The JAX package's STEPS steps at CFG (one step at WIDE_CFG with
+    `wide`): (ref, keeps, relus, init, qh, kh, logits), `logits` the eval
+    logits of the initial weights with `wide`, else None."""
+    cfg, steps = (WIDE_CFG, 1) if wide else (CFG, STEPS)
     # the batch is built twice from one seed, once by each package
     def build(pipe, cls):
         spec = pipe.pyramid_spec_for_model(
@@ -144,12 +154,17 @@ def _jax_steps():
     rng = np.random.default_rng(7)
 
     jm = j_load_model(NAME)(use_flash=False, compute_dtype="float32",
-                            attn_dropout=0.0, **CFG)
+                            attn_dropout=0.0, **cfg)
     variables = jax.jit(lambda r, b, ks: jm.init(r, b, ks, train=False))(
         jax.random.PRNGKey(0), jq, (jk,))
     params = _randomize_norms(_np(variables["params"]), rng)
     stats = _randomize_norms(_np(variables["batch_stats"]), rng)
     init = (params, stats)
+    logits = None
+    if wide:
+        logits = np.asarray(jax.jit(lambda v, qb, kbs: jm.apply(
+            v, qb, kbs, train=False))(
+                {"params": params, "batch_stats": stats}, jq, (jk,)))
 
     opt = joptim.make_optimizer("SGD", lr=LR)
     relus = _JaxRelus()
@@ -178,7 +193,7 @@ def _jax_steps():
     with pytest.MonkeyPatch.context() as mp:
         for mod in (j_blocks, j_hrnet):
             mp.setattr(mod, "relu_masked", relus.record)
-        for _ in range(STEPS):
+        for _ in range(steps):
             key, sub = jax.random.split(key)
             params, stats, opt_state, loss, grads, pred, kp = j_step(
                 params, stats, opt_state, jq, (jk,), sub)
@@ -188,7 +203,7 @@ def _jax_steps():
                             pred=np.asarray(pred)))
             keeps.append([np.array(k) for k in kp])
     relus.traced.clear()
-    return ref, keeps, relus, init, qh, kh
+    return ref, keeps, relus, init, qh, kh, logits
 
 
 @pytest.fixture(scope="module", params=[None, 2], ids=["dyng0", "dyng2"])
@@ -196,13 +211,31 @@ def train_pair(request):
     """The port's steps beside the JAX package's, with the port's sparse
     conv in its K1 form (CSN_DYNG unset) and in its im2col form
     (CSN_DYNG=2)."""
-    ref, keeps, relus, init, qh, kh = _jax_steps()
+    ref, keeps, relus, init, qh, kh, _ = _jax_steps()
     with window_conv.dyng(request.param):
         return _port_steps(ref, keeps, relus, init, qh, kh)
 
 
-def _port_steps(ref, keeps, relus, init, qh, kh):
-    tm = load_model(NAME)(attn_dropout=0.0, **CFG)
+@pytest.fixture(scope="module")
+def wide_pair():
+    """At WIDE_CFG (2 heads of 128): the port's eval logits of the initial
+    weights and its one step beside the JAX package's: (ref, got, logits
+    ref, logits got)."""
+    ref, keeps, relus, init, qh, kh, logits = _jax_steps(wide=True)
+    tm = load_model(NAME)(attn_dropout=0.0, **WIDE_CFG)
+    assert tm.d_model // tm.n_head == 128
+    tm.load_state_dict(flax_to_torch(*init), strict=True)
+    qb, kb = (to_torch(h, "cpu", compact=False) for h in (qh, kh))
+    with torch.no_grad():
+        got_logits = tm.eval()(qb, (kb,)).numpy()
+    ref, got, _, launches = _port_steps(ref, keeps, relus, init, qh, kh,
+                                        WIDE_CFG)
+    assert not any(launches.values()), launches
+    return ref, got, logits, got_logits
+
+
+def _port_steps(ref, keeps, relus, init, qh, kh, cfg=CFG):
+    tm = load_model(NAME)(attn_dropout=0.0, **cfg)
     tm.load_state_dict(flax_to_torch(*init), strict=True)
     topt = optim.make_optimizer(tm.parameters(), "SGD", lr=LR)
     qb, kb = (to_torch(h, "cpu", compact=False) for h in (qh, kh))
@@ -212,7 +245,7 @@ def _port_steps(ref, keeps, relus, init, qh, kh):
     with pytest.MonkeyPatch.context() as mp:
         for mod in (t_blocks, t_hrnet):
             mp.setattr(mod, "relu_masked", relus.replay)
-        for step in range(STEPS):
+        for step in range(len(ref)):
             relus.keeps = list(keeps[step])
             relus.flips = relus.inputs = 0
             loss, pred = train_step(tm, topt, qb, (kb,), gen)
@@ -269,6 +302,28 @@ def test_train_gradients_match_jax(train_pair, step):
 def test_train_params_and_bn_stats_match_jax(train_pair, step):
     ref, got, _, _ = train_pair
     _rel_close(got[step]["state"], ref[step]["state"], 1e-5, "state")
+
+
+def test_wide_heads_eval_logits_match_jax(wide_pair):
+    _, _, ref, got = wide_pair
+    scale = float(np.abs(ref).max())
+    assert scale > 1e-2   # not a vanished signal
+    assert got.shape == ref.shape
+    assert float(np.abs(got - ref).max()) <= 1e-4 * scale
+
+
+def test_wide_heads_train_loss_matches_jax(wide_pair):
+    ref, got, _, _ = wide_pair
+    assert abs(got[0]["loss"] - ref[0]["loss"]) <= 1e-5 * abs(ref[0]["loss"])
+    flips, inputs = got[0]["flips"]
+    assert inputs > 10 ** 5 and flips <= 1e-5 * inputs, (flips, inputs)
+
+
+def test_wide_heads_train_gradients_match_jax(wide_pair):
+    ref, got, _, _ = wide_pair
+    assert max(float(g.abs().max()) for g in ref[0]["grads"].values()) \
+        > 1e-3   # not a vanished signal
+    _rel_close(got[0]["grads"], ref[0]["grads"], 1e-4, "grad")
 
 
 def _small_batches(seed=0):
