@@ -111,9 +111,15 @@ Phases (each prints its lines; any failure exits nonzero):
      must disagree, a slice of the query rows at its row offset, and a
      block with padding query rows (scattered, and one padding 64-row
      tile) whose carry must pass through bit for bit; both timed at the
-     ring of one (f32: one call with its host work; bf16: device time from
-     CUDA graphs at dropout 0.1 and 0) beside the bound, the plain chain
-     and the library call; the
+     ring of one (device time from CUDA graphs at dropout 0.1 and 0) beside
+     the bound, the plain chain and the library call; all of it again at
+     [2, 8, 10000, 128] (phase 7c's head dim: f32 on the split-TF32 D=128
+     bodies' carry and block forms, rows `flash_attn_carry_tf32_d128` and
+     `flash_attn_block_bwd_tf32_d128`; bf16 on the `_bf16_wide` rows, the
+     carry form of `csrc/flash_tc_fwd.cuh` and the block form of
+     `csrc/flash_bf16_wide_bwd.cuh` at 128); one timed line per dtype of
+     the ring's CUDA-core forms at [2, 8, 10000, 64] (kernel, bound,
+     library; no main path runs them); the
      carry chain and the block backward zero-padded by their wrappers (D=32
      f32, D=24 bf16, masked, dropout 0.1, `check_ring_padded`) against the
      same plain chains, and a ring of one at D=24 bf16 (padded once at its
@@ -175,7 +181,12 @@ Phases (each prints its lines; any failure exits nonzero):
      one f32 B=1 step against the CPU's; 7b: the same with
      `compute_dtype="bfloat16"` on the `_bf16_wide` rows (no launch of the
      CUDA-core or f32 ring rows), the B=1 step against the CPU's bf16 step
-     within GRAD_TOL_BF16 / LOSS_TOL_BF16;
+     within GRAD_TOL_BF16 / LOSS_TOL_BF16; 7c: both again at d_model 128 (8
+     heads of 128, the factory's d_k = d_v = d_model): the ring's
+     `_tf32_d128` rows in f32 and `_bf16_wide` rows in bf16, one carry per
+     eval and one carry and one block backward per train step, the logits
+     against the same model without the group (K2 at 128), the B=1 steps
+     against the CPU's at phase 7's and 7b's tolerances;
   8. the trainer, inside CSN_DYNG=2: `tasks/main_csn.build_trainer` and
      `CSNTrainer.train()` on HRNetSimCSN3S at the protocol below (SGD, bf16)
      over an in-memory synthetic collection (16 train, 8 val, 8 test shapes
@@ -241,11 +252,14 @@ other bodies; K2 and its backward likewise, their f32 split-TF32 bodies
 at D=64 as `flash_attn_fwd_tf32_d64` and `flash_attn_bwd_tf32_d64` and at
 D=128 as `flash_attn_fwd_tf32_d128` and `flash_attn_bwd_tf32_d128`, their
 bf16 bodies at head dims 128 and 256 as `flash_attn_fwd_bf16_wide` and
-`flash_attn_bwd_bf16_wide`), its
+`flash_attn_bwd_bf16_wide`; the ring's carry and block backward with
+their f32 D=128 bodies as `flash_attn_carry_tf32_d128` and
+`flash_attn_block_bwd_tf32_d128` and their bf16 bodies at 128 and 256 as
+`flash_attn_carry_bf16_wide` and `flash_attn_block_bwd_bf16_wide`), its
 launches in the train requests of phases 5 (bf16, f32, f32 under
 CSN_DYNG=2, bf16 in heads of 128 and f32 in heads of 128), 6 (f32 and
 bf16),
-7, 8, 9, 10 and 11 (each
+7 (f32, bf16, and both at d_model 128), 8, 9, 10 and 11 (each
 phase sets the counts to 0 before and reads them after; phase 9 counts the
 Res16UNet34C train iterations, the chain and the probes' entry points;
 phase 10 the data-parallel trainer's iterations; phase 11 the three
@@ -256,7 +270,9 @@ the split-TF32 rows f32 there as device time from CUDA graphs (the
 `_tf32_d64` and `_tf32_d128` rows: one SSA and one CSA call each, the
 plain version one call;
 the `_bf16_wide` rows likewise: one SSA and one CSA call at D=128 and 9
-MID-FC chunk calls at D=256, bf16),
+MID-FC chunk calls at D=256, bf16; the ring's rows one call at the ring of
+one per head dim of its path, device time from CUDA graphs, the plain
+chain one call),
 f32 at the MID-FC shapes; the interpolation pair f32 at 39 classes, as the
 HRNet heads' f32 logits reach it; the probe kernels, as device time
 from CUDA graphs: one call of `probe_window_gather` at [384, 128] f32, the
@@ -381,6 +397,9 @@ VANISHING = {"fc1.linear.bias"}
 # the MID-FC protocol (the JAX package's bench.py, mode midfc)
 MF_HEADS, MF_K, MF_B, MF_P, MF_D, MF_CHUNK = 8, 4, 4, 10000, 256, 500
 MF_RING_B, MF_BLOCKS = 2, 4   # phase 7's batch; key blocks of phase 3's chain
+# the head dims of the ring's forms that phases 7 and 7b (256) and 7c (128:
+# d_model 128) run, timed in phase 3 at the ring of one
+RING_TIMED_DIMS = (MF_D, 128)
 RAGGED_LQ, RAGGED_LK = 1000, 777   # phase 3's ragged flash case
 LC_TASKS = ("csn", "seg", "midfc")   # phase 11, the learning check
 
@@ -448,15 +467,25 @@ KERNELS = {
                                  "csn_tpu/ops/flash.py:262"),
     "flash_attn_bwd_bf16_wide": ("csn_tpu_torch/csrc/flash_bf16_wide_bwd.cuh",
                                  "csn_tpu/ops/flash.py:600"),
+    # the ring's carry and block backward: their f32 D=256 forms (split
+    # TF32) and the CUDA-core ones (D = 64, either dtype)
     "flash_attn_carry": ("csn_tpu_torch/csrc/flash_tf32_fwd.cuh",
                          "csn_tpu/ops/flash.py:412"),
     "flash_attn_block_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
                              "csn_tpu/ops/flash.py:488"),
-    # the bf16 forms of the ring's carry and block backward at head dim 256
-    # (the MID-FC full attention in bf16, phase 7b): the carry and block
-    # forms of K2's bf16 split bodies, whose launches count apart; the two
-    # rows above are the f32 D=256 forms and the CUDA-core ones (D = 64 and
-    # 128, either dtype)
+    # their f32 D=128 forms (the MID-FC full attention at d_model 128, phase
+    # 7c): the carry and block forms of K2's split-TF32 D=128 bodies, whose
+    # launches count apart
+    "flash_attn_carry_tf32_d128": (
+        "csn_tpu_torch/csrc/flash_tf32_d128_fwd.cuh",
+        "csn_tpu/ops/flash.py:412"),
+    "flash_attn_block_bwd_tf32_d128": (
+        "csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
+        "csn_tpu/ops/flash.py:488"),
+    # their bf16 forms at head dims 256 and 128 (the MID-FC full attention in
+    # bf16, phases 7b and 7c): the carry and block forms of K2's bf16
+    # tensor-core bodies (the carry at 128 on flash_tc_fwd.cuh's template),
+    # whose launches count apart
     "flash_attn_carry_bf16_wide": (
         "csn_tpu_torch/csrc/flash_bf16_wide_fwd.cuh",
         "csn_tpu/ops/flash.py:412"),
@@ -1899,22 +1928,23 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
     the wrappers) against `online_block_update` chained the same way and
     against one K2 pass over all keys; `flash_attn_block_bwd` on every block
     against `block_backward_plain` on that block, and summed over the
-    blocks against one `flash_attn_bwd` call. bf16 at 256 runs the
-    `_bf16_wide` rows (`flash.ring_row`). The backward's inputs (out, lse)
-    are the plain chain's, so no kernel's output feeds a check of another.
+    blocks against one `flash_attn_bwd` call. The backward's inputs (out,
+    lse) are the plain chain's, so no kernel's output feeds a check of
+    another.
     Every case repeats one launch of each kernel and wants the same bits.
     A chain cut unevenly, at columns that are no multiple of 4 (a block then
     starts inside a 4-column Philox group), also checks a slice of the query
     rows at its row offset, both kernels against a float64 reference beside
     the f32 plain version with a wrong-offset run that must disagree, and
     padding query rows that keep their carry bit for bit. The one call over
-    all keys that phase 7 (7b in bf16) makes, a ring of one, is held
-    against the plain chains too, and timed at dk = MF_D: f32 at dropout
-    ATTN_DROPOUT (one call with its host work; at dropout 0 beside the
-    line), bf16 at ATTN_DROPOUT and 0 (device time from CUDA graphs; 0
-    beside the line), beside the bound, the plain chain (one call) and the
-    library call. `cases`: (dtype, dropout, masked, uneven) of each chain;
-    by default the six at MF_D."""
+    all keys that phase 7 (7b in bf16, 7c at 128) makes, a ring of one, is
+    held against the plain chains too, and timed at the head dims of
+    RING_TIMED_DIMS (`ring_graph_ms`: device time from CUDA graphs at
+    dropout ATTN_DROPOUT, in the kernel line, and 0, beside it, in both
+    dtypes) beside the bound, the plain chain (one call) and the library
+    call. bf16 at 128 and 256 runs the `_bf16_wide` rows, f32 at 128 the
+    `_tf32_d128` rows (`flash.ring_row`). `cases`: (dtype, dropout,
+    masked, uneven) of each chain; by default the six."""
     b, h, L = MF_RING_B, MF_HEADS, MF_P
     temp = float(dk) ** 0.5
     seed = 0x5EED_0F_C5A + 1
@@ -2138,108 +2168,137 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
             require(same, f"{cname}: a padding row changed the carry")
             del got, new, c_in, final
         hop_in.clear()
-        if cuts is even and dk == MF_D and (drop or dt == torch.bfloat16):
-            # phase 7's calls (7b's in bf16)
-            es = torch.finfo(dt).bits // 8
-            fb, bb, ff, bf = attention_work(full, km, h, dk, es)
+        if cuts is even and masked and dk in RING_TIMED_DIMS:
+            # phase 7's calls (7b's in bf16; 7c's at head dim 128)
             cin = flash.flash_carry_init(b, h, L, dk, dev)
-            c_bytes = 2 * sum(c.numel() * 4 for c in cin)  # carry in, out
-            # q, k, v and the masks in; the carry in and out; no out, lse
-            fb += c_bytes - b * h * L * (dk * es + 4)
-            bb += b * h * L * dk * (4 - es)   # dq is f32
-            atag = f"[{b},{h},{L},{dk}] all keys {mtag} dropout {drop}"
+            atag = f"[{b},{h},{L},{dk}] all keys {mtag}"
             got = flash.flash_forward_carry(qd, kd, vd, km, None, cin, temp,
                                             drop, sd)
             for nm, a, r in zip(("m", "l", "acc"), got, plain):
-                table.check(cname, f"{atag} one call, carry {nm} vs plain "
-                            f"chain", a, r, dt)
+                table.check(cname, f"{atag} dropout {drop} one call, carry "
+                            f"{nm} vs plain chain", a, r, dt)
             got = flash.flash_block_backward(qd, kd, vd, km, out, lse, dod,
                                              temp, drop, sd, delta=delta)
             for nm, a, r in zip(("dq", "dk", "dv"), got, sums_p):
-                table.check(bname, f"{atag} one call, {nm} vs plain chain",
-                            a, r, dt)
+                table.check(bname, f"{atag} dropout {drop} one call, {nm} vs "
+                            f"plain chain", a, r, dt)
             del got
-
-            def plain_chain():
-                c = flash.flash_carry_init(b, h, L, dk, dev)
-                for c0, kb_, vb_, mb_ in blocks_:
-                    c = attention.online_block_update(c, qt, kb_, vb_, mb_,
-                                                      drop, sd, col_offset=c0)
-                return c
-
-            def plain_bwd_chain():
-                return [flash.block_backward_plain(
-                    qd, kb_, vb_, mb_, lse, delta, dod, temp, drop, sd,
-                    col_offset=c0) for c0, kb_, vb_, mb_ in blocks_]
-
-            def carry_call(p=drop):
-                return flash.flash_forward_carry(qd, kd, vd, km, None, cin,
-                                                 temp, p, sd if p else None)
-
-            def bwd_call(p=drop):
-                return flash.flash_block_backward(
-                    qd, kd, vd, km, out, lse, dod, temp, p,
-                    sd if p else None, delta=delta)
-
-            def lib(x, y, z, p=drop):
-                return F.scaled_dot_product_attention(
-                    x, y, z, attn_mask=km[:, None, None, :],
-                    scale=1.0 / temp, dropout_p=p)
-
-            leaves = [x.detach().clone().requires_grad_(True)
-                      for x in (qd, kd, vd)]
             print(f"[time] {cname}, {bname}: the plain versions walk the "
                   f"keys in {MF_BLOCKS} blocks (all keys at once would hold "
                   f"a [{b},{h},{L},{L}] f32 score matrix); the library call "
                   f"runs at the kernels' dropout and draws its own mask")
-            if dt == torch.bfloat16:
-                # device times from CUDA graphs; the library's backward is
-                # its forward and backward less the forward
-                count = 1 if drop else 0
-                kf, kb2, lf, lfb = (graph_ms(fn, calls=5, reps=3) for fn in (
-                    carry_call, bwd_call, lambda: lib(qd, kd, vd),
-                    lambda: torch.autograd.grad(lib(*leaves), leaves, dod)))
+            bf_ms, bb_ms = ring_bounds(km, h, dk, dt)
+            # f32 has one masked even case: its dropout 0 is timed beside
+            for p in (drop, 0.0) if dt == torch.float32 else (drop,):
+                psd = seed if p else None
+                kf, kb2, lf, lb = ring_graph_ms(qd, kd, vd, dod, km, out, lse,
+                                                delta, cin, temp, p, psd)
+
+                def plain_chain():
+                    c = cin
+                    for c0, kb_, vb_, mb_ in blocks_:
+                        c = attention.online_block_update(
+                            c, qt, kb_, vb_, mb_, p, psd, col_offset=c0)
+                    return c
+
+                def plain_bwd_chain():
+                    return [flash.block_backward_plain(
+                        qd, kb_, vb_, mb_, lse, delta, dod, temp, p, psd,
+                        col_offset=c0) for c0, kb_, vb_, mb_ in blocks_]
+
                 pf, pb = (median_ms(fn, warmup=1, reps=3)
                           for fn in (plain_chain, plain_bwd_chain))
-                parts_f = (fb / HBM_BYTES_S * 1e3, ff / PEAK_FLOPS[dt] * 1e3)
-                parts_b = (bb / HBM_BYTES_S * 1e3, bf / PEAK_FLOPS[dt] * 1e3)
-                table.add(cname, count, kf, pf, *parts_f, lf)
-                table.add(bname, count, kb2, pb, *parts_b, lfb - lf)
-                print(f"[time] {cname} / {bname} {atag} bfloat16 (device, "
-                      f"CUDA graphs, warm L2): carry kernel {kf:.4f} ms, "
-                      f"plain chain {pf:.4f} ms (one call), bound "
-                      f"{max(parts_f):.4f} ms, library {lf:.4f} ms; block "
-                      f"backward kernel {kb2:.4f} ms, plain chain {pb:.4f} "
-                      f"ms (one call), bound {max(parts_b):.4f} ms, library "
-                      f"{lfb - lf:.4f} ms (forward and backward {lfb:.4f} "
-                      f"less the forward) "
+                count = 1 if p else 0
+                table.add(cname, count, kf, pf, *bf_ms, lf)
+                table.add(bname, count, kb2, pb, *bb_ms, lb)
+                print(f"[time] {cname} / {bname} {atag} dropout {p} "
+                      f"{str(dt)[6:]} (device, CUDA graphs, warm L2): carry "
+                      f"kernel {kf:.4f} ms, plain chain {pf:.4f} ms (one "
+                      f"call), bound {max(bf_ms):.4f} ms, library {lf:.4f} "
+                      f"ms; block backward kernel {kb2:.4f} ms, plain chain "
+                      f"{pb:.4f} ms (one call), bound {max(bb_ms):.4f} ms, "
+                      f"library {lb:.4f} ms (forward and backward less the "
+                      f"forward) "
                       + (f"(x{count} per train step)" if count
                          else "(not in the kernel line)"))
-            else:
-                table.time(cname, atag, carry_call, plain_chain, reps=3,
-                           nbytes=fb, flops=ff, dtype=dt,
-                           fn_library=lambda: lib(qd, kd, vd))
-                lib_out, lib0 = (lib(*leaves, p=p) for p in (drop, 0.0))
-                table.time(bname, atag, bwd_call, plain_bwd_chain, reps=3,
-                           nbytes=bb, flops=bf, dtype=dt,
-                           fn_library=lambda: torch.autograd.grad(
-                               lib_out, leaves, dod, retain_graph=True))
-                # the same calls at dropout 0, outside the kernel line
-                ms0 = [median_ms(fn, warmup=1, reps=3) for fn in (
-                    lambda: carry_call(0.0),
-                    lambda: lib(qd, kd, vd, p=0.0),
-                    lambda: bwd_call(0.0),
-                    lambda: torch.autograd.grad(lib0, leaves, dod,
-                                                retain_graph=True))]
-                print(f"[time] {cname} [{b},{h},{L},{dk}] all keys {mtag} "
-                      f"dropout 0.0 {str(dt)[6:]}: kernel {ms0[0]:.4f} ms, "
-                      f"library {ms0[1]:.4f} ms; {bname} kernel "
-                      f"{ms0[2]:.4f} ms, library {ms0[3]:.4f} ms (not in the "
-                      f"kernel line)")
-                del lib_out, lib0
-            del leaves, cin
+            del cin
         del out, lse, delta, blocks_, plain, sums_p
         torch.cuda.empty_cache()
+
+
+def ring_bounds(km, h, dk, dt):
+    """((bytes ms, operations ms) of the carry, the same of the block
+    backward) over all keys of a ring of one at q [b, h, L, dk] in `dt`
+    with key mask `km` [b, L] (every query row valid): `attention_work`'s
+    counts with the carry in and out in place of out and lse, and dQ in
+    f32."""
+    b, L = km.shape
+    es = torch.finfo(dt).bits // 8
+    fb, bb, ff, bf = attention_work(torch.ones_like(km), km, h, dk, es)
+    fb += 2 * b * h * L * (dk + 2) * 4 - b * h * L * (dk * es + 4)
+    bb += b * h * L * dk * (4 - es)
+    return ((fb / HBM_BYTES_S * 1e3, ff / PEAK_FLOPS[dt] * 1e3),
+            (bb / HBM_BYTES_S * 1e3, bf / PEAK_FLOPS[dt] * 1e3))
+
+
+def ring_graph_ms(q, k, v, dout, km, out, lse, delta, cin, temp, p, seed):
+    """Device ms from CUDA graphs (warm L2) of the ring of one over all
+    keys at dropout `p`: (the carry from `cin`, the block backward against
+    the global out / lse / delta, the library call's forward, its backward:
+    forward and backward less the forward). The library call runs at the
+    same dropout and draws its own mask."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+    def lib(x, y, z):
+        return F.scaled_dot_product_attention(
+            x, y, z, attn_mask=km[:, None, None, :], scale=1.0 / temp,
+            dropout_p=p)
+
+    kf, kb, lf, lfb = (graph_ms(fn, calls=5, reps=3) for fn in (
+        lambda: flash.flash_forward_carry(q, k, v, km, None, cin, temp, p,
+                                          seed),
+        lambda: flash.flash_block_backward(q, k, v, km, out, lse, dout, temp,
+                                           p, seed, delta=delta),
+        lambda: lib(q, k, v),
+        lambda: torch.autograd.grad(lib(*leaves), leaves, dout)))
+    return kf, kb, lf, lfb - lf
+
+
+def time_ring_d64(dev):
+    """The ring's CUDA-core forms at head dim 64 (`csrc/flash_wide.cuh`,
+    `csrc/flash_bwd_wide.cuh`: a ring at d_k <= 64) at the ring of one
+    [2, 8, 10000, 64], f32 and bf16, masked as `check_ring_kernels`'
+    chains, dropout ATTN_DROPOUT: device ms from CUDA graphs beside the
+    bound and the library call. No main path runs them: printed, not in
+    the kernel line."""
+    g = torch.Generator().manual_seed(SEED + 23)
+    b, h, L, dk = MF_RING_B, MF_HEADS, MF_P, 64
+    temp, sd = float(dk) ** 0.5, 0x5EED_0F_C5A + 3
+    km = torch.ones(b, L, dtype=torch.bool)
+    km[0, L - 777:] = False
+    km[1, L // MF_BLOCKS:2 * L // MF_BLOCKS] = False
+    km = km.to(dev)
+    x = [torch.randn(b, h, L, dk, generator=g).to(dev) for _ in range(4)]
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (t.to(dt) for t in x)
+        cin = flash.flash_carry_init(b, h, L, dk, dev)
+        out, lse = flash.flash_carry_finalize(flash.flash_forward_carry(
+            q, k, v, km, None, cin, temp, ATTN_DROPOUT, sd))
+        out = out.to(dt)
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        kf, kb, lf, lb = ring_graph_ms(q, k, v, dout, km, out, lse, delta,
+                                       cin, temp, ATTN_DROPOUT, sd)
+        bf_ms, bb_ms = ring_bounds(km, h, dk, dt)
+        print(f"[time] flash_attn_carry / flash_attn_block_bwd [{b},{h},{L},"
+              f"{dk}] all keys masked dropout {ATTN_DROPOUT} {str(dt)[6:]} "
+              f"(CUDA cores: flash_wide.cuh, flash_bwd_wide.cuh; device, "
+              f"CUDA graphs, warm L2): carry kernel {kf:.4f} ms, bound "
+              f"{max(bf_ms):.4f} ms, library {lf:.4f} ms; block backward "
+              f"kernel {kb:.4f} ms, bound {max(bb_ms):.4f} ms, library "
+              f"{lb:.4f} ms (not in the kernel line)")
+        del q, k, v, dout, out, lse, delta, cin
+    del x
+    torch.cuda.empty_cache()
 
 
 def check_interp(qb, dev, table, g):
@@ -2717,18 +2776,18 @@ def f32_attention_kernels(tag, rows):
             f"{tag}: a CUDA-core attention body ran in the f32 step")
 
 
-def midfc_data(n_shapes, seed):
+def midfc_data(n_shapes, seed, d_model=MF_D):
     """Seeded numpy MID-FC inputs at the protocol's sizes: features
-    [B, P, 256], neighbor features [B, K+1, P, 256], labels [B, P] in
-    [0, C). Every shape's points are drawn around a mean of its own, as a
-    backbone's features of different shapes are: the mean-pooled
+    [B, P, d_model], neighbor features [B, K+1, P, d_model], labels [B, P]
+    in [0, C). Every shape's points are drawn around a mean of its own, as
+    a backbone's features of different shapes are: the mean-pooled
     descriptors then differ between shapes and the compatibility softmax
     is not uniform."""
     rng = np.random.default_rng(seed)
-    feats = (rng.normal(size=(n_shapes, MF_P, MF_D))
-             + rng.normal(size=(n_shapes, 1, MF_D))).astype(np.float32)
-    neighbors = (rng.normal(size=(n_shapes, MF_K + 1, MF_P, MF_D))
-                 + rng.normal(size=(n_shapes, MF_K + 1, 1, MF_D))
+    feats = (rng.normal(size=(n_shapes, MF_P, d_model))
+             + rng.normal(size=(n_shapes, 1, d_model))).astype(np.float32)
+    neighbors = (rng.normal(size=(n_shapes, MF_K + 1, MF_P, d_model))
+                 + rng.normal(size=(n_shapes, MF_K + 1, 1, d_model))
                  ).astype(np.float32)
     labels = rng.integers(0, NUM_CLASSES,
                           size=(n_shapes, MF_P)).astype(np.int32)
@@ -2770,9 +2829,12 @@ def compare_grads(tag, got, ref, loss_got, loss_ref, tol=GRAD_TOL,
           f"{loss_ref:.6f} (tol {loss_tol:.0e} x |ref|)")
 
 
-def midfc_config(batch_size, chunk_size, compute_dtype="float32"):
+def midfc_config(batch_size, chunk_size, compute_dtype="float32",
+                 d_model=MF_D):
+    """The MID-FC protocol's runner config (8 heads; the factory sets d_k =
+    d_v = d_model)."""
     return MidfcConfig(num_classes=NUM_CLASSES, n_heads=MF_HEADS, K=MF_K,
-                       batch_size=batch_size, d_model=MF_D,
+                       batch_size=batch_size, d_model=d_model,
                        chunk_size=chunk_size, num_points=MF_P,
                        weight_decay=5e-4, compute_dtype=compute_dtype,
                        seed=SEED)
@@ -2860,24 +2922,29 @@ def free_tcp_addr():
         return f"tcp://localhost:{s.getsockname()[1]}"
 
 
-def midfc_ring_slice(dev, profile=False, compute_dtype="float32"):
+def midfc_ring_slice(dev, profile=False, compute_dtype="float32",
+                     d_model=MF_D):
     """Phase 7 at `compute_dtype` (f32; bf16, phase 7b, runs the carry and
     the block backward at head dim 256 on the `_bf16_wide` rows, and the
-    reference model without the group K2 on `flash_attn_fwd_bf16_wide`).
-    Returns the launch counts of the train step."""
+    reference model without the group K2 on `flash_attn_fwd_bf16_wide`) and
+    `d_model` (the heads' d_k = d_v; phase 7c: 128, the ring's rows
+    `_tf32_d128` in f32 and `_bf16_wide` in bf16, K2's at 128 for the model
+    without the group). Returns the launch counts of the train step."""
     dt = getattr(torch, compute_dtype)
     bf16 = dt == torch.bfloat16
     tag, kind = ("ring bf16", "bf16") if bf16 else ("ring", "f32")
-    carry, block = (flash.ring_row(n, dt, MF_D) for n in (
+    if d_model != MF_D:
+        tag = f"{tag} d_model {d_model}"
+    carry, block = (flash.ring_row(n, dt, d_model) for n in (
         "flash_attn_carry", "flash_attn_block_bwd"))
-    k2 = flash.k2_row("flash_attn_fwd", dt, MF_D)
+    k2 = flash.k2_row("flash_attn_fwd", dt, d_model)
     grad_tols = (GRAD_TOL_BF16, LOSS_TOL_BF16) if bf16 else ()
     dist.init_process_group("gloo", init_method=free_tcp_addr(),
                             world_size=1, rank=0)
     try:
-        feats, labels, _ = midfc_data(MF_RING_B, SEED + 11)
-        ring = MidfcRunner(midfc_config(MF_RING_B, None, compute_dtype),
-                           "ssa", device=dev)
+        feats, labels, _ = midfc_data(MF_RING_B, SEED + 11, d_model)
+        ring = MidfcRunner(midfc_config(MF_RING_B, None, compute_dtype,
+                                        d_model), "ssa", device=dev)
         ring.initialize()
         # full attention through the sharded steps is a ring over the seq
         # group, here of one rank
@@ -2890,8 +2957,8 @@ def midfc_ring_slice(dev, profile=False, compute_dtype="float32"):
         require_launches(f"{tag} eval", dict(kernels.LAUNCHES), {carry: 1},
                          n_requests=1)
 
-        plain = MidfcRunner(midfc_config(MF_RING_B, None, compute_dtype),
-                            "ssa", device=dev)
+        plain = MidfcRunner(midfc_config(MF_RING_B, None, compute_dtype,
+                                         d_model), "ssa", device=dev)
         plain.initialize()
         plain.load_state(ring.params)
         kernels.reset_launches()
@@ -2921,7 +2988,7 @@ def midfc_ring_slice(dev, profile=False, compute_dtype="float32"):
         require_launches(f"{tag} train", launches, {carry: 1, block: 1},
                          n_requests=1)
         what = (f"SSA, full attention, ring of one, B={MF_RING_B}, "
-                f"P={MF_P}, {MF_HEADS} heads of {MF_D}, {kind}")
+                f"P={MF_P}, {MF_HEADS} heads of {d_model}, {kind}")
         time_steps(f"{tag} eval", lambda: steps.eval(feats, None), what,
                    MF_RING_B, timed_steps=3)
 
@@ -2938,12 +3005,12 @@ def midfc_ring_slice(dev, profile=False, compute_dtype="float32"):
 
         # one B=1 step at dropout 0: the ring's kernels (GPU) vs the plain
         # blocked attention without a group (CPU), in the same compute dtype
-        feats, labels, _ = midfc_data(1, SEED + 13)
+        feats, labels, _ = midfc_data(1, SEED + 13, d_model)
         res = []
         init = None
         for where in (dev, "cpu"):
-            r1 = MidfcRunner(midfc_config(1, None, compute_dtype), "ssa",
-                             device=where)
+            r1 = MidfcRunner(midfc_config(1, None, compute_dtype, d_model),
+                             "ssa", device=where)
             r1.initialize()
             r1.model.attention.mha.dropout = 0.0
             if init is None:
@@ -4152,6 +4219,8 @@ def main() -> int:
     check_interp(qb, dev, table, g)
     del big
     check_ring_kernels(dev, table, g)
+    check_ring_kernels(dev, table, g, dk=128)
+    time_ring_d64(dev)
     check_ring_padded(dev, table)
     n_unet_convs = check_family_convs(dev, table, g)
     print(f"[check] sparse_conv_dw bfloat16 (tensor cores) vs float64: "
@@ -4221,6 +4290,11 @@ def main() -> int:
     phase("7b MID-FC ring, bf16")
     launches_7b = midfc_ring_slice(dev, do_profile, "bfloat16")
     launches_7 = {k: n + launches_7b[k] for k, n in launches_7.items()}
+    # the ring at d_model 128: 8 heads of 128, in f32 and bf16
+    phase("7c MID-FC ring, d_model 128")
+    for dtype in ("float32", "bfloat16"):
+        launches_7c = midfc_ring_slice(dev, do_profile, dtype, 128)
+        launches_7 = {k: n + launches_7c[k] for k, n in launches_7.items()}
 
     # 8. the trainer and the eval CLI's path under CSN_DYNG=2
     phase("8 trainer")

@@ -1,7 +1,8 @@
 // Shared helpers for the port's CUDA kernels: activation-type conversion
 // through the bf16 intrinsics, the dtype codes the ctypes launchers take, the
-// fixed-order sum over split partials, and the counter-based generator of the
-// attention dropout.
+// fixed-order sum over split partials, the counter-based generator of the
+// attention dropout and the arguments that the attention bodies share (the
+// dropout of a launch, the ring's online-softmax carry).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,6 +92,53 @@ __device__ __forceinline__ void dropout_words(uint64_t seed, uint32_t bh,
     const U4& g = pos < 4 ? g0 : g1;
     const uint32_t k = pos & 3u;
     w[j] = k == 0 ? g.x : k == 1 ? g.y : k == 2 ? g.z : g.w;
+  }
+}
+
+// The attention dropout of one launch: the seed, the keep threshold (of
+// 2^32), the numerator's scale 1 / keep, whether it is on, and the place of
+// the launch's query rows and key columns in the global score matrix (0 for
+// K2 and its backward; a ring hop's block in flash_attn_carry.cu and
+// flash_attn_block_bwd.cu)
+struct Drop {
+  uint64_t seed;
+  uint32_t thresh;
+  float inv_keep;
+  int on;
+  int row_off;
+  int col_off;
+};
+
+// The online-softmax state of a carry launch (flash_attn_carry.cu, the
+// ring's per-hop forward): m, l [B, H, Lq] and acc [B, H, Lq, D] f32, in and
+// out (distinct buffers)
+struct Carry {
+  const float* m_in;
+  const float* l_in;
+  const float* acc_in;
+  float* m_out;
+  float* l_out;
+  float* acc_out;
+};
+
+// Rows q0 .. q0 + ROWS - 1 (those below Lq) of a carry at head dim TD, in ->
+// out unchanged, by the NTHREADS threads of a block: the carry forms' query
+// tile with no valid row. row_base = (batch*head) * Lq.
+template <int TD, int ROWS, int NTHREADS>
+__device__ __forceinline__ void carry_through(const Carry& cy,
+                                              int64_t row_base, int q0,
+                                              int Lq, int tid) {
+  for (int i = tid; i < ROWS * TD / 4; i += NTHREADS) {
+    const int r = q0 + i / (TD / 4);
+    if (r < Lq) {
+      const int64_t o = (row_base + r) * (TD / 4) + i % (TD / 4);
+      reinterpret_cast<float4*>(cy.acc_out)[o] =
+          reinterpret_cast<const float4*>(cy.acc_in)[o];
+    }
+  }
+  if (tid < ROWS && q0 + tid < Lq) {
+    cy.m_out[row_base + q0 + tid] = cy.m_in[row_base + q0 + tid];
+    cy.l_out[row_base + q0 + tid] = cy.l_in[row_base + q0 + tid];
   }
 }
 

@@ -15,23 +15,26 @@
 // mask is keyed by absolute (query row, key column): row_off and col_off give
 // this block's place in the global score matrix.
 //
-// f32 at D = 256 (the MID-FC heads, the ring's shape): the split-TF32
-// passes of flash_tf32_bwd.cuh on the tensor cores, with the block's offsets
-// and an f32 dQ term; the dK/dV pass hands dS^T to the dQ pass through the
-// caller's f32 scratch of ceil32(Lk) x ceil32(Lq) per (batch*head) (6.4 GB
-// for one hop over all 10000 keys at B = 2, 8 heads; a ring of N ranks has
-// Lk / N keys per hop). What bounds it: products, five 256-long ones per
-// (query, key) pair, three TF32 products each.
-// bf16 at D = 256 (the MID-FC heads with compute_dtype "bfloat16"): the two
-// passes of flash_bf16_wide_bwd.cuh on the tensor cores (mma.sync
-// m16n8k16, f32 accumulators) with the block's offsets and the dQ type set
-// to float; the dK/dV pass hands dS^T, rounded to bf16, to the dQ pass
-// through the caller's bf16 scratch of ceil32(Lk) x ceil32(Lq) per
-// (batch*head) (3.2 GB for one hop over all 10000 keys at B = 2, 8 heads;
-// its round trip, about 1.9 ms at 3.35 TB/s, is stated in that header).
-// f32 and bf16 at D = 64 / 128 (a ring at d_k <= 128, zero-padded up to
-// them): the two deterministic passes of flash_bwd_wide.cuh in f32
-// arithmetic on the CUDA cores, with the dQ type set to float.
+// f32 at D = 256 (the MID-FC heads, the ring's shape) and D = 128 (the
+// MID-FC heads at d_model 128): the split-TF32 passes of
+// flash_tf32_bwd.cuh on the tensor cores at that head dim, with the block's
+// offsets and an f32 dQ term; the dK/dV pass hands dS^T to the dQ pass
+// through the caller's f32 scratch of ceil32(Lk) x ceil32(Lq) per
+// (batch*head) (6.4 GB for one hop over all 10000 keys at B = 2, 8 heads,
+// at either head dim; a ring of N ranks has Lk / N keys per hop). What
+// bounds it: products, five D-long ones per (query, key) pair, three TF32
+// products each.
+// bf16 at D = 256 and 128 (the MID-FC heads with compute_dtype
+// "bfloat16"): the two passes of flash_bf16_wide_bwd.cuh on the tensor
+// cores (mma.sync m16n8k16, f32 accumulators) with the block's offsets and
+// the dQ type set to float; the dK/dV pass hands dS^T, rounded to bf16, to
+// the dQ pass through the caller's bf16 scratch of ceil32(Lk) x ceil32(Lq)
+// per (batch*head) (3.2 GB for one hop over all 10000 keys at B = 2, 8
+// heads; its round trip, about 1.9 ms at 3.35 TB/s, is stated in that
+// header).
+// f32 and bf16 at D = 64 (a ring at d_k <= 64, zero-padded up to it): the
+// two deterministic passes of flash_bwd_wide.cuh in f32 arithmetic on the
+// CUDA cores, with the dQ type set to float.
 // The TPU kernel accumulates dQ over its whole sequential grid in a VMEM
 // plane; across hops the sum is the caller's (ops/attention.py
 // RingFlashAttentionFn adds the blocks' f32 terms), so the dQ pass stores
@@ -46,8 +49,8 @@
 // and 16-byte aligned; dq [B, H, Lq, D] f32; lse and delta [B, H, Lq] f32;
 // kv_mask [B, Lk] and q_mask [B, Lq] bool bytes. D is 64, 128 or 256. ds_t:
 // scratch of B * H * ceil32(Lk) * ceil32(Lq) elements in the type of q at
-// D = 256 (f32: flash_tf32_bwd.cuh, bf16: flash_bf16_wide_bwd.cuh), unused
-// otherwise.
+// D = 128 and 256 (f32: flash_tf32_bwd.cuh, bf16: flash_bf16_wide_bwd.cuh),
+// unused at 64.
 extern "C" int csn_flash_attn_block_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* kv_mask,
@@ -57,15 +60,24 @@ extern "C" int csn_flash_attn_block_bwd(
     void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const csn_wide_bwd::Drop drop{seed,     thresh,  inv_keep,
-                                use_drop, row_off, col_off};
-  if (dtype == csn::kF32 && D == csn_tf32::D)
+  const csn::Drop drop{seed, thresh, inv_keep, use_drop, row_off, col_off};
+  if (dtype == csn::kF32 && D == 256)
     return csn_tf32::launch_bwd_tf32<float>(q, k, v, dout, lse, delta,
                                             kv_mask, q_mask, dq, dk, dv,
                                             ds_t, B, H, Lq, Lk, inv_temp,
                                             drop, s);
+  if (dtype == csn::kF32 && D == 128)
+    return csn_tf32::launch_bwd_tf32<float, 128>(q, k, v, dout, lse, delta,
+                                                 kv_mask, q_mask, dq, dk, dv,
+                                                 ds_t, B, H, Lq, Lk,
+                                                 inv_temp, drop, s);
   if (dtype == csn::kBF16 && D == 256)
     return csn_tcw::launch_bwd_split<256, float>(q, k, v, dout, lse, delta,
+                                                 kv_mask, q_mask, dq, dk, dv,
+                                                 ds_t, B, H, Lq, Lk, inv_temp,
+                                                 drop, s);
+  if (dtype == csn::kBF16 && D == 128)
+    return csn_tcw::launch_bwd_split<128, float>(q, k, v, dout, lse, delta,
                                                  kv_mask, q_mask, dq, dk, dv,
                                                  ds_t, B, H, Lq, Lk, inv_temp,
                                                  drop, s);
@@ -73,14 +85,8 @@ extern "C" int csn_flash_attn_block_bwd(
   return csn_wide_bwd::launch_bwd_wide<T, float, DD>(                        \
       q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, dv, B, H, Lq, Lk, \
       inv_temp, drop, s)
-  if (dtype == csn::kF32) {
-    if (D == 64) CSN_BLOCK(float, 64);
-    if (D == 128) CSN_BLOCK(float, 128);
-  }
-  if (dtype == csn::kBF16) {
-    if (D == 64) CSN_BLOCK(__nv_bfloat16, 64);
-    if (D == 128) CSN_BLOCK(__nv_bfloat16, 128);
-  }
+  if (dtype == csn::kF32 && D == 64) CSN_BLOCK(float, 64);
+  if (dtype == csn::kBF16 && D == 64) CSN_BLOCK(__nv_bfloat16, 64);
 #undef CSN_BLOCK
   return cudaErrorInvalidValue;
 }

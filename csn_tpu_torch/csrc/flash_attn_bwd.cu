@@ -70,7 +70,6 @@
 
 #include "common.cuh"
 #include "flash_bf16_wide_bwd.cuh"
-#include "flash_bwd_wide.cuh"
 #include "flash_tc.cuh"
 #include "flash_tf32_bwd.cuh"
 #include "flash_tf32_d64_bwd.cuh"
@@ -468,7 +467,7 @@ extern "C" int csn_flash_attn_bwd(int dtype, const void* q, const void* k,
     if (D == 64) CSN_TC(64);
   }
 #undef CSN_TC
-  const csn_wide_bwd::Drop wd{seed, thresh, inv_keep, use_drop, 0, 0};
+  const csn::Drop wd{seed, thresh, inv_keep, use_drop, 0, 0};
   if (dtype == csn::kBF16 && (D == 128 || D == 256))
     return D == 128 ? csn_tcw::launch_bwd_split<128>(
                           q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk,

@@ -19,23 +19,27 @@
 // What bounds it on the H100: as K2, 4*Lq*Lk*D flops per (batch, head)
 // against (Lq + 2*Lk)*D reads plus the carry (2*Lq*(D + 2) f32 words in and
 // out): compute-bound at the ring's shapes (Lq = Lk = 10000 / ranks,
-// D = 256).
+// D = 256 or 128).
 //
-// At D = 256 (the MID-FC heads, the ring's shape) on the tensor cores, in
-// the carry form of K2's body of each dtype: f32 the split-TF32 body of
-// flash_tf32_fwd.cuh (three TF32 products per f32 product), bf16 the split
-// body of flash_bf16_wide_fwd.cuh (mma.sync m16n8k16, P rounded to bf16
-// once as the A operand of P V); their headers state the carry's units,
-// the pass-through and the dropout words at any column offset. Both keep
-// the accumulator in the registers of the block that owns the query tile
-// for the whole key loop, where the TPU kernel keeps it in VMEM scratch
-// across its sequential kv grid axis, and touch the carry in device memory
-// once on the way in and once on the way out. The other head dims, 64 and
-// 128 in either dtype (a ring at d_k <= 128, zero-padded up to them), take
-// the f32 CUDA-core kernel of flash_wide.cuh with CARRY set.
+// At D = 256 (the MID-FC heads, the ring's shape) and D = 128 (the MID-FC
+// heads at d_model 128) on the tensor cores, in the carry form of K2's
+// body of each (dtype, D): f32 in split TF32 (three TF32 products per f32
+// product), at 256 the body of flash_tf32_fwd.cuh, at 128 that of
+// flash_tf32_d128_fwd.cuh; bf16 on mma.sync m16n8k16 with P rounded to bf16
+// once as the A operand of P V, at 256 the split body of
+// flash_bf16_wide_fwd.cuh, at 128 flash_tc_fwd.cuh's template. Their
+// headers state the carry's units, the pass-through and the dropout words
+// at any column offset. Each keeps the accumulator in the registers of the
+// block that owns the query tile for the whole key loop, where the TPU
+// kernel keeps it in VMEM scratch across its sequential kv grid axis, and
+// touches the carry in device memory once on the way in and once on the
+// way out. D = 64 in either dtype (a ring at d_k <= 64, zero-padded up to
+// it) takes the f32 CUDA-core kernel of flash_wide.cuh with CARRY set.
 
 #include "common.cuh"
 #include "flash_bf16_wide_fwd.cuh"
+#include "flash_tc_fwd.cuh"
+#include "flash_tf32_d128_fwd.cuh"
 #include "flash_tf32_fwd.cuh"
 #include "flash_wide.cuh"
 
@@ -53,44 +57,50 @@ extern "C" int csn_flash_attn_carry(
     int col_off, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == csn_tf32::D && (dtype == csn::kF32 || dtype == csn::kBF16)) {
-    const csn_tf32::Carry cy{static_cast<const float*>(m_in),
-                             static_cast<const float*>(l_in),
-                             static_cast<const float*>(acc_in),
-                             static_cast<float*>(m_out),
-                             static_cast<float*>(l_out),
-                             static_cast<float*>(acc_out)};
-    const csn_tf32::Drop drop{seed, thresh, inv_keep, use_drop, row_off,
-                              col_off};
-    // the dropout words of drop_words need a key tile on a multiple of 4
-    const bool any_col = use_drop && col_off % 4 != 0;
-    if (dtype == csn::kBF16)
-      return any_col ? csn_tcw::launch_fwd_split<256, true, true>(
-                           q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B,
-                           H, Lq, Lk, inv_temp, drop, s)
-                     : csn_tcw::launch_fwd_split<256, true, false>(
-                           q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B,
-                           H, Lq, Lk, inv_temp, drop, s);
+  const csn::Carry cy{static_cast<const float*>(m_in),
+                      static_cast<const float*>(l_in),
+                      static_cast<const float*>(acc_in),
+                      static_cast<float*>(m_out), static_cast<float*>(l_out),
+                      static_cast<float*>(acc_out)};
+  const csn::Drop drop{seed, thresh, inv_keep, use_drop, row_off, col_off};
+  // the dropout words of drop_words / keep_bits need a key tile on a
+  // multiple of 4 columns
+  const bool any_col = use_drop && col_off % 4 != 0;
+  if (dtype == csn::kF32 && D == 256)
     return any_col ? csn_tf32::launch_fwd_tf32<true, true>(
                          q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
                          Lq, Lk, inv_temp, drop, s)
                    : csn_tf32::launch_fwd_tf32<true, false>(
                          q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
                          Lq, Lk, inv_temp, drop, s);
-  }
+  if (dtype == csn::kBF16 && D == 256)
+    return any_col ? csn_tcw::launch_fwd_split<256, true, true>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s)
+                   : csn_tcw::launch_fwd_split<256, true, false>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s);
+  if (dtype == csn::kF32 && D == 128)
+    return any_col ? csn_tf32_d128::launch_fwd<true, true>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s)
+                   : csn_tf32_d128::launch_fwd<true, false>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s);
+  if (dtype == csn::kBF16 && D == 128)
+    return any_col ? csn_tc_fwd::launch_fwd<128, true, true>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s)
+                   : csn_tc_fwd::launch_fwd<128, true, false>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s);
 #define CSN_CARRY(T, DD)                                                     \
   return csn_wide::launch_fwd_wide<T, DD, true>(                             \
       q, k, v, kv_mask, q_mask, nullptr, nullptr, m_in, l_in, acc_in, m_out, \
       l_out, acc_out, B, H, Lq, Lk, inv_temp, seed, thresh, inv_keep,        \
       use_drop, row_off, col_off, s)
-  if (dtype == csn::kF32) {
-    if (D == 64) CSN_CARRY(float, 64);
-    if (D == 128) CSN_CARRY(float, 128);
-  }
-  if (dtype == csn::kBF16) {
-    if (D == 64) CSN_CARRY(__nv_bfloat16, 64);
-    if (D == 128) CSN_CARRY(__nv_bfloat16, 128);
-  }
+  if (dtype == csn::kF32 && D == 64) CSN_CARRY(float, 64);
+  if (dtype == csn::kBF16 && D == 64) CSN_CARRY(__nv_bfloat16, 64);
 #undef CSN_CARRY
   return cudaErrorInvalidValue;
 }

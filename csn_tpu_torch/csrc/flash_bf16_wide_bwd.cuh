@@ -5,9 +5,9 @@
 // Replaces: csn_tpu/ops/flash.py _flash_backward (Pallas body
 // _bwd_fused_kernel) at heads of 128 and 256 in bf16: HRNetSimCSN at
 // d_model 256 in 2 heads or 1, the MID-FC heads with compute_dtype
-// "bfloat16"; and, at 256, flash_block_backward (the same Pallas body on one
-// kv block), the ring's per-hop backward of the MID-FC full attention in
-// bf16 (flash_attn_block_bwd.cu).
+// "bfloat16"; and flash_block_backward (the same Pallas body on one kv
+// block), the ring's per-hop backward of the MID-FC full attention in bf16
+// at d_model 256 and 128 (flash_attn_block_bwd.cu).
 //
 // Same function and outputs as flash_attn_bwd.cu states, in its two
 // deterministic passes without atomics (dK and dV per key tile, dQ per query
@@ -75,7 +75,7 @@
 // alignment (keep4 draws csn::dropout_words<4>), and the dQ pass stores the
 // block's term in DQ_T = float, which the caller adds over the hops in f32
 // (ops/attention.py RingFlashAttentionFn); dK and dV stay bf16. At the ring
-// of one [2, 8, 10000, 256] the bf16 dS^T scratch is 2 * 8 * 10016^2 * 2 B =
+// of one [2, 8, 10000, 256] (and at head dim 128) the bf16 dS^T scratch is 2 * 8 * 10016^2 * 2 B =
 // 3.2 GB: written once and read once, 6.4 GB of traffic, about 1.9 ms at
 // 3.35 TB/s, beside the products' bound of about 4.1 ms (10 * 2 * 8 *
 // 10000^2 * 256 operations at 989 TFLOP/s).
@@ -94,7 +94,7 @@ using csn_tf32::keep4;
 using csn_tf32::probs4;
 using csn_tf32::padded;
 using csn_tf32::psw;
-using Drop = csn_wide_bwd::Drop;
+using Drop = csn::Drop;
 
 constexpr int WB = 32;              // rows of a query tile, of a dq key tile
 // keys of a dkdv block, 8 threads each (a warp per 4 keys): 64 at D = 256,

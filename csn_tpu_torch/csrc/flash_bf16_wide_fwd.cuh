@@ -1,7 +1,7 @@
 // Masked flash attention forward in bf16 at head dim 256 on the tensor
 // cores (mma.sync m16n8k16, f32 accumulators), from the building blocks of
 // flash_tc.cuh. flash_attn.cu dispatches bf16, D = 256 here; bf16 at D = 128
-// runs flash_tc.cuh's template at TD = 128 (16 rows x 128 dims is 64
+// runs flash_tc_fwd.cuh's template at TD = 128 (16 rows x 128 dims is 64
 // accumulator registers a lane, which the 4-warp layout holds).
 //
 // Replaces: csn_tpu/ops/flash.py _flash_forward (Pallas body _fwd_kernel,
@@ -114,12 +114,9 @@ struct WideFwdSmem {
 };
 
 static_assert(32 * WSPLIT == 128, "csn_tc::strip_sync meets 4 warps");
-// the carry form's pass-through of a padding tile is flash_tf32_fwd.cuh's
-static_assert(WQ == csn_tf32::FQ && WFWD_THREADS == csn_tf32::FWD_THREADS,
-              "csn_tf32::carry_through copies this body's query tile");
 
-using Carry = csn_tf32::Carry;
-using Drop = csn_wide_bwd::Drop;
+using Carry = csn::Carry;
+using Drop = csn::Drop;
 
 // CARRY: the carry form (out and lse unused; cy read and written); ANY_COL:
 // the dropout words at a column offset that is no multiple of 4
@@ -162,7 +159,7 @@ flash_fwd_tc_split_kernel(const bf16* __restrict__ q,
   }
   if (!__syncthreads_or(qlive)) {  // padding tile: zeros, or the carry
     if constexpr (CARRY) {
-      csn_tf32::carry_through(cy, row_base, q0, Lq, tid);
+      csn::carry_through<D, WQ, WFWD_THREADS>(cy, row_base, q0, Lq, tid);
     } else {
       for (int i = tid; i < WQ * D / 2; i += WFWD_THREADS) {
         const int r = q0 + i / (D / 2);

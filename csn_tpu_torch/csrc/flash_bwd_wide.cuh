@@ -44,14 +44,7 @@ constexpr int SK = BKV + PAD;   // 68
 constexpr int SK2 = BK2 + PAD;  // 36
 constexpr float NEG_INF = -1e30f;
 
-struct Drop {
-  uint64_t seed;
-  uint32_t thresh;
-  float inv_keep;
-  int on;
-  int row_off;
-  int col_off;
-};
+using Drop = csn::Drop;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);

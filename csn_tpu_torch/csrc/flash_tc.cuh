@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 flash attention kernels at head
-// dims TD = 16, 32 and 64 (flash_attn.cu forward, flash_attn_bwd.cu
-// backward): asynchronous global -> shared copies (cp.async), fragment loads
+// dims TD = 16, 32, 64 and 128 (the forward of flash_tc_fwd.cuh, K2's and
+// the ring's carry form; the backward of flash_attn_bwd.cu up to 64):
+// asynchronous global -> shared copies (cp.async), fragment loads
 // from shared memory (ldmatrix), the m16n8k16 bf16 product with f32
 // accumulation (mma.sync), all as inline PTX for sm_80 and later, and the
 // attention-dropout words of one accumulator fragment.

@@ -35,7 +35,6 @@
 #pragma once
 
 #include "common.cuh"
-#include "flash_bwd_wide.cuh"
 #include "flash_tc.cuh"
 
 namespace csn_tf32 {
@@ -47,7 +46,7 @@ using csn_tc::exp2_approx;
 using csn_tc::find_live;
 using csn_tc::LOG2E;
 using csn_tc::row_live;
-using Drop = csn_wide_bwd::Drop;
+using Drop = csn::Drop;
 
 // --- split-TF32 building blocks ---------------------------------------------
 

@@ -2,13 +2,17 @@
 // tensor cores, in split TF32 (3xTF32), from the building blocks of
 // flash_tf32.cuh. flash_attn_bwd.cu dispatches f32, D = 256 and D = 128
 // here (and every f32 head dim 65-127, zero-padded to 128 by its wrapper),
-// and so does flash_attn_block_bwd.cu for one key block of a ring at 256.
+// and so does flash_attn_block_bwd.cu for one key block of a ring at 256
+// and 128.
 //
 // Replaces: csn_tpu/ops/flash.py _flash_backward (Pallas body
 // _bwd_fused_kernel) at the MID-FC heads (8 heads of 256, f32): the
 // attention backward of the CrossShapeAt chunk path; and at 128 the HRNet
 // heads with f32 activations at d_model 256 in 2 heads: the attention
-// backward of the SSA and CSA calls of the train step.
+// backward of the SSA and CSA calls of the train step. Run on one key block
+// (flash_block_backward, the same Pallas body on one kv block), the ring's
+// per-hop backward of the MID-FC full attention in f32 at d_model 256 and
+// 128.
 //
 // Same function and outputs as flash_bwd_wide.cuh (whose comment states
 // it), in two deterministic passes without atomics, from the saved

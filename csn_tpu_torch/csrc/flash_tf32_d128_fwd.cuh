@@ -47,6 +47,36 @@
 // 64-key tiles, and the D = 256 body of flash_tf32_fwd.cuh at half the
 // width, whose warps split D and exchange partial S through shared memory)
 // this one was the fastest at the SSA and CSA calls.
+//
+// The carry form (CARRY; flash_attn_carry.cu, the ring's per-hop kernel in
+// f32 at head dim 128: the MID-FC full attention at d_model 128, whose
+// factory sets d_k = d_v = d_model) runs the same body over one key block
+// with the online-softmax state carried in and out raw, by the contract of
+// flash_tf32_fwd.cuh's carry form (csn::Carry, ops/attention.py
+// online_block_update's units):
+//  * in: m_in (natural units) enters as m_in log2 e, the body's units; l_in
+//    on lane t = 0 of the row's quad (0 on the others: the denominator is
+//    summed per lane and reduced over the quad at the end, so alpha
+//    rescales each lane's partial sum); acc_in at the lane's C-fragment
+//    positions of O, rows q0 + 16 w + g (+ 8), dims 8 n + 2 t (+ 1);
+//  * out: m ln 2, the quad-reduced l and O without the division; no lse
+//    (the caller finalizes, ops/flash.py flash_carry_finalize);
+//  * pass-through, bit for bit: a query tile with no valid row, a block
+//    with no live key tile (copied from the input, not through the log2
+//    round trip), and a row whose q_mask is false inside a live tile (the
+//    body computes it with whatever q holds, then stores the carry in).
+// The dropout words are keyed by absolute (batch*head, row_off + row,
+// col_off + column). keep_bits_n's lane pairs share a Philox group, which
+// assumes a key tile on a multiple of 4 columns; a ring hop's block may
+// start anywhere (col_off = origin * Lk), so ANY_COL draws each lane's two
+// columns of a fragment row with csn::dropout_words (one or two Philox
+// calls a run: up to four times keep_bits_n's); flash_attn_carry.cu picks
+// it when dropout is on and col_off % 4 != 0. The carry touches device
+// memory once before the key loop (the accumulators it fills are O, which
+// the loop holds either way) and once in the epilogue; K2's form
+// (CARRY false) is the same code with the carry's branches compiled out.
+// The kernels and their launcher have internal linkage: both entry points
+// (flash_attn.cu, flash_attn_carry.cu) include this file.
 
 #pragma once
 
@@ -75,7 +105,8 @@ using csn_tf32_d64::c_to_a;
 using csn_tf32_d64::keep_bits_n;
 using csn_tf32_d64::mma3_row;
 using csn_tf32_d64::zero;
-using Drop = csn_tf32::Drop;
+using csn::Carry;
+using Drop = csn::Drop;
 
 constexpr int D = 128;        // head dim
 constexpr int QT = 64;        // queries per block
@@ -124,6 +155,9 @@ struct FwdSmem {
   float kval[2][KT];  // key flags of the tile in each buffer
 };
 
+// CARRY: the carry form (out and lse unused; cy read and written); ANY_COL:
+// the dropout words at a column offset that is no multiple of 4
+template <bool CARRY, bool ANY_COL>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -131,8 +165,8 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
                            const uint8_t* __restrict__ kv_mask,
                            const uint8_t* __restrict__ q_mask,
                            float* __restrict__ out, float* __restrict__ lse,
-                           int H, int Lq, int Lk, float inv_temp,
-                           Drop drop) {
+                           int H, int Lq, int Lk, float inv_temp, Drop drop,
+                           Carry cy) {
   constexpr int NB = KT / 8;  // 8-key n-tiles of a key tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
@@ -145,20 +179,25 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
   float* op = out + (int64_t)bh * Lq * D;
   float* lp = lse + (int64_t)bh * Lq;
   const uint8_t* km = kv_mask + (int64_t)b * Lk;
+  const int64_t row_base = (int64_t)bh * Lq;
 
   int qlive = 0;
   if (tid < QT) {
     const int r = q0 + tid;
     qlive = r < Lq && q_mask[(int64_t)b * Lq + r];
   }
-  if (!__syncthreads_or(qlive)) {  // padding tile: zeros
-    for (int i = tid; i < QT * D / 4; i += THREADS) {
-      const int r = q0 + i / (D / 4);
-      if (r < Lq)
-        reinterpret_cast<float4*>(op + (int64_t)r * D)[i % (D / 4)] =
-            make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!__syncthreads_or(qlive)) {  // padding tile: zeros, or the carry
+    if constexpr (CARRY) {
+      csn::carry_through<D, QT, THREADS>(cy, row_base, q0, Lq, tid);
+    } else {
+      for (int i = tid; i < QT * D / 4; i += THREADS) {
+        const int r = q0 + i / (D / 4);
+        if (r < Lq)
+          reinterpret_cast<float4*>(op + (int64_t)r * D)[i % (D / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (tid < QT && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
     }
-    if (tid < QT && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
     return;
   }
 
@@ -171,6 +210,7 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
   copy_rows<QT>(sm.q, q + (int64_t)bh * Lq * D, q0, Lq, tid);
   int live = row_live<KT>(km, Lk, 0, tid);
   int kt = find_live<KT>(0, nt, live, km, Lk, tid);
+  const bool any_key = kt < nt;  // else the carry passes through
   if (kt < nt) {
     if (tid < KT) sm.kval[0][tid] = live ? 1.f : 0.f;
     copy_rows<KT>(sm.k[0], kp, kt * KT, Lk, tid);
@@ -185,6 +225,22 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
   float o[D / 8][4];
   zero(o);
   const uint32_t row = (uint32_t)(q0 + r0 + g);
+  if (CARRY && any_key) {  // the carry in, in the body's units
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (int)row + 8 * h;
+      if (r >= Lq) continue;
+      m[h] = cy.m_in[row_base + r] * LOG2E;
+      l[h] = t == 0 ? cy.l_in[row_base + r] : 0.f;
+      const float* ai = cy.acc_in + (row_base + r) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float2 a = ld2(ai + 8 * n);
+        o[n][2 * h] = a.x;
+        o[n][2 * h + 1] = a.y;
+      }
+    }
+  }
 
   for (int buf = 0; kt < nt; buf ^= 1) {
     cp_async_wait<0>();
@@ -232,8 +288,30 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
         l[e >> 1] += s[n][e];  // undropped: the denominator
       }
     if (drop.on) {  // numerator only
-      const uint32_t kb = keep_bits_n<NB>(drop, (uint32_t)bh, row,
-                                          (uint32_t)(kt * KT), t);
+      uint32_t kb = 0u;
+      if constexpr (!CARRY) {
+        kb = keep_bits_n<NB>(drop, (uint32_t)bh, row, (uint32_t)(kt * KT),
+                             t);
+      } else {  // rows and keys at their offsets in the global matrix
+        const uint32_t grow = (uint32_t)drop.row_off + row;
+        const uint32_t col = (uint32_t)(drop.col_off + kt * KT);
+        if constexpr (ANY_COL) {
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {  // rows g, g + 8; columns 2t, + 1
+            uint32_t w0[2], w1[2];
+            csn::dropout_words<2>(drop.seed, (uint32_t)bh, grow,
+                                  col + 8 * n + 2 * t, w0);
+            csn::dropout_words<2>(drop.seed, (uint32_t)bh, grow + 8u,
+                                  col + 8 * n + 2 * t, w1);
+            const uint32_t w[4] = {w0[0], w0[1], w1[0], w1[1]};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              kb |= (w[e] < drop.thresh ? 1u : 0u) << (4 * n + e);
+          }
+        } else {
+          kb = keep_bits_n<NB>(drop, (uint32_t)bh, grow, col, t);
+        }
+      }
 #pragma unroll
       for (int n = 0; n < NB; ++n)
 #pragma unroll
@@ -273,6 +351,27 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int r = (int)row + 8 * h;
     if (r >= Lq) continue;
+    if constexpr (CARRY) {  // raw, or the carry in where the row passes
+      const int64_t rr = row_base + r;
+      float* ao = cy.acc_out + rr * D + 2 * t;
+      const bool through = !any_key || !q_mask[(int64_t)b * Lq + r];
+      if (through) {
+        const float* ai = cy.acc_in + rr * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<float2*>(ao + 8 * n) = ld2(ai + 8 * n);
+      } else {
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<float2*>(ao + 8 * n) =
+              make_float2(o[n][2 * h], o[n][2 * h + 1]);
+      }
+      if (t == 0) {
+        cy.m_out[rr] = through ? cy.m_in[rr] : m[h] * LN2;
+        cy.l_out[rr] = through ? cy.l_in[rr] : l[h];
+      }
+      continue;
+    }
     const float den = fmaxf(l[h], 1e-30f);
     const float inv = 1.f / den;
 #pragma unroll
@@ -284,26 +383,32 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
   }
 }
 
-// K2 on f32 q, k, v [B, H, L, 128] (16-byte aligned): out [B, H, Lq, 128]
-// and lse [B, H, Lq] f32. drop.row_off and col_off are unused (K2's rows
-// and keys are the whole score matrix). Returns the first CUDA error; never
-// another kernel.
+// Launches one body on f32 q, k, v [B, H, L, 128] (16-byte aligned): K2
+// (CARRY false: out [B, H, Lq, 128] and lse [B, H, Lq] f32 written;
+// drop.row_off and col_off unused, K2's rows and keys are the whole score
+// matrix) or the carry form (cy read and written, acc 16-byte aligned;
+// drop.row_off / col_off place the query rows and the keys in the global
+// score matrix; ANY_COL when dropout is on and drop.col_off % 4 != 0).
+// Returns the first CUDA error; never another kernel. Each entry point
+// instantiates only the forms it launches (flash_attn.cu K2,
+// flash_attn_carry.cu the carry).
+template <bool CARRY = false, bool ANY_COL = false>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* kv_mask, const void* q_mask, void* out,
-                       void* lse, int B, int H, int Lq, int Lk,
-                       float inv_temp, const Drop& drop,
+                       void* lse, const Carry& cy, int B, int H, int Lq,
+                       int Lk, float inv_temp, const Drop& drop,
                        cudaStream_t stream) {
   constexpr int smem = (int)sizeof(FwdSmem);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tf32_d128_kernel,
+      flash_fwd_tf32_d128_kernel<CARRY, ANY_COL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((Lq + QT - 1) / QT), (unsigned)(B * H));
-  flash_fwd_tf32_d128_kernel<<<grid, THREADS, smem, stream>>>(
+  flash_fwd_tf32_d128_kernel<CARRY, ANY_COL><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(kv_mask),
       static_cast<const uint8_t*>(q_mask), static_cast<float*>(out),
-      static_cast<float*>(lse), H, Lq, Lk, inv_temp, drop);
+      static_cast<float*>(lse), H, Lq, Lk, inv_temp, drop, cy);
   return cudaGetLastError();
 }
 

@@ -112,34 +112,7 @@ struct FwdSmem {
   uint32_t keep[FSTRIPS * FSPLIT][32];
 };
 
-// The online-softmax state of a carry launch: m, l [B, H, Lq] and acc
-// [B, H, Lq, D] f32, in and out (distinct buffers)
-struct Carry {
-  const float* m_in;
-  const float* l_in;
-  const float* acc_in;
-  float* m_out;
-  float* l_out;
-  float* acc_out;
-};
-
-// rows q0 .. q0 + FQ - 1 (those below Lq) of the carry, in -> out unchanged
-__device__ __forceinline__ void carry_through(const Carry& cy,
-                                              int64_t row_base, int q0,
-                                              int Lq, int tid) {
-  for (int i = tid; i < FQ * D / 4; i += FWD_THREADS) {
-    const int r = q0 + i / (D / 4);
-    if (r < Lq) {
-      const int64_t o = (row_base + r) * (D / 4) + i % (D / 4);
-      reinterpret_cast<float4*>(cy.acc_out)[o] =
-          reinterpret_cast<const float4*>(cy.acc_in)[o];
-    }
-  }
-  if (tid < FQ && q0 + tid < Lq) {
-    cy.m_out[row_base + q0 + tid] = cy.m_in[row_base + q0 + tid];
-    cy.l_out[row_base + q0 + tid] = cy.l_in[row_base + q0 + tid];
-  }
-}
+using Carry = csn::Carry;
 
 // rows r0 .. r0 + ROWS - 1 of a [L, D] f32 matrix into a swizzled tile; rows
 // at or past L are zeros
@@ -209,7 +182,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   if (!__syncthreads_or(qlive)) {  // padding tile: zeros, or the carry
     if (CARRY) {
-      carry_through(cy, row_base, q0, Lq, tid);
+      csn::carry_through<D, FQ, FWD_THREADS>(cy, row_base, q0, Lq, tid);
     } else {
       for (int i = tid; i < FQ * D / 4; i += FWD_THREADS) {
         const int r = q0 + i / (D / 4);

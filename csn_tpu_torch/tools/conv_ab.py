@@ -29,10 +29,12 @@ of 256 in bf16 and in 2 heads of 128 in f32, at dropout 0 and 0.1 (device
 time from CUDA graphs, warm L2), with the other bodies' outputs for the
 bitwise comparison (bf16 D=32 and 16 at the SSA call cut to 4 shapes; the
 ring's carry and block backward on one 2500-key block in f32 and bf16 at
-D=256 and in f32 at D=64, timed too; the f32 pair at D=128 and the ring's
-bf16 D=256 pair are also held against the other checkout's outputs by
-value, as max|this - other| / max|other| within the tolerance of their
-type, for bodies of another design), and the gather probes
+D=256 and in f32 at D=64, and over all keys of the ring of one at d_model
+128, [2, 8, 10000, 128], in f32 and bf16, timed too; the f32 pair at
+D=128, the ring's bf16 D=256 pair and its D=128 pairs are also held
+against the other checkout's outputs by value, as max|this - other| /
+max|other| within the tolerance of their type, for bodies of another
+design), and the gather probes
 (`probe_gather_accum` in its three modes at the probe scripts' timing
 geometry, 352 tiles x 9 offsets x 256 rows x 128 channels, with the bf16
 window at W = 384 and the f32 window at W = 384 and 256, row ids outside
@@ -97,10 +99,14 @@ FLASH_SHAPE = (16, 4, 5632, 64)
 MIDFC_SHAPE = (80, 8, 500, 256)
 FLASH_DROPOUT, FLASH_SEED = 0.1, 0x5EED
 RING_BLOCK = 2500   # keys of one ring hop at phase 7's shape (10000 / 4)
+# the ring of one at d_model 128 (phase 7c): all 10000 keys, 8 heads of 128
+RING_ONE_128 = (2, 8, 10000, 128)
 # the shapes whose outputs are compared across checkouts by value, with the
 # tolerance of their type (x max|other|)
 BY_VALUE = {"ring block [2,8,2500,256] bfloat16": 2e-2,
-            "flash SSA [16,2,5632,128] float32": 1e-4}
+            "flash SSA [16,2,5632,128] float32": 1e-4,
+            "ring of one [2,8,10000,128] float32": 1e-4,
+            "ring of one [2,8,10000,128] bfloat16": 2e-2}
 
 
 def _median_ms(fn, reps: int, batch: int = 10) -> float:
@@ -354,37 +360,49 @@ def flash_worker(reps: int, keep: dict) -> dict:
         res[shape] = _ring_calls(
             *x, mask, reps,
             keep.setdefault(shape, {}) if shape in BY_VALUE else None)
+    # the ring of one at head dim 128 (the parent's forms there ran on the
+    # CUDA cores for up to a tenth of a second a call: graphs of 5 calls)
+    b, h, L, d = RING_ONE_128
+    for dt in (torch.float32, torch.bfloat16):
+        x, mask = inputs(b, h, L, d, dt)
+        shape = f"ring of one [{b},{h},{L},{d}] {str(dt)[6:]}"
+        res[shape] = _ring_calls(*x, mask, reps, keep.setdefault(shape, {}),
+                                 col=0, calls=5, kept_heads=2)
     return res
 
 
-def _ring_calls(q, k, v, dout, kmask, reps: int, keep=None) -> dict:
+def _ring_calls(q, k, v, dout, kmask, reps: int, keep=None,
+                col: int = RING_BLOCK, calls: int = 20,
+                kept_heads: int = None) -> dict:
     """{kernel at dropout: entry} of the ring's per-block kernels on one
-    key block at column offset RING_BLOCK (`flash_forward_carry` from a
-    fresh carry, `flash_block_backward` against that block's own lse), at
-    dropout 0 and FLASH_DROPOUT; with `keep`, each call's outputs (f32, on
-    the host) into it by the entry's name."""
+    key block at column offset `col` (`flash_forward_carry` from a fresh
+    carry, `flash_block_backward` against that block's own lse), at
+    dropout 0 and FLASH_DROPOUT, timed in CUDA graphs of `calls` calls;
+    with `keep`, each call's outputs (f32, on the host; of the first
+    `kept_heads` heads, or all) into it by the entry's name."""
     from csn_tpu_torch.ops import flash
 
     temp = float(q.shape[-1]) ** 0.5
     b, h, lq, d = q.shape
     carry = flash.flash_carry_init(b, h, lq, d, q.device)
-    calls = {}
+    fns = {}
     for drop in (0.0, FLASH_DROPOUT):
         sd = FLASH_SEED if drop else None
         out, lse = flash.flash_carry_finalize(flash.flash_forward_carry(
-            q, k, v, kmask, None, carry, temp, drop, sd, 0, RING_BLOCK))
+            q, k, v, kmask, None, carry, temp, drop, sd, 0, col))
         out = out.to(q.dtype)
-        calls[f"flash_attn_carry dropout {drop}"] = (
+        fns[f"flash_attn_carry dropout {drop}"] = (
             lambda drop=drop, sd=sd: flash.flash_forward_carry(
-                q, k, v, kmask, None, carry, temp, drop, sd, 0, RING_BLOCK))
-        calls[f"flash_attn_block_bwd dropout {drop}"] = (
+                q, k, v, kmask, None, carry, temp, drop, sd, 0, col))
+        fns[f"flash_attn_block_bwd dropout {drop}"] = (
             lambda drop=drop, sd=sd, out=out, lse=lse:
             flash.flash_block_backward(q, k, v, kmask, out, lse, dout, temp,
-                                       drop, sd, 0, RING_BLOCK))
+                                       drop, sd, 0, col))
     if keep is not None:
-        for name, fn in calls.items():
-            keep[name] = [t.float().cpu() for t in fn()]
-    return {name: _entry(fn, reps, graph_ms) for name, fn in calls.items()}
+        for name, fn in fns.items():
+            keep[name] = [t[:, :kept_heads].float().cpu() for t in fn()]
+    return {name: _entry(fn, reps, lambda f, reps: graph_ms(
+        f, calls=calls, reps=reps)) for name, fn in fns.items()}
 
 
 def probe_worker(reps: int) -> dict:

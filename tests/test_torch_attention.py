@@ -1173,7 +1173,8 @@ def test_f32_d128_bodies_count_in_rows_of_their_own(dtype):
     """`k2_split_tf32_d128`, which names the launch rows: every f32 head dim
     that K2 runs at width 128 (65-128, zero-padded below 128) is on the
     split-TF32 D=128 bodies and counts in the `"_tf32_d128"` rows, and no
-    other (f32 1-64 and 129-256, bf16 at any)."""
+    other (f32 1-64 and 129-256, bf16 at any). The other `"_tf32_d128"`
+    rows are the ring's carry and block backward at 128 (`ring_row`)."""
     for d in range(1, flash.MAX_HEAD_DIM + 1):
         want = dtype == torch.float32 and 64 < d <= 128
         assert flash.k2_split_tf32_d128(dtype, d) == want, d
@@ -1182,7 +1183,8 @@ def test_f32_d128_bodies_count_in_rows_of_their_own(dtype):
             assert row in kernels.LAUNCHES
             assert row.endswith("_tf32_d128") == want, (d, row)
     assert {k for k in kernels.LAUNCHES if k.endswith("_tf32_d128")} == {
-        "flash_attn_fwd_tf32_d128", "flash_attn_bwd_tf32_d128"}
+        "flash_attn_fwd_tf32_d128", "flash_attn_bwd_tf32_d128",
+        "flash_attn_carry_tf32_d128", "flash_attn_block_bwd_tf32_d128"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1201,8 +1203,9 @@ def test_ds_scratch_only_for_the_bodies_that_read_it():
     """The dS^T scratch (B H ceil32(Lk) ceil32(Lq) elements in q's dtype)
     is allocated for the bodies that hand dS^T from their dK/dV pass to
     their dQ pass: the f32 D=256 and D=128 backward (f32; the ring's block
-    form at 256 too, at 128 it runs the CUDA-core body, which reads none)
-    and the bf16 D=128 and 256 backward (bf16; the block form likewise).
+    form at both too) and the bf16 D=128 and 256 backward (bf16; the block
+    form likewise; at 64 the block form runs the CUDA-core body, which
+    reads none).
     The f32 D=64 body recomputes dS in its dQ pass and gets none (it would
     be 8.1 GB at the HRNet SSA call), nor do bf16 D <= 64."""
     B, H, Lq, Lk = 2, 3, 70, 45
@@ -1217,9 +1220,7 @@ def test_ds_scratch_only_for_the_bodies_that_read_it():
         ds_t = flash._ds_scratch(q, B, H, Lq, Lk, d)
         assert ds_t.dtype == dtype and ds_t.numel() == B * H * 64 * 96
         ring = flash._ds_scratch(q, B, H, Lq, Lk, d, "block")
-        assert (ring is None) == (d == 128)
-        if ring is not None:
-            assert ring.dtype == dtype and ring.numel() == B * H * 64 * 96
+        assert ring.dtype == dtype and ring.numel() == B * H * 64 * 96
     # the SSA call's scratch at D=64, had the body kept it; the f32 and
     # bf16 ones at d_model 256 in 2 heads of 128
     assert 16 * 4 * 5632 * 5632 * 4 / 1e9 > 8.1

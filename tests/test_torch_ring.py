@@ -10,11 +10,16 @@ their own time limit); every rank writes what it computed to a file and the
 test compares. Tolerances: f32 against f32 <= 1e-5 abs (values of order 1);
 against the Pallas kernels in interpret mode, which take bf16 operands,
 2e-2; sharded against single-process gradients <= 1e-4·max|ref| + 1e-6.
-In bf16 at head dim 256 (the ring's `_bf16_wide` rows on the card): the
-carry chain against the Pallas carry <= 3e-2·max|ref|, and one MID-FC
-full-attention train step through a ring of one against the JAX step, loss
-<= 2e-3 relative and every gradient <= 2e-2·max|ref|; the wrappers' launch
-rows, the bf16 dS^T scratch and their refusals are pinned without a card.
+In bf16 at head dims 256 and 128 (the ring's `_bf16_wide` rows on the
+card): the carry chain against the Pallas carry <= 3e-2·max|ref|, and one
+MID-FC full-attention train step through a ring of one against the JAX
+step, loss <= 2e-3 relative and every gradient <= 2e-2·max|ref|. In f32 at
+head dim 128 (the `_tf32_d128` rows): the carry chain over uneven cuts
+against the dense attention and the block backwards summed against its
+full backward <= 1e-4·max|ref|, and the train step at d_model 128 against
+the JAX step, loss <= 1e-5 relative and every gradient <= 1e-4·max|ref|.
+The wrappers' launch rows, the dS^T scratch, the C dispatch and their
+refusals are pinned without a card.
 """
 
 import os
@@ -425,16 +430,11 @@ def _bf16(x):
     return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
 
 
-def test_bf16_carry_chain_matches_jax_pallas_carry():
-    """The bf16 chain at head dim 256 through `flash_forward_carry` (its
-    plain version on the CPU) over blocks cut at columns 1, 3 and 2 mod 4,
-    dropout 0, against the JAX package's `flash_forward_carry` in interpret
-    mode chained over the same blocks, both on the same numpy inputs
-    rounded to bf16 and held in bf16. m, l and acc each within
-    3e-2·max|ref| of the JAX carry's: the Pallas kernel rounds the
-    probabilities to bf16 for P V, the plain version keeps them in f32."""
+def _bf16_carry_chain_vs_pallas(d):
+    """The bf16 carry chain at head dim `d` through `flash_forward_carry`
+    against the JAX Pallas carry in interpret mode (the two tests below)."""
     rng = np.random.default_rng(21)
-    b, h, d = 2, 2, 256
+    b, h = 2, 2
     q, k, v = (_bf16(rng.normal(size=(b, h, L, d)).astype(np.float32))
                for _ in range(3))
     mask = rng.random((b, L)) > 0.3
@@ -462,28 +462,42 @@ def test_bf16_carry_chain_matches_jax_pallas_carry():
             f"{3e-2 * scale:.3e}")
 
 
+def test_bf16_carry_chain_matches_jax_pallas_carry():
+    """The bf16 chain at head dim 256 through `flash_forward_carry` (its
+    plain version on the CPU) over blocks cut at columns 1, 3 and 2 mod 4,
+    dropout 0, against the JAX package's `flash_forward_carry` in interpret
+    mode chained over the same blocks, both on the same numpy inputs
+    rounded to bf16 and held in bf16. m, l and acc each within
+    3e-2·max|ref| of the JAX carry's: the Pallas kernel rounds the
+    probabilities to bf16 for P V, the plain version keeps them in f32."""
+    _bf16_carry_chain_vs_pallas(256)
+
+
+def test_bf16_d128_carry_chain_matches_jax_pallas_carry():
+    """The same chain at head dim 128, the ring's width at d_model 128 (on
+    the card the carry form of `csrc/flash_tc_fwd.cuh`, row
+    `flash_attn_carry_bf16_wide`), at the same tolerance."""
+    _bf16_carry_chain_vs_pallas(128)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def test_bf16_full_attention_step_through_a_ring_of_one_matches_jax(
-        monkeypatch):
-    """One MID-FC SSA full-attention train step (chunk_size None) in bf16
-    at dropout 0, through `make_midfc_steps(runner, 1, 1)` in a gloo world
-    of one in this process: the attention is `RingFlashAttentionFn` over a
-    ring of one (the carry and the block backward, their plain versions on
-    the CPU; on the card the `_bf16_wide` rows at heads of 256). Against
-    the JAX `MidfcRunner` step in compute_dtype "bfloat16" (plain
-    attention), on weights carried across by `flax_to_torch_midfc`: the
-    loss within 2e-3 relative (the f32 logit head reads bf16 attention
-    outputs, each rounded to 2^-9 of itself) and every gradient within
-    2e-2·max|ref| of its tensor (a few bf16 roundings that the packages
-    place differently). The ring hands the per-block wrappers bf16 q, k, v
-    and adds their f32 dQ terms."""
-    d, heads = 256, 2
+def _ring_of_one_step_vs_jax(monkeypatch, d, heads, compute_dtype):
+    """One MID-FC SSA full-attention train step at d_model `d` in `heads`
+    heads (d_k = d_v = d) and `compute_dtype`, dropout 0, through
+    `make_midfc_steps(runner, 1, 1)` in a gloo world of one in this process
+    (`RingFlashAttentionFn` over a ring of one: the carry and the block
+    backward, their plain versions on the CPU), and the JAX `MidfcRunner`
+    step (plain attention) on the weights carried across by
+    `flax_to_torch_midfc`. Checks that the ring handed the per-block
+    wrappers q in the compute dtype and took back f32 carry and dQ terms;
+    returns (torch loss, torch gradients, JAX loss, JAX gradients as torch
+    tensors)."""
     kw = dict(num_classes=MF_C, n_heads=heads, K=2, batch_size=MF_B,
               d_model=d, chunk_size=None, num_points=MF_P, weight_decay=5e-4,
-              compute_dtype="bfloat16")
+              compute_dtype=compute_dtype)
     rng = np.random.default_rng(13)
     feats = rng.normal(size=(MF_B, MF_P, d)).astype(np.float32)
     labels = rng.integers(0, MF_C, size=(MF_B, MF_P)).astype(np.int32)
@@ -513,24 +527,137 @@ def test_bf16_full_attention_step_through_a_ring_of_one_matches_jax(
                             world_size=1, rank=0)
     try:
         steps = make_midfc_steps(tr, 1, 1)
-        assert tr.model.compute_dtype == torch.bfloat16
+        dt = getattr(torch, compute_dtype)
+        assert tr.model.compute_dtype == dt
         tl, tg = steps.grad(feats, labels, None, 0)
     finally:
         dist.destroy_process_group()
-    assert seen == [("carry", torch.bfloat16, torch.float32),
-                    ("block", torch.bfloat16, torch.float32)], seen
+    assert seen == [("carry", dt, torch.float32),
+                    ("block", dt, torch.float32)], seen
     jl, jg = jr._grad(jr.params, jnp.asarray(feats), jnp.asarray(labels),
                       None, jax.random.PRNGKey(0))
-    rel = abs(float(tl) - float(jl)) / abs(float(jl))
-    assert rel <= 2e-3, f"loss {float(tl)} vs {float(jl)}: {rel:.3e} relative"
     ref_g = flax_to_torch_midfc(_np_tree(jg))
     assert set(tg) == set(ref_g)
+    return float(tl), tg, float(jl), ref_g
+
+
+def _assert_step_close(tl, tg, jl, ref_g, loss_rel, grad_tol):
+    rel = abs(tl - jl) / abs(jl)
+    assert rel <= loss_rel, f"loss {tl} vs {jl}: {rel:.3e} relative"
     for name, r in ref_g.items():
         err = float((tg[name].float() - r).abs().max())
         scale = float(r.abs().max())
-        assert err <= 2e-2 * scale, (
-            f"{name}: max_abs_err {err:.3e} above 2e-2 x max|ref| "
-            f"{2e-2 * scale:.3e}")
+        assert err <= grad_tol * scale, (
+            f"{name}: max_abs_err {err:.3e} above {grad_tol:.0e} x max|ref| "
+            f"{grad_tol * scale:.3e}")
+
+
+def test_bf16_full_attention_step_through_a_ring_of_one_matches_jax(
+        monkeypatch):
+    """One MID-FC SSA full-attention train step (chunk_size None) in bf16
+    at dropout 0, d_model 256 in 2 heads of 256, through a ring of one
+    (`_ring_of_one_step_vs_jax`; on the card the `_bf16_wide` rows at heads
+    of 256), against the JAX `MidfcRunner` step in compute_dtype
+    "bfloat16": the loss within 2e-3 relative (the f32 logit head reads
+    bf16 attention outputs, each rounded to 2^-9 of itself) and every
+    gradient within 2e-2·max|ref| of its tensor (a few bf16 roundings that
+    the packages place differently). The ring hands the per-block wrappers
+    bf16 q, k, v and adds their f32 dQ terms."""
+    _assert_step_close(*_ring_of_one_step_vs_jax(monkeypatch, 256, 2,
+                                                 "bfloat16"), 2e-3, 2e-2)
+
+
+@pytest.mark.parametrize("compute_dtype,loss_rel,grad_tol", [
+    ("float32", 1e-5, 1e-4), ("bfloat16", 2e-3, 2e-2)])
+def test_d_model_128_full_attention_step_through_a_ring_of_one_matches_jax(
+        monkeypatch, compute_dtype, loss_rel, grad_tol):
+    """The same step at d_model 128 (2 heads of 128: on the card the ring's
+    D=128 rows, `_tf32_d128` in f32 and `_bf16_wide` in bf16), against the
+    JAX step in the same compute dtype: in f32 the loss within 1e-5
+    relative and every gradient within 1e-4·max|ref| (the MID-FC f32
+    tolerances of `tests/test_torch_midfc.py`), in bf16 at the bf16 step's
+    2e-3 and 2e-2."""
+    _assert_step_close(*_ring_of_one_step_vs_jax(monkeypatch, 128, 2,
+                                                 compute_dtype), loss_rel,
+                       grad_tol)
+
+
+# ---------------------------------------------------------------------------
+# head dim 128: the ring at d_model 128 (`_tf32_d128` / `_bf16_wide` rows)
+# ---------------------------------------------------------------------------
+
+def _inputs_d(d, seed):
+    """Seeded f32 q, k, v, g [B, H, L, d] and a key mask with a valid prefix
+    in every block."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, H, L, d)).astype(
+        np.float32)) for _ in range(4))
+    mask = rng.random((B, L)) > 0.3
+    mask[:, :8] = True
+    return q, k, v, g, torch.from_numpy(mask)
+
+
+def _within(got, ref, tol):
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    assert err <= tol * scale, (f"max_abs_err {err:.3e} above {tol:.0e} x "
+                                f"max|ref| {tol * scale:.3e}")
+
+
+@pytest.mark.parametrize("drop", [0.0, DROP])
+def test_f32_d128_carry_chain_over_uneven_cuts_equals_dense(drop):
+    """The f32 carry chain at head dim 128 (on the card the carry form of
+    `csrc/flash_tf32_d128_fwd.cuh`, row `flash_attn_carry_tf32_d128`) over
+    blocks cut at columns 1, 3 and 2 mod 4, against the dense attention
+    with the same dropout mask: out and lse within 1e-4·max|ref|."""
+    q, k, v, _, mask = _inputs_d(128, 31)
+    temp = 128 ** 0.5
+    sd = SEED if drop else None
+    carry = flash.flash_carry_init(B, H, L, 128)
+    for a, c in zip(UNEVEN[:-1], UNEVEN[1:]):
+        carry = flash.flash_forward_carry(
+            q, k[:, :, a:c], v[:, :, a:c], mask[:, a:c], None, carry, temp,
+            drop, sd, col_offset=a)
+    out, lse = flash.flash_carry_finalize(carry)
+    ref, ref_lse = attention.scaled_dot_product_attention(
+        q, k, v, mask, temp, dropout=drop, seed=sd, return_lse=True)
+    _within(out, ref, 1e-4)
+    _within(lse, ref_lse, 1e-4)
+
+
+@pytest.mark.parametrize("drop", [0.0, DROP])
+def test_f32_d128_block_backwards_sum_to_the_full_backward(drop):
+    """`flash_block_backward` at head dim 128 (on the card the block form of
+    `csrc/flash_tf32_bwd.cuh` at 128, row `flash_attn_block_bwd_tf32_d128`)
+    on blocks cut at columns 1, 3 and 2 mod 4, against the chain's global
+    out and lse: the f32 dQ terms summed over the blocks and the blocks' dK
+    and dV side by side equal autograd of the dense attention, within
+    1e-4·max|ref|."""
+    q, k, v, g, mask = _inputs_d(128, 37)
+    temp = 128 ** 0.5
+    sd = SEED if drop else None
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref_out = attention.scaled_dot_product_attention(
+        *leaves, mask, temp, dropout=drop, seed=sd)
+    refs = torch.autograd.grad(ref_out, leaves, g)
+    carry = flash.flash_carry_init(B, H, L, 128)
+    for a, c in zip(UNEVEN[:-1], UNEVEN[1:]):
+        carry = flash.flash_forward_carry(
+            q, k[:, :, a:c], v[:, :, a:c], mask[:, a:c], None, carry, temp,
+            drop, sd, col_offset=a)
+    out, lse = flash.flash_carry_finalize(carry)
+    dq = torch.zeros(B, H, L, 128)
+    dks, dvs = [], []
+    for a, c in zip(UNEVEN[:-1], UNEVEN[1:]):
+        dq_c, dk_c, dv_c = flash.flash_block_backward(
+            q, k[:, :, a:c], v[:, :, a:c], mask[:, a:c], out, lse, g, temp,
+            drop, sd, col_offset=a)
+        assert dq_c.dtype == torch.float32
+        dq += dq_c
+        dks.append(dk_c)
+        dvs.append(dv_c)
+    for got, ref in zip((dq, torch.cat(dks, 2), torch.cat(dvs, 2)), refs):
+        _within(got, ref, 1e-4)
 
 
 def _meta(*shape, dtype=torch.bfloat16, shift=0):
@@ -563,10 +690,11 @@ def test_ring_wrappers_count_rows_and_ask_for_the_ds_scratch(monkeypatch,
     """Without a card (meta tensors through the wrappers, the CUDA-device
     check and the library stubbed): at every (dtype, D) of
     `RING_HEAD_DIMS`, `flash_forward_carry` and `flash_block_backward`
-    count their launch in `ring_row`'s row (bf16 at 256: the
-    `"_bf16_wide"` rows; every other pair the base rows), and the block
-    backward asks for a dS^T scratch of B·H·ceil32(Lk)·ceil32(Lq) elements
-    in q's dtype at 256 (f32 and bf16) and none at 64 and 128."""
+    count their launch in `ring_row`'s row (f32 at 128: the `"_tf32_d128"`
+    rows; bf16 at 128 and 256: the `"_bf16_wide"` rows; every other pair
+    the base rows), and the block backward asks for a dS^T scratch of
+    B·H·ceil32(Lk)·ceil32(Lq) elements in q's dtype at 128 and 256 (f32
+    and bf16) and none at 64."""
     lib = _Launcher()
     monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
     monkeypatch.setattr(kernels, "library", lambda: lib)
@@ -591,14 +719,18 @@ def test_ring_wrappers_count_rows_and_ask_for_the_ds_scratch(monkeypatch,
     lse = _meta(b, h, lq, dtype=torch.float32)
     flash.flash_forward_carry(q, k, k, kv, None, carry, 16.0)
     flash.flash_block_backward(q, k, k, kv, q, lse, q, 16.0, delta=lse)
-    wide = dtype == torch.bfloat16 and d == 256
-    rows = {n: n + ("_bf16_wide" if wide else "") for n in (
+    suffix = ""
+    if dtype == torch.bfloat16 and d in (128, 256):
+        suffix = "_bf16_wide"
+    elif dtype == torch.float32 and d == 128:
+        suffix = "_tf32_d128"
+    rows = {n: n + suffix for n in (
         "flash_attn_carry", "flash_attn_block_bwd")}
     assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
         r: 1 for r in rows.values()}
     assert [c[0] for c in lib.calls] == ["carry", "block"]
     ds_t, = scratch
-    if d == 256:
+    if d in (128, 256):
         assert ds_t.dtype == dtype
         assert ds_t.numel() == b * h * 64 * 96   # ceil32(45), ceil32(70)
     else:
@@ -606,21 +738,30 @@ def test_ring_wrappers_count_rows_and_ask_for_the_ds_scratch(monkeypatch,
 
 
 def test_ring_row_names_every_ring_width():
-    """`ring_row` at every head dim 1-256 in both dtypes: bf16 dims that the
-    ring runs at the width 256 (129-256, zero-padded up to it) count in
-    the `"_bf16_wide"` rows, every other in the base rows; each name is a
-    row of `kernels.LAUNCHES`; and the ring's `_bf16_wide` rows are these
-    two."""
+    """`ring_row` at every head dim 1-256 in both dtypes, as `k2_row` names
+    K2's: bf16 dims that the ring runs at the widths 128 and 256 (65-256,
+    zero-padded up to them) count in the `"_bf16_wide"` rows, f32 dims it
+    runs at 128 (65-128) in the `"_tf32_d128"` rows, every other (1-64 in
+    both dtypes, f32 129-256) in the base rows; each name is a row of
+    `kernels.LAUNCHES`; and the ring's `_bf16_wide` and `_tf32_d128` rows
+    are these four."""
     for dtype in (torch.float32, torch.bfloat16):
         for d in range(1, flash.MAX_HEAD_DIM + 1):
-            wide = dtype == torch.bfloat16 and d > 128
+            suffix = ""
+            if dtype == torch.bfloat16 and d > 64:
+                suffix = "_bf16_wide"
+            elif dtype == torch.float32 and 64 < d <= 128:
+                suffix = "_tf32_d128"
             for what in ("flash_attn_carry", "flash_attn_block_bwd"):
                 row = flash.ring_row(what, dtype, d)
-                assert row == what + ("_bf16_wide" if wide else ""), (d, row)
+                assert row == what + suffix, (d, row)
                 assert row in kernels.LAUNCHES
-    assert {flash.ring_row(w, torch.bfloat16, 256) for w in (
-        "flash_attn_carry", "flash_attn_block_bwd")} == {
+    assert {flash.ring_row(w, torch.bfloat16, d) for w in (
+        "flash_attn_carry", "flash_attn_block_bwd") for d in (128, 256)} == {
         "flash_attn_carry_bf16_wide", "flash_attn_block_bwd_bf16_wide"}
+    assert {flash.ring_row(w, torch.float32, 128) for w in (
+        "flash_attn_carry", "flash_attn_block_bwd")} == {
+        "flash_attn_carry_tf32_d128", "flash_attn_block_bwd_tf32_d128"}
 
 
 @pytest.mark.parametrize("source,launch", [
@@ -632,7 +773,7 @@ def test_ring_dispatch_sends_bf16_256_to_the_tensor_cores(source, launch):
     `csrc/flash_bf16_wide_fwd.cuh` (both dropout-word paths) and to the
     block form of `csrc/flash_bf16_wide_bwd.cuh` with an f32 dQ; the
     CUDA-core bodies (`CSN_CARRY` / `CSN_BLOCK`) keep exactly f32 and bf16
-    at 64 and 128."""
+    at 64."""
     text = (kernels.CSRC / source).read_text()
     body = text[text.index('extern "C" int csn_flash_attn'):]
     carry = "carry" in source
@@ -640,9 +781,39 @@ def test_ring_dispatch_sends_bf16_256_to_the_tensor_cores(source, launch):
     names = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16}
     core = {(names[t], int(d)) for t, d in re.findall(
         macro + r"\((float|__nv_bfloat16), (\d+)\)", body)}
-    assert core == {(dt, d) for dt in names.values() for d in (64, 128)}
+    assert core == {(dt, 64) for dt in names.values()}
     assert len(re.findall(launch, body)) == (2 if carry else 1)
     header = "flash_bf16_wide_fwd.cuh" if carry else "flash_bf16_wide_bwd.cuh"
+    assert f'#include "{header}"' in text
+
+
+@pytest.mark.parametrize("source,condition,launch,header", [
+    ("flash_attn_carry.cu", "dtype == csn::kF32 && D == 128",
+     r"csn_tf32_d128::launch_fwd<true, (true|false)>",
+     "flash_tf32_d128_fwd.cuh"),
+    ("flash_attn_carry.cu", "dtype == csn::kBF16 && D == 128",
+     r"csn_tc_fwd::launch_fwd<128, true, (true|false)>", "flash_tc_fwd.cuh"),
+    ("flash_attn_block_bwd.cu", "dtype == csn::kF32 && D == 128",
+     r"csn_tf32::launch_bwd_tf32<float, 128>", "flash_tf32_bwd.cuh"),
+    ("flash_attn_block_bwd.cu", "dtype == csn::kBF16 && D == 128",
+     r"csn_tcw::launch_bwd_split<128, float>", "flash_bf16_wide_bwd.cuh")])
+def test_ring_dispatch_sends_d128_to_the_tensor_cores(source, condition,
+                                                      launch, header):
+    """The C launchers of the ring at head dim 128: f32 goes to the carry
+    form of `csrc/flash_tf32_d128_fwd.cuh` and the block form of
+    `csrc/flash_tf32_bwd.cuh` at 128, bf16 to the carry form of
+    `csrc/flash_tc_fwd.cuh`'s template and the block form of
+    `csrc/flash_bf16_wide_bwd.cuh` at 128 with an f32 dQ (both dropout-word
+    paths of each carry form), each right under its (dtype, D) test; no
+    CUDA-core body is left at 128."""
+    text = (kernels.CSRC / source).read_text()
+    body = text[text.index('extern "C" int csn_flash_attn'):]
+    after = body[body.index(f"if ({condition})"):]
+    stmt = after[:after.index(";\n  if (")]
+    carry = "carry" in source
+    assert len(re.findall(launch, stmt)) == (2 if carry else 1), stmt
+    assert not re.search(r"CSN_(CARRY|BLOCK)\((float|__nv_bfloat16), 128\)",
+                         body)
     assert f'#include "{header}"' in text
 
 
