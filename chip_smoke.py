@@ -117,9 +117,13 @@ Phases (each prints its lines; any failure exits nonzero):
      bodies' carry and block forms, rows `flash_attn_carry_tf32_d128` and
      `flash_attn_block_bwd_tf32_d128`; bf16 on the `_bf16_wide` rows, the
      carry form of `csrc/flash_tc_fwd.cuh` and the block form of
-     `csrc/flash_bf16_wide_bwd.cuh` at 128); one timed line per dtype of
-     the ring's CUDA-core forms at [2, 8, 10000, 64] (kernel, bound,
-     library; no main path runs them); the
+     `csrc/flash_bf16_wide_bwd.cuh` at 128), and at [2, 8, 10000, 64]
+     (phase 7d's head dim: f32 on the split-TF32 D=64 bodies' carry and
+     block forms, rows `flash_attn_carry_tf32_d64` and
+     `flash_attn_block_bwd_tf32_d64`; bf16 on the carry form of
+     `csrc/flash_tc_fwd.cuh` and the block form of `csrc/flash_tc_bwd.cuh`
+     at 64, rows `flash_attn_carry_bf16_d64` and
+     `flash_attn_block_bwd_bf16_d64`); the
      carry chain and the block backward zero-padded by their wrappers (D=32
      f32, D=24 bf16, masked, dropout 0.1, `check_ring_padded`) against the
      same plain chains, and a ring of one at D=24 bf16 (padded once at its
@@ -186,7 +190,10 @@ Phases (each prints its lines; any failure exits nonzero):
      `_tf32_d128` rows in f32 and `_bf16_wide` rows in bf16, one carry per
      eval and one carry and one block backward per train step, the logits
      against the same model without the group (K2 at 128), the B=1 steps
-     against the CPU's at phase 7's and 7b's tolerances;
+     against the CPU's at phase 7's and 7b's tolerances; 7d: both again at
+     d_model 64 (8 heads of 64): the ring's `_tf32_d64` rows in f32 and
+     `_bf16_d64` rows in bf16, with 7c's counts and checks (K2 at 64 for
+     the model without the group);
   8. the trainer, inside CSN_DYNG=2: `tasks/main_csn.build_trainer` and
      `CSNTrainer.train()` on HRNetSimCSN3S at the protocol below (SGD, bf16)
      over an in-memory synthetic collection (16 train, 8 val, 8 test shapes
@@ -397,9 +404,10 @@ VANISHING = {"fc1.linear.bias"}
 # the MID-FC protocol (the JAX package's bench.py, mode midfc)
 MF_HEADS, MF_K, MF_B, MF_P, MF_D, MF_CHUNK = 8, 4, 4, 10000, 256, 500
 MF_RING_B, MF_BLOCKS = 2, 4   # phase 7's batch; key blocks of phase 3's chain
-# the head dims of the ring's forms that phases 7 and 7b (256) and 7c (128:
-# d_model 128) run, timed in phase 3 at the ring of one
-RING_TIMED_DIMS = (MF_D, 128)
+# the head dims of the ring's forms that phases 7 and 7b (256), 7c (128:
+# d_model 128) and 7d (64: d_model 64) run, timed in phase 3 at the ring of
+# one
+RING_TIMED_DIMS = (MF_D, 128, 64)
 RAGGED_LQ, RAGGED_LK = 1000, 777   # phase 3's ragged flash case
 LC_TASKS = ("csn", "seg", "midfc")   # phase 11, the learning check
 
@@ -468,11 +476,24 @@ KERNELS = {
     "flash_attn_bwd_bf16_wide": ("csn_tpu_torch/csrc/flash_bf16_wide_bwd.cuh",
                                  "csn_tpu/ops/flash.py:600"),
     # the ring's carry and block backward: their f32 D=256 forms (split
-    # TF32) and the CUDA-core ones (D = 64, either dtype)
+    # TF32)
     "flash_attn_carry": ("csn_tpu_torch/csrc/flash_tf32_fwd.cuh",
                          "csn_tpu/ops/flash.py:412"),
     "flash_attn_block_bwd": ("csn_tpu_torch/csrc/flash_tf32_bwd.cuh",
                              "csn_tpu/ops/flash.py:488"),
+    # their f32 and bf16 D=64 forms (the MID-FC full attention at d_model
+    # 64, phase 7d): the carry and block forms of K2's D=64 bodies (f32 in
+    # split TF32; bf16 on flash_tc_fwd.cuh's and flash_tc_bwd.cuh's
+    # templates), whose launches count apart
+    "flash_attn_carry_tf32_d64": ("csn_tpu_torch/csrc/flash_tf32_d64_fwd.cuh",
+                                  "csn_tpu/ops/flash.py:412"),
+    "flash_attn_block_bwd_tf32_d64": (
+        "csn_tpu_torch/csrc/flash_tf32_d64_bwd.cuh",
+        "csn_tpu/ops/flash.py:488"),
+    "flash_attn_carry_bf16_d64": ("csn_tpu_torch/csrc/flash_tc_fwd.cuh",
+                                  "csn_tpu/ops/flash.py:412"),
+    "flash_attn_block_bwd_bf16_d64": ("csn_tpu_torch/csrc/flash_tc_bwd.cuh",
+                                      "csn_tpu/ops/flash.py:488"),
     # their f32 D=128 forms (the MID-FC full attention at d_model 128, phase
     # 7c): the carry and block forms of K2's split-TF32 D=128 bodies, whose
     # launches count apart
@@ -1722,11 +1743,11 @@ def time_f32_split(qb, kb, big, dev, table, dk):
             if drop:   # one call of the plain version, host work included
                 pf = median_ms(lambda: attention.scaled_dot_product_attention(
                     q, k, v, km, temp, dropout=drop, seed=sd), warmup=1,
-                    reps=3)
+                    reps=1)
                 pfb = median_ms(lambda: torch.autograd.grad(
                     attention.scaled_dot_product_attention(
                         *leaves, km, temp, dropout=drop, seed=sd), leaves,
-                    dout), warmup=1, reps=3)
+                    dout), warmup=1, reps=1)
                 plain = (f"; plain (one call) forward {pf:.4f} ms, backward "
                          f"{pfb - pf:.4f} ms")
                 table.add(fname, 1, kf, pf, *parts_f, lf)
@@ -1858,11 +1879,11 @@ def time_head_dims(qb, kb, big, dev, table):
             if drop and count:   # one call of the plain version
                 pf = median_ms(lambda: attention.scaled_dot_product_attention(
                     q, k, v, km, temp, dropout=drop, seed=sd), warmup=1,
-                    reps=3)
+                    reps=1)
                 pfb = median_ms(lambda: torch.autograd.grad(
                     attention.scaled_dot_product_attention(
                         *leaves, km, temp, dropout=drop, seed=sd), leaves,
-                    dout), warmup=1, reps=3)
+                    dout), warmup=1, reps=1)
                 plain = (f"; plain (one call) forward {pf:.4f} ms, backward "
                          f"{pfb - pf:.4f} ms")
                 where = f"(x{count} per train step, rows {fname}, {bname})"
@@ -1883,10 +1904,11 @@ def time_head_dims(qb, kb, big, dev, table):
 
 def check_ring_padded(dev, table):
     """The per-block kernels at head dims they are not built for, zero-padded
-    by their wrappers to 64: a carry chain and the block backward at the
-    ring's block layout (`check_ring_kernels`) at D=32 in f32 and D=24 in
-    bf16, masked, dropout ATTN_DROPOUT; then `ring_flash_attention` (a ring
-    of one: `RingFlashAttentionFn` pads once at its entry) at D=24 in bf16,
+    by their wrappers to 64 (the D=64 tensor-core bodies, rows `_tf32_d64`
+    and `_bf16_d64`): a carry chain and the block backward at the ring's
+    block layout (`check_ring_kernels`) at D=32 in f32 and D=24 in bf16,
+    masked, dropout ATTN_DROPOUT; then `ring_flash_attention` (a ring of
+    one: `RingFlashAttentionFn` pads once at its entry) at D=24 in bf16,
     forward and backward, against `FlashAttentionFn` (K2 and its backward
     on the D=32 tensor-core body) on the same inputs."""
     g = torch.Generator().manual_seed(SEED + 19)
@@ -1913,9 +1935,10 @@ def check_ring_padded(dev, table):
         res.append([out.detach()] + list(torch.autograd.grad(
             out, leaves, dout)))
     valid = km[:, None, :, None]
-    for nm, a, r, name in zip(("out", "dq", "dk", "dv"), *res, (
-            "flash_attn_carry", "flash_attn_block_bwd",
-            "flash_attn_block_bwd", "flash_attn_block_bwd")):
+    cname, bname = (flash.ring_row(n, torch.bfloat16, dk) for n in (
+        "flash_attn_carry", "flash_attn_block_bwd"))
+    for nm, a, r, name in zip(("out", "dq", "dk", "dv"), *res,
+                              (cname, bname, bname, bname)):
         table.check(name, f"{tag} {nm} vs FlashAttentionFn", a, r,
                     torch.bfloat16, valid if nm in ("out", "dq") else None)
     del res, x, dout
@@ -1937,14 +1960,15 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
     rows at its row offset, both kernels against a float64 reference beside
     the f32 plain version with a wrong-offset run that must disagree, and
     padding query rows that keep their carry bit for bit. The one call over
-    all keys that phase 7 (7b in bf16, 7c at 128) makes, a ring of one, is
-    held against the plain chains too, and timed at the head dims of
-    RING_TIMED_DIMS (`ring_graph_ms`: device time from CUDA graphs at
-    dropout ATTN_DROPOUT, in the kernel line, and 0, beside it, in both
+    all keys that phase 7 (7b in bf16, 7c at 128, 7d at 64) makes, a ring
+    of one, is held against the plain chains too, and timed at the head
+    dims of RING_TIMED_DIMS (`ring_graph_ms`: device time from CUDA graphs
+    at dropout ATTN_DROPOUT, in the kernel line, and 0, beside it, in both
     dtypes) beside the bound, the plain chain (one call) and the library
-    call. bf16 at 128 and 256 runs the `_bf16_wide` rows, f32 at 128 the
-    `_tf32_d128` rows (`flash.ring_row`). `cases`: (dtype, dropout,
-    masked, uneven) of each chain; by default the six."""
+    call. bf16 at 128 and 256 runs the `_bf16_wide` rows, at 64 the
+    `_bf16_d64` rows, f32 at 128 and 64 the `_tf32_d128` and `_tf32_d64`
+    rows (`flash.ring_row`). `cases`: (dtype, dropout, masked, uneven) of
+    each chain; by default the six."""
     b, h, L = MF_RING_B, MF_HEADS, MF_P
     temp = float(dk) ** 0.5
     seed = 0x5EED_0F_C5A + 1
@@ -2169,7 +2193,8 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
             del got, new, c_in, final
         hop_in.clear()
         if cuts is even and masked and dk in RING_TIMED_DIMS:
-            # phase 7's calls (7b's in bf16; 7c's at head dim 128)
+            # phase 7's calls (7b's in bf16; 7c's and 7d's at head dims 128
+            # and 64)
             cin = flash.flash_carry_init(b, h, L, dk, dev)
             atag = f"[{b},{h},{L},{dk}] all keys {mtag}"
             got = flash.flash_forward_carry(qd, kd, vd, km, None, cin, temp,
@@ -2206,7 +2231,8 @@ def check_ring_kernels(dev, table, g, dk=MF_D, cases=None):
                         qd, kb_, vb_, mb_, lse, delta, dod, temp, p, psd,
                         col_offset=c0) for c0, kb_, vb_, mb_ in blocks_]
 
-                pf, pb = (median_ms(fn, warmup=1, reps=3)
+                # one call each (the checks above ran the chains warm)
+                pf, pb = (median_ms(fn, warmup=0, reps=1)
                           for fn in (plain_chain, plain_bwd_chain))
                 count = 1 if p else 0
                 table.add(cname, count, kf, pf, *bf_ms, lf)
@@ -2262,43 +2288,6 @@ def ring_graph_ms(q, k, v, dout, km, out, lse, delta, cin, temp, p, seed):
         lambda: lib(q, k, v),
         lambda: torch.autograd.grad(lib(*leaves), leaves, dout)))
     return kf, kb, lf, lfb - lf
-
-
-def time_ring_d64(dev):
-    """The ring's CUDA-core forms at head dim 64 (`csrc/flash_wide.cuh`,
-    `csrc/flash_bwd_wide.cuh`: a ring at d_k <= 64) at the ring of one
-    [2, 8, 10000, 64], f32 and bf16, masked as `check_ring_kernels`'
-    chains, dropout ATTN_DROPOUT: device ms from CUDA graphs beside the
-    bound and the library call. No main path runs them: printed, not in
-    the kernel line."""
-    g = torch.Generator().manual_seed(SEED + 23)
-    b, h, L, dk = MF_RING_B, MF_HEADS, MF_P, 64
-    temp, sd = float(dk) ** 0.5, 0x5EED_0F_C5A + 3
-    km = torch.ones(b, L, dtype=torch.bool)
-    km[0, L - 777:] = False
-    km[1, L // MF_BLOCKS:2 * L // MF_BLOCKS] = False
-    km = km.to(dev)
-    x = [torch.randn(b, h, L, dk, generator=g).to(dev) for _ in range(4)]
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v, dout = (t.to(dt) for t in x)
-        cin = flash.flash_carry_init(b, h, L, dk, dev)
-        out, lse = flash.flash_carry_finalize(flash.flash_forward_carry(
-            q, k, v, km, None, cin, temp, ATTN_DROPOUT, sd))
-        out = out.to(dt)
-        delta = (dout.float() * out.float()).sum(dim=-1)
-        kf, kb, lf, lb = ring_graph_ms(q, k, v, dout, km, out, lse, delta,
-                                       cin, temp, ATTN_DROPOUT, sd)
-        bf_ms, bb_ms = ring_bounds(km, h, dk, dt)
-        print(f"[time] flash_attn_carry / flash_attn_block_bwd [{b},{h},{L},"
-              f"{dk}] all keys masked dropout {ATTN_DROPOUT} {str(dt)[6:]} "
-              f"(CUDA cores: flash_wide.cuh, flash_bwd_wide.cuh; device, "
-              f"CUDA graphs, warm L2): carry kernel {kf:.4f} ms, bound "
-              f"{max(bf_ms):.4f} ms, library {lf:.4f} ms; block backward "
-              f"kernel {kb:.4f} ms, bound {max(bb_ms):.4f} ms, library "
-              f"{lb:.4f} ms (not in the kernel line)")
-        del q, k, v, dout, out, lse, delta, cin
-    del x
-    torch.cuda.empty_cache()
 
 
 def check_interp(qb, dev, table, g):
@@ -2928,7 +2917,8 @@ def midfc_ring_slice(dev, profile=False, compute_dtype="float32",
     the block backward at head dim 256 on the `_bf16_wide` rows, and the
     reference model without the group K2 on `flash_attn_fwd_bf16_wide`) and
     `d_model` (the heads' d_k = d_v; phase 7c: 128, the ring's rows
-    `_tf32_d128` in f32 and `_bf16_wide` in bf16, K2's at 128 for the model
+    `_tf32_d128` in f32 and `_bf16_wide` in bf16; phase 7d: 64, the rows
+    `_tf32_d64` and `_bf16_d64`; K2's rows at that head dim for the model
     without the group). Returns the launch counts of the train step."""
     dt = getattr(torch, compute_dtype)
     bf16 = dt == torch.bfloat16
@@ -4218,9 +4208,8 @@ def main() -> int:
     check_head_dims(qb, kb, big, dev, table)
     check_interp(qb, dev, table, g)
     del big
-    check_ring_kernels(dev, table, g)
-    check_ring_kernels(dev, table, g, dk=128)
-    time_ring_d64(dev)
+    for dk in RING_TIMED_DIMS:
+        check_ring_kernels(dev, table, g, dk=dk)
     check_ring_padded(dev, table)
     n_unet_convs = check_family_convs(dev, table, g)
     print(f"[check] sparse_conv_dw bfloat16 (tensor cores) vs float64: "
@@ -4290,11 +4279,12 @@ def main() -> int:
     phase("7b MID-FC ring, bf16")
     launches_7b = midfc_ring_slice(dev, do_profile, "bfloat16")
     launches_7 = {k: n + launches_7b[k] for k, n in launches_7.items()}
-    # the ring at d_model 128: 8 heads of 128, in f32 and bf16
-    phase("7c MID-FC ring, d_model 128")
-    for dtype in ("float32", "bfloat16"):
-        launches_7c = midfc_ring_slice(dev, do_profile, dtype, 128)
-        launches_7 = {k: n + launches_7c[k] for k, n in launches_7.items()}
+    # the ring at d_model 128 and 64: 8 heads of 128 or 64, f32 and bf16
+    for part, d_model in (("7c", 128), ("7d", 64)):
+        phase(f"{part} MID-FC ring, d_model {d_model}")
+        for dtype in ("float32", "bfloat16"):
+            launches_d = midfc_ring_slice(dev, do_profile, dtype, d_model)
+            launches_7 = {k: n + launches_d[k] for k, n in launches_7.items()}
 
     # 8. the trainer and the eval CLI's path under CSN_DYNG=2
     phase("8 trainer")

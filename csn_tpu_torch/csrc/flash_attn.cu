@@ -44,8 +44,7 @@
 // activations at d_model 256 in 2 heads) and at D = 64 (in 4 heads): the
 // tensor cores in split TF32, three TF32 products per f32 product
 // (flash_tf32_fwd.cuh, flash_tf32_d128_fwd.cuh, flash_tf32_d64_fwd.cuh):
-// one TF32 product would miss the f32 checks' 1e-4, three hold it. No K2
-// case is left on the CUDA-core kernel of flash_wide.cuh.
+// one TF32 product would miss the f32 checks' 1e-4, three hold it.
 //
 // bf16 at D = 256 (the MID-FC heads in bf16, d_model 256 in one head): the
 // tensor cores in the layout of flash_tf32_fwd.cuh, 8 warps that split D
@@ -97,8 +96,9 @@ extern "C" int csn_flash_attn_fwd(int dtype, const void* q, const void* k,
   }
 #undef CSN_TC
   if (dtype == csn::kF32 && D == csn_tf32_d64::D)
-    return csn_tf32_d64::launch_fwd(q, k, v, kv_mask, q_mask, out, lse, B,
-                                    H, Lq, Lk, inv_temp, drop, s);
+    return csn_tf32_d64::launch_fwd(q, k, v, kv_mask, q_mask, out, lse,
+                                    csn::Carry{}, B, H, Lq, Lk, inv_temp,
+                                    drop, s);
   if (dtype == csn::kF32 && D == csn_tf32_d128::D)
     return csn_tf32_d128::launch_fwd(q, k, v, kv_mask, q_mask, out, lse,
                                      csn::Carry{}, B, H, Lq, Lk, inv_temp,

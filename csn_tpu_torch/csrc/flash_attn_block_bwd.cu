@@ -32,9 +32,14 @@
 // per (batch*head) (3.2 GB for one hop over all 10000 keys at B = 2, 8
 // heads; its round trip, about 1.9 ms at 3.35 TB/s, is stated in that
 // header).
-// f32 and bf16 at D = 64 (a ring at d_k <= 64, zero-padded up to it): the
-// two deterministic passes of flash_bwd_wide.cuh in f32 arithmetic on the
-// CUDA cores, with the dQ type set to float.
+// f32 and bf16 at D = 64 (the MID-FC heads at d_model 64; a ring at d_k
+// below 64 comes zero-padded to 64): the two passes of K2's D = 64 body of
+// each dtype on the tensor cores with the block's offsets and an f32 dQ
+// term, f32 in split TF32 (flash_tf32_d64_bwd.cuh), bf16 on mma.sync
+// m16n8k16 (flash_tc_bwd.cuh's template); both recompute dS in the dQ pass
+// and take no scratch. What bounds them: the same five D-long products per
+// (query, key) pair, and the per-entry work (exp2, the Philox words) twice,
+// which does not shrink with D.
 // The TPU kernel accumulates dQ over its whole sequential grid in a VMEM
 // plane; across hops the sum is the caller's (ops/attention.py
 // RingFlashAttentionFn adds the blocks' f32 terms), so the dQ pass stores
@@ -42,15 +47,17 @@
 
 #include "common.cuh"
 #include "flash_bf16_wide_bwd.cuh"
-#include "flash_bwd_wide.cuh"
+#include "flash_tc_bwd.cuh"
 #include "flash_tf32_bwd.cuh"
+#include "flash_tf32_d64_bwd.cuh"
 
 // q, dout [B, H, Lq, D]; k, v, dk, dv [B, H, Lk, D] contiguous in one type
 // and 16-byte aligned; dq [B, H, Lq, D] f32; lse and delta [B, H, Lq] f32;
 // kv_mask [B, Lk] and q_mask [B, Lq] bool bytes. D is 64, 128 or 256. ds_t:
 // scratch of B * H * ceil32(Lk) * ceil32(Lq) elements in the type of q at
 // D = 128 and 256 (f32: flash_tf32_bwd.cuh, bf16: flash_bf16_wide_bwd.cuh),
-// unused at 64.
+// unused at 64. Returns the first CUDA error of the one body its (dtype, D)
+// selects.
 extern "C" int csn_flash_attn_block_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* kv_mask,
@@ -61,6 +68,9 @@ extern "C" int csn_flash_attn_block_bwd(
   if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const csn::Drop drop{seed, thresh, inv_keep, use_drop, row_off, col_off};
+  // the dropout words of keep_bits need a key tile on a multiple of 4
+  // columns (the bodies at 128 and 256 draw theirs at any)
+  const bool any_col = use_drop && col_off % 4 != 0;
   if (dtype == csn::kF32 && D == 256)
     return csn_tf32::launch_bwd_tf32<float>(q, k, v, dout, lse, delta,
                                             kv_mask, q_mask, dq, dk, dv,
@@ -81,12 +91,19 @@ extern "C" int csn_flash_attn_block_bwd(
                                                  kv_mask, q_mask, dq, dk, dv,
                                                  ds_t, B, H, Lq, Lk, inv_temp,
                                                  drop, s);
-#define CSN_BLOCK(T, DD)                                                     \
-  return csn_wide_bwd::launch_bwd_wide<T, float, DD>(                        \
-      q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk, dv, B, H, Lq, Lk, \
-      inv_temp, drop, s)
-  if (dtype == csn::kF32 && D == 64) CSN_BLOCK(float, 64);
-  if (dtype == csn::kBF16 && D == 64) CSN_BLOCK(__nv_bfloat16, 64);
-#undef CSN_BLOCK
+  if (dtype == csn::kF32 && D == 64)
+    return any_col ? csn_tf32_d64::launch_bwd<true, true>(
+                         q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk,
+                         dv, B, H, Lq, Lk, inv_temp, drop, s)
+                   : csn_tf32_d64::launch_bwd<true, false>(
+                         q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk,
+                         dv, B, H, Lq, Lk, inv_temp, drop, s);
+  if (dtype == csn::kBF16 && D == 64)
+    return any_col ? csn_tc_bwd::launch_tc<64, true, true>(
+                         q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk,
+                         dv, B, H, Lq, Lk, inv_temp, drop, s)
+                   : csn_tc_bwd::launch_tc<64, true, false>(
+                         q, k, v, dout, lse, delta, kv_mask, q_mask, dq, dk,
+                         dv, B, H, Lq, Lk, inv_temp, drop, s);
   return cudaErrorInvalidValue;
 }

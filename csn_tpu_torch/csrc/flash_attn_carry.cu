@@ -19,29 +19,29 @@
 // What bounds it on the H100: as K2, 4*Lq*Lk*D flops per (batch, head)
 // against (Lq + 2*Lk)*D reads plus the carry (2*Lq*(D + 2) f32 words in and
 // out): compute-bound at the ring's shapes (Lq = Lk = 10000 / ranks,
-// D = 256 or 128).
+// D = 256, 128 or 64).
 //
-// At D = 256 (the MID-FC heads, the ring's shape) and D = 128 (the MID-FC
-// heads at d_model 128) on the tensor cores, in the carry form of K2's
-// body of each (dtype, D): f32 in split TF32 (three TF32 products per f32
+// At D = 256 (the MID-FC heads, the ring's shape), D = 128 and D = 64 (the
+// MID-FC heads at d_model 128 and 64; a ring at d_k below 64 comes
+// zero-padded to 64) on the tensor cores, in the carry form of K2's body
+// of each (dtype, D): f32 in split TF32 (three TF32 products per f32
 // product), at 256 the body of flash_tf32_fwd.cuh, at 128 that of
-// flash_tf32_d128_fwd.cuh; bf16 on mma.sync m16n8k16 with P rounded to bf16
-// once as the A operand of P V, at 256 the split body of
-// flash_bf16_wide_fwd.cuh, at 128 flash_tc_fwd.cuh's template. Their
-// headers state the carry's units, the pass-through and the dropout words
-// at any column offset. Each keeps the accumulator in the registers of the
-// block that owns the query tile for the whole key loop, where the TPU
-// kernel keeps it in VMEM scratch across its sequential kv grid axis, and
-// touches the carry in device memory once on the way in and once on the
-// way out. D = 64 in either dtype (a ring at d_k <= 64, zero-padded up to
-// it) takes the f32 CUDA-core kernel of flash_wide.cuh with CARRY set.
+// flash_tf32_d128_fwd.cuh, at 64 that of flash_tf32_d64_fwd.cuh; bf16 on
+// mma.sync m16n8k16 with P rounded to bf16 once as the A operand of P V,
+// at 256 the split body of flash_bf16_wide_fwd.cuh, at 128 and 64
+// flash_tc_fwd.cuh's template. Their headers state the carry's units, the
+// pass-through and the dropout words at any column offset. Each keeps the
+// accumulator in the registers of the block that owns the query tile for
+// the whole key loop, where the TPU kernel keeps it in VMEM scratch across
+// its sequential kv grid axis, and touches the carry in device memory once
+// on the way in and once on the way out.
 
 #include "common.cuh"
 #include "flash_bf16_wide_fwd.cuh"
 #include "flash_tc_fwd.cuh"
 #include "flash_tf32_d128_fwd.cuh"
+#include "flash_tf32_d64_fwd.cuh"
 #include "flash_tf32_fwd.cuh"
-#include "flash_wide.cuh"
 
 // q [B, H, Lq, D], k and v [B, H, Lk, D] contiguous in one type (q, k, v
 // and acc_in 16-byte aligned); kv_mask [B, Lk], q_mask [B, Lq] bool bytes;
@@ -94,13 +94,19 @@ extern "C" int csn_flash_attn_carry(
                    : csn_tc_fwd::launch_fwd<128, true, false>(
                          q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
                          Lq, Lk, inv_temp, drop, s);
-#define CSN_CARRY(T, DD)                                                     \
-  return csn_wide::launch_fwd_wide<T, DD, true>(                             \
-      q, k, v, kv_mask, q_mask, nullptr, nullptr, m_in, l_in, acc_in, m_out, \
-      l_out, acc_out, B, H, Lq, Lk, inv_temp, seed, thresh, inv_keep,        \
-      use_drop, row_off, col_off, s)
-  if (dtype == csn::kF32 && D == 64) CSN_CARRY(float, 64);
-  if (dtype == csn::kBF16 && D == 64) CSN_CARRY(__nv_bfloat16, 64);
-#undef CSN_CARRY
+  if (dtype == csn::kF32 && D == 64)
+    return any_col ? csn_tf32_d64::launch_fwd<true, true>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s)
+                   : csn_tf32_d64::launch_fwd<true, false>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s);
+  if (dtype == csn::kBF16 && D == 64)
+    return any_col ? csn_tc_fwd::launch_fwd<64, true, true>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s)
+                   : csn_tc_fwd::launch_fwd<64, true, false>(
+                         q, k, v, kv_mask, q_mask, nullptr, nullptr, cy, B, H,
+                         Lq, Lk, inv_temp, drop, s);
   return cudaErrorInvalidValue;
 }

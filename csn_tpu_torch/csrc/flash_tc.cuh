@@ -1,10 +1,14 @@
 // Tensor-core building blocks of the bf16 flash attention kernels at head
 // dims TD = 16, 32, 64 and 128 (the forward of flash_tc_fwd.cuh, K2's and
-// the ring's carry form; the backward of flash_attn_bwd.cu up to 64):
-// asynchronous global -> shared copies (cp.async), fragment loads
-// from shared memory (ldmatrix), the m16n8k16 bf16 product with f32
-// accumulation (mma.sync), all as inline PTX for sm_80 and later, and the
-// attention-dropout words of one accumulator fragment.
+// the ring's carry form; the backward of flash_tc_bwd.cuh up to 64, K2's
+// and the ring's block form): asynchronous global -> shared copies
+// (cp.async), fragment loads from shared memory (ldmatrix), the m16n8k16
+// bf16 product with f32 accumulation (mma.sync), all as inline PTX for
+// sm_80 and later, the attention-dropout words of one accumulator fragment
+// (at a key column that is a multiple of 4, or any), and the carry in and
+// out of the carry forms whose warps own whole rows of the head (these and
+// the split-TF32 ones at D = 64 and 128, which share the C-fragment
+// layout).
 //
 // Tiles. A 64-row x TD-column bf16 tile (Q, K, V, dO) lives in shared
 // memory with a row stride of lds_of(TD) = TD + 8 elements (48, 80 or 144
@@ -214,6 +218,30 @@ __device__ __forceinline__ uint32_t keep_bits(uint64_t seed, uint32_t bh,
   return bits;
 }
 
+// The keep bits of N C fragments of 8 columns from col0 at any alignment:
+// keep_bits' layout (bit 4 n + e), for a ring hop's key block, which may
+// start inside a 4-column Philox group (col_off = origin * Lk), where
+// drop_words' lane pairs no longer share a group. Each lane draws its own
+// two columns of each fragment row with csn::dropout_words: one or two
+// Philox calls a run, up to four times drop_words' one call a fragment.
+template <int N = 8>
+__device__ __forceinline__ uint32_t keep_bits_any(uint64_t seed, uint32_t bh,
+                                                  uint32_t row, uint32_t col0,
+                                                  uint32_t thresh, int t) {
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {  // rows row, row + 8; columns 2t, 2t + 1
+    uint32_t w0[2], w1[2];
+    csn::dropout_words<2>(seed, bh, row, col0 + 8 * n + 2 * t, w0);
+    csn::dropout_words<2>(seed, bh, row + 8u, col0 + 8 * n + 2 * t, w1);
+    const uint32_t w[4] = {w0[0], w0[1], w1[0], w1[1]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      bits |= (w[e] < thresh ? 1u : 0u) << (4 * n + e);
+  }
+  return bits;
+}
+
 // Thread tid's flag of row tid of tile t of ROWS rows (threads below ROWS;
 // 0 for rows at or past L): a load the caller issues a tile ahead of its use.
 template <int ROWS = TILE>
@@ -242,6 +270,63 @@ __device__ __forceinline__ int find_live(int t, int nt, int& live,
 // __syncthreads'): the bodies whose warps split D in quarters.
 __device__ __forceinline__ void strip_sync(int strip) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + strip));
+}
+
+// The carry in of the lane's rows `row` and row + 8 (those below Lq), for
+// the carry forms whose warps own 16 query rows over the whole head of TD
+// dims (flash_tc_fwd.cuh; flash_tf32_d64_fwd.cuh, flash_tf32_d128_fwd.cuh):
+// m_in in the bodies' log2 units; l_in on lane t = 0 of the row's quad (0
+// on the others: the denominator is summed per lane and reduced over the
+// quad at the end, so a rescale applies to each lane's partial sum);
+// acc_in at the lane's C-fragment positions of O, dims 8 n + 2 t (+ 1).
+template <int TD>
+__device__ __forceinline__ void carry_in(const csn::Carry& cy,
+                                         int64_t row_base, int row, int Lq,
+                                         int t, float (&m)[2], float (&l)[2],
+                                         float (&o)[TD / 8][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= Lq) continue;
+    m[h] = cy.m_in[row_base + r] * LOG2E;
+    l[h] = t == 0 ? cy.l_in[row_base + r] : 0.f;
+    const float* ai = cy.acc_in + (row_base + r) * TD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < TD / 8; ++n) {
+      const float2 a = *reinterpret_cast<const float2*>(ai + 8 * n);
+      o[n][2 * h] = a.x;
+      o[n][2 * h + 1] = a.y;
+    }
+  }
+}
+
+// The carry out of row rr of the carry (below Lq) from the lane's half h
+// of its C fragments, as carry_in reads it: m in natural units, the
+// quad-reduced l and O undivided; or the carry in, bit for bit, where the
+// row passes through (`through`: no live key tile in the block, or a
+// padding row)
+template <int TD>
+__device__ __forceinline__ void carry_out(const csn::Carry& cy, int64_t rr,
+                                          bool through, int h, int t,
+                                          float m, float l,
+                                          const float (&o)[TD / 8][4]) {
+  float* ao = cy.acc_out + rr * TD + 2 * t;
+  if (through) {
+    const float* ai = cy.acc_in + rr * TD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < TD / 8; ++n)
+      *reinterpret_cast<float2*>(ao + 8 * n) =
+          *reinterpret_cast<const float2*>(ai + 8 * n);
+  } else {
+#pragma unroll
+    for (int n = 0; n < TD / 8; ++n)
+      *reinterpret_cast<float2*>(ao + 8 * n) =
+          make_float2(o[n][2 * h], o[n][2 * h + 1]);
+  }
+  if (t == 0) {
+    cy.m_out[rr] = through ? cy.m_in[rr] : m * LN2;
+    cy.l_out[rr] = through ? cy.l_in[rr] : l;
+  }
 }
 
 // 2^x, flushing results below 2^-126 to zero (probabilities that small

@@ -1,14 +1,15 @@
 // The bf16 flash attention forward on the tensor cores at head dims TD = 16,
 // 32, 64 and 128, one template over TD (flash_tc.cuh's building blocks), in
 // two forms: K2 (flash_attn.cu), and the carry form of the ring's per-hop
-// kernel (flash_attn_carry.cu), at TD = 128 the MID-FC full attention in
-// bf16 at d_model 128 (8 heads of 128: the factory sets d_k = d_v =
-// d_model).
+// kernel (flash_attn_carry.cu), at TD = 128 and 64 the MID-FC full
+// attention in bf16 at d_model 128 and 64 (8 heads of 128 or 64: the
+// factory sets d_k = d_v = d_model; a ring at d_k below 64 comes
+// zero-padded to 64).
 //
 // Replaces: csn_tpu/ops/flash.py _flash_forward (Pallas body _fwd_kernel,
 // dropout mask _drop_mask) at bf16 heads up to 128; and flash_forward_carry
 // (Pallas body _fwd_carry_kernel), which the JAX package reaches through
-// ops/attention.py ring_flash_attention, at bf16 heads of 128.
+// ops/attention.py ring_flash_attention, at bf16 heads of 64 and 128.
 //
 // The body (flash_attn.cu states the function, the dropout identity and the
 // bound): one block of 4 warps per (batch*head, 64-query tile), each warp
@@ -45,12 +46,12 @@
 // col_off + column). drop_words assumes a key tile on a multiple of 4
 // columns; a ring hop's block may start anywhere (col_off = origin * Lk),
 // so ANY_COL draws each lane's two columns of a fragment row with
-// csn::dropout_words (one or two Philox calls a run: up to four times
-// drop_words' one call); flash_attn_carry.cu picks it when dropout is on
-// and col_off % 4 != 0. The carry touches device memory once before the key
-// loop (the accumulators it fills are O, which the loop holds either way)
-// and once in the epilogue; K2's form (CARRY false) is the same code with
-// the carry's branches compiled out.
+// csn::dropout_words (flash_tc.cuh keep_bits_any: one or two Philox calls
+// a run, up to four times drop_words' one call); flash_attn_carry.cu picks
+// it when dropout is on and col_off % 4 != 0. The carry touches device
+// memory once before the key loop (the accumulators it fills are O, which
+// the loop holds either way) and once in the epilogue; K2's form (CARRY
+// false) is the same code with the carry's branches compiled out.
 // The kernels and their launcher have internal linkage: both entry points
 // (flash_attn.cu, flash_attn_carry.cu) include this file.
 
@@ -91,13 +92,18 @@ __device__ __forceinline__ FwdSmem<TD>& fwd_smem() {
   }
 }
 
-// four blocks per SM up to TD = 64 (128 registers a thread at TD = 64):
-// faster than three with the registers the compiler would take otherwise;
-// two at TD = 128, as many as its shared memory allows. CARRY: the carry
-// form (out and lse unused; cy read and written); ANY_COL: the dropout
-// words at a column offset that is no multiple of 4
+// Blocks per SM: four up to TD = 64 (128 registers a thread at TD = 64),
+// faster than three with the registers the compiler would take otherwise
+// (the carry form at 64 too: 128 registers without spills, against 154 at
+// three blocks); three for the carry form's ANY_COL path at 64, which
+// spills 364 bytes under 128 registers and takes 168 at three (10.8 ms
+// against 14.2 at the ring of one [2, 8, 10000, 64] on an H100); two at
+// TD = 128, as many as its shared memory allows. CARRY: the carry form
+// (out and lse unused; cy read and written); ANY_COL: the dropout words at
+// a column offset that is no multiple of 4
 template <int TD, bool CARRY, bool ANY_COL>
-__global__ void __launch_bounds__(THREADS, TD <= 64 ? 4 : 2)
+__global__ void __launch_bounds__(THREADS,
+                                  TD > 64 ? 2 : (CARRY && ANY_COL ? 3 : 4))
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
                     const uint8_t* __restrict__ kv_mask,
@@ -168,22 +174,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   const uint32_t row = (uint32_t)(q0 + warp * 16 + g);
-  if (CARRY && any_key) {  // the carry in, in the body's units
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = (int)row + 8 * h;
-      if (r >= Lq) continue;
-      m[h] = cy.m_in[row_base + r] * LOG2E;
-      l[h] = t == 0 ? cy.l_in[row_base + r] : 0.f;
-      const float* ai = cy.acc_in + (row_base + r) * TD + 2 * t;
-#pragma unroll
-      for (int nb = 0; nb < TD / 8; ++nb) {
-        const float2 a = *reinterpret_cast<const float2*>(ai + 8 * nb);
-        o[nb][2 * h] = a.x;
-        o[nb][2 * h + 1] = a.y;
-      }
-    }
-  }
+  if (CARRY && any_key)  // the carry in, in the body's units
+    carry_in<TD>(cy, row_base, (int)row, Lq, t, m, l, o);
 
   for (int buf = 0; kt < nt; buf ^= 1) {
     cp_async_wait<0>();
@@ -242,18 +234,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const uint32_t grow = (uint32_t)row_off + row;
         const uint32_t col = (uint32_t)(col_off + kt * TILE);
         if constexpr (ANY_COL) {
-#pragma unroll
-          for (int nb = 0; nb < 8; ++nb) {  // rows g, g + 8; columns 2t, + 1
-            uint32_t w0[2], w1[2];
-            csn::dropout_words<2>(seed, (uint32_t)bh, grow,
-                                  col + 8 * nb + 2 * t, w0);
-            csn::dropout_words<2>(seed, (uint32_t)bh, grow + 8u,
-                                  col + 8 * nb + 2 * t, w1);
-            const uint32_t w[4] = {w0[0], w0[1], w1[0], w1[1]};
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              kb |= (w[e] < thresh ? 1u : 0u) << (4 * nb + e);
-          }
+          kb = keep_bits_any(seed, (uint32_t)bh, grow, col, thresh, t);
         } else {
           kb = keep_bits(seed, (uint32_t)bh, grow, col, thresh, t);
         }
@@ -280,25 +261,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = (int)row + 8 * h;
     if (r >= Lq) continue;
     if constexpr (CARRY) {  // raw, or the carry in where the row passes
-      const int64_t rr = row_base + r;
-      float* ao = cy.acc_out + rr * TD + 2 * t;
-      const bool through = !any_key || !q_mask[(int64_t)b * Lq + r];
-      if (through) {
-        const float* ai = cy.acc_in + rr * TD + 2 * t;
-#pragma unroll
-        for (int nb = 0; nb < TD / 8; ++nb)
-          *reinterpret_cast<float2*>(ao + 8 * nb) =
-              *reinterpret_cast<const float2*>(ai + 8 * nb);
-      } else {
-#pragma unroll
-        for (int nb = 0; nb < TD / 8; ++nb)
-          *reinterpret_cast<float2*>(ao + 8 * nb) =
-              make_float2(o[nb][2 * h], o[nb][2 * h + 1]);
-      }
-      if (t == 0) {
-        cy.m_out[rr] = through ? cy.m_in[rr] : m[h] * LN2;
-        cy.l_out[rr] = through ? cy.l_in[rr] : l[h];
-      }
+      carry_out<TD>(cy, row_base + r,
+                    !any_key || !q_mask[(int64_t)b * Lq + r], h, t, m[h],
+                    l[h], o);
       continue;
     }
     const float den = fmaxf(l[h], 1e-30f);

@@ -14,10 +14,11 @@
 // per-hop backward of the MID-FC full attention in f32 at d_model 256 and
 // 128.
 //
-// Same function and outputs as flash_bwd_wide.cuh (whose comment states
-// it), in two deterministic passes without atomics, from the saved
-// log-sum-exp rows and delta = rowsum(dO o O); query tiles with no valid
-// query and key tiles with no valid key skipped; masked keys give p = 0;
+// Same function and outputs as flash_attn_bwd.cu states (on one key block,
+// as flash_attn_block_bwd.cu states), in two deterministic passes without
+// atomics, from the saved log-sum-exp rows and delta = rowsum(dO o O);
+// query tiles with no valid query and key tiles with no valid key skipped;
+// masked keys give p = 0;
 // 1/T applied to the f32 scores, exp2 with log2 e folded in (as
 // flash_tc.cuh). Drop carries row_off / col_off and the dQ pass takes a
 // DQ_T, so a per-key-block form (the ring's block backward) can launch the

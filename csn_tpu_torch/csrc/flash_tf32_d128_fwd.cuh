@@ -69,11 +69,12 @@
 // col_off + column). keep_bits_n's lane pairs share a Philox group, which
 // assumes a key tile on a multiple of 4 columns; a ring hop's block may
 // start anywhere (col_off = origin * Lk), so ANY_COL draws each lane's two
-// columns of a fragment row with csn::dropout_words (one or two Philox
-// calls a run: up to four times keep_bits_n's); flash_attn_carry.cu picks
-// it when dropout is on and col_off % 4 != 0. The carry touches device
-// memory once before the key loop (the accumulators it fills are O, which
-// the loop holds either way) and once in the epilogue; K2's form
+// columns of a fragment row with csn::dropout_words (flash_tc.cuh
+// keep_bits_any: one or two Philox calls a run, up to four times
+// keep_bits_n's); flash_attn_carry.cu picks it when dropout is on and
+// col_off % 4 != 0. The carry touches device memory once before the key
+// loop (flash_tc.cuh carry_in; the accumulators it fills are O, which the
+// loop holds either way) and once in the epilogue (carry_out); K2's form
 // (CARRY false) is the same code with the carry's branches compiled out.
 // The kernels and their launcher have internal linkage: both entry points
 // (flash_attn.cu, flash_attn_carry.cu) include this file.
@@ -85,11 +86,14 @@
 namespace csn_tf32_d128 {
 namespace {
 
+using csn_tc::carry_in;
+using csn_tc::carry_out;
 using csn_tc::cp_async16;
 using csn_tc::cp_async_commit;
 using csn_tc::cp_async_wait;
 using csn_tc::exp2_approx;
 using csn_tc::find_live;
+using csn_tc::keep_bits_any;
 using csn_tc::LN2;
 using csn_tc::LOG2E;
 using csn_tc::NEG_INF;
@@ -225,22 +229,8 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
   float o[D / 8][4];
   zero(o);
   const uint32_t row = (uint32_t)(q0 + r0 + g);
-  if (CARRY && any_key) {  // the carry in, in the body's units
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = (int)row + 8 * h;
-      if (r >= Lq) continue;
-      m[h] = cy.m_in[row_base + r] * LOG2E;
-      l[h] = t == 0 ? cy.l_in[row_base + r] : 0.f;
-      const float* ai = cy.acc_in + (row_base + r) * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const float2 a = ld2(ai + 8 * n);
-        o[n][2 * h] = a.x;
-        o[n][2 * h + 1] = a.y;
-      }
-    }
-  }
+  if (CARRY && any_key)  // the carry in, in the body's units
+    carry_in<D>(cy, row_base, (int)row, Lq, t, m, l, o);
 
   for (int buf = 0; kt < nt; buf ^= 1) {
     cp_async_wait<0>();
@@ -296,18 +286,8 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
         const uint32_t grow = (uint32_t)drop.row_off + row;
         const uint32_t col = (uint32_t)(drop.col_off + kt * KT);
         if constexpr (ANY_COL) {
-#pragma unroll
-          for (int n = 0; n < NB; ++n) {  // rows g, g + 8; columns 2t, + 1
-            uint32_t w0[2], w1[2];
-            csn::dropout_words<2>(drop.seed, (uint32_t)bh, grow,
-                                  col + 8 * n + 2 * t, w0);
-            csn::dropout_words<2>(drop.seed, (uint32_t)bh, grow + 8u,
-                                  col + 8 * n + 2 * t, w1);
-            const uint32_t w[4] = {w0[0], w0[1], w1[0], w1[1]};
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              kb |= (w[e] < drop.thresh ? 1u : 0u) << (4 * n + e);
-          }
+          kb = keep_bits_any<NB>(drop.seed, (uint32_t)bh, grow, col,
+                                 drop.thresh, t);
         } else {
           kb = keep_bits_n<NB>(drop, (uint32_t)bh, grow, col, t);
         }
@@ -352,24 +332,9 @@ flash_fwd_tf32_d128_kernel(const float* __restrict__ q,
     const int r = (int)row + 8 * h;
     if (r >= Lq) continue;
     if constexpr (CARRY) {  // raw, or the carry in where the row passes
-      const int64_t rr = row_base + r;
-      float* ao = cy.acc_out + rr * D + 2 * t;
-      const bool through = !any_key || !q_mask[(int64_t)b * Lq + r];
-      if (through) {
-        const float* ai = cy.acc_in + rr * D + 2 * t;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(ao + 8 * n) = ld2(ai + 8 * n);
-      } else {
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(ao + 8 * n) =
-              make_float2(o[n][2 * h], o[n][2 * h + 1]);
-      }
-      if (t == 0) {
-        cy.m_out[rr] = through ? cy.m_in[rr] : m[h] * LN2;
-        cy.l_out[rr] = through ? cy.l_in[rr] : l[h];
-      }
+      carry_out<D>(cy, row_base + r,
+                   !any_key || !q_mask[(int64_t)b * Lq + r], h, t, m[h],
+                   l[h], o);
       continue;
     }
     const float den = fmaxf(l[h], 1e-30f);

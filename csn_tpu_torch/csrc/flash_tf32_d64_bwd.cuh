@@ -1,13 +1,17 @@
 // Masked flash attention backward in f32 at head dim 64 on the tensor
 // cores, in split TF32 (3xTF32), from the building blocks of flash_tf32.cuh
-// and the tiles of flash_tf32_d64_fwd.cuh. flash_attn_bwd.cu dispatches
-// f32, D = 64 here (and every f32 head dim below 64, zero-padded to 64 by
-// its wrapper).
+// and the tiles of flash_tf32_d64_fwd.cuh, in two forms: K2's backward
+// (flash_attn_bwd.cu dispatches f32, D = 64 here, and every f32 head dim
+// below 64, zero-padded to 64 by its wrapper), and the block form of the
+// ring's per-hop backward (flash_attn_block_bwd.cu, f32 at D = 64: the
+// MID-FC full attention at d_model 64, 8 heads of 64).
 //
 // Replaces: csn_tpu/ops/flash.py _flash_backward (Pallas body
 // _bwd_fused_kernel) at the HRNet heads with f32 activations (d_model 256
 // in 4 heads of 64): the attention backward of the SSA and CSA calls of the
-// HRNetSimCSN train step.
+// HRNetSimCSN train step; and flash_block_backward (the same Pallas body on
+// one kv block), which the JAX package reaches through the custom VJP of
+// ops/attention.py ring_flash_attention, at f32 heads of 64.
 //
 // Same function and outputs as flash_attn_bwd.cu states: dQ, dK, dV from
 // the saved log-sum-exp rows and delta = rowsum(dO o O), the forward's
@@ -55,6 +59,15 @@
 // bytes, 8.1 GB at the HRNet SSA call [16, 4, 5632, 64], whose write and
 // read (16 GB) would take about 4.8 ms at 3.35 TB/s; at D = 64 the two
 // recomputed products cost a quarter of D = 256's per (query, key) pair.
+//
+// The block form (BLOCK) runs the same two passes on one key block of a
+// ring, given the GLOBAL lse, delta and dO, and returns the block's dK, dV
+// and its f32 term of dQ, which the caller adds over the hops
+// (ops/attention.py RingFlashAttentionFn). Its dropout words are keyed by
+// absolute (batch*head, row_off + row, col_off + column), through
+// keep_bits_any (ANY_COL; flash_tc.cuh) where the block starts off a
+// multiple of 4 columns. K2's form (BLOCK false) is the same code with the
+// offsets compiled out.
 
 #pragma once
 
@@ -154,6 +167,21 @@ __device__ __forceinline__ void accumulate_t(float (&acc)[D / 8][4],
   }
 }
 
+// The block form's keep bits of N 8-key fragments, query rows `row` (+ 8)
+// and keys col0 .. of the launch at (row_off + row, col_off + col0) in the
+// global score matrix (keep_bits_n's layout); keep_bits_any where the key
+// block starts off a multiple of 4 columns (ANY_COL)
+template <int N, bool ANY_COL>
+__device__ __forceinline__ uint32_t block_keep_bits(const Drop& drop,
+                                                    uint32_t bh, int row,
+                                                    int col0, int t) {
+  const uint32_t grow = (uint32_t)(drop.row_off + row);
+  const uint32_t col = (uint32_t)(drop.col_off + col0);
+  return ANY_COL
+             ? keep_bits_any<N>(drop.seed, bh, grow, col, drop.thresh, t)
+             : keep_bits_n<N>(drop, bh, grow, col, t);
+}
+
 // rows row0 + g (+ 8) of a [L, 64] f32 matrix from a warp's accumulator,
 // times f
 __device__ __forceinline__ void store_rows(float* dst,
@@ -194,6 +222,10 @@ struct DkdvSmem {
   float kval[TILE];
 };
 
+// BLOCK: the block form (the rows and keys at drop.row_off / col_off of the
+// global score matrix); ANY_COL: its key block starts off a multiple of 4
+// columns
+template <bool BLOCK, bool ANY_COL>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_tf32_d64_dkdv_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
@@ -283,10 +315,15 @@ flash_bwd_tf32_d64_dkdv_kernel(const float* __restrict__ q,
       load_a(a, gs, m0, ks, g, t);
       return a;
     }, sm.v, n0, g, t);
-    const uint32_t kb =
-        drop.on ? keep_bits_n<4>(drop, (uint32_t)bh, (uint32_t)row,
-                                 (uint32_t)(kv0 + n0), t)
-                : 0u;
+    uint32_t kb = 0u;
+    if (drop.on) {
+      if constexpr (!BLOCK)
+        kb = keep_bits_n<4>(drop, (uint32_t)bh, (uint32_t)row,
+                            (uint32_t)(kv0 + n0), t);
+      else
+        kb = block_keep_bits<4, ANY_COL>(drop, (uint32_t)bh, row, kv0 + n0,
+                                         t);
+    }
     probs_and_ds(s, dp, sm.kval + n0, sc, lse2, dl, drop, kb, t);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -327,6 +364,7 @@ struct DqSmem {
   float kval[2][TILE];
 };
 
+template <bool BLOCK, bool ANY_COL>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_tf32_d64_dq_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
@@ -405,11 +443,15 @@ flash_bwd_tf32_d64_dq_kernel(const float* __restrict__ q,
       load_a(a, sm.dout, m0, ks, g, t);
       return a;
     }, sm.v[buf], 0, g, t);
-    const uint32_t kb = drop.on ? keep_bits(drop.seed, (uint32_t)bh,
-                                            (uint32_t)row,
-                                            (uint32_t)(kt * TILE),
-                                            drop.thresh, t)
-                                : 0u;
+    uint32_t kb = 0u;
+    if (drop.on) {
+      if constexpr (!BLOCK)
+        kb = keep_bits(drop.seed, (uint32_t)bh, (uint32_t)row,
+                       (uint32_t)(kt * TILE), drop.thresh, t);
+      else
+        kb = block_keep_bits<8, ANY_COL>(drop, (uint32_t)bh, row,
+                                         kt * TILE, t);
+    }
     probs_and_ds(s, dp, sm.kval[buf], sc, lse2, dl, drop, kb, t);
     // dQ += dS K, each half of the head's sum over the tile from zero
 #pragma unroll
@@ -435,8 +477,13 @@ flash_bwd_tf32_d64_dq_kernel(const float* __restrict__ q,
 }
 
 // Both passes on f32 q, k, v, dout [B, H, L, 64] (16-byte aligned), lse and
-// delta [B, H, Lq] f32: dq, dk, dv f32. drop.row_off and col_off are
-// unused. Returns the first CUDA error; never another kernel.
+// delta [B, H, Lq] f32: dq, dk, dv f32. K2 (BLOCK false: drop.row_off and
+// col_off unused) or the block form (dq the block's term; drop.row_off /
+// col_off place the rows and keys in the global score matrix; ANY_COL when
+// dropout is on and drop.col_off % 4 != 0). Returns the first CUDA error;
+// never another kernel. Each entry point instantiates only the forms it
+// launches (flash_attn_bwd.cu K2, flash_attn_block_bwd.cu the block form).
+template <bool BLOCK = false, bool ANY_COL = false>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* kv_mask, const void* q_mask, void* dq,
@@ -446,10 +493,10 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   constexpr int smem_kv = (int)sizeof(DkdvSmem);
   constexpr int smem_q = (int)sizeof(DqSmem);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_tf32_d64_dkdv_kernel,
+      flash_bwd_tf32_d64_dkdv_kernel<BLOCK, ANY_COL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_tf32_d64_dq_kernel,
+  err = cudaFuncSetAttribute(flash_bwd_tf32_d64_dq_kernel<BLOCK, ANY_COL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_q);
   if (err != cudaSuccess) return err;
@@ -463,16 +510,18 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   const uint8_t* qm = static_cast<const uint8_t*>(q_mask);
   if (Lk > 0) {
     const dim3 grid_kv((unsigned)((Lk + TILE - 1) / TILE), (unsigned)(B * H));
-    flash_bwd_tf32_d64_dkdv_kernel<<<grid_kv, THREADS, smem_kv, stream>>>(
-        qt, kt, vt, gt, lt, dt, km, qm, static_cast<float*>(dk),
-        static_cast<float*>(dv), H, Lq, Lk, inv_temp, drop);
+    flash_bwd_tf32_d64_dkdv_kernel<BLOCK, ANY_COL>
+        <<<grid_kv, THREADS, smem_kv, stream>>>(
+            qt, kt, vt, gt, lt, dt, km, qm, static_cast<float*>(dk),
+            static_cast<float*>(dv), H, Lq, Lk, inv_temp, drop);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const dim3 grid_q((unsigned)((Lq + TILE - 1) / TILE), (unsigned)(B * H));
-  flash_bwd_tf32_d64_dq_kernel<<<grid_q, THREADS, smem_q, stream>>>(
-      qt, kt, vt, gt, lt, dt, km, qm, static_cast<float*>(dq), H, Lq, Lk,
-      inv_temp, drop);
+  flash_bwd_tf32_d64_dq_kernel<BLOCK, ANY_COL>
+      <<<grid_q, THREADS, smem_q, stream>>>(
+          qt, kt, vt, gt, lt, dt, km, qm, static_cast<float*>(dq), H, Lq, Lk,
+          inv_temp, drop);
   return cudaGetLastError();
 }
 

@@ -1,13 +1,18 @@
 // Masked flash attention forward (online softmax) in f32 at head dim 64 on
 // the tensor cores, in split TF32 (3xTF32), from the building blocks of
-// flash_tf32.cuh. flash_attn.cu dispatches f32, D = 64 here (and every f32
-// head dim below 64, which its wrapper zero-pads to 64).
+// flash_tf32.cuh, in two forms: K2 (flash_attn.cu dispatches f32, D = 64
+// here, and every f32 head dim below 64, which its wrapper zero-pads to
+// 64), and the carry form of the ring's per-hop kernel
+// (flash_attn_carry.cu, f32 at D = 64: the MID-FC full attention at
+// d_model 64, 8 heads of 64, and any ring at d_k below 64, zero-padded).
 //
 // Replaces: csn_tpu/ops/flash.py _flash_forward (Pallas body _fwd_kernel,
 // dropout mask _drop_mask) at the HRNet heads with f32 activations
 // (d_model 256 in 4 heads of 64, `--compute_dtype float32`, the JAX
 // package's choice off the TPU): K2 of the SSA and CSA calls of the
-// HRNetSimCSN eval request and train step.
+// HRNetSimCSN eval request and train step; and flash_forward_carry (Pallas
+// body _fwd_carry_kernel), which the JAX package reaches through
+// ops/attention.py ring_flash_attention, at f32 heads of 64.
 //
 // Same function as flash_attn.cu states: online softmax over the key tiles,
 // masked keys at NEG_INF (p = 0), the denominator floored at 1e-30, lse
@@ -52,6 +57,22 @@
 //     on the tensor cores and added to O in f32 (O <- O alpha + P V): the
 //     tensor cores' accumulation truncates, and over thousands of keys its
 //     error would pass 1e-4 of the sum.
+//
+// The carry form (CARRY) runs the same body over one key block with the
+// online-softmax state carried in and out raw, by the contract of
+// flash_tf32_d128_fwd.cuh's carry form (csn::Carry, ops/attention.py
+// online_block_update's units): m_in enters as m_in log2 e, l_in on lane
+// t = 0 of the row's quad, acc_in at the lane's C-fragment positions of O;
+// out go m ln 2, the quad-reduced l and O undivided, no lse; a query tile
+// with no valid row, a block with no live key tile and a row whose q_mask
+// is false inside a live tile keep the carry bit for bit. The dropout words
+// are keyed by absolute (batch*head, row_off + row, col_off + column),
+// through keep_bits where the block starts on a multiple of 4 columns and
+// keep_bits_any (ANY_COL; flash_tc.cuh) where it does not. K2's form (CARRY
+// false) is the same code with the carry's branches compiled out. The
+// kernels and their launcher have internal linkage: flash_attn.cu,
+// flash_attn_bwd.cu, flash_attn_carry.cu and flash_attn_block_bwd.cu include
+// this file.
 
 #pragma once
 
@@ -60,6 +81,8 @@
 namespace csn_tf32_d64 {
 namespace {
 
+using csn_tc::carry_in;
+using csn_tc::carry_out;
 using csn_tc::cp_async16;
 using csn_tc::cp_async_commit;
 using csn_tc::cp_async_wait;
@@ -67,6 +90,7 @@ using csn_tc::drop_words;
 using csn_tc::exp2_approx;
 using csn_tc::find_live;
 using csn_tc::keep_bits;
+using csn_tc::keep_bits_any;
 using csn_tc::LN2;
 using csn_tc::LOG2E;
 using csn_tc::NEG_INF;
@@ -78,7 +102,8 @@ using csn_tf32::ld2;
 using csn_tf32::mma_tf32;
 using csn_tf32::split_a;
 using csn_tf32::split_b;
-using Drop = csn_tf32::Drop;
+using csn::Carry;
+using Drop = csn::Drop;
 
 constexpr int D = 64;          // head dim
 constexpr int THREADS = 128;   // 4 warps x 16 query rows
@@ -193,6 +218,9 @@ struct FwdSmem {
   float kval[2][TILE];  // key flags of the tile in each buffer
 };
 
+// CARRY: the carry form (out and lse unused; cy read and written); ANY_COL:
+// the dropout words at a column offset that is no multiple of 4
+template <bool CARRY, bool ANY_COL>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_tf32_d64_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -200,7 +228,8 @@ flash_fwd_tf32_d64_kernel(const float* __restrict__ q,
                           const uint8_t* __restrict__ kv_mask,
                           const uint8_t* __restrict__ q_mask,
                           float* __restrict__ out, float* __restrict__ lse,
-                          int H, int Lq, int Lk, float inv_temp, Drop drop) {
+                          int H, int Lq, int Lk, float inv_temp, Drop drop,
+                          Carry cy) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -213,20 +242,25 @@ flash_fwd_tf32_d64_kernel(const float* __restrict__ q,
   float* op = out + (int64_t)bh * Lq * D;
   float* lp = lse + (int64_t)bh * Lq;
   const uint8_t* km = kv_mask + (int64_t)b * Lk;
+  const int64_t row_base = (int64_t)bh * Lq;
 
   int qlive = 0;
   if (tid < TILE) {
     const int r = q0 + tid;
     qlive = r < Lq && q_mask[(int64_t)b * Lq + r];
   }
-  if (!__syncthreads_or(qlive)) {  // padding tile: zeros
-    for (int i = tid; i < TILE * D / 4; i += THREADS) {
-      const int r = q0 + i / (D / 4);
-      if (r < Lq)
-        reinterpret_cast<float4*>(op + (int64_t)r * D)[i % (D / 4)] =
-            make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!__syncthreads_or(qlive)) {  // padding tile: zeros, or the carry
+    if constexpr (CARRY) {
+      csn::carry_through<D, TILE, THREADS>(cy, row_base, q0, Lq, tid);
+    } else {
+      for (int i = tid; i < TILE * D / 4; i += THREADS) {
+        const int r = q0 + i / (D / 4);
+        if (r < Lq)
+          reinterpret_cast<float4*>(op + (int64_t)r * D)[i % (D / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (tid < TILE && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
     }
-    if (tid < TILE && q0 + tid < Lq) lp[q0 + tid] = NEG_INF + logf(1e-30f);
     return;
   }
 
@@ -238,6 +272,7 @@ flash_fwd_tf32_d64_kernel(const float* __restrict__ q,
   copy_rows<TILE, THREADS>(sm.q, qp, q0, Lq, tid);
   int live = row_live(km, Lk, 0, tid);
   int kt = find_live(0, nt, live, km, Lk, tid);
+  const bool any_key = kt < nt;  // else the carry passes through
   if (kt < nt) {
     if (tid < TILE) sm.kval[0][tid] = live ? 1.f : 0.f;
     copy_rows<TILE, THREADS>(sm.k[0], kp, kt * TILE, Lk, tid);
@@ -258,6 +293,8 @@ flash_fwd_tf32_d64_kernel(const float* __restrict__ q,
   float o[D / 8][4];
   zero(o);
   const uint32_t row = (uint32_t)(q0 + r0 + g);
+  if (CARRY && any_key)  // the carry in, in the body's units
+    carry_in<D>(cy, row_base, (int)row, Lq, t, m, l, o);
 
   for (int buf = 0; kt < nt; buf ^= 1) {
     cp_async_wait<0>();
@@ -306,8 +343,18 @@ flash_fwd_tf32_d64_kernel(const float* __restrict__ q,
         l[e >> 1] += s[n][e];  // undropped: the denominator
       }
     if (drop.on) {  // numerator only
-      const uint32_t kb = keep_bits(drop.seed, (uint32_t)bh, row,
-                                    (uint32_t)(kt * TILE), drop.thresh, t);
+      uint32_t kb = 0u;
+      if constexpr (!CARRY) {
+        kb = keep_bits(drop.seed, (uint32_t)bh, row, (uint32_t)(kt * TILE),
+                       drop.thresh, t);
+      } else {  // rows and keys at their offsets in the global matrix
+        const uint32_t grow = (uint32_t)drop.row_off + row;
+        const uint32_t col = (uint32_t)(drop.col_off + kt * TILE);
+        kb = ANY_COL ? keep_bits_any(drop.seed, (uint32_t)bh, grow, col,
+                                     drop.thresh, t)
+                     : keep_bits(drop.seed, (uint32_t)bh, grow, col,
+                                 drop.thresh, t);
+      }
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -343,6 +390,12 @@ flash_fwd_tf32_d64_kernel(const float* __restrict__ q,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int r = (int)row + 8 * h;
     if (r >= Lq) continue;
+    if constexpr (CARRY) {  // raw, or the carry in where the row passes
+      carry_out<D>(cy, row_base + r,
+                   !any_key || !q_mask[(int64_t)b * Lq + r], h, t, m[h],
+                   l[h], o);
+      continue;
+    }
     const float den = fmaxf(l[h], 1e-30f);
     const float inv = 1.f / den;
 #pragma unroll
@@ -354,26 +407,32 @@ flash_fwd_tf32_d64_kernel(const float* __restrict__ q,
   }
 }
 
-// K2 on f32 q, k, v [B, H, L, 64] (16-byte aligned): out [B, H, Lq, 64]
-// and lse [B, H, Lq] f32. drop.row_off and col_off are unused (K2's rows
-// and keys are the whole score matrix). Returns the first CUDA error; never
-// another kernel.
+// Launches one body on f32 q, k, v [B, H, L, 64] (16-byte aligned): K2
+// (CARRY false: out [B, H, Lq, 64] and lse [B, H, Lq] f32 written;
+// drop.row_off and col_off unused, K2's rows and keys are the whole score
+// matrix) or the carry form (cy read and written, acc 16-byte aligned;
+// drop.row_off / col_off place the query rows and the keys in the global
+// score matrix; ANY_COL when dropout is on and drop.col_off % 4 != 0).
+// Returns the first CUDA error; never another kernel. Each entry point
+// instantiates only the forms it launches (flash_attn.cu K2,
+// flash_attn_carry.cu the carry).
+template <bool CARRY = false, bool ANY_COL = false>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* kv_mask, const void* q_mask, void* out,
-                       void* lse, int B, int H, int Lq, int Lk,
-                       float inv_temp, const Drop& drop,
+                       void* lse, const Carry& cy, int B, int H, int Lq,
+                       int Lk, float inv_temp, const Drop& drop,
                        cudaStream_t stream) {
   constexpr int smem = (int)sizeof(FwdSmem);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tf32_d64_kernel,
+      flash_fwd_tf32_d64_kernel<CARRY, ANY_COL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((Lq + TILE - 1) / TILE), (unsigned)(B * H));
-  flash_fwd_tf32_d64_kernel<<<grid, THREADS, smem, stream>>>(
+  flash_fwd_tf32_d64_kernel<CARRY, ANY_COL><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(kv_mask),
       static_cast<const uint8_t*>(q_mask), static_cast<float*>(out),
-      static_cast<float*>(lse), H, Lq, Lk, inv_temp, drop);
+      static_cast<float*>(lse), H, Lq, Lk, inv_temp, drop, cy);
   return cudaGetLastError();
 }
 

@@ -48,8 +48,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # cores) apart, under "_tf32", and K2 and its backward those of their f32
 # split-TF32 bodies at D=64 and D=128, under "_tf32_d64" and "_tf32_d128",
 # and of their bf16 bodies at widths 128 and 256, under "_bf16_wide", as the
-# ring's carry and block backward do of their f32 bodies at width 128 and
-# their bf16 bodies at widths 128 and 256 (`ops.flash.ring_row`)
+# ring's carry and block backward do of their f32 bodies at widths 64 and
+# 128 ("_tf32_d64", "_tf32_d128"), their bf16 bodies at width 64
+# ("_bf16_d64") and at widths 128 and 256 (`ops.flash.ring_row`)
 LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0,
             "sparse_conv_fwd_tf32": 0, "sparse_conv_dw_tf32": 0,
             "flash_attn_fwd": 0, "flash_attn_bwd": 0,
@@ -57,6 +58,10 @@ LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_dw": 0,
             "flash_attn_fwd_tf32_d128": 0, "flash_attn_bwd_tf32_d128": 0,
             "flash_attn_fwd_bf16_wide": 0, "flash_attn_bwd_bf16_wide": 0,
             "flash_attn_carry": 0, "flash_attn_block_bwd": 0,
+            "flash_attn_carry_tf32_d64": 0,
+            "flash_attn_block_bwd_tf32_d64": 0,
+            "flash_attn_carry_bf16_d64": 0,
+            "flash_attn_block_bwd_bf16_d64": 0,
             "flash_attn_carry_tf32_d128": 0,
             "flash_attn_block_bwd_tf32_d128": 0,
             "flash_attn_carry_bf16_wide": 0,

@@ -28,8 +28,9 @@ scratch.
   refuse: no body is built wider than the MID-FC heads. bf16 runs K2 and
   its backward on the tensor cores at every width (`mma.sync` with f32
   accumulators, `cp.async` and `ldmatrix` tiles): at D = 16, 32 and 64 (64:
-  the HRNet heads) both directions in one template over D
-  (`csrc/flash_tc.cuh`), and so the forward at D = 128; the forward at
+  the HRNet heads) both directions in one template over D each
+  (`csrc/flash_tc_fwd.cuh`, `csrc/flash_tc_bwd.cuh`, over the blocks of
+  `csrc/flash_tc.cuh`), and so the forward at D = 128; the forward at
   D = 256 and the backward at 128 and 256 (d_model 256 in 2 heads or 1, the
   MID-FC heads in bf16) in a layout of 8 warps that split D among them
   (`csrc/flash_bf16_wide_fwd.cuh`, `csrc/flash_bf16_wide_bwd.cuh`; the
@@ -44,23 +45,22 @@ scratch.
   and the passes of `csrc/flash_tf32_bwd.cuh` at half the width, handing
   dS^T to the dQ pass through an f32 scratch; launches counted apart under
   `"_tf32_d128"`) and at D = 64 (in 4 heads; `csrc/flash_tf32_d64_fwd.cuh`,
-  `csrc/flash_tf32_d64_bwd.cuh`, under `"_tf32_d64"`). The ring's forms at
-  64 in both dtypes (a ring at d_k <= 64) take the f32 CUDA-core kernels
-  that walk D in chunks of 64 (`csrc/flash_wide.cuh`,
-  `csrc/flash_bwd_wide.cuh`).
+  `csrc/flash_tf32_d64_bwd.cuh`, under `"_tf32_d64"`). No attention body
+  runs on the CUDA cores.
 * Carry forward (`csrc/flash_attn_carry.cu`, `flash_forward_carry`): K2's
   loop over ONE key block with the running max, denominator and f32
   accumulator carried in and written back raw; `flash_carry_finalize`
   divides once. A chain over disjoint key blocks equals one K2 pass over
-  their union. At D = 256 (the ring's shape, the MID-FC heads) and 128
-  (the MID-FC heads at d_model 128) it runs the carry form of K2's
+  their union. At D = 256 (the ring's shape, the MID-FC heads), 128 and 64
+  (the MID-FC heads at d_model 128 and 64) it runs the carry form of K2's
   tensor-core body of its (dtype, D): f32 in split TF32
-  (`csrc/flash_tf32_fwd.cuh`; at 128 `csrc/flash_tf32_d128_fwd.cuh`,
-  launches counted apart under `"_tf32_d128"`), bf16 the split body at 256
+  (`csrc/flash_tf32_fwd.cuh`; at 128 `csrc/flash_tf32_d128_fwd.cuh` and at
+  64 `csrc/flash_tf32_d64_fwd.cuh`, launches counted apart under
+  `"_tf32_d128"` and `"_tf32_d64"`), bf16 the split body at 256
   (`csrc/flash_bf16_wide_fwd.cuh`) and the template of
-  `csrc/flash_tc_fwd.cuh` at 128, both counted under `"_bf16_wide"`
-  (`ring_row`); at 64 the CUDA-core kernel of `csrc/flash_wide.cuh`. Its
-  plain version is `ops.attention.online_block_update`.
+  `csrc/flash_tc_fwd.cuh` at 128 and 64, counted under `"_bf16_wide"` and
+  `"_bf16_d64"` (`ring_row`). Its plain version is
+  `ops.attention.online_block_update`.
 * Block backward (`csrc/flash_attn_block_bwd.cu`, `flash_block_backward`):
   the two backward passes on one key block given the GLOBAL `lse`, `delta`
   and `dout`; returns that block's dK, dV and its f32 term of dQ. At D = 256
@@ -68,8 +68,10 @@ scratch.
   dQ term (f32 `csrc/flash_tf32_bwd.cuh`, at 128 counted apart under
   `"_tf32_d128"`; bf16 `csrc/flash_bf16_wide_bwd.cuh`, counted apart under
   `"_bf16_wide"`), each handing dS^T through a scratch
-  (`DS_SCRATCH["block"]`); at 64 `csrc/flash_bwd_wide.cuh`. Its plain
-  version is `block_backward_plain`.
+  (`DS_SCRATCH["block"]`); at 64 those of K2's D = 64 bodies, which
+  recompute dS in their dQ pass (f32 `csrc/flash_tf32_d64_bwd.cuh` under
+  `"_tf32_d64"`, bf16 `csrc/flash_tc_bwd.cuh` under `"_bf16_d64"`). Its
+  plain version is `block_backward_plain`.
 * Dropout: the mask is a function of (seed, batch*head, query row, key
   column) only, through the counter-based generator Philox4x32-10, written
   twice bit for bit: `philox4x32` here (torch int64 ops, the plain
@@ -114,9 +116,9 @@ MAX_HEAD_DIM = 256
 # 4.1 GB at the HRNet SSA call in 2 heads of 128 [16, 2, 5632, 128], 6.4 GB
 # at the ring of one [2, 8, 10000, 128 or 256]), bf16 at 128 and 256 in both
 # forms (csrc/flash_bf16_wide_bwd.cuh; 3.2 GB at the ring of one). The f32
-# D = 64 body recomputes dS in its dQ pass instead (8.1 GB of scratch at the
-# HRNet SSA call in 4 heads of 64), and the ring's block backward at 64
-# (csrc/flash_bwd_wide.cuh) takes none.
+# D = 64 bodies of both dtypes, K2's backward and the ring's block form,
+# recompute dS in their dQ pass instead (the f32 scratch would be 8.1 GB at
+# the HRNet SSA call in 4 heads of 64).
 DS_SCRATCH = {"k2": {torch.float32: (128, 256),
                      torch.bfloat16: (128, 256)},
               "block": {torch.float32: (128, 256),
@@ -283,18 +285,19 @@ def k2_row(what: str, dtype: torch.dtype, d: int) -> str:
 def ring_row(what: str, dtype: torch.dtype, d: int) -> str:
     """The `kernels.LAUNCHES` row of a launch of the ring's per-block
     kernels (`what`: "flash_attn_carry" or "flash_attn_block_bwd") at head
-    dim `d` in `dtype`, as `k2_row` names K2's: `what + "_tf32_d128"` where
-    f32 runs at the width 128 (f32 head dims 65-128, on the split-TF32
-    bodies of `csrc/flash_tf32_d128_fwd.cuh` and `csrc/flash_tf32_bwd.cuh`),
-    `what + "_bf16_wide"` where bf16 runs at the widths 128 and 256 (bf16
-    head dims 65-256, on `csrc/flash_tc_fwd.cuh` and
-    `csrc/flash_bf16_wide_*.cuh`), else `what` (f32 at 256 and both dtypes
-    at 64)."""
+    dim `d` in `dtype`, as `k2_row` names K2's: `what + "_tf32_d64"` and
+    `what + "_tf32_d128"` where f32 runs at the widths 64 and 128 (f32 head
+    dims 1-64 on the split-TF32 bodies of `csrc/flash_tf32_d64_*.cuh`,
+    65-128 on those of `csrc/flash_tf32_d128_fwd.cuh` and
+    `csrc/flash_tf32_bwd.cuh`), `what + "_bf16_d64"` where bf16 runs at the
+    width 64 (bf16 head dims 1-64, on `csrc/flash_tc_fwd.cuh` and
+    `csrc/flash_tc_bwd.cuh`), `what + "_bf16_wide"` at the widths 128 and
+    256 (bf16 head dims 65-256, on `csrc/flash_tc_fwd.cuh` and
+    `csrc/flash_bf16_wide_*.cuh`), else `what` (f32 at 256)."""
     width = padded_head_dim(d, RING_HEAD_DIMS)
-    if dtype == torch.float32 and width == 128:
-        return what + "_tf32_d128"
-    wide = dtype == torch.bfloat16 and width in (128, 256)
-    return what + "_bf16_wide" if wide else what
+    if dtype == torch.float32:
+        return what + {64: "_tf32_d64", 128: "_tf32_d128"}.get(width, "")
+    return what + ("_bf16_d64" if width == 64 else "_bf16_wide")
 
 
 def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -322,12 +325,11 @@ def _masks(what, q, k, kv_mask, q_mask):
 
 
 def _require_aligned(what, *tensors):
-    """The tensor-core bodies (K2's and its backward's at every dtype and
-    head dim, the ring's at 128 and 256) copy their tiles 16 bytes at a
-    time with cp.async, and the carry kernels read the accumulator in 8-
-    and 16-byte words: a misaligned start would read the wrong bytes rather
-    than fail.
-    A zero-padded head is a fresh allocation, aligned."""
+    """The tensor-core bodies (K2's, its backward's and the ring's, at every
+    dtype and head dim) copy their tiles 16 bytes at a time with cp.async,
+    and the carry kernels read the accumulator in 8- and 16-byte words: a
+    misaligned start would read the wrong bytes rather than fail. A
+    zero-padded head is a fresh allocation, aligned."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: q, k, v (and dout, or the carry's acc) "
                          f"must start on a 16-byte boundary: the tensor-core "

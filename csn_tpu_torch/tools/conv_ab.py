@@ -30,11 +30,11 @@ time from CUDA graphs, warm L2), with the other bodies' outputs for the
 bitwise comparison (bf16 D=32 and 16 at the SSA call cut to 4 shapes; the
 ring's carry and block backward on one 2500-key block in f32 and bf16 at
 D=256 and in f32 at D=64, and over all keys of the ring of one at d_model
-128, [2, 8, 10000, 128], in f32 and bf16, timed too; the f32 pair at
-D=128, the ring's bf16 D=256 pair and its D=128 pairs are also held
-against the other checkout's outputs by value, as max|this - other| /
-max|other| within the tolerance of their type, for bodies of another
-design), and the gather probes
+128 and 64, [2, 8, 10000, 128] and [2, 8, 10000, 64], in f32 and bf16,
+timed too; the f32 pair at D=128, the ring's bf16 D=256 pair and its
+D=128 and D=64 pairs are also held against the other checkout's outputs
+by value, as max|this - other| / max|other| within the tolerance of their
+type, for bodies of another design), and the gather probes
 (`probe_gather_accum` in its three modes at the probe scripts' timing
 geometry, 352 tiles x 9 offsets x 256 rows x 128 channels, with the bf16
 window at W = 384 and the f32 window at W = 384 and 256, row ids outside
@@ -99,14 +99,18 @@ FLASH_SHAPE = (16, 4, 5632, 64)
 MIDFC_SHAPE = (80, 8, 500, 256)
 FLASH_DROPOUT, FLASH_SEED = 0.1, 0x5EED
 RING_BLOCK = 2500   # keys of one ring hop at phase 7's shape (10000 / 4)
-# the ring of one at d_model 128 (phase 7c): all 10000 keys, 8 heads of 128
-RING_ONE_128 = (2, 8, 10000, 128)
+# the ring of one at d_model 128 and 64 (phases 7c and 7d): all 10000 keys,
+# 8 heads of 128 or 64
+RING_ONE = ((2, 8, 10000, 128), (2, 8, 10000, 64))
 # the shapes whose outputs are compared across checkouts by value, with the
 # tolerance of their type (x max|other|)
 BY_VALUE = {"ring block [2,8,2500,256] bfloat16": 2e-2,
             "flash SSA [16,2,5632,128] float32": 1e-4,
+            "ring block [2,8,2500,64] float32": 1e-4,
             "ring of one [2,8,10000,128] float32": 1e-4,
-            "ring of one [2,8,10000,128] bfloat16": 2e-2}
+            "ring of one [2,8,10000,128] bfloat16": 2e-2,
+            "ring of one [2,8,10000,64] float32": 1e-4,
+            "ring of one [2,8,10000,64] bfloat16": 2e-2}
 
 
 def _median_ms(fn, reps: int, batch: int = 10) -> float:
@@ -360,14 +364,15 @@ def flash_worker(reps: int, keep: dict) -> dict:
         res[shape] = _ring_calls(
             *x, mask, reps,
             keep.setdefault(shape, {}) if shape in BY_VALUE else None)
-    # the ring of one at head dim 128 (the parent's forms there ran on the
-    # CUDA cores for up to a tenth of a second a call: graphs of 5 calls)
-    b, h, L, d = RING_ONE_128
-    for dt in (torch.float32, torch.bfloat16):
-        x, mask = inputs(b, h, L, d, dt)
-        shape = f"ring of one [{b},{h},{L},{d}] {str(dt)[6:]}"
-        res[shape] = _ring_calls(*x, mask, reps, keep.setdefault(shape, {}),
-                                 col=0, calls=5, kept_heads=2)
+    # the ring of one at head dims 128 and 64 (a form on the CUDA cores
+    # takes up to a tenth of a second a call: graphs of 5 calls)
+    for b, h, L, d in RING_ONE:
+        for dt in (torch.float32, torch.bfloat16):
+            x, mask = inputs(b, h, L, d, dt)
+            shape = f"ring of one [{b},{h},{L},{d}] {str(dt)[6:]}"
+            res[shape] = _ring_calls(*x, mask, reps,
+                                     keep.setdefault(shape, {}), col=0,
+                                     calls=5, kept_heads=2)
     return res
 
 

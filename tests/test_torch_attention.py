@@ -1114,7 +1114,8 @@ def test_block_backward_refuses_a_misaligned_view(monkeypatch):
 
 # the widths of `K2_HEAD_DIMS` whose K2 and backward run on the tensor
 # cores: bf16 at every width (16-64 and the forward at 128:
-# csrc/flash_tc.cuh; the forward at 256, the backward at 128 and 256:
+# csrc/flash_tc_fwd.cuh and csrc/flash_tc_bwd.cuh over csrc/flash_tc.cuh;
+# the forward at 256, the backward at 128 and 256:
 # csrc/flash_bf16_wide_*.cuh), f32 in split TF32 at every width (64:
 # csrc/flash_tf32_d64_*.cuh; 128 and 256: csrc/flash_tf32_*.cuh)
 TENSOR_CORE_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
@@ -1191,12 +1192,15 @@ def test_f32_d128_bodies_count_in_rows_of_their_own(dtype):
 def test_f32_d64_bodies_count_in_rows_of_their_own(dtype):
     """`k2_split_tf32_d64`, which names the launch rows: every f32 head dim
     that K2 runs at width 64 (1-64, zero-padded below 64) is on the
-    split-TF32 D=64 bodies, and no other (f32 65-256, bf16 at any)."""
+    split-TF32 D=64 bodies, and no other (f32 65-256, bf16 at any). The
+    other `"_tf32_d64"` rows are the ring's carry and block backward at 64
+    (`ring_row`), whose carry and block forms those bodies hold."""
     for d in range(1, flash.MAX_HEAD_DIM + 1):
         want = dtype == torch.float32 and d <= 64
         assert flash.k2_split_tf32_d64(dtype, d) == want, d
     assert {k for k in kernels.LAUNCHES if k.endswith("_tf32_d64")} == {
-        "flash_attn_fwd_tf32_d64", "flash_attn_bwd_tf32_d64"}
+        "flash_attn_fwd_tf32_d64", "flash_attn_bwd_tf32_d64",
+        "flash_attn_carry_tf32_d64", "flash_attn_block_bwd_tf32_d64"}
 
 
 def test_ds_scratch_only_for_the_bodies_that_read_it():

@@ -10,14 +10,15 @@ their own time limit); every rank writes what it computed to a file and the
 test compares. Tolerances: f32 against f32 <= 1e-5 abs (values of order 1);
 against the Pallas kernels in interpret mode, which take bf16 operands,
 2e-2; sharded against single-process gradients <= 1e-4·max|ref| + 1e-6.
-In bf16 at head dims 256 and 128 (the ring's `_bf16_wide` rows on the
-card): the carry chain against the Pallas carry <= 3e-2·max|ref|, and one
-MID-FC full-attention train step through a ring of one against the JAX
-step, loss <= 2e-3 relative and every gradient <= 2e-2·max|ref|. In f32 at
-head dim 128 (the `_tf32_d128` rows): the carry chain over uneven cuts
-against the dense attention and the block backwards summed against its
-full backward <= 1e-4·max|ref|, and the train step at d_model 128 against
-the JAX step, loss <= 1e-5 relative and every gradient <= 1e-4·max|ref|.
+In bf16 at head dims 256, 128 and 64 (the ring's `_bf16_wide` and
+`_bf16_d64` rows on the card): the carry chain against the Pallas carry
+<= 3e-2·max|ref|, and one MID-FC full-attention train step through a ring
+of one against the JAX step, loss <= 2e-3 relative and every gradient
+<= 2e-2·max|ref|. In f32 at head dims 128 and 64 (the `_tf32_d128` and
+`_tf32_d64` rows): the carry chain over uneven cuts against the dense
+attention and the block backwards summed against its full backward
+<= 1e-4·max|ref|, and the train step at d_model 128 and 64 against the JAX
+step, loss <= 1e-5 relative and every gradient <= 1e-4·max|ref|.
 The wrappers' launch rows, the dS^T scratch, the C dispatch and their
 refusals are pinned without a card.
 """
@@ -473,11 +474,13 @@ def test_bf16_carry_chain_matches_jax_pallas_carry():
     _bf16_carry_chain_vs_pallas(256)
 
 
-def test_bf16_d128_carry_chain_matches_jax_pallas_carry():
-    """The same chain at head dim 128, the ring's width at d_model 128 (on
-    the card the carry form of `csrc/flash_tc_fwd.cuh`, row
-    `flash_attn_carry_bf16_wide`), at the same tolerance."""
-    _bf16_carry_chain_vs_pallas(128)
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_d128_carry_chain_matches_jax_pallas_carry(d):
+    """The same chain at head dims 128 and 64, the ring's widths at d_model
+    128 and 64 (on the card the carry form of `csrc/flash_tc_fwd.cuh`, rows
+    `flash_attn_carry_bf16_wide` and `flash_attn_carry_bf16_d64`), at the
+    same tolerance."""
+    _bf16_carry_chain_vs_pallas(d)
 
 
 def _np_tree(tree):
@@ -567,23 +570,26 @@ def test_bf16_full_attention_step_through_a_ring_of_one_matches_jax(
                                                  "bfloat16"), 2e-3, 2e-2)
 
 
+@pytest.mark.parametrize("d_model", [64, 128])
 @pytest.mark.parametrize("compute_dtype,loss_rel,grad_tol", [
     ("float32", 1e-5, 1e-4), ("bfloat16", 2e-3, 2e-2)])
 def test_d_model_128_full_attention_step_through_a_ring_of_one_matches_jax(
-        monkeypatch, compute_dtype, loss_rel, grad_tol):
-    """The same step at d_model 128 (2 heads of 128: on the card the ring's
-    D=128 rows, `_tf32_d128` in f32 and `_bf16_wide` in bf16), against the
-    JAX step in the same compute dtype: in f32 the loss within 1e-5
-    relative and every gradient within 1e-4·max|ref| (the MID-FC f32
-    tolerances of `tests/test_torch_midfc.py`), in bf16 at the bf16 step's
-    2e-3 and 2e-2."""
-    _assert_step_close(*_ring_of_one_step_vs_jax(monkeypatch, 128, 2,
+        monkeypatch, compute_dtype, loss_rel, grad_tol, d_model):
+    """The same step at d_model 128 and 64 (2 heads of 128 or 64: on the
+    card the ring's D=128 rows, `_tf32_d128` in f32 and `_bf16_wide` in
+    bf16, and its D=64 rows, `_tf32_d64` and `_bf16_d64`), against the JAX
+    step in the same compute dtype: in f32 the loss within 1e-5 relative
+    and every gradient within 1e-4·max|ref| (the MID-FC f32 tolerances of
+    `tests/test_torch_midfc.py`), in bf16 at the bf16 step's 2e-3 and
+    2e-2."""
+    _assert_step_close(*_ring_of_one_step_vs_jax(monkeypatch, d_model, 2,
                                                  compute_dtype), loss_rel,
                        grad_tol)
 
 
 # ---------------------------------------------------------------------------
-# head dim 128: the ring at d_model 128 (`_tf32_d128` / `_bf16_wide` rows)
+# head dims 128 and 64: the ring at d_model 128 and 64 (`_tf32_d128` /
+# `_bf16_wide` and `_tf32_d64` / `_bf16_d64` rows)
 # ---------------------------------------------------------------------------
 
 def _inputs_d(d, seed):
@@ -604,16 +610,18 @@ def _within(got, ref, tol):
                                 f"max|ref| {tol * scale:.3e}")
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("drop", [0.0, DROP])
-def test_f32_d128_carry_chain_over_uneven_cuts_equals_dense(drop):
-    """The f32 carry chain at head dim 128 (on the card the carry form of
-    `csrc/flash_tf32_d128_fwd.cuh`, row `flash_attn_carry_tf32_d128`) over
+def test_f32_d128_carry_chain_over_uneven_cuts_equals_dense(drop, d):
+    """The f32 carry chain at head dims 128 and 64 (on the card the carry
+    forms of `csrc/flash_tf32_d128_fwd.cuh` and `csrc/flash_tf32_d64_fwd.cuh`,
+    rows `flash_attn_carry_tf32_d128` and `flash_attn_carry_tf32_d64`) over
     blocks cut at columns 1, 3 and 2 mod 4, against the dense attention
     with the same dropout mask: out and lse within 1e-4·max|ref|."""
-    q, k, v, _, mask = _inputs_d(128, 31)
-    temp = 128 ** 0.5
+    q, k, v, _, mask = _inputs_d(d, 31)
+    temp = d ** 0.5
     sd = SEED if drop else None
-    carry = flash.flash_carry_init(B, H, L, 128)
+    carry = flash.flash_carry_init(B, H, L, d)
     for a, c in zip(UNEVEN[:-1], UNEVEN[1:]):
         carry = flash.flash_forward_carry(
             q, k[:, :, a:c], v[:, :, a:c], mask[:, a:c], None, carry, temp,
@@ -625,28 +633,30 @@ def test_f32_d128_carry_chain_over_uneven_cuts_equals_dense(drop):
     _within(lse, ref_lse, 1e-4)
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("drop", [0.0, DROP])
-def test_f32_d128_block_backwards_sum_to_the_full_backward(drop):
-    """`flash_block_backward` at head dim 128 (on the card the block form of
-    `csrc/flash_tf32_bwd.cuh` at 128, row `flash_attn_block_bwd_tf32_d128`)
-    on blocks cut at columns 1, 3 and 2 mod 4, against the chain's global
-    out and lse: the f32 dQ terms summed over the blocks and the blocks' dK
-    and dV side by side equal autograd of the dense attention, within
-    1e-4·max|ref|."""
-    q, k, v, g, mask = _inputs_d(128, 37)
-    temp = 128 ** 0.5
+def test_f32_d128_block_backwards_sum_to_the_full_backward(drop, d):
+    """`flash_block_backward` at head dims 128 and 64 (on the card the block
+    forms of `csrc/flash_tf32_bwd.cuh` at 128 and
+    `csrc/flash_tf32_d64_bwd.cuh`, rows `flash_attn_block_bwd_tf32_d128` and
+    `flash_attn_block_bwd_tf32_d64`) on blocks cut at columns 1, 3 and 2
+    mod 4, against the chain's global out and lse: the f32 dQ terms summed
+    over the blocks and the blocks' dK and dV side by side equal autograd
+    of the dense attention, within 1e-4·max|ref|."""
+    q, k, v, g, mask = _inputs_d(d, 37)
+    temp = d ** 0.5
     sd = SEED if drop else None
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     ref_out = attention.scaled_dot_product_attention(
         *leaves, mask, temp, dropout=drop, seed=sd)
     refs = torch.autograd.grad(ref_out, leaves, g)
-    carry = flash.flash_carry_init(B, H, L, 128)
+    carry = flash.flash_carry_init(B, H, L, d)
     for a, c in zip(UNEVEN[:-1], UNEVEN[1:]):
         carry = flash.flash_forward_carry(
             q, k[:, :, a:c], v[:, :, a:c], mask[:, a:c], None, carry, temp,
             drop, sd, col_offset=a)
     out, lse = flash.flash_carry_finalize(carry)
-    dq = torch.zeros(B, H, L, 128)
+    dq = torch.zeros(B, H, L, d)
     dks, dvs = [], []
     for a, c in zip(UNEVEN[:-1], UNEVEN[1:]):
         dq_c, dk_c, dv_c = flash.flash_block_backward(
@@ -690,9 +700,10 @@ def test_ring_wrappers_count_rows_and_ask_for_the_ds_scratch(monkeypatch,
     """Without a card (meta tensors through the wrappers, the CUDA-device
     check and the library stubbed): at every (dtype, D) of
     `RING_HEAD_DIMS`, `flash_forward_carry` and `flash_block_backward`
-    count their launch in `ring_row`'s row (f32 at 128: the `"_tf32_d128"`
-    rows; bf16 at 128 and 256: the `"_bf16_wide"` rows; every other pair
-    the base rows), and the block backward asks for a dS^T scratch of
+    count their launch in `ring_row`'s row (f32 at 64 and 128: the
+    `"_tf32_d64"` and `"_tf32_d128"` rows; bf16 at 64: the `"_bf16_d64"`
+    rows, at 128 and 256 the `"_bf16_wide"` rows; f32 at 256 the base
+    rows), and the block backward asks for a dS^T scratch of
     B·H·ceil32(Lk)·ceil32(Lq) elements in q's dtype at 128 and 256 (f32
     and bf16) and none at 64."""
     lib = _Launcher()
@@ -720,10 +731,10 @@ def test_ring_wrappers_count_rows_and_ask_for_the_ds_scratch(monkeypatch,
     flash.flash_forward_carry(q, k, k, kv, None, carry, 16.0)
     flash.flash_block_backward(q, k, k, kv, q, lse, q, 16.0, delta=lse)
     suffix = ""
-    if dtype == torch.bfloat16 and d in (128, 256):
-        suffix = "_bf16_wide"
-    elif dtype == torch.float32 and d == 128:
-        suffix = "_tf32_d128"
+    if dtype == torch.bfloat16:
+        suffix = "_bf16_d64" if d == 64 else "_bf16_wide"
+    elif d in (64, 128):
+        suffix = f"_tf32_d{d}"
     rows = {n: n + suffix for n in (
         "flash_attn_carry", "flash_attn_block_bwd")}
     assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
@@ -739,19 +750,20 @@ def test_ring_wrappers_count_rows_and_ask_for_the_ds_scratch(monkeypatch,
 
 def test_ring_row_names_every_ring_width():
     """`ring_row` at every head dim 1-256 in both dtypes, as `k2_row` names
-    K2's: bf16 dims that the ring runs at the widths 128 and 256 (65-256,
-    zero-padded up to them) count in the `"_bf16_wide"` rows, f32 dims it
-    runs at 128 (65-128) in the `"_tf32_d128"` rows, every other (1-64 in
-    both dtypes, f32 129-256) in the base rows; each name is a row of
-    `kernels.LAUNCHES`; and the ring's `_bf16_wide` and `_tf32_d128` rows
-    are these four."""
+    K2's: bf16 dims that the ring runs at the width 64 (1-64, zero-padded
+    up to it) count in the `"_bf16_d64"` rows, at the widths 128 and 256
+    (65-256) in the `"_bf16_wide"` rows, f32 dims it runs at 64 (1-64) in
+    the `"_tf32_d64"` rows, at 128 (65-128) in the `"_tf32_d128"` rows, f32
+    129-256 in the base rows; each name is a row of `kernels.LAUNCHES`; and
+    the ring's `_bf16_wide`, `_bf16_d64`, `_tf32_d128` and `_tf32_d64` rows
+    are these eight."""
     for dtype in (torch.float32, torch.bfloat16):
         for d in range(1, flash.MAX_HEAD_DIM + 1):
-            suffix = ""
-            if dtype == torch.bfloat16 and d > 64:
-                suffix = "_bf16_wide"
-            elif dtype == torch.float32 and 64 < d <= 128:
-                suffix = "_tf32_d128"
+            if dtype == torch.bfloat16:
+                suffix = "_bf16_d64" if d <= 64 else "_bf16_wide"
+            else:
+                suffix = ("_tf32_d64" if d <= 64 else
+                          "_tf32_d128" if d <= 128 else "")
             for what in ("flash_attn_carry", "flash_attn_block_bwd"):
                 row = flash.ring_row(what, dtype, d)
                 assert row == what + suffix, (d, row)
@@ -762,6 +774,11 @@ def test_ring_row_names_every_ring_width():
     assert {flash.ring_row(w, torch.float32, 128) for w in (
         "flash_attn_carry", "flash_attn_block_bwd")} == {
         "flash_attn_carry_tf32_d128", "flash_attn_block_bwd_tf32_d128"}
+    assert {flash.ring_row(w, dt, 64) for w in (
+        "flash_attn_carry", "flash_attn_block_bwd") for dt in (
+        torch.float32, torch.bfloat16)} == {
+        "flash_attn_carry_tf32_d64", "flash_attn_block_bwd_tf32_d64",
+        "flash_attn_carry_bf16_d64", "flash_attn_block_bwd_bf16_d64"}
 
 
 @pytest.mark.parametrize("source,launch", [
@@ -771,17 +788,19 @@ def test_ring_row_names_every_ring_width():
 def test_ring_dispatch_sends_bf16_256_to_the_tensor_cores(source, launch):
     """The C launchers of the ring: bf16 at 256 goes to the carry form of
     `csrc/flash_bf16_wide_fwd.cuh` (both dropout-word paths) and to the
-    block form of `csrc/flash_bf16_wide_bwd.cuh` with an f32 dQ; the
-    CUDA-core bodies (`CSN_CARRY` / `CSN_BLOCK`) keep exactly f32 and bf16
-    at 64."""
+    block form of `csrc/flash_bf16_wide_bwd.cuh` with an f32 dQ; no
+    CUDA-core body is left (no `CSN_CARRY` / `CSN_BLOCK` dispatch, and no
+    source under `csrc/` names the CUDA-core headers `flash_wide.cuh` or
+    `flash_bwd_wide.cuh`, which are gone)."""
     text = (kernels.CSRC / source).read_text()
     body = text[text.index('extern "C" int csn_flash_attn'):]
     carry = "carry" in source
-    macro = "CSN_CARRY" if carry else "CSN_BLOCK"
-    names = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16}
-    core = {(names[t], int(d)) for t, d in re.findall(
-        macro + r"\((float|__nv_bfloat16), (\d+)\)", body)}
-    assert core == {(dt, 64) for dt in names.values()}
+    assert not re.search(r"CSN_(CARRY|BLOCK)|csn_wide", text)
+    for src in kernels.sources():
+        assert not re.search(r"flash_(bwd_)?wide\.cuh|csn_wide",
+                             src.read_text()), src.name
+    assert not (kernels.CSRC / "flash_wide.cuh").exists()
+    assert not (kernels.CSRC / "flash_bwd_wide.cuh").exists()
     assert len(re.findall(launch, body)) == (2 if carry else 1)
     header = "flash_bf16_wide_fwd.cuh" if carry else "flash_bf16_wide_bwd.cuh"
     assert f'#include "{header}"' in text
@@ -796,24 +815,41 @@ def test_ring_dispatch_sends_bf16_256_to_the_tensor_cores(source, launch):
     ("flash_attn_block_bwd.cu", "dtype == csn::kF32 && D == 128",
      r"csn_tf32::launch_bwd_tf32<float, 128>", "flash_tf32_bwd.cuh"),
     ("flash_attn_block_bwd.cu", "dtype == csn::kBF16 && D == 128",
-     r"csn_tcw::launch_bwd_split<128, float>", "flash_bf16_wide_bwd.cuh")])
+     r"csn_tcw::launch_bwd_split<128, float>", "flash_bf16_wide_bwd.cuh"),
+    ("flash_attn_carry.cu", "dtype == csn::kF32 && D == 64",
+     r"csn_tf32_d64::launch_fwd<true, (true|false)>",
+     "flash_tf32_d64_fwd.cuh"),
+    ("flash_attn_carry.cu", "dtype == csn::kBF16 && D == 64",
+     r"csn_tc_fwd::launch_fwd<64, true, (true|false)>", "flash_tc_fwd.cuh"),
+    ("flash_attn_block_bwd.cu", "dtype == csn::kF32 && D == 64",
+     r"csn_tf32_d64::launch_bwd<true, (true|false)>",
+     "flash_tf32_d64_bwd.cuh"),
+    ("flash_attn_block_bwd.cu", "dtype == csn::kBF16 && D == 64",
+     r"csn_tc_bwd::launch_tc<64, true, (true|false)>", "flash_tc_bwd.cuh")])
 def test_ring_dispatch_sends_d128_to_the_tensor_cores(source, condition,
                                                       launch, header):
-    """The C launchers of the ring at head dim 128: f32 goes to the carry
-    form of `csrc/flash_tf32_d128_fwd.cuh` and the block form of
-    `csrc/flash_tf32_bwd.cuh` at 128, bf16 to the carry form of
+    """The C launchers of the ring at head dims 128 and 64: f32 at 128 goes
+    to the carry form of `csrc/flash_tf32_d128_fwd.cuh` and the block form
+    of `csrc/flash_tf32_bwd.cuh` at 128, bf16 at 128 to the carry form of
     `csrc/flash_tc_fwd.cuh`'s template and the block form of
-    `csrc/flash_bf16_wide_bwd.cuh` at 128 with an f32 dQ (both dropout-word
-    paths of each carry form), each right under its (dtype, D) test; no
-    CUDA-core body is left at 128."""
+    `csrc/flash_bf16_wide_bwd.cuh` at 128 with an f32 dQ; f32 at 64 to the
+    carry and block forms of `csrc/flash_tf32_d64_fwd.cuh` /
+    `csrc/flash_tf32_d64_bwd.cuh` (`launch_fwd<true, ...>`,
+    `launch_bwd<true, ...>`: the block form's dQ is f32), bf16 at 64 to
+    those of `csrc/flash_tc_fwd.cuh`'s and `csrc/flash_tc_bwd.cuh`'s
+    templates (`launch_tc<64, true, ...>`: an f32 dQ); both dropout-word
+    paths of each D=64 form and of each carry form, each right under its
+    (dtype, D) test; no CUDA-core body is left at either."""
     text = (kernels.CSRC / source).read_text()
     body = text[text.index('extern "C" int csn_flash_attn'):]
     after = body[body.index(f"if ({condition})"):]
-    stmt = after[:after.index(";\n  if (")]
+    stmt = after[:after.index(";\n  if (")] if ";\n  if (" in after \
+        else after[:after.index(";\n  return")]
     carry = "carry" in source
-    assert len(re.findall(launch, stmt)) == (2 if carry else 1), stmt
-    assert not re.search(r"CSN_(CARRY|BLOCK)\((float|__nv_bfloat16), 128\)",
-                         body)
+    paths = 2 if carry or " 64" in condition else 1
+    assert len(re.findall(launch, stmt)) == paths, stmt
+    assert not re.search(r"CSN_(CARRY|BLOCK)\((float|__nv_bfloat16), "
+                         r"(64|128)\)", body)
     assert f'#include "{header}"' in text
 
 
