@@ -139,7 +139,8 @@ Phases (each prints its lines; any failure exits nonzero):
      against the plain version, against each other, against a float64 sum
      of the same window values and bitwise against a repeat, bf16 and f32
      windows, with row ids outside the window; `probe_slot_load` in every
-     variant; the probes timed as device time from CUDA graphs beside
+     variant, bit for bit, with ptxas's registers and shared memory of its
+     kernels; the probes timed as device time from CUDA graphs beside
      `index_select` and `F.embedding_bag`, and the launch floor (an empty
      kernel's launch in a CUDA graph) beside `probe_slot_load`'s bound;
   4. eval slice: 3 eval requests (query batch + 1 key batch each) through
@@ -348,6 +349,7 @@ from csn_tpu_torch.parallel.midfc import make_midfc_steps
 from csn_tpu_torch.probes import dyngather, dyngather2, iw_bwd
 from csn_tpu_torch.retrieval import graph as retrieval_graph
 from csn_tpu_torch.tasks import learning_check, main_csn, main_seg
+from csn_tpu_torch.tools import conv_ab
 from csn_tpu_torch.tools.timing import graph_ms
 from csn_tpu_torch.train import metrics, optim
 from csn_tpu_torch.train.steps import eval_step, train_step
@@ -647,17 +649,21 @@ class Table:
         # forward and d_feats, dW
         self.im2col_f64 = {"out": [], "dW": []}
 
-    def check(self, name, what, got, ref, dtype, valid=None):
+    def check(self, name, what, got, ref, dtype, valid=None, exact=False):
+        """One `[check]` line: `got` within TOL[dtype] x max|ref| of `ref`,
+        or with `exact` bit for bit (tolerance 0)."""
         got, ref = got.float(), ref.float()
         if valid is not None:
             got = torch.where(valid, got, torch.zeros_like(got))
             ref = torch.where(valid, ref, torch.zeros_like(ref))
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
-        tol = TOL[dtype] * scale
-        ok = bool(torch.isfinite(got).all()) and err <= tol
+        tol = 0.0 if exact else TOL[dtype] * scale
+        ok = bool(torch.isfinite(got).all()) and (
+            torch.equal(got, ref) if exact else err <= tol)
         print(f"[check] {name} {what} {str(dtype)[6:]}: max_abs_err {err:.3e}"
-              f" tol {tol:.3e} (max|ref| {scale:.3e}) "
+              f" tol {tol:.3e}{', bitwise' if exact else ''} "
+              f"(max|ref| {scale:.3e}) "
               f"{'ok' if ok else 'FAIL'}")
         require(ok, f"{name} {what} {dtype} disagrees with its plain version")
         self.err[name] = max(self.err[name], err)
@@ -3361,25 +3367,33 @@ def check_probes(dev, table):
 
     check_probe_edges(dev, table)
 
-    # probe_slot_load: every variant
+    # probe_slot_load: every variant, bit for bit. out depends on x's first
+    # 8 rows and 128 columns only: the bound reads those 4 KB once and
+    # writes out's 4 KB once, in every variant
+    slot_b = 2 * 8 * 128 * 4
     for v, (name, shape, _) in iw_bwd.VARIANTS.items():
         x = torch.from_numpy(iw_bwd.probe_input(v)).to(dev) * 3.0
         plain = iw_bwd.slot_load_plain(v, x)
         table.check("probe_slot_load", name, iw_bwd.slot_load(v, x), plain,
-                    f32)
+                    f32, exact=True)
         require(float(plain.abs().max()) > 1.0, f"slot probe {v}: dead load")
         table.time("probe_slot_load", name, lambda: iw_bwd.slot_load(v, x),
                    lambda: iw_bwd.slot_load_plain(v, x),
-                   nbytes=x.numel() * 4 + 8 * 128 * 4, flops=0, dtype=f32,
+                   nbytes=slot_b, flops=0, dtype=f32,
                    graph=True)
-    # the launch floor: the slot loads' byte bound (0.0001 ms) lies below
+    # the launch floor: the slot loads' byte bound (0.0000024 ms) lies below
     # the device time of any launch
     floor = graph_ms(kernels.empty_launch)
     print(f"[time] launch floor: an empty kernel (1 block of 32 threads) "
           f"{floor:.4f} ms a launch (device, CUDA graph of 20 launches); "
           f"probe_slot_load's bound per variant "
-          f"{(8 * 512 + 8 * 128) * 4 / HBM_BYTES_S * 1e3:.5f} ms (bytes) "
+          f"{slot_b / HBM_BYTES_S * 1e3:.7f} ms (bytes) "
           f"(not in the kernel line)")
+    # what ptxas makes of the slot loads' kernels
+    for kern, regs, st, ld, smem in conv_ab.registers(
+            kernels.CSRC.parents[1], sources=("probe_slots.cu",)):
+        print(f"[ptxas] {kern}: {regs} registers, {st} bytes spill stores, "
+              f"{ld} bytes spill loads, {smem} bytes static shared memory")
 
 
 def check_probe_edges(dev, table):

@@ -18,6 +18,10 @@ the scratch's type, and returns `out[8, 128] = sum_{j<3} body(scratch[j % 2])`:
     P6  int32 [2, 8, 512]    the slice slot[3:4, :128], broadcast
     P7  int32 [2, 8, 512]    the whole slot loaded, then row 3
 
+The kernel writes only the part of each slot that the bodies read, its
+first 8 rows and 128 columns (`FILLED`; `slot_load_filled` is that scratch
+on the CPU).
+
     python -m csn_tpu_torch.probes.iw_bwd [--extra] [--device cpu]
 """
 
@@ -44,6 +48,9 @@ VARIANTS = {
         torch.int32),
     7: ("P7 full-slot load then lax.slice", (NB, 8, W), torch.int32),
 }
+# the part of each slot that the kernel writes, [:8, :128]: all that the
+# bodies read
+FILLED = (8, CP)
 
 
 def slot_load_plain(variant: int, x: torch.Tensor) -> torch.Tensor:
@@ -52,7 +59,25 @@ def slot_load_plain(variant: int, x: torch.Tensor) -> torch.Tensor:
     _, shape, dtype = VARIANTS[variant]
     s = torch.zeros(shape, dtype=dtype, device=x.device)
     s[0] = x.to(dtype)          # float -> int32 truncates toward zero
-    acc = torch.zeros((8, 128), dtype=torch.float32, device=x.device)
+    return _bodies(variant, s)
+
+
+def slot_load_filled(variant: int, x: torch.Tensor, rest) -> torch.Tensor:
+    """The kernel's scratch on the CPU: only the slots' first FILLED rows
+    and columns written (slot 0 from x, slot 1 zeros), every other entry
+    `rest`; then the plain version's bodies. It equals `slot_load_plain`
+    bit for bit whatever `rest` is, since no body reads beyond them."""
+    _, shape, dtype = VARIANTS[variant]
+    r, c = FILLED
+    s = torch.full(shape, rest, dtype=dtype, device=x.device)
+    s[0, :r, :c] = x[:r, :c].to(dtype)
+    s[1, :r, :c] = 0
+    return _bodies(variant, s)
+
+
+def _bodies(variant: int, s: torch.Tensor) -> torch.Tensor:
+    """sum_{j<3} body(s[j % 2]), the variant's body."""
+    acc = torch.zeros((8, 128), dtype=torch.float32, device=s.device)
     for j in range(N_JOBS):
         slot = s[j % NB]
         if variant in (1, 2, 5):
@@ -78,6 +103,9 @@ def slot_load(variant: int, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return slot_load_plain(variant, x)
     kernels.require_cuda(what, x)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must start on a 16-byte boundary (the "
+                         f"fill reads 16-byte pieces)")
     out = torch.empty((8, 128), dtype=torch.float32, device=x.device)
     code = kernels.library().csn_probe_slot_load(
         variant, x.data_ptr(), out.data_ptr(), kernels.stream())

@@ -39,9 +39,11 @@ type, for bodies of another design), and the gather probes
 geometry, 352 tiles x 9 offsets x 256 rows x 128 channels, with the bf16
 window at W = 384 and the f32 window at W = 384 and 256, row ids outside
 the window mixed in; `probe_window_gather` at [384, 128] f32 and bf16 in
-both layouts; device time from CUDA graphs, warm L2 and from device
-memory), and the HRNetSimCSN3S eval and train steps with f32 activations
-at the bench protocol (`--kernels steps`: 8 query shapes of 10000 points,
+both layouts; `probe_slot_load`'s seven variants on the probe's inputs
+beside the launch floor, an empty kernel, in graphs of 200 calls; device
+time from CUDA graphs, warm L2 and from device memory), and the
+HRNetSimCSN3S eval and train steps with f32 activations at the bench
+protocol (`--kernels steps`: 8 query shapes of 10000 points,
 K=1, voxel 0.05, level-0 cap 5632, k5 stem, d_model 256 in 4 heads, 39
 classes, dropout 0.1, SGD; ms per step on the host clock, the peak
 device memory of those steps, and the device ms per step of K1,
@@ -55,8 +57,9 @@ registers and spill bytes ptxas reports for the kernels of
 `csrc/sparse_conv_im2col.cu`, `csrc/sparse_conv_im2col_bwd.cu`,
 `csrc/interp.cu`,
 `csrc/interp_bwd.cu`, `csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu`,
-`csrc/flash_attn_carry.cu`, `csrc/flash_attn_block_bwd.cu` and
-`csrc/probe_gather.cu` in each. `--kernels` runs one family only.
+`csrc/flash_attn_carry.cu`, `csrc/flash_attn_block_bwd.cu`,
+`csrc/probe_gather.cu` and `csrc/probe_slots.cu` in each (with their static
+shared memory). `--kernels` runs one family only.
 """
 
 from __future__ import annotations
@@ -88,7 +91,7 @@ REGISTER_SOURCES = {"conv": ("sparse_conv.cu", "sparse_conv_bwd.cu",
                     "flash": ("flash_attn.cu", "flash_attn_bwd.cu",
                               "flash_attn_carry.cu",
                               "flash_attn_block_bwd.cu"),
-                    "probes": ("probe_gather.cu",),
+                    "probes": ("probe_gather.cu", "probe_slots.cu"),
                     "steps": ()}
 FAMILIES = tuple(REGISTER_SOURCES)
 INTERP_WIDTHS = (39, 256)   # the HRNet heads' classes, the extraction chain
@@ -98,6 +101,7 @@ FLASH_SHAPE = (16, 4, 5632, 64)
 # 256
 MIDFC_SHAPE = (80, 8, 500, 256)
 FLASH_DROPOUT, FLASH_SEED = 0.1, 0x5EED
+SLOT_CALLS = 200    # calls per CUDA graph of the slot loads' timing
 RING_BLOCK = 2500   # keys of one ring hop at phase 7's shape (10000 / 4)
 # the ring of one at d_model 128 and 64 (phases 7c and 7d): all 10000 keys,
 # 8 heads of 128 or 64
@@ -141,6 +145,12 @@ def graph_ms(fn, **kw) -> float:
     timing = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(timing)
     return timing.graph_ms(fn, **kw)
+
+
+def _ms(v: float) -> str:
+    """A time in ms, to 4 decimals, or 6 below 0.01 ms (the slot loads and
+    the launch floor take a few microseconds)."""
+    return f"{v:.6f}" if v < 0.01 else f"{v:.4f}"
 
 
 def _digest(t) -> str:
@@ -411,9 +421,9 @@ def _ring_calls(q, k, v, dout, kmask, reps: int, keep=None,
 
 
 def probe_worker(reps: int) -> dict:
-    """The current checkout's gather probes at the probe scripts' shapes:
-    {shape: {kernel: entry}}. Both checkouts' wrappers take the same
-    arguments."""
+    """The current checkout's probe kernels at the probe scripts' shapes:
+    {shape: {kernel: entry}}: the gathers, the seven slot loads and the
+    launch floor. Both checkouts' wrappers take the same arguments."""
     import torch
     from csn_tpu_torch.probes import dyngather
 
@@ -441,6 +451,20 @@ def probe_worker(reps: int) -> dict:
                                                               layout),
                 reps, graph_ms, cold={"cold": True})
             for layout in (0, 1)}
+    # the slot loads, each variant on the probe's input, beside the launch
+    # floor (an empty kernel): both are a few microseconds, so each graph
+    # holds SLOT_CALLS calls
+    from csn_tpu_torch import kernels
+    from csn_tpu_torch.probes import iw_bwd
+    slot_ms = lambda f, reps, **kw: graph_ms(f, calls=SLOT_CALLS, reps=reps,
+                                             **kw)
+    res["slot_load"] = {
+        f"probe_slot_load P{v}": _entry(
+            lambda v=v, x=torch.from_numpy(iw_bwd.probe_input(v)).to(dev)
+            * 3.0: iw_bwd.slot_load(v, x), reps, slot_ms,
+            cold={"cold": True})
+        for v in iw_bwd.VARIANTS}
+    res["slot_load"]["launch floor"] = [slot_ms(kernels.empty_launch, reps)]
     return res
 
 
@@ -554,15 +578,16 @@ def by_value(tmp: Path) -> None:
                   f"{'within' if max(errs) <= tol else 'OUTSIDE'})")
 
 
-def registers(root: Path, families: tuple) -> list:
-    """(kernel, registers, spill store bytes, spill load bytes) of every
-    kernel ptxas compiles in the REGISTER_SOURCES of `families` in the
-    checkout at `root`."""
+def registers(root: Path, families: tuple = (), sources: tuple = ()) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes, shared
+    memory bytes) of every kernel ptxas compiles in the REGISTER_SOURCES of
+    `families`, and in `sources`, in the checkout at `root`."""
     from csn_tpu_torch import kernels
     filt = shutil.which("cu++filt", path=str(Path(kernels.nvcc()).parent))
     out = []
     with tempfile.TemporaryDirectory() as tmp:
-        for src in (s for f in families for s in REGISTER_SOURCES[f]):
+        for src in (*(s for f in families for s in REGISTER_SOURCES[f]),
+                    *sources):
             res = subprocess.run(
                 [kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                  str(root / "csn_tpu_torch" / "csrc" / src), "-o",
@@ -588,7 +613,9 @@ def registers(root: Path, families: tuple) -> list:
                     spill = (int(m.group(1)), int(m.group(2)))
                 m = re.search(r"Used (\d+) registers", line)
                 if m and name:
-                    out.append((f"{src} {name}", int(m.group(1)), *spill))
+                    smem = re.search(r"(\d+) bytes smem", line)
+                    out.append((f"{src} {name}", int(m.group(1)), *spill,
+                                int(smem.group(1)) if smem else 0))
                     name, spill = None, (0, 0)
     return sorted(out)
 
@@ -637,8 +664,8 @@ def main(argv=None) -> int:
             for shape, kern in run.items():
                 print(f"[ab {tag}{len(runs[tag])}] {shape}: " + ", ".join(
                     (f"{name} {e[0]:.4f}" if "GiB" in name
-                     else f"{name} {e[0]:.4f} ms")
-                    + (f" ({e[3]:.4f} from device memory)" if len(e) > 3
+                     else f"{name} {_ms(e[0])} ms")
+                    + (f" ({_ms(e[3])} from device memory)" if len(e) > 3
                        else "") for name, e in kern.items()))
         if "flash" in families:
             by_value(Path(tmp))
@@ -658,9 +685,10 @@ def main(argv=None) -> int:
               + "; two launches bitwise equal in every run: "
               + ", ".join(f"{name} {v}" for name, v in repeat.items()))
     for tag, root in (("other", other), ("this", this)):
-        for name, regs, st, ld in registers(root, families):
+        for name, regs, st, ld, smem in registers(root, families):
             print(f"[ab registers {tag}] {name}: {regs} registers, {st} "
-                  f"bytes spill stores, {ld} bytes spill loads")
+                  f"bytes spill stores, {ld} bytes spill loads, {smem} bytes "
+                  f"static shared memory")
     return 0
 
 

@@ -511,3 +511,37 @@ def test_window_gather_refuses_what_its_bodies_do_not_take(launcher):
         args = launcher.calls["csn_probe_window_gather"]
         assert args[1] == layout and args[5:9] == (w_fit, 256, 128, 32)
     assert kernels.LAUNCHES["probe_window_gather"] == 2
+
+
+@pytest.mark.parametrize("variant", sorted(iw_bwd.VARIANTS))
+def test_slot_load_bodies_read_only_what_the_kernel_fills(variant):
+    """The kernel writes only the slots' first 8 rows and 128 columns (slot
+    0 from x, slot 1 zeros): with anything else in the rest of the scratch
+    the bodies give the plain version's bits, and x beyond those rows and
+    columns changes nothing."""
+    x = torch.from_numpy(iw_bwd.probe_input(variant)) * 3.0
+    want = iw_bwd.slot_load_plain(variant, x)
+    for rest in (123456, -7):
+        assert torch.equal(iw_bwd.slot_load_filled(variant, x, rest), want)
+    r, c = iw_bwd.FILLED
+    far = x.clone()
+    far[r:] = 1e6
+    far[:, c:] = -1e6
+    assert torch.equal(iw_bwd.slot_load_plain(variant, far), want)
+    # the filled part does matter: a changed value there changes out
+    near = x.clone()
+    near[3, 5] += 4.0
+    assert not torch.equal(iw_bwd.slot_load_plain(variant, near), want)
+
+
+def test_slot_load_launches_once_and_refuses_x_off_16_bytes(launcher):
+    for v, (_, shape, _) in iw_bwd.VARIANTS.items():
+        launcher.calls.clear()
+        out = iw_bwd.slot_load(v, _meta(*shape[1:]))
+        assert out.shape == (8, 128) and out.dtype == torch.float32
+        args = launcher.calls["csn_probe_slot_load"]
+        assert args[0] == v and args[3] == 0
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            iw_bwd.slot_load(v, _meta(*shape[1:], shift=2))
+    assert kernels.LAUNCHES["probe_slot_load"] == len(iw_bwd.VARIANTS)
+
